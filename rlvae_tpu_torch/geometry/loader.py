@@ -1,0 +1,128 @@
+"""Pretrained-metric loading from ``.npz`` artifacts.
+
+Port of the ``.npz`` path of ``rlvae_tpu/geometry/loader.py``: the same key
+aliases, overrides, defaults and validation.  ``.pt`` artifacts are not
+read here; convert them to ``.npz`` with the JAX package first.
+"""
+
+from __future__ import annotations
+
+import warnings
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from rlvae_tpu_torch.geometry.metric import CentroidMetric
+
+CENTROID_KEYS = ("centroids", "metric_centroids", "centers", "mu")
+MATRIX_KEYS = ("M_matrices", "metric_vars", "M_tens")
+DIAG_MATRIX_KEYS = ("M_i_flat",)
+TEMPERATURE_KEYS = ("temperature", "metric_temperature", "temp", "T", "beta")
+REGULARIZATION_KEYS = ("regularization", "metric_regularization", "reg", "lambda", "lbd")
+
+DEFAULT_TEMPERATURE = 0.1
+DEFAULT_REGULARIZATION = 0.01
+
+
+def read_raw(path: str | Path) -> Dict[str, np.ndarray]:
+    """Read a metric ``.npz`` (a ``.pt`` name resolves to its ``.npz`` sibling)."""
+    path = Path(path)
+    if path.suffix != ".npz":
+        path = path.with_suffix(".npz")
+    if not path.exists():
+        raise FileNotFoundError(f"Metric file not found: {path}")
+    with np.load(path, allow_pickle=False) as zf:
+        return {k: zf[k] for k in zf.files}
+
+
+def extract_components(
+    data: Dict[str, Any],
+    temperature_override: Optional[float] = None,
+    regularization_override: Optional[float] = None,
+) -> Dict[str, Any]:
+    """(centroids, matrices, temperature, regularization) from a raw dict."""
+    centroids = None
+    for key in CENTROID_KEYS:
+        if key in data:
+            centroids = np.asarray(data[key], np.float32)
+            break
+    if centroids is None:
+        raise ValueError(f"No centroids found. Expected one of: {list(CENTROID_KEYS)}")
+    n_centroids, latent_dim = centroids.shape
+
+    matrices = None
+    for key in MATRIX_KEYS:
+        if key in data:
+            matrices = np.asarray(data[key], np.float32)
+            break
+    if matrices is None:
+        for key in DIAG_MATRIX_KEYS:
+            if key in data:
+                flat = np.asarray(data[key], np.float32)
+                matrices = np.zeros((n_centroids, latent_dim, latent_dim), np.float32)
+                idx = np.arange(latent_dim)
+                matrices[:, idx, idx] = flat
+                break
+    if matrices is None:
+        warnings.warn("No metric matrices found, using identity matrices")
+        matrices = np.broadcast_to(
+            np.eye(latent_dim, dtype=np.float32), (n_centroids, latent_dim, latent_dim)
+        ).copy()
+    if matrices.shape != (n_centroids, latent_dim, latent_dim):
+        raise ValueError(
+            f"Metric matrices shape {matrices.shape} != expected "
+            f"{(n_centroids, latent_dim, latent_dim)}"
+        )
+
+    def scalar(keys, override, default, label):
+        if override is not None:
+            return float(override)
+        for key in keys:
+            if key in data:
+                return float(np.asarray(data[key]))
+        warnings.warn(f"No {label} found, using default: {default}")
+        return default
+
+    return {
+        "centroids": centroids,
+        "matrices": matrices,
+        "temperature": scalar(
+            TEMPERATURE_KEYS, temperature_override, DEFAULT_TEMPERATURE, "temperature"
+        ),
+        "regularization": scalar(
+            REGULARIZATION_KEYS, regularization_override, DEFAULT_REGULARIZATION,
+            "regularization",
+        ),
+    }
+
+
+def validate_components(centroids: np.ndarray, matrices: np.ndarray) -> None:
+    """Shape / NaN checks (raise) and a PSD check (warn), as the JAX loader."""
+    if matrices.shape != (centroids.shape[0], centroids.shape[1], centroids.shape[1]):
+        raise ValueError(
+            f"Inconsistent shapes: centroids {centroids.shape}, matrices {matrices.shape}"
+        )
+    if not (np.isfinite(centroids).all() and np.isfinite(matrices).all()):
+        raise ValueError("Metric data contains NaN or inf values")
+    min_eig = float(np.linalg.eigvalsh(matrices.astype(np.float64)).min())
+    if min_eig < -1e-6:
+        warnings.warn(
+            f"Some metric matrices are not positive semidefinite (min eigval {min_eig:.3e})"
+        )
+
+
+def load_metric(
+    path: str | Path,
+    temperature_override: Optional[float] = None,
+    regularization_override: Optional[float] = None,
+    validate: bool = True,
+) -> CentroidMetric:
+    """Load a :class:`CentroidMetric` from a ``.npz`` artifact."""
+    comp = extract_components(read_raw(path), temperature_override, regularization_override)
+    if validate:
+        validate_components(comp["centroids"], comp["matrices"])
+    return CentroidMetric.create(
+        comp["centroids"], comp["matrices"], comp["temperature"],
+        comp["regularization"],
+    )

@@ -1,0 +1,6 @@
+"""The Riemannian Flow VAE and its factory."""
+
+from rlvae_tpu_torch.models.factory import PRESETS, create_model
+from rlvae_tpu_torch.models.rlvae import RlVAE
+
+__all__ = ["PRESETS", "RlVAE", "create_model"]

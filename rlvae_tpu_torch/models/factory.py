@@ -1,0 +1,129 @@
+"""Model factory: builds an :class:`RlVAE` from a plain config dict.
+
+Port of ``rlvae_tpu/models/factory.py:40-100``.  The config is a plain dict
+with the keys of a composed ``conf/model/*.yaml`` node (the port reads no
+YAML).  ``PRESETS["riemannian_flow_vae"]`` holds the values that the JAX
+factory ends up using for ``conf/model/riemannian_flow_vae.yaml``.
+
+Relative artifact paths resolve against the working directory first, then
+against the repository root.  A configured but missing encoder or decoder
+artifact is a loud warning and a seeded random init, as on the JAX side.
+"""
+
+from __future__ import annotations
+
+import warnings
+from pathlib import Path
+from typing import Any, Dict, Mapping, Optional
+
+from rlvae_tpu_torch.convert import load_pretrained_net
+from rlvae_tpu_torch.geometry.loader import load_metric
+from rlvae_tpu_torch.models.rlvae import RlVAE
+
+REPO_ROOT = Path(__file__).resolve().parents[2]
+
+RIEMANNIAN_FLOW_VAE: Dict[str, Any] = {
+    "name": "riemannian_flow_vae",
+    "input_dim": [3, 64, 64],
+    "latent_dim": 16,
+    "n_flows": 8,
+    "flow_hidden_size": 256,
+    "flow_n_blocks": 2,
+    # the YAML says 1, but the factory forces 3 (pythae's IAFConfig default)
+    "flow_n_hidden": 3,
+    "flow_direction": "density",
+    "flow_fixedpoint_iters": 0,
+    "flow_loss_mode": "reference",
+    "flow_log_var_bias_init": -2.0,
+    # MLP nets, bf16 activations and fp32 params (the registry's defaults)
+    "encoder": {"architecture": "mlp"},
+    "decoder": {"architecture": "mlp"},
+    "beta": 1.0,
+    "riemannian_beta": 8.0,
+    "posterior": {"type": "riemannian_metric"},
+    "sampling": {"method": "geodesic", "use_riemannian": True},
+    "loop": {"mode": "open", "penalty": 5.0},
+    "metric": {
+        "path": "metric_T0.7_scaled.npz",
+        "temperature_override": 3.0,
+        "regularization_override": None,
+    },
+    "pretrained": {
+        "encoder_path": "data/pretrained/encoder.npz",
+        "decoder_path": "data/pretrained/decoder.npz",
+        "metric_path": "data/pretrained/metric_T0.7_scaled.npz",
+    },
+}
+
+PRESETS: Dict[str, Dict[str, Any]] = {"riemannian_flow_vae": RIEMANNIAN_FLOW_VAE}
+
+
+def _node(config: Optional[Mapping[str, Any]], key: str) -> Dict[str, Any]:
+    node = config.get(key) if config else None
+    return dict(node) if node else {}
+
+
+def resolve_artifact(path: Optional[str], kind: str = "artifact") -> Optional[Path]:
+    """The ``.npz`` artifact at ``path`` (CWD, then repo root), or None with a warning."""
+    if not path:
+        return None
+    p = Path(path)
+    cands = [p] if p.is_absolute() else [p, REPO_ROOT / p]
+    for cand in cands:
+        for c in (cand, cand.with_suffix(".npz")):
+            if c.exists():
+                return c
+    warnings.warn(f"pretrained {kind} not found: {path} -> random init")
+    return None
+
+
+def create_model(config: Mapping[str, Any], seed: int = 0, name: Optional[str] = None) -> RlVAE:
+    """Build a model (on the CPU) from a ``model`` config dict."""
+    posterior = _node(config, "posterior")
+    sampling = _node(config, "sampling")
+    loop = _node(config, "loop")
+    metric_cfg = _node(config, "metric")
+    pretrained = _node(config, "pretrained")
+
+    metric = None
+    metric_path = resolve_artifact(pretrained.get("metric_path"), "metric")
+    if metric_path:
+        metric = load_metric(
+            metric_path,
+            temperature_override=metric_cfg.get("temperature_override"),
+            regularization_override=metric_cfg.get("regularization_override"),
+        )
+
+    model = RlVAE(
+        input_dim=tuple(config.get("input_dim", (3, 64, 64))),
+        latent_dim=int(config.get("latent_dim", 16)),
+        n_flows=int(config.get("n_flows", 8)),
+        flow_hidden_size=int(config.get("flow_hidden_size", 256)),
+        flow_n_blocks=int(config.get("flow_n_blocks", 2)),
+        # the reference passes flow_n_hidden=1 but pythae's IAFConfig silently
+        # drops it and uses n_hidden_in_made=3; the JAX factory forces 3 too
+        flow_n_hidden=3,
+        beta=float(config.get("beta", 1.0)),
+        riemannian_beta=float(config.get("riemannian_beta", 1.0)),
+        posterior_type=str(posterior.get("type", "gaussian")),
+        sampling_method={"enhanced_riemannian": "enhanced"}.get(
+            str(sampling.get("method", "standard")), str(sampling.get("method", "standard"))
+        ),
+        use_riemannian=bool(sampling.get("use_riemannian", False)),
+        loop_mode=str(loop.get("mode", "open")),
+        loop_penalty=float(loop.get("penalty", 0.0)),
+        flow_direction=str(config.get("flow_direction", "density")),
+        flow_fixedpoint_iters=int(config.get("flow_fixedpoint_iters", 0)),
+        flow_loss_mode=str(config.get("flow_loss_mode", "reference")),
+        flow_log_var_bias_init=float(config.get("flow_log_var_bias_init", -2.0)),
+        encoder_config=_node(config, "encoder"),
+        decoder_config=_node(config, "decoder"),
+        metric=metric,
+        seed=seed,
+        name=name or str(config.get("name", "rlvae")),
+    )
+    for kind in ("encoder", "decoder"):
+        path = resolve_artifact(pretrained.get(f"{kind}_path"), kind)
+        if path:
+            load_pretrained_net(getattr(model, kind), path)
+    return model

@@ -1,0 +1,184 @@
+"""RlVAE: the Riemannian Flow VAE, inference forward.
+
+Port of ``RlVAE.encode``, ``decode`` and ``forward(train=False)``
+(``rlvae_tpu/models/rlvae.py:234-390``): encode frame 0 -> metric-aware
+posterior sample z0 (chol-bundle launch 1) -> temporal IAF chain (one
+IAF-chain launch) -> open/closed loop handling -> decode all B*T frames as
+one batch -> reconstruction + KL (chol-bundle launch 2) + flow + loop losses.
+
+Training (gradients, dropout, the fused decode+MSE kernel) is not ported
+yet: ``forward`` runs without autograd.  The metric's centroids and matrices
+are non-persistent buffers, so ``model.to(device)`` moves them with the
+weights and the state dict holds only the learnable parameters.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from rlvae_tpu_torch.flows.temporal import TemporalFlows, apply_temporal_flows
+from rlvae_tpu_torch.geometry.metric import CentroidMetric
+from rlvae_tpu_torch.models import losses
+from rlvae_tpu_torch.nets.registry import create_decoder, create_encoder
+from rlvae_tpu_torch.samplers.riemannian import reparam, sample_metric_aware_posterior
+from rlvae_tpu_torch.utils.output import ModelOutput
+
+POSTERIOR_TYPES = ("gaussian", "iaf", "riemannian_metric")
+LOOP_MODES = ("open", "closed")
+
+
+def _init_linear(layer: nn.Linear, generator: torch.Generator) -> None:
+    """Seeded torch-default init: U(-1/sqrt(fan_in), +1/sqrt(fan_in))."""
+    bound = 1.0 / np.sqrt(layer.in_features)
+    with torch.no_grad():
+        layer.weight.copy_((torch.rand(layer.weight.shape, generator=generator) * 2 - 1) * bound)
+        layer.bias.copy_((torch.rand(layer.bias.shape, generator=generator) * 2 - 1) * bound)
+
+
+class RlVAE(nn.Module):
+    """Riemannian Flow VAE over cyclic longitudinal sequences."""
+
+    def __init__(
+        self,
+        input_dim: Tuple[int, ...] = (3, 64, 64),
+        latent_dim: int = 16,
+        n_flows: int = 8,
+        flow_hidden_size: int = 256,
+        flow_n_blocks: int = 2,
+        flow_n_hidden: int = 3,
+        beta: float = 1.0,
+        riemannian_beta: float = 8.0,
+        posterior_type: str = "riemannian_metric",
+        sampling_method: str = "geodesic",
+        use_riemannian: bool = True,
+        loop_mode: str = "open",
+        loop_penalty: float = 5.0,
+        flow_direction: str = "density",
+        flow_log_var_bias_init: float = -2.0,
+        flow_fixedpoint_iters: int = 0,
+        flow_loss_mode: str = "reference",
+        encoder_config: Optional[Mapping[str, Any]] = None,
+        decoder_config: Optional[Mapping[str, Any]] = None,
+        metric: Optional[CentroidMetric] = None,
+        seed: int = 0,
+        name: str = "rlvae",
+    ):
+        super().__init__()
+        if posterior_type not in POSTERIOR_TYPES:
+            raise ValueError(f"posterior_type must be one of {POSTERIOR_TYPES}")
+        if loop_mode not in LOOP_MODES:
+            raise ValueError(f"loop_mode must be one of {LOOP_MODES}")
+        if flow_loss_mode not in ("reference", "volume"):
+            raise ValueError("flow_loss_mode must be 'reference' or 'volume'")
+        self.input_dim = tuple(input_dim)
+        self.latent_dim = latent_dim
+        self.n_flows = n_flows
+        self.beta = float(beta)
+        self.riemannian_beta = float(riemannian_beta)
+        self.posterior_type = posterior_type
+        self.sampling_method = sampling_method
+        self.use_riemannian = bool(use_riemannian)
+        self.loop_mode = loop_mode
+        self.loop_lambda = float(loop_penalty)
+        self.flow_loss_mode = flow_loss_mode
+        self.name = name
+
+        generator = torch.Generator().manual_seed(seed)
+        self.encoder = create_encoder(self.input_dim, latent_dim, encoder_config)
+        self.decoder = create_decoder(self.input_dim, latent_dim, decoder_config)
+        for module in (self.encoder, self.decoder):
+            for layer in module.modules():
+                if isinstance(layer, nn.Linear):
+                    _init_linear(layer, generator)
+        self.flows = TemporalFlows(
+            latent_dim, n_flows, flow_hidden_size, flow_n_blocks, flow_n_hidden,
+            direction=flow_direction, log_var_bias_init=flow_log_var_bias_init,
+            fixedpoint_iters=flow_fixedpoint_iters, generator=generator,
+        )
+        self.set_metric(metric)
+
+    # -- metric ---------------------------------------------------------------
+
+    def set_metric(self, metric: Optional[CentroidMetric]) -> None:
+        self._metric_scalars = None
+        self.register_buffer("metric_centroids", None, persistent=False)
+        self.register_buffer("metric_matrices", None, persistent=False)
+        if metric is not None:
+            self.metric_centroids = metric.centroids
+            self.metric_matrices = metric.matrices
+            self._metric_scalars = (metric.temperature, metric.regularization)
+
+    @property
+    def metric(self) -> Optional[CentroidMetric]:
+        if self._metric_scalars is None:
+            return None
+        return CentroidMetric(self.metric_centroids, self.metric_matrices,
+                              *self._metric_scalars)
+
+    # -- forward --------------------------------------------------------------
+
+    def encode(self, x0: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self.encoder(x0)
+
+    def decode(self, z: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self.decoder(z)
+
+    def sample_z0(self, mu, log_var, eps=None, generator=None) -> torch.Tensor:
+        """Posterior sampling switch (``RlVAE.sample_z0`` of the JAX package)."""
+        metric = self.metric
+        if self.posterior_type == "riemannian_metric":
+            if metric is None:
+                return reparam(mu, log_var, eps, generator)
+            return sample_metric_aware_posterior(metric, mu, log_var, eps, generator)
+        if self.use_riemannian and metric is not None and self.sampling_method != "standard":
+            raise NotImplementedError(
+                f"posterior sampling method {self.sampling_method!r} is not ported yet"
+            )
+        return reparam(mu, log_var, eps, generator)
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor, eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> ModelOutput:
+        """Inference forward with losses; ``eps`` [B, D] is the posterior noise
+        (drawn from ``generator`` when not given)."""
+        batch_size, n_obs = x.shape[0], x.shape[1]
+        enc = self.encode(x[:, 0])
+        mu, log_var = enc["embedding"], enc["log_covariance"]
+        z0 = self.sample_z0(mu, log_var, eps, generator)
+
+        if self.n_flows > 0:
+            z_seq, log_dets = apply_temporal_flows(self.flows, z0, n_obs)
+        else:
+            z_seq = z0[:, None, :].expand(-1, n_obs, -1).contiguous()
+            log_dets = z0.new_zeros((batch_size, 0))
+
+        z_last_raw = z_seq[:, -1]
+        if self.loop_mode == "closed":
+            z_seq = torch.cat([z_seq[:, :-1], z_seq[:, :1]], dim=1)
+
+        z_flat = z_seq.reshape(batch_size * n_obs, self.latent_dim)
+        recon = self.decode(z_flat)["reconstruction"].reshape(batch_size, n_obs, *self.input_dim)
+        recon_loss = losses.reconstruction_loss(recon, x, self.loop_mode)
+
+        metric = self.metric
+        if self.posterior_type == "riemannian_metric" and metric is not None:
+            kl = losses.riemannian_metric_kl(metric, mu, z0)
+            kl_weight = self.riemannian_beta
+        else:
+            kl = losses.standard_kl(mu, log_var)
+            kl_weight = self.beta
+
+        flow = losses.flow_loss(log_dets, self.flow_loss_mode)
+        loop = (
+            losses.loop_penalty(z_last_raw, z_seq[:, 0])
+            if self.loop_mode == "closed" else recon_loss.new_zeros(())
+        )
+        total = losses.total_loss(recon_loss, kl, flow, loop, kl_weight, self.loop_lambda)
+        return ModelOutput(
+            recon_x=recon, z=z_seq, mu=mu, log_var=log_var, loss=total,
+            recon_loss=recon_loss, kld_loss=kl, flow_loss=flow, loop_penalty=loop,
+        )

@@ -1,0 +1,73 @@
+"""The CUDA kernels against their plain PyTorch versions on the card.
+
+Runs only where a CUDA card is present (marker ``cuda``; skipped with a
+reason elsewhere).  On the card: ``python -m pytest tests/test_torch_kernels.py``.
+Tolerances as in chip_smoke.py: chol-bundle |k-p| <= 1e-5 + 1e-4|p|
+(fp32, other summation order, amplified by the factorization's
+conditioning); IAF chain within 1e-4 of each transition's largest |z|."""
+
+import numpy as np
+import pytest
+import torch
+
+from rlvae_tpu_torch.flows import TemporalFlows
+from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_fwd, iaf_chain_fwd_ref, stack_chain
+from rlvae_tpu_torch.ops.metric_kernels import chol_bundle, chol_bundle_ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU or interpret mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("b", [1, 7, 64, 300])
+@pytest.mark.parametrize("k", [1, 50, 200, 20_000])
+def test_chol_bundle_matches_plain(dev, b, k):
+    rng = np.random.default_rng(k + b)
+    c = rng.normal(size=(k, 16)).astype(np.float32)
+    a = (rng.normal(size=(k, 16, 16)) / 4).astype(np.float32)
+    m = a @ np.swapaxes(a, -1, -2) + 0.1 * np.eye(16, dtype=np.float32)
+    z = c[rng.integers(0, k, size=b)] + 0.05 * rng.normal(size=(b, 16))
+    args = [torch.tensor(v, dtype=torch.float32, device=dev) for v in (z, c, m)]
+    before = chol_bundle.launches
+    l_k, ld_k = chol_bundle(*args, 4.0, 0.01 + 1e-6)
+    l_p, ld_p = chol_bundle_ref(*args, 4.0, 0.01 + 1e-6)
+    torch.cuda.synchronize()
+    assert chol_bundle.launches == before + 1
+    assert torch.all(torch.triu(l_k, 1) == 0)
+    torch.testing.assert_close(l_k, l_p, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(ld_k, ld_p, rtol=1e-4, atol=1e-5)
+
+
+def test_chol_bundle_rejects_bad_inputs(dev):
+    z = torch.zeros((4, 16), device=dev)
+    c = torch.zeros((3, 16), device=dev)
+    m = torch.eye(16, device=dev).expand(3, 16, 16).contiguous()
+    with pytest.raises(TypeError):
+        chol_bundle(z.double(), c, m, 1.0, 0.1)
+    with pytest.raises(ValueError):
+        chol_bundle(z[:, :8].contiguous(), c[:, :8].contiguous(), m[:, :8, :8].contiguous(), 1.0, 0.1)
+    with pytest.raises(RuntimeError):
+        chol_bundle(z.requires_grad_(), c, m, 1.0, 0.1)
+
+
+@pytest.mark.parametrize("b", [1, 7, 64])
+def test_iaf_chain_matches_plain(dev, b):
+    g = torch.Generator().manual_seed(b)
+    flows = TemporalFlows(16, 8, 256, 2, 3, log_var_bias_init=0.0, generator=g)
+    flows = flows.to(dev).requires_grad_(False)
+    w = stack_chain([flows.flows[min(t, 7)] for t in range(7)])
+    z0 = torch.randn(b, 16, generator=g).to(dev)
+    before = iaf_chain_fwd.launches
+    z_k, ld_k = iaf_chain_fwd(z0, *w)
+    z_p, ld_p = iaf_chain_fwd_ref(z0, *w)
+    torch.cuda.synchronize()
+    assert iaf_chain_fwd.launches == before + 1
+    scale = z_p.abs().flatten(1).max(1).values[:, None, None]
+    assert torch.all((z_k - z_p).abs() <= 1e-4 * scale)
+    torch.testing.assert_close(ld_k, ld_p, rtol=1e-4, atol=1e-4)
