@@ -7,19 +7,29 @@ Phases, each printing one JSON line with its elapsed seconds:
 1. ``device``: the card's name, count, and ``nvidia-smi`` name and power limit.
 2. ``build``: one ``nvcc`` call builds every ``rlvae_tpu_torch/csrc/*.cu``.
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
-   at the shapes the serving path gives it, with the tolerance stated; ms
-   per launch from CUDA events.
+   at the shapes the serving and training paths give it, with the tolerance
+   stated; ms per launch from CUDA events.  The IAF-chain backward is held
+   to its plain version at the near-identity flow init and, at the model's
+   reference init, to an fp64 evaluation (as the forward is).
 4. ``serve``: ``ModelManager.from_config(PRESETS["riemannian_flow_vae"])`` on
    the card behind a ``BatchingEngine``; 64 ``reconstruct`` requests from 8
    threads plus 16 ``encode`` and 16 ``decode``, after one warm-up call per
-   (op, bucket).  Both kernels' launch counters are zeroed just before the
-   requests and read just after; one B=64 forward on the card is held
-   against the same model moved to the CPU, and one is profiled.
+   (op, bucket).  The launch counters are zeroed just before the requests
+   and read just after; one B=64 forward on the card is held against the
+   same model moved to the CPU, and one is profiled.
+5. ``train``: ``Trainer`` takes 5 Adam steps of the full-width preset at
+   B=16 on synthetic sequences (training preset ``default``).  The launch
+   counters are zeroed just before ``fit`` and read just after, and read
+   around every step (chol-bundle 2, IAF-chain forward 1, backward 1).  Each
+   card step is replayed on the CPU from the card's weights and optimizer
+   state just before it, with the same batch and noise; losses, grad_norm
+   and the step-1 gradients are compared.  One warm step is timed with CUDA
+   events and one is profiled.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
-run exits non-zero; a hang dumps every thread's stack after 240 s and exits.
-Without a CUDA card the run fails at once.
+run exits non-zero; a hang dumps every thread's stack and exits.  Without a
+CUDA card the run fails at once.
 """
 
 from __future__ import annotations
@@ -35,7 +45,7 @@ from pathlib import Path
 import numpy as np
 
 PRETRAINED = Path(__file__).resolve().parent / "data" / "pretrained"
-HANG_GUARD_S = 240
+HANG_GUARD_S = 540
 SERVE_BATCH = 64  # the engine's largest bucket: the main path's batch
 N_RECONSTRUCT, N_THREADS, N_ENCODE, N_DECODE = 64, 8, 16, 16
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32 outside the
@@ -50,6 +60,10 @@ CHOL_RTOL, CHOL_ATOL = 1e-4, 1e-5
 # IAF_FP64_FACTOR times the plain fp32 version's (or within IAF_RTOL)
 IAF_RTOL = 1e-4
 IAF_FP64_FACTOR = 4.0
+# the training path's batch, and the batches the backward kernel is timed at
+TRAIN_BATCH, TRAIN_STEPS = 16, 5
+BWD_BATCHES = (1, TRAIN_BATCH, SERVE_BATCH)
+N_TRANSITIONS = 7  # 8 frames -> 7 transitions
 
 T0 = time.perf_counter()
 
@@ -162,39 +176,50 @@ def _scaled_err(got, want):
     return float(((got - want).abs().flatten(1).max(1).values / scale).max())
 
 
-def run_iaf_checks(torch, dev):
+def chain_weights(torch, dev, bias):
+    """The stacked weights of the preset's 7-transition chain, flows at the
+    seeded init with log-sigma bias ``bias`` (0.0: near-identity flows;
+    the preset's -2.0: the model's reference init)."""
     from rlvae_tpu_torch.flows import TemporalFlows
     from rlvae_tpu_torch.models import PRESETS
-    from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_fwd, iaf_chain_fwd_ref, stack_chain
+    from rlvae_tpu_torch.ops.iaf_kernels import stack_chain
 
     p = PRESETS["riemannian_flow_vae"]
-    nt = 7  # 8 frames -> 7 transitions
+    g = torch.Generator().manual_seed(0)
+    tf = TemporalFlows(p["latent_dim"], p["n_flows"], p["flow_hidden_size"],
+                       p["flow_n_blocks"], p["flow_n_hidden"],
+                       log_var_bias_init=bias, generator=g).to(dev).requires_grad_(False)
+    return stack_chain([tf.flows[min(t, tf.n_flows - 1)] for t in range(N_TRANSITIONS)])
 
-    def flows(bias):
-        g = torch.Generator().manual_seed(0)
-        return TemporalFlows(p["latent_dim"], p["n_flows"], p["flow_hidden_size"],
-                             p["flow_n_blocks"], p["flow_n_hidden"],
-                             log_var_bias_init=bias, generator=g).to(dev).requires_grad_(False)
 
-    def chain_of(tf):
-        return [tf.flows[min(t, tf.n_flows - 1)] for t in range(nt)]
+def pass_flops(d=16, h=256, nh=3):
+    """FLOP of one MADE pass for one row."""
+    return 2 * (d * h + (nh - 1) * h * h + h * 2 * d)
 
-    near_id, model_init = flows(0.0), flows(p["flow_log_var_bias_init"])
+
+def run_iaf_checks(torch, dev):
+    from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_fwd, iaf_chain_fwd_ref
+
+    nt = N_TRANSITIONS
+    w_near_id = chain_weights(torch, dev, 0.0)
+    wm = chain_weights(torch, dev, -2.0)
     rng = np.random.default_rng(1)
     cases, record = [], None
     for b in (1, 7, SERVE_BATCH):
         z0 = torch.tensor(rng.normal(size=(b, 16)), dtype=torch.float32, device=dev)
-        # (a) the whole chain, near-identity flows: errors stay at rounding
-        w = stack_chain(chain_of(near_id))
-        z_k, ld_k = iaf_chain_fwd(z0, *w)
-        z_p, ld_p = iaf_chain_fwd_ref(z0, *w)
-        rel_a = max(_scaled_err(z_k, z_p), _scaled_err(ld_k, ld_p))
-        abs_a = max(float((z_k - z_p).abs().max()), float((ld_k - ld_p).abs().max()))
+        # (a) the whole chain, near-identity flows: errors stay at rounding;
+        # the residual ys (each block's output) too
+        w = w_near_id
+        z_k, ld_k, ys_k = iaf_chain_fwd(z0, *w, return_ys=True)
+        z_p, ld_p, ys_p = iaf_chain_fwd_ref(z0, *w, return_ys=True)
+        check(torch.equal(iaf_chain_fwd(z0, *w)[0], z_k), "ys output changed z")
+        rel_a = max(_scaled_err(z_k, z_p), _scaled_err(ld_k, ld_p), _scaled_err(ys_k, ys_p))
+        abs_a = max(float((z_k - z_p).abs().max()), float((ld_k - ld_p).abs().max()),
+                    float((ys_k - ys_p).abs().max()))
         # (b) the model's reference-init flows, which scale |z| ~20x per
         # transition: rounding is amplified inside each transition, so the
         # kernel is held to an fp64 evaluation, no less accurate than the plain
         # fp32 version; each transition starts from the fp64 chain's input to it
-        wm = stack_chain(chain_of(model_init))
         wm64 = [w.double() for w in wm]
         z_64, _ = iaf_chain_fwd_ref(z0.double(), *wm64)
         rel_b = rel_p = abs_b = abs_kp = 0.0
@@ -220,8 +245,8 @@ def run_iaf_checks(torch, dev):
         cases.append(case)
         check(ok, f"iaf_chain_fwd disagrees at B={b}: {rel_a}, {rel_b} (plain fp32 {rel_p})")
         if b == SERVE_BATCH:
-            h, d, nb, nh = 256, 16, 2, 3
-            flops = b * nt * nb * d * 2 * (d * h + (nh - 1) * h * h + h * 2 * d)
+            d, nb = 16, 2
+            flops = b * nt * nb * d * pass_flops()
             bms, by = bound_ms(nbytes(z0, *wm, z_k, ld_k), flops)
             record = {
                 "name": "iaf_chain_fwd", "route": "cuda",
@@ -233,8 +258,100 @@ def run_iaf_checks(torch, dev):
             }
     record["max_abs_err"] = max(c["max_abs_err"] for c in cases)
     record["tolerance"] = (f"near-identity chain: |kernel-plain| <= {IAF_RTOL}*max|plain| per "
-                           f"transition; reference init: error vs fp64 <= max({IAF_FP64_FACTOR}x "
-                           f"the plain fp32 version's, {IAF_RTOL}) per transition")
+                           f"transition (z, ld and the residual ys); reference init: error vs "
+                           f"fp64 <= max({IAF_FP64_FACTOR}x the plain fp32 version's, {IAF_RTOL}) "
+                           f"per transition")
+    return record, cases
+
+
+def _bwd_err(got, want):
+    """Largest error of (dz0, weight grads) relative to scale: dz0 against
+    its largest entry, each weight gradient per transition."""
+    dz0_g, grads_g = got
+    dz0_w, grads_w = want
+    errs = [_scaled_err(dz0_g.double()[None], dz0_w.double()[None])]
+    errs += [_scaled_err(a.double(), b.double()) for a, b in zip(grads_g, grads_w)]
+    return max(errs)
+
+
+def _bwd_abs(got, want):
+    return max(float((a.double() - b.double()).abs().max())
+               for a, b in zip((got[0], *got[1]), (want[0], *want[1])))
+
+
+def run_iaf_bwd_checks(torch, dev):
+    """The IAF-chain backward against its plain version: (a) the whole chain
+    at the near-identity init, both from the same residual ys; (b) at the
+    reference init, each transition alone from the fp64 chain's residual,
+    kernel and plain fp32 version both against fp64."""
+    from rlvae_tpu_torch.ops.iaf_kernels import (
+        iaf_chain_bwd,
+        iaf_chain_bwd_ref,
+        iaf_chain_fwd,
+        iaf_chain_fwd_ref,
+    )
+
+    nt, d = N_TRANSITIONS, 16
+    w_near_id = chain_weights(torch, dev, 0.0)
+    wm = chain_weights(torch, dev, -2.0)
+    wm64 = [w.double() for w in wm]
+    rng = np.random.default_rng(3)
+    cases, record = [], None
+    for b in BWD_BATCHES:
+        z0 = torch.tensor(rng.normal(size=(b, d)), dtype=torch.float32, device=dev)
+        dz = torch.tensor(rng.normal(size=(nt, b, d)), dtype=torch.float32, device=dev)
+        dld = torch.tensor(rng.normal(size=(nt, b)), dtype=torch.float32, device=dev)
+        # (a)
+        _, _, ys = iaf_chain_fwd_ref(z0, *w_near_id, return_ys=True)
+        got = iaf_chain_bwd(ys, dz, dld, *w_near_id)
+        want = iaf_chain_bwd_ref(ys, dz, dld, *w_near_id)
+        rel_a, abs_a = _bwd_err(got, want), _bwd_abs(got, want)
+        # (b)
+        _, _, ys64 = iaf_chain_fwd_ref(z0.double(), *wm64, return_ys=True)
+        rel_b = rel_p = abs_kp = 0.0
+        for t in range(nt):
+            ys_t = ys64[t : t + 1].float().contiguous()
+            w_t = [x[t : t + 1].contiguous() for x in wm]
+            args = (ys_t, dz[t : t + 1].contiguous(), dld[t : t + 1].contiguous())
+            k = iaf_chain_bwd(*args, *w_t)
+            p = iaf_chain_bwd_ref(*args, *w_t)
+            e = iaf_chain_bwd_ref(*(a.double() for a in args), *(x[t : t + 1] for x in wm64))
+            rel_b, rel_p = max(rel_b, _bwd_err(k, e)), max(rel_p, _bwd_err(p, e))
+            abs_kp = max(abs_kp, _bwd_abs(k, p))
+        torch.cuda.synchronize()
+        ok = rel_a <= IAF_RTOL and rel_b <= max(IAF_FP64_FACTOR * rel_p, IAF_RTOL)
+        _, _, ys_m = iaf_chain_fwd(z0, *wm, return_ys=True)
+        case = {"shape": f"B={b},D=16,H=256,NB=2,NH=3,NT={nt}", "ok": ok,
+                "chain_near_identity": {"max_rel_err": rel_a, "max_abs_err": abs_a},
+                "per_transition_model_init_vs_fp64": {
+                    "kernel_max_rel_err": rel_b, "plain_fp32_max_rel_err": rel_p,
+                    "kernel_vs_plain_max_abs_err": abs_kp},
+                "max_abs_err": abs_a,
+                "ms": time_ms(torch, lambda: iaf_chain_bwd(ys_m, dz, dld, *wm), 5)}
+        cases.append(case)
+        check(ok, f"iaf_chain_bwd disagrees at B={b}: {rel_a}, {rel_b} (plain fp32 {rel_p})")
+        if b == SERVE_BATCH:
+            nb = 2
+            # per block and transition: the pass, D sweeps, the final VJP and
+            # its weight-gradient outer products, each about one MADE pass
+            flops = b * nt * nb * (d + 3) * pass_flops()
+            out = iaf_chain_bwd(ys_m, dz, dld, *wm)
+            bms, by = bound_ms(nbytes(ys_m, dz, dld, *wm, out[0], *out[1]), flops)
+            record = {
+                "name": "iaf_chain_bwd", "route": "cuda",
+                "source": "rlvae_tpu_torch/csrc/iaf_chain_bwd.cu",
+                "replaces": "rlvae_tpu/ops/iaf_kernels.py:585",
+                "shape": case["shape"], "ms": case["ms"],
+                "plain_ms": time_ms(torch, lambda: iaf_chain_bwd_ref(ys_m, dz, dld, *wm), 2,
+                                    warmup=1),
+                "bound_ms": bms, "bound_by": by, "library_ms": None,
+            }
+    record["max_abs_err"] = max(c["max_abs_err"] for c in cases)
+    record["ms_by_batch"] = {c["shape"].split(",")[0]: c["ms"] for c in cases}
+    record["tolerance"] = (f"near-identity chain: |kernel-plain| <= {IAF_RTOL}*scale (dz0 by its "
+                           f"largest entry, weight grads per transition); reference init: error "
+                           f"vs fp64 <= max({IAF_FP64_FACTOR}x the plain fp32 version's, "
+                           f"{IAF_RTOL}) per transition")
     return record, cases
 
 
@@ -245,8 +362,6 @@ def run_iaf_checks(torch, dev):
 
 def run_serve(torch):
     from rlvae_tpu_torch import BatchingEngine, ModelManager, PRESETS, ServeConfig
-    from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_fwd
-    from rlvae_tpu_torch.ops.metric_kernels import chol_bundle
 
     t_load = time.perf_counter()
     manager = ModelManager.from_config(PRESETS["riemannian_flow_vae"], seed=0)
@@ -263,8 +378,7 @@ def run_serve(torch):
         # every (op, bucket) once, so the stats below are of a warm engine
         engine.warmup({"reconstruct": seqs[0], "encode": frames[0], "decode": latents[0]})
         torch.cuda.synchronize()
-        chol_bundle.launches = 0
-        iaf_chain_fwd.launches = 0
+        zero_launch_counts()
         t_serve = time.perf_counter()
 
         def client(tid: int) -> None:
@@ -286,7 +400,7 @@ def run_serve(torch):
         for t in threads:
             t.join(timeout=120)
         serve_s = time.perf_counter() - t_serve
-        launches = {"chol_bundle": chol_bundle.launches, "iaf_chain_fwd": iaf_chain_fwd.launches}
+        launches = launch_counts()
         stats = engine.stats_snapshot()
     finally:
         engine.stop()
@@ -302,6 +416,7 @@ def run_serve(torch):
           f"the serving path did not launch both kernels: {launches}")
     check(launches["chol_bundle"] == 2 * launches["iaf_chain_fwd"],
           f"expected 2 chol-bundle launches per IAF-chain launch: {launches}")
+    check(launches["iaf_chain_bwd"] == 0, f"inference launched the backward: {launches}")
 
     # one B=64 forward on the card vs the same model on the CPU (plain versions)
     x = seqs[:SERVE_BATCH]
@@ -321,8 +436,6 @@ def profile_forward(torch, manager, x, eps):
     """Warm B=64 forward: ms from CUDA events (device-side, inputs already
     on the card), ``reconstruct`` ms on the host clock (upload and copy-back
     included), and one profiled forward's device time by kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
     xd = torch.from_numpy(x).to(manager.device)
     fwd_ms = time_ms(torch, lambda: manager.forward(xd, eps=eps), 5)
     host = []
@@ -330,8 +443,19 @@ def profile_forward(torch, manager, x, eps):
         t = time.perf_counter()
         manager.reconstruct(x)
         host.append((time.perf_counter() - t) * 1e3)
+    busy_ms, kernels = device_time_by_kernel(torch, lambda: manager.forward(xd, eps=eps))
+    return {"forward_ms": fwd_ms, "reconstruct_host_ms_median": float(np.median(host)),
+            "profiled_device_busy_ms": busy_ms, "n_kernel_names": len(kernels),
+            "top_kernels": kernels[:10]}
+
+
+def device_time_by_kernel(torch, fn):
+    """One profiled call of ``fn``: (device-busy ms, [{name, us, calls}] by
+    kernel, largest first), from ``torch.profiler``'s self device times."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        manager.forward(xd, eps=eps)
+        fn()
         torch.cuda.synchronize()
     kernels = []
     for evt in prof.key_averages():
@@ -341,10 +465,7 @@ def profile_forward(torch, manager, x, eps):
         if us > 0 and "cuda" in str(getattr(evt, "device_type", "")).lower():
             kernels.append({"name": evt.key[:80], "us": float(us), "calls": int(evt.count)})
     kernels.sort(key=lambda k: -k["us"])
-    busy_ms = sum(k["us"] for k in kernels) / 1e3
-    return {"forward_ms": fwd_ms, "reconstruct_host_ms_median": float(np.median(host)),
-            "profiled_device_busy_ms": busy_ms, "n_kernel_names": len(kernels),
-            "top_kernels": kernels[:10]}
+    return sum(k["us"] for k in kernels) / 1e3, kernels
 
 
 # End-to-end tolerances, card vs CPU.  The nets run bf16 activations, which
@@ -383,6 +504,174 @@ def compare_forward(torch, a, b):
             "recon_max_abs": float((a["recon_x"] - b["recon_x"]).abs().max())}
 
 
+# ---------------------------------------------------------------------------
+# train phase
+# ---------------------------------------------------------------------------
+
+# Card step vs the same step replayed on the CPU from the card's weights and
+# optimizer state just before it.  The nets run bf16 activations, which the
+# two devices round at other places (2^-8 relative per rounding), and the
+# reference-init flows scale the latent ~20x per transition, so gradients
+# are compared relative to each tensor's largest entry.
+TRAIN_TOL = {
+    "loss_rel": 1e-3,       # loss, recon_loss, kld_loss, flow_loss, every step
+    # the nets' weight gradients come out of bf16 products: one bf16 step is
+    # 2^-8 = 3.9e-3 relative, and the two devices round some entries a step
+    # or two apart
+    "grad_norm_rel": 2e-2,  # every step
+    "grad_rel": 2e-2,       # step 1, each parameter's gradient vs its largest entry
+}
+
+
+def launch_counts():
+    from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_bwd, iaf_chain_fwd
+    from rlvae_tpu_torch.ops.metric_kernels import chol_bundle
+
+    return {"chol_bundle": chol_bundle.launches, "iaf_chain_fwd": iaf_chain_fwd.launches,
+            "iaf_chain_bwd": iaf_chain_bwd.launches}
+
+
+def zero_launch_counts():
+    from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_bwd, iaf_chain_fwd
+    from rlvae_tpu_torch.ops.metric_kernels import chol_bundle
+
+    chol_bundle.launches = iaf_chain_fwd.launches = iaf_chain_bwd.launches = 0
+
+
+def run_train(torch):
+    from rlvae_tpu_torch.data import CYCLIC_SPRITES, CyclicDataModule
+    from rlvae_tpu_torch.models import PRESETS, create_model
+    from rlvae_tpu_torch.train import TRAINING_PRESETS, Trainer, make_optimizer, make_train_step
+
+    cfg = copy.deepcopy(TRAINING_PRESETS["default"])
+    cfg["data"]["batch_size"] = TRAIN_BATCH
+    cfg["n_train_samples"], cfg["n_val_samples"] = TRAIN_STEPS * TRAIN_BATCH, TRAIN_BATCH
+    t0 = time.perf_counter()
+    data = CyclicDataModule({**CYCLIC_SPRITES, "synthetic_n_test": TRAIN_BATCH}, seed=0)
+    data.setup(cfg)
+    model = create_model(PRESETS["riemannian_flow_vae"], seed=0)
+    trainer = Trainer(model, data, cfg, seed=0)
+    check(trainer.device.type == "cuda", f"trainer on {trainer.device}")
+    setup_s = time.perf_counter() - t0
+
+    # record every step: the weights and optimizer state before it, its
+    # inputs, metrics and kernel launches, and step 1's gradients
+    records, step = [], trainer.train_step
+
+    def recorded_step(x, eps):
+        rec = {"state": {k: v.detach().clone() for k, v in model.state_dict().items()},
+               "opt": copy.deepcopy(trainer.optimizer.state_dict()), "x": x.cpu(),
+               "eps": eps.cpu()}
+        before = launch_counts()
+        metrics = step(x, eps)
+        rec["launches"] = {k: v - before[k] for k, v in launch_counts().items()}
+        rec["metrics"] = {k: float(v) for k, v in metrics.items()}
+        if not records:
+            rec["grads"] = [p.grad.detach().cpu().clone() for p in model.parameters()]
+        records.append(rec)
+        return metrics
+
+    trainer.train_step = recorded_step
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t_fit = time.perf_counter()
+    result = trainer.fit(max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    launches = launch_counts()
+    trainer.train_step = step
+    check(result["steps"] == TRAIN_STEPS == len(records), f"ran {result['steps']} steps")
+    for i, rec in enumerate(records):
+        check(rec["launches"] == {"chol_bundle": 2, "iaf_chain_fwd": 1, "iaf_chain_bwd": 1},
+              f"step {i + 1} launched {rec['launches']}")
+        check(all(np.isfinite(v) for v in rec["metrics"].values()), f"step {i + 1} not finite")
+    check(all(np.isfinite(v) for v in result["history"][-1].values()), "non-finite validation")
+
+    # the same steps on the CPU, each from the card's state just before it
+    cpu_model = create_model(PRESETS["riemannian_flow_vae"], seed=0)
+    opt_cfg = cfg["optimizer"]
+    cpu_opt = make_optimizer(cpu_model.parameters(), opt_cfg["lr"], opt_cfg["weight_decay"])
+    cpu_step = make_train_step(cpu_model, cpu_opt)
+    errors = []
+    for i, rec in enumerate(records):
+        cpu_model.load_state_dict(rec["state"])
+        cpu_opt.load_state_dict(rec["opt"])
+        m = {k: float(v) for k, v in cpu_step(rec["x"], rec["eps"]).items()}
+        err = {k: abs(rec["metrics"][k] - m[k]) / max(abs(m[k]), 1e-12)
+               for k in ("loss", "recon_loss", "kld_loss", "flow_loss", "grad_norm")}
+        err["loop_penalty_abs"] = abs(rec["metrics"]["loop_penalty"] - m["loop_penalty"])
+        if i == 0:
+            err["grad_rel"] = max(
+                float((g - p.grad).abs().max() / p.grad.abs().max().clamp_min(1e-30))
+                for g, p in zip(rec["grads"], cpu_model.parameters()))
+        errors.append(err)
+        for k in ("loss", "recon_loss", "kld_loss", "flow_loss"):
+            check(err[k] <= TRAIN_TOL["loss_rel"], f"step {i + 1} {k}: card vs CPU {err[k]}")
+        check(err["grad_norm"] <= TRAIN_TOL["grad_norm_rel"],
+              f"step {i + 1} grad_norm: card vs CPU {err['grad_norm']}")
+        check(err["loop_penalty_abs"] <= 1e-6, f"step {i + 1} loop_penalty differs")
+    check(errors[0]["grad_rel"] <= TRAIN_TOL["grad_rel"],
+          f"step-1 gradients: card vs CPU {errors[0]['grad_rel']}")
+
+    # one warm step, timed and profiled
+    x, eps = records[-1]["x"].to(trainer.device), records[-1]["eps"].to(trainer.device)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(torch, lambda: step(x, eps), 5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # before the profile: a profiler session leaves launches slower after it
+    phases = step_phases(torch, model, trainer.optimizer, x, eps)
+    busy_ms, kernels = device_time_by_kernel(torch, lambda: step(x, eps))
+    return {
+        "steps": result["steps"], "batch": TRAIN_BATCH, "setup_s": setup_s, "fit_s": fit_s,
+        "launches": launches, "launches_per_step": records[0]["launches"],
+        "losses": [r["metrics"]["loss"] for r in records],
+        "validation": {k: v for k, v in result["history"][-1].items() if k.startswith("val/")},
+        "card_vs_cpu": {"errors": errors, "tolerances": TRAIN_TOL},
+        "step_ms": step_ms, "peak_memory_gb": peak_gb,
+        "profiled_device_busy_ms": busy_ms, "n_kernel_names": len(kernels),
+        "n_kernel_launches": sum(k["calls"] for k in kernels), "phases": phases,
+        "top_kernels": kernels[:12],
+    }
+
+
+def step_phases(torch, model, optimizer, x, eps, reps: int = 3):
+    """The parts of one train step (the body of ``make_train_step``, spelled
+    out): mean ms on CUDA events and on the host clock (no synchronisation
+    inside the step, so a host time close to the device time means the
+    part is bound by the host's launches)."""
+    names = ("forward", "backward", "grad_fill_and_norm", "adam")
+    dev = {n: 0.0 for n in names}
+    host = {n: 0.0 for n in names}
+    params = [p for p in model.parameters() if p.requires_grad]
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        t = [0.0] * (len(names) + 1)
+        torch.cuda.synchronize()
+        t[0] = time.perf_counter()
+        ev[0].record()
+        optimizer.zero_grad(set_to_none=True)
+        out = model(x, eps=eps, train=True)
+        ev[1].record()
+        t[1] = time.perf_counter()
+        out.loss.backward()
+        ev[2].record()
+        t[2] = time.perf_counter()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(p.grad) for p in params]))
+        ev[3].record()
+        t[3] = time.perf_counter()
+        optimizer.step()
+        ev[4].record()
+        t[4] = time.perf_counter()
+        torch.cuda.synchronize()
+        for i, n in enumerate(names):
+            dev[n] += ev[i].elapsed_time(ev[i + 1]) / reps
+            host[n] += (t[i + 1] - t[i]) * 1e3 / reps
+    return {"device_ms": dev, "host_ms": host}
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(HANG_GUARD_S, exit=True)
     import torch
@@ -404,24 +693,26 @@ def main() -> None:
          ptxas=[ln.strip() for ln in lib.log.splitlines() if "registers" in ln or "spill" in ln])
     print(f"build_seconds {lib.seconds:.3f}", flush=True)
 
-    from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_fwd
-    from rlvae_tpu_torch.ops.metric_kernels import chol_bundle
-
-    chol_rec, chol_cases_out = run_chol_checks(torch, dev)
-    iaf_rec, iaf_cases_out = run_iaf_checks(torch, dev)
-    emit("kernels",
-         chol_bundle={"tolerance": chol_rec["tolerance"], "launches": chol_bundle.launches,
-                      "cases": chol_cases_out},
-         iaf_chain_fwd={"tolerance": iaf_rec["tolerance"], "launches": iaf_chain_fwd.launches,
-                        "cases": iaf_cases_out})
+    records = {}
+    for name, run in (("chol_bundle", run_chol_checks), ("iaf_chain_fwd", run_iaf_checks),
+                      ("iaf_chain_bwd", run_iaf_bwd_checks)):
+        records[name], cases = run(torch, dev)
+        emit("kernels", kernel=name, tolerance=records[name]["tolerance"], cases=cases)
 
     serve = run_serve(torch)
     emit("serve", **serve)
-    chol_rec["launches"] = serve["launches"]["chol_bundle"]
-    iaf_rec["launches"] = serve["launches"]["iaf_chain_fwd"]
+    train = run_train(torch)
+    emit("train", **train)
+    # launches: the training path's run (this slice's path, which launches all
+    # three kernels); the serving path's counts beside them
+    for name, rec in records.items():
+        rec["launches"] = train["launches"][name]
+        rec["launches_per_train_step"] = train["launches_per_step"][name]
+        rec["launches_serve"] = serve["launches"].get(name, 0)
+        check(rec["launches"] > 0, f"the training path did not launch {name}")
 
     faulthandler.cancel_dump_traceback_later()
-    print(json.dumps({"kernels": [chol_rec, iaf_rec]}), flush=True)
+    print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

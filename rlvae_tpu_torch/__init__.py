@@ -1,12 +1,17 @@
 """rlvae_tpu_torch: the PyTorch/CUDA port of rlvae_tpu.
 
-This slice ports the serving path of the ``riemannian_flow_vae`` model:
-:class:`~rlvae_tpu_torch.inference.ModelManager` (``encode``, ``decode``,
-``reconstruct``, ``embed_sequence``) behind the dynamic-batching
-:class:`~rlvae_tpu_torch.serving.BatchingEngine`, with hand-written CUDA
-kernels (``csrc/``) for the chol-bundle and the IAF-chain forward.  The
-package imports PyTorch and numpy only; kernels are built with ``nvcc`` at
-first use on the card.
+Two slices of the ``riemannian_flow_vae`` model are ported:
+
+- serving: :class:`~rlvae_tpu_torch.inference.ModelManager` (``encode``,
+  ``decode``, ``reconstruct``, ``embed_sequence``) behind the
+  dynamic-batching :class:`~rlvae_tpu_torch.serving.BatchingEngine`;
+- training: :class:`~rlvae_tpu_torch.train.Trainer` with Adam and coupled
+  weight decay on :mod:`rlvae_tpu_torch.data` (``python -m
+  rlvae_tpu_torch.train``).
+
+Hand-written CUDA kernels (``csrc/``) compute the chol-bundle and the
+IAF chain's forward and backward.  The package imports PyTorch and numpy
+only; kernels are built with ``nvcc`` at first use on the card.
 """
 
 from rlvae_tpu_torch.device import resolve_device

@@ -8,6 +8,9 @@
   ``[in, out]`` and become ``nn.Linear.weight`` ``[out, in]``; the flows'
   ``w0..wL`` / ``b0..bL`` per MADE block keep their ``[in, out]`` layout.
   The masks are recomputed by the port, not carried.
+- :func:`params_to_numpy` goes the other way: the port's parameters as a
+  nested numpy tree keyed as the JAX ``params``, so tests can compare
+  updated parameters with JAX's.
 """
 
 from __future__ import annotations
@@ -71,6 +74,31 @@ def from_jax_variables(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for k, v in flows_state_from_jax(params.get("flows", [])).items():
         state[f"flows.{k}"] = v
     return state
+
+
+def params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
+    """The RlVAE's parameters keyed as the JAX ``params`` tree: ``encoder`` /
+    ``decoder`` ``{layer: {kernel [in, out], bias}}`` and ``flows`` as
+    ``[[{w0.., b0..} per block] per flow]``."""
+    params: Dict[str, Any] = {"encoder": {}, "decoder": {}, "flows": []}
+    for name, p in model.named_parameters():
+        a = p.detach().float().cpu().numpy().copy()
+        comp, rest = name.split(".", 1)
+        if comp in ("encoder", "decoder"):
+            layer, kind = rest.rsplit(".", 1)
+            params[comp].setdefault(layer, {})["kernel" if kind == "weight" else "bias"] = (
+                a.T if kind == "weight" else a)
+        elif comp == "flows":
+            _, fi, _, bi, field, li = rest.split(".")  # flows.{fi}.blocks.{bi}.{field}.{li}
+            flows = params["flows"]
+            while len(flows) <= int(fi):
+                flows.append([])
+            while len(flows[int(fi)]) <= int(bi):
+                flows[int(fi)].append({})
+            flows[int(fi)][int(bi)][f"{field[0]}{li}"] = a
+        else:
+            raise ValueError(f"unexpected parameter {name!r}")
+    return params
 
 
 def load_pretrained_net(module: torch.nn.Module, path: str | Path) -> None:

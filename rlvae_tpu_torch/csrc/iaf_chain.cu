@@ -6,8 +6,9 @@
 //
 // Replaces the forward Pallas kernel of rlvae_tpu/ops/iaf_kernels.py:504-583
 // (_build_fused_iaf_chain's fwd_pallas: _iaf_chain_fwd_kernel -> _transition_fwd_body
-// -> _made_pass).  The residual `ys` of that kernel is only needed by the
-// backward, which this inference path does not have, so it is not written.
+// -> _made_pass).  When `ys_out` is non-null it also writes that kernel's
+// residual ys [NT, NB, B, D], each block's output before the flip, which is all
+// the backward (csrc/iaf_chain_bwd.cu) reads; serving passes null.
 //
 // What bounds it on an H100: fp32 operations.  One MADE pass is
 // [rows,D]x[D,H] (no activation), (NH-1) x ([rows,H]x[H,H] + ReLU), [rows,H]x[H,2D];
@@ -66,8 +67,8 @@ iaf_chain_fwd_kernel(const float* __restrict__ z0, const float* __restrict__ w0,
                      const float* __restrict__ b0, const float* __restrict__ wh,
                      const float* __restrict__ bh, const float* __restrict__ wo,
                      const float* __restrict__ bo, float* __restrict__ z_out,
-                     float* __restrict__ ld_out, int B, int D, int H, int NB, int NH,
-                     int NT) {
+                     float* __restrict__ ld_out, float* __restrict__ ys_out, int B, int D,
+                     int H, int NB, int NH, int NT) {
   __shared__ __align__(16) float act_a[ROWS * MAX_H];
   __shared__ __align__(16) float act_b[ROWS * MAX_H];
   __shared__ float x_s[ROWS * MAX_D];       // the current block's input
@@ -144,6 +145,13 @@ iaf_chain_fwd_kernel(const float* __restrict__ z0, const float* __restrict__ w0,
         __syncthreads();
       }
 
+      if (ys_out != nullptr) {  // the backward's residual: this block's unflipped output
+        for (int idx = tid; idx < ROWS * D; idx += THREADS) {
+          const int r = idx / D;
+          if (row0 + r < B) ys_out[(tb * B + row0 + r) * D + idx % D] = y_s[idx];
+        }
+      }
+
       // dim flip: the next block (or transition) reads reversed y
       for (int idx = tid; idx < ROWS * D; idx += THREADS) {
         const int r = idx / D;
@@ -165,14 +173,15 @@ iaf_chain_fwd_kernel(const float* __restrict__ z0, const float* __restrict__ w0,
 
 extern "C" int iaf_chain_fwd_f32(const float* z0, const float* w0, const float* b0,
                                  const float* wh, const float* bh, const float* wo,
-                                 const float* bo, float* z_out, float* ld_out, int B,
-                                 int D, int H, int NB, int NH, int NT,
-                                 cudaStream_t stream) {
+                                 const float* bo, float* z_out, float* ld_out,
+                                 float* ys_out, int B, int D, int H, int NB, int NH,
+                                 int NT, cudaStream_t stream) {
   if (B <= 0 || NT <= 0) return static_cast<int>(cudaSuccess);
   if (D < 1 || D > MAX_D || H < 4 || H > MAX_H || H % 4 != 0 || NB < 1 || NH < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (B + ROWS - 1) / ROWS;
   iaf_chain_fwd_kernel<<<blocks, THREADS, 0, stream>>>(z0, w0, b0, wh, bh, wo, bo, z_out,
-                                                        ld_out, B, D, H, NB, NH, NT);
+                                                        ld_out, ys_out, B, D, H, NB, NH,
+                                                        NT);
   return static_cast<int>(cudaGetLastError());
 }

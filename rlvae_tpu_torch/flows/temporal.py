@@ -3,8 +3,11 @@
 Port of ``rlvae_tpu/flows/temporal.py:30-173``.  Given z_0 and n_obs, flow
 t-1 maps z_{t-1} -> z_t in the density direction, accumulating each
 transition's log|det J|; past the last flow, the last flow is reused.  All
-n_obs-1 transitions run as one IAF-chain launch
-(:mod:`rlvae_tpu_torch.ops.iaf_kernels`).
+n_obs-1 transitions run as one IAF-chain launch, and their gradient as one
+backward launch, through the autograd Function
+:class:`~rlvae_tpu_torch.ops.iaf_kernels.IAFChain`; autograd through the
+weight stacking applies the masks and sums the gradients of the reused
+flow (:mod:`rlvae_tpu_torch.ops.iaf_kernels`).
 
 The ``sampling`` direction and the Jacobi fixed-point blocks
 (``fixedpoint_iters > 0``) are not ported yet and raise.
@@ -18,7 +21,7 @@ import torch
 from torch import nn
 
 from rlvae_tpu_torch.flows.iaf import IAF
-from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_fwd, stack_chain
+from rlvae_tpu_torch.ops.iaf_kernels import IAFChain, stack_chain
 
 
 class TemporalFlows(nn.Module):
@@ -62,6 +65,6 @@ def apply_temporal_flows(
         z_seq = z0[:, None, :].expand(-1, n_obs, -1).contiguous()
         return z_seq, z0.new_zeros((z0.shape[0], 0))
     chain = [flows.flows[min(t, flows.n_flows - 1)] for t in range(nt)]
-    z_rest, lds = iaf_chain_fwd(z0.float().contiguous(), *stack_chain(chain))
+    z_rest, lds = IAFChain.apply(z0.float().contiguous(), *stack_chain(chain))
     z_seq = torch.cat([z0[:, None, :].float(), z_rest.transpose(0, 1)], dim=1)
     return z_seq, lds.transpose(0, 1)

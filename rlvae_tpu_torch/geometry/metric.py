@@ -11,8 +11,9 @@ scaled by 1/T^2, which amplifies cancellation error).  The jitter is
 deterministic, added to the diagonal before factorization.
 
 ``chol_g_inv`` runs the chol-bundle CUDA kernel for tensors on the card and
-its plain PyTorch version for tensors on the CPU
-(:mod:`rlvae_tpu_torch.ops.metric_kernels`).
+its plain PyTorch version for tensors on the CPU, through the autograd
+Function :class:`~rlvae_tpu_torch.ops.metric_kernels.CholBundle`, so it is
+differentiable in ``z`` (:mod:`rlvae_tpu_torch.ops.metric_kernels`).
 """
 
 from __future__ import annotations
@@ -69,12 +70,11 @@ def g_inv(metric: CentroidMetric, z: torch.Tensor) -> torch.Tensor:
 
 def chol_g_inv(metric: CentroidMetric, z: torch.Tensor, jitter: float = 1e-6) -> torch.Tensor:
     """L with L L^T = G^{-1}(z) + jitter*I, from the chol-bundle kernel
-    (its plain version for CPU tensors)."""
-    l, _ = _mk.chol_bundle(
+    (its plain version for CPU tensors); differentiable in ``z``."""
+    return _mk.CholBundle.apply(
         z, metric.centroids, metric.matrices,
         1.0 / metric.temperature ** 2, metric.regularization + jitter,
     )
-    return l
 
 
 def logdet_g_inv(metric: CentroidMetric, z: torch.Tensor) -> torch.Tensor:

@@ -115,6 +115,8 @@ def create_model(config: Mapping[str, Any], seed: int = 0, name: Optional[str] =
         flow_direction=str(config.get("flow_direction", "density")),
         flow_fixedpoint_iters=int(config.get("flow_fixedpoint_iters", 0)),
         flow_loss_mode=str(config.get("flow_loss_mode", "reference")),
+        remat_decode=bool(config.get("remat_decode", False)),
+        fused_decode_mse=bool(config.get("fused_decode_mse", False)),
         flow_log_var_bias_init=float(config.get("flow_log_var_bias_init", -2.0)),
         encoder_config=_node(config, "encoder"),
         decoder_config=_node(config, "decoder"),

@@ -1,15 +1,21 @@
-"""RlVAE: the Riemannian Flow VAE, inference forward.
+"""RlVAE: the Riemannian Flow VAE.
 
-Port of ``RlVAE.encode``, ``decode`` and ``forward(train=False)``
+Port of ``RlVAE.encode``, ``decode`` and ``forward``
 (``rlvae_tpu/models/rlvae.py:234-390``): encode frame 0 -> metric-aware
 posterior sample z0 (chol-bundle launch 1) -> temporal IAF chain (one
 IAF-chain launch) -> open/closed loop handling -> decode all B*T frames as
 one batch -> reconstruction + KL (chol-bundle launch 2) + flow + loop losses.
 
-Training (gradients, dropout, the fused decode+MSE kernel) is not ported
-yet: ``forward`` runs without autograd.  The metric's centroids and matrices
-are non-persistent buffers, so ``model.to(device)`` moves them with the
-weights and the state dict holds only the learnable parameters.
+``forward`` is differentiable: ``loss.backward()`` runs the chol-bundle's
+recompute backward twice and the IAF-chain backward kernel once.  Callers
+that only infer run it under ``torch.inference_mode()``.  ``train`` changes
+nothing for the ported nets (MLPs without dropout or batch norm), as in
+JAX.  The metric's centroids and matrices are non-persistent buffers, so
+``model.to(device)`` moves them with the weights, the state dict holds only
+the learnable parameters, and the optimizer never sees them.
+
+Not ported yet (raise ``NotImplementedError``): ``remat_decode`` and
+``fused_decode_mse``, the HBM knobs of the fast preset.
 """
 
 from __future__ import annotations
@@ -61,6 +67,8 @@ class RlVAE(nn.Module):
         flow_log_var_bias_init: float = -2.0,
         flow_fixedpoint_iters: int = 0,
         flow_loss_mode: str = "reference",
+        remat_decode: bool = False,
+        fused_decode_mse: bool = False,
         encoder_config: Optional[Mapping[str, Any]] = None,
         decoder_config: Optional[Mapping[str, Any]] = None,
         metric: Optional[CentroidMetric] = None,
@@ -74,6 +82,10 @@ class RlVAE(nn.Module):
             raise ValueError(f"loop_mode must be one of {LOOP_MODES}")
         if flow_loss_mode not in ("reference", "volume"):
             raise ValueError("flow_loss_mode must be 'reference' or 'volume'")
+        if remat_decode or fused_decode_mse:
+            raise NotImplementedError(
+                "remat_decode and fused_decode_mse (the fast preset) are not ported yet"
+            )
         self.input_dim = tuple(input_dim)
         self.latent_dim = latent_dim
         self.n_flows = n_flows
@@ -140,11 +152,11 @@ class RlVAE(nn.Module):
             )
         return reparam(mu, log_var, eps, generator)
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor, eps: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> ModelOutput:
-        """Inference forward with losses; ``eps`` [B, D] is the posterior noise
-        (drawn from ``generator`` when not given)."""
+                generator: Optional[torch.Generator] = None, train: bool = False) -> ModelOutput:
+        """Forward with losses; ``eps`` [B, D] is the posterior noise (drawn
+        from ``generator`` when not given).  ``train`` is accepted for the
+        JAX signature and changes nothing for the ported nets."""
         batch_size, n_obs = x.shape[0], x.shape[1]
         enc = self.encode(x[:, 0])
         mu, log_var = enc["embedding"], enc["log_covariance"]

@@ -6,8 +6,10 @@ import torch
 
 
 def check_inputs(name: str, device: torch.device, **tensors: torch.Tensor) -> None:
-    """Every tensor fp32, contiguous, on ``device``, and not requiring grad
-    (the kernels of this slice have no backward)."""
+    """Every tensor fp32, contiguous, on ``device``, and not requiring grad:
+    a raw kernel wrapper is not differentiable; gradients go through the
+    autograd Functions (``CholBundle``, ``IAFChain``), which pass detached
+    tensors."""
     for arg, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
@@ -17,8 +19,8 @@ def check_inputs(name: str, device: torch.device, **tensors: torch.Tensor) -> No
             raise ValueError(f"{name}: {arg} must be contiguous")
         if t.requires_grad:
             raise RuntimeError(
-                f"{name}: {arg} requires grad, but the kernel is inference-only "
-                "(its backward comes with the training path)"
+                f"{name}: {arg} requires grad, but the raw kernel wrapper is not "
+                "differentiable (use the module's autograd Function)"
             )
 
 

@@ -1,19 +1,31 @@
-"""IAF chain forward: every temporal transition of the density-direction IAF
-in one launch.
+"""IAF chain: every temporal transition of the density-direction IAF in one
+launch, forward and backward.
 
-Port of the forward of ``_build_fused_iaf_chain``
-(``rlvae_tpu/ops/iaf_kernels.py:504-583``) as the hand-written CUDA kernel
-``csrc/iaf_chain.cu``.  The weights arrive mask-premultiplied and stacked per
-transition (the temporal chain's reused last flow appears once per use):
+Port of ``_build_fused_iaf_chain`` (``rlvae_tpu/ops/iaf_kernels.py:504-680``)
+as two hand-written CUDA kernels.  The weights arrive mask-premultiplied and
+stacked per transition (the temporal chain's reused last flow appears once
+per use):
 
     w0 [NT, NB, D, H]          b0 [NT, NB, H]
     wh [NT, NB, NH-1, H, H]    bh [NT, NB, NH-1, H]
     wo [NT, NB, H, 2D]         bo [NT, NB, 2D]
 
-and the kernel returns z [NT, B, D] (each transition's output) and
-ld [NT, B] (its log|det J|).  :func:`iaf_chain_fwd` launches the kernel for
-CUDA tensors and runs :func:`iaf_chain_fwd_ref`, the plain PyTorch version,
-for CPU tensors.  ``iaf_chain_fwd.launches`` counts kernel launches.
+- :func:`iaf_chain_fwd` (``csrc/iaf_chain.cu``, replacing ``fwd_pallas``)
+  returns z [NT, B, D] (each transition's output), ld [NT, B] (its
+  log|det J|) and, when asked, the residual ys [NT, NB, B, D] (each block's
+  output before the flip).
+- :func:`iaf_chain_bwd` (``csrc/iaf_chain_bwd.cu``, replacing
+  ``bwd_pallas``) is the exact adjoint VJP: from ys and the cotangents
+  (dz, dld) it returns dz0 and the gradients of the six stacked weights.
+- :class:`IAFChain` is the ``torch.autograd.Function`` around the pair (the
+  counterpart of the ``jax.custom_vjp`` at ``iaf_kernels.py:666-680``).
+  Autograd through :func:`stack_chain` then applies the masks and sums the
+  gradients of a flow that appears at several transitions.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+PyTorch version (:func:`iaf_chain_fwd_ref`, :func:`iaf_chain_bwd_ref`) for
+CPU tensors.  ``iaf_chain_fwd.launches`` and ``iaf_chain_bwd.launches``
+count kernel launches.
 """
 
 from __future__ import annotations
@@ -25,8 +37,10 @@ import torch
 from rlvae_tpu_torch.flows.made import LOG_VAR_CLAMP
 from rlvae_tpu_torch.ops._launch import check_inputs, raise_on_error, stream_handle
 
-MAX_DIM = 32  # csrc/iaf_chain.cu: MAX_D
-MAX_HIDDEN = 256  # csrc/iaf_chain.cu: MAX_H
+MAX_DIM = 32  # csrc/iaf_chain*.cu: MAX_D
+MAX_HIDDEN = 256  # csrc/iaf_chain*.cu: MAX_H
+MAX_HIDDEN_LAYERS = 16  # csrc/iaf_chain_bwd.cu: MAX_NH
+BWD_ROWS = 8  # csrc/iaf_chain_bwd.cu: ROWS, the rows of one block
 
 Stack = Tuple[torch.Tensor, ...]
 
@@ -58,9 +72,9 @@ def stack_chain(chain: Sequence) -> Stack:
     return tuple(torch.stack([p[i] for p in per_t]).contiguous() for i in range(6))
 
 
-def _shapes(z0: torch.Tensor, w0, b0, wh, bh, wo, bo):
+def _shapes(z0: torch.Tensor, w0, b0, wh, bh, wo, bo, name: str = "iaf_chain_fwd"):
     if z0.dim() != 2 or w0.dim() != 4:
-        raise ValueError(f"iaf_chain_fwd: z0 [B,D] and w0 [NT,NB,D,H] expected, got "
+        raise ValueError(f"{name}: z0 [B,D] and w0 [NT,NB,D,H] expected, got "
                          f"{tuple(z0.shape)}, {tuple(w0.shape)}")
     b, d = z0.shape
     nt, nb, d_w, h = w0.shape
@@ -69,18 +83,19 @@ def _shapes(z0: torch.Tensor, w0, b0, wh, bh, wo, bo):
         "w0": (nt, nb, d, h), "b0": (nt, nb, h), "wh": (nt, nb, nh - 1, h, h),
         "bh": (nt, nb, nh - 1, h), "wo": (nt, nb, h, 2 * d), "bo": (nt, nb, 2 * d),
     }
-    for name, t in zip(expected, (w0, b0, wh, bh, wo, bo)):
-        if tuple(t.shape) != expected[name]:
-            raise ValueError(f"iaf_chain_fwd: {name} has shape {tuple(t.shape)}, "
-                             f"expected {expected[name]}")
+    for arg, t in zip(expected, (w0, b0, wh, bh, wo, bo)):
+        if tuple(t.shape) != expected[arg]:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             f"expected {expected[arg]}")
     return b, d, h, nb, nh, nt
 
 
-def iaf_chain_fwd_ref(z0: torch.Tensor, w0, b0, wh, bh, wo, bo) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: (z [NT, B, D], ld [NT, B]), in the weights' dtype."""
+def iaf_chain_fwd_ref(z0: torch.Tensor, w0, b0, wh, bh, wo, bo, return_ys: bool = False):
+    """Plain PyTorch version: (z [NT, B, D], ld [NT, B]), plus ys [NT, NB, B, D]
+    when ``return_ys``, in the weights' dtype."""
     b, d, h, nb, nh, nt = _shapes(z0, w0, b0, wh, bh, wo, bo)
     x = z0.to(w0.dtype)
-    zs, lds = [], []
+    zs, lds, ys = [], [], []
     for t in range(nt):
         ld = torch.zeros(b, dtype=x.dtype, device=z0.device)
         for blk in range(nb):
@@ -94,16 +109,20 @@ def iaf_chain_fwd_ref(z0: torch.Tensor, w0, b0, wh, bh, wo, bo) -> Tuple[torch.T
                 y = y.clone()
                 y[:, i] = (x[:, i] - out[:, i]) * torch.exp(-s)
                 ld = ld - s
+            ys.append(y)
             x = torch.flip(y, dims=(1,))
         zs.append(x)
         lds.append(ld)
+    if return_ys:
+        return torch.stack(zs), torch.stack(lds), torch.stack(ys).reshape(nt, nb, b, d)
     return torch.stack(zs), torch.stack(lds)
 
 
-def iaf_chain_fwd(z0: torch.Tensor, w0, b0, wh, bh, wo, bo) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(z [NT, B, D], ld [NT, B]); kernel on CUDA, plain version on CPU."""
+def iaf_chain_fwd(z0: torch.Tensor, w0, b0, wh, bh, wo, bo, return_ys: bool = False):
+    """(z [NT, B, D], ld [NT, B]) and, when ``return_ys``, ys [NT, NB, B, D];
+    kernel on CUDA, plain version on CPU."""
     if z0.device.type == "cpu":
-        return iaf_chain_fwd_ref(z0, w0, b0, wh, bh, wo, bo)
+        return iaf_chain_fwd_ref(z0, w0, b0, wh, bh, wo, bo, return_ys)
     if z0.device.type != "cuda":
         raise ValueError(f"iaf_chain_fwd: unsupported device {z0.device}")
     check_inputs("iaf_chain_fwd", z0.device, z0=z0, w0=w0, b0=b0, wh=wh, bh=bh, wo=wo, bo=bo)
@@ -116,18 +135,156 @@ def iaf_chain_fwd(z0: torch.Tensor, w0, b0, wh, bh, wo, bo) -> Tuple[torch.Tenso
         )
     z = torch.empty((nt, b, d), dtype=torch.float32, device=z0.device)
     ld = torch.empty((nt, b), dtype=torch.float32, device=z0.device)
-    if b == 0:
-        return z, ld
-    from rlvae_tpu_torch.ops.build import kernel_library
+    ys = torch.empty((nt, nb, b, d), dtype=torch.float32, device=z0.device) if return_ys else None
+    if b > 0:
+        from rlvae_tpu_torch.ops.build import kernel_library
 
-    code = kernel_library().iaf_chain_fwd_f32(
-        z0.data_ptr(), w0.data_ptr(), b0.data_ptr(), wh.data_ptr(), bh.data_ptr(),
-        wo.data_ptr(), bo.data_ptr(), z.data_ptr(), ld.data_ptr(),
-        b, d, h, nb, nh, nt, stream_handle(z0.device),
-    )
-    raise_on_error("iaf_chain_fwd", code)
-    iaf_chain_fwd.launches += 1
-    return z, ld
+        code = kernel_library().iaf_chain_fwd_f32(
+            z0.data_ptr(), w0.data_ptr(), b0.data_ptr(), wh.data_ptr(), bh.data_ptr(),
+            wo.data_ptr(), bo.data_ptr(), z.data_ptr(), ld.data_ptr(),
+            ys.data_ptr() if return_ys else None,
+            b, d, h, nb, nh, nt, stream_handle(z0.device),
+        )
+        raise_on_error("iaf_chain_fwd", code)
+        iaf_chain_fwd.launches += 1
+    return (z, ld, ys) if return_ys else (z, ld)
 
 
 iaf_chain_fwd.launches = 0
+
+
+Grads = Tuple[torch.Tensor, Stack]
+
+
+def _bwd_shapes(ys, dz, dld, w0, b0, wh, bh, wo, bo):
+    if ys.dim() != 4:
+        raise ValueError(f"iaf_chain_bwd: ys [NT,NB,B,D] expected, got {tuple(ys.shape)}")
+    b, d, h, nb, nh, nt = _shapes(ys[0, 0], w0, b0, wh, bh, wo, bo, "iaf_chain_bwd")
+    for arg, t, want in (("ys", ys, (nt, nb, b, d)), ("dz", dz, (nt, b, d)),
+                         ("dld", dld, (nt, b))):
+        if tuple(t.shape) != want:
+            raise ValueError(f"iaf_chain_bwd: {arg} has shape {tuple(t.shape)}, expected {want}")
+    return b, d, h, nb, nh, nt
+
+
+def iaf_chain_bwd_ref(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
+                      w0, b0, wh, bh, wo, bo) -> Grads:
+    """Plain PyTorch version: (dz0 [B, D], (dw0, db0, dwh, dbh, dwo, dbo)).
+
+    A direct transcription of ``_transition_bwd_adjoint_body``
+    (``rlvae_tpu/ops/iaf_kernels.py:232-301``) with D sweeps, run over the
+    transitions in reverse; in the weights' dtype.
+    """
+    b, d, h, nb, nh, nt = _bwd_shapes(ys, dz, dld, w0, b0, wh, bh, wo, bo)
+    dt = w0.dtype
+    grads = tuple(torch.zeros_like(w) for w in (w0, b0, wh, bh, wo, bo))
+    gw0, gb0, gwh, gbh, gwo, gbo = grads
+    carry = torch.zeros((b, d), dtype=dt, device=ys.device)
+    for t in reversed(range(nt)):
+        dy = torch.flip(dz[t].to(dt) + carry, dims=(1,))  # adjoint of the final flip
+        dld_t = dld[t].to(dt)[:, None]
+        for blk in reversed(range(nb)):
+            y = ys[t, blk].to(dt)
+            W0, WH, WO = w0[t, blk], wh[t, blk], wo[t, blk]
+            acts = [y @ W0 + b0[t, blk]]
+            for li in range(nh - 1):
+                acts.append(torch.relu(acts[-1] @ WH[li] + bh[t, blk, li]))
+            s_pre = (acts[-1] @ WO + bo[t, blk])[:, d:]
+            e = torch.exp(-torch.clamp(s_pre, -LOG_VAR_CLAMP, LOG_VAR_CLAMP))
+            gate_s = (s_pre.abs() < LOG_VAR_CLAMP).to(dt)
+            gates = [(a > 0).to(dt) for a in acts[1:]]
+
+            def dout_of(lam):
+                return torch.cat([-lam * e, gate_s * (-lam * y - dld_t)], dim=1)
+
+            lam = dy
+            for _ in range(d):  # D sweeps: exact, the adjoint system is nilpotent
+                da = dout_of(lam) @ WO.T
+                for li in reversed(range(nh - 1)):
+                    da = (gates[li] * da) @ WH[li].T
+                lam = dy + da @ W0.T
+
+            dout = dout_of(lam)  # one full VJP at the converged adjoint
+            gwo[t, blk] = acts[-1].T @ dout
+            gbo[t, blk] = dout.sum(0)
+            da = dout @ WO.T
+            for li in reversed(range(nh - 1)):
+                g = gates[li] * da
+                gwh[t, blk, li] = acts[li].T @ g
+                gbh[t, blk, li] = g.sum(0)
+                da = g @ WH[li].T
+            gw0[t, blk] = y.T @ da
+            gb0[t, blk] = da.sum(0)
+            dx = lam * e
+            dy = torch.flip(dx, dims=(1,)) if blk > 0 else dx
+        carry = dy
+    return carry, grads
+
+
+def iaf_chain_bwd(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
+                  w0, b0, wh, bh, wo, bo) -> Grads:
+    """(dz0, stacked weight gradients); kernel on CUDA, plain version on CPU.
+
+    The kernel writes each block's weight-gradient partials to its own slot
+    of a [n_row_blocks, ...] workspace; they are summed here, so the result
+    does not depend on the order the blocks ran in.
+    """
+    if ys.device.type == "cpu":
+        return iaf_chain_bwd_ref(ys, dz, dld, w0, b0, wh, bh, wo, bo)
+    if ys.device.type != "cuda":
+        raise ValueError(f"iaf_chain_bwd: unsupported device {ys.device}")
+    check_inputs("iaf_chain_bwd", ys.device, ys=ys, dz=dz, dld=dld, w0=w0, b0=b0, wh=wh,
+                 bh=bh, wo=wo, bo=bo)
+    b, d, h, nb, nh, nt = _bwd_shapes(ys, dz, dld, w0, b0, wh, bh, wo, bo)
+    if not (1 <= d <= MAX_DIM and 4 <= h <= MAX_HIDDEN and h % 4 == 0 and nb >= 1
+            and 1 <= nh <= MAX_HIDDEN_LAYERS and nt >= 1):
+        raise ValueError(
+            f"iaf_chain_bwd: kernel takes D<={MAX_DIM}, H<={MAX_HIDDEN} with H%4==0, "
+            f"1<=NH<={MAX_HIDDEN_LAYERS}, NB, NT >= 1; got D={d}, H={h}, NB={nb}, "
+            f"NH={nh}, NT={nt}"
+        )
+    weights = (w0, b0, wh, bh, wo, bo)
+    dz0 = torch.empty((b, d), dtype=torch.float32, device=ys.device)
+    if b == 0:
+        return dz0, tuple(torch.zeros_like(w) for w in weights)
+    n_blocks = -(-b // BWD_ROWS)
+    parts = [torch.empty((n_blocks, *w.shape), dtype=torch.float32, device=ys.device)
+             for w in weights]
+    from rlvae_tpu_torch.ops.build import kernel_library
+
+    code = kernel_library().iaf_chain_bwd_f32(
+        ys.data_ptr(), dz.data_ptr(), dld.data_ptr(),
+        *(w.data_ptr() for w in weights), dz0.data_ptr(), *(p.data_ptr() for p in parts),
+        b, d, h, nb, nh, nt, stream_handle(ys.device),
+    )
+    raise_on_error("iaf_chain_bwd", code)
+    iaf_chain_bwd.launches += 1
+    return dz0, tuple(p.sum(0) for p in parts)
+
+
+iaf_chain_bwd.launches = 0
+
+
+class IAFChain(torch.autograd.Function):
+    """(z, ld) = iaf_chain_fwd(z0, *weights), differentiable in z0 and the six
+    stacked weights; the backward is :func:`iaf_chain_bwd`.
+
+    The adjoint reads only the residual ys (each block's output), so that is
+    what the forward saves besides the weights; it asks the forward for ys
+    only when some input needs a gradient, so inference keeps its launch.
+    """
+
+    @staticmethod
+    def forward(ctx, z0, w0, b0, wh, bh, wo, bo):
+        weights = tuple(w.detach() for w in (w0, b0, wh, bh, wo, bo))
+        if not any(ctx.needs_input_grad):
+            return iaf_chain_fwd(z0.detach(), *weights)
+        z, ld, ys = iaf_chain_fwd(z0.detach(), *weights, return_ys=True)
+        ctx.save_for_backward(ys, *weights)
+        return z, ld
+
+    @staticmethod
+    def backward(ctx, dz, dld):
+        ys, *weights = ctx.saved_tensors
+        dz0, grads = iaf_chain_bwd(ys, dz.contiguous(), dld.contiguous(), *weights)
+        return (dz0, *grads)

@@ -21,15 +21,16 @@ def cholesky_small(a: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
     if jitter:
         a = a + jitter * torch.eye(d, dtype=a.dtype, device=a.device)
     rows = torch.arange(d, device=a.device)
-    l = torch.zeros_like(a)
+    cols = []  # cols[j][..., i] = L[i, j]; built out of place, so autograd can differentiate it
     for j in range(d):
         # v = a[:, j] - sum_{k<j} L[:, k] * L[j, k]
         v = a[..., :, j]
         if j:
-            v = v - (l[..., :, :j] * l[..., j : j + 1, :j]).sum(-1)
+            prev = torch.stack(cols, dim=-1)  # [..., D, j]
+            v = v - (prev * prev[..., j : j + 1, :]).sum(-1)
         ljj = torch.sqrt(v[..., j : j + 1])
-        l[..., :, j] = torch.where(rows >= j, v / ljj, torch.zeros_like(v))
-    return l
+        cols.append(torch.where(rows >= j, v / ljj, torch.zeros_like(v)))
+    return torch.stack(cols, dim=-1)
 
 
 def _as_matrix_rhs(l: torch.Tensor, b: torch.Tensor):

@@ -10,6 +10,13 @@ the hand-written CUDA kernel ``csrc/chol_bundle.cu``.  For each row of z:
 :func:`chol_bundle` launches the kernel for CUDA tensors and runs
 :func:`chol_bundle_ref`, the plain PyTorch version, for CPU tensors; there
 is no other route.  ``chol_bundle.launches`` counts kernel launches.
+
+:class:`CholBundle` makes the bundle's factor L differentiable in ``z``, as
+``chol_g_inv_fused`` does on the JAX side (``metric_kernels.py:759-784``):
+the forward is :func:`chol_bundle`; the backward re-evaluates
+:func:`chol_bundle_ref` under autograd and returns its VJP (the JAX package
+recomputes through its XLA path with ``jax.vjp``, not a kernel).  The
+metric's centroids and matrices are buffers and get no gradient.
 """
 
 from __future__ import annotations
@@ -75,3 +82,22 @@ def chol_bundle(
 
 
 chol_bundle.launches = 0
+
+
+class CholBundle(torch.autograd.Function):
+    """L = chol_bundle(z, ...)[0], differentiable in ``z``."""
+
+    @staticmethod
+    def forward(ctx, z, centroids, matrices, inv_t2: float, diag: float):
+        ctx.save_for_backward(z, centroids, matrices)
+        ctx.inv_t2, ctx.diag = inv_t2, diag
+        return chol_bundle(z.detach(), centroids, matrices, inv_t2, diag)[0]
+
+    @staticmethod
+    def backward(ctx, dl):
+        z, centroids, matrices = ctx.saved_tensors
+        with torch.enable_grad():
+            zz = z.detach().requires_grad_(True)
+            l, _ = chol_bundle_ref(zz, centroids, matrices, ctx.inv_t2, ctx.diag)
+            (dz,) = torch.autograd.grad(l, zz, dl)
+        return dz, None, None, None, None

@@ -4,14 +4,23 @@ Runs only where a CUDA card is present (marker ``cuda``; skipped with a
 reason elsewhere).  On the card: ``python -m pytest tests/test_torch_kernels.py``.
 Tolerances as in chip_smoke.py: chol-bundle |k-p| <= 1e-5 + 1e-4|p|
 (fp32, other summation order, amplified by the factorization's
-conditioning); IAF chain within 1e-4 of each transition's largest |z|."""
+conditioning); IAF chain within 1e-4 of each transition's largest |z|;
+IAF-chain backward (near-identity flows) within 1e-4 of each output's
+largest entry, the forward's residual ys within 1e-4 of its scale."""
 
 import numpy as np
 import pytest
 import torch
 
 from rlvae_tpu_torch.flows import TemporalFlows
-from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_fwd, iaf_chain_fwd_ref, stack_chain
+from rlvae_tpu_torch.ops.iaf_kernels import (
+    IAFChain,
+    iaf_chain_bwd,
+    iaf_chain_bwd_ref,
+    iaf_chain_fwd,
+    iaf_chain_fwd_ref,
+    stack_chain,
+)
 from rlvae_tpu_torch.ops.metric_kernels import chol_bundle, chol_bundle_ref
 
 pytestmark = pytest.mark.cuda
@@ -71,3 +80,41 @@ def test_iaf_chain_matches_plain(dev, b):
     scale = z_p.abs().flatten(1).max(1).values[:, None, None]
     assert torch.all((z_k - z_p).abs() <= 1e-4 * scale)
     torch.testing.assert_close(ld_k, ld_p, rtol=1e-4, atol=1e-4)
+
+
+def _scaled_close(got, want, rtol=1e-4):
+    assert float((got - want).abs().max()) <= rtol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("b", [1, 16, 64])
+def test_iaf_chain_bwd_matches_plain(dev, b):
+    g = torch.Generator().manual_seed(b)
+    flows = TemporalFlows(16, 8, 256, 2, 3, log_var_bias_init=0.0, generator=g)
+    flows = flows.to(dev).requires_grad_(False)
+    w = stack_chain([flows.flows[min(t, 7)] for t in range(7)])
+    z0 = torch.randn(b, 16, generator=g).to(dev)
+    dz = torch.randn(7, b, 16, generator=g).to(dev)
+    dld = torch.randn(7, b, generator=g).to(dev)
+    z, ld, ys = iaf_chain_fwd(z0, *w, return_ys=True)
+    _, _, ys_p = iaf_chain_fwd_ref(z0, *w, return_ys=True)
+    _scaled_close(ys, ys_p)
+    before = iaf_chain_bwd.launches
+    dz0_k, grads_k = iaf_chain_bwd(ys, dz, dld, *w)
+    dz0_p, grads_p = iaf_chain_bwd_ref(ys, dz, dld, *w)
+    torch.cuda.synchronize()
+    assert iaf_chain_bwd.launches == before + 1
+    for got, want in zip((dz0_k, *grads_k), (dz0_p, *grads_p)):
+        _scaled_close(got, want)
+
+
+def test_iaf_chain_function_launches_both_kernels(dev):
+    g = torch.Generator().manual_seed(0)
+    flows = TemporalFlows(16, 8, 256, 2, 3, log_var_bias_init=0.0, generator=g).to(dev)
+    z0 = torch.randn(16, 16, generator=g).to(dev).requires_grad_(True)
+    fwd, bwd = iaf_chain_fwd.launches, iaf_chain_bwd.launches
+    z, ld = IAFChain.apply(z0, *stack_chain([flows.flows[min(t, 7)] for t in range(7)]))
+    (z.square().sum() + ld.sum()).backward()
+    torch.cuda.synchronize()
+    assert (iaf_chain_fwd.launches, iaf_chain_bwd.launches) == (fwd + 1, bwd + 1)
+    assert torch.isfinite(z0.grad).all()
+    assert all(p.grad is not None for p in flows.flows[0].parameters())

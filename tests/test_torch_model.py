@@ -53,7 +53,8 @@ def _run_both(jm, jv, pm, x, seed):
     jo = jax.tree_util.tree_map(np.asarray, dict(jm.forward(jv, jnp.asarray(x), key)))
     # JAX: k_sample = split(key)[0]; eps = normal(k_sample, mu.shape)
     eps = np.asarray(jax.random.normal(jax.random.split(key)[0], (x.shape[0], 16)))
-    po = pm(torch.from_numpy(x), eps=torch.from_numpy(eps))
+    with torch.no_grad():  # forward builds an autograd graph otherwise
+        po = pm(torch.from_numpy(x), eps=torch.from_numpy(eps))
     return jo, {k: v.float().numpy() for k, v in po.items()}
 
 
