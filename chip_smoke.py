@@ -10,7 +10,9 @@ Phases, each printing one JSON line with its elapsed seconds:
    at the shapes the serving and training paths give it, with the tolerance
    stated; ms per launch from CUDA events.  The IAF-chain backward is held
    to its plain version at the near-identity flow init and, at the model's
-   reference init, to an fp64 evaluation (as the forward is).
+   reference init, to an fp64 evaluation (as the forward is).  The HMC terms
+   are held to their plain version and to an fp64 evaluation at K=50, 200
+   and 20 000, B=1, 64 and 1000, with rows far from every centroid.
 4. ``serve``: ``ModelManager.from_config(PRESETS["riemannian_flow_vae"])`` on
    the card behind a ``BatchingEngine``; 64 ``reconstruct`` requests from 8
    threads plus 16 ``encode`` and 16 ``decode``, after one warm-up call per
@@ -25,6 +27,17 @@ Phases, each printing one JSON line with its elapsed seconds:
    state just before it, with the same batch and noise; losses, grad_norm
    and the step-1 gradients are compared.  One warm step is timed with CUDA
    events and one is profiled.
+6. ``generate``: a full-width ``ModelManager`` on the card generates through
+   ``sample_random_batched_seeds`` at B=1 and B=64 with the ``geodesic``
+   prior and the ``official`` manifold-HMC chain, and at B=64 with the other
+   prior methods and the ``hmc`` chain.  The launch counters are zeroed just
+   before and read just after, and around each call (1601 ``hmc_terms``
+   launches per chain).  One ``official`` call is profiled.  The card's
+   official chain is replayed step by step on the CPU from the card's state
+   before each step with the same noise; one geodesic batch is decoded on
+   the card and on the CPU from the same draws.  Then an engine with
+   ``generate_method="official"`` answers concurrent seeds [7, 123, 7, 999]
+   and a lone request, each row against ``sample_random(1, seed)``.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -64,6 +77,21 @@ IAF_FP64_FACTOR = 4.0
 TRAIN_BATCH, TRAIN_STEPS = 16, 5
 BWD_BATCHES = (1, TRAIN_BATCH, SERVE_BATCH)
 N_TRANSITIONS = 7  # 8 frames -> 7 transitions
+# HMC terms: log pi within HMC_LP_ATOL and grad within HMC_RTOL of its
+# largest entry, kernel vs plain fp32; against fp64, the kernel's error at
+# most IAF_FP64_FACTOR times the plain fp32 version's (or HMC_RTOL of scale):
+# the gradient goes through an inverse of G^{-1}
+HMC_LP_ATOL, HMC_RTOL = 1e-5, 1e-4
+HMC_BATCHES = (1, SERVE_BATCH, 1000)
+# generation: the batches of sample_random_batched_seeds, the chain's launches
+GEN_BATCHES = (1, SERVE_BATCH)
+CHAIN_LAUNCHES = 1 + 100 * (15 + 1)
+# card chain vs its CPU replay, per MCMC step from the card's state: z within
+# CHAIN_Z_RTOL of max(1, |z|) (15 fp32 leapfrog steps); the accept decision
+# identical unless |u - alpha| < ACCEPT_MARGIN (alpha is exp of a difference
+# of fp32 sums, which the two devices round apart)
+CHAIN_Z_RTOL, ACCEPT_MARGIN = 1e-4, 1e-3
+SERVE_SEEDS = (7, 123, 7, 999)
 
 T0 = time.perf_counter()
 
@@ -114,23 +142,30 @@ def nbytes(*tensors) -> int:
 # ---------------------------------------------------------------------------
 
 
-def chol_cases(torch, dev):
-    """(label, z, centroids, matrices, inv_t2, diag) at the serving path's row
-    counts for the model's metric, the K=200 metric and a K=20 000 bank."""
+def metric_banks():
+    """(label, centroids, matrices, temperature, lbd): the model's metric, the
+    K=200 metric and a K=20 000 synthetic bank."""
     from rlvae_tpu_torch.geometry import load_metric
 
-    rng = np.random.default_rng(0)
     banks = []
     for name, t_over in (("metric_T0.7_scaled.npz", 3.0), ("metric.npz", None)):
         m = load_metric(PRETRAINED / name, temperature_override=t_over)
         banks.append((f"{name}(K={m.n_centroids})", m.centroids.numpy(), m.matrices.numpy(),
                       m.temperature, m.regularization))
+    rng = np.random.default_rng(0)
     k, d = 20_000, 16
     c = rng.normal(size=(k, d)).astype(np.float32)
     a = (rng.normal(size=(k, d, d)) / np.sqrt(d)).astype(np.float32)
     mats = (a @ np.swapaxes(a, -1, -2) + 0.1 * np.eye(d, dtype=np.float32)).astype(np.float32)
     banks.append(("synthetic(K=20000)", c, mats, 0.5, 0.01))
-    for label, c, mats, temp, reg in banks:
+    return banks
+
+
+def chol_cases(torch, dev):
+    """(label, z, centroids, matrices, inv_t2, diag) at the serving path's row
+    counts for each bank of :func:`metric_banks`."""
+    rng = np.random.default_rng(0)
+    for label, c, mats, temp, reg in metric_banks():
         for b in (1, 7, SERVE_BATCH):
             z = c[rng.integers(0, c.shape[0], size=b)] + 0.05 * rng.normal(size=(b, c.shape[1]))
             yield (f"{label},B={b}", torch.tensor(z, dtype=torch.float32, device=dev),
@@ -355,6 +390,81 @@ def run_iaf_bwd_checks(torch, dev):
     return record, cases
 
 
+def hmc_flops(b: int, k: int, d: int = 16) -> float:
+    """FLOP of the HMC terms: per row and centroid, d^2 (3d) and its exp,
+    the weighted sum of M (2d^2), the weighted differences (2d) and their
+    contraction with M (2d^2); per row, the Cholesky (d^3/3), two
+    triangular solves (2d^2) and the logs."""
+    return b * (k * (3 * d + 1 + 2 * d * d + 2 * d + 2 * d * d) + d ** 3 / 3 + 2 * d * d + d)
+
+
+def hmc_cases(torch, dev):
+    """(label, z, centroids, matrices, inv_t2, lbd) for the model's metric,
+    the K=200 metric and a K=20 000 bank, at B=1, 64 and 1000; the last two
+    rows of each batch with B > 1 lie far from every centroid."""
+    rng = np.random.default_rng(5)
+    for label, c, mats, temp, reg in metric_banks():
+        ct, mt = torch.tensor(c, device=dev), torch.tensor(mats, device=dev)
+        for b in HMC_BATCHES:
+            z = c[rng.integers(0, c.shape[0], size=b)] + 0.05 * rng.normal(size=(b, c.shape[1]))
+            if b > 1:
+                z[-2:] += 100.0
+            yield (f"{label},B={b}", torch.tensor(z, dtype=torch.float32, device=dev), ct, mt,
+                   1.0 / temp ** 2, reg)
+
+
+def run_hmc_checks(torch, dev):
+    from rlvae_tpu_torch.ops.metric_kernels import hmc_terms, hmc_terms_ref
+
+    log_eps = float(np.log(np.float32(1e-10)))
+    cases, record = [], None
+    for label, z, c, m, inv_t2, lbd in hmc_cases(torch, dev):
+        args = (inv_t2, lbd, log_eps)
+        lp_k, g_k = hmc_terms(z, c, m, *args)
+        lp_p, g_p = hmc_terms_ref(z, c, m, *args)
+        lp_e, g_e = hmc_terms_ref(z.double(), c.double(), m.double(), *args)
+        torch.cuda.synchronize()
+        g_scale = float(g_e.abs().max().clamp_min(1e-30))
+        err = {"kernel_vs_plain": {"log_pi_abs": float((lp_k - lp_p).abs().max()),
+                                   "grad_rel": float((g_k - g_p).abs().max()) / g_scale},
+               "kernel_vs_fp64": {"log_pi_abs": float((lp_k.double() - lp_e).abs().max()),
+                                  "grad_rel": float((g_k.double() - g_e).abs().max()) / g_scale},
+               "plain_vs_fp64": {"log_pi_abs": float((lp_p.double() - lp_e).abs().max()),
+                                 "grad_rel": float((g_p.double() - g_e).abs().max()) / g_scale}}
+        kp, ke, pe = err["kernel_vs_plain"], err["kernel_vs_fp64"], err["plain_vs_fp64"]
+        lp_scale = float(lp_e.abs().max())
+        ok = (kp["log_pi_abs"] <= HMC_LP_ATOL and kp["grad_rel"] <= HMC_RTOL
+              and ke["log_pi_abs"] <= max(IAF_FP64_FACTOR * pe["log_pi_abs"], HMC_RTOL * lp_scale)
+              and ke["grad_rel"] <= max(IAF_FP64_FACTOR * pe["grad_rel"], HMC_RTOL))
+        if z.shape[0] > 1:  # the far rows: the log 1e-10 plateau and a zero gradient
+            ok = ok and bool(torch.all(g_k[-2:] == 0)) and bool(
+                torch.all((lp_k[-2:] - log_eps).abs() <= HMC_LP_ATOL))
+        case = {"shape": label, "ok": ok, **err,
+                "max_abs_err": max(float((lp_k - lp_p).abs().max()),
+                                   float((g_k - g_p).abs().max())),
+                "ms": time_ms(torch, lambda: hmc_terms(z, c, m, *args), 20)}
+        b, k = z.shape[0], c.shape[0]
+        case["bound_ms"], case["bound_by"] = bound_ms(nbytes(z, c, m, lp_k, g_k), hmc_flops(b, k))
+        cases.append(case)
+        check(ok, f"hmc_terms disagrees at {label}: {err}")
+        if label.startswith("metric_T0.7") and label.endswith(f"B={SERVE_BATCH}"):
+            record = {
+                "name": "hmc_terms", "route": "cuda",
+                "source": "rlvae_tpu_torch/csrc/hmc_terms.cu",
+                "replaces": "rlvae_tpu/ops/metric_kernels.py:809",
+                "shape": label, "ms": case["ms"],
+                "plain_ms": time_ms(torch, lambda: hmc_terms_ref(z, c, m, *args), 10),
+                "bound_ms": case["bound_ms"], "bound_by": case["bound_by"], "library_ms": None,
+            }
+    record["max_abs_err"] = max(c["max_abs_err"] for c in cases)
+    record["ms_by_shape"] = {c["shape"]: c["ms"] for c in cases}
+    record["bound_ms_by_shape"] = {c["shape"]: c["bound_ms"] for c in cases}
+    record["tolerance"] = (f"kernel vs plain: |log pi| <= {HMC_LP_ATOL}, |grad| <= {HMC_RTOL} of "
+                           f"scale; vs fp64: at most {IAF_FP64_FACTOR}x the plain fp32 version's "
+                           f"error, or {HMC_RTOL} of scale; far rows on the plateau, grad 0")
+    return record, cases
+
+
 # ---------------------------------------------------------------------------
 # serve phase
 # ---------------------------------------------------------------------------
@@ -416,7 +526,8 @@ def run_serve(torch):
           f"the serving path did not launch both kernels: {launches}")
     check(launches["chol_bundle"] == 2 * launches["iaf_chain_fwd"],
           f"expected 2 chol-bundle launches per IAF-chain launch: {launches}")
-    check(launches["iaf_chain_bwd"] == 0, f"inference launched the backward: {launches}")
+    check(launches["iaf_chain_bwd"] == 0 and launches["hmc_terms"] == 0,
+          f"reconstruct launched the backward or the HMC terms: {launches}")
 
     # one B=64 forward on the card vs the same model on the CPU (plain versions)
     x = seqs[:SERVE_BATCH]
@@ -429,7 +540,48 @@ def run_serve(torch):
     return {"launches": launches, "stats": stats, "serve_s": serve_s, "load_s": load_s,
             "requests": {"reconstruct": N_RECONSTRUCT, "encode": N_ENCODE, "decode": N_DECODE},
             "threads": N_THREADS, "cuda_vs_cpu": compare,
-            "forward_b64": profile_forward(torch, manager, x, eps.to(manager.device))}
+            "forward_b64": profile_forward(torch, manager, x, eps.to(manager.device)),
+            "generate_official": serve_generate(torch, manager)}
+
+
+# A row of a batched generate against the same seed generated alone on the
+# card: the draws and the chain are per row, but the decoder's bf16 products
+# at another batch size may round apart (a bf16 step is 2^-8 relative).
+GEN_ROW_TOL = {"mean_abs": 1e-4, "max_abs": 2e-2}
+
+
+def serve_generate(torch, manager):
+    """The engine's ``generate`` op with the official chain: concurrent seeds
+    coalesced into one bucket, and a lone request padded to it."""
+    from rlvae_tpu_torch import BatchingEngine, ServeConfig
+
+    bucket = len(SERVE_SEEDS)
+    single = {s: manager.sample_random(1, "official", seed=s)[0] for s in set(SERVE_SEEDS)}
+    engine = BatchingEngine.from_manager(manager, ServeConfig(buckets=(bucket,), max_wait_ms=2000),
+                                         generate_method="official")
+    try:
+        t0 = time.perf_counter()
+        futs = [engine.submit("generate", np.uint32(s)) for s in SERVE_SEEDS]
+        rows = [f.result(timeout=120) for f in futs]
+        batch_s = time.perf_counter() - t0
+        batches = engine.stats_snapshot()["batches"]
+        lone = engine.run("generate", np.uint32(SERVE_SEEDS[1]), timeout=120)
+        stats = engine.stats_snapshot()
+    finally:
+        engine.stop()
+    check(batches == 1, f"the {bucket} generate requests took {batches} dispatches")
+    check(np.array_equal(rows[0], rows[2]), "the duplicate seeds' rows differ in one batch")
+    errs = []
+    for s, row in list(zip(SERVE_SEEDS, rows)) + [(SERVE_SEEDS[1], lone)]:
+        check(row.shape == (8, 3, 64, 64) and np.isfinite(row).all(), "bad generate row")
+        d = np.abs(row - single[s])
+        errs.append({"seed": s, "mean_abs": float(d.mean()), "max_abs": float(d.max())})
+        check(errs[-1]["mean_abs"] <= GEN_ROW_TOL["mean_abs"]
+              and errs[-1]["max_abs"] <= GEN_ROW_TOL["max_abs"],
+              f"generate row of seed {s} differs from sample_random(1, seed): {errs[-1]}")
+    return {"seeds": list(SERVE_SEEDS), "batch_s": batch_s, "rows_vs_single": errs,
+            "tolerance": GEN_ROW_TOL, "duplicate_rows_bit_identical": True,
+            "stats": {k: v for k, v in stats.items() if not k.endswith("_hist")}}
 
 
 def profile_forward(torch, manager, x, eps):
@@ -525,17 +677,18 @@ TRAIN_TOL = {
 
 def launch_counts():
     from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_bwd, iaf_chain_fwd
-    from rlvae_tpu_torch.ops.metric_kernels import chol_bundle
+    from rlvae_tpu_torch.ops.metric_kernels import chol_bundle, hmc_terms
 
     return {"chol_bundle": chol_bundle.launches, "iaf_chain_fwd": iaf_chain_fwd.launches,
-            "iaf_chain_bwd": iaf_chain_bwd.launches}
+            "iaf_chain_bwd": iaf_chain_bwd.launches, "hmc_terms": hmc_terms.launches}
 
 
 def zero_launch_counts():
     from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_bwd, iaf_chain_fwd
-    from rlvae_tpu_torch.ops.metric_kernels import chol_bundle
+    from rlvae_tpu_torch.ops.metric_kernels import chol_bundle, hmc_terms
 
     chol_bundle.launches = iaf_chain_fwd.launches = iaf_chain_bwd.launches = 0
+    hmc_terms.launches = 0
 
 
 def run_train(torch):
@@ -582,7 +735,8 @@ def run_train(torch):
     trainer.train_step = step
     check(result["steps"] == TRAIN_STEPS == len(records), f"ran {result['steps']} steps")
     for i, rec in enumerate(records):
-        check(rec["launches"] == {"chol_bundle": 2, "iaf_chain_fwd": 1, "iaf_chain_bwd": 1},
+        check(rec["launches"] == {"chol_bundle": 2, "iaf_chain_fwd": 1, "iaf_chain_bwd": 1,
+                                  "hmc_terms": 0},
               f"step {i + 1} launched {rec['launches']}")
         check(all(np.isfinite(v) for v in rec["metrics"].values()), f"step {i + 1} not finite")
     check(all(np.isfinite(v) for v in result["history"][-1].values()), "non-finite validation")
@@ -672,6 +826,145 @@ def step_phases(torch, model, optimizer, x, eps, reps: int = 3):
     return {"device_ms": dev, "host_ms": host}
 
 
+# ---------------------------------------------------------------------------
+# generate phase
+# ---------------------------------------------------------------------------
+
+# launches per call of sample_random_batched_seeds, by method (one IAF-chain
+# launch each; the weighted mixture runs the chol-bundle for L and for its
+# logdet; basic runs 10 gradient steps through the logdet's Function)
+GEN_LAUNCHES = {
+    "geodesic": {"hmc_terms": 0, "chol_bundle": 0},
+    "centroid_aware": {"hmc_terms": 0, "chol_bundle": 0},
+    "weighted_mixture": {"hmc_terms": 0, "chol_bundle": 2},
+    "basic": {"hmc_terms": 0, "chol_bundle": 10},
+    "official": {"hmc_terms": CHAIN_LAUNCHES, "chol_bundle": 0},
+    "hmc": {"hmc_terms": CHAIN_LAUNCHES, "chol_bundle": 0},
+}
+
+
+def generate_calls():
+    """(method, batch) of the generate phase's main run."""
+    calls = [(m, b) for m in ("geodesic", "official") for b in GEN_BATCHES]
+    return calls + [(m, GEN_BATCHES[-1]) for m in ("centroid_aware", "weighted_mixture", "basic",
+                                                   "hmc")]
+
+
+def run_generate(torch, dev=None):
+    from rlvae_tpu_torch import ModelManager, PRESETS
+
+    t0 = time.perf_counter()
+    manager = ModelManager.from_config(PRESETS["riemannian_flow_vae"], seed=0, device=dev)
+    check(dev is not None or manager.device.type == "cuda", f"manager on {manager.device}")
+    load_s = time.perf_counter() - t0
+    manager.sample_random_batched_seeds([0], method="official")  # warm-up
+    torch.cuda.synchronize()
+
+    calls = []
+    zero_launch_counts()
+    for i, (method, b) in enumerate(generate_calls()):
+        seeds = list(range(100 * i, 100 * i + b))
+        before = launch_counts()
+        t = time.perf_counter()
+        x = manager.sample_random_batched_seeds(seeds, method=method)
+        host_s = time.perf_counter() - t
+        got = {k: v - before[k] for k, v in launch_counts().items()}
+        want = {**GEN_LAUNCHES[method], "iaf_chain_fwd": 1, "iaf_chain_bwd": 0}
+        check(got == want, f"generate {method} B={b} launched {got}, expected {want}")
+        check(x.shape == (b, 8, 3, 64, 64) and np.isfinite(x).all()
+              and x.min() >= 0.0 and x.max() <= 1.0, f"bad generate output {method} B={b}")
+        calls.append({"method": method, "batch": b, "host_ms": host_s * 1e3, "launches": got})
+    launches = launch_counts()
+
+    # one official call at B=64: host time and the profiled device time
+    seeds = list(range(GEN_BATCHES[-1]))
+    busy_ms, kernels = device_time_by_kernel(
+        torch, lambda: manager.sample_random_batched_seeds(seeds, method="official"))
+    return {
+        "load_s": load_s, "calls": calls, "launches": launches,
+        "official_b64": {"profiled_device_busy_ms": busy_ms, "n_kernel_names": len(kernels),
+                         "n_kernel_launches": sum(k["calls"] for k in kernels),
+                         "top_kernels": kernels[:10]},
+        "chain_card_vs_cpu": replay_chain(torch, manager),
+        "geodesic_card_vs_cpu": compare_geodesic(torch, manager),
+    }
+
+
+def replay_chain(torch, manager):
+    """The official chain at B=64 on the card, one MCMC step at a time, each
+    step replayed on the CPU (plain terms) from the card's state before it
+    with the same momenta and uniforms."""
+    from rlvae_tpu_torch.geometry.metric import CentroidMetric
+    from rlvae_tpu_torch.samplers import HMCConfig, mcmc_step, run_prior_chain
+    from rlvae_tpu_torch.samplers.hmc import _terms_fn
+
+    b = GEN_BATCHES[-1]
+    metric = manager.model.metric
+    cpu_metric = CentroidMetric(metric.centroids.cpu(), metric.matrices.cpu(),
+                                metric.temperature, metric.regularization)
+    cfg = HMCConfig()
+    gen = torch.Generator(device=manager.device).manual_seed(17)
+    noise = manager.model.draw_generation_noise(b, "official", gen)
+    terms, cpu_terms = _terms_fn(metric), _terms_fn(cpu_metric)
+    with torch.no_grad():
+        z_ref = run_prior_chain(terms, noise["z0"], noise["gammas"], noise["unifs"], cfg)[0]
+        log_pi, grad = terms(noise["z0"])
+        state = (noise["z0"], log_pi, -grad, np.float32(1.0))
+        z_err = ties = tie_flips = flips = accepted = 0
+        for step in range(cfg.mcmc_steps):
+            gamma, u = noise["gammas"][step], noise["unifs"][step]
+            nxt, acc, alpha = mcmc_step(terms, state, gamma, u, cfg)
+            cpu_state = tuple(t.cpu() for t in state[:3]) + (state[3],)
+            c_nxt, c_acc, _ = mcmc_step(cpu_terms, cpu_state, gamma.cpu(), u.cpu(), cfg)
+            acc, alpha, u = acc.cpu(), alpha.cpu(), u.cpu()
+            tie = (u - alpha).abs() < ACCEPT_MARGIN
+            ties += int(tie.sum())
+            tie_flips += int(((acc != c_acc) & tie).sum())
+            flips += int(((acc != c_acc) & ~tie).sum())
+            same = acc == c_acc
+            z, cz = nxt[0].cpu(), c_nxt[0]
+            scale = z.abs().clamp_min(1.0)
+            z_err = max(z_err, float(((z - cz).abs() / scale)[same].max()) if same.any() else 0.0)
+            accepted += int(acc.sum())
+            state = nxt
+        check(torch.equal(state[0], z_ref), "the stepped chain differs from run_prior_chain")
+    check(flips == 0, f"card and CPU accept decisions differ on {flips} non-tie rows")
+    check(z_err <= CHAIN_Z_RTOL, f"card chain vs CPU replay: z differs by {z_err} of scale")
+    check(accepted > 0, "the official chain accepted nothing")
+    return {"batch": b, "steps": cfg.mcmc_steps, "accepted": accepted,
+            "accept_rate": accepted / (b * cfg.mcmc_steps), "max_z_rel_err": z_err,
+            "ties_within_margin": ties, "flips_within_margin": tie_flips,
+            "flips_outside_margin": flips,
+            "tolerance": {"z_rel": CHAIN_Z_RTOL, "accept_margin": ACCEPT_MARGIN}}
+
+
+def compare_geodesic(torch, manager):
+    """One geodesic batch at B=64 from the same draws on the card and on the
+    CPU: prior latents, the flows' trajectory and the decoded frames."""
+    from rlvae_tpu_torch.flows.temporal import apply_temporal_flows
+
+    b = GEN_BATCHES[-1]
+    gen = torch.Generator(device=manager.device).manual_seed(23)
+    noise = manager.model.draw_generation_noise(b, "geodesic", gen)
+    cpu_model = copy.deepcopy(manager.model).to("cpu")
+    out = []
+    for model, nz in ((manager.model, noise), (cpu_model, {k: v.cpu() for k, v in noise.items()})):
+        with torch.no_grad():
+            z0 = model.sample_riemannian_prior(b, "geodesic", noise=nz)
+            z_seq, _ = apply_temporal_flows(model.flows, z0, 8)
+            x = model.generate(b, 8, "geodesic", noise=nz)
+        out.append((z0.float().cpu(), z_seq.float().cpu(), x.float().cpu()))
+    (z0_g, zs_g, x_g), (z0_c, zs_c, x_c) = out
+    z_scale = zs_c.abs().amax(dim=(0, 2)).clamp_min(1e-12)
+    got = {"z0": float((z0_g - z0_c).abs().max()),
+           "z_rel": float(((zs_g - zs_c).abs().amax(dim=(0, 2)) / z_scale).max()),
+           "recon_mean_abs": float((x_g - x_c).abs().mean())}
+    for k in got:
+        check(got[k] <= E2E_TOL[k], f"geodesic generate card vs CPU: {k} = {got[k]} > {E2E_TOL[k]}")
+    return {"batch": b, "errors": got, "tolerances": {k: E2E_TOL[k] for k in got},
+            "recon_max_abs": float((x_g - x_c).abs().max())}
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(HANG_GUARD_S, exit=True)
     import torch
@@ -695,7 +988,7 @@ def main() -> None:
 
     records = {}
     for name, run in (("chol_bundle", run_chol_checks), ("iaf_chain_fwd", run_iaf_checks),
-                      ("iaf_chain_bwd", run_iaf_bwd_checks)):
+                      ("iaf_chain_bwd", run_iaf_bwd_checks), ("hmc_terms", run_hmc_checks)):
         records[name], cases = run(torch, dev)
         emit("kernels", kernel=name, tolerance=records[name]["tolerance"], cases=cases)
 
@@ -703,13 +996,24 @@ def main() -> None:
     emit("serve", **serve)
     train = run_train(torch)
     emit("train", **train)
-    # launches: the training path's run (this slice's path, which launches all
-    # three kernels); the serving path's counts beside them
+    generate = run_generate(torch)
+    emit("generate", **generate)
+    # launches: the sum over the three main paths' runs (each read between
+    # zeroing the counters and the end of its run), with each path's count
+    # beside it; every kernel is launched by the paths it belongs to
+    paths = {"serve": (serve["launches"], ("chol_bundle", "iaf_chain_fwd")),
+             "train": (train["launches"], ("chol_bundle", "iaf_chain_fwd", "iaf_chain_bwd")),
+             "generate": (generate["launches"], ("chol_bundle", "iaf_chain_fwd", "hmc_terms"))}
+    for path, (counts, kernels) in paths.items():
+        for name in kernels:
+            check(counts[name] > 0, f"the {path} path did not launch {name}")
     for name, rec in records.items():
-        rec["launches"] = train["launches"][name]
+        rec["launches"] = sum(counts[name] for counts, _ in paths.values())
+        rec["launches_serve"] = serve["launches"][name]
+        rec["launches_train"] = train["launches"][name]
         rec["launches_per_train_step"] = train["launches_per_step"][name]
-        rec["launches_serve"] = serve["launches"].get(name, 0)
-        check(rec["launches"] > 0, f"the training path did not launch {name}")
+        rec["launches_generate"] = generate["launches"][name]
+    records["hmc_terms"]["launches_per_official_chain"] = CHAIN_LAUNCHES
 
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": list(records.values())}), flush=True)

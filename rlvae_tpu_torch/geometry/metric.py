@@ -10,10 +10,15 @@ differences in fp32 (never the expanded quadratic form: the exponent is
 scaled by 1/T^2, which amplifies cancellation error).  The jitter is
 deterministic, added to the diagonal before factorization.
 
-``chol_g_inv`` runs the chol-bundle CUDA kernel for tensors on the card and
-its plain PyTorch version for tensors on the CPU, through the autograd
-Function :class:`~rlvae_tpu_torch.ops.metric_kernels.CholBundle`, so it is
-differentiable in ``z`` (:mod:`rlvae_tpu_torch.ops.metric_kernels`).
+``chol_g_inv`` and ``logdet_g_inv`` run the chol-bundle CUDA kernel for
+tensors on the card and its plain PyTorch version for tensors on the CPU,
+through the autograd Functions
+:class:`~rlvae_tpu_torch.ops.metric_kernels.CholBundle` and
+:class:`~rlvae_tpu_torch.ops.metric_kernels.CholBundleLogdet`, so both are
+differentiable in ``z`` on either device.  ``g``, ``log_sqrt_det_g_inv`` and
+``grad_log_sqrt_det_g_inv`` are the plain versions of the HMC chain's terms;
+the chain itself calls the fused ``hmc_terms`` kernel
+(:mod:`rlvae_tpu_torch.ops.metric_kernels`).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from rlvae_tpu_torch.ops import linalg as _lin
 from rlvae_tpu_torch.ops import metric_kernels as _mk
 
 
@@ -78,10 +84,38 @@ def chol_g_inv(metric: CentroidMetric, z: torch.Tensor, jitter: float = 1e-6) ->
 
 
 def logdet_g_inv(metric: CentroidMetric, z: torch.Tensor) -> torch.Tensor:
-    """log det G^{-1}(z), shape [B] (the bundle's logdet output, jitter 0)."""
-    _, logdet = _mk.chol_bundle(
+    """log det G^{-1}(z), shape [B]: the bundle's logdet output (jitter 0),
+    from one chol-bundle launch; differentiable in ``z``."""
+    return _mk.CholBundleLogdet.apply(
         z, metric.centroids, metric.matrices,
         1.0 / metric.temperature ** 2, metric.regularization,
     )
-    return logdet
+
+
+def g(metric: CentroidMetric, z: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Metric tensor G(z) = [G^{-1}(z)]^{-1}, shape [B, D, D], by unrolled
+    Cholesky solves (the plain path, ``_g_xla`` of the JAX package)."""
+    return _lin.inv_psd_small(g_inv(metric, z), jitter=jitter)
+
+
+def log_sqrt_det_g_inv(metric: CentroidMetric, z: torch.Tensor,
+                       eps: float = 1e-10) -> torch.Tensor:
+    """log(sqrt(det G^{-1}(z)) + eps), the HMC target, as
+    logaddexp(1/2 logdet, log eps); ``eps=0`` gives the pure log-density.
+    The guard is the reference sampler's: far from the centroids det G^{-1}
+    is ~lbd^D and the target sits on the log(eps) plateau."""
+    half_ld = 0.5 * logdet_g_inv(metric, z)
+    if eps == 0.0:
+        return half_ld
+    return torch.logaddexp(half_ld, half_ld.new_tensor(float(np.log(np.float32(eps)))))
+
+
+def grad_log_sqrt_det_g_inv(metric: CentroidMetric, z: torch.Tensor) -> torch.Tensor:
+    """The reference sampler's closed-form gradient of log sqrt det G^{-1}(z),
+    shape [B, D]: -1/2 G^T v with v_j = (-2/T^2) sum_k w_k sum_i
+    (c_k - z)_i M_k[i, j].  It is not the exact gradient (that has
+    tr(G M_k)(c_k - z) in place of G M_k^T (c_k - z)); it is reproduced, not
+    fixed.  It is the gradient output of the HMC terms' plain version."""
+    return _mk.hmc_terms_ref(z, metric.centroids, metric.matrices, 1.0 / metric.temperature ** 2,
+                             metric.regularization, float(np.log(np.float32(1e-10))))[1]
 

@@ -1,23 +1,33 @@
 """ModelManager: the inference API of the port.
 
-Port of ``rlvae_tpu/inference.py:57-115`` for the ops of this slice:
-``encode``, ``decode``, ``reconstruct`` and ``embed_sequence``.  Inputs are
-numpy arrays (or tensors); outputs are numpy arrays, as on the JAX side.
-The model lives on one device, resolved by
+Port of ``rlvae_tpu/inference.py:57-175`` for the ops of the ported slices:
+``encode``, ``decode``, ``reconstruct``, ``embed_sequence`` and the
+generation ops ``sample_random``, ``sample_random_batched_seeds`` and
+``sample_latent``.  Inputs are numpy arrays (or tensors); outputs are numpy
+arrays, as on the JAX side.  The model lives on one device, resolved by
 :func:`rlvae_tpu_torch.device.resolve_device`: the CUDA card unless the
-caller asks for another.  The posterior noise of ``reconstruct`` comes from
-a ``torch.Generator`` seeded with ``seed``; it cannot reproduce JAX's bits.
+caller asks for another.  The noise of every op comes from a
+``torch.Generator`` on that device seeded with ``seed``; it cannot reproduce
+JAX's bits.
+
+``sample_random_batched_seeds`` keeps the JAX contract
+(``rlvae_tpu/inference.py:24-45``): row i is the sequence
+``sample_random(1, seed=seeds[i])`` gives.  Each row's draws come from its
+own generator, in the order a one-row ``sample_random`` draws them; then one
+batched call runs every row at once (the prior and the chain treat rows
+independently, as JAX's ``vmap`` does).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from rlvae_tpu_torch.device import DeviceLike, resolve_device
 from rlvae_tpu_torch.models import RlVAE, create_model
+from rlvae_tpu_torch.samplers.hmc import concat_rows
 from rlvae_tpu_torch.utils.output import ModelOutput
 
 
@@ -68,3 +78,34 @@ class ModelManager:
     def embed_sequence(self, x_seq, seed: int = 0) -> np.ndarray:
         """[B, T, C, H, W] -> latent trajectories [B, T, D]."""
         return self.forward(x_seq, seed).z.float().cpu().numpy()
+
+    # -- generation -----------------------------------------------------------
+
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def sample_random(self, n: int, method: str = "geodesic", seed: int = 0,
+                      n_obs: Optional[int] = None) -> np.ndarray:
+        """Prior samples decoded to sequences [n, n_obs, C, H, W]."""
+        with torch.no_grad():  # not inference_mode: the 'basic' prior differentiates
+            x = self.model.generate(n, n_obs or 8, method, generator=self._generator(seed))
+        return x.float().cpu().numpy()
+
+    def sample_random_batched_seeds(self, seeds: Sequence[int], method: str = "geodesic",
+                                    n_obs: int = 8) -> np.ndarray:
+        """Row i equals ``sample_random(1, method, seed=seeds[i], n_obs)``; all
+        rows run as one batch."""
+        seeds = [int(s) for s in np.asarray(seeds, dtype=np.uint32).reshape(-1)]
+        if not seeds:
+            return np.zeros((0, n_obs, *self.model.input_dim), np.float32)
+        noise = concat_rows([self.model.draw_generation_noise(1, method, self._generator(s))
+                              for s in seeds])
+        with torch.no_grad():
+            x = self.model.generate(len(seeds), n_obs, method, noise=noise)
+        return x.float().cpu().numpy()
+
+    def sample_latent(self, n: int, method: str = "geodesic", seed: int = 0) -> np.ndarray:
+        """Prior latents [n, D]."""
+        with torch.no_grad():
+            z = self.model.sample_riemannian_prior(n, method, generator=self._generator(seed))
+        return z.float().cpu().numpy()

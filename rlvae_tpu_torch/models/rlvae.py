@@ -14,8 +14,17 @@ JAX.  The metric's centroids and matrices are non-persistent buffers, so
 ``model.to(device)`` moves them with the weights, the state dict holds only
 the learnable parameters, and the optimizer never sees them.
 
+Generation (``sample_riemannian_prior``, ``generate``; JAX
+``rlvae.py:426-474``) draws prior latents by one of the prior methods or the
+manifold-HMC chain (``official``: centroid starts; ``hmc``: normal starts;
+one ``hmc_terms`` launch per target evaluation, 1601 per chain), evolves
+them through the temporal flows (one IAF-chain launch) and decodes them.
+Every draw can be passed in as ``noise`` (:meth:`draw_generation_noise`
+says what it holds); otherwise it comes from ``generator``.
+
 Not ported yet (raise ``NotImplementedError``): ``remat_decode`` and
-``fused_decode_mse``, the HBM knobs of the fast preset.
+``fused_decode_mse``, the HBM knobs of the fast preset; the ``adaptive``
+prior chain.
 """
 
 from __future__ import annotations
@@ -30,11 +39,20 @@ from rlvae_tpu_torch.flows.temporal import TemporalFlows, apply_temporal_flows
 from rlvae_tpu_torch.geometry.metric import CentroidMetric
 from rlvae_tpu_torch.models import losses
 from rlvae_tpu_torch.nets.registry import create_decoder, create_encoder
-from rlvae_tpu_torch.samplers.riemannian import reparam, sample_metric_aware_posterior
+from rlvae_tpu_torch.samplers.hmc import HMCConfig, draw_hmc_noise, sample_prior_hmc
+from rlvae_tpu_torch.samplers.riemannian import (
+    PRIOR_METHODS,
+    draw_prior_noise,
+    reparam,
+    sample_metric_aware_posterior,
+    sample_prior,
+)
 from rlvae_tpu_torch.utils.output import ModelOutput
 
 POSTERIOR_TYPES = ("gaussian", "iaf", "riemannian_metric")
 LOOP_MODES = ("open", "closed")
+HMC_METHODS = ("hmc", "official")
+GENERATION_METHODS = PRIOR_METHODS + HMC_METHODS + ("adaptive",)
 
 
 def _init_linear(layer: nn.Linear, generator: torch.Generator) -> None:
@@ -194,3 +212,58 @@ class RlVAE(nn.Module):
             recon_x=recon, z=z_seq, mu=mu, log_var=log_var, loss=total,
             recon_loss=recon_loss, kld_loss=kl, flow_loss=flow, loop_penalty=loop,
         )
+
+    # -- generation -------------------------------------------------------------
+
+    def _device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def _check_generation_method(self, method: str) -> None:
+        if method not in GENERATION_METHODS:
+            raise ValueError(f"Unknown prior sampling method: {method}")
+        if method == "adaptive" and self.metric is not None:
+            raise NotImplementedError(
+                "generation method 'adaptive' (sample_prior_hmc_adaptive_budget, "
+                "calibrate_adaptive_plan, sample_prior_hmc_planned) is not ported yet "
+                "(ROADMAP queue A1)"
+            )
+
+    def draw_generation_noise(self, num_samples: int, method: str = "geodesic",
+                              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Every draw of ``sample_riemannian_prior(num_samples, method)``, in
+        order: the chain's ``z0``, ``gammas`` [S, n, D] and ``unifs`` [S, n]
+        for ``hmc``/``official``, the prior's draws otherwise."""
+        self._check_generation_method(method)
+        metric = self.metric
+        if method in HMC_METHODS and metric is not None:
+            return draw_hmc_noise(metric, num_samples, _hmc_config(method), generator)
+        return draw_prior_noise(metric, method, num_samples, self.latent_dim, generator,
+                                device=self._device())
+
+    def sample_riemannian_prior(self, num_samples: int, method: str = "geodesic",
+                                generator: Optional[torch.Generator] = None,
+                                noise: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+        """Prior latents [num_samples, D]: ``hmc``/``official`` run the
+        manifold-HMC chain, the other methods ``sample_prior``."""
+        self._check_generation_method(method)
+        if noise is None:
+            noise = self.draw_generation_noise(num_samples, method, generator)
+        metric = self.metric
+        if method in HMC_METHODS and metric is not None:
+            return sample_prior_hmc(metric, num_samples, _hmc_config(method), z0=noise["z0"],
+                                    gammas=noise["gammas"], unifs=noise["unifs"])
+        return sample_prior(metric, num_samples, self.latent_dim, method, noise=noise)
+
+    def generate(self, num_samples: int, n_obs: int = 8, method: str = "geodesic",
+                 generator: Optional[torch.Generator] = None,
+                 noise: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+        """Sample prior latents, evolve them through time, decode them:
+        [num_samples, n_obs, *input_dim]."""
+        z0 = self.sample_riemannian_prior(num_samples, method, generator, noise)
+        z_seq, _ = apply_temporal_flows(self.flows, z0, n_obs)
+        recon = self.decode(z_seq.reshape(-1, self.latent_dim))["reconstruction"]
+        return recon.reshape(num_samples, n_obs, *self.input_dim)
+
+
+def _hmc_config(method: str) -> HMCConfig:
+    return HMCConfig(init="centroids" if method == "official" else "randn")

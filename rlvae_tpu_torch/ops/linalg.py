@@ -75,3 +75,15 @@ def tri_solve_upper_t(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def logdet_from_chol(l: torch.Tensor) -> torch.Tensor:
     """log det(A) given L = chol(A): 2 * sum(log diag L)."""
     return 2.0 * torch.log(torch.diagonal(l, dim1=-2, dim2=-1)).sum(-1)
+
+
+def solve_psd_small(a: torch.Tensor, b: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Solve a x = b for SPD ``a`` via the unrolled Cholesky."""
+    l = cholesky_small(a, jitter=jitter)
+    return tri_solve_upper_t(l, tri_solve_lower(l, b))
+
+
+def inv_psd_small(a: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Inverse of an SPD matrix via unrolled Cholesky solves against I."""
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device).expand(a.shape)
+    return solve_psd_small(a, eye, jitter=jitter)

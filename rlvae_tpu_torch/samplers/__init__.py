@@ -1,5 +1,25 @@
-"""Posterior sampling."""
+"""Posterior and prior sampling, and the manifold-HMC prior chain."""
 
-from rlvae_tpu_torch.samplers.riemannian import reparam, sample_metric_aware_posterior
+from rlvae_tpu_torch.samplers.hmc import (
+    HMCConfig,
+    concat_rows,
+    draw_chain_noise,
+    draw_hmc_noise,
+    mcmc_step,
+    run_prior_chain,
+    sample_prior_hmc,
+    tempering,
+)
+from rlvae_tpu_torch.samplers.riemannian import (
+    PRIOR_METHODS,
+    draw_prior_noise,
+    reparam,
+    sample_metric_aware_posterior,
+    sample_prior,
+)
 
-__all__ = ["reparam", "sample_metric_aware_posterior"]
+__all__ = [
+    "HMCConfig", "PRIOR_METHODS", "concat_rows", "draw_chain_noise", "draw_hmc_noise", "draw_prior_noise",
+    "mcmc_step", "reparam", "run_prior_chain", "sample_metric_aware_posterior", "sample_prior",
+    "sample_prior_hmc", "tempering",
+]

@@ -1,15 +1,29 @@
-"""Posterior sampling: plain reparameterisation and the metric-aware posterior.
+"""Posterior and prior sampling.
 
 Port of ``reparam`` and ``sample_metric_aware_posterior``
-(``rlvae_tpu/samplers/riemannian.py:58-176``).  The noise ε may be passed
-in: JAX draws it from its own key, and the tests hand both sides the same
-numbers.  Without ε, it is drawn from ``generator`` on z's device.
+(``rlvae_tpu/samplers/riemannian.py:58-176``) and of the prior methods of
+``sample_prior`` (:184-296): ``geodesic`` (the default), ``centroid_aware``,
+``weighted_mixture`` and ``basic``.  ``geodesic_exact`` needs the geodesic
+solver (``geometry/geodesics.py``), which is not ported yet.
+
+The noise may be passed in: JAX draws it from its own keys, and the tests
+hand both sides the same numbers.  For the posterior it is ε; for a prior it
+is a mapping with one entry per draw, in the order :func:`draw_prior_noise`
+draws them from a ``torch.Generator`` when it is not given:
+
+    geodesic          i1 [n], i2 [n] (centroid indices), t [n, 1] (uniform),
+                      eps [n, D] (standard normal)
+    centroid_aware    idx [n], eps [n, D]
+    weighted_mixture  idx [n] (categorical, p ~ exp(-|c|/2)), eps [n, D]
+    basic             eps [n, D]
+    (no metric)       eps [n, D]
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 from rlvae_tpu_torch.geometry import metric as gm
@@ -37,3 +51,132 @@ def sample_metric_aware_posterior(
     """The 'riemannian_metric' posterior: z0 = mu + chol(G^{-1}(mu) + 1e-6 I) ε."""
     l = gm.chol_g_inv(metric, mu, jitter=1e-6)
     return mu + torch.einsum("bij,bj->bi", l, _noise(mu, eps, generator))
+
+
+# ---------------------------------------------------------------------------
+# Prior sampling
+# ---------------------------------------------------------------------------
+
+PRIOR_METHODS = ("geodesic", "geodesic_exact", "centroid_aware", "weighted_mixture", "basic")
+Noise = Mapping[str, torch.Tensor]
+
+
+def _sym_sqrt(mat: torch.Tensor, clamp: float = 1e-8) -> torch.Tensor:
+    """Symmetric PSD square root via eigh, eigenvalues clamped at ``clamp``."""
+    vals, vecs = torch.linalg.eigh(mat)
+    vals = torch.clamp(vals, min=clamp)
+    return torch.einsum("bij,bj,bkj->bik", vecs, torch.sqrt(vals), vecs)
+
+
+def _check_method(method: str) -> None:
+    if method not in PRIOR_METHODS:
+        raise ValueError(f"Unknown prior sampling method: {method}")
+    if method == "geodesic_exact":
+        raise NotImplementedError(
+            "prior method 'geodesic_exact' needs geometry/geodesics.py, which is not ported "
+            "yet (ROADMAP queue A4)"
+        )
+
+
+def draw_prior_noise(metric: Optional[CentroidMetric], method: str, n: int, latent_dim: int,
+                     generator: Optional[torch.Generator], device=None) -> Dict[str, torch.Tensor]:
+    """Every draw of prior ``method`` for ``n`` samples, in order (see the
+    module docstring)."""
+    if metric is not None:
+        device = metric.centroids.device if device is None else device
+        latent_dim = metric.centroids.shape[1]
+        _check_method(method)
+
+    def randint():
+        return torch.randint(0, metric.n_centroids, (n,), generator=generator, device=device)
+
+    def randn():
+        return torch.randn((n, latent_dim), generator=generator, device=device)
+
+    if metric is None or method == "basic":
+        return {"eps": randn()}
+    if method == "geodesic":
+        i1, i2 = randint(), randint()
+        t = torch.rand((n, 1), generator=generator, device=device)
+        return {"i1": i1, "i2": i2, "t": t, "eps": randn()}
+    if method == "centroid_aware":
+        return {"idx": randint(), "eps": randn()}
+    # weighted_mixture: categorical with p ~ exp(-|c| / 2)
+    probs = torch.softmax(-torch.linalg.vector_norm(metric.centroids, dim=-1) / 2.0, dim=0)
+    idx = torch.multinomial(probs, n, replacement=True, generator=generator)
+    return {"idx": idx, "eps": randn()}
+
+
+def sample_prior(metric: Optional[CentroidMetric], num_samples: int, latent_dim: int,
+                 method: str = "geodesic", generator: Optional[torch.Generator] = None,
+                 noise: Optional[Noise] = None) -> torch.Tensor:
+    """Prior latents [num_samples, D] by ``method``; the draws come from
+    ``noise`` or, when it is not given, from ``generator``."""
+    if noise is None:
+        noise = draw_prior_noise(metric, method, num_samples, latent_dim, generator)
+    if metric is None:
+        return noise["eps"]
+    _check_method(method)
+    dev = metric.centroids.device
+    noise = {k: v.to(dev) for k, v in noise.items()}
+    if method == "geodesic":
+        return _prior_geodesic(metric, noise)
+    if method == "centroid_aware":
+        return _prior_centroid_aware(metric, noise)
+    if method == "weighted_mixture":
+        return _prior_weighted_mixture(metric, noise)
+    return _prior_basic(metric, noise)
+
+
+def _prior_geodesic(metric: CentroidMetric, noise: Noise) -> torch.Tensor:
+    """A point on the straight line between two centroids plus metric noise
+    perpendicular to the line, at scale 0.2."""
+    start, end = metric.centroids[noise["i1"].long()], metric.centroids[noise["i2"].long()]
+    t = noise["t"].float()
+    z_path = (1.0 - t) * start + t * end
+    direction = end - start
+    direction = direction / (torch.linalg.vector_norm(direction, dim=-1, keepdim=True) + 1e-8)
+    eps = noise["eps"].float()
+    parallel = (eps * direction).sum(-1, keepdim=True) * direction
+    perp = eps - parallel
+    sqrt_gi = _sym_sqrt(gm.g_inv(metric, z_path))
+    return z_path + 0.2 * torch.einsum("bij,bj->bi", sqrt_gi, perp)
+
+
+def _prior_centroid_aware(metric: CentroidMetric, noise: Noise) -> torch.Tensor:
+    base = metric.centroids[noise["idx"].long()]
+    eps = noise["eps"].float() * 0.3
+    sqrt_gi = _sym_sqrt(gm.g_inv(metric, base))
+    return base + 0.5 * torch.einsum("bij,bj->bi", sqrt_gi, eps)
+
+
+def _prior_weighted_mixture(metric: CentroidMetric, noise: Noise) -> torch.Tensor:
+    sel = metric.centroids[noise["idx"].long()].contiguous()
+    l = gm.chol_g_inv(metric, sel, jitter=1e-6)
+    eps_metric = torch.einsum("bij,bj->bi", l, noise["eps"].float())
+    det_gi = torch.exp(gm.logdet_g_inv(metric, sel))
+    local_scale = det_gi ** (1.0 / (2.0 * metric.centroids.shape[1]))
+    adaptive = torch.clamp(0.4 / (local_scale + 1e-6), 0.1, 1.0)
+    return sel + eps_metric * adaptive[:, None]
+
+
+def _prior_basic(metric: CentroidMetric, noise: Noise, steps: int = 10) -> torch.Tensor:
+    """``steps`` steps of gradient ascent on sum(1/2 max(logdet G^{-1}, log 1e-10)
+    - 1/2 |z|^2) with a decaying step; the gradient goes through the
+    chol-bundle's autograd Function (the kernel's forward on the card)."""
+    log_floor = float(np.log(np.float32(1e-10)))
+
+    def log_prob(z):
+        ld = gm.logdet_g_inv(metric, z)
+        ld = torch.maximum(ld, ld.new_tensor(log_floor))
+        return (0.5 * ld - 0.5 * torch.linalg.vector_norm(z, dim=1) ** 2).sum()
+
+    f32 = np.float32
+    z = noise["eps"].float() * 0.5
+    with torch.enable_grad():
+        for step in range(steps):
+            zz = z.requires_grad_(True)
+            (grad,) = torch.autograd.grad(log_prob(zz), zz)
+            step_size = float(f32(0.01) * (f32(1.0) - f32(step) / f32(steps)))  # fp32, as JAX
+            z = zz.detach() + step_size * grad
+    return z

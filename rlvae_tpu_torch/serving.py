@@ -1,6 +1,7 @@
 """Dynamic-batching inference engine.
 
-Port of ``rlvae_tpu/serving.py:41-409`` without the mesh-sharded op table:
+Port of ``rlvae_tpu/serving.py:41-409`` without the mesh-sharded op table
+(ops ``reconstruct``, ``encode``, ``decode`` and ``generate``):
 
 - **Bucketed shapes**: every micro-batch is padded (by repeating its last
   row) up to one of a few power-of-two sizes, so the device sees a bounded
@@ -114,17 +115,24 @@ class BatchingEngine:
         self._thread.start()
 
     @classmethod
-    def from_manager(cls, manager, config: ServeConfig = ServeConfig()) -> "BatchingEngine":
+    def from_manager(cls, manager, config: ServeConfig = ServeConfig(),
+                     generate_n_obs: int = 8,
+                     generate_method: str = "geodesic") -> "BatchingEngine":
         """The op table of a :class:`rlvae_tpu_torch.inference.ModelManager`:
-        ``reconstruct`` (sequences), ``encode`` (frames -> embedding) and
-        ``decode`` (latents -> frames).  ``generate`` comes with the next
-        slice; asking for it raises ``KeyError`` like any unknown op.  The
-        posterior noise of ``reconstruct`` is seeded with 0 for every batch,
-        as the JAX engine's fixed key."""
+        ``reconstruct`` (sequences), ``encode`` (frames -> embedding),
+        ``decode`` (latents -> frames) and ``generate`` (one uint32 seed per
+        item -> one sequence of ``generate_n_obs`` frames by
+        ``generate_method``).  Requests with different seeds share a dispatch
+        without changing any request's output
+        (``ModelManager.sample_random_batched_seeds``).  The posterior noise
+        of ``reconstruct`` is seeded with 0 for every batch, as the JAX
+        engine's fixed key."""
         ops = {
             "reconstruct": lambda x: manager.reconstruct(x, seed=0),
             "encode": lambda x: manager.encode(x).embedding,
             "decode": lambda z: manager.decode(z),
+            "generate": lambda seeds: manager.sample_random_batched_seeds(
+                seeds, method=generate_method, n_obs=generate_n_obs),
         }
         return cls(ops, config)
 

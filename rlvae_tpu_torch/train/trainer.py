@@ -139,7 +139,7 @@ class Trainer:
                     self.step_log.append({"step": step, "lr": get_lr(self.optimizer),
                                           **{f"train/{k}": float(v) for k, v in last.items()}})
 
-            val = self.evaluate("val", epoch)
+            val = self.evaluate("val", epoch, weights="live")
             val_loss = val.get("loss", float("nan"))
             lr = get_lr(self.optimizer)
             new_lr = self.scheduler.step(val_loss, lr)
@@ -158,8 +158,23 @@ class Trainer:
         return {"best_val_loss": best_val, "epochs_run": epoch + 1, "steps": step,
                 "train_time": time.perf_counter() - t_start, "history": self.history}
 
-    def evaluate(self, split: str = "val", epoch: int = 0) -> Dict[str, float]:
-        """Batch-size-weighted means of the evaluation metrics over a split."""
+    def evaluate(self, split: str = "test", epoch: int = 0,
+                 weights: str = "best") -> Dict[str, float]:
+        """Batch-size-weighted means of the evaluation metrics over a split.
+
+        ``split`` defaults to ``"test"``, as JAX's ``evaluate``.  ``weights``
+        says which weights: ``"live"`` evaluates the model as it stands;
+        ``"best"``, the default, means the best checkpoint, as JAX restores it
+        when no variables are given, and raises until checkpoints are ported
+        rather than evaluate other weights silently."""
+        if weights == "best":
+            raise NotImplementedError(
+                "Trainer.evaluate(weights='best') needs the best checkpoint, and checkpoints "
+                "are not ported yet (ROADMAP queue A6); pass weights='live' to evaluate the "
+                "model's current weights"
+            )
+        if weights != "live":
+            raise ValueError(f"weights must be 'best' or 'live', got {weights!r}")
         batches = self.data.val_batches() if split == "val" else self.data.test_batches()
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1 + epoch)
         acc: Dict[str, List[float]] = {}

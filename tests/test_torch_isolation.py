@@ -16,7 +16,7 @@ import rlvae_tpu_torch
 from rlvae_tpu_torch import ModelManager, PRESETS, resolve_device
 from rlvae_tpu_torch.ops import build
 from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_fwd
-from rlvae_tpu_torch.ops.metric_kernels import chol_bundle
+from rlvae_tpu_torch.ops.metric_kernels import chol_bundle, hmc_terms
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "rlvae_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -61,6 +61,8 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     z = torch.empty((4, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         chol_bundle(z, z, torch.empty((4, 16, 16), device="meta"), 1.0, 0.01)
+    with pytest.raises(ValueError, match="unsupported device"):
+        hmc_terms(z, z, torch.empty((4, 16, 16), device="meta"), 1.0, 0.01, -23.0)
     w = torch.empty((1, 1, 16, 32), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         iaf_chain_fwd(z, w, w, w, w, w, w)
@@ -80,7 +82,8 @@ def test_build_command():
     assert "arch=compute_90a,code=sm_90a" in argv
     assert {"-shared", "-O3", "-std=c++17"} <= set(argv)
     srcs = [Path(a) for a in argv if a.endswith(".cu")]
-    assert sorted(p.name for p in srcs) == ["chol_bundle.cu", "iaf_chain.cu", "iaf_chain_bwd.cu"]
+    assert sorted(p.name for p in srcs) == ["chol_bundle.cu", "hmc_terms.cu", "iaf_chain.cu",
+                                            "iaf_chain_bwd.cu"]
     assert all(p.parent == REPO / "rlvae_tpu_torch" / "csrc" for p in srcs)
     assert out.parent == REPO / "build" / "rlvae_tpu_torch"
     assert re.fullmatch(r"librlvae_kernels_[0-9a-f]{16}\.so", out.name)

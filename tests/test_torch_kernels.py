@@ -6,7 +6,10 @@ Tolerances as in chip_smoke.py: chol-bundle |k-p| <= 1e-5 + 1e-4|p|
 (fp32, other summation order, amplified by the factorization's
 conditioning); IAF chain within 1e-4 of each transition's largest |z|;
 IAF-chain backward (near-identity flows) within 1e-4 of each output's
-largest entry, the forward's residual ys within 1e-4 of its scale."""
+largest entry, the forward's residual ys within 1e-4 of its scale; HMC
+terms: log pi atol 1e-5 and grad within 1e-4 of its scale against the plain
+version, and against fp64 no worse than 4x the plain version (or 1e-4 of
+scale)."""
 
 import numpy as np
 import pytest
@@ -21,7 +24,12 @@ from rlvae_tpu_torch.ops.iaf_kernels import (
     iaf_chain_fwd_ref,
     stack_chain,
 )
-from rlvae_tpu_torch.ops.metric_kernels import chol_bundle, chol_bundle_ref
+from rlvae_tpu_torch.ops.metric_kernels import (
+    chol_bundle,
+    chol_bundle_ref,
+    hmc_terms,
+    hmc_terms_ref,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +126,82 @@ def test_iaf_chain_function_launches_both_kernels(dev):
     assert (iaf_chain_fwd.launches, iaf_chain_bwd.launches) == (fwd + 1, bwd + 1)
     assert torch.isfinite(z0.grad).all()
     assert all(p.grad is not None for p in flows.flows[0].parameters())
+
+
+def _bank(k, seed):
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=(k, 16)).astype(np.float32)
+    a = (rng.normal(size=(k, 16, 16)) / 4).astype(np.float32)
+    return c, (a @ np.swapaxes(a, -1, -2) + 0.1 * np.eye(16, dtype=np.float32)).astype(np.float32)
+
+
+def _hmc_err(got, want64):
+    """(max |log pi err|, max |grad err| / max |grad|) against fp64."""
+    lp, g = got
+    lp64, g64 = want64
+    return (float((lp.double() - lp64).abs().max()),
+            float((g.double() - g64).abs().max() / g64.abs().max().clamp_min(1e-30)))
+
+
+@pytest.mark.parametrize("b", [1, 64, 1000])
+@pytest.mark.parametrize("k", [1, 50, 200, 20_000])
+def test_hmc_terms_matches_plain_and_fp64(dev, b, k):
+    """The kernel against its plain fp32 version (log pi atol 1e-5, grad
+    1e-4 of its scale) and against an fp64 evaluation: the kernel's error
+    at most 4x the plain version's, or 1e-4 of the output's scale.  The
+    last rows sit far from every centroid (log pi on the log 1e-10 plateau,
+    w underflows, grad 0)."""
+    c, m = _bank(k, k + b)
+    rng = np.random.default_rng(b)
+    z = c[rng.integers(0, k, size=b)] + 0.05 * rng.normal(size=(b, 16))
+    n_far = min(2, b - 1) if b > 1 else 0
+    z[b - n_far:] += 100.0
+    zt, ct, mt = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (z, c, m))
+    args = (4.0, 0.01, float(np.log(np.float32(1e-10))))
+    before = hmc_terms.launches
+    got = hmc_terms(zt, ct, mt, *args)
+    plain = hmc_terms_ref(zt, ct, mt, *args)
+    want64 = hmc_terms_ref(zt.double(), ct.double(), mt.double(), *args)
+    torch.cuda.synchronize()
+    assert hmc_terms.launches == before + 1
+    torch.testing.assert_close(got[0], plain[0], rtol=0, atol=1e-5)
+    _scaled_close(got[1], plain[1])
+    k_lp, k_g = _hmc_err(got, want64)
+    p_lp, p_g = _hmc_err(plain, want64)
+    assert k_lp <= max(4 * p_lp, 1e-4 * float(want64[0].abs().max()))
+    assert k_g <= max(4 * p_g, 1e-4)
+    if n_far:
+        assert torch.all(got[1][b - n_far:] == 0)
+        torch.testing.assert_close(got[0][b - n_far:], plain[0][b - n_far:], rtol=0, atol=1e-5)
+
+
+def test_hmc_terms_rejects_bad_inputs(dev):
+    z = torch.zeros((4, 16), device=dev)
+    c = torch.zeros((3, 16), device=dev)
+    m = torch.eye(16, device=dev).expand(3, 16, 16).contiguous()
+    with pytest.raises(TypeError):
+        hmc_terms(z.double(), c, m, 1.0, 0.01, -23.0)
+    with pytest.raises(ValueError):
+        hmc_terms(z, c[:0], m[:0], 1.0, 0.01, -23.0)
+    with pytest.raises(RuntimeError):
+        hmc_terms(z.requires_grad_(), c, m, 1.0, 0.01, -23.0)
+
+
+def test_logdet_g_inv_gradient_on_the_card_equals_the_cpu(dev):
+    """logdet G^{-1} differentiates on the card (one chol-bundle launch
+    forward, the plain recompute backward) and matches the CPU's gradient."""
+    from rlvae_tpu_torch.geometry import metric as gm
+    from rlvae_tpu_torch.geometry.metric import CentroidMetric
+
+    c, m = _bank(50, 3)
+    metric = CentroidMetric.create(c, m, temperature=0.5, regularization=0.01)
+    grads = []
+    for device in ("cpu", dev):
+        mt = CentroidMetric(metric.centroids.to(device), metric.matrices.to(device),
+                            metric.temperature, metric.regularization)
+        zz = torch.tensor(c[:7] + 0.05, dtype=torch.float32, device=device, requires_grad=True)
+        before = chol_bundle.launches
+        gm.logdet_g_inv(mt, zz).sum().backward()
+        assert chol_bundle.launches == before + (1 if zz.is_cuda else 0)
+        grads.append(zz.grad.cpu())
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-4, atol=1e-5 * grads[0].abs().max())

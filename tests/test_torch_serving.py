@@ -87,7 +87,7 @@ def test_engine_concurrent_requests_buckets_and_stats(manager):
         assert engine.stats.rows_real + engine.stats.rows_padded == padded_rows
         assert "reconstruct_p50_ms" in snap
         with pytest.raises(KeyError):
-            engine.submit("generate", np.zeros((), np.uint32))
+            engine.submit("interpolate", np.zeros((), np.uint32))
         with pytest.raises(ValueError):
             engine.submit("reconstruct", np.zeros((T + 1, 3, 8, 8), np.float32))
     finally:

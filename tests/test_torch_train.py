@@ -395,7 +395,7 @@ def test_trainer_fit_on_cpu(tmp_path):
     # that gets no gradient
     assert all(not torch.equal(a, p.detach()) or not a.any()
                for a, p in zip(before, model.parameters()))
-    assert np.isfinite(trainer.evaluate("test")["loss"])
+    assert np.isfinite(trainer.evaluate("test", weights="live")["loss"])
 
 
 def test_training_entry_point_needs_the_card():
