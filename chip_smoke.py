@@ -10,9 +10,10 @@ Phases, each printing one JSON line with its elapsed seconds:
    at the shapes the serving and training paths give it, with the tolerance
    stated; ms per launch from CUDA events.  The IAF-chain backward is held
    to its plain version at the near-identity flow init and, at the model's
-   reference init, to an fp64 evaluation (as the forward is).  The HMC terms
-   are held to their plain version and to an fp64 evaluation at K=50, 200
-   and 20 000, B=1, 64 and 1000, with rows far from every centroid.
+   reference init, to an fp64 evaluation (as the forward is).  The HMC terms,
+   the metric bundle and G^{-1} are held to their plain versions and to an
+   fp64 evaluation at K=50, 200 and 20 000, B=1, 64 and 1000, with rows far
+   from every centroid.
 4. ``serve``: ``ModelManager.from_config(PRESETS["riemannian_flow_vae"])`` on
    the card behind a ``BatchingEngine``; 64 ``reconstruct`` requests from 8
    threads plus 16 ``encode`` and 16 ``decode``, after one warm-up call per
@@ -22,7 +23,8 @@ Phases, each printing one JSON line with its elapsed seconds:
 5. ``train``: ``Trainer`` takes 5 Adam steps of the full-width preset at
    B=16 on synthetic sequences (training preset ``default``).  The launch
    counters are zeroed just before ``fit`` and read just after, and read
-   around every step (chol-bundle 2, IAF-chain forward 1, backward 1).  Each
+   around every step (chol-bundle 2, IAF-chain forward 1, backward 1); the
+   validation pass reports the six analysis metrics and launches G^{-1}.  Each
    card step is replayed on the CPU from the card's weights and optimizer
    state just before it, with the same batch and noise; losses, grad_norm
    and the step-1 gradients are compared.  One warm step is timed with CUDA
@@ -38,6 +40,14 @@ Phases, each printing one JSON line with its elapsed seconds:
    the card and on the CPU from the same draws.  Then an engine with
    ``generate_method="official"`` answers concurrent seeds [7, 123, 7, 999]
    and a lone request, each row against ``sample_random(1, seed)``.
+7. ``posterior``: ``PRESETS["hybrid_rlvae"]`` (Gaussian posterior, K=200
+   metric at T=0.7) with ``sampling.method: geodesic`` behind a
+   ``BatchingEngine``: 64 ``reconstruct`` requests in one B=64 bucket, one
+   metric-bundle launch per forward; host-clock and device time of a warm
+   B=64 forward, which is held against the CPU on the same noise.  Then 3
+   ``Trainer`` steps of the geodesic model at B=16, each replayed on the CPU
+   as in the train phase, with a validation pass that launches G^{-1}.  Then
+   the shipped ``hybrid_rlvae`` (``enhanced``) reconstructs once.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -92,6 +102,18 @@ CHAIN_LAUNCHES = 1 + 100 * (15 + 1)
 # of fp32 sums, which the two devices round apart)
 CHAIN_Z_RTOL, ACCEPT_MARGIN = 1e-4, 1e-3
 SERVE_SEEDS = (7, 123, 7, 999)
+# metric bundle and G^{-1}, kernel vs plain fp32 (the JAX package's kernel
+# tolerances: G^{-1}, L, logdet, G); against fp64, each output's error at most
+# BUNDLE_FP64_FACTOR times the plain fp32 version's, or BUNDLE_FP64_RTOL of
+# the output's scale
+BUNDLE_TOL = {"g_inv": (1e-5, 1e-6), "l": (1e-4, 1e-4), "logdet": (1e-4, 1e-4),
+              "g": (1e-3, 1e-3)}
+BUNDLE_FP64_FACTOR, BUNDLE_FP64_RTOL = 2.0, 1e-5
+# the posterior phase: Trainer steps of the geodesic hybrid model
+POSTERIOR_TRAIN_STEPS = 3
+# the analysis metrics of the evaluation step (losses.additional_metrics)
+EVAL_METRIC_KEYS = ("cyclicity_error", "latent_norm", "latent_variance",
+                    "metric_conditioning", "manifold_regularity", "metric_determinant")
 
 T0 = time.perf_counter()
 
@@ -465,6 +487,118 @@ def run_hmc_checks(torch, dev):
     return record, cases
 
 
+def bundle_flops(b: int, k: int, full: bool, d: int = 16) -> float:
+    """FLOP of G^{-1} (per row and centroid: d^2 (3d), its exp, the weighted
+    sum of M (2d^2); the diagonal) and, for the full bundle, per row the
+    Cholesky (d^3/3), X = L^{-1} (d^3/3), G = X^T X (2d^3/3) and the logs."""
+    per_row = k * (3 * d + 1 + 2 * d * d) + d
+    if full:
+        per_row += 4 * d ** 3 / 3 + d
+    return b * per_row
+
+
+def run_bundle_checks(torch, dev):
+    """The metric bundle and G^{-1} against their plain fp32 versions and an
+    fp64 evaluation, at each bank of :func:`metric_banks` and B=1, 64 and
+    1000 (:func:`hmc_cases`' rows: near the centroids, the last two of a
+    batch far from all of them).  Each kernel is timed at B=64 for each K."""
+    from rlvae_tpu_torch.ops import metric_kernels
+    from rlvae_tpu_torch.ops.metric_kernels import (
+        g_inv,
+        g_inv_ref,
+        k_splits,
+        metric_bundle,
+        metric_bundle_ref,
+    )
+
+    names = ("g_inv", "l", "logdet", "g")
+    cases = {"metric_bundle": [], "g_inv": []}
+    for label, z, c, m, inv_t2, lbd in hmc_cases(torch, dev):
+        args = (c, m, inv_t2, lbd)
+        got = metric_bundle(z, *args)
+        gi_k = g_inv(z, *args)
+        plain = metric_bundle_ref(z, *args)
+        gi_p = g_inv_ref(z, *args)
+        want = metric_bundle_ref(z.double(), c.double(), m.double(), inv_t2, lbd)
+        torch.cuda.synchronize()
+        err, ok = {}, True
+        for name, k_out, p_out, e_out in zip(names, got, plain, want):
+            rtol, atol = BUNDLE_TOL[name]
+            kp = float((k_out - p_out).abs().max())
+            ke = float((k_out.double() - e_out).abs().max())
+            pe = float((p_out.double() - e_out).abs().max())
+            scale = float(e_out.abs().max())
+            ok = ok and bool(torch.all((k_out - p_out).abs() <= atol + rtol * p_out.abs()))
+            ok = ok and ke <= max(BUNDLE_FP64_FACTOR * pe, BUNDLE_FP64_RTOL * scale)
+            err[name] = {"kernel_vs_plain_abs": kp, "kernel_vs_fp64_abs": ke,
+                         "plain_vs_fp64_abs": pe, "fp64_scale": scale}
+        ok = (ok and bool(torch.all(torch.triu(got[1], 1) == 0))
+              and bool(torch.equal(got[3], got[3].transpose(-1, -2)))
+              and bool(torch.equal(gi_k, got[0])))
+        gi_err = float((gi_k - gi_p).abs().max())
+        ok_gi = bool(torch.all((gi_k - gi_p).abs() <= 1e-6 + 1e-5 * gi_p.abs()))
+        check(ok, f"metric_bundle disagrees at {label}: {err}")
+        check(ok_gi, f"g_inv disagrees with its plain version at {label}: {gi_err}")
+        b, k = z.shape[0], c.shape[0]
+        bundle = {"shape": label, "ok": ok, "errors": err,
+                  "max_abs_err": max(e["kernel_vs_plain_abs"] for e in err.values())}
+        gi_case = {"shape": label, "ok": ok_gi, "max_abs_err": gi_err,
+                   "kernel_vs_fp64_abs": float((gi_k.double() - want[0]).abs().max()),
+                   "identical_to_bundle_g_inv": True}
+        n_splits = k_splits(b, k, dev)
+        bundle["n_splits"] = gi_case["n_splits"] = n_splits
+        if b == SERVE_BATCH:
+            bundle["ms"] = time_ms(torch, lambda: metric_bundle(z, *args), 20)
+            bundle["plain_ms"] = time_ms(torch, lambda: metric_bundle_ref(z, *args), 5)
+            bundle["bound_ms"], bundle["bound_by"] = bound_ms(
+                nbytes(z, c, m, *got), bundle_flops(b, k, True))
+            gi_case["ms"] = time_ms(torch, lambda: g_inv(z, *args), 20)
+            gi_case["plain_ms"] = time_ms(torch, lambda: g_inv_ref(z, *args), 10)
+            gi_case["bound_ms"], gi_case["bound_by"] = bound_ms(
+                nbytes(z, c, m, gi_k), bundle_flops(b, k, False))
+            if n_splits > 1:  # the same launch with the bank in one range, for comparison
+                own_splits = metric_kernels.k_splits
+                metric_kernels.k_splits = lambda b, k, device: 1
+                try:
+                    bundle["ms_one_split"] = time_ms(torch, lambda: metric_bundle(z, *args), 20)
+                    gi_case["ms_one_split"] = time_ms(torch, lambda: g_inv(z, *args), 20)
+                finally:
+                    metric_kernels.k_splits = own_splits
+        cases["metric_bundle"].append(bundle)
+        cases["g_inv"].append(gi_case)
+
+    def record(name, source, replaces, main):
+        timed = [c for c in cases[name] if "ms" in c]
+        rec = next(c for c in timed if c["shape"].startswith(main))
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "shape": rec["shape"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
+            "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
+            "ms_by_shape": {c["shape"]: c["ms"] for c in timed},
+            "n_splits_by_shape": {c["shape"]: c["n_splits"] for c in timed},
+            "ms_one_split_by_shape": {c["shape"]: c["ms_one_split"] for c in timed
+                                      if "ms_one_split" in c},
+            "plain_ms_by_shape": {c["shape"]: c["plain_ms"] for c in timed},
+            "bound_ms_by_shape": {c["shape"]: c["bound_ms"] for c in timed},
+        }
+
+    tol = (f"kernel vs plain: |err| <= atol + rtol*|plain| with (rtol, atol) {BUNDLE_TOL}; vs "
+           f"fp64: each output's error at most {BUNDLE_FP64_FACTOR}x the plain fp32 version's, or "
+           f"{BUNDLE_FP64_RTOL} of its scale; L upper triangle 0, G bitwise symmetric")
+    # the main path's banks: the hybrid model's K=200 metric (the geodesic
+    # posterior's G) and the default model's K=50 metric (its evaluation step)
+    bundle_rec = record("metric_bundle", "rlvae_tpu_torch/csrc/metric_bundle.cu",
+                        "rlvae_tpu/ops/metric_kernels.py:657", "metric.npz")
+    bundle_rec["tolerance"] = tol
+    gi_rec = record("g_inv", "rlvae_tpu_torch/csrc/metric_bundle.cu",
+                    "rlvae_tpu/ops/metric_kernels.py:618", "metric_T0.7")
+    gi_rec["tolerance"] = (f"kernel vs plain: |err| <= 1e-6 + 1e-5*|plain|; bitwise equal to the "
+                           f"metric bundle's G^-1 output")
+    return {"metric_bundle": (bundle_rec, cases["metric_bundle"]),
+            "g_inv": (gi_rec, cases["g_inv"])}
+
+
 # ---------------------------------------------------------------------------
 # serve phase
 # ---------------------------------------------------------------------------
@@ -526,8 +660,9 @@ def run_serve(torch):
           f"the serving path did not launch both kernels: {launches}")
     check(launches["chol_bundle"] == 2 * launches["iaf_chain_fwd"],
           f"expected 2 chol-bundle launches per IAF-chain launch: {launches}")
-    check(launches["iaf_chain_bwd"] == 0 and launches["hmc_terms"] == 0,
-          f"reconstruct launched the backward or the HMC terms: {launches}")
+    check(all(launches[k] == 0 for k in ("iaf_chain_bwd", "hmc_terms", "metric_bundle", "g_inv")),
+          f"reconstruct launched the backward, the HMC terms or a metric-bundle kernel: "
+          f"{launches}")
 
     # one B=64 forward on the card vs the same model on the CPU (plain versions)
     x = seqs[:SERVE_BATCH]
@@ -540,7 +675,7 @@ def run_serve(torch):
     return {"launches": launches, "stats": stats, "serve_s": serve_s, "load_s": load_s,
             "requests": {"reconstruct": N_RECONSTRUCT, "encode": N_ENCODE, "decode": N_DECODE},
             "threads": N_THREADS, "cuda_vs_cpu": compare,
-            "forward_b64": profile_forward(torch, manager, x, eps.to(manager.device)),
+            "forward_b64": profile_forward(torch, manager, x, {"eps": eps.to(manager.device)}),
             "generate_official": serve_generate(torch, manager)}
 
 
@@ -584,18 +719,18 @@ def serve_generate(torch, manager):
             "stats": {k: v for k, v in stats.items() if not k.endswith("_hist")}}
 
 
-def profile_forward(torch, manager, x, eps):
+def profile_forward(torch, manager, x, noise):
     """Warm B=64 forward: ms from CUDA events (device-side, inputs already
     on the card), ``reconstruct`` ms on the host clock (upload and copy-back
     included), and one profiled forward's device time by kernel."""
     xd = torch.from_numpy(x).to(manager.device)
-    fwd_ms = time_ms(torch, lambda: manager.forward(xd, eps=eps), 5)
+    fwd_ms = time_ms(torch, lambda: manager.forward(xd, noise=noise), 5)
     host = []
     for _ in range(5):
         t = time.perf_counter()
         manager.reconstruct(x)
         host.append((time.perf_counter() - t) * 1e3)
-    busy_ms, kernels = device_time_by_kernel(torch, lambda: manager.forward(xd, eps=eps))
+    busy_ms, kernels = device_time_by_kernel(torch, lambda: manager.forward(xd, noise=noise))
     return {"forward_ms": fwd_ms, "reconstruct_host_ms_median": float(np.median(host)),
             "profiled_device_busy_ms": busy_ms, "n_kernel_names": len(kernels),
             "top_kernels": kernels[:10]}
@@ -675,48 +810,61 @@ TRAIN_TOL = {
 }
 
 
-def launch_counts():
+def _wrappers():
     from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_bwd, iaf_chain_fwd
-    from rlvae_tpu_torch.ops.metric_kernels import chol_bundle, hmc_terms
+    from rlvae_tpu_torch.ops.metric_kernels import chol_bundle, g_inv, hmc_terms, metric_bundle
 
-    return {"chol_bundle": chol_bundle.launches, "iaf_chain_fwd": iaf_chain_fwd.launches,
-            "iaf_chain_bwd": iaf_chain_bwd.launches, "hmc_terms": hmc_terms.launches}
+    return {"chol_bundle": chol_bundle, "iaf_chain_fwd": iaf_chain_fwd,
+            "iaf_chain_bwd": iaf_chain_bwd, "hmc_terms": hmc_terms,
+            "metric_bundle": metric_bundle, "g_inv": g_inv}
+
+
+def launch_counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def zero_launch_counts():
-    from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_bwd, iaf_chain_fwd
-    from rlvae_tpu_torch.ops.metric_kernels import chol_bundle, hmc_terms
-
-    chol_bundle.launches = iaf_chain_fwd.launches = iaf_chain_bwd.launches = 0
-    hmc_terms.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
-def run_train(torch):
+def expected_launches(**nonzero):
+    """A full launch-count dict: the named counts, every other kernel 0."""
+    return {**{name: 0 for name in _wrappers()}, **nonzero}
+
+
+def run_train(torch, model_config=None, steps: int = TRAIN_STEPS, per_step=None, dev=None):
+    """``steps`` Trainer steps of ``model_config`` (the default preset) at
+    B=16 with one validation pass; ``per_step`` is the launch count every
+    step must show (the default model's: chol-bundle 2, IAF-chain forward
+    and backward 1 each)."""
     from rlvae_tpu_torch.data import CYCLIC_SPRITES, CyclicDataModule
     from rlvae_tpu_torch.models import PRESETS, create_model
     from rlvae_tpu_torch.train import TRAINING_PRESETS, Trainer, make_optimizer, make_train_step
 
+    model_config = model_config or PRESETS["riemannian_flow_vae"]
+    per_step = per_step or expected_launches(chol_bundle=2, iaf_chain_fwd=1, iaf_chain_bwd=1)
     cfg = copy.deepcopy(TRAINING_PRESETS["default"])
     cfg["data"]["batch_size"] = TRAIN_BATCH
-    cfg["n_train_samples"], cfg["n_val_samples"] = TRAIN_STEPS * TRAIN_BATCH, TRAIN_BATCH
+    cfg["n_train_samples"], cfg["n_val_samples"] = steps * TRAIN_BATCH, TRAIN_BATCH
     t0 = time.perf_counter()
     data = CyclicDataModule({**CYCLIC_SPRITES, "synthetic_n_test": TRAIN_BATCH}, seed=0)
     data.setup(cfg)
-    model = create_model(PRESETS["riemannian_flow_vae"], seed=0)
-    trainer = Trainer(model, data, cfg, seed=0)
-    check(trainer.device.type == "cuda", f"trainer on {trainer.device}")
+    model = create_model(model_config, seed=0)
+    trainer = Trainer(model, data, cfg, seed=0, device=dev)
+    check(dev is not None or trainer.device.type == "cuda", f"trainer on {trainer.device}")
     setup_s = time.perf_counter() - t0
 
     # record every step: the weights and optimizer state before it, its
     # inputs, metrics and kernel launches, and step 1's gradients
     records, step = [], trainer.train_step
 
-    def recorded_step(x, eps):
+    def recorded_step(x, noise):
         rec = {"state": {k: v.detach().clone() for k, v in model.state_dict().items()},
                "opt": copy.deepcopy(trainer.optimizer.state_dict()), "x": x.cpu(),
-               "eps": eps.cpu()}
+               "noise": {k: v.cpu() for k, v in noise.items()}}
         before = launch_counts()
-        metrics = step(x, eps)
+        metrics = step(x, noise)
         rec["launches"] = {k: v - before[k] for k, v in launch_counts().items()}
         rec["metrics"] = {k: float(v) for k, v in metrics.items()}
         if not records:
@@ -728,21 +876,25 @@ def run_train(torch):
     torch.cuda.synchronize()
     zero_launch_counts()
     t_fit = time.perf_counter()
-    result = trainer.fit(max_steps=TRAIN_STEPS)
+    result = trainer.fit(max_steps=steps)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t_fit
     launches = launch_counts()
     trainer.train_step = step
-    check(result["steps"] == TRAIN_STEPS == len(records), f"ran {result['steps']} steps")
+    check(result["steps"] == steps == len(records), f"ran {result['steps']} steps")
     for i, rec in enumerate(records):
-        check(rec["launches"] == {"chol_bundle": 2, "iaf_chain_fwd": 1, "iaf_chain_bwd": 1,
-                                  "hmc_terms": 0},
-              f"step {i + 1} launched {rec['launches']}")
+        check(rec["launches"] == per_step, f"step {i + 1} launched {rec['launches']}")
         check(all(np.isfinite(v) for v in rec["metrics"].values()), f"step {i + 1} not finite")
-    check(all(np.isfinite(v) for v in result["history"][-1].values()), "non-finite validation")
+    validation = result["history"][-1]
+    check(all(np.isfinite(v) for v in validation.values()), "non-finite validation")
+    check(all(f"val/{k}" in validation for k in EVAL_METRIC_KEYS),
+          f"validation lacks analysis metrics: {sorted(validation)}")
+    # the validation pass alone launches G^{-1} (the analysis metrics at z0)
+    check(launches["g_inv"] == len(result["history"]),
+          f"{launches['g_inv']} G^-1 launches in {len(result['history'])} validation passes")
 
     # the same steps on the CPU, each from the card's state just before it
-    cpu_model = create_model(PRESETS["riemannian_flow_vae"], seed=0)
+    cpu_model = create_model(model_config, seed=0)
     opt_cfg = cfg["optimizer"]
     cpu_opt = make_optimizer(cpu_model.parameters(), opt_cfg["lr"], opt_cfg["weight_decay"])
     cpu_step = make_train_step(cpu_model, cpu_opt)
@@ -750,7 +902,7 @@ def run_train(torch):
     for i, rec in enumerate(records):
         cpu_model.load_state_dict(rec["state"])
         cpu_opt.load_state_dict(rec["opt"])
-        m = {k: float(v) for k, v in cpu_step(rec["x"], rec["eps"]).items()}
+        m = {k: float(v) for k, v in cpu_step(rec["x"], rec["noise"]).items()}
         err = {k: abs(rec["metrics"][k] - m[k]) / max(abs(m[k]), 1e-12)
                for k in ("loss", "recon_loss", "kld_loss", "flow_loss", "grad_norm")}
         err["loop_penalty_abs"] = abs(rec["metrics"]["loop_penalty"] - m["loop_penalty"])
@@ -768,18 +920,20 @@ def run_train(torch):
           f"step-1 gradients: card vs CPU {errors[0]['grad_rel']}")
 
     # one warm step, timed and profiled
-    x, eps = records[-1]["x"].to(trainer.device), records[-1]["eps"].to(trainer.device)
+    x = records[-1]["x"].to(trainer.device)
+    noise = {k: v.to(trainer.device) for k, v in records[-1]["noise"].items()}
     torch.cuda.reset_peak_memory_stats()
-    step_ms = time_ms(torch, lambda: step(x, eps), 5)
+    step_ms = time_ms(torch, lambda: step(x, noise), 5)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # before the profile: a profiler session leaves launches slower after it
-    phases = step_phases(torch, model, trainer.optimizer, x, eps)
-    busy_ms, kernels = device_time_by_kernel(torch, lambda: step(x, eps))
+    phases = step_phases(torch, model, trainer.optimizer, x, noise)
+    busy_ms, kernels = device_time_by_kernel(torch, lambda: step(x, noise))
     return {
-        "steps": result["steps"], "batch": TRAIN_BATCH, "setup_s": setup_s, "fit_s": fit_s,
+        "model": model.name, "steps": result["steps"], "batch": TRAIN_BATCH,
+        "setup_s": setup_s, "fit_s": fit_s,
         "launches": launches, "launches_per_step": records[0]["launches"],
         "losses": [r["metrics"]["loss"] for r in records],
-        "validation": {k: v for k, v in result["history"][-1].items() if k.startswith("val/")},
+        "validation": {k: v for k, v in validation.items() if k.startswith("val/")},
         "card_vs_cpu": {"errors": errors, "tolerances": TRAIN_TOL},
         "step_ms": step_ms, "peak_memory_gb": peak_gb,
         "profiled_device_busy_ms": busy_ms, "n_kernel_names": len(kernels),
@@ -788,7 +942,7 @@ def run_train(torch):
     }
 
 
-def step_phases(torch, model, optimizer, x, eps, reps: int = 3):
+def step_phases(torch, model, optimizer, x, noise, reps: int = 3):
     """The parts of one train step (the body of ``make_train_step``, spelled
     out): mean ms on CUDA events and on the host clock (no synchronisation
     inside the step, so a host time close to the device time means the
@@ -804,7 +958,7 @@ def step_phases(torch, model, optimizer, x, eps, reps: int = 3):
         t[0] = time.perf_counter()
         ev[0].record()
         optimizer.zero_grad(set_to_none=True)
-        out = model(x, eps=eps, train=True)
+        out = model(x, noise, train=True)
         ev[1].record()
         t[1] = time.perf_counter()
         out.loss.backward()
@@ -830,16 +984,18 @@ def step_phases(torch, model, optimizer, x, eps, reps: int = 3):
 # generate phase
 # ---------------------------------------------------------------------------
 
-# launches per call of sample_random_batched_seeds, by method (one IAF-chain
-# launch each; the weighted mixture runs the chol-bundle for L and for its
-# logdet; basic runs 10 gradient steps through the logdet's Function)
+# launches per call of sample_random_batched_seeds, by method, besides one
+# IAF-chain launch each: the geodesic and centroid-aware priors take G^{-1}
+# for their eigh square root; the weighted mixture runs the chol-bundle for L
+# and for its logdet; basic runs 10 gradient steps through the logdet's
+# Function; the chains launch the HMC terms)
 GEN_LAUNCHES = {
-    "geodesic": {"hmc_terms": 0, "chol_bundle": 0},
-    "centroid_aware": {"hmc_terms": 0, "chol_bundle": 0},
-    "weighted_mixture": {"hmc_terms": 0, "chol_bundle": 2},
-    "basic": {"hmc_terms": 0, "chol_bundle": 10},
-    "official": {"hmc_terms": CHAIN_LAUNCHES, "chol_bundle": 0},
-    "hmc": {"hmc_terms": CHAIN_LAUNCHES, "chol_bundle": 0},
+    "geodesic": {"g_inv": 1},
+    "centroid_aware": {"g_inv": 1},
+    "weighted_mixture": {"chol_bundle": 2},
+    "basic": {"chol_bundle": 10},
+    "official": {"hmc_terms": CHAIN_LAUNCHES},
+    "hmc": {"hmc_terms": CHAIN_LAUNCHES},
 }
 
 
@@ -869,7 +1025,7 @@ def run_generate(torch, dev=None):
         x = manager.sample_random_batched_seeds(seeds, method=method)
         host_s = time.perf_counter() - t
         got = {k: v - before[k] for k, v in launch_counts().items()}
-        want = {**GEN_LAUNCHES[method], "iaf_chain_fwd": 1, "iaf_chain_bwd": 0}
+        want = expected_launches(**GEN_LAUNCHES[method], iaf_chain_fwd=1)
         check(got == want, f"generate {method} B={b} launched {got}, expected {want}")
         check(x.shape == (b, 8, 3, 64, 64) and np.isfinite(x).all()
               and x.min() >= 0.0 and x.max() <= 1.0, f"bad generate output {method} B={b}")
@@ -965,6 +1121,94 @@ def compare_geodesic(torch, manager):
             "recon_max_abs": float((x_g - x_c).abs().max())}
 
 
+# ---------------------------------------------------------------------------
+# posterior phase
+# ---------------------------------------------------------------------------
+
+
+def geodesic_hybrid_config():
+    """``PRESETS["hybrid_rlvae"]`` with ``sampling.method: geodesic``."""
+    from rlvae_tpu_torch.models import PRESETS
+
+    cfg = copy.deepcopy(PRESETS["hybrid_rlvae"])
+    cfg["sampling"]["method"] = "geodesic"
+    return cfg
+
+
+def run_posterior(torch, dev=None):
+    from rlvae_tpu_torch import BatchingEngine, ModelManager, PRESETS, ServeConfig
+
+    t0 = time.perf_counter()
+    manager = ModelManager.from_config(geodesic_hybrid_config(), seed=0, device=dev)
+    check(dev is not None or manager.device.type == "cuda", f"manager on {manager.device}")
+    check(manager.model.sampling_method == "geodesic" and manager.model.metric.n_centroids == 200,
+          "the geodesic hybrid model was not built")
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(4)
+    seqs = rng.uniform(size=(SERVE_BATCH, 8, 3, 64, 64)).astype(np.float32)
+
+    # one B=64 reconstruct bucket through the engine, warm
+    engine = BatchingEngine.from_manager(
+        manager, ServeConfig(buckets=(SERVE_BATCH,), max_wait_ms=2000))
+    try:
+        engine.warmup({"reconstruct": seqs[0]})
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t = time.perf_counter()
+        futs = [engine.submit("reconstruct", s_) for s_ in seqs]
+        rows = [f.result(timeout=60) for f in futs]
+        bucket_ms = (time.perf_counter() - t) * 1e3
+        counts = launch_counts()
+        stats = engine.stats_snapshot()
+    finally:
+        engine.stop()
+    check(stats["batches"] == 1, f"the {SERVE_BATCH} requests took {stats['batches']} dispatches")
+    check(counts == expected_launches(metric_bundle=1, iaf_chain_fwd=1),
+          f"one geodesic reconstruct batch launched {counts}")
+    for r in rows:
+        check(r.shape == (8, 3, 64, 64) and np.isfinite(r).all(), "bad reconstruct result")
+
+    # one B=64 forward on the card vs the same model on the CPU, same noise
+    gen = torch.Generator(device=manager.device).manual_seed(3)
+    noise = manager.model.draw_posterior_noise(SERVE_BATCH, gen)
+    check(sorted(noise) == ["eps", "t"], f"geodesic noise {sorted(noise)}")
+    before = launch_counts()["metric_bundle"]
+    out_gpu = manager.forward(seqs, noise=noise)
+    torch.cuda.synchronize()
+    forward_launches = launch_counts()["metric_bundle"] - before
+    check(forward_launches == 1, f"the forward launched G {forward_launches} times, not once")
+    cpu = ModelManager(copy.deepcopy(manager.model).to("cpu"), device="cpu")
+    out_cpu = cpu.forward(seqs, noise={k: v.cpu() for k, v in noise.items()})
+    compare = compare_forward(torch, out_gpu, out_cpu)
+    forward_b64 = profile_forward(torch, manager, seqs, noise)
+
+    # training: the train phase's run and gates on the geodesic model
+    train = run_train(torch, geodesic_hybrid_config(), steps=POSTERIOR_TRAIN_STEPS,
+                      per_step=expected_launches(metric_bundle=1, iaf_chain_fwd=1,
+                                                 iaf_chain_bwd=1), dev=dev)
+
+    # the shipped hybrid_rlvae (enhanced posterior) reconstructs once
+    shipped = ModelManager.from_config(PRESETS["hybrid_rlvae"], seed=0, device=dev)
+    check(shipped.model.sampling_method == "enhanced", "the shipped preset is not 'enhanced'")
+    before = launch_counts()
+    x = shipped.reconstruct(seqs[:8])
+    got = {k: v - before[k] for k, v in launch_counts().items()}
+    check(x.shape == (8, 8, 3, 64, 64) and np.isfinite(x).all(), "bad enhanced reconstruct")
+    check(got == expected_launches(chol_bundle=1, iaf_chain_fwd=1),
+          f"one enhanced reconstruct launched {got}")
+
+    totals = {k: counts[k] + train["launches"][k] + got[k] for k in counts}
+    return {
+        "model": "hybrid_rlvae, sampling.method=geodesic", "load_s": load_s,
+        "reconstruct_bucket": {"batch": SERVE_BATCH, "host_ms": bucket_ms, "launches": counts,
+                               "stats": {k: v for k, v in stats.items()
+                                         if not k.endswith("_hist")}},
+        "cuda_vs_cpu": compare, "forward_b64": forward_b64, "train": train,
+        "enhanced_reconstruct_launches": got, "launches": totals,
+        "metric_bundle_launches_per_forward": forward_launches,
+    }
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(HANG_GUARD_S, exit=True)
     import torch
@@ -991,6 +1235,9 @@ def main() -> None:
                       ("iaf_chain_bwd", run_iaf_bwd_checks), ("hmc_terms", run_hmc_checks)):
         records[name], cases = run(torch, dev)
         emit("kernels", kernel=name, tolerance=records[name]["tolerance"], cases=cases)
+    for name, (record, cases) in run_bundle_checks(torch, dev).items():
+        records[name] = record
+        emit("kernels", kernel=name, tolerance=record["tolerance"], cases=cases)
 
     serve = run_serve(torch)
     emit("serve", **serve)
@@ -998,22 +1245,31 @@ def main() -> None:
     emit("train", **train)
     generate = run_generate(torch)
     emit("generate", **generate)
-    # launches: the sum over the three main paths' runs (each read between
+    posterior = run_posterior(torch)
+    emit("posterior", **posterior)
+    # launches: the sum over the four main paths' runs (each read between
     # zeroing the counters and the end of its run), with each path's count
     # beside it; every kernel is launched by the paths it belongs to
     paths = {"serve": (serve["launches"], ("chol_bundle", "iaf_chain_fwd")),
-             "train": (train["launches"], ("chol_bundle", "iaf_chain_fwd", "iaf_chain_bwd")),
-             "generate": (generate["launches"], ("chol_bundle", "iaf_chain_fwd", "hmc_terms"))}
+             "train": (train["launches"], ("chol_bundle", "iaf_chain_fwd", "iaf_chain_bwd",
+                                           "g_inv")),
+             "generate": (generate["launches"], ("chol_bundle", "iaf_chain_fwd", "hmc_terms",
+                                                 "g_inv")),
+             "posterior": (posterior["launches"], ("chol_bundle", "iaf_chain_fwd", "iaf_chain_bwd",
+                                                   "metric_bundle", "g_inv"))}
     for path, (counts, kernels) in paths.items():
         for name in kernels:
             check(counts[name] > 0, f"the {path} path did not launch {name}")
     for name, rec in records.items():
         rec["launches"] = sum(counts[name] for counts, _ in paths.values())
-        rec["launches_serve"] = serve["launches"][name]
-        rec["launches_train"] = train["launches"][name]
+        for path, (counts, _) in paths.items():
+            rec[f"launches_{path}"] = counts[name]
         rec["launches_per_train_step"] = train["launches_per_step"][name]
-        rec["launches_generate"] = generate["launches"][name]
-    records["hmc_terms"]["launches_per_official_chain"] = CHAIN_LAUNCHES
+        rec["launches_per_geodesic_train_step"] = posterior["train"]["launches_per_step"][name]
+    records["hmc_terms"]["launches_per_official_chain"] = next(
+        c["launches"]["hmc_terms"] for c in generate["calls"] if c["method"] == "official")
+    records["metric_bundle"]["launches_per_geodesic_forward"] = (
+        posterior["metric_bundle_launches_per_forward"])
 
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": list(records.values())}), flush=True)

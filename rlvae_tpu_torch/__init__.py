@@ -1,6 +1,6 @@
 """rlvae_tpu_torch: the PyTorch/CUDA port of rlvae_tpu.
 
-Three slices of the ``riemannian_flow_vae`` model are ported:
+Four slices are ported:
 
 - serving: :class:`~rlvae_tpu_torch.inference.ModelManager` (``encode``,
   ``decode``, ``reconstruct``, ``embed_sequence``) behind the
@@ -11,10 +11,16 @@ Three slices of the ``riemannian_flow_vae`` model are ported:
 - prior generation: ``ModelManager.sample_random``,
   ``sample_random_batched_seeds``, ``sample_latent`` and the engine's
   ``generate`` op, with the geodesic, centroid-aware, weighted-mixture and
-  basic priors and the manifold-HMC chains (:mod:`rlvae_tpu_torch.samplers`).
+  basic priors and the manifold-HMC chains (:mod:`rlvae_tpu_torch.samplers`);
+- the consumers of the metric tensor G: ``PRESETS["hybrid_rlvae"]``, a
+  Gaussian posterior sampled by ``standard``, ``basic``, ``enhanced``,
+  ``geodesic`` or ``official``; the evaluation step's analysis metrics;
+  ``riemannian_full_kl`` and the metric's ``g``, ``chol_g``, ``dist2`` and
+  ``diagnostics``.
 
 Hand-written CUDA kernels (``csrc/``) compute the chol-bundle, the IAF
-chain's forward and backward, and the HMC chain's target and gradient.  The
+chain's forward and backward, the HMC chain's target and gradient, and the
+metric bundle (G^{-1}, its Cholesky factor, logdet and G) and G^{-1}.  The
 package imports PyTorch and numpy only; kernels are built with ``nvcc`` at
 first use on the card.
 """

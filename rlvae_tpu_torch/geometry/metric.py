@@ -10,20 +10,28 @@ differences in fp32 (never the expanded quadratic form: the exponent is
 scaled by 1/T^2, which amplifies cancellation error).  The jitter is
 deterministic, added to the diagonal before factorization.
 
-``chol_g_inv`` and ``logdet_g_inv`` run the chol-bundle CUDA kernel for
-tensors on the card and its plain PyTorch version for tensors on the CPU,
-through the autograd Functions
-:class:`~rlvae_tpu_torch.ops.metric_kernels.CholBundle` and
-:class:`~rlvae_tpu_torch.ops.metric_kernels.CholBundleLogdet`, so both are
-differentiable in ``z`` on either device.  ``g``, ``log_sqrt_det_g_inv`` and
-``grad_log_sqrt_det_g_inv`` are the plain versions of the HMC chain's terms;
-the chain itself calls the fused ``hmc_terms`` kernel
-(:mod:`rlvae_tpu_torch.ops.metric_kernels`).
+Each function runs a CUDA kernel for tensors on the card and its plain
+PyTorch version for tensors on the CPU, through an autograd Function of
+:mod:`rlvae_tpu_torch.ops.metric_kernels`, so each is differentiable in
+``z`` on either device:
+
+- ``chol_g_inv`` and ``logdet_g_inv``: the chol-bundle (``CholBundle``,
+  ``CholBundleLogdet``);
+- ``g_inv``: the G^{-1} kernel (``GInv``);
+- ``g``: the metric bundle (``MetricBundleG``) when ``jitter == 0`` and ``z``
+  is [B, D], as the JAX package's ``g`` dispatches to its fused kernel;
+  otherwise G^{-1} and unrolled Cholesky solves.
+
+``chol_g``, ``logdet_g``, ``dist2`` and ``diagnostics`` read G through those.
+``log_sqrt_det_g_inv`` and ``grad_log_sqrt_det_g_inv`` are the plain versions
+of the HMC chain's terms; the chain itself calls the fused ``hmc_terms``
+kernel.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -66,19 +74,29 @@ def weights(metric: CentroidMetric, z: torch.Tensor) -> torch.Tensor:
     return torch.exp(-d2 / (metric.temperature ** 2))
 
 
+def _bank(metric: CentroidMetric):
+    """The kernels' bank arguments: (centroids, matrices, 1/T^2, lbd)."""
+    return (metric.centroids, metric.matrices, 1.0 / metric.temperature ** 2,
+            metric.regularization)
+
+
+def _rows(z: torch.Tensor) -> torch.Tensor:
+    """z as the kernels take it: fp32 and contiguous (a slice such as
+    ``z_seq[:, 0]`` is not)."""
+    return z.float().contiguous()
+
+
 def g_inv(metric: CentroidMetric, z: torch.Tensor) -> torch.Tensor:
-    """Inverse metric G^{-1}(z), shape [B, D, D]: one [B, K] @ [K, D*D] product."""
-    k, d = metric.centroids.shape
-    w = weights(metric, z)
-    gi = (w @ metric.matrices.reshape(k, d * d)).reshape(-1, d, d)
-    return gi + metric.regularization * torch.eye(d, dtype=gi.dtype, device=gi.device)
+    """Inverse metric G^{-1}(z), shape [B, D, D], from the G^{-1} kernel (its
+    plain version, one [B, K] @ [K, D*D] product, for CPU tensors)."""
+    return _mk.GInv.apply(_rows(z), *_bank(metric))
 
 
 def chol_g_inv(metric: CentroidMetric, z: torch.Tensor, jitter: float = 1e-6) -> torch.Tensor:
     """L with L L^T = G^{-1}(z) + jitter*I, from the chol-bundle kernel
     (its plain version for CPU tensors); differentiable in ``z``."""
     return _mk.CholBundle.apply(
-        z, metric.centroids, metric.matrices,
+        _rows(z), metric.centroids, metric.matrices,
         1.0 / metric.temperature ** 2, metric.regularization + jitter,
     )
 
@@ -87,15 +105,71 @@ def logdet_g_inv(metric: CentroidMetric, z: torch.Tensor) -> torch.Tensor:
     """log det G^{-1}(z), shape [B]: the bundle's logdet output (jitter 0),
     from one chol-bundle launch; differentiable in ``z``."""
     return _mk.CholBundleLogdet.apply(
-        z, metric.centroids, metric.matrices,
+        _rows(z), metric.centroids, metric.matrices,
         1.0 / metric.temperature ** 2, metric.regularization,
     )
 
 
 def g(metric: CentroidMetric, z: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
-    """Metric tensor G(z) = [G^{-1}(z)]^{-1}, shape [B, D, D], by unrolled
-    Cholesky solves (the plain path, ``_g_xla`` of the JAX package)."""
+    """Metric tensor G(z) = [G^{-1}(z)]^{-1}, shape [B, D, D]: the metric
+    bundle's G when ``jitter == 0`` and ``z`` is [B, D]; otherwise unrolled
+    Cholesky solves of G^{-1} + jitter I (``_g_xla`` of the JAX package)."""
+    if jitter == 0.0 and z.dim() == 2:
+        return _mk.MetricBundleG.apply(_rows(z), *_bank(metric))
     return _lin.inv_psd_small(g_inv(metric, z), jitter=jitter)
+
+
+def chol_g(metric: CentroidMetric, z: torch.Tensor, jitter: float = 1e-6) -> torch.Tensor:
+    """L with L L^T = G(z) + jitter*I."""
+    return _lin.cholesky_small(g(metric, z), jitter=jitter)
+
+
+def logdet_g(metric: CentroidMetric, z: torch.Tensor) -> torch.Tensor:
+    """log det G(z) = -log det G^{-1}(z), shape [B]."""
+    return -logdet_g_inv(metric, z)
+
+
+def quadratic_form(g_matrix: torch.Tensor, diff: torch.Tensor) -> torch.Tensor:
+    """diff^T G diff for batched G [B, D, D], diff [B, D] -> [B]."""
+    diff = diff.float()
+    return torch.einsum("bi,bij,bj->b", diff, g_matrix, diff)
+
+
+def dist2(metric: CentroidMetric, z1: torch.Tensor, z2: torch.Tensor) -> torch.Tensor:
+    """Local squared Riemannian distance (z1-z2)^T G(mid) (z1-z2), mid the
+    midpoint, shape [B]."""
+    return quadratic_form(g(metric, 0.5 * (z1 + z2)), z1 - z2)
+
+
+def diagnostics(metric: CentroidMetric, z: torch.Tensor) -> Dict[str, Any]:
+    """Metric-geometry diagnostics with the JAX package's keys: eigenvalues
+    of G and G^{-1} at the first row, mean determinants and traces over the
+    batch, and the condition numbers derived from them.  One device->host
+    transfer for every scalar."""
+    gz, giz = g(metric, z), g_inv(metric, z)
+    eig_g = torch.linalg.eigvalsh(gz[0])
+    eig_gi = torch.linalg.eigvalsh(giz[0])
+    names = ("eigenvals_G_min", "eigenvals_G_max", "eigenvals_G_mean",
+             "eigenvals_G_inv_min", "eigenvals_G_inv_max", "eigenvals_G_inv_mean",
+             "det_G_mean", "det_G_inv_mean", "trace_G_mean", "trace_G_inv_mean")
+    logdet_gi = logdet_g_inv(metric, z)
+    values = torch.stack([
+        eig_g.min(), eig_g.max(), eig_g.mean(),
+        eig_gi.min(), eig_gi.max(), eig_gi.mean(),
+        torch.exp(-logdet_gi).mean(), torch.exp(logdet_gi).mean(),
+        torch.diagonal(gz, dim1=-2, dim2=-1).sum(-1).mean(),
+        torch.diagonal(giz, dim1=-2, dim2=-1).sum(-1).mean(),
+    ]).tolist()
+    out = dict(zip(names, values))
+    out["temperature"] = float(np.float32(metric.temperature))
+    out["regularization"] = float(np.float32(metric.regularization))
+    out["condition_number_G"] = out["eigenvals_G_max"] / (out["eigenvals_G_min"] + 1e-8)
+    out["condition_number_G_inv"] = out["eigenvals_G_inv_max"] / (
+        out["eigenvals_G_inv_min"] + 1e-8
+    )
+    out["batch_size"] = int(z.shape[0])
+    out["n_centroids"] = metric.n_centroids
+    return out
 
 
 def log_sqrt_det_g_inv(metric: CentroidMetric, z: torch.Tensor,

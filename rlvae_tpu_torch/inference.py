@@ -20,7 +20,7 @@ independently, as JAX's ``vmap`` does).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,11 +54,15 @@ class ModelManager:
 
     # -- core ops -------------------------------------------------------------
 
-    def forward(self, x_seq, seed: int = 0, eps: Optional[torch.Tensor] = None) -> ModelOutput:
-        """Full forward with losses; tensors stay on the device."""
+    def forward(self, x_seq, seed: int = 0, eps: Optional[torch.Tensor] = None,
+                noise: Optional[Mapping[str, torch.Tensor]] = None) -> ModelOutput:
+        """Full forward with losses; tensors stay on the device.  The
+        posterior noise of the model's method (``RlVAE.draw_posterior_noise``)
+        is drawn from ``seed`` unless ``noise`` (or ε alone as ``eps``) is
+        given."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         with torch.inference_mode():
-            return self.model(self._tensor(x_seq), eps=eps, generator=gen)
+            return self.model(self._tensor(x_seq), noise, generator=gen, eps=eps)
 
     def encode(self, x) -> ModelOutput:
         """Frame(s) [B, C, H, W] -> (embedding, log_covariance), numpy."""

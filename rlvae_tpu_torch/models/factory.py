@@ -3,7 +3,11 @@
 Port of ``rlvae_tpu/models/factory.py:40-100``.  The config is a plain dict
 with the keys of a composed ``conf/model/*.yaml`` node (the port reads no
 YAML).  ``PRESETS["riemannian_flow_vae"]`` holds the values that the JAX
-factory ends up using for ``conf/model/riemannian_flow_vae.yaml``.
+factory ends up using for ``conf/model/riemannian_flow_vae.yaml``, and
+``PRESETS["hybrid_rlvae"]`` those of ``conf/model/hybrid_rlvae.yaml``: a
+Gaussian posterior sampled by ``sampling.method`` (``enhanced``; one of
+``standard``, ``basic``, ``enhanced``, ``geodesic``, ``official``) with the
+K=200 metric at T=0.7.
 
 Relative artifact paths resolve against the working directory first, then
 against the repository root.  A configured but missing encoder or decoder
@@ -55,7 +59,31 @@ RIEMANNIAN_FLOW_VAE: Dict[str, Any] = {
     },
 }
 
-PRESETS: Dict[str, Dict[str, Any]] = {"riemannian_flow_vae": RIEMANNIAN_FLOW_VAE}
+HYBRID_RLVAE: Dict[str, Any] = {
+    **RIEMANNIAN_FLOW_VAE,
+    "name": "hybrid_rlvae",
+    "riemannian_beta": 1.0,
+    "posterior": {"type": "gaussian"},
+    "sampling": {"method": "enhanced", "use_riemannian": True},
+    "loop": {"mode": "open", "penalty": 1.0},
+    "metric": {
+        "path": "metric.npz",
+        "temperature_override": 0.7,
+        "regularization_override": None,
+        "enable_diagnostics": True,
+        "performance_tracking": True,
+    },
+    "pretrained": {
+        "encoder_path": "data/pretrained/encoder.npz",
+        "decoder_path": "data/pretrained/decoder.npz",
+        "metric_path": "data/pretrained/metric.npz",
+    },
+}
+
+PRESETS: Dict[str, Dict[str, Any]] = {
+    "riemannian_flow_vae": RIEMANNIAN_FLOW_VAE,
+    "hybrid_rlvae": HYBRID_RLVAE,
+}
 
 
 def _node(config: Optional[Mapping[str, Any]], key: str) -> Dict[str, Any]:
@@ -129,3 +157,10 @@ def create_model(config: Mapping[str, Any], seed: int = 0, name: Optional[str] =
         if path:
             load_pretrained_net(getattr(model, kind), path)
     return model
+
+
+def create_hybrid_model(config: Mapping[str, Any], seed: int = 0,
+                        name: Optional[str] = None) -> RlVAE:
+    """``create_model`` under the name ``hybrid_rlvae``, as the JAX factory's
+    ``create_hybrid_model``."""
+    return create_model(config, seed=seed, name=name or "hybrid_rlvae")

@@ -1,10 +1,19 @@
 """RlVAE: the Riemannian Flow VAE.
 
-Port of ``RlVAE.encode``, ``decode`` and ``forward``
-(``rlvae_tpu/models/rlvae.py:234-390``): encode frame 0 -> metric-aware
-posterior sample z0 (chol-bundle launch 1) -> temporal IAF chain (one
-IAF-chain launch) -> open/closed loop handling -> decode all B*T frames as
-one batch -> reconstruction + KL (chol-bundle launch 2) + flow + loop losses.
+Port of ``RlVAE.encode``, ``decode``, ``sample_z0`` and ``forward``
+(``rlvae_tpu/models/rlvae.py:234-390``): encode frame 0 -> posterior sample
+z0 -> temporal IAF chain (one IAF-chain launch) -> open/closed loop handling
+-> decode all B*T frames as one batch -> reconstruction + KL + flow + loop
+losses.  The default ``riemannian_metric`` posterior draws z0 with one
+chol-bundle launch and its KL takes a second.  A ``gaussian`` posterior with a
+metric draws z0 by ``sampling.method`` (:func:`sample_posterior`: the
+``geodesic`` method launches the metric bundle once for G, ``basic``,
+``enhanced`` and ``official`` the chol-bundle once) and takes the standard KL.
+The posterior noise (ε, and t for ``geodesic``; see
+:meth:`RlVAE.draw_posterior_noise`) can be passed in as ``noise``.
+``forward(..., compute_metrics=True)`` adds the evaluation step's analysis
+metrics (``losses.additional_metrics``: with a metric, one G^{-1} launch and
+one chol-bundle launch at z0).
 
 ``forward`` is differentiable: ``loss.backward()`` runs the chol-bundle's
 recompute backward twice and the IAF-chain backward kernel once.  Callers
@@ -23,13 +32,13 @@ Every draw can be passed in as ``noise`` (:meth:`draw_generation_noise`
 says what it holds); otherwise it comes from ``generator``.
 
 Not ported yet (raise ``NotImplementedError``): ``remat_decode`` and
-``fused_decode_mse``, the HBM knobs of the fast preset; the ``adaptive``
-prior chain.
+``fused_decode_mse``, the HBM knobs of the fast preset (ROADMAP queue A2);
+the ``adaptive`` prior chain and the posterior ``hmc`` method (queue A1).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,9 +51,11 @@ from rlvae_tpu_torch.nets.registry import create_decoder, create_encoder
 from rlvae_tpu_torch.samplers.hmc import HMCConfig, draw_hmc_noise, sample_prior_hmc
 from rlvae_tpu_torch.samplers.riemannian import (
     PRIOR_METHODS,
+    draw_posterior_noise,
     draw_prior_noise,
     reparam,
     sample_metric_aware_posterior,
+    sample_posterior,
     sample_prior,
 )
 from rlvae_tpu_torch.utils.output import ModelOutput
@@ -102,7 +113,8 @@ class RlVAE(nn.Module):
             raise ValueError("flow_loss_mode must be 'reference' or 'volume'")
         if remat_decode or fused_decode_mse:
             raise NotImplementedError(
-                "remat_decode and fused_decode_mse (the fast preset) are not ported yet"
+                "remat_decode and fused_decode_mse (the fast preset) are not ported yet "
+                "(ROADMAP queue A2)"
             )
         self.input_dim = tuple(input_dim)
         self.latent_dim = latent_dim
@@ -157,28 +169,56 @@ class RlVAE(nn.Module):
     def decode(self, z: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.decoder(z)
 
-    def sample_z0(self, mu, log_var, eps=None, generator=None) -> torch.Tensor:
+    def _posterior_metric(self) -> Optional[CentroidMetric]:
+        """The metric a Gaussian posterior samples with (None: plain
+        reparameterization), as ``sample_z0`` of the JAX package decides."""
+        return self.metric if self.use_riemannian else None
+
+    def draw_posterior_noise(self, batch: int,
+                             generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Every draw of one forward's posterior sample, in order: ε [B, D],
+        and t [B, 1] for the ``geodesic`` method with a metric."""
+        if self.posterior_type == "riemannian_metric":
+            method, metric = "standard", None
+        else:
+            method, metric = self.sampling_method, self._posterior_metric()
+        return draw_posterior_noise(metric, method, batch, self.latent_dim, generator,
+                                    device=self._device())
+
+    def sample_z0(self, mu, log_var, noise: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """Posterior sampling switch (``RlVAE.sample_z0`` of the JAX package)."""
         metric = self.metric
         if self.posterior_type == "riemannian_metric":
             if metric is None:
-                return reparam(mu, log_var, eps, generator)
-            return sample_metric_aware_posterior(metric, mu, log_var, eps, generator)
-        if self.use_riemannian and metric is not None and self.sampling_method != "standard":
-            raise NotImplementedError(
-                f"posterior sampling method {self.sampling_method!r} is not ported yet"
-            )
-        return reparam(mu, log_var, eps, generator)
+                return reparam(mu, log_var, noise["eps"])
+            return sample_metric_aware_posterior(metric, mu, log_var, noise["eps"])
+        # the 'iaf' posterior is declared but stubbed in the reference -> gaussian
+        return sample_posterior(self._posterior_metric(), mu, log_var, self.sampling_method,
+                                noise)
 
-    def forward(self, x: torch.Tensor, eps: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None, train: bool = False) -> ModelOutput:
-        """Forward with losses; ``eps`` [B, D] is the posterior noise (drawn
-        from ``generator`` when not given).  ``train`` is accepted for the
-        JAX signature and changes nothing for the ported nets."""
+    def forward(self, x: torch.Tensor,
+                noise: Union[torch.Tensor, Mapping[str, torch.Tensor], None] = None,
+                generator: Optional[torch.Generator] = None, train: bool = False,
+                compute_metrics: bool = False, *,
+                eps: Optional[torch.Tensor] = None) -> ModelOutput:
+        """Forward with losses.  ``noise`` is the posterior noise: a mapping
+        as :meth:`draw_posterior_noise` returns, or ε [B, D] alone (also
+        accepted as ``eps=``); drawn from ``generator`` when not given.
+        ``compute_metrics`` adds ``metrics`` (``losses.additional_metrics``).
+        ``train`` is accepted for the JAX signature and changes nothing for
+        the ported nets."""
         batch_size, n_obs = x.shape[0], x.shape[1]
+        if eps is not None:
+            if noise is not None:
+                raise ValueError("pass the posterior noise as noise= or eps=, not both")
+            noise = eps
+        if noise is None:
+            noise = self.draw_posterior_noise(batch_size, generator)
+        elif isinstance(noise, torch.Tensor):
+            noise = {"eps": noise}
         enc = self.encode(x[:, 0])
         mu, log_var = enc["embedding"], enc["log_covariance"]
-        z0 = self.sample_z0(mu, log_var, eps, generator)
+        z0 = self.sample_z0(mu, log_var, noise)
 
         if self.n_flows > 0:
             z_seq, log_dets = apply_temporal_flows(self.flows, z0, n_obs)
@@ -208,10 +248,14 @@ class RlVAE(nn.Module):
             if self.loop_mode == "closed" else recon_loss.new_zeros(())
         )
         total = losses.total_loss(recon_loss, kl, flow, loop, kl_weight, self.loop_lambda)
-        return ModelOutput(
+        out = ModelOutput(
             recon_x=recon, z=z_seq, mu=mu, log_var=log_var, loss=total,
             recon_loss=recon_loss, kld_loss=kl, flow_loss=flow, loop_penalty=loop,
         )
+        if compute_metrics:
+            out["metrics"] = losses.additional_metrics(x, recon, z_seq,
+                                                       self._posterior_metric())
+        return out
 
     # -- generation -------------------------------------------------------------
 

@@ -1,4 +1,5 @@
-"""The metric kernels: the chol-bundle and the HMC terms.
+"""The metric kernels: the chol-bundle, the HMC terms, the metric bundle
+and G^{-1}.
 
 **chol-bundle**: (chol(G^{-1}(z)), logdet G^{-1}(z)) in one launch.  Port of
 ``chol_bundle_pallas`` (``rlvae_tpu/ops/metric_kernels.py:470``) as the
@@ -19,23 +20,37 @@ hand-written CUDA kernel ``csrc/chol_bundle.cu``.  For each row of z:
 This is the gradient the reference's sampler integrates with, not the exact
 gradient of log pi (``rlvae_tpu/geometry/metric.py:228-263``).
 
-:func:`chol_bundle` and :func:`hmc_terms` launch their kernels for CUDA
-tensors and run the plain PyTorch versions (:func:`chol_bundle_ref`,
-:func:`hmc_terms_ref`) for CPU tensors; there is no other route.  Each
-wrapper's ``launches`` counts its kernel launches.
+**metric bundle**: (G^{-1}, L = chol G^{-1}, logdet G^{-1}, G) in one
+launch, and **G^{-1}** alone.  Ports of ``metric_bundle_pallas``
+(``metric_kernels.py:657``) and ``g_inv_pallas`` (:618) as the two kernels of
+``csrc/metric_bundle.cu``.  With G^{-1} and L as above (diag = lbd):
+
+    X = L^{-1} (forward substitution),  G = X^T X
+
+Every matrix is i-major (the TPU kernels' slabs are j-major).  When the
+batch leaves the card's SMs idle and the bank is large (:func:`k_splits`),
+one call is two launches: ranges of the bank summed in separate blocks into
+a workspace, then their sum in range order and the epilogue.
+
+Each wrapper (:func:`chol_bundle`, :func:`hmc_terms`, :func:`metric_bundle`,
+:func:`g_inv`) launches its kernel for CUDA tensors and runs its plain
+PyTorch version (``*_ref``) for CPU tensors; there is no other route.  Each
+wrapper's ``launches`` counts the calls that launched its kernel.
 
 :class:`CholBundle` and :class:`CholBundleLogdet` make the bundle's factor L
 and its logdet differentiable in ``z``, as ``chol_g_inv_fused`` does on the
 JAX side (``metric_kernels.py:759-784``): the forward is one
 :func:`chol_bundle` launch; the backward re-evaluates :func:`chol_bundle_ref`
 under autograd and returns its VJP (the JAX package recomputes through its
-XLA path with ``jax.vjp``, not a kernel).  The metric's centroids and
-matrices are buffers and get no gradient.
+XLA path with ``jax.vjp``, not a kernel).  :class:`MetricBundleG` (G) and
+:class:`GInv` (G^{-1}) do the same for the metric bundle, as ``g_fused``
+(:788-805) does.  The metric's centroids and matrices are buffers and get no
+gradient.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -104,14 +119,19 @@ def chol_bundle(
 chol_bundle.launches = 0
 
 
-def _recompute_vjp(ctx, output: int, cotangent):
-    """VJP in z of output ``output`` (0: L, 1: logdet) of the bundle,
-    re-evaluated through its plain version under autograd."""
+def _save(ctx, z, centroids, matrices, inv_t2: float, diag: float) -> None:
+    ctx.save_for_backward(z, centroids, matrices)
+    ctx.scalars = (inv_t2, diag)
+
+
+def _recompute_vjp(ctx, plain, cotangent):
+    """VJP in z of ``plain(z, centroids, matrices, inv_t2, diag)``, the
+    kernel's plain version re-evaluated under autograd (the JAX package
+    recomputes through its XLA path)."""
     z, centroids, matrices = ctx.saved_tensors
     with torch.enable_grad():
         zz = z.detach().requires_grad_(True)
-        out = chol_bundle_ref(zz, centroids, matrices, ctx.inv_t2, ctx.diag)[output]
-        (dz,) = torch.autograd.grad(out, zz, cotangent)
+        (dz,) = torch.autograd.grad(plain(zz, centroids, matrices, *ctx.scalars), zz, cotangent)
     return dz, None, None, None, None
 
 
@@ -120,13 +140,12 @@ class CholBundle(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, z, centroids, matrices, inv_t2: float, diag: float):
-        ctx.save_for_backward(z, centroids, matrices)
-        ctx.inv_t2, ctx.diag = inv_t2, diag
+        _save(ctx, z, centroids, matrices, inv_t2, diag)
         return chol_bundle(z.detach(), centroids, matrices, inv_t2, diag)[0]
 
     @staticmethod
     def backward(ctx, dl):
-        return _recompute_vjp(ctx, 0, dl)
+        return _recompute_vjp(ctx, lambda *a: chol_bundle_ref(*a)[0], dl)
 
 
 class CholBundleLogdet(torch.autograd.Function):
@@ -134,13 +153,12 @@ class CholBundleLogdet(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, z, centroids, matrices, inv_t2: float, diag: float):
-        ctx.save_for_backward(z, centroids, matrices)
-        ctx.inv_t2, ctx.diag = inv_t2, diag
+        _save(ctx, z, centroids, matrices, inv_t2, diag)
         return chol_bundle(z.detach(), centroids, matrices, inv_t2, diag)[1]
 
     @staticmethod
     def backward(ctx, dld):
-        return _recompute_vjp(ctx, 1, dld)
+        return _recompute_vjp(ctx, lambda *a: chol_bundle_ref(*a)[1], dld)
 
 
 # ---------------------------------------------------------------------------
@@ -204,3 +222,151 @@ def hmc_terms(
 
 
 hmc_terms.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Metric bundle and G^{-1}
+# ---------------------------------------------------------------------------
+
+
+def g_inv_ref(
+    z: torch.Tensor, centroids: torch.Tensor, matrices: torch.Tensor,
+    inv_t2: float, lbd: float,
+) -> torch.Tensor:
+    """Plain PyTorch version: G^{-1} [B, D, D], as the JAX package's XLA
+    ``gm.g_inv`` (one [B, K] @ [K, D*D] product).  fp64 banks give the fp64
+    evaluation."""
+    k, d = centroids.shape
+    z = z.to(centroids.dtype)
+    diff = z[:, None, :] - centroids[None, :, :]  # [B, K, D]
+    w = torch.exp(-(diff * diff).sum(-1) * inv_t2)
+    gi = (w @ matrices.reshape(k, d * d)).reshape(-1, d, d)
+    return gi + lbd * torch.eye(d, dtype=gi.dtype, device=gi.device)
+
+
+def metric_bundle_ref(
+    z: torch.Tensor, centroids: torch.Tensor, matrices: torch.Tensor,
+    inv_t2: float, lbd: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: (G^{-1}, L, logdet, G), as the JAX package's XLA
+    path (``g_inv``, ``cholesky_small``, ``logdet_from_chol``, and G by
+    ``inv_psd_small``'s solves against I on the same factor)."""
+    gi = g_inv_ref(z, centroids, matrices, inv_t2, lbd)
+    l = _lin.cholesky_small(gi)
+    eye = torch.eye(gi.shape[-1], dtype=gi.dtype, device=gi.device).expand(gi.shape)
+    g = _lin.tri_solve_upper_t(l, _lin.tri_solve_lower(l, eye))
+    return gi, l, _lin.logdet_from_chol(l), g
+
+
+ROWS_PER_BLOCK = 4  # csrc/metric_bundle.cu: ROWS
+MIN_CENTROIDS_PER_SPLIT = 512
+
+
+def k_splits(b: int, k: int, device: torch.device) -> int:
+    """How many ranges of the bank the metric-bundle kernels sum in separate
+    blocks: enough for about two blocks per SM, each range at least
+    MIN_CENTROIDS_PER_SPLIT centroids; 1 (one fused launch) when the batch
+    alone fills the card or the bank is small.  Always in [1, K]."""
+    row_blocks = -(-b // ROWS_PER_BLOCK)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-2 * sms // row_blocks), k // MIN_CENTROIDS_PER_SPLIT))
+
+
+def _workspace(b: int, k: int, device: torch.device) -> Tuple[int, Optional[torch.Tensor]]:
+    """(n_splits, workspace) of a metric-bundle launch: :func:`k_splits`
+    ranges (in [1, K]), and one [B, 256] workspace slot per range (None for
+    one range).  Freed after the launch is enqueued, the workspace goes back
+    to the caching allocator, which hands it out again only to work ordered
+    after the launch on the same stream."""
+    n = k_splits(b, k, device)
+    if n == 1:
+        return 1, None
+    return n, torch.empty((n, b, KERNEL_DIM * KERNEL_DIM), dtype=torch.float32, device=device)
+
+
+def metric_bundle(
+    z: torch.Tensor, centroids: torch.Tensor, matrices: torch.Tensor,
+    inv_t2: float, lbd: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(G^{-1}, L, logdet, G) of G^{-1}(z); kernel on CUDA, plain on CPU."""
+    if z.device.type == "cpu":
+        return metric_bundle_ref(z, centroids, matrices, inv_t2, lbd)
+    if z.device.type != "cuda":
+        raise ValueError(f"metric_bundle: unsupported device {z.device}")
+    check_inputs("metric_bundle", z.device, z=z, centroids=centroids, matrices=matrices)
+    b, k = _check_bank_shapes("metric_bundle", z, centroids, matrices)
+    d = KERNEL_DIM
+    gi, l, g = (torch.empty((b, d, d), dtype=torch.float32, device=z.device) for _ in range(3))
+    logdet = torch.empty((b,), dtype=torch.float32, device=z.device)
+    if b == 0:
+        return gi, l, logdet, g
+    from rlvae_tpu_torch.ops.build import kernel_library
+
+    n_splits, part = _workspace(b, k, z.device)
+    code = kernel_library().metric_bundle_f32(
+        z.data_ptr(), centroids.data_ptr(), matrices.data_ptr(), float(inv_t2), float(lbd),
+        gi.data_ptr(), l.data_ptr(), logdet.data_ptr(), g.data_ptr(),
+        None if part is None else part.data_ptr(), b, k, n_splits, stream_handle(z.device),
+    )
+    raise_on_error("metric_bundle", code)
+    metric_bundle.launches += 1
+    return gi, l, logdet, g
+
+
+metric_bundle.launches = 0
+
+
+def g_inv(
+    z: torch.Tensor, centroids: torch.Tensor, matrices: torch.Tensor,
+    inv_t2: float, lbd: float,
+) -> torch.Tensor:
+    """G^{-1}(z) [B, D, D]; kernel on CUDA, plain on CPU."""
+    if z.device.type == "cpu":
+        return g_inv_ref(z, centroids, matrices, inv_t2, lbd)
+    if z.device.type != "cuda":
+        raise ValueError(f"g_inv: unsupported device {z.device}")
+    check_inputs("g_inv", z.device, z=z, centroids=centroids, matrices=matrices)
+    b, k = _check_bank_shapes("g_inv", z, centroids, matrices)
+    gi = torch.empty((b, KERNEL_DIM, KERNEL_DIM), dtype=torch.float32, device=z.device)
+    if b == 0:
+        return gi
+    from rlvae_tpu_torch.ops.build import kernel_library
+
+    n_splits, part = _workspace(b, k, z.device)
+    code = kernel_library().g_inv_f32(
+        z.data_ptr(), centroids.data_ptr(), matrices.data_ptr(), float(inv_t2), float(lbd),
+        gi.data_ptr(), None if part is None else part.data_ptr(), b, k, n_splits,
+        stream_handle(z.device),
+    )
+    raise_on_error("g_inv", code)
+    g_inv.launches += 1
+    return gi
+
+
+g_inv.launches = 0
+
+
+class MetricBundleG(torch.autograd.Function):
+    """G = metric_bundle(z, ...)[3], differentiable in ``z``."""
+
+    @staticmethod
+    def forward(ctx, z, centroids, matrices, inv_t2: float, lbd: float):
+        _save(ctx, z, centroids, matrices, inv_t2, lbd)
+        return metric_bundle(z.detach(), centroids, matrices, inv_t2, lbd)[3]
+
+    @staticmethod
+    def backward(ctx, dg):
+        return _recompute_vjp(ctx, lambda *a: metric_bundle_ref(*a)[3], dg)
+
+
+class GInv(torch.autograd.Function):
+    """G^{-1} = g_inv(z, ...), differentiable in ``z``."""
+
+    @staticmethod
+    def forward(ctx, z, centroids, matrices, inv_t2: float, lbd: float):
+        _save(ctx, z, centroids, matrices, inv_t2, lbd)
+        return g_inv(z.detach(), centroids, matrices, inv_t2, lbd)
+
+    @staticmethod
+    def backward(ctx, dgi):
+        return _recompute_vjp(ctx, g_inv_ref, dgi)

@@ -11,15 +11,19 @@ from rlvae_tpu_torch.samplers.hmc import (
     tempering,
 )
 from rlvae_tpu_torch.samplers.riemannian import (
+    POSTERIOR_METHODS,
     PRIOR_METHODS,
+    draw_posterior_noise,
     draw_prior_noise,
     reparam,
     sample_metric_aware_posterior,
+    sample_posterior,
     sample_prior,
 )
 
 __all__ = [
-    "HMCConfig", "PRIOR_METHODS", "concat_rows", "draw_chain_noise", "draw_hmc_noise", "draw_prior_noise",
-    "mcmc_step", "reparam", "run_prior_chain", "sample_metric_aware_posterior", "sample_prior",
+    "HMCConfig", "POSTERIOR_METHODS", "PRIOR_METHODS", "concat_rows", "draw_chain_noise",
+    "draw_hmc_noise", "draw_posterior_noise", "draw_prior_noise", "mcmc_step", "reparam",
+    "run_prior_chain", "sample_metric_aware_posterior", "sample_posterior", "sample_prior",
     "sample_prior_hmc", "tempering",
 ]

@@ -1,15 +1,28 @@
 """Posterior and prior sampling.
 
-Port of ``reparam`` and ``sample_metric_aware_posterior``
+Port of ``reparam``, ``sample_posterior`` and ``sample_metric_aware_posterior``
 (``rlvae_tpu/samplers/riemannian.py:58-176``) and of the prior methods of
 ``sample_prior`` (:184-296): ``geodesic`` (the default), ``centroid_aware``,
 ``weighted_mixture`` and ``basic``.  ``geodesic_exact`` needs the geodesic
-solver (``geometry/geodesics.py``), which is not ported yet.
+solver (``geometry/geodesics.py``), which is not ported yet; nor is the
+posterior ``hmc`` method (``sample_posterior_hmc``).
 
-The noise may be passed in: JAX draws it from its own keys, and the tests
-hand both sides the same numbers.  For the posterior it is ε; for a prior it
-is a mapping with one entry per draw, in the order :func:`draw_prior_noise`
-draws them from a ``torch.Generator`` when it is not given:
+Posterior methods (``sampling.method`` of a Gaussian-posterior model):
+
+    standard  plain reparameterization
+    basic     0.1-scale chol(G^{-1}(z_std)) metric noise mix
+    enhanced  metric noise at the virtual top-2-centroid point, 0.15 mix
+    geodesic  a point on the segment between the two nearest centroids plus
+              G-shaped noise (one metric-bundle launch for G)
+    official  0.1-scale chol(G^{-1}(mu)) at the hardcoded T = 0.1
+
+The posterior's noise is always passed in: JAX draws it from its own keys,
+and the tests hand both sides the same numbers.  It is ε [B, D], and for
+``geodesic`` also t [B, 1] (uniform), drawn in that order by
+:func:`draw_posterior_noise`, the one place that draws it.  A prior's
+noise may be passed in too: a mapping with one entry per draw, in the order
+:func:`draw_prior_noise` draws them from a ``torch.Generator`` when it is not
+given:
 
     geodesic          i1 [n], i2 [n] (centroid indices), t [n, 1] (uniform),
                       eps [n, D] (standard normal)
@@ -28,6 +41,9 @@ import torch
 
 from rlvae_tpu_torch.geometry import metric as gm
 from rlvae_tpu_torch.geometry.metric import CentroidMetric
+from rlvae_tpu_torch.ops import linalg as _lin
+
+Noise = Mapping[str, torch.Tensor]
 
 
 def _noise(mu: torch.Tensor, eps: Optional[torch.Tensor],
@@ -54,11 +70,118 @@ def sample_metric_aware_posterior(
 
 
 # ---------------------------------------------------------------------------
+# Posterior sampling (Gaussian posterior, ``sampling.method``)
+# ---------------------------------------------------------------------------
+
+POSTERIOR_METHODS = ("standard", "basic", "enhanced", "geodesic", "official", "hmc")
+
+
+def _check_posterior_method(method: str) -> None:
+    if method not in POSTERIOR_METHODS:
+        raise ValueError(f"Unknown posterior sampling method: {method}")
+    if method == "hmc":
+        raise NotImplementedError(
+            "posterior method 'hmc' (sample_posterior_hmc, refine_for_training) is not "
+            "ported yet (ROADMAP queue A1)"
+        )
+
+
+def draw_posterior_noise(metric: Optional[CentroidMetric], method: str, batch: int,
+                         latent_dim: int, generator: Optional[torch.Generator],
+                         device=None) -> Dict[str, torch.Tensor]:
+    """Every draw of posterior ``method`` for ``batch`` rows, in order: ε
+    [B, D], then for ``geodesic`` with a metric t [B, 1]."""
+    if metric is not None:
+        _check_posterior_method(method)
+    noise = {"eps": torch.randn((batch, latent_dim), generator=generator, device=device)}
+    if metric is not None and method == "geodesic":
+        noise["t"] = torch.rand((batch, 1), generator=generator, device=device)
+    return noise
+
+
+def sample_posterior(metric: Optional[CentroidMetric], mu: torch.Tensor,
+                     log_var: torch.Tensor, method: str, noise: Noise) -> torch.Tensor:
+    """z0 [B, D] by posterior ``method``, from the draws in ``noise`` (those
+    of :func:`draw_posterior_noise`)."""
+    if metric is not None:
+        _check_posterior_method(method)
+    eps = _noise(mu, noise["eps"], None)
+    if metric is None or method == "standard":
+        return reparam(mu, log_var, eps)
+    if method == "basic":
+        return _posterior_basic(metric, mu, log_var, eps)
+    if method == "enhanced":
+        return _posterior_enhanced(metric, mu, log_var, eps)
+    if method == "geodesic":
+        return _posterior_geodesic(metric, mu, log_var, eps,
+                                   noise["t"].to(device=mu.device, dtype=mu.dtype))
+    return _posterior_official(metric, mu, log_var, eps)
+
+
+def _std(log_var: torch.Tensor) -> torch.Tensor:
+    return torch.exp(0.5 * log_var)
+
+
+def _posterior_basic(metric, mu, log_var, eps):
+    z_std = mu + eps * _std(log_var)
+    l = gm.chol_g_inv(metric, z_std, jitter=1e-6)
+    eps_t = torch.einsum("bij,bj->bi", l, eps)
+    scale = 0.1
+    return mu + eps_t * _std(log_var) * scale + eps * _std(log_var) * (1.0 - scale)
+
+
+def _top2_centroids(metric: CentroidMetric, mu: torch.Tensor):
+    """(distances [B, 2], indices [B, 2]) of the two nearest centroids.  Ties
+    go to the lower index, as ``jax.lax.top_k`` breaks them (a stable sort;
+    ``torch.topk`` leaves the order among ties unspecified).  With a single
+    centroid both slots point at it."""
+    dist = torch.linalg.vector_norm(mu[:, None, :] - metric.centroids[None, :, :], dim=-1)
+    if metric.n_centroids < 2:
+        return dist.repeat(1, 2), torch.zeros((mu.shape[0], 2), dtype=torch.long,
+                                              device=mu.device)
+    top, idx = torch.sort(dist, dim=1, stable=True)
+    return top[:, :2], idx[:, :2]
+
+
+def _posterior_enhanced(metric, mu, log_var, eps):
+    d2, idx = _top2_centroids(metric, mu)
+    w = 1.0 / (d2 + 1e-8)
+    w = w / w.sum(-1, keepdim=True)
+    c1, c2 = metric.centroids[idx[:, 0]], metric.centroids[idx[:, 1]]
+    virtual = w[:, 0:1] * c1 + w[:, 1:2] * c2
+    l = gm.chol_g_inv(metric, virtual, jitter=1e-6)
+    eps_t = torch.einsum("bij,bj->bi", l, eps)
+    influence = 0.15
+    return mu + eps_t * _std(log_var) * influence + eps * _std(log_var) * (1.0 - influence)
+
+
+def _posterior_geodesic(metric, mu, log_var, eps, t):
+    _, idx = _top2_centroids(metric, mu)
+    c1, c2 = metric.centroids[idx[:, 0]], metric.centroids[idx[:, 1]]
+    z_geo = (1.0 - t) * c1 + t * c2
+    direction = c2 - c1
+    direction = direction / (torch.linalg.vector_norm(direction, dim=-1, keepdim=True) + 1e-8)
+    parallel = ((mu - z_geo) * direction).sum(-1, keepdim=True) * direction
+    l = _lin.cholesky_small(gm.g(metric, z_geo), jitter=1e-6)
+    eps_perp = torch.einsum("bij,bj->bi", l, eps)
+    scale = 0.3
+    return (z_geo + scale * eps_perp * _std(log_var) + (1.0 - scale) * (mu - z_geo)
+            + 0.1 * parallel)
+
+
+def _posterior_official(metric, mu, log_var, eps):
+    """Cholesky of G^{-1}(mu) at the reference sampler's hardcoded T = 0.1,
+    0.1 noise scale."""
+    official = CentroidMetric(metric.centroids, metric.matrices, 0.1, metric.regularization)
+    l = gm.chol_g_inv(official, mu, jitter=1e-6)
+    return mu + torch.einsum("bij,bj->bi", l, eps) * _std(log_var) * 0.1
+
+
+# ---------------------------------------------------------------------------
 # Prior sampling
 # ---------------------------------------------------------------------------
 
 PRIOR_METHODS = ("geodesic", "geodesic_exact", "centroid_aware", "weighted_mixture", "basic")
-Noise = Mapping[str, torch.Tensor]
 
 
 def _sym_sqrt(mat: torch.Tensor, clamp: float = 1e-8) -> torch.Tensor:

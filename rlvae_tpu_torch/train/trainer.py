@@ -6,14 +6,19 @@ Port of the single-device per-step path of ``rlvae_tpu/train/trainer.py``:
   forward with ``train=True``, ``loss.backward()``, the global gradient norm,
   and one Adam step with coupled weight decay.  Its metrics carry the keys of
   ``trainer.py:94-103``.
-- :func:`make_eval_step` is the evaluation forward (no gradients).
+- :func:`make_eval_step` is ``_eval_metrics`` (``trainer.py:253-262``): the
+  evaluation forward (no gradients) with ``compute_metrics=True``, so it
+  returns the loss terms plus the analysis metrics of
+  ``losses.additional_metrics``.
 - :class:`Trainer` runs epochs of train steps, a validation pass per epoch
   (batch-size-weighted means), the plateau learning-rate schedule and early
   stopping.
 
-The posterior noise ε is drawn from a ``torch.Generator`` on the model's
-device, seeded from the trainer's seed; the step functions take ε as an
-argument, so tests can hand both frameworks the same numbers.
+The posterior noise (ε, and t for the ``geodesic`` posterior method; see
+``RlVAE.draw_posterior_noise``) is drawn from a ``torch.Generator`` on the
+model's device, seeded from the trainer's seed; the step functions take it
+as an argument (the mapping, or ε alone), so tests can hand both frameworks
+the same numbers.
 
 Not ported yet: callbacks, the metrics logger's files, checkpoints,
 preemption handling, the compiled-epoch paths, and data/model parallelism.
@@ -23,7 +28,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Any, Callable, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -40,12 +45,13 @@ from rlvae_tpu_torch.train.optim import (
 )
 
 Metrics = Dict[str, torch.Tensor]
+Noise = Union[torch.Tensor, Mapping[str, torch.Tensor]]
 LOSS_KEYS = ("loss", "recon_loss", "kld_loss", "flow_loss", "loop_penalty")
 EVAL_KEYS = ("loss", "recon_loss", "kld_loss", "flow_loss")
 
 
 def make_train_step(model: RlVAE, optimizer: torch.optim.Optimizer) -> Callable[..., Metrics]:
-    """``step(batch, eps) -> metrics``: one forward/backward/Adam update.
+    """``step(batch, noise) -> metrics``: one forward/backward/Adam update.
 
     Every parameter gets a gradient tensor before the update, zeros where the
     loss does not reach it (at n_obs=8 the 8th flow is unused): the JAX
@@ -55,9 +61,9 @@ def make_train_step(model: RlVAE, optimizer: torch.optim.Optimizer) -> Callable[
     """
     params = [p for p in model.parameters() if p.requires_grad]
 
-    def step(batch: torch.Tensor, eps: torch.Tensor) -> Metrics:
+    def step(batch: torch.Tensor, noise: Noise) -> Metrics:
         optimizer.zero_grad(set_to_none=True)
-        out = model(batch, eps=eps, train=True)
+        out = model(batch, noise, train=True)
         out.loss.backward()
         for p in params:
             if p.grad is None:
@@ -73,12 +79,13 @@ def make_train_step(model: RlVAE, optimizer: torch.optim.Optimizer) -> Callable[
 
 
 def make_eval_step(model: RlVAE) -> Callable[..., Metrics]:
-    """``step(batch, eps) -> metrics``: the loss terms of one evaluation forward."""
+    """``step(batch, noise) -> metrics``: the loss terms and the analysis
+    metrics of one evaluation forward."""
 
     @torch.no_grad()
-    def step(batch: torch.Tensor, eps: torch.Tensor) -> Metrics:
-        out = model(batch, eps=eps, train=False)
-        return {k: out[k] for k in EVAL_KEYS}
+    def step(batch: torch.Tensor, noise: Noise) -> Metrics:
+        out = model(batch, noise, train=False, compute_metrics=True)
+        return {**{k: out[k] for k in EVAL_KEYS}, **out["metrics"]}
 
     return step
 
@@ -111,10 +118,6 @@ class Trainer:
         self.history: List[Dict[str, float]] = []  # one summary per epoch
         self.step_log: List[Dict[str, float]] = []  # every log_every steps
 
-    def _noise(self, batch_size: int, generator: torch.Generator) -> torch.Tensor:
-        return torch.randn((batch_size, self.model.latent_dim), generator=generator,
-                           device=self.device)
-
     def _to_device(self, batch: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(self.device)
 
@@ -133,7 +136,8 @@ class Trainer:
                 if max_steps is not None and step >= max_steps:
                     break
                 x = self._to_device(batch)
-                last = self.train_step(x, self._noise(x.shape[0], self.generator))
+                noise = self.model.draw_posterior_noise(x.shape[0], self.generator)
+                last = self.train_step(x, noise)
                 step += 1
                 if step % self.log_every == 0:
                     self.step_log.append({"step": step, "lr": get_lr(self.optimizer),
@@ -181,7 +185,7 @@ class Trainer:
         weights: List[int] = []
         for batch in batches:
             x = self._to_device(batch)
-            metrics = self.eval_step(x, self._noise(x.shape[0], gen))
+            metrics = self.eval_step(x, self.model.draw_posterior_noise(x.shape[0], gen))
             weights.append(x.shape[0])
             for k, v in metrics.items():
                 acc.setdefault(k, []).append(float(v))

@@ -16,7 +16,7 @@ import rlvae_tpu_torch
 from rlvae_tpu_torch import ModelManager, PRESETS, resolve_device
 from rlvae_tpu_torch.ops import build
 from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_fwd
-from rlvae_tpu_torch.ops.metric_kernels import chol_bundle, hmc_terms
+from rlvae_tpu_torch.ops.metric_kernels import chol_bundle, g_inv, hmc_terms, metric_bundle
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "rlvae_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -63,6 +63,9 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
         chol_bundle(z, z, torch.empty((4, 16, 16), device="meta"), 1.0, 0.01)
     with pytest.raises(ValueError, match="unsupported device"):
         hmc_terms(z, z, torch.empty((4, 16, 16), device="meta"), 1.0, 0.01, -23.0)
+    for wrapper in (metric_bundle, g_inv):
+        with pytest.raises(ValueError, match="unsupported device"):
+            wrapper(z, z, torch.empty((4, 16, 16), device="meta"), 1.0, 0.01)
     w = torch.empty((1, 1, 16, 32), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         iaf_chain_fwd(z, w, w, w, w, w, w)
@@ -83,7 +86,7 @@ def test_build_command():
     assert {"-shared", "-O3", "-std=c++17"} <= set(argv)
     srcs = [Path(a) for a in argv if a.endswith(".cu")]
     assert sorted(p.name for p in srcs) == ["chol_bundle.cu", "hmc_terms.cu", "iaf_chain.cu",
-                                            "iaf_chain_bwd.cu"]
+                                            "iaf_chain_bwd.cu", "metric_bundle.cu"]
     assert all(p.parent == REPO / "rlvae_tpu_torch" / "csrc" for p in srcs)
     assert out.parent == REPO / "build" / "rlvae_tpu_torch"
     assert re.fullmatch(r"librlvae_kernels_[0-9a-f]{16}\.so", out.name)
@@ -91,6 +94,17 @@ def test_build_command():
     for src in srcs:
         text = src.read_text()
         assert "torch/extension.h" not in text and 'extern "C"' in text
+
+
+def test_signatures_match_the_sources():
+    """Every extern "C" function of csrc/*.cu has a ctypes signature with one
+    argtype per parameter (nothing compiles here, so this is the check that
+    a pointer is not passed as a 32-bit int)."""
+    found = {}
+    for src in build.sources():
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            found[name] = len(params.split(","))
+    assert {k: len(v) for k, v in build.SIGNATURES.items()} == found
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

@@ -9,7 +9,10 @@ IAF-chain backward (near-identity flows) within 1e-4 of each output's
 largest entry, the forward's residual ys within 1e-4 of its scale; HMC
 terms: log pi atol 1e-5 and grad within 1e-4 of its scale against the plain
 version, and against fp64 no worse than 4x the plain version (or 1e-4 of
-scale)."""
+scale).  Metric bundle and G^{-1}: against the plain version at the JAX
+package's kernel tolerances (G^{-1} rtol 1e-5 atol 1e-6, L and logdet 1e-4,
+G 1e-3), and against fp64 each output's error at most twice the plain fp32
+version's, or within 1e-5 of the output's scale."""
 
 import numpy as np
 import pytest
@@ -24,11 +27,16 @@ from rlvae_tpu_torch.ops.iaf_kernels import (
     iaf_chain_fwd_ref,
     stack_chain,
 )
+from rlvae_tpu_torch.ops import metric_kernels
 from rlvae_tpu_torch.ops.metric_kernels import (
     chol_bundle,
     chol_bundle_ref,
+    g_inv,
+    g_inv_ref,
     hmc_terms,
     hmc_terms_ref,
+    metric_bundle,
+    metric_bundle_ref,
 )
 
 pytestmark = pytest.mark.cuda
@@ -203,5 +211,86 @@ def test_logdet_g_inv_gradient_on_the_card_equals_the_cpu(dev):
         before = chol_bundle.launches
         gm.logdet_g_inv(mt, zz).sum().backward()
         assert chol_bundle.launches == before + (1 if zz.is_cuda else 0)
+        grads.append(zz.grad.cpu())
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-4, atol=1e-5 * grads[0].abs().max())
+
+
+BUNDLE_TOL = ((1e-5, 1e-6), (1e-4, 1e-4), (1e-4, 1e-4), (1e-3, 1e-3))  # G^-1, L, logdet, G
+
+
+@pytest.mark.parametrize("b,k,n_splits", [
+    *((b, k, None) for k in (1, 50, 200, 20_000) for b in (1, 64, 1000)),
+    # the bank summed in 1, 2, 7 or 40 ranges (the default at K=20 000 and
+    # B=64 on an H100 is 17), each range in its own block
+    *((64, 20_000, n) for n in (1, 2, 7, 40)), (5, 200, 3),
+])
+def test_metric_bundle_and_g_inv_match_plain_and_fp64(dev, monkeypatch, b, k, n_splits):
+    """Both kernels against their plain fp32 versions and an fp64 evaluation;
+    the last rows of a batch lie far from every centroid (G^{-1} = lbd I).
+    A given ``n_splits`` replaces the wrappers' own choice of ranges."""
+    if n_splits is not None:
+        monkeypatch.setattr(metric_kernels, "k_splits", lambda b, k, device: n_splits)
+    c, m = _bank(k, 7 * k + b)
+    rng = np.random.default_rng(b + 1)
+    z = c[rng.integers(0, k, size=b)] + 0.05 * rng.normal(size=(b, 16))
+    if b > 1:
+        z[-2:] += 100.0
+    zt, ct, mt = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (z, c, m))
+    before = (metric_bundle.launches, g_inv.launches)
+    got = metric_bundle(zt, ct, mt, 4.0, 0.01)
+    gi_k = g_inv(zt, ct, mt, 4.0, 0.01)
+    plain = metric_bundle_ref(zt, ct, mt, 4.0, 0.01)
+    want64 = metric_bundle_ref(zt.double(), ct.double(), mt.double(), 4.0, 0.01)
+    torch.cuda.synchronize()
+    assert (metric_bundle.launches, g_inv.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(gi_k, got[0])  # the same front half
+    torch.testing.assert_close(gi_k, g_inv_ref(zt, ct, mt, 4.0, 0.01), rtol=1e-5, atol=1e-6)
+    for out, p, e, (rtol, atol) in zip(got, plain, want64, BUNDLE_TOL):
+        torch.testing.assert_close(out, p, rtol=rtol, atol=atol)
+        err_k = float((out.double() - e).abs().max())
+        err_p = float((p.double() - e).abs().max())
+        assert err_k <= max(2 * err_p, 1e-5 * float(e.abs().max())), (err_k, err_p)
+    l, g = got[1], got[3]
+    assert torch.all(torch.triu(l, 1) == 0)
+    assert torch.equal(g, g.transpose(-1, -2))
+    if b > 1:
+        eye = torch.eye(16, device=dev)
+        torch.testing.assert_close(got[0][-2:], 0.01 * eye.expand(2, 16, 16), rtol=0, atol=0)
+
+
+def test_metric_bundle_rejects_bad_inputs(dev):
+    z = torch.zeros((4, 16), device=dev)
+    c = torch.zeros((3, 16), device=dev)
+    m = torch.eye(16, device=dev).expand(3, 16, 16).contiguous()
+    for wrapper in (metric_bundle, g_inv):
+        with pytest.raises(TypeError):
+            wrapper(z.double(), c, m, 1.0, 0.01)
+        with pytest.raises(ValueError):
+            wrapper(z, c[:0], m[:0], 1.0, 0.01)
+        with pytest.raises(ValueError):
+            wrapper(z.t(), c, m, 1.0, 0.01)
+        with pytest.raises(RuntimeError):
+            wrapper(z.clone().requires_grad_(), c, m, 1.0, 0.01)
+
+
+@pytest.mark.parametrize("which", ["g", "g_inv"])
+def test_g_and_g_inv_gradients_on_the_card_equal_the_cpu(dev, which):
+    """G and G^{-1} differentiate on the card (one kernel launch forward, the
+    plain recompute backward) and match the CPU's gradient."""
+    from rlvae_tpu_torch.geometry import metric as gm
+    from rlvae_tpu_torch.geometry.metric import CentroidMetric
+
+    c, m = _bank(200, 4)
+    metric = CentroidMetric.create(c, m, temperature=0.7, regularization=0.01)
+    w = torch.randn(7, 16, 16, generator=torch.Generator().manual_seed(1))
+    fn, counter = {"g": (gm.g, metric_bundle), "g_inv": (gm.g_inv, g_inv)}[which]
+    grads = []
+    for device in ("cpu", dev):
+        mt = CentroidMetric(metric.centroids.to(device), metric.matrices.to(device),
+                            metric.temperature, metric.regularization)
+        zz = torch.tensor(c[:7] + 0.05, dtype=torch.float32, device=device, requires_grad=True)
+        before = counter.launches
+        (fn(mt, zz) * w.to(device)).sum().backward()
+        assert counter.launches == before + (1 if zz.is_cuda else 0)
         grads.append(zz.grad.cpu())
     torch.testing.assert_close(grads[1], grads[0], rtol=1e-4, atol=1e-5 * grads[0].abs().max())
