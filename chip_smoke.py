@@ -13,7 +13,11 @@ Phases, each printing one JSON line with its elapsed seconds:
    reference init, to an fp64 evaluation (as the forward is).  The HMC terms,
    the metric bundle and G^{-1} are held to their plain versions and to an
    fp64 evaluation at K=50, 200 and 20 000, B=1, 64 and 1000, with rows far
-   from every centroid.
+   from every centroid.  The decode+MSE forward, dh and dW/db are held to
+   their plain versions (the forward's loss also to fp64) at M=128 (the fast
+   train step's B=16), 512 and 37 rows, N=12288 and 300, on the pretrained
+   decoder's weights; each is timed at M=128 and 512 beside cuBLAS's time
+   for the forward's bf16 product alone.
 4. ``serve``: ``ModelManager.from_config(PRESETS["riemannian_flow_vae"])`` on
    the card behind a ``BatchingEngine``; 64 ``reconstruct`` requests from 8
    threads plus 16 ``encode`` and 16 ``decode``, after one warm-up call per
@@ -48,6 +52,13 @@ Phases, each printing one JSON line with its elapsed seconds:
    ``Trainer`` steps of the geodesic model at B=16, each replayed on the CPU
    as in the train phase, with a validation pass that launches G^{-1}.  Then
    the shipped ``hybrid_rlvae`` (``enhanced``) reconstructs once.
+8. ``fast``: ``PRESETS["riemannian_flow_vae_fast"]`` (sampling-direction
+   flows, fused decode+MSE loss): 5 ``Trainer`` steps at B=16 as in the
+   train phase (per step: chol-bundle 2, ``decode_mse`` forward, dh and
+   dW/db 1 each, no IAF-chain launch), each replayed on the CPU, with a
+   validation pass; then one warm B=64 ``reconstruct`` bucket behind a
+   ``BatchingEngine`` (chol-bundle 2, nothing else) and a B=64 forward held
+   against the CPU.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -75,6 +86,8 @@ N_RECONSTRUCT, N_THREADS, N_ENCODE, N_DECODE = 64, 8, 16, 16
 # tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# dense bf16 on the tensor cores: the bound of decode+MSE's products
+PEAK_BF16_TENSOR_FLOPS = 989e12
 # kernel vs plain version, both fp32 on the card, summed in another order;
 # the factorization amplifies G^{-1} rounding by up to its condition number
 CHOL_RTOL, CHOL_ATOL = 1e-4, 1e-5
@@ -111,6 +124,19 @@ BUNDLE_TOL = {"g_inv": (1e-5, 1e-6), "l": (1e-4, 1e-4), "logdet": (1e-4, 1e-4),
 BUNDLE_FP64_FACTOR, BUNDLE_FP64_RTOL = 2.0, 1e-5
 # the posterior phase: Trainer steps of the geodesic hybrid model
 POSTERIOR_TRAIN_STEPS = 3
+# decode+MSE: the kernel vs its plain version on the card, the loss rtol and
+# each gradient's error relative to its largest entry (a bf16 rounding of dp
+# may flip where the fp32 pre-activation is summed in another order; dh as
+# its fp32 sum, from an fp32 h); the bf16 dh of a bf16 h within one bf16 step
+# (2^-7) of each element on top of that (its final rounding flips where the
+# fp32 sum, taken in another order, lies near a tie); vs an fp64 evaluation
+# of the same bf16 operands, the loss's error at most DECODE_FP64_FACTOR
+# times the plain fp32 version's, or DECODE_FP64_RTOL
+DECODE_LOSS_RTOL, DECODE_GRAD_RTOL = 1e-5, 1e-3
+DECODE_FP64_FACTOR, DECODE_FP64_RTOL = 2.0, 1e-6
+DECODE_ROWS = (TRAIN_BATCH * 8, 512, 37)  # B*T rows: the fast train step's, a larger, a ragged
+DECODE_COLS = (12288, 300)
+DECODE_TIMED_ROWS = (TRAIN_BATCH * 8, 512)
 # the analysis metrics of the evaluation step (losses.additional_metrics)
 EVAL_METRIC_KEYS = ("cyclicity_error", "latent_norm", "latent_variance",
                     "metric_conditioning", "manifold_regularity", "metric_determinant")
@@ -150,8 +176,8 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_FP32_FLOPS
+def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = PEAK_FP32_FLOPS):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -599,6 +625,162 @@ def run_bundle_checks(torch, dev):
             "g_inv": (gi_rec, cases["g_inv"])}
 
 
+def pretrained_decoder(dev):
+    """The fast preset's decoder with the pretrained weights, on ``dev``."""
+    from rlvae_tpu_torch.convert import load_pretrained_net
+    from rlvae_tpu_torch.nets.registry import create_decoder
+
+    dec = create_decoder((3, 64, 64), 16, {"architecture": "mlp", "out_dtype": "bfloat16"})
+    load_pretrained_net(dec, PRETRAINED / "decoder.npz")
+    return dec.to(dev).requires_grad_(False)
+
+
+def decode_inputs(torch, dec, m: int, n: int, seed: int):
+    """(h, W, b, x, rw) as the fast train step gives them to decode+MSE: h the
+    decoder's hidden layer (bf16) at latents drawn from N(0, I), W [N, 512]
+    and b its output layer (the first N units), x targets in [0, 1], rw = 1/B
+    with rows 3 and 4 at 0 (a masked frame)."""
+    dev = dec.out.weight.device
+    rng = np.random.default_rng(seed)
+    z = torch.tensor(rng.normal(size=(m, 16)), dtype=torch.float32, device=dev)
+    rw = np.full((m,), 1.0 / TRAIN_BATCH, np.float32)
+    rw[3:5] = 0.0
+    return (dec.hidden(z), dec.out.weight[:n].contiguous(), dec.out.bias[:n].contiguous(),
+            torch.tensor(rng.uniform(size=(m, n)), dtype=torch.float32, device=dev),
+            torch.tensor(rw, device=dev))
+
+
+def run_decode_checks(torch, dev):
+    """decode+MSE's three entry points against their plain versions (the
+    loss also against fp64) at DECODE_ROWS x DECODE_COLS, bit-identical on a
+    second launch; each timed at DECODE_TIMED_ROWS x 12288."""
+    from rlvae_tpu_torch.ops.recon_kernels import (
+        decode_mse,
+        decode_mse_bwd_dh,
+        decode_mse_bwd_dw,
+        decode_mse_dh_ref,
+        decode_mse_dw_ref,
+        decode_mse_ref,
+    )
+
+    names = ("decode_mse_fwd", "decode_mse_bwd_dh", "decode_mse_bwd_dw")
+    cases = {name: [] for name in names}
+    g = torch.ones((), device=dev)
+    dec = pretrained_decoder(dev)
+    for m in DECODE_ROWS:
+        for n in DECODE_COLS:
+            h, w, b, x, rw = decode_inputs(torch, dec, m, n, seed=m + n)
+            args = (h, w, b, x, rw)
+            loss = decode_mse(*args)
+            dh = decode_mse_bwd_dh(*args, g)
+            dw, db = decode_mse_bwd_dw(*args, g)
+            ref = decode_mse_ref(*args)
+            ref64 = decode_mse_ref(h, w.double(), b.double(), x.double(), rw.double())
+            dh_p = decode_mse_dh_ref(*args, g)
+            dw_p, db_p = decode_mse_dw_ref(*args, g)
+            dw2, db2 = decode_mse_bwd_dw(*args, g)
+            same = (torch.equal(loss, decode_mse(*args))
+                    and torch.equal(dh, decode_mse_bwd_dh(*args, g))
+                    and torch.equal(dw, dw2) and torch.equal(db, db2))
+            torch.cuda.synchronize()
+            shape = f"M={m},K=512,N={n}"
+            err_k, err_p = abs(float(loss) - float(ref64)), abs(float(ref) - float(ref64))
+            fwd_ok = (abs(float(loss) - float(ref)) <= DECODE_LOSS_RTOL * abs(float(ref))
+                      and err_k <= max(DECODE_FP64_FACTOR * err_p,
+                                       DECODE_FP64_RTOL * abs(float(ref64))))
+            cases["decode_mse_fwd"].append({
+                "shape": shape, "ok": fwd_ok, "loss": float(loss),
+                "max_abs_err": abs(float(loss) - float(ref)),
+                "kernel_vs_fp64_abs": err_k, "plain_vs_fp64_abs": err_p})
+
+            def grad_case(got, want):
+                err = float((got.float() - want.float()).abs().max())
+                scale = float(want.float().abs().max())
+                differ = int((got != want).sum())
+                return {"shape": shape, "ok": err <= DECODE_GRAD_RTOL * scale, "max_abs_err": err,
+                        "scale": scale, "elements_differing": differ, "elements": got.numel()}
+
+            h32 = h.float()
+            dh_case = grad_case(decode_mse_bwd_dh(h32, w, b, x, rw, g),
+                                decode_mse_dh_ref(h32, w, b, x, rw, g))
+            d, ref_abs = (dh.float() - dh_p.float()).abs(), dh_p.float().abs()
+            bf16_ok = bool(torch.all(d <= 2.0 ** -7 * ref_abs
+                                     + DECODE_GRAD_RTOL * float(ref_abs.max())))
+            dh_case["bf16_dh"] = {"max_abs_err": float(d.max()), "ok": bf16_ok,
+                                  "elements_differing": int((dh != dh_p).sum())}
+            dh_case["ok"] = dh_case["ok"] and bf16_ok
+            dh_case["masked_rows_zero"] = bool(torch.all(dh[3:5] == 0))
+            cases["decode_mse_bwd_dh"].append(dh_case)
+            dw_case, db_case = grad_case(dw, dw_p), grad_case(db, db_p)
+            dw_case["db"] = db_case
+            dw_case["ok"] = dw_case["ok"] and db_case["ok"]
+            dw_case["max_abs_err"] = max(dw_case["max_abs_err"], db_case["max_abs_err"])
+            cases["decode_mse_bwd_dw"].append(dw_case)
+            for name in names:
+                cases[name][-1]["bit_identical_on_relaunch"] = same
+                check(cases[name][-1]["ok"] and same
+                      and cases["decode_mse_bwd_dh"][-1]["masked_rows_zero"],
+                      f"{name} disagrees at {shape}: {cases[name][-1]}")
+
+    # timing at the fast train step's rows and a larger batch, N = 12288
+    timed = {name: {} for name in names}
+    for m in DECODE_TIMED_ROWS:
+        h, w, b, x, rw = args = decode_inputs(torch, dec, m, DECODE_COLS[0], seed=m)
+        shape, mkn = f"M={m},K=512,N={DECODE_COLS[0]}", 2.0 * m * 512 * DECODE_COLS[0]
+        ins = nbytes(h, w, b, x, rw)
+        w_bf16 = w.to(torch.bfloat16)
+        cublas_ms = time_ms(torch, lambda: torch.matmul(h, w_bf16.t()), 20)
+        runs = {
+            # (kernel, plain version, bytes of its inputs and outputs, operations)
+            "decode_mse_fwd": (lambda: decode_mse(*args), lambda: decode_mse_ref(*args),
+                               ins + 4, mkn),
+            "decode_mse_bwd_dh": (lambda: decode_mse_bwd_dh(*args, g),
+                                  lambda: decode_mse_dh_ref(*args, g),
+                                  ins + 4 + nbytes(h), 2 * mkn),
+            "decode_mse_bwd_dw": (lambda: decode_mse_bwd_dw(*args, g),
+                                  lambda: decode_mse_dw_ref(*args, g),
+                                  ins + 4 + nbytes(w, b), 2 * mkn),
+        }
+        for name, (kernel, plain, n_bytes, n_ops) in runs.items():
+            bms, by = bound_ms(n_bytes, n_ops, PEAK_BF16_TENSOR_FLOPS)
+            timed[name][shape] = {"ms": time_ms(torch, kernel, 10),
+                                  "plain_ms": time_ms(torch, plain, 5),
+                                  "bound_ms": bms, "bound_by": by,
+                                  "cublas_bf16_product_ms": cublas_ms}
+
+    main_shape = f"M={DECODE_TIMED_ROWS[0]},K=512,N={DECODE_COLS[0]}"
+    lines = {"decode_mse_fwd": 167, "decode_mse_bwd_dh": 183, "decode_mse_bwd_dw": 192}
+    tol = (f"kernel vs plain: loss rtol {DECODE_LOSS_RTOL}, each gradient within "
+           f"{DECODE_GRAD_RTOL} of its largest entry (dh as its fp32 sum), the bf16 dh within one "
+           f"bf16 step (2^-7) of each element plus that; loss vs fp64 at most "
+           f"{DECODE_FP64_FACTOR}x "
+           f"the plain fp32 version's error, or {DECODE_FP64_RTOL} relative; rows with rw=0 give "
+           f"exact zeros in dh; bit-identical on relaunch")
+    out = {}
+    for name in names:
+        t = timed[name][main_shape]
+        out[name] = ({
+            "name": name, "route": "cuda", "source": "rlvae_tpu_torch/csrc/decode_mse.cu",
+            "replaces": f"rlvae_tpu/ops/recon_kernels.py:{lines[name]}",
+            "shape": main_shape, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "bound_peaks": "products at the bf16 tensor-core peak (989 TFLOP/s), "
+                           "bytes at 3.35 TB/s",
+            "library_ms": None,
+            "cublas_bf16_product_ms": t["cublas_bf16_product_ms"],
+            "cublas_bf16_product": "torch.matmul of bf16 [M,512]x[512,N], the forward's product "
+                                   "alone (no PyTorch call computes decode+MSE)",
+            "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
+            "ms_by_shape": {k: v["ms"] for k, v in timed[name].items()},
+            "plain_ms_by_shape": {k: v["plain_ms"] for k, v in timed[name].items()},
+            "bound_ms_by_shape": {k: v["bound_ms"] for k, v in timed[name].items()},
+            "cublas_bf16_product_ms_by_shape": {k: v["cublas_bf16_product_ms"]
+                                                for k, v in timed[name].items()},
+            "tolerance": tol,
+        }, cases[name])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # serve phase
 # ---------------------------------------------------------------------------
@@ -813,10 +995,12 @@ TRAIN_TOL = {
 def _wrappers():
     from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_bwd, iaf_chain_fwd
     from rlvae_tpu_torch.ops.metric_kernels import chol_bundle, g_inv, hmc_terms, metric_bundle
+    from rlvae_tpu_torch.ops.recon_kernels import decode_mse, decode_mse_bwd_dh, decode_mse_bwd_dw
 
     return {"chol_bundle": chol_bundle, "iaf_chain_fwd": iaf_chain_fwd,
             "iaf_chain_bwd": iaf_chain_bwd, "hmc_terms": hmc_terms,
-            "metric_bundle": metric_bundle, "g_inv": g_inv}
+            "metric_bundle": metric_bundle, "g_inv": g_inv, "decode_mse_fwd": decode_mse,
+            "decode_mse_bwd_dh": decode_mse_bwd_dh, "decode_mse_bwd_dw": decode_mse_bwd_dw}
 
 
 def launch_counts():
@@ -930,6 +1114,7 @@ def run_train(torch, model_config=None, steps: int = TRAIN_STEPS, per_step=None,
     busy_ms, kernels = device_time_by_kernel(torch, lambda: step(x, noise))
     return {
         "model": model.name, "steps": result["steps"], "batch": TRAIN_BATCH,
+        "device_busy_share": busy_ms / step_ms,
         "setup_s": setup_s, "fit_s": fit_s,
         "launches": launches, "launches_per_step": records[0]["launches"],
         "losses": [r["metrics"]["loss"] for r in records],
@@ -1209,6 +1394,65 @@ def run_posterior(torch, dev=None):
     }
 
 
+# ---------------------------------------------------------------------------
+# fast phase
+# ---------------------------------------------------------------------------
+
+
+def run_fast(torch, dev=None):
+    """The fast preset: Trainer steps with the fused decode+MSE loss, then one
+    B=64 reconstruct bucket and a B=64 forward against the CPU."""
+    from rlvae_tpu_torch import BatchingEngine, ModelManager, PRESETS, ServeConfig
+
+    preset = PRESETS["riemannian_flow_vae_fast"]
+    train = run_train(torch, preset, per_step=expected_launches(
+        chol_bundle=2, decode_mse_fwd=1, decode_mse_bwd_dh=1, decode_mse_bwd_dw=1), dev=dev)
+
+    t0 = time.perf_counter()
+    manager = ModelManager.from_config(preset, seed=0, device=dev)
+    check(dev is not None or manager.device.type == "cuda", f"manager on {manager.device}")
+    check(manager.model.fused_decode_mse and manager.model.flows.direction == "sampling",
+          "the fast preset was not built")
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(6)
+    seqs = rng.uniform(size=(SERVE_BATCH, 8, 3, 64, 64)).astype(np.float32)
+    engine = BatchingEngine.from_manager(
+        manager, ServeConfig(buckets=(SERVE_BATCH,), max_wait_ms=2000))
+    try:
+        engine.warmup({"reconstruct": seqs[0]})
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t = time.perf_counter()
+        futs = [engine.submit("reconstruct", s_) for s_ in seqs]
+        rows = [f.result(timeout=60) for f in futs]
+        bucket_ms = (time.perf_counter() - t) * 1e3
+        counts = launch_counts()
+        stats = engine.stats_snapshot()
+    finally:
+        engine.stop()
+    check(stats["batches"] == 1, f"the {SERVE_BATCH} requests took {stats['batches']} dispatches")
+    # serving never takes the fused loss (train=False): the posterior and the KL
+    check(counts == expected_launches(chol_bundle=2),
+          f"one fast reconstruct batch launched {counts}")
+    for r in rows:
+        check(r.shape == (8, 3, 64, 64) and np.isfinite(r).all(), "bad reconstruct result")
+
+    eps = torch.tensor(rng.normal(size=(SERVE_BATCH, 16)), dtype=torch.float32)
+    out_gpu = manager.forward(seqs, eps=eps.to(manager.device))
+    torch.cuda.synchronize()
+    cpu = ModelManager(copy.deepcopy(manager.model).to("cpu"), device="cpu")
+    compare = compare_forward(torch, out_gpu, cpu.forward(seqs, eps=eps))
+    return {
+        "model": "riemannian_flow_vae_fast", "load_s": load_s, "train": train,
+        "reconstruct_bucket": {"batch": SERVE_BATCH, "host_ms": bucket_ms, "launches": counts,
+                               "stats": {k: v for k, v in stats.items()
+                                         if not k.endswith("_hist")}},
+        "cuda_vs_cpu": compare,
+        "forward_b64": profile_forward(torch, manager, seqs, {"eps": eps.to(manager.device)}),
+        "launches": {k: counts[k] + train["launches"][k] for k in counts},
+    }
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(HANG_GUARD_S, exit=True)
     import torch
@@ -1238,6 +1482,9 @@ def main() -> None:
     for name, (record, cases) in run_bundle_checks(torch, dev).items():
         records[name] = record
         emit("kernels", kernel=name, tolerance=record["tolerance"], cases=cases)
+    for name, (record, cases) in run_decode_checks(torch, dev).items():
+        records[name] = record
+        emit("kernels", kernel=name, tolerance=record["tolerance"], cases=cases)
 
     serve = run_serve(torch)
     emit("serve", **serve)
@@ -1247,7 +1494,9 @@ def main() -> None:
     emit("generate", **generate)
     posterior = run_posterior(torch)
     emit("posterior", **posterior)
-    # launches: the sum over the four main paths' runs (each read between
+    fast = run_fast(torch)
+    emit("fast", **fast)
+    # launches: the sum over the five main paths' runs (each read between
     # zeroing the counters and the end of its run), with each path's count
     # beside it; every kernel is launched by the paths it belongs to
     paths = {"serve": (serve["launches"], ("chol_bundle", "iaf_chain_fwd")),
@@ -1256,7 +1505,9 @@ def main() -> None:
              "generate": (generate["launches"], ("chol_bundle", "iaf_chain_fwd", "hmc_terms",
                                                  "g_inv")),
              "posterior": (posterior["launches"], ("chol_bundle", "iaf_chain_fwd", "iaf_chain_bwd",
-                                                   "metric_bundle", "g_inv"))}
+                                                   "metric_bundle", "g_inv")),
+             "fast": (fast["launches"], ("chol_bundle", "g_inv", "decode_mse_fwd",
+                                         "decode_mse_bwd_dh", "decode_mse_bwd_dw"))}
     for path, (counts, kernels) in paths.items():
         for name in kernels:
             check(counts[name] > 0, f"the {path} path did not launch {name}")
@@ -1266,6 +1517,7 @@ def main() -> None:
             rec[f"launches_{path}"] = counts[name]
         rec["launches_per_train_step"] = train["launches_per_step"][name]
         rec["launches_per_geodesic_train_step"] = posterior["train"]["launches_per_step"][name]
+        rec["launches_per_fast_train_step"] = fast["train"]["launches_per_step"][name]
     records["hmc_terms"]["launches_per_official_chain"] = next(
         c["launches"]["hmc_terms"] for c in generate["calls"] if c["method"] == "official")
     records["metric_bundle"]["launches_per_geodesic_forward"] = (

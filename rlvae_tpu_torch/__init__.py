@@ -1,6 +1,6 @@
 """rlvae_tpu_torch: the PyTorch/CUDA port of rlvae_tpu.
 
-Four slices are ported:
+Five slices are ported:
 
 - serving: :class:`~rlvae_tpu_torch.inference.ModelManager` (``encode``,
   ``decode``, ``reconstruct``, ``embed_sequence``) behind the
@@ -16,11 +16,16 @@ Four slices are ported:
   Gaussian posterior sampled by ``standard``, ``basic``, ``enhanced``,
   ``geodesic`` or ``official``; the evaluation step's analysis metrics;
   ``riemannian_full_kl`` and the metric's ``g``, ``chol_g``, ``dist2`` and
-  ``diagnostics``.
+  ``diagnostics``;
+- the fast and stable presets (``PRESETS["riemannian_flow_vae_fast"]``,
+  ``["riemannian_flow_vae_stable"]``): sampling-direction flows, and in the
+  fast preset's training the fused decode+MSE loss
+  (:class:`~rlvae_tpu_torch.ops.recon_kernels.DecodeMSE`).
 
 Hand-written CUDA kernels (``csrc/``) compute the chol-bundle, the IAF
-chain's forward and backward, the HMC chain's target and gradient, and the
-metric bundle (G^{-1}, its Cholesky factor, logdet and G) and G^{-1}.  The
+chain's forward and backward, the HMC chain's target and gradient, the
+metric bundle (G^{-1}, its Cholesky factor, logdet and G) and G^{-1}, and
+the decoder's last layer with its sigmoid and MSE, forward and backward.  The
 package imports PyTorch and numpy only; kernels are built with ``nvcc`` at
 first use on the card.
 """

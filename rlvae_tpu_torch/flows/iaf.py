@@ -1,10 +1,16 @@
-"""Inverse autoregressive flow, density direction.
+"""Inverse autoregressive flow, both directions.
 
-Port of ``rlvae_tpu/flows/iaf.py:33-120``: per MADE block the D-dimensional
-update y_i = (x_i - mu_i(y)) * exp(-s_i(y)) runs dim by dim, log|det J|
-accumulates -s_i, and the dims are flipped after every block.  This module
-is the per-transition reference; the temporal chain runs all transitions
-through :mod:`rlvae_tpu_torch.ops.iaf_kernels`.
+Port of ``rlvae_tpu/flows/iaf.py:33-120`` and ``:164-177``.
+
+- Density direction (:func:`iaf_forward`): per MADE block the D-dimensional
+  update y_i = (x_i - mu_i(y)) * exp(-s_i(y)) runs dim by dim, log|det J|
+  accumulates -s_i, and the dims are flipped after every block.  It is the
+  per-transition reference; the temporal chain runs all its transitions
+  through :mod:`rlvae_tpu_torch.ops.iaf_kernels`.
+- Sampling direction (:func:`iaf_inverse`): the blocks in reverse order,
+  each one parallel MADE pass: flip, then y = y * exp(s(y)) + mu(y), and
+  log|det J| accumulates sum(s).  The temporal chain runs it as it is (the
+  JAX package has no kernel for this direction either).
 """
 
 from __future__ import annotations
@@ -52,3 +58,14 @@ def iaf_forward(iaf: IAF, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         logdet = logdet + ld
         x = torch.flip(x, dims=(1,))
     return x, logdet
+
+
+def iaf_inverse(iaf: IAF, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sampling direction f: returns (out, sum log|det J|)."""
+    logdet = torch.zeros(y.shape[0], dtype=y.dtype, device=y.device)
+    for block in reversed(iaf.blocks):
+        y = torch.flip(y, dims=(1,))
+        mu, s = block(y)
+        y = y * torch.exp(s) + mu
+        logdet = logdet + s.sum(-1)
+    return y, logdet

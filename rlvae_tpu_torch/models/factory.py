@@ -2,12 +2,19 @@
 
 Port of ``rlvae_tpu/models/factory.py:40-100``.  The config is a plain dict
 with the keys of a composed ``conf/model/*.yaml`` node (the port reads no
-YAML).  ``PRESETS["riemannian_flow_vae"]`` holds the values that the JAX
-factory ends up using for ``conf/model/riemannian_flow_vae.yaml``, and
-``PRESETS["hybrid_rlvae"]`` those of ``conf/model/hybrid_rlvae.yaml``: a
-Gaussian posterior sampled by ``sampling.method`` (``enhanced``; one of
-``standard``, ``basic``, ``enhanced``, ``geodesic``, ``official``) with the
-K=200 metric at T=0.7.
+YAML).  Each preset holds the values that the JAX factory ends up using for
+the YAML of its name:
+
+- ``riemannian_flow_vae``: the reference model (density-direction flows,
+  metric-aware posterior, K=50 metric at T=3.0).
+- ``riemannian_flow_vae_stable``: the same with the bounded volume flow
+  loss, near-identity flow init (log-sigma bias 0.0) and sampling-direction
+  flows.
+- ``riemannian_flow_vae_fast``: the stable preset plus the fused decode+MSE
+  loss in training (``fused_decode_mse``) and a bf16 decoder output.
+- ``hybrid_rlvae``: a Gaussian posterior sampled by ``sampling.method``
+  (``enhanced``; one of ``standard``, ``basic``, ``enhanced``,
+  ``geodesic``, ``official``) with the K=200 metric at T=0.7.
 
 Relative artifact paths resolve against the working directory first, then
 against the repository root.  A configured but missing encoder or decoder
@@ -59,6 +66,21 @@ RIEMANNIAN_FLOW_VAE: Dict[str, Any] = {
     },
 }
 
+RIEMANNIAN_FLOW_VAE_STABLE: Dict[str, Any] = {
+    **RIEMANNIAN_FLOW_VAE,
+    "name": "riemannian_flow_vae_stable",
+    "flow_loss_mode": "volume",
+    "flow_log_var_bias_init": 0.0,
+    "flow_direction": "sampling",
+}
+
+RIEMANNIAN_FLOW_VAE_FAST: Dict[str, Any] = {
+    **RIEMANNIAN_FLOW_VAE_STABLE,
+    "name": "riemannian_flow_vae_fast",
+    "fused_decode_mse": True,
+    "decoder": {"architecture": "mlp", "out_dtype": "bfloat16"},
+}
+
 HYBRID_RLVAE: Dict[str, Any] = {
     **RIEMANNIAN_FLOW_VAE,
     "name": "hybrid_rlvae",
@@ -82,6 +104,8 @@ HYBRID_RLVAE: Dict[str, Any] = {
 
 PRESETS: Dict[str, Dict[str, Any]] = {
     "riemannian_flow_vae": RIEMANNIAN_FLOW_VAE,
+    "riemannian_flow_vae_stable": RIEMANNIAN_FLOW_VAE_STABLE,
+    "riemannian_flow_vae_fast": RIEMANNIAN_FLOW_VAE_FAST,
     "hybrid_rlvae": HYBRID_RLVAE,
 }
 

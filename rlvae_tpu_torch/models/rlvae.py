@@ -16,12 +16,31 @@ metrics (``losses.additional_metrics``: with a metric, one G^{-1} launch and
 one chol-bundle launch at z0).
 
 ``forward`` is differentiable: ``loss.backward()`` runs the chol-bundle's
-recompute backward twice and the IAF-chain backward kernel once.  Callers
-that only infer run it under ``torch.inference_mode()``.  ``train`` changes
-nothing for the ported nets (MLPs without dropout or batch norm), as in
-JAX.  The metric's centroids and matrices are non-persistent buffers, so
-``model.to(device)`` moves them with the weights, the state dict holds only
-the learnable parameters, and the optimizer never sees them.
+recompute backward twice and, in the density direction, the IAF-chain
+backward kernel once (the ``sampling`` direction runs the flows as plain
+ops, with no kernel).  Callers that only infer run it under
+``torch.inference_mode()``.  ``train`` changes nothing for the ported nets
+(MLPs without dropout or batch norm), as in JAX, except through the two
+reconstruction-loss knobs of ``rlvae_tpu/models/rlvae.py:316-356``, which
+act only when ``train`` is set:
+
+- ``fused_decode_mse``: the reconstruction loss is one
+  :class:`~rlvae_tpu_torch.ops.recon_kernels.DecodeMSE` over the decoder's
+  last hidden layer (``decode_mse`` forward, its dh and dW/db kernels in
+  the backward), and the full decode is not run: ``recon_x`` is None.  JAX
+  still writes the decode in its ``forward`` but its ``jit`` removes it as
+  dead code in a train step; run eagerly it would write the [B*T, C*H*W]
+  reconstruction that the kernel exists to avoid.
+- ``remat_decode`` (when the fused loss is not taken): the decode and the
+  reconstruction loss run under ``torch.utils.checkpoint``, so the backward
+  decodes again instead of keeping the decoder's activations; the numbers
+  are the plain path's, and ``recon_x`` is None for the same reason.
+
+With ``compute_metrics`` the reconstruction is decoded all the same (the
+analysis metrics read it).  The metric's centroids and matrices are
+non-persistent buffers, so ``model.to(device)`` moves them with the weights,
+the state dict holds only the learnable parameters, and the optimizer never
+sees them.
 
 Generation (``sample_riemannian_prior``, ``generate``; JAX
 ``rlvae.py:426-474``) draws prior latents by one of the prior methods or the
@@ -31,9 +50,8 @@ them through the temporal flows (one IAF-chain launch) and decodes them.
 Every draw can be passed in as ``noise`` (:meth:`draw_generation_noise`
 says what it holds); otherwise it comes from ``generator``.
 
-Not ported yet (raise ``NotImplementedError``): ``remat_decode`` and
-``fused_decode_mse``, the HBM knobs of the fast preset (ROADMAP queue A2);
-the ``adaptive`` prior chain and the posterior ``hmc`` method (queue A1).
+Not ported yet (raise ``NotImplementedError``): the ``adaptive`` prior
+chain and the posterior ``hmc`` method (ROADMAP queue A1).
 """
 
 from __future__ import annotations
@@ -43,11 +61,13 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from rlvae_tpu_torch.flows.temporal import TemporalFlows, apply_temporal_flows
 from rlvae_tpu_torch.geometry.metric import CentroidMetric
 from rlvae_tpu_torch.models import losses
 from rlvae_tpu_torch.nets.registry import create_decoder, create_encoder
+from rlvae_tpu_torch.ops.recon_kernels import DecodeMSE
 from rlvae_tpu_torch.samplers.hmc import HMCConfig, draw_hmc_noise, sample_prior_hmc
 from rlvae_tpu_torch.samplers.riemannian import (
     PRIOR_METHODS,
@@ -111,11 +131,6 @@ class RlVAE(nn.Module):
             raise ValueError(f"loop_mode must be one of {LOOP_MODES}")
         if flow_loss_mode not in ("reference", "volume"):
             raise ValueError("flow_loss_mode must be 'reference' or 'volume'")
-        if remat_decode or fused_decode_mse:
-            raise NotImplementedError(
-                "remat_decode and fused_decode_mse (the fast preset) are not ported yet "
-                "(ROADMAP queue A2)"
-            )
         self.input_dim = tuple(input_dim)
         self.latent_dim = latent_dim
         self.n_flows = n_flows
@@ -127,6 +142,8 @@ class RlVAE(nn.Module):
         self.loop_mode = loop_mode
         self.loop_lambda = float(loop_penalty)
         self.flow_loss_mode = flow_loss_mode
+        self.remat_decode = bool(remat_decode)
+        self.fused_decode_mse = bool(fused_decode_mse)
         self.name = name
 
         generator = torch.Generator().manual_seed(seed)
@@ -205,8 +222,8 @@ class RlVAE(nn.Module):
         as :meth:`draw_posterior_noise` returns, or ε [B, D] alone (also
         accepted as ``eps=``); drawn from ``generator`` when not given.
         ``compute_metrics`` adds ``metrics`` (``losses.additional_metrics``).
-        ``train`` is accepted for the JAX signature and changes nothing for
-        the ported nets."""
+        ``train`` lets ``fused_decode_mse`` and ``remat_decode`` act (module
+        docstring); it changes nothing else for the ported nets."""
         batch_size, n_obs = x.shape[0], x.shape[1]
         if eps is not None:
             if noise is not None:
@@ -231,8 +248,18 @@ class RlVAE(nn.Module):
             z_seq = torch.cat([z_seq[:, :-1], z_seq[:, :1]], dim=1)
 
         z_flat = z_seq.reshape(batch_size * n_obs, self.latent_dim)
-        recon = self.decode(z_flat)["reconstruction"].reshape(batch_size, n_obs, *self.input_dim)
-        recon_loss = losses.reconstruction_loss(recon, x, self.loop_mode)
+        # as rlvae_tpu/models/rlvae.py:322-333; the port's only decoder is the
+        # MLP, with neither dropout (the registry refuses it) nor batch norm
+        recon = None
+        if self.fused_decode_mse and train:
+            recon_loss = self._fused_recon_loss(z_flat, x)
+        elif self.remat_decode and train:
+            recon_loss = checkpoint(self._decode_loss, z_flat, x, use_reentrant=False)
+        else:
+            recon = self._decode_seq(z_flat, batch_size, n_obs)
+            recon_loss = losses.reconstruction_loss(recon, x, self.loop_mode)
+        if compute_metrics and recon is None:
+            recon = self._decode_seq(z_flat, batch_size, n_obs)
 
         metric = self.metric
         if self.posterior_type == "riemannian_metric" and metric is not None:
@@ -256,6 +283,31 @@ class RlVAE(nn.Module):
             out["metrics"] = losses.additional_metrics(x, recon, z_seq,
                                                        self._posterior_metric())
         return out
+
+    def _decode_seq(self, z_flat: torch.Tensor, batch_size: int, n_obs: int) -> torch.Tensor:
+        recon = self.decode(z_flat)["reconstruction"]
+        return recon.reshape(batch_size, n_obs, *self.input_dim)
+
+    def _decode_loss(self, z_flat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """Decode and reconstruction loss: the body that ``remat_decode``
+        checkpoints."""
+        recon = self._decode_seq(z_flat, x.shape[0], x.shape[1])
+        return losses.reconstruction_loss(recon, x, self.loop_mode)
+
+    def _fused_recon_loss(self, z_flat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """The reconstruction loss through the fused decode+MSE kernel
+        (``RlVAE._fused_recon_loss`` of the JAX package): the decoder's hidden
+        stack, then the output layer, sigmoid and MSE in
+        :class:`DecodeMSE`.  Row b*T + t carries weight w_t / B, with w_0 = 2
+        in closed loop (frame 0 counted twice) and 1 otherwise."""
+        batch_size, n_obs = x.shape[0], x.shape[1]
+        h = self.decoder.hidden(z_flat)
+        w_t = torch.ones(n_obs, dtype=torch.float32, device=x.device)
+        if self.loop_mode == "closed":
+            w_t[0] = 2.0
+        rw = w_t.repeat(batch_size) / batch_size
+        out = self.decoder.out
+        return DecodeMSE.apply(h, out.weight, out.bias, x.reshape(batch_size * n_obs, -1), rw)
 
     # -- generation -------------------------------------------------------------
 

@@ -6,6 +6,9 @@ The dtype policy is the JAX package's: parameters stay fp32; the hidden
 layers run in ``dtype`` (bf16 by default: inputs and parameters cast, as a
 Flax ``Dense(dtype=...)`` does); the encoder heads run in fp32 and the
 decoder's output layer in ``out_dtype`` (fp32 by default).
+``MLPDecoder.hidden`` is the decoder's hidden stack alone: the fused
+decode+MSE loss (``RlVAE`` with ``fused_decode_mse``) takes the output layer
+from there, as ``_fused_recon_loss`` of the JAX package recomputes it.
 
 Layers are named as the Flax modules (``hidden_0``, ``embedding``,
 ``log_var``, ``out``) so the converted ``.npz`` keys map one to one.
@@ -67,9 +70,13 @@ class MLPDecoder(nn.Module):
             fan_in = h
         self.out = nn.Linear(fan_in, int(np.prod(self.input_dim)))
 
-    def forward(self, z: torch.Tensor) -> Dict[str, torch.Tensor]:
-        out = z
+    def hidden(self, z: torch.Tensor) -> torch.Tensor:
+        """The last hidden layer's activations [B, hidden_dims[-1]], in ``dtype``."""
+        out = z.to(self.dtype)
         for i in range(len(self.hidden_dims)):
             out = torch.relu(_dense(getattr(self, f"hidden_{i}"), out, self.dtype))
-        out = _dense(self.out, out, self.out_dtype)
+        return out
+
+    def forward(self, z: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = _dense(self.out, self.hidden(z), self.out_dtype)
         return {"reconstruction": torch.sigmoid(out).reshape(z.shape[0], *self.input_dim)}

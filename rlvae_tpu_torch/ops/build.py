@@ -59,6 +59,12 @@ SIGNATURES = {
     # ys, dz, dld, w0, b0, wh, bh, wo, bo, dz0, gw0, gb0, gwh, gbh, gwo, gbo,
     # B, D, H, NB, NH, NT, stream
     "iaf_chain_bwd_f32": (_C_PTR,) * 16 + (_C_INT,) * 6 + (_C_PTR,),
+    # h (bf16), w, b, x, rw, partials, loss, M, K, N, stream
+    "decode_mse_fwd_f32": (_C_PTR,) * 7 + (_C_INT,) * 3 + (_C_PTR,),
+    # h (bf16), w, b, x, rw, g, partials, dh, M, K, N, n_ranges, round_dh, stream
+    "decode_mse_bwd_dh_f32": (_C_PTR,) * 8 + (_C_INT,) * 5 + (_C_PTR,),
+    # h (bf16), w, b, x, rw, g, dw, db, M, K, N, stream
+    "decode_mse_bwd_dw_f32": (_C_PTR,) * 8 + (_C_INT,) * 3 + (_C_PTR,),
 }
 
 

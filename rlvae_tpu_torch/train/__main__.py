@@ -1,12 +1,15 @@
-"""Train ``riemannian_flow_vae`` on synthetic cyclic sprites.
+"""Train a model preset on synthetic cyclic sprites.
 
     python -m rlvae_tpu_torch.train --steps 20 --batch-size 16
+    python -m rlvae_tpu_torch.train --model riemannian_flow_vae_fast --steps 20
 
 Runs on the CUDA card unless ``--device`` names another device, and fails
-without one.  The model is ``PRESETS["riemannian_flow_vae"]`` (pretrained
-encoder and decoder, seeded flows); the training settings are a training
-preset (``default`` unless ``--preset`` says otherwise).  Prints one JSON
-line per epoch and a summary line.
+without one.  The model is ``PRESETS[--model]`` (``riemannian_flow_vae``
+unless ``--model`` says otherwise; the counterpart of the JAX package's
+``model=`` override), with pretrained encoder and decoder and seeded flows;
+the training settings are a training preset (``default`` unless
+``--preset`` says otherwise).  Prints one JSON line per epoch and a summary
+line.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument("--batch-size", type=int, default=None,
                    help="sequences per step (default: the preset's)")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    p.add_argument("--model", default="riemannian_flow_vae", choices=sorted(PRESETS))
     p.add_argument("--preset", default="default", choices=sorted(TRAINING_PRESETS))
     p.add_argument("--seed", type=int, default=42)
     args = p.parse_args(argv)
@@ -43,7 +47,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         cfg["n_train_samples"] = args.steps * cfg["data"]["batch_size"]
     data = CyclicDataModule(seed=args.seed)
     data.setup(cfg)
-    model = create_model(PRESETS["riemannian_flow_vae"], seed=args.seed)
+    model = create_model(PRESETS[args.model], seed=args.seed)
     trainer = Trainer(model, data, cfg, seed=args.seed, device=device)
     result = trainer.fit(max_steps=args.steps)
     for summary in result["history"]:

@@ -141,7 +141,7 @@ def test_temporal_chain_reference_init_per_transition():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        TemporalFlows(16, n_flows=1, direction="sampling")
+    """The Jacobi fixed-point blocks are not ported; the sampling direction
+    is (tests/test_torch_fast.py)."""
     with pytest.raises(NotImplementedError):
         TemporalFlows(16, n_flows=1, fixedpoint_iters=4)

@@ -17,6 +17,7 @@ from rlvae_tpu_torch import ModelManager, PRESETS, resolve_device
 from rlvae_tpu_torch.ops import build
 from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_fwd
 from rlvae_tpu_torch.ops.metric_kernels import chol_bundle, g_inv, hmc_terms, metric_bundle
+from rlvae_tpu_torch.ops.recon_kernels import decode_mse, decode_mse_bwd_dh, decode_mse_bwd_dw
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "rlvae_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -69,6 +70,10 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     w = torch.empty((1, 1, 16, 32), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         iaf_chain_fwd(z, w, w, w, w, w, w)
+    h, x, g = torch.empty((4, 32), device="meta"), torch.empty((4, 8), device="meta"), z[0, 0]
+    for wrapper, args in ((decode_mse, ()), (decode_mse_bwd_dh, (g,)), (decode_mse_bwd_dw, (g,))):
+        with pytest.raises(ValueError, match="unsupported device"):
+            wrapper(h, torch.empty((8, 32), device="meta"), x[0], x, h[:, 0], *args)
 
 
 def _ignored(path: Path) -> bool:
@@ -85,8 +90,8 @@ def test_build_command():
     assert "arch=compute_90a,code=sm_90a" in argv
     assert {"-shared", "-O3", "-std=c++17"} <= set(argv)
     srcs = [Path(a) for a in argv if a.endswith(".cu")]
-    assert sorted(p.name for p in srcs) == ["chol_bundle.cu", "hmc_terms.cu", "iaf_chain.cu",
-                                            "iaf_chain_bwd.cu", "metric_bundle.cu"]
+    assert sorted(p.name for p in srcs) == ["chol_bundle.cu", "decode_mse.cu", "hmc_terms.cu",
+                                            "iaf_chain.cu", "iaf_chain_bwd.cu", "metric_bundle.cu"]
     assert all(p.parent == REPO / "rlvae_tpu_torch" / "csrc" for p in srcs)
     assert out.parent == REPO / "build" / "rlvae_tpu_torch"
     assert re.fullmatch(r"librlvae_kernels_[0-9a-f]{16}\.so", out.name)

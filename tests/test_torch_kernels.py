@@ -12,7 +12,15 @@ version, and against fp64 no worse than 4x the plain version (or 1e-4 of
 scale).  Metric bundle and G^{-1}: against the plain version at the JAX
 package's kernel tolerances (G^{-1} rtol 1e-5 atol 1e-6, L and logdet 1e-4,
 G 1e-3), and against fp64 each output's error at most twice the plain fp32
-version's, or within 1e-5 of the output's scale."""
+version's, or within 1e-5 of the output's scale.  decode+MSE: the loss
+within 1e-5 relative of the plain version (and against fp64 at most twice
+the plain fp32 version's error, or 1e-6 relative), dh, dW and db within
+1e-3 of each one's largest entry (a bf16 rounding of dp may flip where the
+fp32 pre-activation is summed in another order; dh as its fp32 sum, with
+an fp32 h), the bf16 dh of a bf16 h within one bf16 step of each element
+(its final rounding flips where the fp32 sum, taken in another order, lies
+near a tie) plus that 1e-3, rows with rw = 0 exactly zero in dh, and every
+output bit-identical from one launch to the next."""
 
 import numpy as np
 import pytest
@@ -27,7 +35,7 @@ from rlvae_tpu_torch.ops.iaf_kernels import (
     iaf_chain_fwd_ref,
     stack_chain,
 )
-from rlvae_tpu_torch.ops import metric_kernels
+from rlvae_tpu_torch.ops import metric_kernels, recon_kernels
 from rlvae_tpu_torch.ops.metric_kernels import (
     chol_bundle,
     chol_bundle_ref,
@@ -37,6 +45,15 @@ from rlvae_tpu_torch.ops.metric_kernels import (
     hmc_terms_ref,
     metric_bundle,
     metric_bundle_ref,
+)
+from rlvae_tpu_torch.ops.recon_kernels import (
+    DecodeMSE,
+    decode_mse,
+    decode_mse_bwd_dh,
+    decode_mse_bwd_dw,
+    decode_mse_dh_ref,
+    decode_mse_dw_ref,
+    decode_mse_ref,
 )
 
 pytestmark = pytest.mark.cuda
@@ -294,3 +311,104 @@ def test_g_and_g_inv_gradients_on_the_card_equal_the_cpu(dev, which):
         assert counter.launches == before + (1 if zz.is_cuda else 0)
         grads.append(zz.grad.cpu())
     torch.testing.assert_close(grads[1], grads[0], rtol=1e-4, atol=1e-5 * grads[0].abs().max())
+
+
+def _decode_problem(dev, m, n, k=512, seed=0):
+    """Decoder-like inputs: h post-ReLU bf16, W [N, K] and b at the scale of a
+    Linear init, targets in [0, 1], row weights 1/B with rows 3 and 4 at 0."""
+    rng = np.random.default_rng(seed + m + n)
+    h = np.maximum(rng.normal(size=(m, k)), 0.0)
+    w = rng.uniform(-1, 1, size=(n, k)) / np.sqrt(k)
+    b = rng.uniform(-1, 1, size=(n,)) / np.sqrt(k)
+    x = rng.uniform(size=(m, n))
+    rw = np.full((m,), 1.0 / 16)
+    rw[3:5] = 0.0
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    return t(h).to(torch.bfloat16), t(w), t(b), t(x), t(rw)
+
+
+def _within_scale(got, want, rtol=1e-3):
+    got, want = got.float(), want.float()
+    assert float((got - want).abs().max()) <= rtol * float(want.abs().max())
+
+
+def _within_a_bf16_step(got, want, rtol=1e-3):
+    """|got - want| <= 2^-7 |want| + rtol * max |want|: one bf16 step of each
+    element (7 stored mantissa bits) on top of the fp32 tolerance."""
+    got, want = got.float(), want.float()
+    limit = 2.0 ** -7 * want.abs() + rtol * float(want.abs().max())
+    assert bool(torch.all((got - want).abs() <= limit))
+
+
+@pytest.mark.parametrize("m,n,k", [(128, 12288, 512), (37, 300, 512), (512, 12288, 512),
+                                   (37, 300, 64), (1, 1, 1)])
+def test_decode_mse_matches_plain_and_fp64(dev, m, n, k):
+    h, w, b, x, rw = _decode_problem(dev, m, n, k)
+    g = torch.tensor(1.0, device=dev)
+    counts = (decode_mse.launches, decode_mse_bwd_dh.launches, decode_mse_bwd_dw.launches)
+    loss = decode_mse(h, w, b, x, rw)
+    dh = decode_mse_bwd_dh(h, w, b, x, rw, g)
+    dw, db = decode_mse_bwd_dw(h, w, b, x, rw, g)
+    torch.cuda.synchronize()
+    assert (decode_mse.launches, decode_mse_bwd_dh.launches,
+            decode_mse_bwd_dw.launches) == tuple(c + 1 for c in counts)
+    ref = decode_mse_ref(h, w, b, x, rw)
+    ref64 = decode_mse_ref(h, w.double(), b.double(), x.double(), rw.double())
+    assert abs(float(loss) - float(ref)) <= 1e-5 * abs(float(ref)) + 1e-30
+    err_k, err_p = abs(float(loss) - float(ref64)), abs(float(ref) - float(ref64))
+    assert err_k <= max(2 * err_p, 1e-6 * abs(float(ref64)))
+    assert dh.dtype == torch.bfloat16 and dh.shape == (m, k)
+    _within_a_bf16_step(dh, decode_mse_dh_ref(h, w, b, x, rw, g))
+    dh32 = decode_mse_bwd_dh(h.float(), w, b, x, rw, g)
+    assert dh32.dtype == torch.float32
+    _within_scale(dh32, decode_mse_dh_ref(h.float(), w, b, x, rw, g))
+    dw_p, db_p = decode_mse_dw_ref(h, w, b, x, rw, g)
+    _within_scale(dw, dw_p)
+    _within_scale(db, db_p)
+    if m > 4:
+        assert torch.all(dh[3:5] == 0)
+    # bit-identical from run to run (no atomics, fixed summation orders)
+    assert torch.equal(loss, decode_mse(h, w, b, x, rw))
+    assert torch.equal(dh, decode_mse_bwd_dh(h, w, b, x, rw, g))
+    assert all(torch.equal(a, c) for a, c in zip((dw, db), decode_mse_bwd_dw(h, w, b, x, rw, g)))
+
+
+@pytest.mark.parametrize("ranges", [1, 7, 192])
+def test_decode_mse_dh_any_split_of_the_columns(dev, monkeypatch, ranges):
+    """dh sums its column ranges in a second pass; any count of ranges gives
+    the plain version's dh (the split only moves fp32 rounding)."""
+    h, w, b, x, rw = _decode_problem(dev, 128, 12288)
+    g = torch.tensor(0.5, device=dev)
+    monkeypatch.setattr(recon_kernels, "dh_ranges", lambda m, n, device: ranges)
+    dh = decode_mse_bwd_dh(h.float(), w, b, x, rw, g)
+    torch.cuda.synchronize()
+    _within_scale(dh, decode_mse_dh_ref(h.float(), w, b, x, rw, g))
+
+
+def test_decode_mse_function_on_the_card_equals_the_cpu(dev):
+    """DecodeMSE forward and backward on the card against the same Function
+    on the CPU (the plain versions), with fp32 h (dh not rounded)."""
+    h, w, b, x, rw = _decode_problem(dev, 40, 300, 64)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        leaves = [t.detach().to(d).float().requires_grad_(True) for t in (h, w, b)]
+        loss = DecodeMSE.apply(*leaves, x.to(d), rw.to(d))
+        (3.0 * loss).backward()
+        outs.append([loss.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    (lk, *gk), (lp, *gp) = outs
+    assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
+    for a, c in zip(gk, gp):
+        _within_scale(a, c)
+
+
+def test_decode_mse_rejects_bad_inputs(dev):
+    h, w, b, x, rw = _decode_problem(dev, 8, 16, 32)
+    with pytest.raises(TypeError):
+        decode_mse(h, w.double(), b, x, rw)
+    with pytest.raises(ValueError):
+        decode_mse(h, w[:, :16].contiguous(), b, x, rw)
+    with pytest.raises(ValueError):  # wider than the kernel's 512 hidden units
+        hw = torch.zeros((8, 600), dtype=torch.bfloat16, device=dev)
+        decode_mse(hw, torch.zeros((16, 600), device=dev), b, x, rw)
+    with pytest.raises(RuntimeError):
+        decode_mse(h, w.requires_grad_(True), b, x, rw)

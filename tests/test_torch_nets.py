@@ -63,3 +63,26 @@ def test_unported_architectures_raise():
             create_encoder(SHAPE, 16, {"architecture": arch})
     with pytest.raises(ValueError):
         load_pretrained_net(create_encoder((3, 8, 8), 16), DATA / "encoder.npz")
+
+
+def test_decoder_without_hidden_layers_rounds_the_latent_as_jax():
+    """With ``hidden_dims=[]`` JAX's decoder still casts z to ``dtype`` before
+    the output layer (``z.astype(self.dtype)``), so a bf16 decoder rounds the
+    latent; the port's ``MLPDecoder.hidden`` does the same.  Output layer in
+    fp32 on both sides, so the comparison is at fp32 tolerance."""
+    import jax
+
+    shape = (3, 4, 4)
+    z = np.random.default_rng(2).normal(size=(6, 16)).astype(np.float32)
+    jdec = JaxDecoder(input_dim=shape, latent_dim=16, hidden_dims=(), dtype=jnp.bfloat16)
+    params = jax.tree_util.tree_map(np.asarray, jdec.init(jax.random.PRNGKey(0), jnp.asarray(z)))
+    want = np.asarray(jdec.apply(params, jnp.asarray(z)).reconstruction)
+    dec = create_decoder(shape, 16, {"architecture": "mlp", "hidden_dims": [], "dtype": "bfloat16"})
+    out = params["params"]["out"]
+    with torch.no_grad():
+        dec.out.weight.copy_(torch.from_numpy(out["kernel"].T))
+        dec.out.bias.copy_(torch.from_numpy(out["bias"]))
+        got = dec(torch.from_numpy(z))["reconstruction"].numpy()
+        unrounded = torch.sigmoid(dec.out(torch.from_numpy(z))).numpy().reshape(got.shape)
+    np.testing.assert_allclose(got, want, **TOL["float32"])
+    assert np.abs(unrounded - want).max() > 1e-4  # the rounding of z shows
