@@ -17,7 +17,10 @@ Phases, each printing one JSON line with its elapsed seconds:
    their plain versions (the forward's loss also to fp64) at M=128 (the fast
    train step's B=16), 512 and 37 rows, N=12288 and 300, on the pretrained
    decoder's weights; each is timed at M=128 and 512 beside cuBLAS's time
-   for the forward's bf16 product alone.
+   for the forward's bf16 product alone.  The HMC partials (one shard's
+   G^{-1} sum and gradient contraction) are held to their plain version and
+   to fp64 at K=50, 200, 20 000 (in ranges) and 37 padded to 40, B=64, 37
+   and 1, bit-identical on relaunch.
 4. ``serve``: ``ModelManager.from_config(PRESETS["riemannian_flow_vae"])`` on
    the card behind a ``BatchingEngine``; 64 ``reconstruct`` requests from 8
    threads plus 16 ``encode`` and 16 ``decode``, after one warm-up call per
@@ -59,6 +62,17 @@ Phases, each printing one JSON line with its elapsed seconds:
    validation pass; then one warm B=64 ``reconstruct`` bucket behind a
    ``BatchingEngine`` (chol-bundle 2, nothing else) and a B=64 forward held
    against the CPU.
+9. ``ep``: the centroid-sharded (expert-parallel) HMC path of
+   ``rlvae_tpu_torch.parallel`` in one process on the 1 x 1 mesh, on the
+   default model's K=50 metric at T=3.0.  ``hmc_terms_sharded`` is held
+   against ``hmc_terms`` at K=50 and 20 000, and the bank split into 4
+   padded shards (``hmc_partials`` on each, summed in shard order, then the
+   epilogue) against the whole bank.  ``sample_prior_hmc_sharded`` runs the
+   official chain (100 x 15) at B=64 with the counters zeroed just before
+   and read just after (1601 ``hmc_partials`` launches, no ``hmc_terms``);
+   host-clock time, and the busy share of a profiled 2-step chain.  Every
+   MCMC step is replayed on the CPU from the card's state, and the first 10
+   are also taken with the dense ``hmc_terms`` from the same state.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -137,6 +151,15 @@ DECODE_FP64_FACTOR, DECODE_FP64_RTOL = 2.0, 1e-6
 DECODE_ROWS = (TRAIN_BATCH * 8, 512, 37)  # B*T rows: the fast train step's, a larger, a ragged
 DECODE_COLS = (12288, 300)
 DECODE_TIMED_ROWS = (TRAIN_BATCH * 8, 512)
+# HMC partials, kernel vs plain fp32: gi_part and v within these multiples of
+# max(1, |plain|) elementwise (sums over K in another order); against fp64,
+# the kernel's error at most IAF_FP64_FACTOR times the plain version's, or
+# PARTIALS_FP64_RTOL of scale
+PARTIALS_TOL = {"gi_part": 1e-5, "v": 1e-4}
+PARTIALS_FP64_RTOL = 1e-5
+PARTIALS_BATCHES = (SERVE_BATCH, 37, 1)
+# the ep phase: shards of the in-process split, and the dense steps compared
+EP_SHARDS, EP_DENSE_STEPS, EP_PROFILE_STEPS = 4, 10, 2
 # the analysis metrics of the evaluation step (losses.additional_metrics)
 EVAL_METRIC_KEYS = ("cyclicity_error", "latent_norm", "latent_variance",
                     "metric_conditioning", "manifold_regularity", "metric_determinant")
@@ -625,6 +648,104 @@ def run_bundle_checks(torch, dev):
             "g_inv": (gi_rec, cases["g_inv"])}
 
 
+def partials_flops(b: int, k: int, d: int = 16) -> float:
+    """FLOP of the HMC partials: per row and centroid, d^2 (3d), the
+    weighted sum of M (2d^2), the weighted differences (2d) and their
+    contraction with M (2d^2); 1104 at d=16."""
+    return b * k * (3 * d + 2 * d * d + 2 * d + 2 * d * d)
+
+
+def partials_banks(torch, dev):
+    """(label, centroids, matrices, inv_t2) on ``dev``: the banks of
+    :func:`metric_banks` and a seeded K=37 bank padded to 40 as the sharded
+    path pads it (far centroids, zero matrices)."""
+    from rlvae_tpu_torch.geometry.metric import CentroidMetric
+    from rlvae_tpu_torch.parallel import pad_metric
+
+    out = [(label, torch.tensor(c, device=dev), torch.tensor(m, device=dev), 1.0 / t ** 2)
+           for label, c, m, t, _ in metric_banks()]
+    rng = np.random.default_rng(37)
+    a = (rng.normal(size=(37, 16, 16)) / 4).astype(np.float32)
+    small = CentroidMetric.create(rng.normal(size=(37, 16)),
+                                  a @ np.swapaxes(a, -1, -2) + 0.1 * np.eye(16), 0.8)
+    padded = pad_metric(small, EP_SHARDS)
+    out.append(("synthetic(K=37 padded to 40)", padded.centroids.to(dev),
+                padded.matrices.to(dev), 1.0 / 0.8 ** 2))
+    return out
+
+
+def run_partials_checks(torch, dev):
+    """The HMC partials against their plain fp32 version and an fp64
+    evaluation at each bank of :func:`partials_banks` and B=64, 37 and 1
+    (the last two rows of a batch far from every centroid); bit-identical on
+    relaunch; each bank timed at B=64."""
+    from rlvae_tpu_torch.ops.metric_kernels import hmc_partials, hmc_partials_ref, k_splits
+
+    rng = np.random.default_rng(8)
+    cases = []
+    for label, c, m, inv_t2 in partials_banks(torch, dev):
+        k_real = 37 if "padded" in label else c.shape[0]
+        for b in PARTIALS_BATCHES:
+            zn = c[:k_real].cpu().numpy()[rng.integers(0, k_real, size=b)]
+            zn = zn + 0.05 * rng.normal(size=zn.shape)
+            if b > 1:
+                zn[-2:] += 100.0
+            z = torch.tensor(zn, dtype=torch.float32, device=dev)
+            got = hmc_partials(z, c, m, inv_t2)
+            again = hmc_partials(z, c, m, inv_t2)
+            plain = hmc_partials_ref(z, c, m, inv_t2)
+            want = hmc_partials_ref(z.double(), c.double(), m.double(), inv_t2)
+            torch.cuda.synchronize()
+            err, ok = {}, True
+            for name, k_out, rerun, p_out, e_out in zip(("gi_part", "v"), got, again, plain, want):
+                ke = float((k_out.double() - e_out).abs().max())
+                pe = float((p_out.double() - e_out).abs().max())
+                scale = float(e_out.abs().max())
+                ok = (ok and bool(torch.equal(k_out, rerun))
+                      and bool(torch.all((k_out - p_out).abs()
+                                         <= PARTIALS_TOL[name] * p_out.abs().clamp_min(1.0)))
+                      and ke <= max(IAF_FP64_FACTOR * pe, PARTIALS_FP64_RTOL * scale))
+                err[name] = {"kernel_vs_plain_abs": float((k_out - p_out).abs().max()),
+                             "kernel_vs_fp64_abs": ke, "plain_vs_fp64_abs": pe,
+                             "fp64_scale": scale}
+            if b > 1:  # the far rows: every weight underflows
+                ok = ok and bool(torch.all(got[0][-2:] == 0) and torch.all(got[1][-2:] == 0))
+            if "padded" in label:  # the padded centroids add exact zeros
+                unpadded = hmc_partials(z, c[:37].contiguous(), m[:37].contiguous(), inv_t2)
+                ok = (ok and bool(torch.equal(unpadded[0], got[0]))
+                      and bool(torch.equal(unpadded[1], got[1])))
+            shape = f"{label},B={b}"
+            check(ok, f"hmc_partials disagrees at {shape}: {err}")
+            case = {"shape": shape, "ok": ok, "errors": err, "bit_identical_on_relaunch": True,
+                    "n_splits": k_splits(b, c.shape[0], dev),
+                    "max_abs_err": max(e["kernel_vs_plain_abs"] for e in err.values())}
+            if b == SERVE_BATCH:
+                case["ms"] = time_ms(torch, lambda: hmc_partials(z, c, m, inv_t2), 20)
+                case["plain_ms"] = time_ms(torch, lambda: hmc_partials_ref(z, c, m, inv_t2), 10)
+                case["bound_ms"], case["bound_by"] = bound_ms(
+                    nbytes(z, c, m, *got), partials_flops(b, c.shape[0]))
+            cases.append(case)
+    timed = [c for c in cases if "ms" in c]
+    main = next(c for c in timed if c["shape"].startswith("metric_T0.7"))
+    record = {
+        "name": "hmc_partials", "route": "cuda",
+        "source": "rlvae_tpu_torch/csrc/hmc_partials.cu",
+        "replaces": "rlvae_tpu/ops/metric_kernels.py:886",
+        "shape": main["shape"], "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms_by_shape": {c["shape"]: c["ms"] for c in timed},
+        "plain_ms_by_shape": {c["shape"]: c["plain_ms"] for c in timed},
+        "bound_ms_by_shape": {c["shape"]: c["bound_ms"] for c in timed},
+        "n_splits_by_shape": {c["shape"]: c["n_splits"] for c in timed},
+        "tolerance": (f"kernel vs plain: |err| <= {PARTIALS_TOL} * max(1, |plain|); vs fp64: "
+                      f"at most {IAF_FP64_FACTOR}x the plain fp32 version's error, or "
+                      f"{PARTIALS_FP64_RTOL} of scale; bit-identical on relaunch; far rows 0; "
+                      f"the padded bank bit-identical to the unpadded one"),
+    }
+    return record, cases
+
+
 def pretrained_decoder(dev):
     """The fast preset's decoder with the pretrained weights, on ``dev``."""
     from rlvae_tpu_torch.convert import load_pretrained_net
@@ -994,13 +1115,20 @@ TRAIN_TOL = {
 
 def _wrappers():
     from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_bwd, iaf_chain_fwd
-    from rlvae_tpu_torch.ops.metric_kernels import chol_bundle, g_inv, hmc_terms, metric_bundle
+    from rlvae_tpu_torch.ops.metric_kernels import (
+        chol_bundle,
+        g_inv,
+        hmc_partials,
+        hmc_terms,
+        metric_bundle,
+    )
     from rlvae_tpu_torch.ops.recon_kernels import decode_mse, decode_mse_bwd_dh, decode_mse_bwd_dw
 
     return {"chol_bundle": chol_bundle, "iaf_chain_fwd": iaf_chain_fwd,
             "iaf_chain_bwd": iaf_chain_bwd, "hmc_terms": hmc_terms,
             "metric_bundle": metric_bundle, "g_inv": g_inv, "decode_mse_fwd": decode_mse,
-            "decode_mse_bwd_dh": decode_mse_bwd_dh, "decode_mse_bwd_dw": decode_mse_bwd_dw}
+            "decode_mse_bwd_dh": decode_mse_bwd_dh, "decode_mse_bwd_dw": decode_mse_bwd_dw,
+            "hmc_partials": hmc_partials}
 
 
 def launch_counts():
@@ -1251,32 +1379,44 @@ def replay_chain(torch, manager):
         z_ref = run_prior_chain(terms, noise["z0"], noise["gammas"], noise["unifs"], cfg)[0]
         log_pi, grad = terms(noise["z0"])
         state = (noise["z0"], log_pi, -grad, np.float32(1.0))
-        z_err = ties = tie_flips = flips = accepted = 0
+        stats, accepted = _step_stats(), 0
         for step in range(cfg.mcmc_steps):
             gamma, u = noise["gammas"][step], noise["unifs"][step]
             nxt, acc, alpha = mcmc_step(terms, state, gamma, u, cfg)
             cpu_state = tuple(t.cpu() for t in state[:3]) + (state[3],)
             c_nxt, c_acc, _ = mcmc_step(cpu_terms, cpu_state, gamma.cpu(), u.cpu(), cfg)
-            acc, alpha, u = acc.cpu(), alpha.cpu(), u.cpu()
-            tie = (u - alpha).abs() < ACCEPT_MARGIN
-            ties += int(tie.sum())
-            tie_flips += int(((acc != c_acc) & tie).sum())
-            flips += int(((acc != c_acc) & ~tie).sum())
-            same = acc == c_acc
-            z, cz = nxt[0].cpu(), c_nxt[0]
-            scale = z.abs().clamp_min(1.0)
-            z_err = max(z_err, float(((z - cz).abs() / scale)[same].max()) if same.any() else 0.0)
+            _compare_step(stats, acc.cpu(), alpha.cpu(), u.cpu(), nxt[0].cpu(), c_acc, c_nxt[0])
             accepted += int(acc.sum())
             state = nxt
         check(torch.equal(state[0], z_ref), "the stepped chain differs from run_prior_chain")
-    check(flips == 0, f"card and CPU accept decisions differ on {flips} non-tie rows")
-    check(z_err <= CHAIN_Z_RTOL, f"card chain vs CPU replay: z differs by {z_err} of scale")
+    check(stats["flips_outside_margin"] == 0,
+          f"card and CPU accept decisions differ on {stats['flips_outside_margin']} non-tie rows")
+    check(stats["max_z_rel_err"] <= CHAIN_Z_RTOL,
+          f"card chain vs CPU replay: z differs by {stats['max_z_rel_err']} of scale")
     check(accepted > 0, "the official chain accepted nothing")
-    return {"batch": b, "steps": cfg.mcmc_steps, "accepted": accepted,
-            "accept_rate": accepted / (b * cfg.mcmc_steps), "max_z_rel_err": z_err,
-            "ties_within_margin": ties, "flips_within_margin": tie_flips,
-            "flips_outside_margin": flips,
-            "tolerance": {"z_rel": CHAIN_Z_RTOL, "accept_margin": ACCEPT_MARGIN}}
+    return {"batch": b, "accepted": accepted, "accept_rate": accepted / (b * cfg.mcmc_steps),
+            **stats, "tolerance": {"z_rel": CHAIN_Z_RTOL, "accept_margin": ACCEPT_MARGIN}}
+
+
+def _step_stats():
+    return {"steps": 0, "ties_within_margin": 0, "flips_within_margin": 0,
+            "flips_outside_margin": 0, "max_z_rel_err": 0.0}
+
+
+def _compare_step(stats, acc, alpha, u, z, other_acc, other_z):
+    """Fold one MCMC step's comparison into ``stats``: ties (|u - alpha| <
+    ACCEPT_MARGIN), flipped decisions inside and outside the margin, and
+    z's largest error relative to max(1, |z|) over rows decided alike."""
+    tie = (u - alpha).abs() < ACCEPT_MARGIN
+    flip = acc != other_acc
+    stats["ties_within_margin"] += int(tie.sum())
+    stats["flips_within_margin"] += int((flip & tie).sum())
+    stats["flips_outside_margin"] += int((flip & ~tie).sum())
+    same = ~flip
+    if bool(same.any()):
+        err = ((z - other_z).abs() / z.abs().clamp_min(1.0))[same]
+        stats["max_z_rel_err"] = max(stats["max_z_rel_err"], float(err.max()))
+    stats["steps"] += 1
 
 
 def compare_geodesic(torch, manager):
@@ -1453,6 +1593,192 @@ def run_fast(torch, dev=None):
     }
 
 
+# ---------------------------------------------------------------------------
+# ep phase
+# ---------------------------------------------------------------------------
+
+
+def _terms_err(got, want):
+    """({log_pi_abs, grad_rel}, within the HMC tolerances) of two (log pi,
+    grad) pairs; grad relative to the largest |entry| of ``want``."""
+    lp = float((got[0] - want[0]).abs().max())
+    g = float((got[1] - want[1]).abs().max()) / float(want[1].abs().max().clamp_min(1e-30))
+    return {"log_pi_abs": lp, "grad_rel": g}, lp <= HMC_LP_ATOL and g <= HMC_RTOL
+
+
+def ep_terms_checks(torch, dev, metric):
+    """At the model's K=50 metric and the K=20 000 bank, B=64 rows near the
+    centroids: ``hmc_terms_sharded`` on the 1 x 1 mesh against ``hmc_terms``
+    (B4), and the bank split into EP_SHARDS padded shards in this process
+    (``hmc_partials`` on each, summed in shard order as one flat buffer, then
+    the epilogue) against the whole bank."""
+    from rlvae_tpu_torch.geometry.metric import CentroidMetric
+    from rlvae_tpu_torch.ops.metric_kernels import hmc_partials, hmc_terms
+    from rlvae_tpu_torch.parallel import create_mesh, hmc_terms_sharded, pad_metric, shard_metric
+    from rlvae_tpu_torch.parallel.metric_parallel import _finish_hmc_terms
+    from rlvae_tpu_torch.samplers.hmc import LOG_EPS
+
+    mesh = create_mesh()
+    label, c, m, temp, reg = metric_banks()[-1]
+    banks = [("metric_T0.7_scaled.npz(K=50)", metric),
+             (label, CentroidMetric(torch.tensor(c, device=dev), torch.tensor(m, device=dev),
+                                    temp, reg))]
+    rng = np.random.default_rng(12)
+    out = []
+    for label, bank in banks:
+        b, d = SERVE_BATCH, bank.centroids.shape[1]
+        zn = bank.centroids.cpu().numpy()[rng.integers(0, bank.n_centroids, size=b)]
+        z = torch.tensor(zn + 0.05 * rng.normal(size=zn.shape), dtype=torch.float32, device=dev)
+        inv_t2 = 1.0 / bank.temperature ** 2
+        whole = hmc_terms_sharded(mesh, shard_metric(mesh, bank), z)
+        dense = hmc_terms(z, bank.centroids, bank.matrices, inv_t2, bank.regularization, LOG_EPS)
+        padded = pad_metric(bank, EP_SHARDS)
+        per, buf = padded.n_centroids // EP_SHARDS, None
+        for i in range(EP_SHARDS):
+            rows = slice(i * per, (i + 1) * per)
+            gi, v = hmc_partials(z, padded.centroids[rows].contiguous(),
+                                 padded.matrices[rows].contiguous(), inv_t2)
+            part = torch.cat([gi.reshape(b, d * d), v], dim=1)
+            buf = part if buf is None else buf + part
+        split = _finish_hmc_terms(buf[:, : d * d].reshape(b, d, d), buf[:, d * d:],
+                                  bank.regularization)
+        torch.cuda.synchronize()
+        vs_dense, ok_dense = _terms_err(whole, dense)
+        vs_whole, ok_split = _terms_err(split, whole)
+        check(ok_dense, f"hmc_terms_sharded vs hmc_terms at {label}: {vs_dense}")
+        check(ok_split, f"{EP_SHARDS} shards vs the whole bank at {label}: {vs_whole}")
+        out.append({"bank": label, "batch": b, "padded_k": padded.n_centroids,
+                    "ep_vs_hmc_terms": vs_dense, "shards_vs_whole_bank": vs_whole})
+    return out
+
+
+def replay_ep_chain(torch, metric, cpu_metric, noise, cfg, z_chain):
+    """The EP chain one MCMC step at a time on the card (the sharded terms
+    on the 1 x 1 mesh), each step replayed on the CPU (the plain partials,
+    the same epilogue) from the card's state before it with the same
+    momenta and uniforms; the first EP_DENSE_STEPS also taken on the card
+    with the dense ``hmc_terms`` (B4) from the same state."""
+    from rlvae_tpu_torch.parallel import create_mesh, hmc_terms_sharded, shard_metric
+    from rlvae_tpu_torch.samplers import mcmc_step
+    from rlvae_tpu_torch.samplers.hmc import _terms_fn
+
+    mesh = create_mesh()
+    bank, cpu_bank = shard_metric(mesh, metric), shard_metric(mesh, cpu_metric)
+    terms = {"card": lambda zz: hmc_terms_sharded(mesh, bank, zz),
+             "cpu": lambda zz: hmc_terms_sharded(mesh, cpu_bank, zz),
+             "dense": _terms_fn(metric)}
+    stats = {k: _step_stats() for k in ("cpu", "dense")}
+    accepted = 0
+    with torch.no_grad():
+        log_pi, grad = terms["card"](noise["z0"])
+        state = (noise["z0"], log_pi, -grad, np.float32(1.0))
+        for step in range(cfg.mcmc_steps):
+            gamma, u = noise["gammas"][step], noise["unifs"][step]
+            nxt, acc, alpha = mcmc_step(terms["card"], state, gamma, u, cfg)
+            others = [("cpu", tuple(t.cpu() for t in state[:3]) + (state[3],), gamma.cpu(),
+                       u.cpu())]
+            if step < EP_DENSE_STEPS:
+                others.append(("dense", state, gamma, u))
+            for name, st, g, uu in others:
+                o_nxt, o_acc, _ = mcmc_step(terms[name], st, g, uu, cfg)
+                _compare_step(stats[name], acc.cpu(), alpha.cpu(), u.cpu(), nxt[0].cpu(),
+                              o_acc.cpu(), o_nxt[0].cpu())
+            accepted += int(acc.sum())
+            state = nxt
+    check(torch.equal(state[0], z_chain), "the stepped EP chain differs from the entry point's")
+    for name, st in stats.items():
+        check(st["flips_outside_margin"] == 0,
+              f"EP chain vs {name}: {st['flips_outside_margin']} accept flips outside the margin")
+        check(st["max_z_rel_err"] <= CHAIN_Z_RTOL,
+              f"EP chain vs {name}: z differs by {st['max_z_rel_err']} of scale")
+    check(accepted > 0, "the EP chain accepted nothing")
+    return {"batch": int(z_chain.shape[0]), "steps": cfg.mcmc_steps, "accepted": accepted,
+            "accept_rate": accepted / (z_chain.shape[0] * cfg.mcmc_steps),
+            "vs_cpu_replay": stats["cpu"], "vs_dense_hmc_terms": stats["dense"],
+            "tolerance": {"z_rel": CHAIN_Z_RTOL, "accept_margin": ACCEPT_MARGIN}}
+
+
+def run_ep(torch, dev=None):
+    """The centroid-sharded HMC path on one card: terms checks, the official
+    chain through ``sample_prior_hmc_sharded`` with the launch counters
+    zeroed just before and read just after, the busy share of a profiled
+    short chain, the dense B4 chain on the same draws for scale, and the
+    step-by-step replay."""
+    from rlvae_tpu_torch.geometry import load_metric
+    from rlvae_tpu_torch.geometry.metric import CentroidMetric
+    from rlvae_tpu_torch.parallel import all_reduce_sum, create_mesh, sample_prior_hmc_sharded
+    from rlvae_tpu_torch.samplers import HMCConfig, draw_hmc_noise, sample_prior_hmc
+
+    dev = dev or torch.device("cuda")
+    cpu_metric = load_metric(PRETRAINED / "metric_T0.7_scaled.npz", temperature_override=3.0)
+    metric = CentroidMetric(cpu_metric.centroids.to(dev), cpu_metric.matrices.to(dev),
+                            cpu_metric.temperature, cpu_metric.regularization)
+    terms_checks = ep_terms_checks(torch, dev, metric)
+
+    mesh = create_mesh()
+    check(mesh.shape == {"data": 1, "model": 1} and mesh.model_group is None,
+          f"one process should lay out a 1 x 1 mesh, got {mesh}")
+    cfg, b = HMCConfig(), SERVE_BATCH
+    noise = draw_hmc_noise(metric, b, cfg, torch.Generator(device=dev).manual_seed(17))
+
+    def short(steps):
+        return {"z0": noise["z0"], "gammas": noise["gammas"][:steps],
+                "unifs": noise["unifs"][:steps]}
+
+    sample_prior_hmc_sharded(mesh, metric, b, HMCConfig(mcmc_steps=1), **short(1))  # warm-up
+    torch.cuda.synchronize()
+    calls_before = dict(all_reduce_sum.calls)
+    zero_launch_counts()
+    t = time.perf_counter()
+    z, diag = sample_prior_hmc_sharded(mesh, metric, b, cfg, **noise, return_diagnostics=True)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t
+    launches = launch_counts()
+    calls = {a: n - calls_before[a] for a, n in all_reduce_sum.calls.items()}
+    check(launches == expected_launches(hmc_partials=CHAIN_LAUNCHES),
+          f"the EP chain launched {launches}")
+    check(calls == {"data": cfg.mcmc_steps, "model": CHAIN_LAUNCHES},
+          f"the EP chain made {calls} all-reduce calls")
+    check(z.shape == (b, 16) and bool(torch.isfinite(z).all())
+          and bool(torch.isfinite(diag["log_pi"]).all()), "bad EP chain output")
+
+    # the busy share of a short chain: host clock unprofiled, device time profiled
+    short_cfg = HMCConfig(mcmc_steps=EP_PROFILE_STEPS)
+    run_short = lambda: sample_prior_hmc_sharded(mesh, metric, b, short_cfg,  # noqa: E731
+                                                 **short(EP_PROFILE_STEPS))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run_short()
+    torch.cuda.synchronize()
+    short_ms = (time.perf_counter() - t) * 1e3
+    busy_ms, kernels = device_time_by_kernel(torch, run_short)
+    evals = 1 + EP_PROFILE_STEPS * (cfg.n_lf + 1)
+
+    # the dense chain (B4) on the same draws, for scale
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    z_dense = sample_prior_hmc(metric, b, cfg, **noise)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t
+
+    return {
+        "bank": "metric_T0.7_scaled.npz(K=50) at T=3.0", "mesh": mesh.shape, "batch": b,
+        "terms_checks": terms_checks,
+        "chain": {"mcmc_steps": cfg.mcmc_steps, "n_lf": cfg.n_lf, "host_s": chain_s,
+                  "launches": launches, "all_reduce_calls": calls,
+                  "accept_rate": float(diag["accept_rate"])},
+        "short_chain": {"mcmc_steps": EP_PROFILE_STEPS, "host_ms": short_ms,
+                        "profiled_device_busy_ms": busy_ms, "device_busy_share": busy_ms / short_ms,
+                        "n_kernel_launches": sum(k["calls"] for k in kernels),
+                        "kernel_launches_per_evaluation": sum(k["calls"] for k in kernels) / evals,
+                        "top_kernels": kernels[:8]},
+        "dense_chain": {"host_s": dense_s, "ep_over_dense": chain_s / dense_s,
+                        "max_abs_z_diff_vs_ep": float((z_dense - z).abs().max())},
+        "replay": replay_ep_chain(torch, metric, cpu_metric, noise, cfg, z),
+        "launches": launches,
+    }
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(HANG_GUARD_S, exit=True)
     import torch
@@ -1476,7 +1802,8 @@ def main() -> None:
 
     records = {}
     for name, run in (("chol_bundle", run_chol_checks), ("iaf_chain_fwd", run_iaf_checks),
-                      ("iaf_chain_bwd", run_iaf_bwd_checks), ("hmc_terms", run_hmc_checks)):
+                      ("iaf_chain_bwd", run_iaf_bwd_checks), ("hmc_terms", run_hmc_checks),
+                      ("hmc_partials", run_partials_checks)):
         records[name], cases = run(torch, dev)
         emit("kernels", kernel=name, tolerance=records[name]["tolerance"], cases=cases)
     for name, (record, cases) in run_bundle_checks(torch, dev).items():
@@ -1496,7 +1823,9 @@ def main() -> None:
     emit("posterior", **posterior)
     fast = run_fast(torch)
     emit("fast", **fast)
-    # launches: the sum over the five main paths' runs (each read between
+    ep = run_ep(torch)
+    emit("ep", **ep)
+    # launches: the sum over the six main paths' runs (each read between
     # zeroing the counters and the end of its run), with each path's count
     # beside it; every kernel is launched by the paths it belongs to
     paths = {"serve": (serve["launches"], ("chol_bundle", "iaf_chain_fwd")),
@@ -1507,7 +1836,8 @@ def main() -> None:
              "posterior": (posterior["launches"], ("chol_bundle", "iaf_chain_fwd", "iaf_chain_bwd",
                                                    "metric_bundle", "g_inv")),
              "fast": (fast["launches"], ("chol_bundle", "g_inv", "decode_mse_fwd",
-                                         "decode_mse_bwd_dh", "decode_mse_bwd_dw"))}
+                                         "decode_mse_bwd_dh", "decode_mse_bwd_dw")),
+             "ep": (ep["launches"], ("hmc_partials",))}
     for path, (counts, kernels) in paths.items():
         for name in kernels:
             check(counts[name] > 0, f"the {path} path did not launch {name}")
@@ -1522,6 +1852,7 @@ def main() -> None:
         c["launches"]["hmc_terms"] for c in generate["calls"] if c["method"] == "official")
     records["metric_bundle"]["launches_per_geodesic_forward"] = (
         posterior["metric_bundle_launches_per_forward"])
+    records["hmc_partials"]["launches_per_ep_chain"] = ep["launches"]["hmc_partials"]
 
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": list(records.values())}), flush=True)

@@ -54,6 +54,9 @@ SIGNATURES = {
     # z, centroids, matrices, inv_t2, lbd, G^-1, workspace, B, K, n_splits, stream
     "g_inv_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR, _C_PTR,
                   _C_INT, _C_INT, _C_INT, _C_PTR),
+    # z, centroids, matrices, inv_t2, gi_part, v, workspace, B, K, n_splits, stream
+    "hmc_partials_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_PTR, _C_PTR, _C_PTR,
+                         _C_INT, _C_INT, _C_INT, _C_PTR),
     # z0, w0, b0, wh, bh, wo, bo, z, ld, ys (null: not written), B, D, H, NB, NH, NT, stream
     "iaf_chain_fwd_f32": (_C_PTR,) * 10 + (_C_INT,) * 6 + (_C_PTR,),
     # ys, dz, dld, w0, b0, wh, bh, wo, bo, dz0, gw0, gb0, gwh, gbh, gwo, gbo,

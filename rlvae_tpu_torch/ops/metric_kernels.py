@@ -27,13 +27,24 @@ launch, and **G^{-1}** alone.  Ports of ``metric_bundle_pallas``
 
     X = L^{-1} (forward substitution),  G = X^T X
 
+**HMC partials**: one shard's part of the HMC terms, before the
+cross-shard sum.  Port of ``hmc_partials_pallas`` (``metric_kernels.py:886``)
+as ``csrc/hmc_partials.cu``.  With w_k as above, over this (shard of the)
+bank:
+
+    gi_part = sum_k w_k M_k                        (no + lbd I)
+    v_j     = -2 inv_t2 sum_k w_k sum_i (c_k - z)_i M_k[i, j]
+
+The centroid-sharded terms (``rlvae_tpu_torch/parallel/metric_parallel.py``)
+sum both over the shards and finish with + lbd I, the Cholesky and G v.
+
 Every matrix is i-major (the TPU kernels' slabs are j-major).  When the
 batch leaves the card's SMs idle and the bank is large (:func:`k_splits`),
 one call is two launches: ranges of the bank summed in separate blocks into
 a workspace, then their sum in range order and the epilogue.
 
 Each wrapper (:func:`chol_bundle`, :func:`hmc_terms`, :func:`metric_bundle`,
-:func:`g_inv`) launches its kernel for CUDA tensors and runs its plain
+:func:`g_inv`, :func:`hmc_partials`) launches its kernel for CUDA tensors and runs its plain
 PyTorch version (``*_ref``) for CPU tensors; there is no other route.  Each
 wrapper's ``launches`` counts the calls that launched its kernel.
 
@@ -272,16 +283,17 @@ def k_splits(b: int, k: int, device: torch.device) -> int:
     return max(1, min(-(-2 * sms // row_blocks), k // MIN_CENTROIDS_PER_SPLIT))
 
 
-def _workspace(b: int, k: int, device: torch.device) -> Tuple[int, Optional[torch.Tensor]]:
-    """(n_splits, workspace) of a metric-bundle launch: :func:`k_splits`
-    ranges (in [1, K]), and one [B, 256] workspace slot per range (None for
-    one range).  Freed after the launch is enqueued, the workspace goes back
-    to the caching allocator, which hands it out again only to work ordered
-    after the launch on the same stream."""
+def _workspace(b: int, k: int, device: torch.device,
+               width: int = KERNEL_DIM * KERNEL_DIM) -> Tuple[int, Optional[torch.Tensor]]:
+    """(n_splits, workspace) of a launch that sums the bank in ranges:
+    :func:`k_splits` ranges (in [1, K]), and one [B, width] workspace slot
+    per range (None for one range).  Freed after the launch is enqueued, the
+    workspace goes back to the caching allocator, which hands it out again
+    only to work ordered after the launch on the same stream."""
     n = k_splits(b, k, device)
     if n == 1:
         return 1, None
-    return n, torch.empty((n, b, KERNEL_DIM * KERNEL_DIM), dtype=torch.float32, device=device)
+    return n, torch.empty((n, b, width), dtype=torch.float32, device=device)
 
 
 def metric_bundle(
@@ -370,3 +382,61 @@ class GInv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dgi):
         return _recompute_vjp(ctx, g_inv_ref, dgi)
+
+
+# ---------------------------------------------------------------------------
+# HMC partials (one shard of the bank)
+# ---------------------------------------------------------------------------
+
+
+def hmc_partials_ref(
+    z: torch.Tensor, centroids: torch.Tensor, matrices: torch.Tensor, inv_t2: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: (gi_part [B, D, D] without + lbd I, v [B, D]),
+    as the XLA arm of the JAX package's ``_partial_terms``
+    (``rlvae_tpu/parallel/metric_parallel.py:122-131``).  fp64 banks give the
+    fp64 evaluation."""
+    k, d = centroids.shape
+    z = z.to(centroids.dtype)
+    diff = z[:, None, :] - centroids[None, :, :]  # [B, K, D]
+    w = torch.exp(-(diff * diff).sum(-1) * inv_t2)  # [B, K]
+    gi = (w @ matrices.reshape(k, d * d)).reshape(-1, d, d)
+    # the weighted differences contracted with M, never sum(w c M) - sum(w z M)
+    wd = w[:, :, None] * (centroids[None, :, :] - z[:, None, :])  # [B, K, D]
+    v = (-2.0 * inv_t2) * (wd.reshape(-1, k * d) @ matrices.reshape(k * d, d))
+    return gi, v
+
+
+PARTIALS_WIDTH = KERNEL_DIM * KERNEL_DIM + KERNEL_DIM  # csrc/hmc_partials.cu: a row of gi and v
+
+
+def hmc_partials(
+    z: torch.Tensor, centroids: torch.Tensor, matrices: torch.Tensor, inv_t2: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gi_part [B, D, D], v [B, D]) over this (shard of the) bank; kernel on
+    CUDA, plain on CPU."""
+    if z.device.type == "cpu":
+        return hmc_partials_ref(z, centroids, matrices, inv_t2)
+    if z.device.type != "cuda":
+        raise ValueError(f"hmc_partials: unsupported device {z.device}")
+    check_inputs("hmc_partials", z.device, z=z, centroids=centroids, matrices=matrices)
+    b, k = _check_bank_shapes("hmc_partials", z, centroids, matrices)
+    d = KERNEL_DIM
+    gi = torch.empty((b, d, d), dtype=torch.float32, device=z.device)
+    v = torch.empty((b, d), dtype=torch.float32, device=z.device)
+    if b == 0:
+        return gi, v
+    from rlvae_tpu_torch.ops.build import kernel_library
+
+    n_splits, part = _workspace(b, k, z.device, PARTIALS_WIDTH)
+    code = kernel_library().hmc_partials_f32(
+        z.data_ptr(), centroids.data_ptr(), matrices.data_ptr(), float(inv_t2),
+        gi.data_ptr(), v.data_ptr(), None if part is None else part.data_ptr(),
+        b, k, n_splits, stream_handle(z.device),
+    )
+    raise_on_error("hmc_partials", code)
+    hmc_partials.launches += 1
+    return gi, v
+
+
+hmc_partials.launches = 0

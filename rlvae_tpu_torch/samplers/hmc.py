@@ -40,6 +40,7 @@ from rlvae_tpu_torch.ops.metric_kernels import hmc_terms
 
 Terms = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 _F32 = np.float32
+LOG_EPS = float(np.log(_F32(1e-10)))  # the target's guard, log pi = logaddexp(., LOG_EPS)
 
 
 @dataclass(frozen=True)
@@ -58,9 +59,8 @@ class HMCConfig:
 def _terms_fn(metric: CentroidMetric) -> Terms:
     """(log pi, grad log pi) evaluator of the chain: one ``hmc_terms`` call."""
     inv_t2 = 1.0 / metric.temperature ** 2
-    log_eps = float(np.log(_F32(1e-10)))
     return lambda z: hmc_terms(z, metric.centroids, metric.matrices, inv_t2,
-                               metric.regularization, log_eps)
+                               metric.regularization, LOG_EPS)
 
 
 def tempering(k: float, big_k: int, beta_zero_sqrt: np.float32) -> np.float32:
@@ -119,19 +119,23 @@ def mcmc_step(terms: Terms, state: ChainState, gamma: torch.Tensor, accept_u: to
 
 
 def run_prior_chain(terms: Terms, z0: torch.Tensor, gammas: torch.Tensor,
-                    unifs: torch.Tensor, config: HMCConfig, collect_states: bool = False):
+                    unifs: torch.Tensor, config: HMCConfig, collect_states: bool = False,
+                    mean_fn: Callable[[torch.Tensor], torch.Tensor] = torch.mean):
     """The prior-chain integrator on given noise: :func:`mcmc_step` for each
     of the ``S`` steps, from z0 at tempering 1/sqrt(b0).
 
     Returns ``(z, accept_rate, log_pi_final)``, and with ``collect_states``
     also ``zs [S, B, D]``, the state after every MCMC step (the chain is the
-    same either way).  ``accept_rate`` is the mean over steps and rows."""
+    same either way).  ``accept_rate`` is the mean over steps of
+    ``mean_fn(accept)``, the step's accept mask (as fp32) reduced to a rate:
+    the mean over rows by default; the centroid-sharded chain passes a mean
+    over every rank's rows (``rlvae_tpu/samplers/hmc.py:99``)."""
     log_pi, grad = terms(z0)
     state = (z0, log_pi, -grad, np.sqrt(_F32(config.beta_zero)))
     rates, zs = [], []
     for s in range(config.mcmc_steps):
         state, accept, _ = mcmc_step(terms, state, gammas[s], unifs[s], config)
-        rates.append(accept.float().mean())
+        rates.append(mean_fn(accept.float()))
         if collect_states:
             zs.append(state[0])
     z, log_pi = state[0], state[1]

@@ -90,8 +90,9 @@ def test_build_command():
     assert "arch=compute_90a,code=sm_90a" in argv
     assert {"-shared", "-O3", "-std=c++17"} <= set(argv)
     srcs = [Path(a) for a in argv if a.endswith(".cu")]
-    assert sorted(p.name for p in srcs) == ["chol_bundle.cu", "decode_mse.cu", "hmc_terms.cu",
-                                            "iaf_chain.cu", "iaf_chain_bwd.cu", "metric_bundle.cu"]
+    assert sorted(p.name for p in srcs) == ["chol_bundle.cu", "decode_mse.cu", "hmc_partials.cu",
+                                            "hmc_terms.cu", "iaf_chain.cu", "iaf_chain_bwd.cu",
+                                            "metric_bundle.cu"]
     assert all(p.parent == REPO / "rlvae_tpu_torch" / "csrc" for p in srcs)
     assert out.parent == REPO / "build" / "rlvae_tpu_torch"
     assert re.fullmatch(r"librlvae_kernels_[0-9a-f]{16}\.so", out.name)

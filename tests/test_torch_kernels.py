@@ -20,7 +20,11 @@ fp32 pre-activation is summed in another order; dh as its fp32 sum, with
 an fp32 h), the bf16 dh of a bf16 h within one bf16 step of each element
 (its final rounding flips where the fp32 sum, taken in another order, lies
 near a tie) plus that 1e-3, rows with rw = 0 exactly zero in dh, and every
-output bit-identical from one launch to the next."""
+output bit-identical from one launch to the next.  HMC partials (one shard's
+gi_part and v): within 1e-5 (gi_part) and 1e-4 (v) of max(1, |plain|)
+elementwise, against fp64 no worse than 4x the plain version (or 1e-5 of
+scale), bit-identical on relaunch, and a bank padded with far centroids and
+zero matrices bit-identical to the unpadded one."""
 
 import numpy as np
 import pytest
@@ -41,6 +45,8 @@ from rlvae_tpu_torch.ops.metric_kernels import (
     chol_bundle_ref,
     g_inv,
     g_inv_ref,
+    hmc_partials,
+    hmc_partials_ref,
     hmc_terms,
     hmc_terms_ref,
     metric_bundle,
@@ -311,6 +317,71 @@ def test_g_and_g_inv_gradients_on_the_card_equal_the_cpu(dev, which):
         assert counter.launches == before + (1 if zz.is_cuda else 0)
         grads.append(zz.grad.cpu())
     torch.testing.assert_close(grads[1], grads[0], rtol=1e-4, atol=1e-5 * grads[0].abs().max())
+
+
+@pytest.mark.parametrize("b,k,n_splits", [
+    *((b, k, None) for k in (1, 37, 50, 200, 20_000) for b in (1, 37, 64)),
+    # the bank summed in 1, 2, 7 or 40 ranges, each range in its own block
+    *((64, 20_000, n) for n in (1, 2, 7, 40)), (5, 200, 3), (37, 2000, 5),
+])
+def test_hmc_partials_matches_plain_and_fp64(dev, monkeypatch, b, k, n_splits):
+    """The kernel against its plain fp32 version and an fp64 evaluation, and
+    against itself on relaunch; the last rows of a batch lie far from every
+    centroid (every weight underflows: gi_part and v exactly 0).  A given
+    ``n_splits`` replaces the wrapper's own choice of ranges."""
+    if n_splits is not None:
+        monkeypatch.setattr(metric_kernels, "k_splits", lambda b, k, device: n_splits)
+    c, m = _bank(k, 11 * k + b)
+    rng = np.random.default_rng(b + 2)
+    z = c[rng.integers(0, k, size=b)] + 0.05 * rng.normal(size=(b, 16))
+    if b > 1:
+        z[-2:] += 100.0
+    zt, ct, mt = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (z, c, m))
+    before = hmc_partials.launches
+    got = hmc_partials(zt, ct, mt, 4.0)
+    again = hmc_partials(zt, ct, mt, 4.0)
+    plain = hmc_partials_ref(zt, ct, mt, 4.0)
+    want64 = hmc_partials_ref(zt.double(), ct.double(), mt.double(), 4.0)
+    torch.cuda.synchronize()
+    assert hmc_partials.launches == before + 2
+    assert got[0].shape == (b, 16, 16) and got[1].shape == (b, 16)
+    for out, rerun, p, e, tol in zip(got, again, plain, want64, (1e-5, 1e-4)):
+        assert torch.equal(out, rerun)
+        assert bool(torch.all((out - p).abs() <= tol * p.abs().clamp_min(1.0)))
+        err_k = float((out.double() - e).abs().max())
+        err_p = float((p.double() - e).abs().max())
+        assert err_k <= max(4 * err_p, 1e-5 * float(e.abs().max())), (err_k, err_p)
+    if b > 1:
+        assert torch.all(got[0][-2:] == 0) and torch.all(got[1][-2:] == 0)
+
+
+def test_hmc_partials_padded_bank_is_bit_identical(dev):
+    """37 centroids padded to 40 with far centroids (1e6) and zero matrices,
+    as the centroid-sharded path pads them: w = 0 exactly, so each padded
+    centroid adds exact zeros to both sums."""
+    c, m = _bank(37, 5)
+    cp = np.concatenate([c, np.full((3, 16), 1e6, np.float32)])
+    mp = np.concatenate([m, np.zeros((3, 16, 16), np.float32)])
+    rng = np.random.default_rng(9)
+    z = c[rng.integers(0, 37, size=64)] + 0.05 * rng.normal(size=(64, 16))
+    zt = torch.tensor(z, dtype=torch.float32, device=dev)
+    got = hmc_partials(zt, *(torch.tensor(v, device=dev) for v in (c, m)), 1.0 / 9.0)
+    padded = hmc_partials(zt, *(torch.tensor(v, device=dev) for v in (cp, mp)), 1.0 / 9.0)
+    assert torch.equal(got[0], padded[0]) and torch.equal(got[1], padded[1])
+
+
+def test_hmc_partials_rejects_bad_inputs(dev):
+    z = torch.zeros((4, 16), device=dev)
+    c = torch.zeros((3, 16), device=dev)
+    m = torch.eye(16, device=dev).expand(3, 16, 16).contiguous()
+    with pytest.raises(TypeError):
+        hmc_partials(z.double(), c, m, 1.0)
+    with pytest.raises(ValueError):
+        hmc_partials(z, c[:0], m[:0], 1.0)
+    with pytest.raises(ValueError):
+        hmc_partials(z.t(), c, m, 1.0)
+    with pytest.raises(RuntimeError):
+        hmc_partials(z.clone().requires_grad_(), c, m, 1.0)
 
 
 def _decode_problem(dev, m, n, k=512, seed=0):
