@@ -5,12 +5,16 @@
 Phases, each printing one JSON line with its elapsed seconds:
 
 1. ``device``: the card's name, count, and ``nvidia-smi`` name and power limit.
-2. ``build``: one ``nvcc`` call builds every ``rlvae_tpu_torch/csrc/*.cu``.
+2. ``build``: one ``nvcc`` per ``rlvae_tpu_torch/csrc/*.cu``, all started
+   together, then one link; the ``-Xptxas -v`` lines of every kernel.
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the shapes the serving and training paths give it, with the tolerance
-   stated; ms per launch from CUDA events.  The IAF-chain backward is held
-   to its plain version at the near-identity flow init and, at the model's
-   reference init, to an fp64 evaluation (as the forward is).  The HMC terms,
+   stated; ms per launch from CUDA events.  The IAF-chain forward (B = 1, 7,
+   16, 64) and backward (B = 1, 16, 64) are held to their plain versions at
+   the near-identity flow init and, at the model's reference init, to an
+   fp64 evaluation, in both instantiations (weights resident in shared
+   memory, and streamed), bit-identical on relaunch; each batch prints the
+   launcher's cluster geometry.  The HMC terms,
    the metric bundle and G^{-1} are held to their plain versions and to an
    fp64 evaluation at K=50, 200 and 20 000, B=1, 64 and 1000, with rows far
    from every centroid.  The decode+MSE forward, dh and dW/db are held to
@@ -70,7 +74,9 @@ Phases, each printing one JSON line with its elapsed seconds:
    epilogue) against the whole bank.  ``sample_prior_hmc_sharded`` runs the
    official chain (100 x 15) at B=64 with the counters zeroed just before
    and read just after (1601 ``hmc_partials`` launches, no ``hmc_terms``);
-   host-clock time, and the busy share of a profiled 2-step chain.  Every
+   host-clock time, and the busy share of a profiled 2-step chain.
+   ``chol_g_inv_sharded`` at B=64 launches the G^{-1} kernel once and is
+   held to the dense chol-bundle factor.  Every
    MCMC step is replayed on the CPU from the card's state, and the first 10
    are also taken with the dense ``hmc_terms`` from the same state.
 
@@ -303,56 +309,89 @@ def pass_flops(d=16, h=256, nh=3):
     return 2 * (d * h + (nh - 1) * h * h + h * 2 * d)
 
 
+IAF_FWD_BATCHES = (1, 7, TRAIN_BATCH, SERVE_BATCH)
+
+
+def iaf_instantiations():
+    """The two instantiations of each IAF-chain kernel: weights resident in
+    shared memory (what the wrappers launch at the preset's shape) and
+    streamed from global memory (what they launch where the weights do not
+    fit), both driven at the same shape."""
+    from rlvae_tpu_torch.ops.iaf_kernels import _launch_bwd, _launch_fwd
+
+    return {
+        "resident": (lambda z0, w, ys=False: _launch_fwd(z0, tuple(w), ys),
+                     lambda ys, dz, dld, w: _launch_bwd(ys, dz, dld, tuple(w))),
+        "streamed": (lambda z0, w, ys=False: _launch_fwd(z0, tuple(w), ys, stream_weights=True),
+                     lambda ys, dz, dld, w: _launch_bwd(ys, dz, dld, tuple(w),
+                                                        stream_weights=True)),
+    }
+
+
 def run_iaf_checks(torch, dev):
-    from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_fwd, iaf_chain_fwd_ref
+    from rlvae_tpu_torch.ops.iaf_kernels import (
+        iaf_chain_fwd,
+        iaf_chain_fwd_ref,
+        launch_geometry,
+    )
 
     nt = N_TRANSITIONS
     w_near_id = chain_weights(torch, dev, 0.0)
     wm = chain_weights(torch, dev, -2.0)
+    wm64 = [w.double() for w in wm]
     rng = np.random.default_rng(1)
     cases, record = [], None
-    for b in (1, 7, SERVE_BATCH):
+    for b in IAF_FWD_BATCHES:
         z0 = torch.tensor(rng.normal(size=(b, 16)), dtype=torch.float32, device=dev)
-        # (a) the whole chain, near-identity flows: errors stay at rounding;
-        # the residual ys (each block's output) too
-        w = w_near_id
-        z_k, ld_k, ys_k = iaf_chain_fwd(z0, *w, return_ys=True)
-        z_p, ld_p, ys_p = iaf_chain_fwd_ref(z0, *w, return_ys=True)
-        check(torch.equal(iaf_chain_fwd(z0, *w)[0], z_k), "ys output changed z")
-        rel_a = max(_scaled_err(z_k, z_p), _scaled_err(ld_k, ld_p), _scaled_err(ys_k, ys_p))
-        abs_a = max(float((z_k - z_p).abs().max()), float((ld_k - ld_p).abs().max()),
-                    float((ys_k - ys_p).abs().max()))
-        # (b) the model's reference-init flows, which scale |z| ~20x per
-        # transition: rounding is amplified inside each transition, so the
-        # kernel is held to an fp64 evaluation, no less accurate than the plain
-        # fp32 version; each transition starts from the fp64 chain's input to it
-        wm64 = [w.double() for w in wm]
+        z_p, ld_p, ys_p = iaf_chain_fwd_ref(z0, *w_near_id, return_ys=True)
         z_64, _ = iaf_chain_fwd_ref(z0.double(), *wm64)
-        rel_b = rel_p = abs_b = abs_kp = 0.0
+        plain_t = []  # per transition: (input, plain fp32 z and ld, fp64 z and ld)
         for t in range(nt):
             x_in = (z0 if t == 0 else z_64[t - 1].float()).contiguous()
             w_t = [x[t : t + 1].contiguous() for x in wm]
-            zt, ldt = iaf_chain_fwd(x_in, *w_t)
-            zp, ldp = iaf_chain_fwd_ref(x_in, *w_t)
-            ze, lde = iaf_chain_fwd_ref(x_in.double(), *(x[t : t + 1] for x in wm64))
-            rel_b = max(rel_b, _scaled_err(zt.double(), ze), _scaled_err(ldt.double(), lde))
-            rel_p = max(rel_p, _scaled_err(zp.double(), ze), _scaled_err(ldp.double(), lde))
-            abs_b = max(abs_b, float((zt.double() - ze).abs().max()))
-            abs_kp = max(abs_kp, float((zt - zp).abs().max()), float((ldt - ldp).abs().max()))
-        torch.cuda.synchronize()
-        ok = rel_a <= IAF_RTOL and rel_b <= max(IAF_FP64_FACTOR * rel_p, IAF_RTOL)
-        case = {"shape": f"B={b},D=16,H=256,NB=2,NH=3,NT={nt}", "ok": ok,
+            plain_t.append((x_in, w_t, iaf_chain_fwd_ref(x_in, *w_t),
+                            iaf_chain_fwd_ref(x_in.double(), *(x[t : t + 1] for x in wm64))))
+        case = {"shape": f"B={b},D=16,H=256,NB=2,NH=3,NT={nt}",
+                "geometry": launch_geometry(b, 16, 256, 3), "ok": True, "max_abs_err": 0.0}
+        for inst, (fwd, _) in iaf_instantiations().items():
+            # (a) the whole chain, near-identity flows: errors stay at rounding;
+            # the residual ys (each block's output) too
+            z_k, ld_k, ys_k = fwd(z0, w_near_id, True)
+            check(torch.equal(fwd(z0, w_near_id)[0], z_k), "ys output changed z")
+            check(torch.equal(fwd(z0, w_near_id, True)[2], ys_k), "relaunch changed ys")
+            rel_a = max(_scaled_err(z_k, z_p), _scaled_err(ld_k, ld_p), _scaled_err(ys_k, ys_p))
+            abs_a = max(float((z_k - z_p).abs().max()), float((ld_k - ld_p).abs().max()),
+                        float((ys_k - ys_p).abs().max()))
+            # (b) the model's reference-init flows, which scale |z| ~20x per
+            # transition: rounding is amplified inside each transition, so the
+            # kernel is held to an fp64 evaluation, no less accurate than the
+            # plain fp32 version; each transition starts from the fp64 chain's
+            # input to it
+            rel_b = rel_p = abs_b = abs_kp = 0.0
+            for x_in, w_t, (zp, ldp), (ze, lde) in plain_t:
+                zt, ldt = fwd(x_in, w_t)
+                rel_b = max(rel_b, _scaled_err(zt.double(), ze), _scaled_err(ldt.double(), lde))
+                rel_p = max(rel_p, _scaled_err(zp.double(), ze), _scaled_err(ldp.double(), lde))
+                abs_b = max(abs_b, float((zt.double() - ze).abs().max()))
+                abs_kp = max(abs_kp, float((zt - zp).abs().max()), float((ldt - ldp).abs().max()))
+            torch.cuda.synchronize()
+            ok = rel_a <= IAF_RTOL and rel_b <= max(IAF_FP64_FACTOR * rel_p, IAF_RTOL)
+            case[inst] = {
                 "chain_near_identity": {"max_rel_err": rel_a, "max_abs_err": abs_a},
                 "per_transition_model_init_vs_fp64": {
                     "kernel_max_rel_err": rel_b, "plain_fp32_max_rel_err": rel_p,
                     "kernel_max_abs_err": abs_b, "kernel_vs_plain_max_abs_err": abs_kp},
-                "max_abs_err": max(abs_a, abs_kp),
-                "ms": time_ms(torch, lambda: iaf_chain_fwd(z0, *wm), 10)}
+                "ms": time_ms(torch, lambda: fwd(z0, wm), 10), "ok": ok}
+            case["ok"] &= ok
+            case["max_abs_err"] = max(case["max_abs_err"], abs_a, abs_kp)
+            check(ok, f"iaf_chain_fwd ({inst}) disagrees at B={b}: {rel_a}, {rel_b} "
+                      f"(plain fp32 {rel_p})")
+        case["ms"] = time_ms(torch, lambda: iaf_chain_fwd(z0, *wm), 10)
         cases.append(case)
-        check(ok, f"iaf_chain_fwd disagrees at B={b}: {rel_a}, {rel_b} (plain fp32 {rel_p})")
         if b == SERVE_BATCH:
             d, nb = 16, 2
             flops = b * nt * nb * d * pass_flops()
+            z_k, ld_k = iaf_chain_fwd(z0, *wm)
             bms, by = bound_ms(nbytes(z0, *wm, z_k, ld_k), flops)
             record = {
                 "name": "iaf_chain_fwd", "route": "cuda",
@@ -363,10 +402,14 @@ def run_iaf_checks(torch, dev):
                 "bound_ms": bms, "bound_by": by, "library_ms": None,
             }
     record["max_abs_err"] = max(c["max_abs_err"] for c in cases)
+    record["ms_by_batch"] = {c["shape"].split(",")[0]: c["ms"] for c in cases}
+    record["ms_streamed_by_batch"] = {c["shape"].split(",")[0]: c["streamed"]["ms"]
+                                      for c in cases}
     record["tolerance"] = (f"near-identity chain: |kernel-plain| <= {IAF_RTOL}*max|plain| per "
                            f"transition (z, ld and the residual ys); reference init: error vs "
                            f"fp64 <= max({IAF_FP64_FACTOR}x the plain fp32 version's, {IAF_RTOL}) "
-                           f"per transition")
+                           f"per transition; both instantiations (weights resident, streamed); "
+                           f"bit-identical on relaunch")
     return record, cases
 
 
@@ -386,15 +429,19 @@ def _bwd_abs(got, want):
 
 
 def run_iaf_bwd_checks(torch, dev):
-    """The IAF-chain backward against its plain version: (a) the whole chain
-    at the near-identity init, both from the same residual ys; (b) at the
-    reference init, each transition alone from the fp64 chain's residual,
-    kernel and plain fp32 version both against fp64."""
+    """The IAF-chain backward against its plain version, in both
+    instantiations: (a) the whole chain at the near-identity init, both from
+    the same residual ys, bit-identical on relaunch; (b) at the reference
+    init, each transition alone from the fp64 chain's residual, kernel and
+    plain fp32 version both against fp64.  Each batch also times the
+    caller's sum of the weight-gradient workspace (one slot per cluster)."""
     from rlvae_tpu_torch.ops.iaf_kernels import (
+        bwd_workspace,
         iaf_chain_bwd,
         iaf_chain_bwd_ref,
         iaf_chain_fwd,
         iaf_chain_fwd_ref,
+        launch_geometry,
     )
 
     nt, d = N_TRANSITIONS, 16
@@ -407,35 +454,49 @@ def run_iaf_bwd_checks(torch, dev):
         z0 = torch.tensor(rng.normal(size=(b, d)), dtype=torch.float32, device=dev)
         dz = torch.tensor(rng.normal(size=(nt, b, d)), dtype=torch.float32, device=dev)
         dld = torch.tensor(rng.normal(size=(nt, b)), dtype=torch.float32, device=dev)
-        # (a)
         _, _, ys = iaf_chain_fwd_ref(z0, *w_near_id, return_ys=True)
-        got = iaf_chain_bwd(ys, dz, dld, *w_near_id)
         want = iaf_chain_bwd_ref(ys, dz, dld, *w_near_id)
-        rel_a, abs_a = _bwd_err(got, want), _bwd_abs(got, want)
-        # (b)
         _, _, ys64 = iaf_chain_fwd_ref(z0.double(), *wm64, return_ys=True)
-        rel_b = rel_p = abs_kp = 0.0
+        plain_t = []
         for t in range(nt):
-            ys_t = ys64[t : t + 1].float().contiguous()
             w_t = [x[t : t + 1].contiguous() for x in wm]
-            args = (ys_t, dz[t : t + 1].contiguous(), dld[t : t + 1].contiguous())
-            k = iaf_chain_bwd(*args, *w_t)
-            p = iaf_chain_bwd_ref(*args, *w_t)
-            e = iaf_chain_bwd_ref(*(a.double() for a in args), *(x[t : t + 1] for x in wm64))
-            rel_b, rel_p = max(rel_b, _bwd_err(k, e)), max(rel_p, _bwd_err(p, e))
-            abs_kp = max(abs_kp, _bwd_abs(k, p))
-        torch.cuda.synchronize()
-        ok = rel_a <= IAF_RTOL and rel_b <= max(IAF_FP64_FACTOR * rel_p, IAF_RTOL)
+            args = (ys64[t : t + 1].float().contiguous(), dz[t : t + 1].contiguous(),
+                    dld[t : t + 1].contiguous())
+            plain_t.append((args, w_t, iaf_chain_bwd_ref(*args, *w_t),
+                            iaf_chain_bwd_ref(*(a.double() for a in args),
+                                              *(x[t : t + 1] for x in wm64))))
         _, _, ys_m = iaf_chain_fwd(z0, *wm, return_ys=True)
-        case = {"shape": f"B={b},D=16,H=256,NB=2,NH=3,NT={nt}", "ok": ok,
+        case = {"shape": f"B={b},D=16,H=256,NB=2,NH=3,NT={nt}",
+                "geometry": launch_geometry(b, 16, 256, 3, backward=True), "ok": True}
+        for inst, (_, bwd) in iaf_instantiations().items():
+            got = bwd(ys, dz, dld, w_near_id)
+            again = bwd(ys, dz, dld, w_near_id)
+            check(torch.equal(got[0], again[0]) and all(map(torch.equal, got[1], again[1])),
+                  f"iaf_chain_bwd ({inst}) changed on relaunch at B={b}")
+            rel_a, abs_a = _bwd_err(got, want), _bwd_abs(got, want)
+            rel_b = rel_p = abs_kp = 0.0
+            for args, w_t, p, e in plain_t:
+                k = bwd(*args, w_t)
+                rel_b, rel_p = max(rel_b, _bwd_err(k, e)), max(rel_p, _bwd_err(p, e))
+                abs_kp = max(abs_kp, _bwd_abs(k, p))
+            torch.cuda.synchronize()
+            ok = rel_a <= IAF_RTOL and rel_b <= max(IAF_FP64_FACTOR * rel_p, IAF_RTOL)
+            case[inst] = {
                 "chain_near_identity": {"max_rel_err": rel_a, "max_abs_err": abs_a},
                 "per_transition_model_init_vs_fp64": {
                     "kernel_max_rel_err": rel_b, "plain_fp32_max_rel_err": rel_p,
                     "kernel_vs_plain_max_abs_err": abs_kp},
-                "max_abs_err": abs_a,
-                "ms": time_ms(torch, lambda: iaf_chain_bwd(ys_m, dz, dld, *wm), 5)}
+                "ms": time_ms(torch, lambda: bwd(ys_m, dz, dld, wm), 5), "ok": ok}
+            case["ok"] &= ok
+            case["max_abs_err"] = max(case.get("max_abs_err", 0.0), abs_a)
+            check(ok, f"iaf_chain_bwd ({inst}) disagrees at B={b}: {rel_a}, {rel_b} "
+                      f"(plain fp32 {rel_p})")
+        case["ms"] = time_ms(torch, lambda: iaf_chain_bwd(ys_m, dz, dld, *wm), 5)
+        parts = [p.zero_() for p in bwd_workspace(b, tuple(wm))]
+        case["workspace"] = {"clusters": parts[0].shape[0],
+                             "bytes": sum(p.numel() * p.element_size() for p in parts),
+                             "sum_ms": time_ms(torch, lambda: [p.sum(0) for p in parts], 10)}
         cases.append(case)
-        check(ok, f"iaf_chain_bwd disagrees at B={b}: {rel_a}, {rel_b} (plain fp32 {rel_p})")
         if b == SERVE_BATCH:
             nb = 2
             # per block and transition: the pass, D sweeps, the final VJP and
@@ -454,10 +515,13 @@ def run_iaf_bwd_checks(torch, dev):
             }
     record["max_abs_err"] = max(c["max_abs_err"] for c in cases)
     record["ms_by_batch"] = {c["shape"].split(",")[0]: c["ms"] for c in cases}
+    record["ms_streamed_by_batch"] = {c["shape"].split(",")[0]: c["streamed"]["ms"]
+                                      for c in cases}
     record["tolerance"] = (f"near-identity chain: |kernel-plain| <= {IAF_RTOL}*scale (dz0 by its "
                            f"largest entry, weight grads per transition); reference init: error "
                            f"vs fp64 <= max({IAF_FP64_FACTOR}x the plain fp32 version's, "
-                           f"{IAF_RTOL}) per transition")
+                           f"{IAF_RTOL}) per transition; both instantiations (weights resident, "
+                           f"streamed); bit-identical on relaunch")
     return record, cases
 
 
@@ -1705,8 +1769,14 @@ def run_ep(torch, dev=None):
     short chain, the dense B4 chain on the same draws for scale, and the
     step-by-step replay."""
     from rlvae_tpu_torch.geometry import load_metric
-    from rlvae_tpu_torch.geometry.metric import CentroidMetric
-    from rlvae_tpu_torch.parallel import all_reduce_sum, create_mesh, sample_prior_hmc_sharded
+    from rlvae_tpu_torch.geometry.metric import CentroidMetric, chol_g_inv
+    from rlvae_tpu_torch.parallel import (
+        all_reduce_sum,
+        chol_g_inv_sharded,
+        create_mesh,
+        sample_prior_hmc_sharded,
+        shard_metric,
+    )
     from rlvae_tpu_torch.samplers import HMCConfig, draw_hmc_noise, sample_prior_hmc
 
     dev = dev or torch.device("cuda")
@@ -1742,6 +1812,19 @@ def run_ep(torch, dev=None):
     check(z.shape == (b, 16) and bool(torch.isfinite(z).all())
           and bool(torch.isfinite(diag["log_pi"]).all()), "bad EP chain output")
 
+    # the sharded Cholesky factor: the shard's G^{-1} from the G^{-1} kernel (B7),
+    # then the all-reduce, + lbd I and the factorization, against the dense
+    # chol-bundle (B1) on the same rows
+    g_inv_before = _wrappers()["g_inv"].launches
+    l_sharded = chol_g_inv_sharded(mesh, shard_metric(mesh, metric), noise["z0"])
+    torch.cuda.synchronize()
+    g_inv_launched = _wrappers()["g_inv"].launches - g_inv_before
+    l_dense = chol_g_inv(metric, noise["z0"])
+    chol_err = (l_sharded - l_dense).abs()
+    check(g_inv_launched == 1, f"chol_g_inv_sharded launched g_inv {g_inv_launched} times")
+    check(bool((chol_err <= CHOL_ATOL + CHOL_RTOL * l_dense.abs()).all()),
+          f"chol_g_inv_sharded disagrees with chol_g_inv: {float(chol_err.max())}")
+
     # the busy share of a short chain: host clock unprofiled, device time profiled
     short_cfg = HMCConfig(mcmc_steps=EP_PROFILE_STEPS)
     run_short = lambda: sample_prior_hmc_sharded(mesh, metric, b, short_cfg,  # noqa: E731
@@ -1774,6 +1857,9 @@ def run_ep(torch, dev=None):
                         "top_kernels": kernels[:8]},
         "dense_chain": {"host_s": dense_s, "ep_over_dense": chain_s / dense_s,
                         "max_abs_z_diff_vs_ep": float((z_dense - z).abs().max())},
+        "chol_g_inv_sharded": {"batch": b, "g_inv_launches": g_inv_launched,
+                               "max_abs_err_vs_dense_chol_bundle": float(chol_err.max()),
+                               "tolerance": f"{CHOL_ATOL} + {CHOL_RTOL}|dense|"},
         "replay": replay_ep_chain(torch, metric, cpu_metric, noise, cfg, z),
         "launches": launches,
     }
@@ -1797,7 +1883,8 @@ def main() -> None:
 
     lib = kernel_library()
     emit("build", seconds=lib.seconds, library=str(lib.path.name),
-         ptxas=[ln.strip() for ln in lib.log.splitlines() if "registers" in ln or "spill" in ln])
+         ptxas=[ln.strip() for ln in lib.log.splitlines()
+                if "Compiling entry" in ln or "registers" in ln or "spill" in ln])
     print(f"build_seconds {lib.seconds:.3f}", flush=True)
 
     records = {}

@@ -18,300 +18,609 @@
 //   3. one more pass at lam writes the weight gradients (outer products);
 //   4. dx = lam e is the cotangent of the block's input, flipped into the previous
 //      block's output (or carried to transition t-1 after block 0).
-// Weight gradients are written per block of ROWS rows into partials
-// [n_row_blocks, NT, NB, ...] that the caller sums (torch .sum(0)), as the TPU
-// kernel writes per-tile partials that XLA sums (:647-648).  Blocks never share an
-// accumulator, so the result does not depend on the order they run in.
 //
-// What bounds it on an H100: fp32 operations.  Per block and transition a row
-// costs about (1 + D + 2) MADE-pass equivalents (the pass, D sweeps, the final
-// VJP with its outer products); one pass is 286 720 FLOP at D=16, H=256, NH=3, so
-// a row of the 7-transition, 2-block chain costs ~19 x 286 720 x 14 ~ 76 MFLOP.
+// What bounds it on an H100: the chain of dependent steps, not the arithmetic
+// (~76 MFLOP per row, 0.07 ms for B=64 at the fp32 peak).  Per MADE block: the
+// recomputed pass, D sweeps and the final VJP, each NH+1 layer steps, and the
+// flip: 14 x ((16 + 2) x 4 + 1) = 1022 dependent layer steps at D=16, NH=3,
+// NT=7, NB=2.
 //
-// Design (right and simple, like the forward kernel): one block of 256 threads
-// owns ROWS rows for the whole reversed chain; the cotangent carry, lam and every
-// activation of the pass stay in shared memory; weights are read from L2 on every
-// product; fp32 FMAs, no tensor cores (e = exp(-s) and the clamp gate need full
-// fp32 s).  A transposed product (cotangent times W^T) gives each thread one output
-// and reads that output's weight row with float4 loads; the W0^T product, with only
-// D outputs, gives each warp one output and reduces over lanes with shuffles.  Like
-// the forward, the kernel is bound by the latency of its long chain of dependent
-// layer steps (14 block-transitions x (D + 2) passes), not by the card's
-// arithmetic rate.
-#include <cuda_runtime.h>
+// Design: the forward's cluster geometry (iaf_cluster.cuh).  Layer 0 of the
+// recomputed pass is whole in every CTA; each CTA keeps its column slices of
+// the hidden layers, and the full [R,H] inputs of the hidden layers (gathered
+// by st.async) for the weight gradients.  The transposed products:
+//   dout @ WO^T: WO's row slice gives this CTA's own columns, no exchange;
+//   (g . da) @ WH[l]^T for l >= 1: the gated cotangent's slices are gathered
+//     into every CTA, then each CTA's row slice of WH[l] gives its own
+//     columns (the second orientation of the slice is held, rather than
+//     partials reduce-scattered in rank order);
+//   the last two, @ WH[0]^T @ W0^T, as one product with M = W0 @ WH[0]
+//     ([D,H], this CTA's columns computed once per block): each CTA's partial
+//     over its columns, sent to every peer and added in rank order.
+// So a sweep is two exchanges at NH=3 (NH-1 in general); the final VJP also
+// gathers the last gated cotangent for dW0.  Weights: each CTA holds W0 and its
+// column slices of WH (read by the recomputed pass and M only, then refilled
+// with the next block's), its row slices of WH (refilled at the block's end)
+// and WO's row slice (double-buffered), all by bulk copies.
+// Weight gradients: each CTA writes the gradient of exactly the slices it owns
+// (rank 0 also bo's), per cluster into a [n_clusters, NT, NB, ...] workspace
+// that the caller sums in cluster order, as the TPU kernel writes per-tile
+// partials that XLA sums (:647-648).  No atomics: the result does not depend on
+// the order the clusters run in, and a relaunch gives the same bits.
+#include "iaf_cluster.cuh"
 
 namespace {
 
-constexpr int ROWS = 8;  // latent rows per block
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_D = 32;
-constexpr int MAX_H = 256;
-constexpr int MAX_NH = 16;
-constexpr float LOG_VAR_CLAMP = 1.5f;
+using namespace iaf;
 
-// dst[r, n] = act(sum_k src[r, k] * w[k, n] + bias[n]) for r < ROWS, n < N.
-template <bool RELU>
-__device__ __forceinline__ void dense(const float* __restrict__ src, float* __restrict__ dst,
-                                      const float* __restrict__ w,
-                                      const float* __restrict__ bias, int K, int N) {
-  for (int n = threadIdx.x; n < N; n += THREADS) {
-    float acc[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float wk = w[(size_t)k * N + n];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(src[r * K + k], wk, acc[r]);
-    }
-    const float b = bias[n];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float v = acc[r] + b;
-      dst[r * N + n] = RELU ? fmaxf(v, 0.f) : v;
-    }
-  }
+struct BwdParams {
+  CUtensorMap wh_map;  // as for the forward (resident)
+  const float *ys, *dz, *dld, *w0, *b0, *wh, *bh, *wo, *bo;
+  float *dz0, *gw0, *gb0, *gwh, *gbh, *gwo, *gbo;
+  int B, D, H, NB, NH, NT;
+  Layout L;
+  long long* prof;  // -DIAF_PROFILE: null, or BWD_PHASES clock64 sums (PhaseClock)
+};
+
+// The profile's phases (-DIAF_PROFILE): a block's start (0); the recomputed
+// pass with M (1); per sweep dout @ WO^T + gate (2), the gather (3), the WH^T
+// product + gate (4), the lam partial and its exchange (5), the lam update
+// (6); the final VJP's weight-gradient writes (7); a block's end (8); and the
+// whole kernel (9).
+constexpr int BWD_PHASES = 10;
+
+struct BwdSmem {
+  int asz, osz, bsz, bias;
+  int wa, wo, wb, bbuf, m, afull, last, gfull, red, gown, da0, part, y, e, gs, dy, lam, dx,
+      dout, dld, floats;
+};
+
+__host__ __device__ inline BwdSmem bwd_smem(int R, bool resident, const Layout& L, int D, int H,
+                                            int NH) {
+  BwdSmem s;
+  s.asz = round32(D * H) + (NH - 1) * L.LS;  // W0 | WH column slices (128-byte aligned)
+  s.osz = L.HC * L.WOS;                 // WO rows
+  s.bsz = (NH - 1) * L.HC * L.WRS;      // WH row slices
+  s.bias = bias_floats(D, H, NH, L.HC);
+  int o = 0;
+  s.wa = o;    o += resident ? s.asz : 0;
+  s.wo = o;    o += resident ? 2 * s.osz : 0;
+  s.wb = o;    o += resident ? s.bsz : 0;
+  s.bbuf = o;  o += 2 * s.bias;
+  s.m = o;     o += D * L.HC;
+  s.afull = o; o += (NH > 1 ? NH - 1 : 1) * R * H;  // layers 0..NH-2, whole
+  s.last = o;  o += R * L.HC;                       // layer NH-1, this CTA's columns
+  s.gfull = o; o += NH > 1 ? 2 * R * H : 0;
+  s.red = o;   o += THREADS * R;
+  s.gown = o;  o += R * L.HC;
+  s.da0 = o;   o += R * L.HC;
+  s.part = o;  o += 2 * CLUSTER_CTAS * R * L.DP;
+  s.y = o;     o += R * L.DP;
+  s.e = o;     o += R * L.DP;
+  s.gs = o;    o += R * L.DP;
+  s.dy = o;    o += R * L.DP;
+  s.lam = o;   o += R * L.DP;
+  s.dx = o;    o += R * L.DP;
+  s.dout = o;  o += R * L.D2P;
+  s.dld = o;   o += round4(R);
+  s.floats = o;
+  return s;
 }
 
-// dst[r, n] = sum_j src[r, j] * w[n, j] for r < ROWS, n < N: the cotangent of a
-// layer's input from that of its output (w is the layer's [N, J] weight).
-__device__ __forceinline__ void dense_t(const float* __restrict__ src, float* __restrict__ dst,
-                                        const float* __restrict__ w, int J, int N) {
-  for (int n = threadIdx.x; n < N; n += THREADS) {
-    float acc[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-    const float* wn = w + (size_t)n * J;
-    if ((J & 3) == 0) {
-      for (int j = 0; j < J; j += 4) {
-        const float4 wv = *reinterpret_cast<const float4*>(wn + j);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const float4 a = *reinterpret_cast<const float4*>(src + r * J + j);
-          acc[r] = fmaf(a.x, wv.x, acc[r]);
-          acc[r] = fmaf(a.y, wv.y, acc[r]);
-          acc[r] = fmaf(a.z, wv.z, acc[r]);
-          acc[r] = fmaf(a.w, wv.w, acc[r]);
-        }
-      }
-    } else {
-      for (int j = 0; j < J; ++j) {
-        const float wj = wn[j];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(src[r * J + j], wj, acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) dst[r * N + n] = acc[r];
-  }
+inline size_t bwd_smem_bytes(int R, bool resident, const Layout& L, int D, int H, int NH) {
+  return BAR_BYTES + sizeof(float) * (size_t)bwd_smem(R, resident, L, D, H, NH).floats;
 }
 
-// gw[k, n] = sum_r a[r, k] * g[r, n] and gb[n] = sum_r g[r, n]: one block's share
-// of a layer's weight and bias gradients, written (not accumulated) to its slot.
-__device__ __forceinline__ void outer(const float* __restrict__ a, const float* __restrict__ g,
-                                      float* __restrict__ gw, float* __restrict__ gb, int K,
-                                      int N) {
-  for (int idx = threadIdx.x; idx < K * N; idx += THREADS) {
-    const int k = idx / N;
-    const int n = idx - k * N;
-    float acc = 0.f;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc = fmaf(a[r * K + k], g[r * N + n], acc);
-    gw[idx] = acc;
+// MADE block n's W0 (whole) and this CTA's column slice of each WH[l] (one
+// tensor copy each) into wa, and its rows of WO into wo, on `bar`.  One
+// whole warp.
+__device__ __forceinline__ void issue_a(const BwdParams& p, int n, int col0, int ncols, float* wa,
+                                        float* wo, uint64_t* bar) {
+  const int D = p.D, H = p.H, NH = p.NH, HC = p.L.HC;
+  if ((threadIdx.x & 31) == 0) {
+    mbar_arrive_expect_tx(bar, 4u * (uint32_t)(D * H + (NH - 1) * H * HC + ncols * 2 * D));
+    bulk_g2s(wa, p.w0 + (size_t)n * D * H, 4u * (uint32_t)(D * H), bar);
+    for (int l = 0; l < NH - 1; ++l)
+      tma_load_2d(wa + round32(D * H) + l * p.L.LS, &p.wh_map, col0, (n * (NH - 1) + l) * H,
+                  bar);
   }
-  for (int n = threadIdx.x; n < N; n += THREADS) {
-    float acc = 0.f;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc += g[r * N + n];
-    gb[n] = acc;
-  }
+  __syncwarp();
+  if (ncols > 0)
+    bulk_rows(wo, p.L.WOS, p.wo + ((size_t)n * H + col0) * 2 * D, 2 * D, ncols, 8u * D, bar);
 }
 
-__global__ void __launch_bounds__(THREADS)
-iaf_chain_bwd_kernel(const float* __restrict__ ys, const float* __restrict__ dz,
-                     const float* __restrict__ dld, const float* __restrict__ w0,
-                     const float* __restrict__ b0, const float* __restrict__ wh,
-                     const float* __restrict__ bh, const float* __restrict__ wo,
-                     const float* __restrict__ bo, float* __restrict__ dz0,
-                     float* __restrict__ gw0, float* __restrict__ gb0,
-                     float* __restrict__ gwh, float* __restrict__ gbh,
-                     float* __restrict__ gwo, float* __restrict__ gbo, int B, int D, int H,
-                     int NB, int NH, int NT) {
-  extern __shared__ __align__(16) float smem[];
-  float* acts = smem;                                // [NH][ROWS][H]: the MADE pass at y
-  float* buf_a = acts + (size_t)NH * ROWS * H;       // [ROWS][H]: a layer's cotangent
-  float* buf_b = buf_a + ROWS * H;                   // [ROWS][H]
-  __shared__ float y_s[ROWS * MAX_D];                // the block's output (residual)
-  __shared__ float e_s[ROWS * MAX_D];                // exp(-clamp(s_pre))
-  __shared__ float gs_s[ROWS * MAX_D];               // 1 where |s_pre| < 1.5, else 0
-  __shared__ float dy_s[ROWS * MAX_D];               // cotangent of the block's output
-  __shared__ float lam_s[ROWS * MAX_D];              // the adjoint iterate
-  __shared__ float dx_s[ROWS * MAX_D];               // cotangent of the transition's input
-  __shared__ __align__(16) float dout_s[ROWS * 2 * MAX_D];  // (mu, s_pre), then dout
-  __shared__ float dld_s[ROWS];
+// MADE block n's row slices of each WH[l] ([HC][WRS] per layer) into wb.
+__device__ __forceinline__ void issue_b(const BwdParams& p, int n, int col0, int ncols, float* wb,
+                                        uint64_t* bar) {
+  const int H = p.H, NH = p.NH;
+  if ((threadIdx.x & 31) == 0) mbar_arrive_expect_tx(bar, 4u * (uint32_t)((NH - 1) * ncols * H));
+  __syncwarp();
+  for (int l = 0; l < NH - 1 && ncols > 0; ++l)
+    bulk_rows(wb + l * p.L.HC * p.L.WRS, p.L.WRS,
+              p.wh + (((size_t)n * (NH - 1) + l) * H + col0) * H, H, ncols, 4u * H, bar);
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.x * ROWS;
+template <int R, bool RESIDENT>
+__global__ void __launch_bounds__(THREADS, 1)
+    iaf_chain_bwd_kernel(const __grid_constant__ BwdParams p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const Layout& L = p.L;
+  const int D = p.D, H = p.H, NH = p.NH, B = p.B, C = CLUSTER_CTAS, HC = L.HC, DP = L.DP;
   const int D2 = 2 * D;
-  const size_t slot0 = (size_t)blockIdx.x * NT * NB;  // this block's partials
+  const int D2P = L.D2P;
+  const int tid = threadIdx.x;
+  const int rank = (int)cluster.block_rank();
+  const int cid = (int)(blockIdx.x / C);
+  const int row0 = cid * R;
+  const int col0 = rank * HC;
+  const int ncols = max(0, min(HC, H - col0));
+  const int c = tid % HC, kg = tid / HC;
+  const bool col_active = c < ncols;
+  const int lanes = HC / 4;
+  const int qr = tid / lanes, qq = tid % lanes;
+  const bool quad = tid < R * lanes;
+  const bool quad_active = quad && 4 * qq < ncols;
+  const int n_blocks = p.NT * p.NB;
 
-  for (int idx = tid; idx < ROWS * D; idx += THREADS) dx_s[idx] = 0.f;
-  __syncthreads();
+  const BwdSmem S = bwd_smem(R, RESIDENT, L, D, H, NH);
+  uint64_t* abar = reinterpret_cast<uint64_t*>(smem_raw);  // weights A
+  uint64_t* bbar = abar + 1;                               // weights B
+  uint64_t* xbar = abar + 2;                               // recomputed activations [2]
+  uint64_t* gbar = abar + 4;                               // gated cotangents [2]
+  uint64_t* pbar = abar + 6;                               // partials [2]
+  float* f = reinterpret_cast<float*>(smem_raw + BAR_BYTES);
+  float* wa = f + S.wa;
+  float* wob = f + S.wo;
+  float* wb = f + S.wb;
+  float* bbuf = f + S.bbuf;
+  float* m_own = f + S.m;      // [D][HC]: M = W0 @ WH[0] (W0 when NH = 1), this CTA's columns
+  float* afull = f + S.afull;  // [NH-1][R][H]: layers 0..NH-2, whole
+  float* last = f + S.last;    // [R][HC]: layer NH-1, this CTA's columns
+  float* gfull = f + S.gfull;  // [2][R][H]: a gated cotangent, gathered
+  float* red = f + S.red;
+  float* gown = f + S.gown;    // [R][HC]: a gated cotangent, this CTA's columns
+  float* da0 = f + S.da0;      // [R][HC]: layer 0's cotangent, this CTA's columns
+  float* part = f + S.part;    // [2][C][R][DP]: partials over the cluster
+  float* y_s = f + S.y;
+  float* e_s = f + S.e;
+  float* gs_s = f + S.gs;
+  float* dy_s = f + S.dy;
+  float* lam_s = f + S.lam;
+  float* dx_s = f + S.dx;
+  float* dout_s = f + S.dout;
+  float* dld_s = f + S.dld;
 
-  for (int t = NT - 1; t >= 0; --t) {
-    // the cotangent of transition t's output, then the adjoint of its final flip
-    for (int idx = tid; idx < ROWS * D; idx += THREADS) {
-      const int r = idx / D;
-      const int j = D - 1 - (idx - r * D);
-      dy_s[idx] = (row0 + r < B) ? dz[((size_t)t * B + row0 + r) * D + j] + dx_s[r * D + j]
-                                 : 0.f;
+  for (int idx = tid; idx < R * DP; idx += THREADS) dx_s[idx] = 0.f;
+  if (tid == 0) {
+    for (int k = 0; k < 8; ++k) mbar_init(&abar[k], 1);
+    mbar_fence_init();
+  }
+  cluster.sync();
+
+  // blocks run in reverse: step s handles block n = n_blocks-1-s
+  if (RESIDENT && tid < 32) {
+    issue_a(p, n_blocks - 1, col0, ncols, wa, wob, abar);
+    issue_b(p, n_blocks - 1, col0, ncols, wb, bbar);
+  }
+  issue_biases(p.b0, p.bh, p.bo, n_blocks - 1, D, H, NH, HC, col0, ncols, bbuf);
+
+  int ux = 0, ug = 0, up = 0;  // uses of the three exchange channels
+  PhaseClock<BWD_PHASES> clk(p.prof);
+  for (int s = 0; s < n_blocks; ++s) {
+    const int n = n_blocks - 1 - s, t = n / p.NB, blk = n - t * p.NB;
+    cp_async_wait_all();
+    if (RESIDENT) mbar_wait(abar, s & 1);
+    const float* W0 = RESIDENT ? wa : p.w0 + (size_t)n * D * H;
+    const float* WHc =
+        RESIDENT ? wa + round32(D * H) : p.wh + (size_t)n * (NH - 1) * H * H + col0;
+    const float* WO = RESIDENT ? wob + (s & 1) * S.osz : p.wo + ((size_t)n * H + col0) * D2;
+    const float* WHr = RESIDENT ? wb : p.wh + (size_t)n * (NH - 1) * H * H + (size_t)col0 * H;
+    const int ws = RESIDENT ? L.HC : H;
+    const size_t whc_layer = RESIDENT ? (size_t)L.LS : (size_t)H * H;
+    const int wrs = RESIDENT ? L.WRS : H;
+    const size_t whr_layer = RESIDENT ? (size_t)HC * L.WRS : (size_t)H * H;
+    const int wos = RESIDENT ? L.WOS : D2;
+    const float* bias = bbuf + (s & 1) * S.bias;
+    const float* bo = bias + H + (NH - 1) * HC;
+    const size_t slot = (size_t)cid * n_blocks + n;  // this cluster's partials of block n
+
+    if (blk == p.NB - 1) {  // transition t's cotangent, then the adjoint of its final flip
+      for (int idx = tid; idx < R * D; idx += THREADS) {
+        const int r = idx / D, d = idx - r * D, j = D - 1 - d;
+        dy_s[r * DP + d] = row0 + r < B
+                               ? p.dz[((size_t)t * B + row0 + r) * D + j] + dx_s[r * DP + j]
+                               : 0.f;
+      }
+      if (tid < R) dld_s[tid] = row0 + tid < B ? p.dld[(size_t)t * B + row0 + tid] : 0.f;
     }
-    if (tid < ROWS) dld_s[tid] = (row0 + tid < B) ? dld[(size_t)t * B + row0 + tid] : 0.f;
+    for (int idx = tid; idx < R * DP; idx += THREADS) {
+      const int r = idx / DP, d = idx - r * DP;
+      y_s[idx] = (row0 + r < B && d < D) ? p.ys[((size_t)n * B + row0 + r) * D + d] : 0.f;
+    }
+    __syncthreads();
 
-    for (int blk = NB - 1; blk >= 0; --blk) {
-      const size_t tb = (size_t)t * NB + blk;
-      const size_t slot = slot0 + tb;
-      const float* W0 = w0 + tb * D * H;
-      const float* B0 = b0 + tb * H;
-      const float* WH = wh + tb * (NH - 1) * H * H;
-      const float* BH = bh + tb * (NH - 1) * H;
-      const float* WO = wo + tb * H * D2;
-      const float* BO = bo + tb * D2;
-
-      for (int idx = tid; idx < ROWS * D; idx += THREADS) {
-        const int r = idx / D;
-        y_s[idx] = (row0 + r < B) ? ys[(tb * B + row0 + r) * D + idx - r * D] : 0.f;
+    clk.lap(0);
+    // 1. the MADE pass at y: layer 0 whole, the hidden layers' columns; their
+    // inputs gathered whole
+    layer0<R>(y_s, DP, D, W0, bias, H, afull);
+    __syncthreads();
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (NH == 1 && quad_active) v = *reinterpret_cast<const float4*>(afull + qr * H + col0 + 4 * qq);
+    for (int l = 0; l < NH - 1; ++l) {
+      float acc[R];
+      dot_cols<R>(afull + l * R * H, H, WHc + l * whc_layer, ws, c, kg, L.KG, col_active, acc);
+      store_groups<R>(acc, red, HC, c, kg);
+      __syncthreads();
+      if (quad_active) {
+        v = reduce_quad<R>(red, L.KG, HC, qr, qq);
+        const float* bl = bias + H + l * HC + 4 * qq;
+        v = make_float4(fmaxf(v.x + bl[0], 0.f), fmaxf(v.y + bl[1], 0.f),
+                        fmaxf(v.z + bl[2], 0.f), fmaxf(v.w + bl[3], 0.f));
       }
-      __syncthreads();
-
-      // 1. the MADE pass at y, keeping every layer's activation
-      dense<false>(y_s, acts, W0, B0, D, H);  // layer 0: no activation
-      __syncthreads();
-      for (int l = 0; l < NH - 1; ++l) {
-        dense<true>(acts + (size_t)l * ROWS * H, acts + (size_t)(l + 1) * ROWS * H,
-                    WH + (size_t)l * H * H, BH + (size_t)l * H, H, H);
-        __syncthreads();
+      if (l < NH - 2) {
+        expect_bytes(xbar, ux, 4u * R * H);
+        if (quad_active)
+          send_v4(afull + (l + 1) * R * H + qr * H + col0 + 4 * qq, v, &xbar[ux & 1]);
+        wait_bytes(xbar, ux);
+        ++ux;
       }
-      dense<false>(acts + (size_t)(NH - 1) * ROWS * H, dout_s, WO, BO, H, D2);
-      __syncthreads();
-      for (int idx = tid; idx < ROWS * D; idx += THREADS) {
-        const int r = idx / D;
-        const float s_pre = dout_s[r * D2 + D + idx - r * D];
-        const float s = fminf(fmaxf(s_pre, -LOG_VAR_CLAMP), LOG_VAR_CLAMP);
-        e_s[idx] = expf(-s);
-        gs_s[idx] = fabsf(s_pre) < LOG_VAR_CLAMP ? 1.f : 0.f;
-        lam_s[idx] = dy_s[idx];
+    }
+    if (quad) *reinterpret_cast<float4*>(last + qr * HC + 4 * qq) = v;
+    __syncthreads();
+    // s_pre = (out layer)[:, D:]: this CTA's K-slice partials, added in rank order
+    const int q4 = DP / 4;
+    float* pb = part + (up & 1) * C * R * DP;
+    expect_bytes(pbar, up, 4u * C * R * DP);
+    if (tid < R * q4) {
+      const int r = tid / q4, j4 = tid - r * q4;
+      float o[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int jj = 0; jj < 4; ++jj) {
+        const int i = 4 * j4 + jj;
+        if (i >= D) break;
+        for (int cc = 0; cc < ncols; ++cc)
+          o[jj] = fmaf(last[r * HC + cc], WO[(size_t)cc * wos + D + i], o[jj]);
       }
-      __syncthreads();
-
-      // 2. D adjoint sweeps, then 3. one more pass that writes the weight gradients
-      for (int sweep = 0; sweep <= D; ++sweep) {
-        const bool grads = sweep == D;
-        for (int idx = tid; idx < ROWS * D2; idx += THREADS) {
-          const int r = idx / D2;
-          const int c = idx - r * D2;
-          const int i = c < D ? c : c - D;
-          const float lam = lam_s[r * D + i];
-          dout_s[idx] = c < D ? -lam * e_s[r * D + i]
-                              : gs_s[r * D + i] * (-lam * y_s[r * D + i] - dld_s[r]);
-        }
-        __syncthreads();
-        if (grads)
-          outer(acts + (size_t)(NH - 1) * ROWS * H, dout_s, gwo + slot * H * D2,
-                gbo + slot * D2, H, D2);
-        dense_t(dout_s, buf_a, WO, D2, H);
-        __syncthreads();
-        float* da = buf_a;
-        float* nxt = buf_b;
-        for (int l = NH - 2; l >= 0; --l) {
-          const float* act = acts + (size_t)(l + 1) * ROWS * H;
-          for (int idx = tid; idx < ROWS * H; idx += THREADS)
-            da[idx] = act[idx] > 0.f ? da[idx] : 0.f;  // ReLU gate
-          __syncthreads();
-          if (grads)
-            outer(acts + (size_t)l * ROWS * H, da, gwh + (slot * (NH - 1) + l) * H * H,
-                  gbh + (slot * (NH - 1) + l) * H, H, H);
-          dense_t(da, nxt, WH + (size_t)l * H * H, H, H);
-          __syncthreads();
-          float* tmp = da;
-          da = nxt;
-          nxt = tmp;
-        }
-        if (grads) {
-          outer(y_s, da, gw0 + slot * D * H, gb0 + slot * H, D, H);
+      send_v4(pb + (rank * R + r) * DP + 4 * j4, make_float4(o[0], o[1], o[2], o[3]),
+              &pbar[up & 1]);
+    }
+    // M = W0 @ WH[0] (W0 itself when NH = 1), this CTA's columns
+    for (int idx = tid; idx < D * HC; idx += THREADS) {
+      const int d = idx / HC, cc = idx - d * HC;
+      float acc = 0.f;
+      if (cc < ncols) {
+        if (NH == 1) {
+          acc = W0[(size_t)d * H + col0 + cc];
         } else {
-          // lam = dy + da W0^T: one warp per latent dim, lanes over the hidden units
-          for (int d = warp; d < D; d += WARPS) {
-            float acc[ROWS];
+          for (int h = 0; h < H; ++h) acc = fmaf(W0[(size_t)d * H + h], WHc[(size_t)h * ws + cc], acc);
+        }
+      }
+      m_own[idx] = acc;
+    }
+    wait_bytes(pbar, up);
+    ++up;
+    if (tid < R * D) {
+      const int r = tid / D, i = tid - r * D;
+      float sum = pb[r * DP + i];
+      for (int q = 1; q < C; ++q) sum += pb[(q * R + r) * DP + i];
+      const float s_pre = sum + bo[D + i];
+      const float sc = fminf(fmaxf(s_pre, -LOG_VAR_CLAMP), LOG_VAR_CLAMP);
+      const float e = expf(-sc), gsv = fabsf(s_pre) < LOG_VAR_CLAMP ? 1.f : 0.f;
+      const float lam = dy_s[r * DP + i];
+      e_s[r * DP + i] = e;
+      gs_s[r * DP + i] = gsv;
+      lam_s[r * DP + i] = lam;
+      dout_s[r * D2P + i] = -lam * e;
+      dout_s[r * D2P + D + i] = gsv * (-lam * y_s[r * DP + i] - dld_s[r]);
+    }
+    __syncthreads();  // W0 and WH's column slices are no longer read in this block
+    if (s + 1 < n_blocks) {
+      if (RESIDENT && tid < 32) {
+        fence_proxy_async();
+        issue_a(p, n - 1, col0, ncols, wa, wob + ((s + 1) & 1) * S.osz, abar);
+      }
+      issue_biases(p.b0, p.bh, p.bo, n - 1, D, H, NH, HC, col0, ncols,
+                   bbuf + ((s + 1) & 1) * S.bias);
+    }
+    if (RESIDENT) mbar_wait(bbar, s & 1);
+    clk.lap(1);
+
+    // 2. D adjoint sweeps, then 3. one more pass that writes the weight gradients
+    for (int sweep = 0; sweep <= D; ++sweep) {
+      const bool grads = sweep == D;
+      if (grads) {
+        float* gwo = p.gwo + slot * H * D2;
+        for (int idx = tid; idx < ncols * D2; idx += THREADS) {
+          const int cc = idx / D2, j = idx - cc * D2;
+          float acc = 0.f;
 #pragma unroll
-            for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-            for (int h = lane; h < H; h += 32) {
-              const float wv = W0[(size_t)d * H + h];
+          for (int r = 0; r < R; ++r) acc = fmaf(last[r * HC + cc], dout_s[r * D2P + j], acc);
+          gwo[(size_t)(col0 + cc) * D2 + j] = acc;
+        }
+        if (rank == 0) {
+          for (int j = tid; j < D2; j += THREADS) {
+            float acc = 0.f;
 #pragma unroll
-              for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(da[r * H + h], wv, acc[r]);
+            for (int r = 0; r < R; ++r) acc += dout_s[r * D2P + j];
+            p.gbo[slot * D2 + j] = acc;
+          }
+        }
+        clk.lap(7);
+      }
+      // dout @ WO^T: this CTA's columns of the last hidden layer's cotangent,
+      // gated (or layer 0's cotangent when NH = 1)
+      if (tid < R * HC) {
+        const int r = tid / HC, cc = tid - r * HC;
+        float acc = 0.f;
+        if (cc < ncols) {
+          const float* wrow = WO + (size_t)cc * wos;
+          const float* drow = dout_s + r * D2P;
+          float a4[4] = {0.f, 0.f, 0.f, 0.f};  // four chains, added at the end
+          int j = 0;
+          if ((D2 & 3) == 0) {  // both rows 16-byte aligned: float4 loads
+            for (; j < D2; j += 4) {
+              const float4 dv = *reinterpret_cast<const float4*>(drow + j);
+              const float4 wv = *reinterpret_cast<const float4*>(wrow + j);
+              a4[0] = fmaf(dv.x, wv.x, a4[0]);
+              a4[1] = fmaf(dv.y, wv.y, a4[1]);
+              a4[2] = fmaf(dv.z, wv.z, a4[2]);
+              a4[3] = fmaf(dv.w, wv.w, a4[3]);
             }
+          }
+          for (; j < D2; ++j) a4[j & 3] = fmaf(drow[j], wrow[j], a4[j & 3]);
+          acc = (a4[0] + a4[1]) + (a4[2] + a4[3]);
+        }
+        if (NH == 1)
+          da0[tid] = acc;
+        else
+          gown[tid] = last[tid] > 0.f ? acc : 0.f;
+      }
+      __syncthreads();
+      clk.lap(2);
+      for (int l = NH - 2; l >= 0; --l) {
+        // gown: the cotangent at layer l+1's pre-activation, this CTA's columns
+        if (grads) {
+          float* gwh = p.gwh + (slot * (NH - 1) + l) * H * H;
+          const float* a_l = afull + l * R * H;
+          for (int idx = tid; idx < H * HC; idx += THREADS) {
+            const int k = idx / HC, cc = idx - k * HC;
+            if (cc >= ncols) continue;
+            float acc = 0.f;
 #pragma unroll
-            for (int r = 0; r < ROWS; ++r) {
+            for (int r = 0; r < R; ++r) acc = fmaf(a_l[r * H + k], gown[r * HC + cc], acc);
+            gwh[(size_t)k * H + col0 + cc] = acc;
+          }
+          for (int cc = tid; cc < ncols; cc += THREADS) {
+            float acc = 0.f;
 #pragma unroll
-              for (int off = 16; off > 0; off >>= 1)
-                acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-            }
-            if (lane == 0) {
-#pragma unroll
-              for (int r = 0; r < ROWS; ++r) lam_s[r * D + d] = dy_s[r * D + d] + acc[r];
-            }
+            for (int r = 0; r < R; ++r) acc += gown[r * HC + cc];
+            p.gbh[(slot * (NH - 1) + l) * H + col0 + cc] = acc;
+          }
+          clk.lap(7);
+        }
+        if (l == 0 && !grads) break;  // a sweep ends with M: no gather of layer 1's cotangent
+        float* g_all = gfull + (ug & 1) * R * H;
+        expect_bytes(gbar, ug, 4u * R * H);
+        if (quad_active)
+          send_v4(g_all + qr * H + col0 + 4 * qq,
+                  *reinterpret_cast<const float4*>(gown + qr * HC + 4 * qq), &gbar[ug & 1]);
+        wait_bytes(gbar, ug);
+        ++ug;
+        clk.lap(3);
+        // (g @ WH[l]^T)[:, own columns] from WH[l]'s row slice
+        float acc[R];
+        dot_rows<R>(g_all, H, WHr + l * whr_layer, wrs, c, kg, L.KG, col_active, acc);
+        store_groups<R>(acc, red, HC, c, kg);
+        __syncthreads();
+        if (quad) {
+          float4 da = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (quad_active) da = reduce_quad<R>(red, L.KG, HC, qr, qq);
+          if (l > 0) {  // gate by layer l's ReLU
+            const float* a = afull + l * R * H + qr * H + col0 + 4 * qq;
+            if (quad_active)
+              da = make_float4(a[0] > 0.f ? da.x : 0.f, a[1] > 0.f ? da.y : 0.f,
+                               a[2] > 0.f ? da.z : 0.f, a[3] > 0.f ? da.w : 0.f);
+            *reinterpret_cast<float4*>(gown + qr * HC + 4 * qq) = da;
+          } else {
+            *reinterpret_cast<float4*>(da0 + qr * HC + 4 * qq) = da;
           }
         }
         __syncthreads();
+        clk.lap(4);
       }
+      if (grads) {
+        float* gw0 = p.gw0 + slot * D * H;
+        for (int idx = tid; idx < D * ncols; idx += THREADS) {
+          const int d = idx / ncols, cc = idx - d * ncols;
+          float acc = 0.f;
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc = fmaf(y_s[r * DP + d], da0[r * HC + cc], acc);
+          gw0[(size_t)d * H + col0 + cc] = acc;
+        }
+        for (int cc = tid; cc < ncols; cc += THREADS) {
+          float acc = 0.f;
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc += da0[r * HC + cc];
+          p.gb0[slot * H + col0 + cc] = acc;
+        }
+        clk.lap(7);
+      } else {
+        // lam = dy + (layer 1's gated cotangent) M^T: this CTA's partial, added in rank order
+        const float* g0 = NH == 1 ? da0 : gown;
+        pb = part + (up & 1) * C * R * DP;
+        expect_bytes(pbar, up, 4u * C * R * DP);
+        // 8 lanes per (row, d), each over every 8th column, added by shuffles;
+        // the sums staged in `red` [R][DP], then sent as float4s
+        for (int base = 0; base < R * D * 8; base += THREADS) {
+          const int t8 = base + tid, g = t8 & 7, rd = t8 >> 3;
+          const int r = rd / D, d = rd - r * D;
+          float o = 0.f;
+          if (rd < R * D)
+            for (int cc = g; cc < ncols; cc += 8) o = fmaf(g0[r * HC + cc], m_own[d * HC + cc], o);
+#pragma unroll
+          for (int off = 1; off < 8; off <<= 1) o += __shfl_xor_sync(0xffffffffu, o, off);
+          if (rd < R * D && g == 0) red[r * DP + d] = o;
+        }
+        __syncthreads();
+        if (tid < R * q4) {
+          const int r = tid / q4, j4 = tid - r * q4;
+          float o[4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) o[jj] = 4 * j4 + jj < D ? red[r * DP + 4 * j4 + jj] : 0.f;
+          send_v4(pb + (rank * R + r) * DP + 4 * j4, make_float4(o[0], o[1], o[2], o[3]),
+                  &pbar[up & 1]);
+        }
+        wait_bytes(pbar, up);
+        ++up;
+        clk.lap(5);
+        if (tid < R * D) {
+          const int r = tid / D, d = tid - r * D;
+          float sum = pb[r * DP + d];
+          for (int q = 1; q < C; ++q) sum += pb[(q * R + r) * DP + d];
+          const float lam = dy_s[r * DP + d] + sum;
+          lam_s[r * DP + d] = lam;
+          dout_s[r * D2P + d] = -lam * e_s[r * DP + d];
+          dout_s[r * D2P + D + d] = gs_s[r * DP + d] * (-lam * y_s[r * DP + d] - dld_s[r]);
+        }
+        __syncthreads();
+        clk.lap(6);
+      }
+    }
 
-      // 4. the cotangent of the block's input: flipped into the previous block's
-      // output, or, after block 0, carried to transition t-1
-      for (int idx = tid; idx < ROWS * D; idx += THREADS) {
-        const int r = idx / D;
-        const int i = idx - r * D;
-        const float dx = lam_s[idx] * e_s[idx];
-        if (blk > 0)
-          dy_s[r * D + (D - 1 - i)] = dx;
-        else
-          dx_s[idx] = dx;
-      }
-      __syncthreads();
+    // 4. the cotangent of the block's input: flipped into the previous block's
+    // output, or, after block 0, carried to transition t-1
+    if (tid < R * D) {
+      const int r = tid / D, i = tid - r * D;
+      const float dx = lam_s[r * DP + i] * e_s[r * DP + i];
+      if (blk > 0)
+        dy_s[r * DP + (D - 1 - i)] = dx;
+      else
+        dx_s[r * DP + i] = dx;
+    }
+    __syncthreads();  // WH's row slices are no longer read in this block
+    if (RESIDENT && s + 1 < n_blocks && tid < 32) {
+      fence_proxy_async();
+      issue_b(p, n - 1, col0, ncols, wb, bbar);
+    }
+    clk.lap(8);
+  }
+
+  if (rank == 0) {
+    for (int idx = tid; idx < R * D; idx += THREADS) {
+      const int r = idx / D, d = idx - r * D;
+      if (row0 + r < B) p.dz0[(size_t)(row0 + r) * D + d] = dx_s[r * DP + d];
     }
   }
+  cluster.sync();  // no CTA leaves while a peer could still address its memory
+  clk.finish();
+}
 
-  for (int idx = tid; idx < ROWS * D; idx += THREADS) {
-    const int r = idx / D;
-    if (row0 + r < B) dz0[(size_t)(row0 + r) * D + idx - r * D] = dx_s[idx];
+using BwdKernel = void (*)(BwdParams);
+
+BwdKernel bwd_kernel(int R, bool resident) {
+  switch (R) {
+    case 1: return resident ? iaf_chain_bwd_kernel<1, true> : iaf_chain_bwd_kernel<1, false>;
+    case 2: return resident ? iaf_chain_bwd_kernel<2, true> : iaf_chain_bwd_kernel<2, false>;
+    case 4: return resident ? iaf_chain_bwd_kernel<4, true> : iaf_chain_bwd_kernel<4, false>;
+    case 8: return resident ? iaf_chain_bwd_kernel<8, true> : iaf_chain_bwd_kernel<8, false>;
+    default: return nullptr;
   }
+}
+
+bool bwd_resident(int R, const Layout& L, int D, int H, int NH) {
+  return D % 2 == 0 && bwd_smem_bytes(R, true, L, D, H, NH) <= (size_t)max_optin_smem();
+}
+
+bool valid_shape(int D, int H, int NB, int NH) {
+  return D >= 1 && D <= MAX_D && H >= 4 && H <= MAX_H && H % 4 == 0 && NB >= 1 && NH >= 1 &&
+         NH <= MAX_NH;
+}
+
+// The backward at R rows per cluster; stream_weights forces the streamed
+// instantiation; prof as BwdParams::prof.
+cudaError_t launch_bwd(BwdParams p, int R, bool stream_weights, cudaStream_t stream) {
+  if (p.B <= 0 || p.NT <= 0) return cudaSuccess;
+  if (!valid_shape(p.D, p.H, p.NB, p.NH) || bwd_kernel(R, true) == nullptr)
+    return cudaErrorInvalidValue;
+  p.L = make_layout(p.D, p.H);
+  const bool resident = !stream_weights && bwd_resident(R, p.L, p.D, p.H, p.NH);
+  if (resident && p.NH > 1) {
+    const cudaError_t err = encode_wh_map(&p.wh_map, p.wh, p.H,
+                                          (long long)p.NT * p.NB * (p.NH - 1) * p.H, p.L.HC);
+    if (err != cudaSuccess) return err;
+  }
+  return launch_clusters(bwd_kernel(R, resident), p, (p.B + R - 1) / R,
+                         bwd_smem_bytes(R, resident, p.L, p.D, p.H, p.NH), stream);
 }
 
 }  // namespace
 
+// The entries' shared arguments as BwdParams.
+#define BWD_PARAMS                                                                              \
+  BwdParams {                                                                                   \
+    {}, ys, dz, dld, w0, b0, wh, bh, wo, bo, dz0, gw0, gb0, gwh, gbh, gwo, gbo, B, D, H, NB, NH, \
+        NT, {}, nullptr                                                                         \
+  }
+
 // Shapes (all fp32, contiguous): ys [NT, NB, B, D], dz [NT, B, D], dld [NT, B], the
-// weights as for iaf_chain_fwd_f32; out dz0 [B, D] and the partials
-// gw0 [RB, NT, NB, D, H], gb0 [RB, NT, NB, H], gwh [RB, NT, NB, NH-1, H, H],
-// gbh [RB, NT, NB, NH-1, H], gwo [RB, NT, NB, H, 2D], gbo [RB, NT, NB, 2D] with
-// RB = ceil(B / 8) row blocks.
+// weights as for iaf_chain_fwd_f32; out dz0 [B, D] and the per-cluster partials
+// gw0 [NCL, NT, NB, D, H], gb0 [NCL, NT, NB, H], gwh [NCL, NT, NB, NH-1, H, H],
+// gbh [NCL, NT, NB, NH-1, H], gwo [NCL, NT, NB, H, 2D], gbo [NCL, NT, NB, 2D] with
+// NCL = n_clusters = ceil(B / R) under the rule (an error otherwise).
 extern "C" int iaf_chain_bwd_f32(const float* ys, const float* dz, const float* dld,
                                  const float* w0, const float* b0, const float* wh,
                                  const float* bh, const float* wo, const float* bo,
                                  float* dz0, float* gw0, float* gb0, float* gwh, float* gbh,
                                  float* gwo, float* gbo, int B, int D, int H, int NB, int NH,
-                                 int NT, cudaStream_t stream) {
-  if (B <= 0 || NT <= 0) return static_cast<int>(cudaSuccess);
-  if (D < 1 || D > MAX_D || H < 4 || H > MAX_H || H % 4 != 0 || NB < 1 || NH < 1 ||
-      NH > MAX_NH)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)(NH + 2) * ROWS * H * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      iaf_chain_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + ROWS - 1) / ROWS;
-  iaf_chain_bwd_kernel<<<blocks, THREADS, smem, stream>>>(
-      ys, dz, dld, w0, b0, wh, bh, wo, bo, dz0, gw0, gb0, gwh, gbh, gwo, gbo, B, D, H, NB,
-      NH, NT);
-  return static_cast<int>(cudaGetLastError());
+                                 int NT, int n_clusters, cudaStream_t stream) {
+  const int R = cluster_rows(B);
+  if (B > 0 && n_clusters != (B + R - 1) / R) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_bwd(BWD_PARAMS, R, false, stream));
+}
+
+// As iaf_chain_bwd_f32 at a given R (NCL = ceil(B / R)) and, with
+// stream_weights != 0, in the streamed instantiation (iaf_chain_fwd_at_f32).
+extern "C" int iaf_chain_bwd_at_f32(const float* ys, const float* dz, const float* dld,
+                                    const float* w0, const float* b0, const float* wh,
+                                    const float* bh, const float* wo, const float* bo,
+                                    float* dz0, float* gw0, float* gb0, float* gwh,
+                                    float* gbh, float* gwo, float* gbo, int B, int D, int H,
+                                    int NB, int NH, int NT, int R, int stream_weights,
+                                    cudaStream_t stream) {
+  return static_cast<int>(launch_bwd(BWD_PARAMS, R, stream_weights != 0, stream));
+}
+
+#ifdef IAF_PROFILE
+// As iaf_chain_bwd_f32 (NCL by the rule), with prof receiving BWD_PHASES
+// clock64 sums.
+extern "C" int iaf_chain_bwd_profile_f32(const float* ys, const float* dz, const float* dld,
+                                         const float* w0, const float* b0, const float* wh,
+                                         const float* bh, const float* wo, const float* bo,
+                                         float* dz0, float* gw0, float* gb0, float* gwh,
+                                         float* gbh, float* gwo, float* gbo, int B, int D, int H,
+                                         int NB, int NH, int NT, long long* prof,
+                                         cudaStream_t stream) {
+  BwdParams p = BWD_PARAMS;
+  p.prof = prof;
+  return static_cast<int>(launch_bwd(p, cluster_rows(B), false, stream));
+}
+#endif
+
+// As iaf_chain_fwd_geometry, for the backward.
+extern "C" int iaf_chain_bwd_geometry(int B, int D, int H, int NH, int* out) {
+  if (B <= 0 || !valid_shape(D, H, 1, NH)) return static_cast<int>(cudaErrorInvalidValue);
+  const int R = cluster_rows(B);
+  const Layout L = make_layout(D, H);
+  const bool resident = bwd_resident(R, L, D, H, NH);
+  const size_t smem = bwd_smem_bytes(R, resident, L, D, H, NH);
+  int active = 0;
+  const cudaError_t err =
+      max_active_clusters(reinterpret_cast<const void*>(bwd_kernel(R, resident)), smem, &active);
+  out[0] = R;
+  out[1] = CLUSTER_CTAS;
+  out[2] = (B + R - 1) / R;
+  out[3] = (int)smem;
+  out[4] = resident ? 1 : 0;
+  out[5] = active;
+  return static_cast<int>(err);
 }

@@ -23,9 +23,10 @@ PyTorch version for tensors on the CPU, through an autograd Function of
   otherwise G^{-1} and unrolled Cholesky solves.
 
 ``chol_g``, ``logdet_g``, ``dist2`` and ``diagnostics`` read G through those.
-``log_sqrt_det_g_inv`` and ``grad_log_sqrt_det_g_inv`` are the plain versions
-of the HMC chain's terms; the chain itself calls the fused ``hmc_terms``
-kernel.
+``log_sqrt_det_g_inv`` (from ``logdet_g_inv``) and ``grad_log_sqrt_det_g_inv``
+(the gradient output of ``hmc_terms``, not differentiable) are the HMC
+chain's terms one at a time; the chain itself calls the fused ``hmc_terms``
+kernel for both.
 """
 
 from __future__ import annotations
@@ -189,7 +190,9 @@ def grad_log_sqrt_det_g_inv(metric: CentroidMetric, z: torch.Tensor) -> torch.Te
     shape [B, D]: -1/2 G^T v with v_j = (-2/T^2) sum_k w_k sum_i
     (c_k - z)_i M_k[i, j].  It is not the exact gradient (that has
     tr(G M_k)(c_k - z) in place of G M_k^T (c_k - z)); it is reproduced, not
-    fixed.  It is the gradient output of the HMC terms' plain version."""
-    return _mk.hmc_terms_ref(z, metric.centroids, metric.matrices, 1.0 / metric.temperature ** 2,
-                             metric.regularization, float(np.log(np.float32(1e-10))))[1]
+    fixed.  It is the gradient output of :func:`~rlvae_tpu_torch.ops.metric_kernels.hmc_terms`:
+    the HMC-terms kernel on the card, its plain version on the CPU."""
+    return _mk.hmc_terms(_rows(z).detach(), metric.centroids, metric.matrices,
+                         1.0 / metric.temperature ** 2, metric.regularization,
+                         float(np.log(np.float32(1e-10))))[1]
 

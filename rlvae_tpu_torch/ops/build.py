@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` into one shared library with
-a plain C interface, loaded with :mod:`ctypes`.  No source includes
-PyTorch's headers, so the build takes seconds rather than minutes.
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, loaded with :mod:`ctypes`.  No source includes PyTorch's headers,
+so the build takes seconds rather than minutes.
 
 - The library lands in ``build/rlvae_tpu_torch/`` beside the package (a
   directory that ``.gitignore`` lists); its file name carries a hash of the
@@ -19,19 +20,20 @@ import ctypes
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "rlvae_tpu_torch"
 
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers / shared memory / spills per kernel, kept in the build log
 )
 # Where the CUDA toolkit usually lives when ``nvcc`` is not on PATH.
@@ -59,9 +61,16 @@ SIGNATURES = {
                          _C_INT, _C_INT, _C_INT, _C_PTR),
     # z0, w0, b0, wh, bh, wo, bo, z, ld, ys (null: not written), B, D, H, NB, NH, NT, stream
     "iaf_chain_fwd_f32": (_C_PTR,) * 10 + (_C_INT,) * 6 + (_C_PTR,),
+    # ... B, D, H, NB, NH, NT, R, stream_weights, stream: a given R, or streamed weights
+    "iaf_chain_fwd_at_f32": (_C_PTR,) * 10 + (_C_INT,) * 8 + (_C_PTR,),
     # ys, dz, dld, w0, b0, wh, bh, wo, bo, dz0, gw0, gb0, gwh, gbh, gwo, gbo,
-    # B, D, H, NB, NH, NT, stream
-    "iaf_chain_bwd_f32": (_C_PTR,) * 16 + (_C_INT,) * 6 + (_C_PTR,),
+    # B, D, H, NB, NH, NT, n_clusters, stream
+    "iaf_chain_bwd_f32": (_C_PTR,) * 16 + (_C_INT,) * 7 + (_C_PTR,),
+    # ... B, D, H, NB, NH, NT, R, stream_weights, stream
+    "iaf_chain_bwd_at_f32": (_C_PTR,) * 16 + (_C_INT,) * 8 + (_C_PTR,),
+    # B, D, H, NH, out int[6]: R, C, clusters, smem bytes, resident, active clusters
+    "iaf_chain_fwd_geometry": (_C_INT,) * 4 + (_C_PTR,),
+    "iaf_chain_bwd_geometry": (_C_INT,) * 4 + (_C_PTR,),
     # h (bf16), w, b, x, rw, partials, loss, M, K, N, stream
     "decode_mse_fwd_f32": (_C_PTR,) * 7 + (_C_INT,) * 3 + (_C_PTR,),
     # h (bf16), w, b, x, rw, g, partials, dh, M, K, N, n_ranges, round_dh, stream
@@ -71,8 +80,24 @@ SIGNATURES = {
 }
 
 
+# The define of the IAF-chain kernels' profile build (rlvae_tpu_torch.ops.iaf_sweep),
+# and the entries only that build has: the rule's launch plus clock64 sums per
+# phase (int64[8] forward, int64[10] backward) of one thread.
+PROFILE = "IAF_PROFILE"
+PROFILE_SIGNATURES = {
+    # ... as iaf_chain_fwd_f32 up to NT, then prof, stream
+    "iaf_chain_fwd_profile_f32": (_C_PTR,) * 10 + (_C_INT,) * 6 + (_C_PTR,) * 2,
+    # ... as iaf_chain_bwd_f32 up to NT, then prof, stream
+    "iaf_chain_bwd_profile_f32": (_C_PTR,) * 16 + (_C_INT,) * 6 + (_C_PTR,) * 2,
+}
+
+
 def sources() -> List[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def headers() -> List[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def find_nvcc() -> str:
@@ -89,26 +114,30 @@ def find_nvcc() -> str:
     )
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+def library_path(defines: Tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librlvae_kernels_{h.hexdigest()[:16]}.so"
 
 
-def nvcc_argv(nvcc: str, out: Path) -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def compile_argv(nvcc: str, src: Path, obj: Path, defines: Tuple[str, ...] = ()) -> List[str]:
+    return [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-c", str(src), "-o", str(obj)]
+
+
+def link_argv(nvcc: str, objs: List[Path], out: Path) -> List[str]:
+    return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out), *map(str, objs)]
 
 
 class KernelLibrary:
     """The loaded library plus what its build cost (``seconds`` is 0.0 when
     a library with the same hash was already on disk)."""
 
-    def __init__(self, path: Path, seconds: float, log: str):
+    def __init__(self, path: Path, seconds: float, log: str, signatures: dict = SIGNATURES):
         self.path, self.seconds, self.log = path, seconds, log
         self.lib = ctypes.CDLL(str(path))
-        for name, argtypes in SIGNATURES.items():
+        for name, argtypes in signatures.items():
             fn = getattr(self.lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
@@ -117,37 +146,62 @@ class KernelLibrary:
         return getattr(self.lib, name)
 
 
-def build(timeout: float = 600.0) -> tuple[Path, float, str]:
-    """Compile csrc/*.cu unless the hashed library exists; return (path, seconds, log)."""
-    out = library_path()
+def build(timeout: float = 600.0, defines: Tuple[str, ...] = ()) -> tuple[Path, float, str]:
+    """Compile csrc/*.cu unless the hashed library exists; return (path, seconds, log).
+
+    One ``nvcc -c`` per source, all running at once, then one link.  A
+    failure, or the timeout, kills every compiler still running, with the
+    processes it started."""
+    out = library_path(defines)
     if out.exists():
         return out, 0.0, ""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+    tag = f"tmp{os.getpid()}"
+    tmp = out.with_name(f"{out.name}.{tag}")
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
     t0 = time.perf_counter()
+    procs = []
+    log = []
     try:
-        proc = subprocess.run(nvcc_argv(nvcc, tmp), capture_output=True, text=True,
-                              timeout=timeout)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
+        for src, obj in zip(sources(), objs):
+            procs.append(subprocess.Popen(compile_argv(nvcc, src, obj, defines), stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True,
+                                          start_new_session=True))
+        for src, proc in zip(sources(), procs):
+            stdout, _ = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            log.append(stdout)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} (exit {proc.returncode}):\n{stdout}")
+        link = subprocess.run(link_argv(nvcc, objs, tmp), capture_output=True, text=True,
+                              timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        log.append(link.stdout + link.stderr)
         os.replace(tmp, out)
     finally:
-        if tmp.exists():
-            tmp.unlink()
-    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+        for proc in procs:  # each nvcc leads its own group, with its cicc and ptxas
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        for path in (tmp, *objs):
+            if path.exists():
+                path.unlink()
+    return out, time.perf_counter() - t0, "".join(log)
 
 
 _lock = threading.Lock()
-_loaded: Optional[KernelLibrary] = None
+_loaded: Dict[bool, KernelLibrary] = {}
 
 
-def kernel_library() -> KernelLibrary:
-    """Build (at first use) and load the kernel library, once per process."""
-    global _loaded
+def kernel_library(profile: bool = False) -> KernelLibrary:
+    """Build (at first use) and load the kernel library, once per process.
+    ``profile`` gives the IAF-chain kernels' profile build instead, with
+    the entries of ``PROFILE_SIGNATURES`` (a library of its own)."""
     with _lock:
-        if _loaded is None:
-            _loaded = KernelLibrary(*build())
-        return _loaded
+        if profile not in _loaded:
+            defines = (PROFILE,) if profile else ()
+            signatures = {**SIGNATURES, **PROFILE_SIGNATURES} if profile else SIGNATURES
+            _loaded[profile] = KernelLibrary(*build(defines=defines), signatures)
+        return _loaded[profile]

@@ -22,27 +22,77 @@ per use):
   Autograd through :func:`stack_chain` then applies the masks and sums the
   gradients of a flow that appears at several transitions.
 
-Each wrapper launches its kernel for CUDA tensors and runs its plain
+Both kernels run as thread-block clusters: a cluster of ``CLUSTER_CTAS``
+CTAs owns a group of rows for the whole chain, each CTA a column slice of
+every layer's weights, held in shared memory where it fits
+(``csrc/iaf_cluster.cuh``); :func:`chain_geometry` gives the launchers' R
+and cluster count, :func:`launch_geometry` the rest from the library.  Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (:func:`iaf_chain_fwd_ref`, :func:`iaf_chain_bwd_ref`) for
-CPU tensors.  ``iaf_chain_fwd.launches`` and ``iaf_chain_bwd.launches``
-count kernel launches.
+CPU tensors; it raises on a shape the kernel does not take, or a cluster
+the card cannot hold.  ``iaf_chain_fwd.launches`` and
+``iaf_chain_bwd.launches`` count kernel launches.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import ctypes
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
 from rlvae_tpu_torch.flows.made import LOG_VAR_CLAMP
 from rlvae_tpu_torch.ops._launch import check_inputs, raise_on_error, stream_handle
 
-MAX_DIM = 32  # csrc/iaf_chain*.cu: MAX_D
-MAX_HIDDEN = 256  # csrc/iaf_chain*.cu: MAX_H
-MAX_HIDDEN_LAYERS = 16  # csrc/iaf_chain_bwd.cu: MAX_NH
-BWD_ROWS = 8  # csrc/iaf_chain_bwd.cu: ROWS, the rows of one block
+# csrc/iaf_cluster.cuh
+MAX_DIM = 32  # MAX_D
+MAX_HIDDEN = 256  # MAX_H
+MAX_HIDDEN_LAYERS = 16  # MAX_NH (the backward)
+CLUSTER_CTAS = 8  # C
+CLUSTERS_PER_WAVE = 8
+MAX_CLUSTER_ROWS = 8
 
 Stack = Tuple[torch.Tensor, ...]
+
+
+class ChainGeometry(NamedTuple):
+    """The launch geometry of the IAF-chain kernels for a batch."""
+
+    rows: int  # R: latent rows per cluster
+    ctas: int  # C: CTAs per cluster
+    clusters: int  # ceil(B / R): the grid, and the backward workspace's first dimension
+
+
+def cluster_rows(b: int) -> int:
+    """R: the smallest power of two up to 8 that keeps ceil(b / R) <= 8
+    clusters (``cluster_rows`` in ``csrc/iaf_cluster.cuh``)."""
+    r = 1
+    while r < MAX_CLUSTER_ROWS and -(-b // r) > CLUSTERS_PER_WAVE:
+        r *= 2
+    return r
+
+
+def chain_geometry(b: int) -> ChainGeometry:
+    """R, C and the number of clusters the launchers of both kernels pick
+    for a batch of ``b`` rows, whatever the shape; the backward's workspace
+    has one slot per cluster."""
+    r = cluster_rows(b)
+    return ChainGeometry(r, CLUSTER_CTAS, -(-b // r))
+
+
+def launch_geometry(b: int, d: int, h: int, nh: int, backward: bool = False) -> dict:
+    """The launcher's own geometry at batch ``b`` and shape (d, h, nh),
+    read from the kernel library (needs a card): R, C, clusters, dynamic
+    shared memory per CTA, whether the weights are resident in it, and how
+    many such clusters the card holds at once."""
+    from rlvae_tpu_torch.ops.build import kernel_library
+
+    lib, out = kernel_library(), (ctypes.c_int * 6)()
+    fn = lib.iaf_chain_bwd_geometry if backward else lib.iaf_chain_fwd_geometry
+    raise_on_error("iaf_chain_bwd_geometry" if backward else "iaf_chain_fwd_geometry",
+                   fn(b, d, h, nh, ctypes.cast(out, ctypes.c_void_p)))
+    keys = ("rows", "ctas", "clusters", "smem_bytes_per_cta", "weights_resident",
+            "max_active_clusters")
+    return dict(zip(keys, list(out)))
 
 
 def stack_chain(chain: Sequence) -> Stack:
@@ -123,8 +173,18 @@ def iaf_chain_fwd(z0: torch.Tensor, w0, b0, wh, bh, wo, bo, return_ys: bool = Fa
     kernel on CUDA, plain version on CPU."""
     if z0.device.type == "cpu":
         return iaf_chain_fwd_ref(z0, w0, b0, wh, bh, wo, bo, return_ys)
+    return _launch_fwd(z0, (w0, b0, wh, bh, wo, bo), return_ys)
+
+
+def _launch_fwd(z0: torch.Tensor, weights: Stack, return_ys: bool = False,
+                stream_weights: bool = False):
+    """The forward kernel on CUDA tensors.  ``stream_weights`` runs the
+    instantiation that reads its weights from global memory even where they
+    would fit in shared memory (for the checks that hold both to the plain
+    version); the wrapper never asks for it."""
     if z0.device.type != "cuda":
         raise ValueError(f"iaf_chain_fwd: unsupported device {z0.device}")
+    w0, b0, wh, bh, wo, bo = weights
     check_inputs("iaf_chain_fwd", z0.device, z0=z0, w0=w0, b0=b0, wh=wh, bh=bh, wo=wo, bo=bo)
     b, d, h, nb, nh, nt = _shapes(z0, w0, b0, wh, bh, wo, bo)
     if not (1 <= d <= MAX_DIM and 4 <= h <= MAX_HIDDEN and h % 4 == 0 and nb >= 1
@@ -139,12 +199,13 @@ def iaf_chain_fwd(z0: torch.Tensor, w0, b0, wh, bh, wo, bo, return_ys: bool = Fa
     if b > 0:
         from rlvae_tpu_torch.ops.build import kernel_library
 
-        code = kernel_library().iaf_chain_fwd_f32(
-            z0.data_ptr(), w0.data_ptr(), b0.data_ptr(), wh.data_ptr(), bh.data_ptr(),
-            wo.data_ptr(), bo.data_ptr(), z.data_ptr(), ld.data_ptr(),
-            ys.data_ptr() if return_ys else None,
-            b, d, h, nb, nh, nt, stream_handle(z0.device),
-        )
+        args = (z0.data_ptr(), *(w.data_ptr() for w in weights), z.data_ptr(), ld.data_ptr(),
+                ys.data_ptr() if return_ys else None, b, d, h, nb, nh, nt)
+        lib = kernel_library()
+        if stream_weights:
+            code = lib.iaf_chain_fwd_at_f32(*args, cluster_rows(b), 1, stream_handle(z0.device))
+        else:
+            code = lib.iaf_chain_fwd_f32(*args, stream_handle(z0.device))
         raise_on_error("iaf_chain_fwd", code)
         iaf_chain_fwd.launches += 1
     return (z, ld, ys) if return_ys else (z, ld)
@@ -221,18 +282,35 @@ def iaf_chain_bwd_ref(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
     return carry, grads
 
 
+def bwd_workspace(b: int, weights: Stack) -> list:
+    """The backward kernel's weight-gradient partials: one [n_clusters, *w.shape]
+    buffer per stacked weight, one slot per cluster of :func:`chain_geometry`."""
+    n_clusters = chain_geometry(b).clusters
+    return [torch.empty((n_clusters, *w.shape), dtype=torch.float32, device=w.device)
+            for w in weights]
+
+
 def iaf_chain_bwd(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
                   w0, b0, wh, bh, wo, bo) -> Grads:
     """(dz0, stacked weight gradients); kernel on CUDA, plain version on CPU.
 
-    The kernel writes each block's weight-gradient partials to its own slot
-    of a [n_row_blocks, ...] workspace; they are summed here, so the result
-    does not depend on the order the blocks ran in.
+    The kernel writes each cluster's weight-gradient partials to its own
+    slot of a [n_clusters, ...] workspace (:func:`chain_geometry`); they are
+    summed here in cluster order, so the result does not depend on the order
+    the clusters ran in.
     """
     if ys.device.type == "cpu":
         return iaf_chain_bwd_ref(ys, dz, dld, w0, b0, wh, bh, wo, bo)
+    return _launch_bwd(ys, dz, dld, (w0, b0, wh, bh, wo, bo))
+
+
+def _launch_bwd(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor, weights: Stack,
+                stream_weights: bool = False) -> Grads:
+    """The backward kernel on CUDA tensors; ``stream_weights`` as for
+    :func:`_launch_fwd`."""
     if ys.device.type != "cuda":
         raise ValueError(f"iaf_chain_bwd: unsupported device {ys.device}")
+    w0, b0, wh, bh, wo, bo = weights
     check_inputs("iaf_chain_bwd", ys.device, ys=ys, dz=dz, dld=dld, w0=w0, b0=b0, wh=wh,
                  bh=bh, wo=wo, bo=bo)
     b, d, h, nb, nh, nt = _bwd_shapes(ys, dz, dld, w0, b0, wh, bh, wo, bo)
@@ -243,20 +321,19 @@ def iaf_chain_bwd(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
             f"1<=NH<={MAX_HIDDEN_LAYERS}, NB, NT >= 1; got D={d}, H={h}, NB={nb}, "
             f"NH={nh}, NT={nt}"
         )
-    weights = (w0, b0, wh, bh, wo, bo)
     dz0 = torch.empty((b, d), dtype=torch.float32, device=ys.device)
     if b == 0:
         return dz0, tuple(torch.zeros_like(w) for w in weights)
-    n_blocks = -(-b // BWD_ROWS)
-    parts = [torch.empty((n_blocks, *w.shape), dtype=torch.float32, device=ys.device)
-             for w in weights]
+    parts = bwd_workspace(b, weights)
     from rlvae_tpu_torch.ops.build import kernel_library
 
-    code = kernel_library().iaf_chain_bwd_f32(
-        ys.data_ptr(), dz.data_ptr(), dld.data_ptr(),
-        *(w.data_ptr() for w in weights), dz0.data_ptr(), *(p.data_ptr() for p in parts),
-        b, d, h, nb, nh, nt, stream_handle(ys.device),
-    )
+    args = (ys.data_ptr(), dz.data_ptr(), dld.data_ptr(), *(w.data_ptr() for w in weights),
+            dz0.data_ptr(), *(p.data_ptr() for p in parts), b, d, h, nb, nh, nt)
+    lib = kernel_library()
+    if stream_weights:
+        code = lib.iaf_chain_bwd_at_f32(*args, cluster_rows(b), 1, stream_handle(ys.device))
+    else:
+        code = lib.iaf_chain_bwd_f32(*args, parts[0].shape[0], stream_handle(ys.device))
     raise_on_error("iaf_chain_bwd", code)
     iaf_chain_bwd.launches += 1
     return dz0, tuple(p.sum(0) for p in parts)

@@ -45,7 +45,7 @@ import torch.distributed as dist
 
 from rlvae_tpu_torch.geometry.metric import CentroidMetric
 from rlvae_tpu_torch.ops import linalg as _lin
-from rlvae_tpu_torch.ops.metric_kernels import g_inv_ref, hmc_partials
+from rlvae_tpu_torch.ops.metric_kernels import GInv, hmc_partials
 from rlvae_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from rlvae_tpu_torch.samplers.hmc import LOG_EPS, HMCConfig, draw_hmc_noise, run_prior_chain
 
@@ -116,9 +116,11 @@ def _eye(d: int, like: torch.Tensor) -> torch.Tensor:
 
 def g_inv_sharded(mesh: Mesh, metric: CentroidMetric, z: torch.Tensor) -> torch.Tensor:
     """G^{-1}(z) [B, D, D] for this rank's rows, with ``metric`` this rank's
-    shard of the bank (:func:`shard_metric`)."""
+    shard of the bank (:func:`shard_metric`).  The shard's sum is one
+    ``g_inv`` call with lbd = 0 (the G^{-1} kernel on the card, its plain
+    version on the CPU), differentiable in ``z`` as the dense ``g_inv`` is."""
     c, m, t = metric.centroids, metric.matrices, metric.temperature
-    gi = g_inv_ref(z.float(), c, m, 1.0 / (t * t), 0.0)  # the shard's sum, as the dense path
+    gi = GInv.apply(z.float().contiguous(), c, m, 1.0 / (t * t), 0.0)
     gi = all_reduce_sum(gi.contiguous(), mesh, MODEL_AXIS)
     return gi + metric.regularization * _eye(gi.shape[-1], gi)
 

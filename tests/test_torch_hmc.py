@@ -112,6 +112,33 @@ def test_metric_g_and_hmc_target(name, t_override):
                                rtol=0, atol=LP_ATOL)
 
 
+@pytest.mark.parametrize("name,t_override", METRICS)
+def test_grad_log_sqrt_det_g_inv_is_the_terms_gradient(name, t_override, monkeypatch):
+    """``grad_log_sqrt_det_g_inv`` is the gradient output of the ``hmc_terms``
+    wrapper (the B4 kernel on the card): one call, bit for bit its output on
+    the CPU, and JAX's closed form within the terms' tolerance."""
+    from rlvae_tpu_torch.ops import metric_kernels as mk
+
+    calls = []
+
+    def counting(*args):
+        calls.append(args[0].shape)
+        return hmc_terms(*args)
+
+    monkeypatch.setattr(mk, "hmc_terms", counting)
+    jm, tm = _pair(name, t_override)
+    z = _latents(jm.centroids, 9, 0.05, 5, n_far=2)
+    zt = torch.from_numpy(z)
+    got = tgm.grad_log_sqrt_det_g_inv(tm, zt)
+    assert calls == [(9, 16)]
+    want = hmc_terms(zt, tm.centroids, tm.matrices, 1.0 / tm.temperature ** 2,
+                     tm.regularization, LOG_EPS)[1]
+    assert torch.equal(got, want)
+    want_j = np.asarray(jgm.grad_log_sqrt_det_g_inv(jm, jnp.asarray(z)))
+    scale = max(float(np.abs(want_j).max()), 1e-30)
+    np.testing.assert_array_less(np.abs(got.numpy() - want_j), GRAD_REL * scale + 1e-30)
+
+
 # ---------------------------------------------------------------------------
 # hmc_terms_ref against the Pallas kernel and the XLA terms
 # ---------------------------------------------------------------------------

@@ -86,13 +86,20 @@ def _ignored(path: Path) -> bool:
 
 def test_build_command():
     out = build.library_path()
-    argv = build.nvcc_argv("nvcc", out)
-    assert "arch=compute_90a,code=sm_90a" in argv
-    assert {"-shared", "-O3", "-std=c++17"} <= set(argv)
-    srcs = [Path(a) for a in argv if a.endswith(".cu")]
+    srcs = build.sources()
+    objs = [out.with_name(f"{p.stem}.o") for p in srcs]
+    for src, obj in zip(srcs, objs):
+        argv = build.compile_argv("nvcc", src, obj)
+        assert "arch=compute_90a,code=sm_90a" in argv
+        assert {"-c", "-O3", "-std=c++17"} <= set(argv)
+        assert [a for a in argv if a.endswith(".cu")] == [str(src)]
+    link = build.link_argv("nvcc", objs, out)
+    assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
+    assert link[-len(objs):] == [str(o) for o in objs]
     assert sorted(p.name for p in srcs) == ["chol_bundle.cu", "decode_mse.cu", "hmc_partials.cu",
                                             "hmc_terms.cu", "iaf_chain.cu", "iaf_chain_bwd.cu",
                                             "metric_bundle.cu"]
+    assert [p.name for p in build.headers()] == ["iaf_cluster.cuh"]
     assert all(p.parent == REPO / "rlvae_tpu_torch" / "csrc" for p in srcs)
     assert out.parent == REPO / "build" / "rlvae_tpu_torch"
     assert re.fullmatch(r"librlvae_kernels_[0-9a-f]{16}\.so", out.name)
@@ -105,12 +112,18 @@ def test_build_command():
 def test_signatures_match_the_sources():
     """Every extern "C" function of csrc/*.cu has a ctypes signature with one
     argtype per parameter (nothing compiles here, so this is the check that
-    a pointer is not passed as a 32-bit int)."""
-    found = {}
+    a pointer is not passed as a 32-bit int).  The profile build's entries
+    are compiled only under its define."""
+    found, profiled = {}, set()
     for src in build.sources():
-        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+        text = src.read_text()
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
             found[name] = len(params.split(","))
-    assert {k: len(v) for k, v in build.SIGNATURES.items()} == found
+        for block in re.findall(rf"#ifdef {build.PROFILE}\n(.*?)#endif", text, re.S):
+            profiled |= set(re.findall(r'extern "C" int (\w+)\(', block))
+    signatures = {**build.SIGNATURES, **build.PROFILE_SIGNATURES}
+    assert {k: len(v) for k, v in signatures.items()} == found
+    assert profiled == set(build.PROFILE_SIGNATURES)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

@@ -238,6 +238,52 @@ def test_g_inv_and_chol_sharded_match_jax():
             _jax_sharded(jmp.chol_g_inv_sharded, jmesh, jbank, z, jitter=1e-6), GI_REL)
 
 
+def test_g_inv_sharded_goes_through_the_g_inv_wrapper(monkeypatch):
+    """The shard's sum is one ``g_inv`` call (the G^{-1} kernel on the card,
+    counted through the module attribute that ``GInv`` calls), and the
+    result is still JAX's ``g_inv_sharded``."""
+    from rlvae_tpu_torch.ops import metric_kernels as mk
+
+    calls = []
+    real = mk.g_inv
+
+    def counting(z, *args):
+        calls.append(tuple(z.shape))
+        return real(z, *args)
+
+    monkeypatch.setattr(mk, "g_inv", counting)
+    jm, tm = _pair("pretrained50")
+    z = _latents(jm.centroids, 8, seed=9)
+    jmesh = jax_create_mesh(model_parallel=1)
+    mesh = create_mesh()
+    shard = tmp.shard_metric(mesh, tm)
+    got = tmp.g_inv_sharded(mesh, shard, torch.from_numpy(z))
+    assert calls == [(8, 16)]
+    _within(got.numpy(), _jax_sharded(jmp.g_inv_sharded, jmesh, jmp.shard_metric(jmesh, jm), z),
+            GI_REL)
+    tmp.chol_g_inv_sharded(mesh, shard, torch.from_numpy(z))
+    assert calls == [(8, 16)] * 2
+
+
+def test_g_inv_sharded_any_dim_on_the_cpu():
+    """Off the card the plain version takes any D (the kernel takes D=16 and
+    its wrapper raises for another on the card): a D=8 bank split into 2
+    padded shards, summed in shard order, equals the dense G^{-1}."""
+    rng = np.random.default_rng(11)
+    c = rng.normal(size=(9, 8)).astype(np.float32)
+    a = rng.normal(size=(9, 8, 8)).astype(np.float32) * 0.3
+    m = (a @ a.transpose(0, 2, 1) + 0.5 * np.eye(8, dtype=np.float32)).astype(np.float32)
+    tm = CentroidMetric.create(c, m, temperature=0.9, regularization=0.01)
+    z = torch.from_numpy(_latents(c, 5, seed=12))
+    parts = [tmp.g_inv_sharded(create_mesh(), tmp.shard_metric(
+        Mesh(dp=1, ep=2, data_index=0, model_index=i), tm), z) for i in range(2)]
+    eye = 0.01 * torch.eye(8)
+    got = (parts[0] - eye) + (parts[1] - eye) + eye
+    want = tgm.g_inv(tm, z)
+    assert got.shape == (5, 8, 8)
+    _within(got.numpy(), want.numpy(), GI_REL)
+
+
 @pytest.mark.parametrize("init", ["centroids", "randn"])
 def test_sharded_chain_on_one_process_matches_jax_dense(init):
     """The sharded chain on the 1 x 1 mesh, on JAX's draws, against JAX's
