@@ -9,22 +9,28 @@ Phases, each printing one JSON line with its elapsed seconds:
    together, then one link; the ``-Xptxas -v`` lines of every kernel.
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the shapes the serving and training paths give it, with the tolerance
-   stated; ms per launch from CUDA events.  The IAF-chain forward (B = 1, 7,
+   stated; ms per launch from CUDA events around back-to-back wrapper calls
+   (``ms``, host issue time included where the host is the slower), and
+   device ms per launch from a CUDA graph of GRAPH_LAUNCHES launches,
+   replayed (``device_ms``).  The IAF-chain forward (B = 1, 7,
    16, 64) and backward (B = 1, 16, 64) are held to their plain versions at
    the near-identity flow init and, at the model's reference init, to an
    fp64 evaluation, in both instantiations (weights resident in shared
    memory, and streamed), bit-identical on relaunch; each batch prints the
    launcher's cluster geometry.  The HMC terms,
    the metric bundle and G^{-1} are held to their plain versions and to an
-   fp64 evaluation at K=50, 200 and 20 000, B=1, 64 and 1000, with rows far
-   from every centroid.  The decode+MSE forward, dh and dW/db are held to
+   fp64 evaluation at K=50, 200 and 20 000, B=1, 64 and 1000 (the HMC terms
+   also at B=37 and on a K=37 bank padded to 40: every geometry their rule
+   picks, each case printing it), with rows far from every centroid; the
+   HMC terms bit-identical on relaunch and in a graph replay.  The decode+MSE forward, dh and dW/db are held to
    their plain versions (the forward's loss also to fp64) at M=128 (the fast
    train step's B=16), 512 and 37 rows, N=12288 and 300, on the pretrained
    decoder's weights; each is timed at M=128 and 512 beside cuBLAS's time
    for the forward's bf16 product alone.  The HMC partials (one shard's
    G^{-1} sum and gradient contraction) are held to their plain version and
-   to fp64 at K=50, 200, 20 000 (in ranges) and 37 padded to 40, B=64, 37
-   and 1, bit-identical on relaunch.
+   to fp64 at K=50, 200, 20 000 and 37 padded to 40, B=64, 37, 1 and 1000,
+   bit-identical on relaunch and in a graph replay, with the geometry of
+   each case.
 4. ``serve``: ``ModelManager.from_config(PRESETS["riemannian_flow_vae"])`` on
    the card behind a ``BatchingEngine``; 64 ``reconstruct`` requests from 8
    threads plus 16 ``encode`` and 16 ``decode``, after one warm-up call per
@@ -79,6 +85,13 @@ Phases, each printing one JSON line with its elapsed seconds:
    held to the dense chol-bundle factor.  Every
    MCMC step is replayed on the CPU from the card's state, and the first 10
    are also taken with the dense ``hmc_terms`` from the same state.
+10. ``dense_chain``: the official chain (100 x 15) at B=64 through
+   ``sample_prior_hmc`` on the K=20 000 synthetic bank, where B4 sets the
+   wall time: host seconds with the counters zeroed just before and read
+   just after (1601 ``hmc_terms``), the profiled device time and busy share
+   of a second run, and the first DENSE_REPLAY_STEPS MCMC steps replayed on
+   the CPU from the card's state (also with every proposal accepted, so
+   that the leapfrog endpoints are compared where the chain rejects).
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -126,6 +139,13 @@ N_TRANSITIONS = 7  # 8 frames -> 7 transitions
 # the gradient goes through an inverse of G^{-1}
 HMC_LP_ATOL, HMC_RTOL = 1e-5, 1e-4
 HMC_BATCHES = (1, SERVE_BATCH, 1000)
+# the HMC terms and partials at every geometry their rule picks for K = 50,
+# 200 and 20 000 (csrc/hmc_bank.cuh: rows blocked 1, 2, 4 or 8 a CTA; the cluster
+# size the largest, up to 8, whose clusters the card holds in one wave, e.g.
+# 6 at B=64, K=20 000 on the H100)
+HMC_KERNEL_BATCHES = (1, 37, SERVE_BATCH, 1000)
+# device time per launch: this many launches captured in one CUDA graph
+GRAPH_LAUNCHES = 20
 # generation: the batches of sample_random_batched_seeds, the chain's launches
 GEN_BATCHES = (1, SERVE_BATCH)
 CHAIN_LAUNCHES = 1 + 100 * (15 + 1)
@@ -163,9 +183,12 @@ DECODE_TIMED_ROWS = (TRAIN_BATCH * 8, 512)
 # PARTIALS_FP64_RTOL of scale
 PARTIALS_TOL = {"gi_part": 1e-5, "v": 1e-4}
 PARTIALS_FP64_RTOL = 1e-5
-PARTIALS_BATCHES = (SERVE_BATCH, 37, 1)
+PARTIALS_BATCHES = (SERVE_BATCH, 37, 1, 1000)
 # the ep phase: shards of the in-process split, and the dense steps compared
 EP_SHARDS, EP_DENSE_STEPS, EP_PROFILE_STEPS = 4, 10, 2
+# the dense_chain phase: the official chain on the K=20 000 bank, its first
+# steps replayed on the CPU
+DENSE_REPLAY_STEPS = 3
 # the analysis metrics of the evaluation step (losses.additional_metrics)
 EVAL_METRIC_KEYS = ("cyclicity_error", "latent_norm", "latent_variance",
                     "metric_conditioning", "manifold_regularity", "metric_determinant")
@@ -203,6 +226,35 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, n: int = GRAPH_LAUNCHES, replays: int = 3):
+    """(device ms per call, outputs): ``fn`` captured ``n`` times in one CUDA
+    graph, replayed once, then ``replays`` times between CUDA events, so no
+    host issue time is inside; the outputs are the last captured call's after
+    the replays.  A launcher that cannot be captured raises."""
+    fn()  # warm-up outside the graph
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            out = fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * replays), out
+
+
+def with_device_ms(torch, record, fn):
+    """``record`` with the device time per launch of ``fn`` (its kernel at the
+    record's shape) beside its CUDA-event ``ms``."""
+    record["device_ms"], _ = device_ms(torch, fn)
+    return record
 
 
 def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = PEAK_FP32_FLOPS):
@@ -269,14 +321,14 @@ def run_chol_checks(torch, dev):
             b, k = z.shape[0], c.shape[0]
             flops = b * (k * (3 * 16 + 1 + 2 * 16 * 16) + 16 ** 3 / 3 + 16)
             bms, by = bound_ms(nbytes(z, c, m, l_k, ld_k), flops)
-            record = {
+            record = with_device_ms(torch, {
                 "name": "chol_bundle", "route": "cuda",
                 "source": "rlvae_tpu_torch/csrc/chol_bundle.cu",
                 "replaces": "rlvae_tpu/ops/metric_kernels.py:470",
                 "shape": label, "ms": case["ms"],
                 "plain_ms": time_ms(torch, lambda: chol_bundle_ref(z, c, m, inv_t2, diag), 10),
                 "bound_ms": bms, "bound_by": by, "library_ms": None,
-            }
+            }, lambda: chol_bundle(z, c, m, inv_t2, diag))
     record["max_abs_err"] = max(c["max_abs_err"] for c in cases)
     record["tolerance"] = f"|kernel-plain| <= {CHOL_ATOL} + {CHOL_RTOL}*|plain|"
     return record, cases
@@ -393,14 +445,14 @@ def run_iaf_checks(torch, dev):
             flops = b * nt * nb * d * pass_flops()
             z_k, ld_k = iaf_chain_fwd(z0, *wm)
             bms, by = bound_ms(nbytes(z0, *wm, z_k, ld_k), flops)
-            record = {
+            record = with_device_ms(torch, {
                 "name": "iaf_chain_fwd", "route": "cuda",
                 "source": "rlvae_tpu_torch/csrc/iaf_chain.cu",
                 "replaces": "rlvae_tpu/ops/iaf_kernels.py:546",
                 "shape": case["shape"], "ms": case["ms"],
                 "plain_ms": time_ms(torch, lambda: iaf_chain_fwd_ref(z0, *wm), 2, warmup=1),
                 "bound_ms": bms, "bound_by": by, "library_ms": None,
-            }
+            }, lambda: iaf_chain_fwd(z0, *wm))
     record["max_abs_err"] = max(c["max_abs_err"] for c in cases)
     record["ms_by_batch"] = {c["shape"].split(",")[0]: c["ms"] for c in cases}
     record["ms_streamed_by_batch"] = {c["shape"].split(",")[0]: c["streamed"]["ms"]
@@ -504,7 +556,7 @@ def run_iaf_bwd_checks(torch, dev):
             flops = b * nt * nb * (d + 3) * pass_flops()
             out = iaf_chain_bwd(ys_m, dz, dld, *wm)
             bms, by = bound_ms(nbytes(ys_m, dz, dld, *wm, out[0], *out[1]), flops)
-            record = {
+            record = with_device_ms(torch, {
                 "name": "iaf_chain_bwd", "route": "cuda",
                 "source": "rlvae_tpu_torch/csrc/iaf_chain_bwd.cu",
                 "replaces": "rlvae_tpu/ops/iaf_kernels.py:585",
@@ -512,7 +564,7 @@ def run_iaf_bwd_checks(torch, dev):
                 "plain_ms": time_ms(torch, lambda: iaf_chain_bwd_ref(ys_m, dz, dld, *wm), 2,
                                     warmup=1),
                 "bound_ms": bms, "bound_by": by, "library_ms": None,
-            }
+            }, lambda: iaf_chain_bwd(ys_m, dz, dld, *wm))
     record["max_abs_err"] = max(c["max_abs_err"] for c in cases)
     record["ms_by_batch"] = {c["shape"].split(",")[0]: c["ms"] for c in cases}
     record["ms_streamed_by_batch"] = {c["shape"].split(",")[0]: c["streamed"]["ms"]
@@ -533,14 +585,14 @@ def hmc_flops(b: int, k: int, d: int = 16) -> float:
     return b * (k * (3 * d + 1 + 2 * d * d + 2 * d + 2 * d * d) + d ** 3 / 3 + 2 * d * d + d)
 
 
-def hmc_cases(torch, dev):
+def hmc_cases(torch, dev, batches=HMC_BATCHES):
     """(label, z, centroids, matrices, inv_t2, lbd) for the model's metric,
-    the K=200 metric and a K=20 000 bank, at B=1, 64 and 1000; the last two
+    the K=200 metric and a K=20 000 bank, at each of ``batches``; the last two
     rows of each batch with B > 1 lie far from every centroid."""
     rng = np.random.default_rng(5)
     for label, c, mats, temp, reg in metric_banks():
         ct, mt = torch.tensor(c, device=dev), torch.tensor(mats, device=dev)
-        for b in HMC_BATCHES:
+        for b in batches:
             z = c[rng.integers(0, c.shape[0], size=b)] + 0.05 * rng.normal(size=(b, c.shape[1]))
             if b > 1:
                 z[-2:] += 100.0
@@ -548,14 +600,49 @@ def hmc_cases(torch, dev):
                    1.0 / temp ** 2, reg)
 
 
+def padded_bank(dev):
+    """(label, the seeded K=37 metric, the same padded to 40 as the sharded
+    path pads it: far centroids, zero matrices), both on ``dev``."""
+    from rlvae_tpu_torch.geometry.metric import CentroidMetric
+    from rlvae_tpu_torch.parallel import pad_metric
+
+    rng = np.random.default_rng(37)
+    a = (rng.normal(size=(37, 16, 16)) / 4).astype(np.float32)
+    small = CentroidMetric.create(rng.normal(size=(37, 16)),
+                                  a @ np.swapaxes(a, -1, -2) + 0.1 * np.eye(16), 0.8)
+    padded = pad_metric(small, EP_SHARDS)
+    on_dev = lambda mt: CentroidMetric(mt.centroids.to(dev), mt.matrices.to(dev),  # noqa: E731
+                                       mt.temperature, mt.regularization)
+    return "synthetic(K=37 padded to 40)", on_dev(small), on_dev(padded)
+
+
 def run_hmc_checks(torch, dev):
-    from rlvae_tpu_torch.ops.metric_kernels import hmc_terms, hmc_terms_ref
+    """The HMC terms against their plain fp32 version and an fp64 evaluation
+    at each bank of :func:`metric_banks` and the padded K=37 bank, B = 1, 37,
+    64 and 1000 (every geometry the rule picks there); bit-identical on
+    relaunch and in a CUDA-graph replay, the padded bank bit-identical to the
+    unpadded one, far rows on the plateau with a zero gradient; each case
+    timed with CUDA events and as device time per launch."""
+    from rlvae_tpu_torch.ops.metric_kernels import hmc_terms, hmc_terms_ref, launch_hmc_geometry
 
     log_eps = float(np.log(np.float32(1e-10)))
+    label37, small, padded = padded_bank(dev)
+    rng = np.random.default_rng(6)
+    padded_cases = []
+    for b in HMC_KERNEL_BATCHES:
+        zn = small.centroids.cpu().numpy()[rng.integers(0, 37, size=b)]
+        zn = zn + 0.05 * rng.normal(size=zn.shape)
+        if b > 1:
+            zn[-2:] += 100.0
+        padded_cases.append((f"{label37},B={b}", torch.tensor(zn, dtype=torch.float32, device=dev),
+                             padded.centroids, padded.matrices, 1.0 / padded.temperature ** 2,
+                             padded.regularization))
     cases, record = [], None
-    for label, z, c, m, inv_t2, lbd in hmc_cases(torch, dev):
+    for label, z, c, m, inv_t2, lbd in [*hmc_cases(torch, dev, HMC_KERNEL_BATCHES),
+                                        *padded_cases]:
         args = (inv_t2, lbd, log_eps)
         lp_k, g_k = hmc_terms(z, c, m, *args)
+        again = hmc_terms(z, c, m, *args)
         lp_p, g_p = hmc_terms_ref(z, c, m, *args)
         lp_e, g_e = hmc_terms_ref(z.double(), c.double(), m.double(), *args)
         torch.cuda.synchronize()
@@ -571,32 +658,41 @@ def run_hmc_checks(torch, dev):
         ok = (kp["log_pi_abs"] <= HMC_LP_ATOL and kp["grad_rel"] <= HMC_RTOL
               and ke["log_pi_abs"] <= max(IAF_FP64_FACTOR * pe["log_pi_abs"], HMC_RTOL * lp_scale)
               and ke["grad_rel"] <= max(IAF_FP64_FACTOR * pe["grad_rel"], HMC_RTOL))
+        same = bool(torch.equal(lp_k, again[0]) and torch.equal(g_k, again[1]))
         if z.shape[0] > 1:  # the far rows: the log 1e-10 plateau and a zero gradient
             ok = ok and bool(torch.all(g_k[-2:] == 0)) and bool(
                 torch.all((lp_k[-2:] - log_eps).abs() <= HMC_LP_ATOL))
-        case = {"shape": label, "ok": ok, **err,
+        if label.startswith(label37):  # the padded centroids add exact zeros
+            unpadded = hmc_terms(z, small.centroids, small.matrices, *args)
+            same = same and bool(torch.equal(unpadded[0], lp_k) and torch.equal(unpadded[1], g_k))
+        b, k = z.shape[0], c.shape[0]
+        dms, replayed = device_ms(torch, lambda: hmc_terms(z, c, m, *args))
+        graph_same = bool(torch.equal(replayed[0], lp_k) and torch.equal(replayed[1], g_k))
+        case = {"shape": label, "ok": ok, **err, "geometry": list(launch_hmc_geometry(b, k, dev)),
+                "bit_identical_on_relaunch": same, "bit_identical_in_graph_replay": graph_same,
                 "max_abs_err": max(float((lp_k - lp_p).abs().max()),
                                    float((g_k - g_p).abs().max())),
-                "ms": time_ms(torch, lambda: hmc_terms(z, c, m, *args), 20)}
-        b, k = z.shape[0], c.shape[0]
+                "ms": time_ms(torch, lambda: hmc_terms(z, c, m, *args), 20), "device_ms": dms}
         case["bound_ms"], case["bound_by"] = bound_ms(nbytes(z, c, m, lp_k, g_k), hmc_flops(b, k))
         cases.append(case)
-        check(ok, f"hmc_terms disagrees at {label}: {err}")
+        check(ok and same and graph_same, f"hmc_terms disagrees at {label}: {case}")
         if label.startswith("metric_T0.7") and label.endswith(f"B={SERVE_BATCH}"):
             record = {
                 "name": "hmc_terms", "route": "cuda",
                 "source": "rlvae_tpu_torch/csrc/hmc_terms.cu",
                 "replaces": "rlvae_tpu/ops/metric_kernels.py:809",
-                "shape": label, "ms": case["ms"],
+                "shape": label, "ms": case["ms"], "device_ms": dms,
                 "plain_ms": time_ms(torch, lambda: hmc_terms_ref(z, c, m, *args), 10),
                 "bound_ms": case["bound_ms"], "bound_by": case["bound_by"], "library_ms": None,
             }
     record["max_abs_err"] = max(c["max_abs_err"] for c in cases)
-    record["ms_by_shape"] = {c["shape"]: c["ms"] for c in cases}
-    record["bound_ms_by_shape"] = {c["shape"]: c["bound_ms"] for c in cases}
+    for key in ("ms", "device_ms", "bound_ms"):
+        record[f"{key}_by_shape"] = {c["shape"]: c[key] for c in cases}
     record["tolerance"] = (f"kernel vs plain: |log pi| <= {HMC_LP_ATOL}, |grad| <= {HMC_RTOL} of "
                            f"scale; vs fp64: at most {IAF_FP64_FACTOR}x the plain fp32 version's "
-                           f"error, or {HMC_RTOL} of scale; far rows on the plateau, grad 0")
+                           f"error, or {HMC_RTOL} of scale; far rows on the plateau, grad 0; "
+                           f"bit-identical on relaunch and in a CUDA-graph replay; the padded "
+                           f"bank bit-identical to the unpadded one")
     return record, cases
 
 
@@ -666,6 +762,8 @@ def run_bundle_checks(torch, dev):
             bundle["bound_ms"], bundle["bound_by"] = bound_ms(
                 nbytes(z, c, m, *got), bundle_flops(b, k, True))
             gi_case["ms"] = time_ms(torch, lambda: g_inv(z, *args), 20)
+            bundle["device_ms"], _ = device_ms(torch, lambda: metric_bundle(z, *args))
+            gi_case["device_ms"], _ = device_ms(torch, lambda: g_inv(z, *args))
             gi_case["plain_ms"] = time_ms(torch, lambda: g_inv_ref(z, *args), 10)
             gi_case["bound_ms"], gi_case["bound_by"] = bound_ms(
                 nbytes(z, c, m, gi_k), bundle_flops(b, k, False))
@@ -687,9 +785,10 @@ def run_bundle_checks(torch, dev):
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "shape": rec["shape"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
+            "device_ms": rec["device_ms"],
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms_by_shape": {c["shape"]: c["ms"] for c in timed},
-            "n_splits_by_shape": {c["shape"]: c["n_splits"] for c in timed},
+            "device_ms_by_shape": {c["shape"]: c["device_ms"] for c in timed},
             "ms_one_split_by_shape": {c["shape"]: c["ms_one_split"] for c in timed
                                       if "ms_one_split" in c},
             "plain_ms_by_shape": {c["shape"]: c["plain_ms"] for c in timed},
@@ -721,29 +820,25 @@ def partials_flops(b: int, k: int, d: int = 16) -> float:
 
 def partials_banks(torch, dev):
     """(label, centroids, matrices, inv_t2) on ``dev``: the banks of
-    :func:`metric_banks` and a seeded K=37 bank padded to 40 as the sharded
-    path pads it (far centroids, zero matrices)."""
-    from rlvae_tpu_torch.geometry.metric import CentroidMetric
-    from rlvae_tpu_torch.parallel import pad_metric
-
+    :func:`metric_banks` and the padded K=37 bank of :func:`padded_bank`."""
     out = [(label, torch.tensor(c, device=dev), torch.tensor(m, device=dev), 1.0 / t ** 2)
            for label, c, m, t, _ in metric_banks()]
-    rng = np.random.default_rng(37)
-    a = (rng.normal(size=(37, 16, 16)) / 4).astype(np.float32)
-    small = CentroidMetric.create(rng.normal(size=(37, 16)),
-                                  a @ np.swapaxes(a, -1, -2) + 0.1 * np.eye(16), 0.8)
-    padded = pad_metric(small, EP_SHARDS)
-    out.append(("synthetic(K=37 padded to 40)", padded.centroids.to(dev),
-                padded.matrices.to(dev), 1.0 / 0.8 ** 2))
+    label37, _, padded = padded_bank(dev)
+    out.append((label37, padded.centroids, padded.matrices, 1.0 / padded.temperature ** 2))
     return out
 
 
 def run_partials_checks(torch, dev):
     """The HMC partials against their plain fp32 version and an fp64
-    evaluation at each bank of :func:`partials_banks` and B=64, 37 and 1
-    (the last two rows of a batch far from every centroid); bit-identical on
-    relaunch; each bank timed at B=64."""
-    from rlvae_tpu_torch.ops.metric_kernels import hmc_partials, hmc_partials_ref, k_splits
+    evaluation at each bank of :func:`partials_banks` and B = 64, 37, 1 and
+    1000 (the last two rows of a batch far from every centroid);
+    bit-identical on relaunch and in a CUDA-graph replay; device time per
+    launch of every case, CUDA-event time of each bank at B=64."""
+    from rlvae_tpu_torch.ops.metric_kernels import (
+        hmc_partials,
+        hmc_partials_ref,
+        launch_hmc_geometry,
+    )
 
     rng = np.random.default_rng(8)
     cases = []
@@ -778,10 +873,14 @@ def run_partials_checks(torch, dev):
                 unpadded = hmc_partials(z, c[:37].contiguous(), m[:37].contiguous(), inv_t2)
                 ok = (ok and bool(torch.equal(unpadded[0], got[0]))
                       and bool(torch.equal(unpadded[1], got[1])))
+            dms, replayed = device_ms(torch, lambda: hmc_partials(z, c, m, inv_t2))
+            ok = ok and bool(torch.equal(replayed[0], got[0]) and torch.equal(replayed[1], got[1]))
             shape = f"{label},B={b}"
             check(ok, f"hmc_partials disagrees at {shape}: {err}")
             case = {"shape": shape, "ok": ok, "errors": err, "bit_identical_on_relaunch": True,
-                    "n_splits": k_splits(b, c.shape[0], dev),
+                    "bit_identical_in_graph_replay": True,
+                    "geometry": list(launch_hmc_geometry(b, c.shape[0], dev)),
+                    "device_ms": dms,
                     "max_abs_err": max(e["kernel_vs_plain_abs"] for e in err.values())}
             if b == SERVE_BATCH:
                 case["ms"] = time_ms(torch, lambda: hmc_partials(z, c, m, inv_t2), 20)
@@ -796,16 +895,18 @@ def run_partials_checks(torch, dev):
         "source": "rlvae_tpu_torch/csrc/hmc_partials.cu",
         "replaces": "rlvae_tpu/ops/metric_kernels.py:886",
         "shape": main["shape"], "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "device_ms": main["device_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms_by_shape": {c["shape"]: c["ms"] for c in timed},
+        "device_ms_by_shape": {c["shape"]: c["device_ms"] for c in cases},
         "plain_ms_by_shape": {c["shape"]: c["plain_ms"] for c in timed},
         "bound_ms_by_shape": {c["shape"]: c["bound_ms"] for c in timed},
-        "n_splits_by_shape": {c["shape"]: c["n_splits"] for c in timed},
         "tolerance": (f"kernel vs plain: |err| <= {PARTIALS_TOL} * max(1, |plain|); vs fp64: "
                       f"at most {IAF_FP64_FACTOR}x the plain fp32 version's error, or "
-                      f"{PARTIALS_FP64_RTOL} of scale; bit-identical on relaunch; far rows 0; "
-                      f"the padded bank bit-identical to the unpadded one"),
+                      f"{PARTIALS_FP64_RTOL} of scale; bit-identical on relaunch and in a "
+                      f"CUDA-graph replay; far rows 0; the padded bank bit-identical to the "
+                      f"unpadded one"),
     }
     return record, cases
 
@@ -929,6 +1030,7 @@ def run_decode_checks(torch, dev):
         for name, (kernel, plain, n_bytes, n_ops) in runs.items():
             bms, by = bound_ms(n_bytes, n_ops, PEAK_BF16_TENSOR_FLOPS)
             timed[name][shape] = {"ms": time_ms(torch, kernel, 10),
+                                  "device_ms": device_ms(torch, kernel)[0],
                                   "plain_ms": time_ms(torch, plain, 5),
                                   "bound_ms": bms, "bound_by": by,
                                   "cublas_bf16_product_ms": cublas_ms}
@@ -948,6 +1050,7 @@ def run_decode_checks(torch, dev):
             "name": name, "route": "cuda", "source": "rlvae_tpu_torch/csrc/decode_mse.cu",
             "replaces": f"rlvae_tpu/ops/recon_kernels.py:{lines[name]}",
             "shape": main_shape, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "device_ms": t["device_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "bound_peaks": "products at the bf16 tensor-core peak (989 TFLOP/s), "
                            "bytes at 3.35 TB/s",
@@ -957,6 +1060,7 @@ def run_decode_checks(torch, dev):
                                    "alone (no PyTorch call computes decode+MSE)",
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms_by_shape": {k: v["ms"] for k, v in timed[name].items()},
+            "device_ms_by_shape": {k: v["device_ms"] for k, v in timed[name].items()},
             "plain_ms_by_shape": {k: v["plain_ms"] for k, v in timed[name].items()},
             "bound_ms_by_shape": {k: v["bound_ms"] for k, v in timed[name].items()},
             "cublas_bf16_product_ms_by_shape": {k: v["cublas_bf16_product_ms"]
@@ -1865,6 +1969,83 @@ def run_ep(torch, dev=None):
     }
 
 
+# ---------------------------------------------------------------------------
+# dense_chain phase
+# ---------------------------------------------------------------------------
+
+
+def run_dense_chain(torch, dev=None):
+    """The official chain (100 x 15) at B=64 through ``sample_prior_hmc`` on
+    the K=20 000 bank of :func:`metric_banks`, where the HMC terms kernel
+    (B4) sets the wall time: host seconds with the launch counters zeroed just
+    before and read just after (1601 ``hmc_terms``), the profiled device time
+    and busy share of a second run, and the first DENSE_REPLAY_STEPS MCMC
+    steps replayed on the CPU (plain terms) from the card's state."""
+    from rlvae_tpu_torch.geometry.metric import CentroidMetric
+    from rlvae_tpu_torch.ops.metric_kernels import launch_hmc_geometry
+    from rlvae_tpu_torch.samplers import HMCConfig, draw_hmc_noise, mcmc_step, sample_prior_hmc
+    from rlvae_tpu_torch.samplers.hmc import _terms_fn
+
+    dev = dev or torch.device("cuda")
+    label, c, m, temp, reg = metric_banks()[-1]
+    metric = CentroidMetric(torch.tensor(c, device=dev), torch.tensor(m, device=dev), temp, reg)
+    cpu_metric = CentroidMetric(torch.tensor(c), torch.tensor(m), temp, reg)
+    cfg, b = HMCConfig(), SERVE_BATCH
+    noise = draw_hmc_noise(metric, b, cfg, torch.Generator(device=dev).manual_seed(29))
+    sample_prior_hmc(metric, b, HMCConfig(mcmc_steps=1), z0=noise["z0"],
+                     gammas=noise["gammas"][:1], unifs=noise["unifs"][:1])  # warm-up
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t = time.perf_counter()
+    z = sample_prior_hmc(metric, b, cfg, **noise)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    launches = launch_counts()
+    check(launches == expected_launches(hmc_terms=CHAIN_LAUNCHES),
+          f"the dense K=20 000 chain launched {launches}")
+    check(z.shape == (b, 16) and bool(torch.isfinite(z).all()), "bad dense chain output")
+    busy_ms, kernels = device_time_by_kernel(torch, lambda: sample_prior_hmc(metric, b, cfg,
+                                                                              **noise))
+    terms_us = sum(k["us"] for k in kernels if "hmc_terms" in k["name"])
+
+    # the first steps, each replayed on the CPU from the card's state before it;
+    # and the same steps with every proposal accepted (u = -1), so that the
+    # leapfrog endpoints are compared even where the chain rejects
+    terms, cpu_terms = _terms_fn(metric), _terms_fn(cpu_metric)
+    stats, proposals, accepted = _step_stats(), _step_stats(), 0
+    with torch.no_grad():
+        log_pi, grad = terms(noise["z0"])
+        state = (noise["z0"], log_pi, -grad, np.float32(1.0))
+        for step in range(DENSE_REPLAY_STEPS):
+            gamma, u = noise["gammas"][step], noise["unifs"][step]
+            cpu_state = tuple(t.cpu() for t in state[:3]) + (state[3],)
+            for st, uu in ((proposals, torch.full_like(u, -1.0)), (stats, u)):
+                nxt, acc, alpha = mcmc_step(terms, state, gamma, uu, cfg)
+                c_nxt, c_acc, _ = mcmc_step(cpu_terms, cpu_state, gamma.cpu(), uu.cpu(), cfg)
+                _compare_step(st, acc.cpu(), alpha.cpu(), uu.cpu(), nxt[0].cpu(), c_acc,
+                              c_nxt[0])
+            accepted += int(acc.sum())
+            state = nxt
+    check(stats["flips_outside_margin"] == 0,
+          f"dense chain: card and CPU accept decisions differ on "
+          f"{stats['flips_outside_margin']} non-tie rows")
+    check(stats["max_z_rel_err"] <= CHAIN_Z_RTOL,
+          f"dense chain vs CPU replay: z differs by {stats['max_z_rel_err']} of scale")
+    return {
+        "rows_moved": int((z != noise["z0"]).any(1).sum()),
+        "bank": f"{label} at T={temp}", "batch": b, "mcmc_steps": cfg.mcmc_steps,
+        "n_lf": cfg.n_lf, "geometry": list(launch_hmc_geometry(b, c.shape[0], dev)),
+        "host_s": host_s, "profiled_device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / (host_s * 1e3),
+        "hmc_terms_profiled_ms": terms_us / 1e3,
+        "n_kernel_launches": sum(k["calls"] for k in kernels), "top_kernels": kernels[:6],
+        "launches": launches,
+        "replay": {"steps": DENSE_REPLAY_STEPS, "accepted": accepted, **stats,
+                   "every_proposal_accepted": proposals,
+                   "tolerance": {"z_rel": CHAIN_Z_RTOL, "accept_margin": ACCEPT_MARGIN}},
+    }
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(HANG_GUARD_S, exit=True)
     import torch
@@ -1912,7 +2093,9 @@ def main() -> None:
     emit("fast", **fast)
     ep = run_ep(torch)
     emit("ep", **ep)
-    # launches: the sum over the six main paths' runs (each read between
+    dense = run_dense_chain(torch)
+    emit("dense_chain", **dense)
+    # launches: the sum over the seven main paths' runs (each read between
     # zeroing the counters and the end of its run), with each path's count
     # beside it; every kernel is launched by the paths it belongs to
     paths = {"serve": (serve["launches"], ("chol_bundle", "iaf_chain_fwd")),
@@ -1924,7 +2107,8 @@ def main() -> None:
                                                    "metric_bundle", "g_inv")),
              "fast": (fast["launches"], ("chol_bundle", "g_inv", "decode_mse_fwd",
                                          "decode_mse_bwd_dh", "decode_mse_bwd_dw")),
-             "ep": (ep["launches"], ("hmc_partials",))}
+             "ep": (ep["launches"], ("hmc_partials",)),
+             "dense_chain": (dense["launches"], ("hmc_terms",))}
     for path, (counts, kernels) in paths.items():
         for name in kernels:
             check(counts[name] > 0, f"the {path} path did not launch {name}")
@@ -1940,6 +2124,7 @@ def main() -> None:
     records["metric_bundle"]["launches_per_geodesic_forward"] = (
         posterior["metric_bundle_launches_per_forward"])
     records["hmc_partials"]["launches_per_ep_chain"] = ep["launches"]["hmc_partials"]
+    records["hmc_terms"]["launches_per_dense_k20000_chain"] = dense["launches"]["hmc_terms"]
 
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": list(records.values())}), flush=True)

@@ -13,161 +13,204 @@
 //
 // What bounds it on an H100: at the generation path's sizes (B <= 64, K = 50)
 // the work is ~57 kFLOP per row and ~55 KB of bank in all, well under a
-// microsecond of either resource.  What the card spends (~18 us of device time
-// per launch at B=64, K=50, chip_smoke.py's profile on an H100 80GB HBM3 at
-// 700 W) is latency: the dependent steps of one warp's column-by-column
-// Cholesky and triangular solves, and the staging of each chunk.  At large K
-// (>= 20 000) every row streams the whole bank (K * 1 KB, from L2 after the
-// first block) and the fp32 FMAs of the two weighted sums (G^{-1} and v) bound
-// it, with only B/4 blocks in flight.
+// microsecond of either resource, so latency bounds it: a chunk's staging, the
+// warps' short walks and sums, and the epilogue's chain of dependent steps.
+// At large K (>= 20 000) the fp32 FMAs of the two weighted sums (G^{-1} and v)
+// bound it, 1.41 GFLOP at B = 64: 0.021 ms at 67 TFLOP/s.
 //
-// Design: the chol-bundle's (csrc/chol_bundle.cu), plus v.  One warp per row,
-// ROWS warps per block; K is walked in chunks of 32 centroids staged through
-// shared memory, shared by the block's rows, so any K takes one code path.
-// Lane j computes the weight of centroid k0+j with d^2 as direct differences;
-// each weight is broadcast with __shfl_sync.  Lane l owns the 8 entries
-// (i, j) = ((l + 32e) / 16, l % 16) of the 16x16 tile, e = 0..7: rows
-// i = 2e + l/16 of column j = l % 16.  One conflict-free shared-memory read of
-// M_k[i, j] feeds both sums: acc[e] += w M[i,j] for G^{-1}, and
-// vacc += (w (c_k - z)_i) M[i,j] for v, the weighted difference formed first
-// (never sum(w c M) - sum(w z M), which cancels near the centroids).  The two
-// half-warps' partial v_j are added with one shuffle.  The 16x16 Cholesky runs
-// column by column in the warp's shared-memory tile, as in the chol-bundle.
-// G v is taken as two triangular solves, L y = v then L^T x = y, instead of
-// forming G: the same function, better conditioned and cheaper.  When every
-// weight underflows (z far from the bank), G^{-1} = lbd*I, v = 0, and the
-// outputs are the log_eps plateau and a zero gradient.  fp32 IEEE arithmetic
-// throughout (expf, logf, log1pf; no fast math).
-#include <cuda_runtime.h>
+// Design: the front half is csrc/hmc_bank.cuh's (shared with
+// csrc/hmc_partials.cu): the bank split over the CTAs of a cluster and the
+// warps of a CTA, rows blocked in registers, chunks staged by bulk copies, the
+// sums added in warp and rank order.  The leader CTA then gives each of its
+// rows to a warp, which holds G^{-1} in registers, lane j (and its mirror
+// j + 16) owning row j of the lower triangle:
+// - a right-looking Cholesky, one rank-1 update per column: 16 dependent
+//   steps of a shuffle, a sqrt beside a reciprocal sqrt, a product, a
+//   shuffle of the column and one FMA (the left-looking form's last lane
+//   takes ~120 dependent steps); L is then transposed once through shared
+//   memory for the second solve;
+// - sum_i log L_ii by a 16-lane shuffle tree of logf;
+// - G v as two triangular solves, L y = v then L^T x = y, each 16 steps of a
+//   product with 1 / L_jj (the Cholesky's reciprocal root), a shuffle and an
+//   FMA, in registers: the same function as G formed explicitly, better
+//   conditioned and cheaper.
+// When every weight underflows (z far from the bank), G^{-1} = lbd*I, v = 0,
+// and the outputs are the log_eps plateau and a zero gradient.  fp32 IEEE
+// arithmetic throughout (expf, logf, log1pf, sqrtf, __frsqrt_rn; no fast math).
+#include "hmc_bank.cuh"
 
 namespace {
 
-constexpr int D = 16;
-constexpr int DD = D * D;
-constexpr int KC = 32;    // centroids per staged chunk (one per lane)
-constexpr int ROWS = 4;   // rows (warps) per block
-constexpr int THREADS = ROWS * 32;
-constexpr int E = DD / 32;  // tile entries per lane
+using namespace hmc;
 
-__global__ void __launch_bounds__(THREADS)
-hmc_terms_kernel(const float* __restrict__ z, const float* __restrict__ c,
-                 const float* __restrict__ m, float inv_t2, float lbd, float log_eps,
-                 float* __restrict__ logpi_out, float* __restrict__ grad_out,
-                 int n_rows, int n_centroids) {
-  __shared__ float m_s[KC * DD];       // 32 KB: the chunk's matrices
-  __shared__ float c_s[KC * (D + 1)];  // the chunk's centroids, rows padded against bank conflicts
-  __shared__ float a_s[ROWS][DD];      // 4 KB: one G^{-1} / L tile per warp
+constexpr unsigned FULL = 0xffffffffu;
 
+// The epilogue of one row: sums [WIDTH] (G^{-1} without lbd, then v
+// unscaled) -> log pi and grad, by the calling warp; `scratch` is 16 x 17
+// floats of shared memory of this warp's own.
+__device__ __forceinline__ void finish_row(const float* sums, float inv_t2, float lbd,
+                                           float log_eps, float* logpi_out, float* grad_out,
+                                           float* scratch, PhaseClock<HMC_PHASES>& clk) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * ROWS + warp;
-  const bool live = row < n_rows;
-  const int half = lane >> 4;    // this lane's rows of the tile: i = 2e + half
-  const int col = lane & (D - 1);  // this lane's column of the tile: j
-
-  float zr[D];
+  const int j = lane & (D - 1);  // this lane's row of the tile; lanes 16..31 mirror 0..15
+  float a[D];  // a[m] = G^{-1}[j, m] for m <= j, then L[j, m]
 #pragma unroll
-  for (int i = 0; i < D; ++i) zr[i] = live ? z[row * D + i] : 0.f;
-  float zh[E];  // z_i for this lane's rows i = 2e + half
+  for (int m = 0; m < D; ++m) a[m] = sums[j * D + m] + (m == j ? lbd : 0.f);
+  float ljj = 0.f, inv_ljj = 0.f;
 #pragma unroll
-  for (int e = 0; e < E; ++e) zh[e] = half ? zr[2 * e + 1] : zr[2 * e];
-
-  float acc[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) acc[e] = 0.f;
-  float vacc = 0.f;
-
-  for (int k0 = 0; k0 < n_centroids; k0 += KC) {
-    const int nk = min(KC, n_centroids - k0);
-    __syncthreads();  // the previous chunk is no longer read
-    for (int idx = threadIdx.x; idx < nk * DD; idx += THREADS)
-      m_s[idx] = m[(size_t)k0 * DD + idx];
-    for (int idx = threadIdx.x; idx < nk * D; idx += THREADS)
-      c_s[(idx / D) * (D + 1) + idx % D] = c[(size_t)k0 * D + idx];
-    __syncthreads();
-
-    float w = 0.f;
-    if (lane < nk) {
-      float d2 = 0.f;
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-        const float diff = zr[i] - c_s[lane * (D + 1) + i];
-        d2 += diff * diff;
-      }
-      w = expf(-d2 * inv_t2);
+  for (int k = 0; k < D; ++k) {
+    // the pivot's root and its reciprocal root side by side (both correctly
+    // rounded), so no division sits on the chain from one column to the next
+    const float akk = __shfl_sync(FULL, a[k], k);
+    const float lkk = sqrtf(akk);
+    const float inv = __frsqrt_rn(akk);
+    if (j > k) a[k] *= inv;
+    if (j == k) {
+      a[k] = ljj = lkk;
+      inv_ljj = inv;
     }
-    for (int j = 0; j < nk; ++j) {
-      const float wj = __shfl_sync(0xffffffffu, w, j);
-      const float* mj = m_s + j * DD;
-      const float* cj = c_s + j * (D + 1);
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const float mij = mj[lane + 32 * e];
-        acc[e] = fmaf(wj, mij, acc[e]);
-        const float wd = wj * (cj[2 * e + half] - zh[e]);
-        vacc = fmaf(wd, mij, vacc);
-      }
+    for (int m = k + 1; m < D; ++m) {
+      const float lmk = __shfl_sync(FULL, a[k], m);
+      if (j >= m) a[m] = fmaf(-a[k], lmk, a[m]);  // G^{-1}[j, m] -= L[j, k] L[m, k]
     }
   }
-  // v_j: the two half-warps' partial sums over i, scaled by -2/T^2
-  const float v = (vacc + __shfl_xor_sync(0xffffffffu, vacc, 16)) * (-2.f * inv_t2);
-
-  float* a = a_s[warp];
+  // column j of L (L[m, j], m > j) for the second solve: L transposed once
+  // through this warp's scratch
+  if (lane < D) {
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int idx = lane + 32 * e;
-    a[idx] = (idx % (D + 1) == 0) ? acc[e] + lbd : acc[e];
+    for (int m = 0; m < D; ++m) scratch[j * (D + 1) + m] = m <= j ? a[m] : 0.f;
   }
   __syncwarp();
+  float col[D];
+#pragma unroll
+  for (int m = 0; m < D; ++m) col[m] = scratch[m * (D + 1) + j];
+  clk.lap(CHOLESKY);
 
-  // Column-by-column Cholesky in place: column j of the lower triangle is
-  // replaced by L[:, j]; the strict upper triangle is never read.
-  const int i = col;  // lanes 0..15 own rows; lanes 16..31 mirror them
-  for (int j = 0; j < D; ++j) {
-    float s = a[i * D + j];
-    for (int k = 0; k < j; ++k) s -= a[i * D + k] * a[j * D + k];
-    const float ljj = sqrtf(__shfl_sync(0xffffffffu, s, j));
-    __syncwarp();
-    if (lane < D && lane >= j) a[i * D + j] = s / ljj;
-    __syncwarp();
-  }
+  float s = logf(ljj);
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
 
-  // L y = v (forward), then L^T x = y (backward); lane i < 16 owns r_i.
-  float r = v;
+  // L y = v, then L^T x = y; lane j owns r_j and divides by L[j, j] as a
+  // product with its reciprocal
+  float r = sums[DD + j] * (-2.f * inv_t2);
   float y = 0.f;
-  for (int j = 0; j < D; ++j) {
-    const float yj = __shfl_sync(0xffffffffu, r, j) / a[j * D + j];
-    if (i > j) r = fmaf(-a[i * D + j], yj, r);
-    if (i == j) y = yj;
+#pragma unroll
+  for (int m = 0; m < D; ++m) {
+    const float ym = __shfl_sync(FULL, r * inv_ljj, m);
+    if (j == m) y = ym;
+    if (j > m) r = fmaf(-a[m], ym, r);
   }
   r = y;
   float x = 0.f;
-  for (int j = D - 1; j >= 0; --j) {
-    const float xj = __shfl_sync(0xffffffffu, r, j) / a[j * D + j];
-    if (i < j) r = fmaf(-a[j * D + i], xj, r);
-    if (i == j) x = xj;
+#pragma unroll
+  for (int m = D - 1; m >= 0; --m) {
+    const float xm = __shfl_sync(FULL, r * inv_ljj, m);
+    if (j == m) x = xm;
+    if (j < m) r = fmaf(-col[m], xm, r);
   }
+  if (lane < D) grad_out[lane] = -0.5f * x;
+  if (lane == 0) {
+    // logaddexp(s, log_eps), as torch.logaddexp / jnp.logaddexp
+    const float hi = fmaxf(s, log_eps);
+    *logpi_out = hi + log1pf(expf(-fabsf(s - log_eps)));
+  }
+}
 
-  if (live) {
-    if (lane < D) grad_out[(size_t)row * D + lane] = -0.5f * x;
-    if (lane == 0) {
-      float s = 0.f;
-      for (int j = 0; j < D; ++j) s += logf(a[j * D + j]);
-      // logaddexp(s, log_eps), as torch.logaddexp / jnp.logaddexp
-      const float hi = fmaxf(s, log_eps);
-      logpi_out[row] = hi + log1pf(expf(-fabsf(s - log_eps)));
+template <int R>
+__global__ void __launch_bounds__(max_warps(R) * 32)
+hmc_terms_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  PhaseClock<HMC_PHASES> clk(p.prof);
+  const float* sum = bank_sums<R>(p, smem, clk);
+  if (sum != nullptr) {
+    const int row0 = (int)(blockIdx.x / cg::this_cluster().num_blocks()) * R;
+    for (int r = threadIdx.x >> 5; r < R; r += blockDim.x >> 5) {
+      const int row = row0 + r;
+      if (row < p.n_rows)
+        finish_row(sum + r * WIDTH, p.inv_t2, p.lbd, p.log_eps, p.out0 + row,
+                   p.out1 + (size_t)row * D, warp_scratch(smem), clk);
     }
+  }
+  clk.lap(FINISH);
+  clk.finish();
+}
+
+int launch_terms(const float* z, const float* c, const float* m, float inv_t2, float lbd,
+                 float log_eps, float* logpi_out, float* grad_out, int n_rows, int n_centroids,
+                 Geometry g, long long* prof, cudaStream_t stream) {
+  if (n_rows <= 0) return static_cast<int>(cudaSuccess);
+  const Params p{z, c, m, inv_t2, lbd, log_eps, logpi_out, grad_out, n_rows, n_centroids, prof};
+  switch (g.rows) {
+    case 1: return static_cast<int>(launch(hmc_terms_kernel<1>, p, g, stream));
+    case 2: return static_cast<int>(launch(hmc_terms_kernel<2>, p, g, stream));
+    case 4: return static_cast<int>(launch(hmc_terms_kernel<4>, p, g, stream));
+    case 8: return static_cast<int>(launch(hmc_terms_kernel<8>, p, g, stream));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
+// The rule's geometry for (B, K) on the current card.
 extern "C" int hmc_terms_f32(const float* z, const float* c, const float* m, float inv_t2,
                              float lbd, float log_eps, float* logpi_out, float* grad_out,
                              int n_rows, int n_centroids, cudaStream_t stream) {
-  if (n_rows <= 0) return static_cast<int>(cudaSuccess);
-  const int blocks = (n_rows + ROWS - 1) / ROWS;
-  hmc_terms_kernel<<<blocks, THREADS, 0, stream>>>(z, c, m, inv_t2, lbd, log_eps, logpi_out,
-                                                    grad_out, n_rows, n_centroids);
-  return static_cast<int>(cudaGetLastError());
+  int sms = 0;
+  hmc::Geometry g;
+  cudaError_t err = hmc::device_sms(&sms);
+  if (err == cudaSuccess) err = hmc::hmc_geometry(n_rows, n_centroids, sms, &g);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_terms(z, c, m, inv_t2, lbd, log_eps, logpi_out, grad_out, n_rows, n_centroids,
+                      g, nullptr, stream);
 }
+
+// A given geometry (rows per CTA, warps per CTA, CTAs per cluster), for the
+// sweep (rlvae_tpu_torch.ops.hmc_sweep) and the tests.
+extern "C" int hmc_terms_at_f32(const float* z, const float* c, const float* m, float inv_t2,
+                                float lbd, float log_eps, float* logpi_out, float* grad_out,
+                                int n_rows, int n_centroids, int rows, int warps, int ctas,
+                                cudaStream_t stream) {
+  const hmc::Geometry g{rows, warps, ctas, (n_rows + rows - 1) / rows};
+  return launch_terms(z, c, m, inv_t2, lbd, log_eps, logpi_out, grad_out, n_rows, n_centroids, g,
+                      nullptr, stream);
+}
+
+// The rule's geometry of both kernels on the current card (hmc_bank.cuh): out
+// = {rows per CTA, warps per CTA, CTAs per cluster, clusters}.
+extern "C" int hmc_geometry(int n_rows, int n_centroids, int sms, int* out) {
+  hmc::Geometry g;
+  const cudaError_t err = hmc::hmc_geometry(n_rows, n_centroids, sms, &g);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = g.rows;
+  out[1] = g.warps;
+  out[2] = g.ctas;
+  out[3] = g.clusters;
+  return 0;
+}
+
+// How many clusters of (rows, warps, ctas) the card holds at once (B4's
+// kernel of that many rows), in out[0].
+extern "C" int hmc_cluster_slots(int rows, int warps, int ctas, int* out) {
+  using namespace hmc;
+  const Geometry g{rows, warps, ctas, 1};
+  switch (rows) {
+    case 1: return static_cast<int>(cluster_slots(hmc_terms_kernel<1>, g, out));
+    case 2: return static_cast<int>(cluster_slots(hmc_terms_kernel<2>, g, out));
+    case 4: return static_cast<int>(cluster_slots(hmc_terms_kernel<4>, g, out));
+    case 8: return static_cast<int>(cluster_slots(hmc_terms_kernel<8>, g, out));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+#ifdef HMC_PROFILE
+// ... at a given geometry, with the clock64 sums per phase (HMC_PHASES) in prof.
+extern "C" int hmc_terms_profile_f32(const float* z, const float* c, const float* m,
+                                     float inv_t2, float lbd, float log_eps, float* logpi_out,
+                                     float* grad_out, int n_rows, int n_centroids, int rows,
+                                     int warps, int ctas, long long* prof, cudaStream_t stream) {
+  const hmc::Geometry g{rows, warps, ctas, (n_rows + rows - 1) / rows};
+  return launch_terms(z, c, m, inv_t2, lbd, log_eps, logpi_out, grad_out, n_rows, n_centroids, g,
+                      prof, stream);
+}
+#endif

@@ -56,9 +56,19 @@ SIGNATURES = {
     # z, centroids, matrices, inv_t2, lbd, G^-1, workspace, B, K, n_splits, stream
     "g_inv_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR, _C_PTR,
                   _C_INT, _C_INT, _C_INT, _C_PTR),
-    # z, centroids, matrices, inv_t2, gi_part, v, workspace, B, K, n_splits, stream
-    "hmc_partials_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_PTR, _C_PTR, _C_PTR,
-                         _C_INT, _C_INT, _C_INT, _C_PTR),
+    # z, centroids, matrices, inv_t2, gi_part, v, B, K, stream
+    "hmc_partials_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_PTR, _C_PTR, _C_INT, _C_INT,
+                         _C_PTR),
+    # ... B, K, rows per CTA, warps per CTA, CTAs per cluster, stream: a given geometry
+    "hmc_partials_at_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_PTR, _C_PTR) + (_C_INT,) * 5
+                           + (_C_PTR,),
+    # z, centroids, matrices, inv_t2, lbd, log_eps, log_pi, grad, B, K, rows, warps, ctas, stream
+    "hmc_terms_at_f32": (_C_PTR,) * 3 + (_C_FLOAT,) * 3 + (_C_PTR,) * 2 + (_C_INT,) * 5
+                        + (_C_PTR,),
+    # B, K, SM count, out int[4]: rows per CTA, warps per CTA, CTAs per cluster, clusters
+    "hmc_geometry": (_C_INT,) * 3 + (_C_PTR,),
+    # rows, warps, ctas, out int[1]: how many such clusters the card holds at once
+    "hmc_cluster_slots": (_C_INT,) * 3 + (_C_PTR,),
     # z0, w0, b0, wh, bh, wo, bo, z, ld, ys (null: not written), B, D, H, NB, NH, NT, stream
     "iaf_chain_fwd_f32": (_C_PTR,) * 10 + (_C_INT,) * 6 + (_C_PTR,),
     # ... B, D, H, NB, NH, NT, R, stream_weights, stream: a given R, or streamed weights
@@ -80,15 +90,22 @@ SIGNATURES = {
 }
 
 
-# The define of the IAF-chain kernels' profile build (rlvae_tpu_torch.ops.iaf_sweep),
-# and the entries only that build has: the rule's launch plus clock64 sums per
-# phase (int64[8] forward, int64[10] backward) of one thread.
-PROFILE = "IAF_PROFILE"
+# The defines of the profile build (rlvae_tpu_torch.ops.iaf_sweep and
+# rlvae_tpu_torch.ops.hmc_sweep; one library with both), and the entries only
+# that build has: a launch plus clock64 sums per phase of one thread
+# (int64[8] IAF forward, int64[10] IAF backward, int64[10] each HMC kernel).
+PROFILES = ("IAF_PROFILE", "HMC_PROFILE")
 PROFILE_SIGNATURES = {
     # ... as iaf_chain_fwd_f32 up to NT, then prof, stream
     "iaf_chain_fwd_profile_f32": (_C_PTR,) * 10 + (_C_INT,) * 6 + (_C_PTR,) * 2,
     # ... as iaf_chain_bwd_f32 up to NT, then prof, stream
     "iaf_chain_bwd_profile_f32": (_C_PTR,) * 16 + (_C_INT,) * 6 + (_C_PTR,) * 2,
+    # ... as hmc_terms_at_f32 up to ctas, then prof, stream
+    "hmc_terms_profile_f32": (_C_PTR,) * 3 + (_C_FLOAT,) * 3 + (_C_PTR,) * 2 + (_C_INT,) * 5
+                             + (_C_PTR,) * 2,
+    # ... as hmc_partials_at_f32 up to ctas, then prof, stream
+    "hmc_partials_profile_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_PTR, _C_PTR)
+                                + (_C_INT,) * 5 + (_C_PTR,) * 2,
 }
 
 
@@ -197,11 +214,12 @@ _loaded: Dict[bool, KernelLibrary] = {}
 
 def kernel_library(profile: bool = False) -> KernelLibrary:
     """Build (at first use) and load the kernel library, once per process.
-    ``profile`` gives the IAF-chain kernels' profile build instead, with
-    the entries of ``PROFILE_SIGNATURES`` (a library of its own)."""
+    ``profile`` gives the profile build instead (the IAF-chain and HMC
+    kernels' clock64 laps), with the entries of ``PROFILE_SIGNATURES`` (a
+    library of its own)."""
     with _lock:
         if profile not in _loaded:
-            defines = (PROFILE,) if profile else ()
+            defines = PROFILES if profile else ()
             signatures = {**SIGNATURES, **PROFILE_SIGNATURES} if profile else SIGNATURES
             _loaded[profile] = KernelLibrary(*build(defines=defines), signatures)
         return _loaded[profile]

@@ -38,10 +38,14 @@ bank:
 The centroid-sharded terms (``rlvae_tpu_torch/parallel/metric_parallel.py``)
 sum both over the shards and finish with + lbd I, the Cholesky and G v.
 
-Every matrix is i-major (the TPU kernels' slabs are j-major).  When the
-batch leaves the card's SMs idle and the bank is large (:func:`k_splits`),
-one call is two launches: ranges of the bank summed in separate blocks into
-a workspace, then their sum in range order and the epilogue.
+Every matrix is i-major (the TPU kernels' slabs are j-major).  For the
+metric bundle and G^{-1}, when the batch leaves the card's SMs idle and the
+bank is large (:func:`k_splits`), one call is two launches: ranges of the
+bank summed in separate blocks into a workspace, then their sum in range
+order and the epilogue.  The HMC terms and partials are one launch each at
+any size: the bank is split over the CTAs of a thread-block cluster and the
+warps of a CTA, summed in rank and warp order (``csrc/hmc_bank.cuh``), at
+the geometry of :func:`hmc_geometry`.
 
 Each wrapper (:func:`chol_bundle`, :func:`hmc_terms`, :func:`metric_bundle`,
 :func:`g_inv`, :func:`hmc_partials`) launches its kernel for CUDA tensors and runs its plain
@@ -61,7 +65,7 @@ gradient.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -205,6 +209,89 @@ def hmc_terms_ref(
     return log_pi, grad
 
 
+# The HMC kernels' geometry (csrc/hmc_bank.cuh): centroids per staged chunk,
+# the limits of rows per CTA and CTAs per cluster (the portable cluster size),
+# and the fewest chunks a CTA sums before the bank is split over a cluster.
+HMC_CHUNK, HMC_MAX_ROWS, HMC_MAX_CTAS, HMC_MIN_CTA_CHUNKS = 4, 8, 8, 32
+
+
+def hmc_max_warps(rows: int) -> int:
+    """Warps a CTA of ``rows`` rows may have: 16, or 8 at 8 rows (registers)."""
+    return 16 if rows <= 4 else 8
+
+
+class HMCGeometry(NamedTuple):
+    rows: int      # rows of z per CTA (blocked in each warp's registers)
+    warps: int     # warps per CTA, each summing one range of the CTA's chunks
+    ctas: int      # CTAs per cluster, each summing one range of the bank's chunks
+    clusters: int  # ceil(B / rows)
+
+
+def hmc_geometry(b: int, k: int, sms: int,
+                 cluster_slots: Callable[[int, int, int], int]) -> HMCGeometry:
+    """The launch geometry of the HMC terms and partials for B rows and K
+    centroids on a card with ``sms`` SMs that holds ``cluster_slots(rows,
+    warps, ctas)`` clusters of that shape at once; the launchers' own rule
+    (``hmc_geometry`` in ``csrc/hmc_bank.cuh``, where the slots come from
+    ``cudaOccupancyMaxActiveClusters``; :func:`launch_hmc_geometry` asks
+    it).  C_max = min(8, chunks // HMC_MIN_CTA_CHUNKS), at least 1; the rows
+    per CTA the smallest of 1, 2, 4, 8 whose ceil(B / rows) clusters of C_max
+    CTAs fit within the SMs (8 if none does); the warps enough for one chunk
+    each, at least one per row for the epilogue, at most
+    :func:`hmc_max_warps`; the cluster size the largest C <= C_max whose
+    clusters the card holds at once, else 1."""
+    chunks = -(-k // HMC_CHUNK)
+    c_max = max(1, min(HMC_MAX_CTAS, chunks // HMC_MIN_CTA_CHUNKS))
+    rows = 1
+    while rows < HMC_MAX_ROWS and -(-b // rows) * c_max > sms:
+        rows *= 2
+    clusters = -(-b // rows)
+    warps = min(hmc_max_warps(rows), max(rows, -(-chunks // c_max)))
+    ctas = c_max
+    while ctas > 1 and clusters > cluster_slots(rows, warps, ctas):
+        ctas -= 1
+    return HMCGeometry(rows, warps, ctas, clusters)
+
+
+def launch_hmc_geometry(b: int, k: int, device: torch.device) -> HMCGeometry:
+    """The geometry the HMC launchers take for (B, K) on ``device``, from the
+    library's own rule."""
+    import ctypes
+
+    from rlvae_tpu_torch.ops.build import kernel_library
+
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        raise_on_error("hmc_geometry", kernel_library().hmc_geometry(
+            b, k, torch.cuda.get_device_properties(device).multi_processor_count, out))
+    return HMCGeometry(*out)
+
+
+def hmc_cluster_slots(device: torch.device) -> Callable[[int, int, int], int]:
+    """The card's ``cluster_slots`` for :func:`hmc_geometry`: how many
+    clusters of (rows, warps, ctas) it holds at once, from the library."""
+    import ctypes
+
+    from rlvae_tpu_torch.ops.build import kernel_library
+
+    def slots(rows: int, warps: int, ctas: int) -> int:
+        out = (ctypes.c_int * 1)()
+        with torch.cuda.device(device):
+            raise_on_error("hmc_cluster_slots",
+                           kernel_library().hmc_cluster_slots(rows, warps, ctas, out))
+        return out[0]
+
+    return slots
+
+
+def _check_bank_alignment(name: str, centroids: torch.Tensor, matrices: torch.Tensor) -> None:
+    """The HMC kernels stage the bank with bulk copies, which need 16-byte
+    aligned sources (every row of c and M is 16-byte aligned when its start is)."""
+    for arg, t in (("centroids", centroids), ("matrices", matrices)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must start on a 16-byte boundary")
+
+
 def hmc_terms(
     z: torch.Tensor, centroids: torch.Tensor, matrices: torch.Tensor,
     inv_t2: float, lbd: float, log_eps: float,
@@ -216,6 +303,7 @@ def hmc_terms(
         raise ValueError(f"hmc_terms: unsupported device {z.device}")
     check_inputs("hmc_terms", z.device, z=z, centroids=centroids, matrices=matrices)
     b, k = _check_bank_shapes("hmc_terms", z, centroids, matrices)
+    _check_bank_alignment("hmc_terms", centroids, matrices)
     log_pi = torch.empty((b,), dtype=torch.float32, device=z.device)
     grad = torch.empty((b, KERNEL_DIM), dtype=torch.float32, device=z.device)
     if b == 0:
@@ -283,17 +371,16 @@ def k_splits(b: int, k: int, device: torch.device) -> int:
     return max(1, min(-(-2 * sms // row_blocks), k // MIN_CENTROIDS_PER_SPLIT))
 
 
-def _workspace(b: int, k: int, device: torch.device,
-               width: int = KERNEL_DIM * KERNEL_DIM) -> Tuple[int, Optional[torch.Tensor]]:
+def _workspace(b: int, k: int, device: torch.device) -> Tuple[int, Optional[torch.Tensor]]:
     """(n_splits, workspace) of a launch that sums the bank in ranges:
-    :func:`k_splits` ranges (in [1, K]), and one [B, width] workspace slot
+    :func:`k_splits` ranges (in [1, K]), and one [B, 256] workspace slot
     per range (None for one range).  Freed after the launch is enqueued, the
     workspace goes back to the caching allocator, which hands it out again
     only to work ordered after the launch on the same stream."""
     n = k_splits(b, k, device)
     if n == 1:
         return 1, None
-    return n, torch.empty((n, b, width), dtype=torch.float32, device=device)
+    return n, torch.empty((n, b, KERNEL_DIM * KERNEL_DIM), dtype=torch.float32, device=device)
 
 
 def metric_bundle(
@@ -407,9 +494,6 @@ def hmc_partials_ref(
     return gi, v
 
 
-PARTIALS_WIDTH = KERNEL_DIM * KERNEL_DIM + KERNEL_DIM  # csrc/hmc_partials.cu: a row of gi and v
-
-
 def hmc_partials(
     z: torch.Tensor, centroids: torch.Tensor, matrices: torch.Tensor, inv_t2: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -421,6 +505,7 @@ def hmc_partials(
         raise ValueError(f"hmc_partials: unsupported device {z.device}")
     check_inputs("hmc_partials", z.device, z=z, centroids=centroids, matrices=matrices)
     b, k = _check_bank_shapes("hmc_partials", z, centroids, matrices)
+    _check_bank_alignment("hmc_partials", centroids, matrices)
     d = KERNEL_DIM
     gi = torch.empty((b, d, d), dtype=torch.float32, device=z.device)
     v = torch.empty((b, d), dtype=torch.float32, device=z.device)
@@ -428,11 +513,9 @@ def hmc_partials(
         return gi, v
     from rlvae_tpu_torch.ops.build import kernel_library
 
-    n_splits, part = _workspace(b, k, z.device, PARTIALS_WIDTH)
     code = kernel_library().hmc_partials_f32(
         z.data_ptr(), centroids.data_ptr(), matrices.data_ptr(), float(inv_t2),
-        gi.data_ptr(), v.data_ptr(), None if part is None else part.data_ptr(),
-        b, k, n_splits, stream_handle(z.device),
+        gi.data_ptr(), v.data_ptr(), b, k, stream_handle(z.device),
     )
     raise_on_error("hmc_partials", code)
     hmc_partials.launches += 1

@@ -1,0 +1,113 @@
+"""The HMC kernels' launch geometry, on the CPU.
+
+``hmc_geometry`` is the rule of the launchers in ``csrc/hmc_terms.cu`` and
+``csrc/hmc_partials.cu`` (``hmc_geometry`` in ``csrc/hmc_bank.cuh``); the
+card test ``test_hmc_geometry_matches_the_launchers``
+(``tests/test_torch_kernels.py``) holds it to the library's own answer with
+the card's cluster slots.  Here, with the slots an H100 reports
+(``cudaOccupancyMaxActiveClusters``, ``python -m
+rlvae_tpu_torch.ops.hmc_sweep``) and with a card of more and fewer SMs:
+every row and every chunk of the bank is summed once, by ranges of whole
+chunks in (cluster rank, warp) order; clusters stay within the portable 8
+CTAs and fit in one wave; a small bank is one range.
+"""
+
+import pytest
+
+from rlvae_tpu_torch.ops.metric_kernels import (
+    HMC_CHUNK,
+    HMC_MIN_CTA_CHUNKS,
+    hmc_geometry,
+    hmc_max_warps,
+)
+
+# clusters of C CTAs of 16 warps (or of 8 rows) an H100 (132 SMs) holds at
+# once (hmc_sweep); CTAs of at most 8 warps and 4 rows fit twice on an SM
+H100_SLOTS = {8: 15, 7: 15, 6: 17, 5: 22, 4: 30, 3: 44, 2: 66, 1: 132}
+
+
+def h100_slots(rows, warps, ctas):
+    return H100_SLOTS[ctas] * (2 if warps <= 8 and rows <= 4 else 1)
+
+
+def even_slots(sms):
+    return lambda rows, warps, ctas: sms // ctas
+
+
+CARDS = {"h100": (132, h100_slots), "small": (16, even_slots(16)),
+         "large": (264, even_slots(264))}
+BANKS = (1, 3, 4, 5, 37, 40, 50, 127, 128, 200, 255, 256, 257, 1000, 2000, 5000, 20_000)
+BATCHES = list(range(1, 70)) + [100, 127, 128, 129, 300, 1000, 1024]
+
+
+def ranges(k, g):
+    """The (rank, warp) -> [begin, end) chunk ranges of csrc/hmc_bank.cuh's
+    bank_sums, as it computes them."""
+    chunks = -(-k // HMC_CHUNK)
+    per_cta = -(-chunks // g.ctas)
+    out = {}
+    for rank in range(g.ctas):
+        cta_begin = min(rank * per_cta, chunks)
+        cta_end = min(cta_begin + per_cta, chunks)
+        per_warp = -(-(cta_end - cta_begin) // g.warps)
+        for warp in range(g.warps):
+            begin = min(cta_begin + warp * per_warp, cta_end)
+            out[rank, warp] = (begin, min(begin + per_warp, cta_end))
+    return out
+
+
+@pytest.mark.parametrize("card", sorted(CARDS))
+def test_every_row_and_chunk_is_summed_once_in_order(card):
+    sms, slots = CARDS[card]
+    for k in BANKS:
+        chunks = -(-k // HMC_CHUNK)
+        for b in BATCHES:
+            g = hmc_geometry(b, k, sms, slots)
+            assert g.rows in (1, 2, 4, 8) and 1 <= g.ctas <= 8, (b, k, g)
+            assert min(g.rows, 8) <= g.warps <= hmc_max_warps(g.rows), (b, k, g)
+            # cluster q owns rows [q*R, (q+1)*R) below B: each row once, no empty cluster
+            assert g.clusters == -(-b // g.rows) and (g.clusters - 1) * g.rows < b
+            # the (rank, warp) ranges, taken in that order, tile the chunks once
+            spans = [ranges(k, g)[key] for key in sorted(ranges(k, g))]
+            covered = [c for begin, end in spans for c in range(begin, end)]
+            assert covered == list(range(chunks)), (b, k, g)
+
+
+@pytest.mark.parametrize("card", sorted(CARDS))
+def test_small_banks_take_one_range_and_large_ones_a_cluster(card):
+    sms, slots = CARDS[card]
+    for k in BANKS:
+        chunks = -(-k // HMC_CHUNK)
+        for b in BATCHES:
+            g = hmc_geometry(b, k, sms, slots)
+            if chunks < 2 * HMC_MIN_CTA_CHUNKS:
+                assert g.ctas == 1, (b, k, g)
+            else:  # every CTA of a cluster sums at least HMC_MIN_CTA_CHUNKS chunks
+                assert chunks // g.ctas >= HMC_MIN_CTA_CHUNKS, (b, k, g)
+            if g.ctas > 1:  # one wave: the card holds every cluster at once
+                assert g.clusters <= slots(g.rows, g.warps, g.ctas), (b, k, g)
+
+
+def test_h100_geometry_at_the_measured_shapes():
+    """The shapes the sweep measured on an H100 (PERF.md): one CTA a row at
+    K=50 and 200; at K=20 000 a cluster of 8 for B=1 and 37, of 6 for B=64
+    (16 row groups of 4; 15 clusters of 8 fit, 17 of 6), and one CTA of 8
+    rows for B=1000."""
+    sms = 132
+    want = {(1, 50): (1, 13, 1, 1), (64, 50): (1, 13, 1, 64), (64, 200): (1, 16, 1, 64),
+            (1000, 50): (8, 8, 1, 125), (1, 20_000): (1, 16, 8, 1),
+            (37, 20_000): (4, 16, 8, 10), (64, 20_000): (4, 16, 6, 16),
+            (1000, 20_000): (8, 8, 1, 125)}
+    for (b, k), g in want.items():
+        assert tuple(hmc_geometry(b, k, sms, h100_slots)) == g, (b, k)
+
+
+@pytest.mark.parametrize("b", [1, 37, 64, 1000])
+def test_padding_within_the_last_chunk_keeps_the_geometry(b):
+    """37 centroids padded to 40 (the sharded path's padding to a multiple of
+    4 shards) fill the same chunks: same geometry, same ranges, so the sums
+    are taken in the same order and the padded centroids add exact zeros."""
+    for k, padded in ((37, 40), (50, 52), (1999, 2000), (19_997, 20_000)):
+        g = hmc_geometry(b, k, 132, h100_slots)
+        assert g == hmc_geometry(b, padded, 132, h100_slots)
+        assert ranges(k, g) == ranges(padded, g)

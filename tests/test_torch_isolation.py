@@ -99,7 +99,7 @@ def test_build_command():
     assert sorted(p.name for p in srcs) == ["chol_bundle.cu", "decode_mse.cu", "hmc_partials.cu",
                                             "hmc_terms.cu", "iaf_chain.cu", "iaf_chain_bwd.cu",
                                             "metric_bundle.cu"]
-    assert [p.name for p in build.headers()] == ["iaf_cluster.cuh"]
+    assert [p.name for p in build.headers()] == ["hmc_bank.cuh", "iaf_cluster.cuh", "sm90.cuh"]
     assert all(p.parent == REPO / "rlvae_tpu_torch" / "csrc" for p in srcs)
     assert out.parent == REPO / "build" / "rlvae_tpu_torch"
     assert re.fullmatch(r"librlvae_kernels_[0-9a-f]{16}\.so", out.name)
@@ -119,8 +119,9 @@ def test_signatures_match_the_sources():
         text = src.read_text()
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
             found[name] = len(params.split(","))
-        for block in re.findall(rf"#ifdef {build.PROFILE}\n(.*?)#endif", text, re.S):
-            profiled |= set(re.findall(r'extern "C" int (\w+)\(', block))
+        for define in build.PROFILES:
+            for block in re.findall(rf"#ifdef {define}\n(.*?)#endif", text, re.S):
+                profiled |= set(re.findall(r'extern "C" int (\w+)\(', block))
     signatures = {**build.SIGNATURES, **build.PROFILE_SIGNATURES}
     assert {k: len(v) for k, v in signatures.items()} == found
     assert profiled == set(build.PROFILE_SIGNATURES)

@@ -27,7 +27,9 @@ output bit-identical from one launch to the next.  HMC partials (one shard's
 gi_part and v): within 1e-5 (gi_part) and 1e-4 (v) of max(1, |plain|)
 elementwise, against fp64 no worse than 4x the plain version (or 1e-5 of
 scale), bit-identical on relaunch, and a bank padded with far centroids and
-zero matrices bit-identical to the unpadded one."""
+zero matrices bit-identical to the unpadded one.  Both HMC kernels also at
+geometries other than their rule's (``hmc_*_at_f32``), replayed in a CUDA
+graph bit for bit, and their rule held to ``metric_kernels.hmc_geometry``."""
 
 import numpy as np
 import pytest
@@ -46,7 +48,8 @@ from rlvae_tpu_torch.ops.iaf_kernels import (
     iaf_chain_fwd_ref,
     stack_chain,
 )
-from rlvae_tpu_torch.ops import metric_kernels, recon_kernels
+from rlvae_tpu_torch.ops import hmc_sweep, metric_kernels, recon_kernels
+from rlvae_tpu_torch.ops.build import kernel_library
 from rlvae_tpu_torch.ops.metric_kernels import (
     chol_bundle,
     chol_bundle_ref,
@@ -321,6 +324,80 @@ def test_hmc_terms_matches_plain_and_fp64(dev, b, k):
         torch.testing.assert_close(got[0][b - n_far:], plain[0][b - n_far:], rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("geometry", [(1, 16, 8), (2, 8, 4), (4, 16, 6), (8, 8, 8), (4, 3, 2),
+                                      (8, 8, 1)])
+def test_hmc_terms_at_other_geometries(dev, geometry):
+    """B4 at a given geometry (``hmc_terms_at_f32``) against the plain version
+    at B=64, K=2000, with the tolerances of the rule's launch; far rows on the
+    plateau with a zero gradient; bit-identical on relaunch."""
+    c, m = _bank(2000, 13)
+    rng = np.random.default_rng(14)
+    z = c[rng.integers(0, 2000, size=64)] + 0.05 * rng.normal(size=(64, 16))
+    z[-2:] += 100.0
+    zt, ct, mt = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (z, c, m))
+    lib = kernel_library()
+    got, again = (hmc_sweep.terms_at(lib, zt, ct, mt, geometry) for _ in range(2))
+    plain = hmc_terms_ref(zt, ct, mt, hmc_sweep.INV_T2, hmc_sweep.LBD, hmc_sweep.LOG_EPS)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], plain[0], rtol=0, atol=1e-5)
+    _scaled_close(got[1], plain[1])
+    assert torch.all(got[1][-2:] == 0)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def test_hmc_terms_padded_bank_is_bit_identical(dev):
+    """37 centroids padded to 40 (far centroids, zero matrices) give B4 the
+    same chunks and geometry: the padded centroids add exact zeros, so log pi
+    and the gradient keep their bits."""
+    c, m = _bank(37, 5)
+    cp = np.concatenate([c, np.full((3, 16), 1e6, np.float32)])
+    mp = np.concatenate([m, np.zeros((3, 16, 16), np.float32)])
+    rng = np.random.default_rng(10)
+    for b in (1, 37, 64, 1000):
+        z = c[rng.integers(0, 37, size=b)] + 0.05 * rng.normal(size=(b, 16))
+        zt = torch.tensor(z, dtype=torch.float32, device=dev)
+        args = (1.0 / 9.0, 0.01, float(np.log(np.float32(1e-10))))
+        got = hmc_terms(zt, *(torch.tensor(v, device=dev) for v in (c, m)), *args)
+        padded = hmc_terms(zt, *(torch.tensor(v, device=dev) for v in (cp, mp)), *args)
+        assert torch.equal(got[0], padded[0]) and torch.equal(got[1], padded[1]), b
+
+
+def test_hmc_kernels_replay_in_a_cuda_graph(dev):
+    """The HMC launchers neither synchronise nor allocate: after a warm-up
+    launch, B4 and B8 capture into a CUDA graph, at the rule's geometry with
+    one CTA a row (K=50) and with clusters (K=20 000), whose replay gives the
+    eager launches' bits."""
+    for k in (50, 20_000):
+        c, m = _bank(k, 21)
+        rng = np.random.default_rng(k)
+        z = c[rng.integers(0, k, size=64)] + 0.05 * rng.normal(size=(64, 16))
+        zt, ct, mt = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (z, c, m))
+        args = (4.0, 0.01, float(np.log(np.float32(1e-10))))
+        eager_t = hmc_terms(zt, ct, mt, *args)
+        eager_p = hmc_partials(zt, ct, mt, 4.0)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out_t = hmc_terms(zt, ct, mt, *args)
+            out_p = hmc_partials(zt, ct, mt, 4.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(map(torch.equal, out_t, eager_t)) and all(map(torch.equal, out_p, eager_p)), k
+
+
+def test_hmc_geometry_matches_the_launchers(dev):
+    """``metric_kernels.hmc_geometry`` with the card's cluster slots against
+    the launchers' own rule, read from the library; a cluster never exceeds
+    8 CTAs and the card holds all of a launch's clusters at once."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slots = metric_kernels.hmc_cluster_slots(dev)
+    for k in (1, 37, 40, 50, 200, 256, 2000, 20_000):
+        for b in list(range(1, 70)) + [100, 300, 1000]:
+            g = metric_kernels.hmc_geometry(b, k, sms, slots)
+            assert metric_kernels.launch_hmc_geometry(b, k, dev) == g, (b, k)
+            assert 1 <= g.ctas <= 8 and (g.ctas == 1 or g.clusters <= slots(*g[:3])), (b, k, g)
+
+
 def test_hmc_terms_rejects_bad_inputs(dev):
     z = torch.zeros((4, 16), device=dev)
     c = torch.zeros((3, 16), device=dev)
@@ -483,18 +560,19 @@ def test_g_and_g_inv_gradients_on_the_card_equal_the_cpu(dev, which):
     torch.testing.assert_close(grads[1], grads[0], rtol=1e-4, atol=1e-5 * grads[0].abs().max())
 
 
-@pytest.mark.parametrize("b,k,n_splits", [
+@pytest.mark.parametrize("b,k,geometry", [
     *((b, k, None) for k in (1, 37, 50, 200, 20_000) for b in (1, 37, 64)),
-    # the bank summed in 1, 2, 7 or 40 ranges, each range in its own block
-    *((64, 20_000, n) for n in (1, 2, 7, 40)), (5, 200, 3), (37, 2000, 5),
+    # a given geometry (rows per CTA, warps per CTA, CTAs per cluster) in place
+    # of the rule's: rows unblocked, blocked 4 and 8; clusters of 8, 6, 3 and 1
+    *((64, 20_000, g) for g in ((1, 16, 8), (4, 16, 6), (8, 8, 8), (2, 4, 3))),
+    (5, 200, (2, 8, 2)), (37, 2000, (4, 16, 5)),
 ])
-def test_hmc_partials_matches_plain_and_fp64(dev, monkeypatch, b, k, n_splits):
+def test_hmc_partials_matches_plain_and_fp64(dev, b, k, geometry):
     """The kernel against its plain fp32 version and an fp64 evaluation, and
     against itself on relaunch; the last rows of a batch lie far from every
     centroid (every weight underflows: gi_part and v exactly 0).  A given
-    ``n_splits`` replaces the wrapper's own choice of ranges."""
-    if n_splits is not None:
-        monkeypatch.setattr(metric_kernels, "k_splits", lambda b, k, device: n_splits)
+    ``geometry`` launches ``hmc_partials_at_f32`` in place of the wrapper's
+    rule."""
     c, m = _bank(k, 11 * k + b)
     rng = np.random.default_rng(b + 2)
     z = c[rng.integers(0, k, size=b)] + 0.05 * rng.normal(size=(b, 16))
@@ -502,12 +580,16 @@ def test_hmc_partials_matches_plain_and_fp64(dev, monkeypatch, b, k, n_splits):
         z[-2:] += 100.0
     zt, ct, mt = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (z, c, m))
     before = hmc_partials.launches
-    got = hmc_partials(zt, ct, mt, 4.0)
-    again = hmc_partials(zt, ct, mt, 4.0)
+    if geometry is None:
+        got = hmc_partials(zt, ct, mt, 4.0)
+        again = hmc_partials(zt, ct, mt, 4.0)
+        assert hmc_partials.launches == before + 2
+    else:
+        lib = kernel_library()
+        got, again = (hmc_sweep.partials_at(lib, zt, ct, mt, geometry) for _ in range(2))
     plain = hmc_partials_ref(zt, ct, mt, 4.0)
     want64 = hmc_partials_ref(zt.double(), ct.double(), mt.double(), 4.0)
     torch.cuda.synchronize()
-    assert hmc_partials.launches == before + 2
     assert got[0].shape == (b, 16, 16) and got[1].shape == (b, 16)
     for out, rerun, p, e, tol in zip(got, again, plain, want64, (1e-5, 1e-4)):
         assert torch.equal(out, rerun)
