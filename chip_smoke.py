@@ -25,8 +25,11 @@ Phases, each printing one JSON line with its elapsed seconds:
    HMC terms bit-identical on relaunch and in a graph replay.  The decode+MSE forward, dh and dW/db are held to
    their plain versions (the forward's loss also to fp64) at M=128 (the fast
    train step's B=16), 512 and 37 rows, N=12288 and 300, on the pretrained
-   decoder's weights; each is timed at M=128 and 512 beside cuBLAS's time
-   for the forward's bf16 product alone.  The HMC partials (one shard's
+   decoder's weights, bit-identical on relaunch and in a CUDA-graph replay;
+   each is timed at M=128 and 512, warm (``device_ms``) and cold (each
+   launch after a 256 MB write that evicts the L2, the write's own time
+   subtracted: ``cold_ms``), beside cuBLAS's time for the entry point's
+   last bf16 product alone.  The HMC partials (one shard's
    G^{-1} sum and gradient contraction) are held to their plain version and
    to fp64 at K=50, 200, 20 000 and 37 padded to 40, B=64, 37, 1 and 1000,
    bit-identical on relaunch and in a graph replay, with the geometry of
@@ -177,6 +180,7 @@ DECODE_FP64_FACTOR, DECODE_FP64_RTOL = 2.0, 1e-6
 DECODE_ROWS = (TRAIN_BATCH * 8, 512, 37)  # B*T rows: the fast train step's, a larger, a ragged
 DECODE_COLS = (12288, 300)
 DECODE_TIMED_ROWS = (TRAIN_BATCH * 8, 512)
+DECODE_FLUSH_BYTES = 256 << 20  # written between cold launches: 5x the H100's 50 MB L2
 # HMC partials, kernel vs plain fp32: gi_part and v within these multiples of
 # max(1, |plain|) elementwise (sums over K in another order); against fp64,
 # the kernel's error at most IAF_FP64_FACTOR times the plain version's, or
@@ -248,6 +252,31 @@ def device_ms(torch, fn, n: int = GRAPH_LAUNCHES, replays: int = 3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (n * replays), out
+
+
+def cold_device_ms(torch, fn, flush, n: int = GRAPH_LAUNCHES) -> float:
+    """Device ms per call of ``fn`` with the L2 cache evicted before each: a
+    CUDA graph of (write ``flush``, ``fn``) pairs less one of the writes
+    alone, both replayed as in :func:`device_ms`."""
+    write = lambda: flush.fill_(1.0)  # noqa: E731
+
+    def pair():
+        write()
+        return fn()
+
+    return device_ms(torch, pair, n)[0] - device_ms(torch, write, n)[0]
+
+
+def graph_replay_equal(torch, fn, eager) -> bool:
+    """``fn`` captured once in a CUDA graph (after the eager launches that gave
+    ``eager``), replayed: the same bits as ``eager``."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, c) for a, c in zip(out, eager))
 
 
 def with_device_ms(torch, record, fn):
@@ -939,7 +968,9 @@ def decode_inputs(torch, dec, m: int, n: int, seed: int):
 def run_decode_checks(torch, dev):
     """decode+MSE's three entry points against their plain versions (the
     loss also against fp64) at DECODE_ROWS x DECODE_COLS, bit-identical on a
-    second launch; each timed at DECODE_TIMED_ROWS x 12288."""
+    second launch and in a CUDA-graph replay; each timed at DECODE_TIMED_ROWS
+    x 12288, warm and cold."""
+    from rlvae_tpu_torch.ops import recon_kernels
     from rlvae_tpu_torch.ops.recon_kernels import (
         decode_mse,
         decode_mse_bwd_dh,
@@ -968,6 +999,9 @@ def run_decode_checks(torch, dev):
             same = (torch.equal(loss, decode_mse(*args))
                     and torch.equal(dh, decode_mse_bwd_dh(*args, g))
                     and torch.equal(dw, dw2) and torch.equal(db, db2))
+            replayed = graph_replay_equal(
+                torch, lambda: (decode_mse(*args), decode_mse_bwd_dh(*args, g),
+                                *decode_mse_bwd_dw(*args, g)), (loss, dh, dw, db))
             torch.cuda.synchronize()
             shape = f"M={m},K=512,N={n}"
             err_k, err_p = abs(float(loss) - float(ref64)), abs(float(ref) - float(ref64))
@@ -1004,18 +1038,27 @@ def run_decode_checks(torch, dev):
             cases["decode_mse_bwd_dw"].append(dw_case)
             for name in names:
                 cases[name][-1]["bit_identical_on_relaunch"] = same
-                check(cases[name][-1]["ok"] and same
+                cases[name][-1]["bit_identical_in_graph_replay"] = replayed
+                check(cases[name][-1]["ok"] and same and replayed
                       and cases["decode_mse_bwd_dh"][-1]["masked_rows_zero"],
                       f"{name} disagrees at {shape}: {cases[name][-1]}")
 
-    # timing at the fast train step's rows and a larger batch, N = 12288
+    # timing at the fast train step's rows and a larger batch, N = 12288:
+    # warm (a replayed graph, W and x in L2 where they fit) and cold (each
+    # launch after an L2-evicting write, that write's time subtracted)
     timed = {name: {} for name in names}
+    flush = torch.empty(DECODE_FLUSH_BYTES // 4, device=dev)
     for m in DECODE_TIMED_ROWS:
         h, w, b, x, rw = args = decode_inputs(torch, dec, m, DECODE_COLS[0], seed=m)
         shape, mkn = f"M={m},K=512,N={DECODE_COLS[0]}", 2.0 * m * 512 * DECODE_COLS[0]
         ins = nbytes(h, w, b, x, rw)
         w_bf16 = w.to(torch.bfloat16)
-        cublas_ms = time_ms(torch, lambda: torch.matmul(h, w_bf16.t()), 20)
+        dp_bf16 = recon_kernels._dp(h, w, b, x, rw, torch.float32).to(torch.bfloat16)
+        products = {  # cuBLAS's bf16 product alone, each entry point's last product
+            "decode_mse_fwd": lambda: torch.matmul(h, w_bf16.t()),
+            "decode_mse_bwd_dh": lambda: torch.matmul(dp_bf16, w_bf16),
+            "decode_mse_bwd_dw": lambda: torch.matmul(dp_bf16.t(), h),
+        }
         runs = {
             # (kernel, plain version, bytes of its inputs and outputs, operations)
             "decode_mse_fwd": (lambda: decode_mse(*args), lambda: decode_mse_ref(*args),
@@ -1031,9 +1074,11 @@ def run_decode_checks(torch, dev):
             bms, by = bound_ms(n_bytes, n_ops, PEAK_BF16_TENSOR_FLOPS)
             timed[name][shape] = {"ms": time_ms(torch, kernel, 10),
                                   "device_ms": device_ms(torch, kernel)[0],
+                                  "cold_ms": cold_device_ms(torch, kernel, flush),
                                   "plain_ms": time_ms(torch, plain, 5),
                                   "bound_ms": bms, "bound_by": by,
-                                  "cublas_bf16_product_ms": cublas_ms}
+                                  "cublas_bf16_product_ms": device_ms(torch, products[name])[0]}
+    del flush
 
     main_shape = f"M={DECODE_TIMED_ROWS[0]},K=512,N={DECODE_COLS[0]}"
     lines = {"decode_mse_fwd": 167, "decode_mse_bwd_dh": 183, "decode_mse_bwd_dw": 192}
@@ -1042,7 +1087,7 @@ def run_decode_checks(torch, dev):
            f"bf16 step (2^-7) of each element plus that; loss vs fp64 at most "
            f"{DECODE_FP64_FACTOR}x "
            f"the plain fp32 version's error, or {DECODE_FP64_RTOL} relative; rows with rw=0 give "
-           f"exact zeros in dh; bit-identical on relaunch")
+           f"exact zeros in dh; bit-identical on relaunch and in a CUDA-graph replay")
     out = {}
     for name in names:
         t = timed[name][main_shape]
@@ -1055,12 +1100,15 @@ def run_decode_checks(torch, dev):
             "bound_peaks": "products at the bf16 tensor-core peak (989 TFLOP/s), "
                            "bytes at 3.35 TB/s",
             "library_ms": None,
+            "cold_ms": t["cold_ms"],
             "cublas_bf16_product_ms": t["cublas_bf16_product_ms"],
-            "cublas_bf16_product": "torch.matmul of bf16 [M,512]x[512,N], the forward's product "
-                                   "alone (no PyTorch call computes decode+MSE)",
+            "cublas_bf16_product": "device ms of torch.matmul in bf16 of the entry point's last "
+                                   "product alone (forward [M,512]x[512,N], dh [M,N]x[N,512], "
+                                   "dW [N,M]x[M,512]); no PyTorch call computes decode+MSE",
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms_by_shape": {k: v["ms"] for k, v in timed[name].items()},
             "device_ms_by_shape": {k: v["device_ms"] for k, v in timed[name].items()},
+            "cold_ms_by_shape": {k: v["cold_ms"] for k, v in timed[name].items()},
             "plain_ms_by_shape": {k: v["plain_ms"] for k, v in timed[name].items()},
             "bound_ms_by_shape": {k: v["bound_ms"] for k, v in timed[name].items()},
             "cublas_bf16_product_ms_by_shape": {k: v["cublas_bf16_product_ms"]

@@ -1,7 +1,8 @@
 // What the Hopper kernels of this package share: the PTX of mbarriers, bulk
 // (TMA) and 4-byte asynchronous copies, st.async and mapa; the clock64 phase
 // profile of the profile build; and the shared-memory opt-in.  Used by the
-// IAF-chain kernels (iaf_cluster.cuh) and the HMC kernels (hmc_bank.cuh).
+// IAF-chain kernels (iaf_cluster.cuh), the HMC kernels (hmc_bank.cuh) and
+// decode+MSE (decode_mse.cu).
 #pragma once
 
 #include <cuda.h>
@@ -132,7 +133,7 @@ __device__ __forceinline__ void st_async_v2(uint32_t raddr, const float2& v, uin
 }
 
 // ---------------------------------------------------------------------------
-// Profile (-DIAF_PROFILE or -DHMC_PROFILE only)
+// Profile (-DIAF_PROFILE, -DHMC_PROFILE or -DDECODE_PROFILE only)
 // ---------------------------------------------------------------------------
 
 // N clock64 sums, written to `prof` by thread 0 of cluster 0's rank 0: lap(k)
@@ -140,7 +141,7 @@ __device__ __forceinline__ void st_async_v2(uint32_t raddr, const float2& v, uin
 // kernel's cycles in slot N-1.  Without a profile define every call is empty.
 template <int N>
 struct PhaseClock {
-#if defined(IAF_PROFILE) || defined(HMC_PROFILE)
+#if defined(IAF_PROFILE) || defined(HMC_PROFILE) || defined(DECODE_PROFILE)
   long long* out;
   long long acc[N];
   long long mark, start;

@@ -81,20 +81,24 @@ SIGNATURES = {
     # B, D, H, NH, out int[6]: R, C, clusters, smem bytes, resident, active clusters
     "iaf_chain_fwd_geometry": (_C_INT,) * 4 + (_C_PTR,),
     "iaf_chain_bwd_geometry": (_C_INT,) * 4 + (_C_PTR,),
-    # h (bf16), w, b, x, rw, partials, loss, M, K, N, stream
-    "decode_mse_fwd_f32": (_C_PTR,) * 7 + (_C_INT,) * 3 + (_C_PTR,),
-    # h (bf16), w, b, x, rw, g, partials, dh, M, K, N, n_ranges, round_dh, stream
-    "decode_mse_bwd_dh_f32": (_C_PTR,) * 8 + (_C_INT,) * 5 + (_C_PTR,),
-    # h (bf16), w, b, x, rw, g, dw, db, M, K, N, stream
-    "decode_mse_bwd_dw_f32": (_C_PTR,) * 8 + (_C_INT,) * 3 + (_C_PTR,),
+    # h (bf16), w, b, x, rw, partials, loss, M, K, N, ctas, row groups, stream
+    "decode_mse_fwd_f32": (_C_PTR,) * 7 + (_C_INT,) * 5 + (_C_PTR,),
+    # h (bf16), w, b, x, rw, g, workspace, dh, M, K, N, cluster, clusters,
+    # row groups, round_dh, stream
+    "decode_mse_bwd_dh_f32": (_C_PTR,) * 8 + (_C_INT,) * 7 + (_C_PTR,),
+    # h (bf16), w, b, x, rw, g, dw, db, M, K, N, ctas, stream
+    "decode_mse_bwd_dw_f32": (_C_PTR,) * 8 + (_C_INT,) * 4 + (_C_PTR,),
+    # K, cluster, out int[1]: how many such dh clusters the card holds at once
+    "decode_mse_dh_cluster_slots": (_C_INT, _C_INT, _C_PTR),
 }
 
 
-# The defines of the profile build (rlvae_tpu_torch.ops.iaf_sweep and
-# rlvae_tpu_torch.ops.hmc_sweep; one library with both), and the entries only
-# that build has: a launch plus clock64 sums per phase of one thread
-# (int64[8] IAF forward, int64[10] IAF backward, int64[10] each HMC kernel).
-PROFILES = ("IAF_PROFILE", "HMC_PROFILE")
+# The defines of the profile build (rlvae_tpu_torch.ops.iaf_sweep,
+# hmc_sweep and decode_sweep; one library with all three), and the entries
+# only that build has: a launch plus clock64 sums per phase of one thread
+# (int64[8] IAF forward, int64[10] IAF backward, int64[10] each HMC kernel,
+# int64[9] each decode+MSE kernel).
+PROFILES = ("IAF_PROFILE", "HMC_PROFILE", "DECODE_PROFILE")
 PROFILE_SIGNATURES = {
     # ... as iaf_chain_fwd_f32 up to NT, then prof, stream
     "iaf_chain_fwd_profile_f32": (_C_PTR,) * 10 + (_C_INT,) * 6 + (_C_PTR,) * 2,
@@ -106,6 +110,12 @@ PROFILE_SIGNATURES = {
     # ... as hmc_partials_at_f32 up to ctas, then prof, stream
     "hmc_partials_profile_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_PTR, _C_PTR)
                                 + (_C_INT,) * 5 + (_C_PTR,) * 2,
+    # ... as decode_mse_fwd_f32 up to row groups, then prof, stream
+    "decode_mse_fwd_profile_f32": (_C_PTR,) * 7 + (_C_INT,) * 5 + (_C_PTR,) * 2,
+    # ... as decode_mse_bwd_dh_f32 up to round_dh, then prof, stream
+    "decode_mse_bwd_dh_profile_f32": (_C_PTR,) * 8 + (_C_INT,) * 7 + (_C_PTR,) * 2,
+    # ... as decode_mse_bwd_dw_f32 up to ctas, then prof, stream
+    "decode_mse_bwd_dw_profile_f32": (_C_PTR,) * 8 + (_C_INT,) * 4 + (_C_PTR,) * 2,
 }
 
 
@@ -214,8 +224,8 @@ _loaded: Dict[bool, KernelLibrary] = {}
 
 def kernel_library(profile: bool = False) -> KernelLibrary:
     """Build (at first use) and load the kernel library, once per process.
-    ``profile`` gives the profile build instead (the IAF-chain and HMC
-    kernels' clock64 laps), with the entries of ``PROFILE_SIGNATURES`` (a
+    ``profile`` gives the profile build instead (the IAF-chain, HMC and
+    decode+MSE kernels' clock64 laps), with the entries of ``PROFILE_SIGNATURES`` (a
     library of its own)."""
     with _lock:
         if profile not in _loaded:

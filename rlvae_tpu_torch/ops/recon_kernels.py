@@ -20,19 +20,21 @@ with g the cotangent of the loss.  The reconstruction s is never stored.
 What bounds it on an H100, and what the design does about it: see the
 header of ``csrc/decode_mse.cu``.  In short, at the fast preset's training
 shape (M = 128, K = 512, N = 12288) W (25 MB as fp32) and x dominate the
-bytes, and the backward does four products of the forward's size; the kernels
-compute the products in their own bodies with fp32 FMAs on bf16-rounded
-operands, keep no [M, N] tensor in device memory, and sum across blocks only
-in second passes with a fixed order (no atomics), so results are
-bit-identical from run to run.
+bytes, so each entry point reads W once per launch (a CTA keeps its columns
+of W in shared memory as bf16 while it walks the rows), does every product
+on the tensor cores (``mma.sync`` bf16 -> fp32), keeps no [M, N] tensor in
+device memory, and sums across CTAs only in fixed orders (no atomics), so
+results are bit-identical from run to run and in a CUDA-graph replay.
+:func:`decode_geometry` is the launch geometry (CTAs along N, row groups,
+the dh cluster size), a pure function of (M, N, K, SMs, cluster slots).
 
 - :func:`decode_mse` (forward), :func:`decode_mse_bwd_dh` and
   :func:`decode_mse_bwd_dw` launch their kernels for CUDA tensors and run
   their plain versions (:func:`decode_mse_ref`, :func:`decode_mse_dh_ref`,
   :func:`decode_mse_dw_ref`) for CPU tensors; any other device raises.  Each
   wrapper's ``launches`` counts the calls that launched its kernel (the
-  forward and dh calls are two kernels each, a tile pass and a fixed-order
-  sum, and count once).
+  forward is two kernels, a tile pass and a fixed-order sum, and dh two
+  when more than one cluster covers N; each counts once).
 - :class:`DecodeMSE` is the ``torch.autograd.Function`` (the counterpart of
   the ``jax.custom_vjp`` at ``recon_kernels.py:228-253``): its forward is one
   :func:`decode_mse`, its backward one :func:`decode_mse_bwd_dh` and one
@@ -47,15 +49,20 @@ does not.
 
 from __future__ import annotations
 
-from typing import Tuple
+import threading
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
 from rlvae_tpu_torch.ops._launch import check_inputs, raise_on_error, stream_handle
 
 MAX_HIDDEN = 512  # csrc/decode_mse.cu: MAX_K
-FWD_TILE = 64  # csrc/decode_mse.cu: F_BM = F_BN, the forward's output tile
-DH_ROWS, DH_COLS = 32, 64  # csrc/decode_mse.cu: H_BM, H_BN
+# csrc/decode_mse.cu: rows per tile of the forward and dh (F_BM, H_BM), and
+# the most 8-column blocks of N a CTA owns in the forward, dh and dW/db
+# (F_N8, H_N8, W_N8)
+FWD_ROWS, DH_ROWS = 64, 32
+FWD_BLOCKS, DH_BLOCKS, DW_BLOCKS = 12, 14, 12
+MAX_CLUSTER = 8  # the portable cluster size
 
 
 def _work_dtype(x: torch.Tensor) -> torch.dtype:
@@ -133,19 +140,93 @@ def _kernel_args(name: str, h, w, b, x, rw, g=None):
     return m, k, n, h.to(torch.bfloat16).contiguous()
 
 
+class DecodeGeometry(NamedTuple):
+    fwd_ctas: int        # forward: CTAs along N, each <= FWD_BLOCKS 8-column blocks
+    fwd_row_groups: int  # forward: CTAs along M, each walking every that-many-th row tile
+    dh_cluster: int      # dh: CTAs per cluster (rank-ordered sum in shared memory)
+    dh_clusters: int     # dh: clusters along N; [clusters, M, K] partials when > 1
+    dh_row_groups: int   # dh: clusters along M
+    dw_ctas: int         # dW/db: CTAs along N, each walking all of M
+
+
+def decode_geometry(m: int, n: int, k: int, sms: int,
+                    cluster_slots: Callable[[int, int], int]) -> DecodeGeometry:
+    """The launch geometry of decode+MSE for h [M, K] and W [N, K] on a card
+    with ``sms`` SMs that holds ``cluster_slots(k, c)`` clusters of c dh CTAs
+    at once (``cudaOccupancyMaxActiveClusters``; :func:`dh_cluster_slots`).
+
+    Each entry point splits N into ranges of whole 8-column blocks, as few
+    CTAs as the most blocks a CTA holds allow (one CTA per SM: W's columns
+    fill its shared memory), so W crosses device memory once.  The forward
+    adds row groups while the SMs last.  dh takes the largest cluster (<= 8)
+    whose clusters the card holds in one wave (fewest partials), else 8, and
+    adds row groups while the cluster slots last.  dW/db walks all of M."""
+    if not (m >= 1 and n >= 1 and 1 <= k <= MAX_HIDDEN and sms >= 1):
+        raise ValueError(f"decode_geometry: M={m}, N={n}, K={k}, SMs={sms}")
+    blocks = -(-n // 8)
+    fwd_ctas = -(-blocks // FWD_BLOCKS)
+    fwd_row_groups = max(1, min(-(-m // FWD_ROWS), sms // fwd_ctas))
+    need = -(-blocks // DH_BLOCKS)
+    cluster = min(MAX_CLUSTER, need)
+    for c in range(cluster, 0, -1):
+        if -(-need // c) <= cluster_slots(k, c):
+            cluster = c
+            break
+    clusters = -(-need // cluster)
+    dh_row_groups = max(1, min(-(-m // DH_ROWS), cluster_slots(k, cluster) // clusters))
+    return DecodeGeometry(fwd_ctas, fwd_row_groups, cluster, clusters, dh_row_groups,
+                          -(-blocks // DW_BLOCKS))
+
+
+_slots_lock = threading.Lock()
+_slots: Dict[Tuple[int, int, int], int] = {}
+
+
+def dh_cluster_slots(device: torch.device) -> Callable[[int, int], int]:
+    """The card's ``cluster_slots`` for :func:`decode_geometry`, from the
+    library (cached per device, padded K and cluster size)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+
+    def slots(k: int, cluster: int) -> int:
+        key = (index, -(-k // 64), cluster)
+        with _slots_lock:
+            if key not in _slots:
+                import ctypes
+
+                from rlvae_tpu_torch.ops.build import kernel_library
+
+                out = (ctypes.c_int * 1)()
+                with torch.cuda.device(index):
+                    raise_on_error("decode_mse_dh_cluster_slots",
+                                   kernel_library().decode_mse_dh_cluster_slots(k, cluster, out))
+                _slots[key] = out[0]
+            return _slots[key]
+
+    return slots
+
+
+def launch_decode_geometry(m: int, n: int, k: int, device: torch.device) -> DecodeGeometry:
+    """The geometry the wrappers launch with on ``device``."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return decode_geometry(m, n, k, sms, dh_cluster_slots(device))
+
+
 def decode_mse(h, w, b, x, rw) -> torch.Tensor:
     """The loss, 0-d fp32; kernel on CUDA, plain version on CPU."""
     if x.device.type == "cpu":
         return decode_mse_ref(h, w, b, x, rw)
     m, k, n, hb = _kernel_args("decode_mse", h, w, b, x, rw)
-    tiles = -(-m // FWD_TILE) * -(-n // FWD_TILE)
-    partials = torch.empty((tiles,), dtype=torch.float32, device=x.device)
+    geo = launch_decode_geometry(m, n, k, x.device)
+    partials = torch.empty((geo.fwd_ctas * geo.fwd_row_groups,), dtype=torch.float32,
+                           device=x.device)
     loss = torch.empty((), dtype=torch.float32, device=x.device)
     from rlvae_tpu_torch.ops.build import kernel_library
 
     code = kernel_library().decode_mse_fwd_f32(
         hb.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(), rw.data_ptr(),
-        partials.data_ptr(), loss.data_ptr(), m, k, n, stream_handle(x.device))
+        partials.data_ptr(), loss.data_ptr(), m, k, n, geo.fwd_ctas, geo.fwd_row_groups,
+        stream_handle(x.device))
     raise_on_error("decode_mse", code)
     decode_mse.launches += 1
     return loss
@@ -154,29 +235,22 @@ def decode_mse(h, w, b, x, rw) -> torch.Tensor:
 decode_mse.launches = 0
 
 
-def dh_ranges(m: int, n: int, device: torch.device) -> int:
-    """How many column ranges the dh kernel splits N into: about two blocks
-    per SM over the ceil(M/32) row tiles, at most one range per 64-column
-    subtile.  Each range is a [M, K] fp32 partial in the workspace."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    row_tiles, subtiles = -(-m // DH_ROWS), -(-n // DH_COLS)
-    return max(1, min(subtiles, -(-2 * sms // row_tiles)))
-
-
 def decode_mse_bwd_dh(h, w, b, x, rw, g) -> torch.Tensor:
     """dh [M, K] in h's dtype; kernel on CUDA, plain version on CPU."""
     if x.device.type == "cpu":
         return decode_mse_dh_ref(h, w, b, x, rw, g)
     g = g.detach().to(torch.float32).reshape(()).contiguous()
     m, k, n, hb = _kernel_args("decode_mse_bwd_dh", h, w, b, x, rw, g)
-    ranges = dh_ranges(m, n, x.device)
-    partials = torch.empty((ranges, m, k), dtype=torch.float32, device=x.device)
+    geo = launch_decode_geometry(m, n, k, x.device)
+    workspace = (torch.empty((geo.dh_clusters, m, k), dtype=torch.float32, device=x.device)
+                 if geo.dh_clusters > 1 else None)
     dh = torch.empty((m, k), dtype=torch.float32, device=x.device)
     from rlvae_tpu_torch.ops.build import kernel_library
 
     code = kernel_library().decode_mse_bwd_dh_f32(
         hb.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(), rw.data_ptr(), g.data_ptr(),
-        partials.data_ptr(), dh.data_ptr(), m, k, n, ranges, int(h.dtype == torch.bfloat16),
+        None if workspace is None else workspace.data_ptr(), dh.data_ptr(), m, k, n,
+        geo.dh_cluster, geo.dh_clusters, geo.dh_row_groups, int(h.dtype == torch.bfloat16),
         stream_handle(x.device))
     raise_on_error("decode_mse_bwd_dh", code)
     decode_mse_bwd_dh.launches += 1
@@ -192,13 +266,14 @@ def decode_mse_bwd_dw(h, w, b, x, rw, g) -> Tuple[torch.Tensor, torch.Tensor]:
         return decode_mse_dw_ref(h, w, b, x, rw, g)
     g = g.detach().to(torch.float32).reshape(()).contiguous()
     m, k, n, hb = _kernel_args("decode_mse_bwd_dw", h, w, b, x, rw, g)
+    geo = launch_decode_geometry(m, n, k, x.device)
     dw = torch.empty((n, k), dtype=torch.float32, device=x.device)
     db = torch.empty((n,), dtype=torch.float32, device=x.device)
     from rlvae_tpu_torch.ops.build import kernel_library
 
     code = kernel_library().decode_mse_bwd_dw_f32(
         hb.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(), rw.data_ptr(), g.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), m, k, n, stream_handle(x.device))
+        dw.data_ptr(), db.data_ptr(), m, k, n, geo.dw_ctas, stream_handle(x.device))
     raise_on_error("decode_mse_bwd_dw", code)
     decode_mse_bwd_dw.launches += 1
     return dw, db

@@ -657,9 +657,7 @@ def _within_a_bf16_step(got, want, rtol=1e-3):
     assert bool(torch.all((got - want).abs() <= limit))
 
 
-@pytest.mark.parametrize("m,n,k", [(128, 12288, 512), (37, 300, 512), (512, 12288, 512),
-                                   (37, 300, 64), (1, 1, 1)])
-def test_decode_mse_matches_plain_and_fp64(dev, m, n, k):
+def _hold_decode_to_plain(dev, m, n, k):
     h, w, b, x, rw = _decode_problem(dev, m, n, k)
     g = torch.tensor(1.0, device=dev)
     counts = (decode_mse.launches, decode_mse_bwd_dh.launches, decode_mse_bwd_dw.launches)
@@ -690,16 +688,71 @@ def test_decode_mse_matches_plain_and_fp64(dev, m, n, k):
     assert all(torch.equal(a, c) for a, c in zip((dw, db), decode_mse_bwd_dw(h, w, b, x, rw, g)))
 
 
-@pytest.mark.parametrize("ranges", [1, 7, 192])
-def test_decode_mse_dh_any_split_of_the_columns(dev, monkeypatch, ranges):
-    """dh sums its column ranges in a second pass; any count of ranges gives
-    the plain version's dh (the split only moves fp32 rounding)."""
+@pytest.mark.parametrize("m,n,k", [(128, 12288, 512), (37, 300, 512), (512, 12288, 512),
+                                   (37, 300, 64), (1, 1, 1)])
+def test_decode_mse_matches_plain_and_fp64(dev, m, n, k):
+    _hold_decode_to_plain(dev, m, n, k)
+
+
+@pytest.mark.parametrize("k", [1, 16, 64, 500, 512])
+@pytest.mark.parametrize("m", [1, 37, 128, 129, 512, 1000])
+def test_decode_mse_tiling_edges(dev, m, k):
+    """Shapes that cross the kernels' tiles: one row, ragged 64- and 32-row
+    tiles, K not a multiple of 8 or 64 (zero-padded in shared memory), and a
+    ragged N of 777 (98 blocks of 8, the last cut)."""
+    _hold_decode_to_plain(dev, m, 777, k)
+
+
+@pytest.mark.parametrize("m", [129, 1000])
+def test_decode_mse_tiling_edges_at_full_width(dev, m):
+    """N = 12290: one column past the fast preset's, so the last CTA's range
+    ends inside an 8-column block; K = 500."""
+    _hold_decode_to_plain(dev, m, 12290, 500)
+
+
+@pytest.mark.parametrize("cluster", list(range(1, 9)) + ["spread"])
+def test_decode_mse_dh_any_split_of_the_columns(dev, monkeypatch, cluster):
+    """dh sums its CTAs' column shares in rank order inside a cluster and the
+    clusters' partials in a second pass; every cluster size the rule can
+    choose (1 to 8, with the fewest clusters that cover N), and a spread of
+    more clusters than needed with two row groups, give the plain version's
+    dh (the split only moves fp32 rounding)."""
     h, w, b, x, rw = _decode_problem(dev, 128, 12288)
     g = torch.tensor(0.5, device=dev)
-    monkeypatch.setattr(recon_kernels, "dh_ranges", lambda m, n, device: ranges)
+    rule = recon_kernels.launch_decode_geometry(128, 12288, 512, dev)
+    need = -(-(12288 // 8) // recon_kernels.DH_BLOCKS)
+    if cluster == "spread":
+        geo = rule._replace(dh_cluster=2, dh_clusters=need, dh_row_groups=2)
+    else:
+        geo = rule._replace(dh_cluster=cluster, dh_clusters=-(-need // cluster), dh_row_groups=1)
+    monkeypatch.setattr(recon_kernels, "launch_decode_geometry", lambda m, n, k, device: geo)
     dh = decode_mse_bwd_dh(h.float(), w, b, x, rw, g)
     torch.cuda.synchronize()
     _within_scale(dh, decode_mse_dh_ref(h.float(), w, b, x, rw, g))
+    assert torch.all(dh[3:5] == 0)
+
+
+@pytest.mark.parametrize("m,n", [(128, 12288), (37, 300)])
+def test_decode_mse_replays_in_a_cuda_graph(dev, m, n):
+    """The three launchers neither synchronise nor allocate: after a warm-up
+    launch, they capture into a CUDA graph whose replay gives the eager
+    launches' bits, with clusters summing through a workspace (N = 12288)
+    and with one cluster writing dh itself (N = 300)."""
+    h, w, b, x, rw = _decode_problem(dev, m, n)
+    g = torch.tensor(1.0, device=dev)
+
+    def launch():
+        return (decode_mse(h, w, b, x, rw), decode_mse_bwd_dh(h, w, b, x, rw, g),
+                *decode_mse_bwd_dw(h, w, b, x, rw, g))
+
+    eager = launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(map(torch.equal, captured, eager))
 
 
 def test_decode_mse_function_on_the_card_equals_the_cpu(dev):
