@@ -17,12 +17,13 @@ Phases, each printing one JSON line with its elapsed seconds:
    the near-identity flow init and, at the model's reference init, to an
    fp64 evaluation, in both instantiations (weights resident in shared
    memory, and streamed), bit-identical on relaunch; each batch prints the
-   launcher's cluster geometry.  The HMC terms,
-   the metric bundle and G^{-1} are held to their plain versions and to an
-   fp64 evaluation at K=50, 200 and 20 000, B=1, 64 and 1000 (the HMC terms
-   also at B=37 and on a K=37 bank padded to 40: every geometry their rule
-   picks, each case printing it), with rows far from every centroid; the
-   HMC terms bit-identical on relaunch and in a graph replay.  The decode+MSE forward, dh and dW/db are held to
+   launcher's cluster geometry.  The chol-bundle is held to its plain
+   version, and the metric bundle and G^{-1} to theirs and to an fp64
+   evaluation, at K=50, 200 and 20 000 and B=1, 7, 64 and 1000, each case
+   printing its launch geometry, bit-identical in a graph replay at B=64;
+   the HMC terms likewise at B=1, 37, 64 and 1000 and on a K=37 bank padded
+   to 40 (every geometry their rule picks), bit-identical on relaunch and
+   in a graph replay; rows far from every centroid.  The decode+MSE forward, dh and dW/db are held to
    their plain versions (the forward's loss also to fp64) at M=128 (the fast
    train step's B=16), 512 and 37 rows, N=12288 and 300, on the pretrained
    decoder's weights, bit-identical on relaunch and in a CUDA-graph replay;
@@ -142,6 +143,9 @@ N_TRANSITIONS = 7  # 8 frames -> 7 transitions
 # the gradient goes through an inverse of G^{-1}
 HMC_LP_ATOL, HMC_RTOL = 1e-5, 1e-4
 HMC_BATCHES = (1, SERVE_BATCH, 1000)
+# the metric kernels B1, B6 and B7: one row, a ragged batch, the serving
+# bucket and a large batch (rows blocked 8 a CTA)
+METRIC_BATCHES = (1, 7, SERVE_BATCH, 1000)
 # the HMC terms and partials at every geometry their rule picks for K = 50,
 # 200 and 20 000 (csrc/hmc_bank.cuh: rows blocked 1, 2, 4 or 8 a CTA; the cluster
 # size the largest, up to 8, whose clusters the card holds in one wave, e.g.
@@ -320,11 +324,11 @@ def metric_banks():
 
 
 def chol_cases(torch, dev):
-    """(label, z, centroids, matrices, inv_t2, diag) at the serving path's row
-    counts for each bank of :func:`metric_banks`."""
+    """(label, z, centroids, matrices, inv_t2, diag) at METRIC_BATCHES rows
+    for each bank of :func:`metric_banks`."""
     rng = np.random.default_rng(0)
     for label, c, mats, temp, reg in metric_banks():
-        for b in (1, 7, SERVE_BATCH):
+        for b in METRIC_BATCHES:
             z = c[rng.integers(0, c.shape[0], size=b)] + 0.05 * rng.normal(size=(b, c.shape[1]))
             yield (f"{label},B={b}", torch.tensor(z, dtype=torch.float32, device=dev),
                    torch.tensor(c, device=dev), torch.tensor(mats, device=dev),
@@ -332,9 +336,17 @@ def chol_cases(torch, dev):
 
 
 def run_chol_checks(torch, dev):
-    from rlvae_tpu_torch.ops.metric_kernels import chol_bundle, chol_bundle_ref
+    """The chol-bundle against its plain version at each bank of
+    :func:`metric_banks` and METRIC_BATCHES rows, with the launch geometry of
+    each case; at B=64 for each bank device time per launch, bit-identical in
+    a graph replay, beside the plain version's time and the bound."""
+    from rlvae_tpu_torch.ops.metric_kernels import (
+        chol_bundle,
+        chol_bundle_ref,
+        launch_hmc_geometry,
+    )
 
-    cases, record = [], None
+    cases = []
     for label, z, c, m, inv_t2, diag in chol_cases(torch, dev):
         l_k, ld_k = chol_bundle(z, c, m, inv_t2, diag)
         l_p, ld_p = chol_bundle_ref(z, c, m, inv_t2, diag)
@@ -342,24 +354,36 @@ def run_chol_checks(torch, dev):
         err = max(float((l_k - l_p).abs().max()), float((ld_k - ld_p).abs().max()))
         ok = bool(torch.all((l_k - l_p).abs() <= CHOL_ATOL + CHOL_RTOL * l_p.abs())
                   and torch.all((ld_k - ld_p).abs() <= CHOL_ATOL + CHOL_RTOL * ld_p.abs()))
+        b, k = z.shape[0], c.shape[0]
         case = {"shape": label, "max_abs_err": err, "ok": ok,
+                "geometry": list(launch_hmc_geometry(b, k, dev, "chol_bundle"))[:3],
                 "ms": time_ms(torch, lambda: chol_bundle(z, c, m, inv_t2, diag), 20)}
-        cases.append(case)
         check(ok, f"chol_bundle disagrees with its plain version at {label}: {err}")
-        if label.startswith("metric_T0.7") and label.endswith(f"B={SERVE_BATCH}"):
-            b, k = z.shape[0], c.shape[0]
+        if b == SERVE_BATCH:
+            case["device_ms"], replayed = device_ms(torch, lambda: chol_bundle(z, c, m, inv_t2, diag))
+            case["bit_identical_in_graph_replay"] = bool(
+                torch.equal(replayed[0], l_k) and torch.equal(replayed[1], ld_k))
+            check(case["bit_identical_in_graph_replay"],
+                  f"chol_bundle's graph replay differs from its eager launch at {label}")
             flops = b * (k * (3 * 16 + 1 + 2 * 16 * 16) + 16 ** 3 / 3 + 16)
-            bms, by = bound_ms(nbytes(z, c, m, l_k, ld_k), flops)
-            record = with_device_ms(torch, {
-                "name": "chol_bundle", "route": "cuda",
-                "source": "rlvae_tpu_torch/csrc/chol_bundle.cu",
-                "replaces": "rlvae_tpu/ops/metric_kernels.py:470",
-                "shape": label, "ms": case["ms"],
-                "plain_ms": time_ms(torch, lambda: chol_bundle_ref(z, c, m, inv_t2, diag), 10),
-                "bound_ms": bms, "bound_by": by, "library_ms": None,
-            }, lambda: chol_bundle(z, c, m, inv_t2, diag))
-    record["max_abs_err"] = max(c["max_abs_err"] for c in cases)
-    record["tolerance"] = f"|kernel-plain| <= {CHOL_ATOL} + {CHOL_RTOL}*|plain|"
+            case["bound_ms"], case["bound_by"] = bound_ms(nbytes(z, c, m, l_k, ld_k), flops)
+            case["plain_ms"] = time_ms(torch, lambda: chol_bundle_ref(z, c, m, inv_t2, diag), 10)
+        cases.append(case)
+    timed = [c for c in cases if "device_ms" in c]
+    main = next(c for c in timed if c["shape"].startswith("metric_T0.7"))
+    record = {
+        "name": "chol_bundle", "route": "cuda",
+        "source": "rlvae_tpu_torch/csrc/chol_bundle.cu",
+        "replaces": "rlvae_tpu/ops/metric_kernels.py:470",
+        "shape": main["shape"], "ms": main["ms"], "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "tolerance": f"|kernel-plain| <= {CHOL_ATOL} + {CHOL_RTOL}*|plain|; bit-identical in a "
+                     f"CUDA-graph replay",
+    }
+    for key in ("ms", "device_ms", "plain_ms", "bound_ms", "geometry"):
+        record[f"{key}_by_shape"] = {c["shape"]: c[key] for c in timed}
     return record, cases
 
 
@@ -737,21 +761,21 @@ def bundle_flops(b: int, k: int, full: bool, d: int = 16) -> float:
 
 def run_bundle_checks(torch, dev):
     """The metric bundle and G^{-1} against their plain fp32 versions and an
-    fp64 evaluation, at each bank of :func:`metric_banks` and B=1, 64 and
-    1000 (:func:`hmc_cases`' rows: near the centroids, the last two of a
-    batch far from all of them).  Each kernel is timed at B=64 for each K."""
-    from rlvae_tpu_torch.ops import metric_kernels
+    fp64 evaluation, at each bank of :func:`metric_banks` and METRIC_BATCHES
+    rows (:func:`hmc_cases`' rows: near the centroids, the last two of a
+    batch far from all of them), with the launch geometry of each case.  Each
+    kernel is timed at B=64 for each K, bit-identical in a graph replay."""
     from rlvae_tpu_torch.ops.metric_kernels import (
         g_inv,
         g_inv_ref,
-        k_splits,
+        launch_hmc_geometry,
         metric_bundle,
         metric_bundle_ref,
     )
 
     names = ("g_inv", "l", "logdet", "g")
     cases = {"metric_bundle": [], "g_inv": []}
-    for label, z, c, m, inv_t2, lbd in hmc_cases(torch, dev):
+    for label, z, c, m, inv_t2, lbd in hmc_cases(torch, dev, METRIC_BATCHES):
         args = (c, m, inv_t2, lbd)
         got = metric_bundle(z, *args)
         gi_k = g_inv(z, *args)
@@ -783,27 +807,24 @@ def run_bundle_checks(torch, dev):
         gi_case = {"shape": label, "ok": ok_gi, "max_abs_err": gi_err,
                    "kernel_vs_fp64_abs": float((gi_k.double() - want[0]).abs().max()),
                    "identical_to_bundle_g_inv": True}
-        n_splits = k_splits(b, k, dev)
-        bundle["n_splits"] = gi_case["n_splits"] = n_splits
+        geometry = list(launch_hmc_geometry(b, k, dev, "metric_bundle"))[:3]
+        bundle["geometry"] = gi_case["geometry"] = geometry
         if b == SERVE_BATCH:
             bundle["ms"] = time_ms(torch, lambda: metric_bundle(z, *args), 20)
             bundle["plain_ms"] = time_ms(torch, lambda: metric_bundle_ref(z, *args), 5)
             bundle["bound_ms"], bundle["bound_by"] = bound_ms(
                 nbytes(z, c, m, *got), bundle_flops(b, k, True))
             gi_case["ms"] = time_ms(torch, lambda: g_inv(z, *args), 20)
-            bundle["device_ms"], _ = device_ms(torch, lambda: metric_bundle(z, *args))
-            gi_case["device_ms"], _ = device_ms(torch, lambda: g_inv(z, *args))
+            bundle["device_ms"], replayed = device_ms(torch, lambda: metric_bundle(z, *args))
+            gi_case["device_ms"], gi_replayed = device_ms(torch, lambda: g_inv(z, *args))
+            bundle["bit_identical_in_graph_replay"] = all(map(torch.equal, replayed, got))
+            gi_case["bit_identical_in_graph_replay"] = bool(torch.equal(gi_replayed, gi_k))
+            check(bundle["bit_identical_in_graph_replay"]
+                  and gi_case["bit_identical_in_graph_replay"],
+                  f"metric_bundle or g_inv: a graph replay differs from the eager launch at {label}")
             gi_case["plain_ms"] = time_ms(torch, lambda: g_inv_ref(z, *args), 10)
             gi_case["bound_ms"], gi_case["bound_by"] = bound_ms(
                 nbytes(z, c, m, gi_k), bundle_flops(b, k, False))
-            if n_splits > 1:  # the same launch with the bank in one range, for comparison
-                own_splits = metric_kernels.k_splits
-                metric_kernels.k_splits = lambda b, k, device: 1
-                try:
-                    bundle["ms_one_split"] = time_ms(torch, lambda: metric_bundle(z, *args), 20)
-                    gi_case["ms_one_split"] = time_ms(torch, lambda: g_inv(z, *args), 20)
-                finally:
-                    metric_kernels.k_splits = own_splits
         cases["metric_bundle"].append(bundle)
         cases["g_inv"].append(gi_case)
 
@@ -818,15 +839,15 @@ def run_bundle_checks(torch, dev):
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms_by_shape": {c["shape"]: c["ms"] for c in timed},
             "device_ms_by_shape": {c["shape"]: c["device_ms"] for c in timed},
-            "ms_one_split_by_shape": {c["shape"]: c["ms_one_split"] for c in timed
-                                      if "ms_one_split" in c},
+            "geometry_by_shape": {c["shape"]: c["geometry"] for c in timed},
             "plain_ms_by_shape": {c["shape"]: c["plain_ms"] for c in timed},
             "bound_ms_by_shape": {c["shape"]: c["bound_ms"] for c in timed},
         }
 
     tol = (f"kernel vs plain: |err| <= atol + rtol*|plain| with (rtol, atol) {BUNDLE_TOL}; vs "
            f"fp64: each output's error at most {BUNDLE_FP64_FACTOR}x the plain fp32 version's, or "
-           f"{BUNDLE_FP64_RTOL} of its scale; L upper triangle 0, G bitwise symmetric")
+           f"{BUNDLE_FP64_RTOL} of its scale; L upper triangle 0, G bitwise symmetric; "
+           f"bit-identical in a CUDA-graph replay")
     # the main path's banks: the hybrid model's K=200 metric (the geodesic
     # posterior's G) and the default model's K=50 metric (its evaluation step)
     bundle_rec = record("metric_bundle", "rlvae_tpu_torch/csrc/metric_bundle.cu",
@@ -835,7 +856,7 @@ def run_bundle_checks(torch, dev):
     gi_rec = record("g_inv", "rlvae_tpu_torch/csrc/metric_bundle.cu",
                     "rlvae_tpu/ops/metric_kernels.py:618", "metric_T0.7")
     gi_rec["tolerance"] = (f"kernel vs plain: |err| <= 1e-6 + 1e-5*|plain|; bitwise equal to the "
-                           f"metric bundle's G^-1 output")
+                           f"metric bundle's G^-1 output; bit-identical in a CUDA-graph replay")
     return {"metric_bundle": (bundle_rec, cases["metric_bundle"]),
             "g_inv": (gi_rec, cases["g_inv"])}
 

@@ -1,128 +1,124 @@
-// chol-bundle: per row of z, G^{-1} = sum_k exp(-||z - c_k||^2 / T^2) M_k + diag*I,
-// then L = chol(G^{-1}) (lower, row-major [B,16,16]) and logdet = 2 sum_i log L_ii.
+// chol-bundle: per row of z,
+//
+//   w_k    = exp(-||z - c_k||^2 / T^2)                 (direct differences, fp32)
+//   G^{-1} = sum_k w_k M_k + diag*I                    (diag = lbd + jitter)
+//   L      = chol(G^{-1}),  logdet = 2 sum_i log L_ii
+//
+// L lower, row-major [B,16,16], with exact zeros above the diagonal.
 //
 // Replaces the Pallas kernels behind rlvae_tpu/ops/metric_kernels.py:470
 // chol_bundle_pallas (_chol_bundle_kernel, resident bank; _chol_bundle_kernel_kc,
 // K-chunked bank).
 //
-// What bounds it on an H100: at serving sizes (B <= 64, K = 50) the work is
-// ~30 kFLOP and ~55 KB of bank per row, microseconds of either resource, so the
-// launch itself bounds it.  At large K (>= 20 000) every row streams the whole
-// bank (K * 1 KB), which sits in the 50 MB L2 after the first block touches it;
-// the bound is then the bank's bytes over the memory rate for one pass plus
-// the fp32 FMAs of the weighted sum.
+// What bounds it on an H100: at the serving and training sizes (B <= 64,
+// K = 50) the work is ~30 kFLOP per row and ~55 KB of bank in all, well under
+// a microsecond of either resource, so latency bounds it: a chunk's staging,
+// a warp's short walk, the warp- and CTA-order sums, and the epilogue's 16
+// dependent column steps (the hmc_sweep profile at B = 64: 2.6 us of the CTA's
+// 5.4 in the Cholesky).  At a dataset-sized bank (K = 20 000) the fp32 FMAs of
+// the weighted sum bound it: 0.72 GFLOP at B = 64, 0.0107 ms at 67 TFLOP/s
+// (the profile: 42 us of 58 in the weights and the sums).
 //
-// Design: one warp per row, ROWS warps per block.  K is walked in chunks of 32
-// centroids staged through shared memory (centroids and matrices), shared by the
-// block's rows, so any K works with one code path.  Lane j of a warp computes the
-// weight of centroid k0+j with d^2 as direct differences in fp32; the weights are
-// then broadcast with __shfl_sync and each lane accumulates 8 of the 256 entries
-// of G^{-1} (entries lane + 32e, so the shared-memory reads are conflict-free).
-// The 16x16 Cholesky runs column by column in the warp's own shared-memory tile,
-// lanes 0..15 owning rows, in the same order of operations as
-// rlvae_tpu_torch/ops/linalg.py::cholesky_small.  fp32 IEEE arithmetic throughout.
-#include <cuda_runtime.h>
+// Design: the front half is csrc/hmc_bank.cuh's, without the gradient's
+// second sum (bank_sums<R, false>): the bank split over the CTAs of a
+// thread-block cluster and the warps of a CTA, rows blocked in registers,
+// chunks staged by bulk copies onto mbarriers, the sums added in warp and
+// rank order, one launch at any K with no workspace.  The leader CTA then
+// gives each of its rows to a warp: hmc_bank.cuh's register Cholesky (B4's:
+// lane j and its mirror j + 16 own row j, one rank-1 update per column),
+// sum_i log L_ii by a 16-lane shuffle tree of logf, and row j of L stored by
+// lanes j and j + 16 as float4s.  No atomics: a relaunch and a CUDA-graph
+// replay give the same bits.  fp32 IEEE arithmetic throughout (expf, logf,
+// sqrtf, __frsqrt_rn; no fast math).
+#include "hmc_bank.cuh"
 
 namespace {
 
-constexpr int D = 16;
-constexpr int DD = D * D;
-constexpr int KC = 32;    // centroids per staged chunk (one per lane)
-constexpr int ROWS = 4;   // rows (warps) per block
-constexpr int THREADS = ROWS * 32;
+using namespace hmc;
 
-__global__ void __launch_bounds__(THREADS)
-chol_bundle_kernel(const float* __restrict__ z, const float* __restrict__ c,
-                   const float* __restrict__ m, float inv_t2, float diag,
-                   float* __restrict__ l_out, float* __restrict__ logdet_out,
-                   int n_rows, int n_centroids) {
-  __shared__ float m_s[KC * DD];     // 32 KB: the chunk's matrices
-  __shared__ float c_s[KC * (D + 1)];  // the chunk's centroids, rows padded against bank conflicts
-  __shared__ float a_s[ROWS][DD];    // 4 KB: one G^{-1} / L tile per warp
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * ROWS + warp;
-  const bool live = row < n_rows;
-
-  float zr[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) zr[i] = live ? z[row * D + i] : 0.f;
-
-  float acc[DD / 32];
-#pragma unroll
-  for (int e = 0; e < DD / 32; ++e) acc[e] = 0.f;
-
-  for (int k0 = 0; k0 < n_centroids; k0 += KC) {
-    const int nk = min(KC, n_centroids - k0);
-    __syncthreads();  // the previous chunk is no longer read
-    for (int idx = threadIdx.x; idx < nk * DD; idx += THREADS)
-      m_s[idx] = m[(size_t)k0 * DD + idx];
-    for (int idx = threadIdx.x; idx < nk * D; idx += THREADS)
-      c_s[(idx / D) * (D + 1) + idx % D] = c[(size_t)k0 * D + idx];
-    __syncthreads();
-
-    float w = 0.f;
-    if (lane < nk) {
-      float d2 = 0.f;
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-        const float diff = zr[i] - c_s[lane * (D + 1) + i];
-        d2 += diff * diff;
-      }
-      w = expf(-d2 * inv_t2);
-    }
-    for (int j = 0; j < nk; ++j) {
-      const float wj = __shfl_sync(0xffffffffu, w, j);
-#pragma unroll
-      for (int e = 0; e < DD / 32; ++e)
-        acc[e] = fmaf(wj, m_s[j * DD + lane + 32 * e], acc[e]);
+template <int R>
+__global__ void __launch_bounds__(max_warps(R, CHOL_BUNDLE) * 32)
+chol_bundle_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  PhaseClock<HMC_PHASES> clk(p.prof);
+  const float* sum = bank_sums<R, false>(p, smem, clk);
+  if (sum != nullptr) {
+    const int row0 = (int)(blockIdx.x / cg::this_cluster().num_blocks()) * R;
+    for (int r = threadIdx.x >> 5; r < R; r += blockDim.x >> 5) {
+      const int row = row0 + r;
+      if (row >= p.n_rows) break;  // warp-uniform: the shuffles below need every lane
+      float a[D], ljj, inv_ljj;
+      cholesky_row(sum + r * DD, p.lbd, a, ljj, inv_ljj);
+      clk.lap(CHOLESKY);
+      const float s = sum_log_diag(ljj);
+      store_lower_row(a, p.out0 + (size_t)row * DD);
+      if ((threadIdx.x & 31) == 0) p.out1[row] = 2.f * s;
     }
   }
+  clk.lap(FINISH);
+  clk.finish();
+}
 
-  float* a = a_s[warp];
-#pragma unroll
-  for (int e = 0; e < DD / 32; ++e) {
-    const int idx = lane + 32 * e;
-    a[idx] = (idx % (D + 1) == 0) ? acc[e] + diag : acc[e];
-  }
-  __syncwarp();
-
-  // Column-by-column Cholesky in place: column j of the lower triangle is
-  // replaced by L[:, j]; the strict upper triangle is never read.
-  const int i = lane & (D - 1);
-  for (int j = 0; j < D; ++j) {
-    float v = a[i * D + j];
-    for (int k = 0; k < j; ++k) v -= a[i * D + k] * a[j * D + k];
-    const float ljj = sqrtf(__shfl_sync(0xffffffffu, v, j));
-    __syncwarp();
-    if (lane < D && lane >= j) a[i * D + j] = v / ljj;
-    __syncwarp();
-  }
-
-  if (live) {
-#pragma unroll
-    for (int e = 0; e < DD / 32; ++e) {
-      const int idx = lane + 32 * e;
-      l_out[(size_t)row * DD + idx] = ((idx & (D - 1)) <= (idx >> 4)) ? a[idx] : 0.f;
-    }
-    if (lane == 0) {
-      float s = 0.f;
-      for (int j = 0; j < D; ++j) s += logf(a[j * D + j]);
-      logdet_out[row] = 2.f * s;
-    }
+int launch_chol(const float* z, const float* c, const float* m, float inv_t2, float diag,
+                float* l_out, float* logdet_out, int n_rows, int n_centroids, Geometry g,
+                long long* prof, cudaStream_t stream) {
+  if (n_rows <= 0) return static_cast<int>(cudaSuccess);
+  const Params p{z, c, m, inv_t2, diag, 0.f, l_out, logdet_out, n_rows, n_centroids, prof};
+  switch (g.rows) {
+    case 1: return static_cast<int>(launch(chol_bundle_kernel<1>, p, g, CHOL_BUNDLE, stream));
+    case 2: return static_cast<int>(launch(chol_bundle_kernel<2>, p, g, CHOL_BUNDLE, stream));
+    case 4: return static_cast<int>(launch(chol_bundle_kernel<4>, p, g, CHOL_BUNDLE, stream));
+    case 8: return static_cast<int>(launch(chol_bundle_kernel<8>, p, g, CHOL_BUNDLE, stream));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-extern "C" int chol_bundle_f32(const float* z, const float* c, const float* m,
-                               float inv_t2, float diag, float* l_out,
-                               float* logdet_out, int n_rows, int n_centroids,
-                               cudaStream_t stream) {
-  if (n_rows <= 0) return static_cast<int>(cudaSuccess);
-  const int blocks = (n_rows + ROWS - 1) / ROWS;
-  chol_bundle_kernel<<<blocks, THREADS, 0, stream>>>(z, c, m, inv_t2, diag, l_out,
-                                                      logdet_out, n_rows, n_centroids);
-  return static_cast<int>(cudaGetLastError());
+// The rule's geometry for (B, K) on the current card.
+extern "C" int chol_bundle_f32(const float* z, const float* c, const float* m, float inv_t2,
+                               float diag, float* l_out, float* logdet_out, int n_rows,
+                               int n_centroids, cudaStream_t stream) {
+  hmc::Geometry g;
+  const cudaError_t err = hmc::rule_geometry(n_rows, n_centroids, hmc::CHOL_BUNDLE, &g);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_chol(z, c, m, inv_t2, diag, l_out, logdet_out, n_rows, n_centroids, g, nullptr,
+                     stream);
 }
+
+// A given geometry (rows per CTA, warps per CTA, CTAs per cluster), for the
+// sweep (rlvae_tpu_torch.ops.hmc_sweep) and the tests.
+extern "C" int chol_bundle_at_f32(const float* z, const float* c, const float* m, float inv_t2,
+                                  float diag, float* l_out, float* logdet_out, int n_rows,
+                                  int n_centroids, int rows, int warps, int ctas,
+                                  cudaStream_t stream) {
+  const hmc::Geometry g{rows, warps, ctas, (n_rows + rows - 1) / rows};
+  return launch_chol(z, c, m, inv_t2, diag, l_out, logdet_out, n_rows, n_centroids, g, nullptr,
+                     stream);
+}
+
+// How many clusters of (rows, warps, ctas) of this kernel the card holds at
+// once, in out[0] (hmc_cluster_slots' CHOL_BUNDLE).
+extern "C" int chol_bundle_cluster_slots(int rows, int warps, int ctas, int* out) {
+  using namespace hmc;
+  const Geometry g{rows, warps, ctas, 1};
+  switch (rows) {
+    case 1: return static_cast<int>(cluster_slots(chol_bundle_kernel<1>, g, CHOL_BUNDLE, out));
+    case 2: return static_cast<int>(cluster_slots(chol_bundle_kernel<2>, g, CHOL_BUNDLE, out));
+    case 4: return static_cast<int>(cluster_slots(chol_bundle_kernel<4>, g, CHOL_BUNDLE, out));
+    case 8: return static_cast<int>(cluster_slots(chol_bundle_kernel<8>, g, CHOL_BUNDLE, out));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+#ifdef HMC_PROFILE
+// ... at a given geometry, with the clock64 sums per phase (HMC_PHASES) in prof.
+extern "C" int chol_bundle_profile_f32(const float* z, const float* c, const float* m,
+                                       float inv_t2, float diag, float* l_out, float* logdet_out,
+                                       int n_rows, int n_centroids, int rows, int warps, int ctas,
+                                       long long* prof, cudaStream_t stream) {
+  const hmc::Geometry g{rows, warps, ctas, (n_rows + rows - 1) / rows};
+  return launch_chol(z, c, m, inv_t2, diag, l_out, logdet_out, n_rows, n_centroids, g, prof,
+                     stream);
+}
+#endif

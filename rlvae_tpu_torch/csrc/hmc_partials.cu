@@ -37,11 +37,11 @@ namespace {
 using namespace hmc;
 
 template <int R>
-__global__ void __launch_bounds__(max_warps(R) * 32)
+__global__ void __launch_bounds__(max_warps(R, HMC) * 32)
 hmc_partials_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   PhaseClock<HMC_PHASES> clk(p.prof);
-  const float* sum = bank_sums<R>(p, smem, clk);
+  const float* sum = bank_sums<R, true>(p, smem, clk);
   if (sum != nullptr) {
     const int row0 = (int)(blockIdx.x / cg::this_cluster().num_blocks()) * R;
     const float scale = -2.f * p.inv_t2;
@@ -64,10 +64,10 @@ int launch_partials(const float* z, const float* c, const float* m, float inv_t2
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
   const Params p{z, c, m, inv_t2, 0.f, 0.f, gi_out, v_out, n_rows, n_centroids, prof};
   switch (g.rows) {
-    case 1: return static_cast<int>(launch(hmc_partials_kernel<1>, p, g, stream));
-    case 2: return static_cast<int>(launch(hmc_partials_kernel<2>, p, g, stream));
-    case 4: return static_cast<int>(launch(hmc_partials_kernel<4>, p, g, stream));
-    case 8: return static_cast<int>(launch(hmc_partials_kernel<8>, p, g, stream));
+    case 1: return static_cast<int>(launch(hmc_partials_kernel<1>, p, g, HMC, stream));
+    case 2: return static_cast<int>(launch(hmc_partials_kernel<2>, p, g, HMC, stream));
+    case 4: return static_cast<int>(launch(hmc_partials_kernel<4>, p, g, HMC, stream));
+    case 8: return static_cast<int>(launch(hmc_partials_kernel<8>, p, g, HMC, stream));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -78,10 +78,8 @@ int launch_partials(const float* z, const float* c, const float* m, float inv_t2
 extern "C" int hmc_partials_f32(const float* z, const float* c, const float* m, float inv_t2,
                                 float* gi_out, float* v_out, int n_rows, int n_centroids,
                                 cudaStream_t stream) {
-  int sms = 0;
   hmc::Geometry g;
-  cudaError_t err = hmc::device_sms(&sms);
-  if (err == cudaSuccess) err = hmc::hmc_geometry(n_rows, n_centroids, sms, &g);
+  const cudaError_t err = hmc::rule_geometry(n_rows, n_centroids, hmc::HMC, &g);
   if (err != cudaSuccess) return static_cast<int>(err);
   return launch_partials(z, c, m, inv_t2, gi_out, v_out, n_rows, n_centroids,
                          g, nullptr, stream);

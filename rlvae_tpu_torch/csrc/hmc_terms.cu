@@ -19,16 +19,16 @@
 // bound it, 1.41 GFLOP at B = 64: 0.021 ms at 67 TFLOP/s.
 //
 // Design: the front half is csrc/hmc_bank.cuh's (shared with
-// csrc/hmc_partials.cu): the bank split over the CTAs of a cluster and the
-// warps of a CTA, rows blocked in registers, chunks staged by bulk copies, the
-// sums added in warp and rank order.  The leader CTA then gives each of its
-// rows to a warp, which holds G^{-1} in registers, lane j (and its mirror
-// j + 16) owning row j of the lower triangle:
-// - a right-looking Cholesky, one rank-1 update per column: 16 dependent
-//   steps of a shuffle, a sqrt beside a reciprocal sqrt, a product, a
-//   shuffle of the column and one FMA (the left-looking form's last lane
-//   takes ~120 dependent steps); L is then transposed once through shared
-//   memory for the second solve;
+// csrc/hmc_partials.cu and the metric kernels): the bank split over the CTAs
+// of a cluster and the warps of a CTA, rows blocked in registers, chunks
+// staged by bulk copies, the sums added in warp and rank order.  The leader
+// CTA then gives each of its rows to a warp, which holds G^{-1} in registers,
+// lane j (and its mirror j + 16) owning row j of the lower triangle:
+// - hmc_bank.cuh's right-looking Cholesky (cholesky_row, shared with B1 and
+//   B6), one rank-1 update per column: 16 dependent steps of a shuffle, a
+//   sqrt beside a reciprocal sqrt, a product, a shuffle of the column and
+//   one FMA (the left-looking form's last lane takes ~120 dependent steps);
+//   L is then transposed once through shared memory for the second solve;
 // - sum_i log L_ii by a 16-lane shuffle tree of logf;
 // - G v as two triangular solves, L y = v then L^T x = y, each 16 steps of a
 //   product with 1 / L_jj (the Cholesky's reciprocal root), a shuffle and an
@@ -43,8 +43,6 @@ namespace {
 
 using namespace hmc;
 
-constexpr unsigned FULL = 0xffffffffu;
-
 // The epilogue of one row: sums [WIDTH] (G^{-1} without lbd, then v
 // unscaled) -> log pi and grad, by the calling warp; `scratch` is 16 x 17
 // floats of shared memory of this warp's own.
@@ -53,28 +51,9 @@ __device__ __forceinline__ void finish_row(const float* sums, float inv_t2, floa
                                            float* scratch, PhaseClock<HMC_PHASES>& clk) {
   const int lane = threadIdx.x & 31;
   const int j = lane & (D - 1);  // this lane's row of the tile; lanes 16..31 mirror 0..15
-  float a[D];  // a[m] = G^{-1}[j, m] for m <= j, then L[j, m]
-#pragma unroll
-  for (int m = 0; m < D; ++m) a[m] = sums[j * D + m] + (m == j ? lbd : 0.f);
-  float ljj = 0.f, inv_ljj = 0.f;
-#pragma unroll
-  for (int k = 0; k < D; ++k) {
-    // the pivot's root and its reciprocal root side by side (both correctly
-    // rounded), so no division sits on the chain from one column to the next
-    const float akk = __shfl_sync(FULL, a[k], k);
-    const float lkk = sqrtf(akk);
-    const float inv = __frsqrt_rn(akk);
-    if (j > k) a[k] *= inv;
-    if (j == k) {
-      a[k] = ljj = lkk;
-      inv_ljj = inv;
-    }
-#pragma unroll
-    for (int m = k + 1; m < D; ++m) {
-      const float lmk = __shfl_sync(FULL, a[k], m);
-      if (j >= m) a[m] = fmaf(-a[k], lmk, a[m]);  // G^{-1}[j, m] -= L[j, k] L[m, k]
-    }
-  }
+  float a[D];  // row j of L in a[0..j]
+  float ljj, inv_ljj;
+  cholesky_row(sums, lbd, a, ljj, inv_ljj);
   // column j of L (L[m, j], m > j) for the second solve: L transposed once
   // through this warp's scratch
   if (lane < D) {
@@ -87,9 +66,7 @@ __device__ __forceinline__ void finish_row(const float* sums, float inv_t2, floa
   for (int m = 0; m < D; ++m) col[m] = scratch[m * (D + 1) + j];
   clk.lap(CHOLESKY);
 
-  float s = logf(ljj);
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+  const float s = sum_log_diag(ljj);
 
   // L y = v, then L^T x = y; lane j owns r_j and divides by L[j, j] as a
   // product with its reciprocal
@@ -118,11 +95,11 @@ __device__ __forceinline__ void finish_row(const float* sums, float inv_t2, floa
 }
 
 template <int R>
-__global__ void __launch_bounds__(max_warps(R) * 32)
+__global__ void __launch_bounds__(max_warps(R, HMC) * 32)
 hmc_terms_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   PhaseClock<HMC_PHASES> clk(p.prof);
-  const float* sum = bank_sums<R>(p, smem, clk);
+  const float* sum = bank_sums<R, true>(p, smem, clk);
   if (sum != nullptr) {
     const int row0 = (int)(blockIdx.x / cg::this_cluster().num_blocks()) * R;
     for (int r = threadIdx.x >> 5; r < R; r += blockDim.x >> 5) {
@@ -142,10 +119,10 @@ int launch_terms(const float* z, const float* c, const float* m, float inv_t2, f
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
   const Params p{z, c, m, inv_t2, lbd, log_eps, logpi_out, grad_out, n_rows, n_centroids, prof};
   switch (g.rows) {
-    case 1: return static_cast<int>(launch(hmc_terms_kernel<1>, p, g, stream));
-    case 2: return static_cast<int>(launch(hmc_terms_kernel<2>, p, g, stream));
-    case 4: return static_cast<int>(launch(hmc_terms_kernel<4>, p, g, stream));
-    case 8: return static_cast<int>(launch(hmc_terms_kernel<8>, p, g, stream));
+    case 1: return static_cast<int>(launch(hmc_terms_kernel<1>, p, g, HMC, stream));
+    case 2: return static_cast<int>(launch(hmc_terms_kernel<2>, p, g, HMC, stream));
+    case 4: return static_cast<int>(launch(hmc_terms_kernel<4>, p, g, HMC, stream));
+    case 8: return static_cast<int>(launch(hmc_terms_kernel<8>, p, g, HMC, stream));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -156,10 +133,8 @@ int launch_terms(const float* z, const float* c, const float* m, float inv_t2, f
 extern "C" int hmc_terms_f32(const float* z, const float* c, const float* m, float inv_t2,
                              float lbd, float log_eps, float* logpi_out, float* grad_out,
                              int n_rows, int n_centroids, cudaStream_t stream) {
-  int sms = 0;
   hmc::Geometry g;
-  cudaError_t err = hmc::device_sms(&sms);
-  if (err == cudaSuccess) err = hmc::hmc_geometry(n_rows, n_centroids, sms, &g);
+  const cudaError_t err = hmc::rule_geometry(n_rows, n_centroids, hmc::HMC, &g);
   if (err != cudaSuccess) return static_cast<int>(err);
   return launch_terms(z, c, m, inv_t2, lbd, log_eps, logpi_out, grad_out, n_rows, n_centroids,
                       g, nullptr, stream);
@@ -176,11 +151,13 @@ extern "C" int hmc_terms_at_f32(const float* z, const float* c, const float* m, 
                       nullptr, stream);
 }
 
-// The rule's geometry of both kernels on the current card (hmc_bank.cuh): out
-// = {rows per CTA, warps per CTA, CTAs per cluster, clusters}.
-extern "C" int hmc_geometry(int n_rows, int n_centroids, int sms, int* out) {
+// The rule's geometry of `kernel` (hmc_bank.cuh BankKernel: 0 B4 and B8, 1
+// B1, 2 B6 and B7) on the current card: out = {rows per CTA, warps per CTA,
+// CTAs per cluster, clusters}.
+extern "C" int hmc_geometry(int n_rows, int n_centroids, int sms, int kernel, int* out) {
+  if (kernel < 0 || kernel >= hmc::BANK_KERNELS) return static_cast<int>(cudaErrorInvalidValue);
   hmc::Geometry g;
-  const cudaError_t err = hmc::hmc_geometry(n_rows, n_centroids, sms, &g);
+  const cudaError_t err = hmc::hmc_geometry(n_rows, n_centroids, sms, kernel, &g);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = g.rows;
   out[1] = g.warps;
@@ -189,16 +166,20 @@ extern "C" int hmc_geometry(int n_rows, int n_centroids, int sms, int* out) {
   return 0;
 }
 
-// How many clusters of (rows, warps, ctas) the card holds at once (B4's
-// kernel of that many rows), in out[0].
-extern "C" int hmc_cluster_slots(int rows, int warps, int ctas, int* out) {
+// How many clusters of (rows, warps, ctas) of `kernel` the card holds at once
+// (B4's kernel of that many rows for B4 and B8; B1's and B6's from their
+// files), in out[0].
+extern "C" int hmc_cluster_slots(int rows, int warps, int ctas, int kernel, int* out) {
   using namespace hmc;
+  if (kernel == CHOL_BUNDLE) return chol_bundle_cluster_slots(rows, warps, ctas, out);
+  if (kernel == METRIC_BUNDLE) return metric_bundle_cluster_slots(rows, warps, ctas, out);
+  if (kernel != HMC) return static_cast<int>(cudaErrorInvalidValue);
   const Geometry g{rows, warps, ctas, 1};
   switch (rows) {
-    case 1: return static_cast<int>(cluster_slots(hmc_terms_kernel<1>, g, out));
-    case 2: return static_cast<int>(cluster_slots(hmc_terms_kernel<2>, g, out));
-    case 4: return static_cast<int>(cluster_slots(hmc_terms_kernel<4>, g, out));
-    case 8: return static_cast<int>(cluster_slots(hmc_terms_kernel<8>, g, out));
+    case 1: return static_cast<int>(cluster_slots(hmc_terms_kernel<1>, g, HMC, out));
+    case 2: return static_cast<int>(cluster_slots(hmc_terms_kernel<2>, g, HMC, out));
+    case 4: return static_cast<int>(cluster_slots(hmc_terms_kernel<4>, g, HMC, out));
+    case 8: return static_cast<int>(cluster_slots(hmc_terms_kernel<8>, g, HMC, out));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

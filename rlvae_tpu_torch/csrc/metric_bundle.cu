@@ -6,9 +6,10 @@
 //   X      = L^{-1}         (forward substitution)
 //   G      = X^T X          (= (G^{-1})^{-1})
 //
-// metric_bundle_f32 writes (G^{-1}, L, logdet, G); g_inv_f32 is the same front
-// half, output-pruned to G^{-1}.  Every matrix is written i-major ([B,16,16],
-// entry (i, j) at i*16 + j); L's strict upper triangle holds exact zeros.
+// metric_bundle_f32 writes (G^{-1}, L, logdet, G); g_inv_f32 is the same
+// kernel output-pruned to G^{-1}, launched at the same geometry, so its G^{-1}
+// has the bundle's bits.  Every matrix is written i-major ([B,16,16], entry
+// (i, j) at i*16 + j); L's strict upper triangle holds exact zeros.
 //
 // Replaces the Pallas kernels behind rlvae_tpu/ops/metric_kernels.py:657
 // metric_bundle_pallas (_bundle_kernel, resident bank; _bundle_kernel_kc,
@@ -18,257 +19,233 @@
 // matrices.  Their MXU distance variants (mxu_dist) are a device for the TPU's
 // matrix unit and are not ported: the distances here are elementwise.
 //
-// What bounds it on an H100: at the posterior's sizes (B <= 64, K <= 200) the
-// work is ~0.1 MFLOP per row and ~200 KB of bank in all, well under a
-// microsecond of either resource, so the latency of one warp's dependent
-// steps (the K walk, the 16-column Cholesky, the 16-row substitution and the
-// product) bounds it.  At large K (>= 20 000) the fp32 FMAs of the weighted
-// sum and the bank's reads (K * 1 KB per block of rows, from L2 after the
-// first touch) bound it.
+// What bounds it on an H100: at the posterior's and the validation's sizes
+// (B <= 64, K <= 200) the work is ~0.1 MFLOP per row and ~220 KB of bank in
+// all, well under a microsecond of either resource, so latency bounds it: a
+// chunk's staging, a warp's walk over its few chunks, the warp- and CTA-order
+// sums, and the epilogue's ~48 dependent steps (16 columns of the Cholesky,
+// 16 rows of the substitution, G's 16-deep sums; the hmc_sweep profile at
+// B = 64, K = 200: 2.5, 1.0 and 0.6 us of the CTA's 8.8).  At a dataset-sized
+// bank (K = 20 000) the fp32 FMAs of the weighted sum bound it: 0.72 GFLOP at
+// B = 64, 0.0107 ms at 67 TFLOP/s (the profile: 39 us of 55 in the weights
+// and the sums).
 //
-// Design: the chol-bundle's (csrc/chol_bundle.cu), extended by the inverse.
-// One warp per row, ROWS warps per block.  K is walked in chunks of 32
-// centroids staged through shared memory, shared by the block's rows.  Lane j
-// computes the weight of centroid k0+j; each weight is broadcast with
-// __shfl_sync and each lane accumulates 8 of the 256 entries of G^{-1}
-// (entries lane + 32e: conflict-free shared-memory reads).  The Cholesky runs
-// column by column in the warp's shared-memory tile, lanes 0..15 owning rows,
-// in the order of rlvae_tpu_torch/ops/linalg.py cholesky_small.  X = L^{-1}
-// runs row by row, lanes 0..15 owning columns, in the order of the TPU
-// kernel's _inv_rows_from_chol; G[i, j] sums X[k, i] X[k, j] over
-// k = max(i, j)..15 in increasing k, so G is bitwise symmetric.
-//
-// Large K: with n_splits = 1 one kernel does everything, and a launch has
-// only B/ROWS blocks.  The wrapper asks for n_splits > 1 when that leaves the
-// card's SMs idle and K is large: then a grid of (B/ROWS) x n_splits blocks
-// each sums one contiguous range of the bank into a workspace slot, and a
-// second kernel adds the slots in split order (deterministic) and runs the
-// epilogue.  fp32 IEEE arithmetic throughout (expf, logf, sqrtf; no fast math).
-#include <cuda_runtime.h>
+// Design: the front half is csrc/hmc_bank.cuh's, without the gradient's
+// second sum (bank_sums<R, false>): the bank split over the CTAs of a
+// thread-block cluster and the warps of a CTA, rows blocked in registers,
+// chunks staged by bulk copies onto mbarriers, the sums added in warp and
+// rank order; one launch at any K, with no workspace.  Every thread of the
+// leader CTA then stores G^{-1} as float4s, and (metric_bundle_f32) each row
+// goes to a warp, lane j (and its mirror j + 16) owning row j:
+// - hmc_bank.cuh's register Cholesky (B4's and B1's), then sum_i log L_ii by
+//   a 16-lane shuffle tree of logf;
+// - X = L^{-1} by forward substitution in registers, 16 steps: at step m,
+//   lane m finishes row m of X (a product with its 1 / L[m, m], the
+//   Cholesky's reciprocal root), which is broadcast by shuffles, and every
+//   later row takes its term with one FMA;
+// - G[i, j] = sum_{k >= max(i, j)} X[k, i] X[k, j] in increasing k, with X
+//   sent once through the warp's 16 x 17 scratch (conflict-free: lane i reads
+//   row k's entry i, every lane of a half the same entries j).  (i, j) and
+//   (j, i) take the same products in the same order, so G is bitwise
+//   symmetric.
+// No atomics: a relaunch and a CUDA-graph replay give the same bits.  When
+// every weight underflows (z far from the bank), G^{-1} = lbd*I exactly.
+// fp32 IEEE arithmetic throughout (expf, logf, sqrtf, __frsqrt_rn; no fast
+// math).
+#include "hmc_bank.cuh"
 
 namespace {
 
-constexpr int D = 16;
-constexpr int DD = D * D;
-constexpr int KC = 32;    // centroids per staged chunk (one per lane)
-constexpr int ROWS = 4;   // rows (warps) per block
-constexpr int THREADS = ROWS * 32;
-constexpr int E = DD / 32;  // tile entries per lane
+using namespace hmc;
 
-// acc[e] += sum_{k in [k_begin, k_end)} w_k M_k[lane + 32e] for this warp's
-// row; every thread of the block calls it (it stages through shared memory).
-__device__ void accumulate(const float* zr, const float* __restrict__ c,
-                           const float* __restrict__ m, float inv_t2, int k_begin, int k_end,
-                           float* m_s, float* c_s, float* acc) {
-  const int lane = threadIdx.x & 31;
-  for (int k0 = k_begin; k0 < k_end; k0 += KC) {
-    const int nk = min(KC, k_end - k0);
-    __syncthreads();  // the previous chunk is no longer read
-    for (int idx = threadIdx.x; idx < nk * DD; idx += THREADS)
-      m_s[idx] = m[(size_t)k0 * DD + idx];
-    for (int idx = threadIdx.x; idx < nk * D; idx += THREADS)
-      c_s[(idx / D) * (D + 1) + idx % D] = c[(size_t)k0 * D + idx];
-    __syncthreads();
-
-    float w = 0.f;
-    if (lane < nk) {
-      float d2 = 0.f;
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-        const float diff = zr[i] - c_s[lane * (D + 1) + i];
-        d2 += diff * diff;
-      }
-      w = expf(-d2 * inv_t2);
-    }
-    for (int j = 0; j < nk; ++j) {
-      const float wj = __shfl_sync(0xffffffffu, w, j);
-#pragma unroll
-      for (int e = 0; e < E; ++e)
-        acc[e] = fmaf(wj, m_s[j * DD + lane + 32 * e], acc[e]);
-    }
+// G^{-1} = sums + lbd*I of the CTA's rows [row0, row0 + R), by every thread
+// of the CTA as float4s: cholesky_row's own input, in its arithmetic.
+template <int R>
+__device__ __forceinline__ void store_g_inv(const float* sum, int row0, const Params& p) {
+  for (int q = threadIdx.x; q < R * DD / 4; q += blockDim.x) {
+    const int r = q / (DD / 4), e = 4 * (q % (DD / 4));
+    const int row = row0 + r;
+    if (row >= p.n_rows) break;
+    const int i = e / D, j = e % D;
+    float4 v = *reinterpret_cast<const float4*>(sum + r * DD + e);
+    v.x = v.x + (j == i ? p.lbd : 0.f);
+    v.y = v.y + (j + 1 == i ? p.lbd : 0.f);
+    v.z = v.z + (j + 2 == i ? p.lbd : 0.f);
+    v.w = v.w + (j + 3 == i ? p.lbd : 0.f);
+    *reinterpret_cast<float4*>(p.out0 + (size_t)row * DD + e) = v;
   }
 }
 
-// From this warp's sums acc (without lbd): G^{-1}, and for FULL also L,
-// logdet and G, written for row ``row`` when ``live``.  a and x are the
-// warp's two shared-memory tiles.
-template <bool FULL>
-__device__ void epilogue(const float* acc, float lbd, int row, bool live, float* a, float* x,
-                         float* __restrict__ gi_out, float* __restrict__ l_out,
-                         float* __restrict__ logdet_out, float* __restrict__ g_out) {
+// L, logdet and G of one row from its sums [DD] (G^{-1} without lbd), by the
+// calling warp; `scratch` is 16 x 17 floats of shared memory of this warp's
+// own.
+__device__ __forceinline__ void finish_row(const float* sums, float lbd, float* l_out,
+                                           float* logdet_out, float* g_out, float* scratch,
+                                           PhaseClock<HMC_PHASES>& clk) {
   const int lane = threadIdx.x & 31;
-  // G^{-1} = acc + lbd*I, i-major: entry idx = i*16 + j is M_k's own flat index
+  const int j = lane & (D - 1), h = lane >> 4;
+  float a[D], ljj, inv_ljj;
+  cholesky_row(sums, lbd, a, ljj, inv_ljj);
+  clk.lap(CHOLESKY);
+
+  // X[j, c] = (delta_jc - sum_{m<j} L[j, m] X[m, c]) / L[j, j], row j in
+  // lane j; x[c] = 0 for c > j throughout
+  float x[D];
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int idx = lane + 32 * e;
-    const float v = (idx % (D + 1) == 0) ? acc[e] + lbd : acc[e];
-    a[idx] = v;
-    if (live) gi_out[(size_t)row * DD + idx] = v;
+  for (int c = 0; c < D; ++c) x[c] = c == j ? 1.f : 0.f;
+#pragma unroll
+  for (int m = 0; m < D; ++m) {
+#pragma unroll
+    for (int c = 0; c <= m; ++c) {
+      const float xmc = __shfl_sync(FULL, x[c] * inv_ljj, m);  // X[m, c]
+      if (j == m) x[c] = xmc;
+      if (j > m) x[c] = fmaf(-a[m], xmc, x[c]);
+    }
   }
-  if (!FULL) return;
-  __syncwarp();
+  clk.lap(INVERSE);
 
-  // Column-by-column Cholesky in place: column j of the lower triangle is
-  // replaced by L[:, j]; the strict upper triangle is never read.
-  const int i = lane & (D - 1);  // lanes 0..15 own rows; lanes 16..31 mirror them
-  for (int j = 0; j < D; ++j) {
-    float s = a[i * D + j];
-    for (int k = 0; k < j; ++k) s -= a[i * D + k] * a[j * D + k];
-    const float ljj = sqrtf(__shfl_sync(0xffffffffu, s, j));
-    __syncwarp();
-    if (lane < D && lane >= j) a[i * D + j] = s / ljj;
-    __syncwarp();
-  }
-
-  // X = L^{-1} by forward substitution, lane c < 16 owning column c:
-  // X[r, c] = (delta_rc - sum_{k<r} L[r, k] X[k, c]) / L[r, r].
+  // G[j, c] for c = 8h..8h+7; the scratch is free once every lane has passed
+  // the shuffles above
   if (lane < D) {
-    for (int r = 0; r < D; ++r) {
-      float v = (r == lane) ? 1.f : 0.f;
-      for (int k = 0; k < r; ++k) v = fmaf(-a[r * D + k], x[k * D + lane], v);
-      x[r * D + lane] = v / a[r * D + r];
-    }
+#pragma unroll
+    for (int c = 0; c < D; ++c) scratch[j * (D + 1) + c] = x[c];
   }
   __syncwarp();
-
-  if (live) {
+  float g[8];
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int idx = lane + 32 * e;
-      const int gi = idx >> 4, gj = idx & (D - 1);
-      l_out[(size_t)row * DD + idx] = (gj <= gi) ? a[idx] : 0.f;
-      // G[gi, gj] = sum_{k >= max(gi, gj)} X[k, gi] X[k, gj] (X is lower-triangular)
-      float s = 0.f;
-      for (int k = max(gi, gj); k < D; ++k) s = fmaf(x[k * D + gi], x[k * D + gj], s);
-      g_out[(size_t)row * DD + idx] = s;
-    }
-    if (lane == 0) {
-      float s = 0.f;
-      for (int j = 0; j < D; ++j) s += logf(a[j * D + j]);
-      logdet_out[row] = 2.f * s;
+  for (int e = 0; e < 8; ++e) g[e] = 0.f;
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    const float xkj = scratch[k * (D + 1) + j];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int c = 8 * h + e;
+      if (k >= j && k >= c) g[e] = fmaf(xkj, scratch[k * (D + 1) + c], g[e]);
     }
   }
+  __syncwarp();  // the scratch is read before a next row of this warp writes it
+  clk.lap(GRAM);
+
+  float4* dst = reinterpret_cast<float4*>(g_out + j * D + 8 * h);
+  dst[0] = make_float4(g[0], g[1], g[2], g[3]);
+  dst[1] = make_float4(g[4], g[5], g[6], g[7]);
+  const float s = sum_log_diag(ljj);
+  store_lower_row(a, l_out);
+  if (lane == 0) *logdet_out = 2.f * s;
 }
 
-__device__ void load_row(const float* __restrict__ z, int row, bool live, float* zr) {
-#pragma unroll
-  for (int i = 0; i < D; ++i) zr[i] = live ? z[row * D + i] : 0.f;
-}
-
-// n_splits = 1: the whole bank and the epilogue in one launch.
-template <bool FULL>
-__global__ void __launch_bounds__(THREADS)
-metric_bundle_kernel(const float* __restrict__ z, const float* __restrict__ c,
-                     const float* __restrict__ m, float inv_t2, float lbd,
-                     float* __restrict__ gi_out, float* __restrict__ l_out,
-                     float* __restrict__ logdet_out, float* __restrict__ g_out,
-                     int n_rows, int n_centroids) {
-  __shared__ float m_s[KC * DD];       // 32 KB: the chunk's matrices
-  __shared__ float c_s[KC * (D + 1)];  // the chunk's centroids, rows padded against bank conflicts
-  __shared__ float a_s[ROWS][DD];      // 4 KB: one G^{-1} / L tile per warp
-  __shared__ float x_s[FULL ? ROWS : 1][DD];  // 4 KB: one X = L^{-1} tile per warp
-
-  const int warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * ROWS + warp;
-  const bool live = row < n_rows;
-  float zr[D], acc[E];
-  load_row(z, row, live, zr);
-#pragma unroll
-  for (int e = 0; e < E; ++e) acc[e] = 0.f;
-  accumulate(zr, c, m, inv_t2, 0, n_centroids, m_s, c_s, acc);
-  epilogue<FULL>(acc, lbd, row, live, a_s[warp], x_s[FULL ? warp : 0], gi_out, l_out,
-                 logdet_out, g_out);
-}
-
-// n_splits > 1, pass 1: block (x, s) sums bank range s into part[s, row, :].
-__global__ void __launch_bounds__(THREADS)
-partial_sum_kernel(const float* __restrict__ z, const float* __restrict__ c,
-                   const float* __restrict__ m, float inv_t2, float* __restrict__ part,
-                   int n_rows, int n_centroids, int per_split) {
-  __shared__ float m_s[KC * DD];
-  __shared__ float c_s[KC * (D + 1)];
-
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * ROWS + (threadIdx.x >> 5);
-  const bool live = row < n_rows;
-  const int k_begin = min(static_cast<int>(blockIdx.y) * per_split, n_centroids);
-  const int k_end = min(k_begin + per_split, n_centroids);
-  float zr[D], acc[E];
-  load_row(z, row, live, zr);
-#pragma unroll
-  for (int e = 0; e < E; ++e) acc[e] = 0.f;
-  accumulate(zr, c, m, inv_t2, k_begin, k_end, m_s, c_s, acc);
-  if (live) {
-    float* out = part + ((size_t)blockIdx.y * n_rows + row) * DD;
-#pragma unroll
-    for (int e = 0; e < E; ++e) out[lane + 32 * e] = acc[e];
-  }
-}
-
-// n_splits > 1, pass 2: add the slots in split order, then the epilogue.
-template <bool FULL>
-__global__ void __launch_bounds__(THREADS)
-reduce_epilogue_kernel(const float* __restrict__ part, float lbd, float* __restrict__ gi_out,
-                       float* __restrict__ l_out, float* __restrict__ logdet_out,
-                       float* __restrict__ g_out, int n_rows, int n_splits) {
-  __shared__ float a_s[ROWS][DD];
-  __shared__ float x_s[FULL ? ROWS : 1][DD];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * ROWS + warp;
-  const bool live = row < n_rows;
-  float acc[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) acc[e] = 0.f;
-  if (live) {
-    for (int s = 0; s < n_splits; ++s) {
-      const float* p = part + ((size_t)s * n_rows + row) * DD;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[e] += p[lane + 32 * e];
+// BUNDLE: G^{-1}, L, logdet and G (out0..out3); otherwise G^{-1} alone.
+template <int R, bool BUNDLE>
+__global__ void __launch_bounds__(max_warps(R, METRIC_BUNDLE) * 32)
+metric_bundle_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  PhaseClock<HMC_PHASES> clk(p.prof);
+  const float* sum = bank_sums<R, false>(p, smem, clk);
+  if (sum != nullptr) {
+    const int row0 = (int)(blockIdx.x / cg::this_cluster().num_blocks()) * R;
+    store_g_inv<R>(sum, row0, p);
+    clk.lap(FINISH);
+    if constexpr (BUNDLE) {
+      for (int r = threadIdx.x >> 5; r < R; r += blockDim.x >> 5) {
+        const int row = row0 + r;
+        if (row >= p.n_rows) break;  // warp-uniform: the shuffles need every lane
+        finish_row(sum + r * DD, p.lbd, p.out1 + (size_t)row * DD, p.out2 + row,
+                   p.out3 + (size_t)row * DD, warp_scratch(smem), clk);
+      }
     }
   }
-  epilogue<FULL>(acc, lbd, row, live, a_s[warp], x_s[FULL ? warp : 0], gi_out, l_out,
-                 logdet_out, g_out);
+  clk.lap(FINISH);
+  clk.finish();
 }
 
-template <bool FULL>
-int launch(const float* z, const float* c, const float* m, float inv_t2, float lbd,
-           float* gi_out, float* l_out, float* logdet_out, float* g_out, float* part,
-           int n_rows, int n_centroids, int n_splits, cudaStream_t stream) {
+template <bool BUNDLE>
+int launch_bundle(const float* z, const float* c, const float* m, float inv_t2, float lbd,
+                  float* gi_out, float* l_out, float* logdet_out, float* g_out, int n_rows,
+                  int n_centroids, Geometry g, long long* prof, cudaStream_t stream) {
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
-  const int blocks = (n_rows + ROWS - 1) / ROWS;
-  if (n_splits <= 1) {
-    metric_bundle_kernel<FULL><<<blocks, THREADS, 0, stream>>>(
-        z, c, m, inv_t2, lbd, gi_out, l_out, logdet_out, g_out, n_rows, n_centroids);
-    return static_cast<int>(cudaGetLastError());
+  const Params p{z, c, m, inv_t2, lbd, 0.f, gi_out, l_out, n_rows, n_centroids, prof,
+                 logdet_out, g_out};
+  switch (g.rows) {
+    case 1: return static_cast<int>(launch(metric_bundle_kernel<1, BUNDLE>, p, g, METRIC_BUNDLE, stream));
+    case 2: return static_cast<int>(launch(metric_bundle_kernel<2, BUNDLE>, p, g, METRIC_BUNDLE, stream));
+    case 4: return static_cast<int>(launch(metric_bundle_kernel<4, BUNDLE>, p, g, METRIC_BUNDLE, stream));
+    case 8: return static_cast<int>(launch(metric_bundle_kernel<8, BUNDLE>, p, g, METRIC_BUNDLE, stream));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  // ranges of whole chunks, so only the bank's last chunk is ragged
-  const int per_split = ((n_centroids + n_splits - 1) / n_splits + KC - 1) / KC * KC;
-  partial_sum_kernel<<<dim3(blocks, n_splits), THREADS, 0, stream>>>(
-      z, c, m, inv_t2, part, n_rows, n_centroids, per_split);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_epilogue_kernel<FULL><<<blocks, THREADS, 0, stream>>>(
-      part, lbd, gi_out, l_out, logdet_out, g_out, n_rows, n_splits);
-  return static_cast<int>(cudaGetLastError());
+}
+
+hmc::Geometry given(int n_rows, int rows, int warps, int ctas) {
+  return hmc::Geometry{rows, warps, ctas, (n_rows + rows - 1) / rows};
 }
 
 }  // namespace
 
-// part: a workspace of n_splits * n_rows * 256 floats (unused, may be null,
-// when n_splits == 1).
+// The rule's geometry for (B, K) on the current card (both entries take B6's).
 extern "C" int metric_bundle_f32(const float* z, const float* c, const float* m, float inv_t2,
                                  float lbd, float* gi_out, float* l_out, float* logdet_out,
-                                 float* g_out, float* part, int n_rows, int n_centroids,
-                                 int n_splits, cudaStream_t stream) {
-  return launch<true>(z, c, m, inv_t2, lbd, gi_out, l_out, logdet_out, g_out, part, n_rows,
-                      n_centroids, n_splits, stream);
+                                 float* g_out, int n_rows, int n_centroids, cudaStream_t stream) {
+  hmc::Geometry g;
+  const cudaError_t err = hmc::rule_geometry(n_rows, n_centroids, hmc::METRIC_BUNDLE, &g);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_bundle<true>(z, c, m, inv_t2, lbd, gi_out, l_out, logdet_out, g_out, n_rows,
+                             n_centroids, g, nullptr, stream);
 }
 
-extern "C" int g_inv_f32(const float* z, const float* c, const float* m, float inv_t2,
-                         float lbd, float* gi_out, float* part, int n_rows, int n_centroids,
-                         int n_splits, cudaStream_t stream) {
-  return launch<false>(z, c, m, inv_t2, lbd, gi_out, nullptr, nullptr, nullptr, part, n_rows,
-                       n_centroids, n_splits, stream);
+extern "C" int g_inv_f32(const float* z, const float* c, const float* m, float inv_t2, float lbd,
+                         float* gi_out, int n_rows, int n_centroids, cudaStream_t stream) {
+  hmc::Geometry g;
+  const cudaError_t err = hmc::rule_geometry(n_rows, n_centroids, hmc::METRIC_BUNDLE, &g);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_bundle<false>(z, c, m, inv_t2, lbd, gi_out, nullptr, nullptr, nullptr, n_rows,
+                              n_centroids, g, nullptr, stream);
 }
+
+// A given geometry (rows per CTA, warps per CTA, CTAs per cluster), for the
+// sweep (rlvae_tpu_torch.ops.hmc_sweep) and the tests.
+extern "C" int metric_bundle_at_f32(const float* z, const float* c, const float* m, float inv_t2,
+                                    float lbd, float* gi_out, float* l_out, float* logdet_out,
+                                    float* g_out, int n_rows, int n_centroids, int rows,
+                                    int warps, int ctas, cudaStream_t stream) {
+  return launch_bundle<true>(z, c, m, inv_t2, lbd, gi_out, l_out, logdet_out, g_out, n_rows,
+                             n_centroids, given(n_rows, rows, warps, ctas), nullptr, stream);
+}
+
+extern "C" int g_inv_at_f32(const float* z, const float* c, const float* m, float inv_t2,
+                            float lbd, float* gi_out, int n_rows, int n_centroids, int rows,
+                            int warps, int ctas, cudaStream_t stream) {
+  return launch_bundle<false>(z, c, m, inv_t2, lbd, gi_out, nullptr, nullptr, nullptr, n_rows,
+                              n_centroids, given(n_rows, rows, warps, ctas), nullptr, stream);
+}
+
+// How many clusters of (rows, warps, ctas) of the bundle's kernel the card
+// holds at once, in out[0] (hmc_cluster_slots' METRIC_BUNDLE).
+extern "C" int metric_bundle_cluster_slots(int rows, int warps, int ctas, int* out) {
+  using namespace hmc;
+  const Geometry g{rows, warps, ctas, 1};
+  switch (rows) {
+    case 1: return static_cast<int>(cluster_slots(metric_bundle_kernel<1, true>, g, METRIC_BUNDLE, out));
+    case 2: return static_cast<int>(cluster_slots(metric_bundle_kernel<2, true>, g, METRIC_BUNDLE, out));
+    case 4: return static_cast<int>(cluster_slots(metric_bundle_kernel<4, true>, g, METRIC_BUNDLE, out));
+    case 8: return static_cast<int>(cluster_slots(metric_bundle_kernel<8, true>, g, METRIC_BUNDLE, out));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+#ifdef HMC_PROFILE
+// ... at a given geometry, with the clock64 sums per phase (HMC_PHASES) in prof.
+extern "C" int metric_bundle_profile_f32(const float* z, const float* c, const float* m,
+                                         float inv_t2, float lbd, float* gi_out, float* l_out,
+                                         float* logdet_out, float* g_out, int n_rows,
+                                         int n_centroids, int rows, int warps, int ctas,
+                                         long long* prof, cudaStream_t stream) {
+  return launch_bundle<true>(z, c, m, inv_t2, lbd, gi_out, l_out, logdet_out, g_out, n_rows,
+                             n_centroids, given(n_rows, rows, warps, ctas), prof, stream);
+}
+
+extern "C" int g_inv_profile_f32(const float* z, const float* c, const float* m, float inv_t2,
+                                 float lbd, float* gi_out, int n_rows, int n_centroids, int rows,
+                                 int warps, int ctas, long long* prof, cudaStream_t stream) {
+  return launch_bundle<false>(z, c, m, inv_t2, lbd, gi_out, nullptr, nullptr, nullptr, n_rows,
+                              n_centroids, given(n_rows, rows, warps, ctas), prof, stream);
+}
+#endif

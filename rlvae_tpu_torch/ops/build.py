@@ -46,16 +46,23 @@ SIGNATURES = {
     # z, centroids, matrices, inv_t2, diag, L, logdet, B, K, stream
     "chol_bundle_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR, _C_PTR,
                         _C_INT, _C_INT, _C_PTR),
+    # ... B, K, rows per CTA, warps per CTA, CTAs per cluster, stream: a given geometry
+    "chol_bundle_at_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR, _C_PTR)
+                          + (_C_INT,) * 5 + (_C_PTR,),
     # z, centroids, matrices, inv_t2, lbd, log_eps, log_pi, grad, B, K, stream
     "hmc_terms_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_FLOAT, _C_PTR, _C_PTR,
                       _C_INT, _C_INT, _C_PTR),
-    # z, centroids, matrices, inv_t2, lbd, G^-1, L, logdet, G, workspace,
-    # B, K, n_splits, stream
-    "metric_bundle_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT) + (_C_PTR,) * 5
-                         + (_C_INT, _C_INT, _C_INT, _C_PTR),
-    # z, centroids, matrices, inv_t2, lbd, G^-1, workspace, B, K, n_splits, stream
-    "g_inv_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR, _C_PTR,
-                  _C_INT, _C_INT, _C_INT, _C_PTR),
+    # z, centroids, matrices, inv_t2, lbd, G^-1, L, logdet, G, B, K, stream
+    "metric_bundle_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT) + (_C_PTR,) * 4
+                         + (_C_INT, _C_INT, _C_PTR),
+    # ... B, K, rows per CTA, warps per CTA, CTAs per cluster, stream: a given geometry
+    "metric_bundle_at_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT) + (_C_PTR,) * 4
+                            + (_C_INT,) * 5 + (_C_PTR,),
+    # z, centroids, matrices, inv_t2, lbd, G^-1, B, K, stream
+    "g_inv_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR, _C_INT, _C_INT, _C_PTR),
+    # ... B, K, rows, warps, ctas, stream: a given geometry
+    "g_inv_at_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR) + (_C_INT,) * 5
+                    + (_C_PTR,),
     # z, centroids, matrices, inv_t2, gi_part, v, B, K, stream
     "hmc_partials_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_PTR, _C_PTR, _C_INT, _C_INT,
                          _C_PTR),
@@ -65,10 +72,14 @@ SIGNATURES = {
     # z, centroids, matrices, inv_t2, lbd, log_eps, log_pi, grad, B, K, rows, warps, ctas, stream
     "hmc_terms_at_f32": (_C_PTR,) * 3 + (_C_FLOAT,) * 3 + (_C_PTR,) * 2 + (_C_INT,) * 5
                         + (_C_PTR,),
-    # B, K, SM count, out int[4]: rows per CTA, warps per CTA, CTAs per cluster, clusters
-    "hmc_geometry": (_C_INT,) * 3 + (_C_PTR,),
-    # rows, warps, ctas, out int[1]: how many such clusters the card holds at once
-    "hmc_cluster_slots": (_C_INT,) * 3 + (_C_PTR,),
+    # B, K, SM count, kernel (metric_kernels.BANK_KERNELS), out int[4]: rows per
+    # CTA, warps per CTA, CTAs per cluster, clusters
+    "hmc_geometry": (_C_INT,) * 4 + (_C_PTR,),
+    # rows, warps, ctas, kernel, out int[1]: how many such clusters the card holds at once
+    "hmc_cluster_slots": (_C_INT,) * 4 + (_C_PTR,),
+    # rows, warps, ctas, out int[1]: the same for B1's and B6's own kernels
+    "chol_bundle_cluster_slots": (_C_INT,) * 3 + (_C_PTR,),
+    "metric_bundle_cluster_slots": (_C_INT,) * 3 + (_C_PTR,),
     # z0, w0, b0, wh, bh, wo, bo, z, ld, ys (null: not written), B, D, H, NB, NH, NT, stream
     "iaf_chain_fwd_f32": (_C_PTR,) * 10 + (_C_INT,) * 6 + (_C_PTR,),
     # ... B, D, H, NB, NH, NT, R, stream_weights, stream: a given R, or streamed weights
@@ -96,8 +107,8 @@ SIGNATURES = {
 # The defines of the profile build (rlvae_tpu_torch.ops.iaf_sweep,
 # hmc_sweep and decode_sweep; one library with all three), and the entries
 # only that build has: a launch plus clock64 sums per phase of one thread
-# (int64[8] IAF forward, int64[10] IAF backward, int64[10] each HMC kernel,
-# int64[9] each decode+MSE kernel).
+# (int64[8] IAF forward, int64[10] IAF backward, int64[12] each kernel of
+# csrc/hmc_bank.cuh's front half, int64[9] each decode+MSE kernel).
 PROFILES = ("IAF_PROFILE", "HMC_PROFILE", "DECODE_PROFILE")
 PROFILE_SIGNATURES = {
     # ... as iaf_chain_fwd_f32 up to NT, then prof, stream
@@ -110,6 +121,15 @@ PROFILE_SIGNATURES = {
     # ... as hmc_partials_at_f32 up to ctas, then prof, stream
     "hmc_partials_profile_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_PTR, _C_PTR)
                                 + (_C_INT,) * 5 + (_C_PTR,) * 2,
+    # ... as chol_bundle_at_f32 up to ctas, then prof, stream
+    "chol_bundle_profile_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR, _C_PTR)
+                               + (_C_INT,) * 5 + (_C_PTR,) * 2,
+    # ... as metric_bundle_at_f32 up to ctas, then prof, stream
+    "metric_bundle_profile_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT) + (_C_PTR,) * 4
+                                 + (_C_INT,) * 5 + (_C_PTR,) * 2,
+    # ... as g_inv_at_f32 up to ctas, then prof, stream
+    "g_inv_profile_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR) + (_C_INT,) * 5
+                         + (_C_PTR,) * 2,
     # ... as decode_mse_fwd_f32 up to row groups, then prof, stream
     "decode_mse_fwd_profile_f32": (_C_PTR,) * 7 + (_C_INT,) * 5 + (_C_PTR,) * 2,
     # ... as decode_mse_bwd_dh_f32 up to round_dh, then prof, stream
@@ -224,9 +244,9 @@ _loaded: Dict[bool, KernelLibrary] = {}
 
 def kernel_library(profile: bool = False) -> KernelLibrary:
     """Build (at first use) and load the kernel library, once per process.
-    ``profile`` gives the profile build instead (the IAF-chain, HMC and
-    decode+MSE kernels' clock64 laps), with the entries of ``PROFILE_SIGNATURES`` (a
-    library of its own)."""
+    ``profile`` gives the profile build instead (the IAF-chain, centroid-bank
+    (B1, B4, B6-B8) and decode+MSE kernels' clock64 laps), with the entries of
+    ``PROFILE_SIGNATURES`` (a library of its own)."""
     with _lock:
         if profile not in _loaded:
             defines = PROFILES if profile else ()

@@ -38,14 +38,12 @@ bank:
 The centroid-sharded terms (``rlvae_tpu_torch/parallel/metric_parallel.py``)
 sum both over the shards and finish with + lbd I, the Cholesky and G v.
 
-Every matrix is i-major (the TPU kernels' slabs are j-major).  For the
-metric bundle and G^{-1}, when the batch leaves the card's SMs idle and the
-bank is large (:func:`k_splits`), one call is two launches: ranges of the
-bank summed in separate blocks into a workspace, then their sum in range
-order and the epilogue.  The HMC terms and partials are one launch each at
-any size: the bank is split over the CTAs of a thread-block cluster and the
-warps of a CTA, summed in rank and warp order (``csrc/hmc_bank.cuh``), at
-the geometry of :func:`hmc_geometry`.
+Every matrix is i-major (the TPU kernels' slabs are j-major).  All five
+kernels share one front half (``csrc/hmc_bank.cuh``) and are one launch
+each at any size, with no workspace: the bank is split over the CTAs of a
+thread-block cluster and the warps of a CTA, summed in rank and warp order,
+at the geometry of :func:`hmc_geometry` for the kernel (G^{-1} at the
+metric bundle's, so the two give the same bits).
 
 Each wrapper (:func:`chol_bundle`, :func:`hmc_terms`, :func:`metric_bundle`,
 :func:`g_inv`, :func:`hmc_partials`) launches its kernel for CUDA tensors and runs its plain
@@ -65,7 +63,7 @@ gradient.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -103,6 +101,14 @@ def _check_bank_shapes(name: str, z, centroids, matrices) -> Tuple[int, int]:
     return b, k
 
 
+def _check_bank_alignment(name: str, centroids: torch.Tensor, matrices: torch.Tensor) -> None:
+    """The kernels stage the bank with bulk copies, which need 16-byte aligned
+    sources (every row of c and M is 16-byte aligned when its start is)."""
+    for arg, t in (("centroids", centroids), ("matrices", matrices)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must start on a 16-byte boundary")
+
+
 def chol_bundle(
     z: torch.Tensor, centroids: torch.Tensor, matrices: torch.Tensor,
     inv_t2: float, diag: float,
@@ -114,6 +120,7 @@ def chol_bundle(
         raise ValueError(f"chol_bundle: unsupported device {z.device}")
     check_inputs("chol_bundle", z.device, z=z, centroids=centroids, matrices=matrices)
     b, k = _check_bank_shapes("chol_bundle", z, centroids, matrices)
+    _check_bank_alignment("chol_bundle", centroids, matrices)
     d = KERNEL_DIM
     l = torch.empty((b, d, d), dtype=torch.float32, device=z.device)
     logdet = torch.empty((b,), dtype=torch.float32, device=z.device)
@@ -209,15 +216,21 @@ def hmc_terms_ref(
     return log_pi, grad
 
 
-# The HMC kernels' geometry (csrc/hmc_bank.cuh): centroids per staged chunk,
-# the limits of rows per CTA and CTAs per cluster (the portable cluster size),
-# and the fewest chunks a CTA sums before the bank is split over a cluster.
+# The geometry of the kernels of csrc/hmc_bank.cuh's front half: centroids
+# per staged chunk, the limits of rows per CTA and CTAs per cluster (the
+# portable cluster size), and the fewest chunks a CTA sums before the bank is
+# split over a cluster.
 HMC_CHUNK, HMC_MAX_ROWS, HMC_MAX_CTAS, HMC_MIN_CTA_CHUNKS = 4, 8, 8, 32
+# Each kernel's instance of the rule (csrc/hmc_bank.cuh BankKernel): B4 and B8
+# one, B1 one, B6 and B7 one (G^{-1} launches at the metric bundle's geometry).
+BANK_KERNELS = {"hmc_terms": 0, "hmc_partials": 0, "chol_bundle": 1, "metric_bundle": 2,
+                "g_inv": 2}
 
 
-def hmc_max_warps(rows: int) -> int:
-    """Warps a CTA of ``rows`` rows may have: 16, or 8 at 8 rows (registers)."""
-    return 16 if rows <= 4 else 8
+def hmc_max_warps(rows: int, kernel: str = "hmc_terms") -> int:
+    """Warps a CTA of ``rows`` rows of ``kernel`` may have: 16, or 8 for the
+    HMC terms and partials at 8 rows (registers)."""
+    return 8 if BANK_KERNELS[kernel] == 0 and rows > 4 else 16
 
 
 class HMCGeometry(NamedTuple):
@@ -227,35 +240,36 @@ class HMCGeometry(NamedTuple):
     clusters: int  # ceil(B / rows)
 
 
-def hmc_geometry(b: int, k: int, sms: int,
-                 cluster_slots: Callable[[int, int, int], int]) -> HMCGeometry:
-    """The launch geometry of the HMC terms and partials for B rows and K
-    centroids on a card with ``sms`` SMs that holds ``cluster_slots(rows,
-    warps, ctas)`` clusters of that shape at once; the launchers' own rule
-    (``hmc_geometry`` in ``csrc/hmc_bank.cuh``, where the slots come from
-    ``cudaOccupancyMaxActiveClusters``; :func:`launch_hmc_geometry` asks
-    it).  C_max = min(8, chunks // HMC_MIN_CTA_CHUNKS), at least 1; the rows
-    per CTA the smallest of 1, 2, 4, 8 whose ceil(B / rows) clusters of C_max
-    CTAs fit within the SMs (8 if none does); the warps enough for one chunk
-    each, at least one per row for the epilogue, at most
-    :func:`hmc_max_warps`; the cluster size the largest C <= C_max whose
-    clusters the card holds at once, else 1."""
+def hmc_geometry(b: int, k: int, sms: int, cluster_slots: Callable[[int, int, int], int],
+                 kernel: str = "hmc_terms") -> HMCGeometry:
+    """The launch geometry of ``kernel`` (a key of ``BANK_KERNELS``) for B
+    rows and K centroids on a card with ``sms`` SMs that holds
+    ``cluster_slots(rows, warps, ctas)`` clusters of that kernel's shape at
+    once; the launchers' own rule (``hmc_geometry`` in ``csrc/hmc_bank.cuh``,
+    where the slots come from ``cudaOccupancyMaxActiveClusters``;
+    :func:`launch_hmc_geometry` asks it).  C_max = min(8, chunks //
+    HMC_MIN_CTA_CHUNKS), at least 1; the rows per CTA the smallest of 1, 2,
+    4, 8 whose ceil(B / rows) clusters of C_max CTAs fit within the SMs (8 if
+    none does); the warps enough for one chunk each, at least one per row for
+    the epilogue, at most :func:`hmc_max_warps`; the cluster size the largest
+    C <= C_max whose clusters the card holds at once, else 1."""
     chunks = -(-k // HMC_CHUNK)
     c_max = max(1, min(HMC_MAX_CTAS, chunks // HMC_MIN_CTA_CHUNKS))
     rows = 1
     while rows < HMC_MAX_ROWS and -(-b // rows) * c_max > sms:
         rows *= 2
     clusters = -(-b // rows)
-    warps = min(hmc_max_warps(rows), max(rows, -(-chunks // c_max)))
+    warps = min(hmc_max_warps(rows, kernel), max(rows, -(-chunks // c_max)))
     ctas = c_max
     while ctas > 1 and clusters > cluster_slots(rows, warps, ctas):
         ctas -= 1
     return HMCGeometry(rows, warps, ctas, clusters)
 
 
-def launch_hmc_geometry(b: int, k: int, device: torch.device) -> HMCGeometry:
-    """The geometry the HMC launchers take for (B, K) on ``device``, from the
-    library's own rule."""
+def launch_hmc_geometry(b: int, k: int, device: torch.device,
+                        kernel: str = "hmc_terms") -> HMCGeometry:
+    """The geometry the launcher of ``kernel`` takes for (B, K) on
+    ``device``, from the library's own rule."""
     import ctypes
 
     from rlvae_tpu_torch.ops.build import kernel_library
@@ -263,13 +277,16 @@ def launch_hmc_geometry(b: int, k: int, device: torch.device) -> HMCGeometry:
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device):
         raise_on_error("hmc_geometry", kernel_library().hmc_geometry(
-            b, k, torch.cuda.get_device_properties(device).multi_processor_count, out))
+            b, k, torch.cuda.get_device_properties(device).multi_processor_count,
+            BANK_KERNELS[kernel], out))
     return HMCGeometry(*out)
 
 
-def hmc_cluster_slots(device: torch.device) -> Callable[[int, int, int], int]:
-    """The card's ``cluster_slots`` for :func:`hmc_geometry`: how many
-    clusters of (rows, warps, ctas) it holds at once, from the library."""
+def hmc_cluster_slots(device: torch.device,
+                      kernel: str = "hmc_terms") -> Callable[[int, int, int], int]:
+    """The card's ``cluster_slots`` of ``kernel`` for :func:`hmc_geometry`:
+    how many clusters of (rows, warps, ctas) it holds at once, from the
+    library."""
     import ctypes
 
     from rlvae_tpu_torch.ops.build import kernel_library
@@ -277,19 +294,11 @@ def hmc_cluster_slots(device: torch.device) -> Callable[[int, int, int], int]:
     def slots(rows: int, warps: int, ctas: int) -> int:
         out = (ctypes.c_int * 1)()
         with torch.cuda.device(device):
-            raise_on_error("hmc_cluster_slots",
-                           kernel_library().hmc_cluster_slots(rows, warps, ctas, out))
+            raise_on_error("hmc_cluster_slots", kernel_library().hmc_cluster_slots(
+                rows, warps, ctas, BANK_KERNELS[kernel], out))
         return out[0]
 
     return slots
-
-
-def _check_bank_alignment(name: str, centroids: torch.Tensor, matrices: torch.Tensor) -> None:
-    """The HMC kernels stage the bank with bulk copies, which need 16-byte
-    aligned sources (every row of c and M is 16-byte aligned when its start is)."""
-    for arg, t in (("centroids", centroids), ("matrices", matrices)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {arg} must start on a 16-byte boundary")
 
 
 def hmc_terms(
@@ -357,32 +366,6 @@ def metric_bundle_ref(
     return gi, l, _lin.logdet_from_chol(l), g
 
 
-ROWS_PER_BLOCK = 4  # csrc/metric_bundle.cu: ROWS
-MIN_CENTROIDS_PER_SPLIT = 512
-
-
-def k_splits(b: int, k: int, device: torch.device) -> int:
-    """How many ranges of the bank the metric-bundle kernels sum in separate
-    blocks: enough for about two blocks per SM, each range at least
-    MIN_CENTROIDS_PER_SPLIT centroids; 1 (one fused launch) when the batch
-    alone fills the card or the bank is small.  Always in [1, K]."""
-    row_blocks = -(-b // ROWS_PER_BLOCK)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-2 * sms // row_blocks), k // MIN_CENTROIDS_PER_SPLIT))
-
-
-def _workspace(b: int, k: int, device: torch.device) -> Tuple[int, Optional[torch.Tensor]]:
-    """(n_splits, workspace) of a launch that sums the bank in ranges:
-    :func:`k_splits` ranges (in [1, K]), and one [B, 256] workspace slot
-    per range (None for one range).  Freed after the launch is enqueued, the
-    workspace goes back to the caching allocator, which hands it out again
-    only to work ordered after the launch on the same stream."""
-    n = k_splits(b, k, device)
-    if n == 1:
-        return 1, None
-    return n, torch.empty((n, b, KERNEL_DIM * KERNEL_DIM), dtype=torch.float32, device=device)
-
-
 def metric_bundle(
     z: torch.Tensor, centroids: torch.Tensor, matrices: torch.Tensor,
     inv_t2: float, lbd: float,
@@ -394,6 +377,7 @@ def metric_bundle(
         raise ValueError(f"metric_bundle: unsupported device {z.device}")
     check_inputs("metric_bundle", z.device, z=z, centroids=centroids, matrices=matrices)
     b, k = _check_bank_shapes("metric_bundle", z, centroids, matrices)
+    _check_bank_alignment("metric_bundle", centroids, matrices)
     d = KERNEL_DIM
     gi, l, g = (torch.empty((b, d, d), dtype=torch.float32, device=z.device) for _ in range(3))
     logdet = torch.empty((b,), dtype=torch.float32, device=z.device)
@@ -401,11 +385,10 @@ def metric_bundle(
         return gi, l, logdet, g
     from rlvae_tpu_torch.ops.build import kernel_library
 
-    n_splits, part = _workspace(b, k, z.device)
     code = kernel_library().metric_bundle_f32(
         z.data_ptr(), centroids.data_ptr(), matrices.data_ptr(), float(inv_t2), float(lbd),
-        gi.data_ptr(), l.data_ptr(), logdet.data_ptr(), g.data_ptr(),
-        None if part is None else part.data_ptr(), b, k, n_splits, stream_handle(z.device),
+        gi.data_ptr(), l.data_ptr(), logdet.data_ptr(), g.data_ptr(), b, k,
+        stream_handle(z.device),
     )
     raise_on_error("metric_bundle", code)
     metric_bundle.launches += 1
@@ -426,16 +409,15 @@ def g_inv(
         raise ValueError(f"g_inv: unsupported device {z.device}")
     check_inputs("g_inv", z.device, z=z, centroids=centroids, matrices=matrices)
     b, k = _check_bank_shapes("g_inv", z, centroids, matrices)
+    _check_bank_alignment("g_inv", centroids, matrices)
     gi = torch.empty((b, KERNEL_DIM, KERNEL_DIM), dtype=torch.float32, device=z.device)
     if b == 0:
         return gi
     from rlvae_tpu_torch.ops.build import kernel_library
 
-    n_splits, part = _workspace(b, k, z.device)
     code = kernel_library().g_inv_f32(
         z.data_ptr(), centroids.data_ptr(), matrices.data_ptr(), float(inv_t2), float(lbd),
-        gi.data_ptr(), None if part is None else part.data_ptr(), b, k, n_splits,
-        stream_handle(z.device),
+        gi.data_ptr(), b, k, stream_handle(z.device),
     )
     raise_on_error("g_inv", code)
     g_inv.launches += 1

@@ -1,15 +1,20 @@
-"""The HMC kernels' launch geometry, on the CPU.
+"""The launch geometry of the kernels of ``csrc/hmc_bank.cuh``'s front half,
+on the CPU.
 
 ``hmc_geometry`` is the rule of the launchers in ``csrc/hmc_terms.cu`` and
-``csrc/hmc_partials.cu`` (``hmc_geometry`` in ``csrc/hmc_bank.cuh``); the
-card test ``test_hmc_geometry_matches_the_launchers``
-(``tests/test_torch_kernels.py``) holds it to the library's own answer with
+``csrc/hmc_partials.cu`` (B4, B8), ``csrc/chol_bundle.cu`` (B1) and
+``csrc/metric_bundle.cu`` (B6, B7), one argument telling the kernels apart
+(``hmc_geometry`` in ``csrc/hmc_bank.cuh``); the card tests
+``test_hmc_geometry_matches_the_launchers`` and
+``test_metric_geometry_matches_the_launchers``
+(``tests/test_torch_kernels.py``) hold it to the library's own answer with
 the card's cluster slots.  Here, with the slots an H100 reports
 (``cudaOccupancyMaxActiveClusters``, ``python -m
-rlvae_tpu_torch.ops.hmc_sweep``) and with a card of more and fewer SMs:
-every row and every chunk of the bank is summed once, by ranges of whole
-chunks in (cluster rank, warp) order; clusters stay within the portable 8
-CTAs and fit in one wave; a small bank is one range.
+rlvae_tpu_torch.ops.hmc_sweep [--kernel ...]``) and with a card of more and
+fewer SMs, for each kernel: every row and every chunk of the bank is summed
+once, by ranges of whole chunks in (cluster rank, warp) order; clusters stay
+within the portable 8 CTAs and fit in one wave; a small bank is one range;
+G^{-1} takes the metric bundle's geometry.
 """
 
 import pytest
@@ -110,4 +115,89 @@ def test_padding_within_the_last_chunk_keeps_the_geometry(b):
     for k, padded in ((37, 40), (50, 52), (1999, 2000), (19_997, 20_000)):
         g = hmc_geometry(b, k, 132, h100_slots)
         assert g == hmc_geometry(b, padded, 132, h100_slots)
+        assert ranges(k, g) == ranges(padded, g)
+
+
+# The metric kernels' instances of the rule (csrc/hmc_bank.cuh BankKernel):
+# B1 and B6 (B7 launches at B6's geometry).  Without the gradient's second sum
+# a CTA may have 16 warps at any rows, and each kernel's slots are its own:
+# clusters of C CTAs an H100 holds at once, measured for B1 and B6 alike at
+# rows 1 and 8 (hmc_sweep --kernel ...: a CTA of 16 warps takes an SM, one of
+# 8 warps fits twice); the rule asks for slots only at 16 warps.
+METRIC_KERNELS = ("chol_bundle", "metric_bundle")
+H100_METRIC_SLOTS = {16: {8: 15, 7: 15, 6: 17, 5: 22, 4: 30, 3: 39, 2: 66, 1: 132},
+                     8: {8: 30, 7: 32, 6: 39, 5: 47, 4: 62, 3: 79, 2: 132, 1: 264}}
+
+
+def h100_metric_slots(rows, warps, ctas):
+    return H100_METRIC_SLOTS[16 if warps > 8 else 8][ctas]
+
+
+METRIC_CARDS = {"h100": (132, h100_metric_slots), "small": (16, even_slots(16)),
+                "large": (264, even_slots(264))}
+
+
+@pytest.mark.parametrize("kernel", METRIC_KERNELS)
+@pytest.mark.parametrize("card", sorted(METRIC_CARDS))
+def test_metric_kernels_sum_every_row_and_chunk_once_in_order(card, kernel):
+    sms, slots = METRIC_CARDS[card]
+    for k in BANKS:
+        chunks = -(-k // HMC_CHUNK)
+        for b in BATCHES:
+            g = hmc_geometry(b, k, sms, slots, kernel)
+            assert g.rows in (1, 2, 4, 8) and 1 <= g.ctas <= 8, (b, k, g)
+            assert min(g.rows, 8) <= g.warps <= hmc_max_warps(g.rows, kernel) == 16, (b, k, g)
+            assert g.clusters == -(-b // g.rows) and (g.clusters - 1) * g.rows < b
+            spans = [ranges(k, g)[key] for key in sorted(ranges(k, g))]
+            covered = [c for begin, end in spans for c in range(begin, end)]
+            assert covered == list(range(chunks)), (b, k, g)
+
+
+@pytest.mark.parametrize("kernel", METRIC_KERNELS)
+@pytest.mark.parametrize("card", sorted(METRIC_CARDS))
+def test_metric_kernels_take_one_range_for_small_banks_and_one_wave(card, kernel):
+    sms, slots = METRIC_CARDS[card]
+    for k in BANKS:
+        chunks = -(-k // HMC_CHUNK)
+        for b in BATCHES:
+            g = hmc_geometry(b, k, sms, slots, kernel)
+            if chunks < 2 * HMC_MIN_CTA_CHUNKS:
+                assert g.ctas == 1, (b, k, g)
+            else:
+                assert chunks // g.ctas >= HMC_MIN_CTA_CHUNKS, (b, k, g)
+            if g.ctas > 1:
+                assert g.clusters <= slots(g.rows, g.warps, g.ctas), (b, k, g)
+
+
+@pytest.mark.parametrize("kernel", ["chol_bundle", "metric_bundle", "g_inv"])
+def test_h100_geometry_of_the_metric_kernels(kernel):
+    """At the train step's B=16 and the serving bucket's B=64, K = 50, 200
+    and 20 000: one CTA a row with a warp a chunk (up to 16) at K <= 200; at
+    K=20 000 clusters of 6 (15 clusters of 8 fit, 17 of 6), of rows 1 at
+    B=16 and 4 at B=64; at B=1000, rows of 8 with 13 or 16 warps (B4 and
+    B8 have at most 8 there)."""
+    want = {(16, 50): (1, 13, 1, 16), (16, 200): (1, 16, 1, 16), (16, 20_000): (1, 16, 6, 16),
+            (64, 50): (1, 13, 1, 64), (64, 200): (1, 16, 1, 64), (64, 20_000): (4, 16, 6, 16),
+            (1000, 50): (8, 13, 1, 125), (1000, 20_000): (8, 16, 1, 125)}
+    for (b, k), g in want.items():
+        assert tuple(hmc_geometry(b, k, 132, h100_metric_slots, kernel)) == g, (b, k)
+    assert tuple(hmc_geometry(1000, 50, 132, h100_slots)) == (8, 8, 1, 125)
+
+
+def test_g_inv_takes_the_metric_bundles_geometry():
+    """G^{-1} launches at the bundle's geometry (the same ranges, so the same
+    bits), whatever the card."""
+    for sms, slots in METRIC_CARDS.values():
+        for k in BANKS:
+            for b in BATCHES:
+                assert (hmc_geometry(b, k, sms, slots, "g_inv")
+                        == hmc_geometry(b, k, sms, slots, "metric_bundle")), (b, k)
+
+
+@pytest.mark.parametrize("kernel", METRIC_KERNELS)
+@pytest.mark.parametrize("b", [1, 16, 64, 1000])
+def test_metric_kernels_padding_keeps_the_geometry(kernel, b):
+    for k, padded in ((37, 40), (50, 52), (1999, 2000), (19_997, 20_000)):
+        g = hmc_geometry(b, k, 132, h100_metric_slots, kernel)
+        assert g == hmc_geometry(b, padded, 132, h100_metric_slots, kernel)
         assert ranges(k, g) == ranges(padded, g)

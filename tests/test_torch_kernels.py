@@ -15,7 +15,11 @@ version, and against fp64 no worse than 4x the plain version (or 1e-4 of
 scale).  Metric bundle and G^{-1}: against the plain version at the JAX
 package's kernel tolerances (G^{-1} rtol 1e-5 atol 1e-6, L and logdet 1e-4,
 G 1e-3), and against fp64 each output's error at most twice the plain fp32
-version's, or within 1e-5 of the output's scale.  decode+MSE: the loss
+version's, or within 1e-5 of the output's scale, at the rule's geometry and
+at forced ones (``*_at_f32``); the chol-bundle, metric bundle and G^{-1}
+replayed in a CUDA graph bit for bit, their rule held to
+``metric_kernels.hmc_geometry`` per kernel, and G^{-1} taking views of a
+sharded bank.  decode+MSE: the loss
 within 1e-5 relative of the plain version (and against fp64 at most twice
 the plain fp32 version's error, or 1e-6 relative), dh, dW and db within
 1e-3 of each one's largest entry (a bf16 rounding of dp may flip where the
@@ -83,7 +87,7 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("b", [1, 7, 64, 300])
+@pytest.mark.parametrize("b", [1, 7, 16, 64, 300])
 @pytest.mark.parametrize("k", [1, 50, 200, 20_000])
 def test_chol_bundle_matches_plain(dev, b, k):
     rng = np.random.default_rng(k + b)
@@ -482,18 +486,20 @@ def test_sharded_g_inv_of_another_dim_raises_on_the_card(dev):
 BUNDLE_TOL = ((1e-5, 1e-6), (1e-4, 1e-4), (1e-4, 1e-4), (1e-3, 1e-3))  # G^-1, L, logdet, G
 
 
-@pytest.mark.parametrize("b,k,n_splits", [
+@pytest.mark.parametrize("b,k,geometry", [
     *((b, k, None) for k in (1, 50, 200, 20_000) for b in (1, 64, 1000)),
-    # the bank summed in 1, 2, 7 or 40 ranges (the default at K=20 000 and
-    # B=64 on an H100 is 17), each range in its own block
-    *((64, 20_000, n) for n in (1, 2, 7, 40)), (5, 200, 3),
+    # a given geometry (rows per CTA, warps per CTA, CTAs per cluster) in place
+    # of the rule's, the bank summed in 1, 2, 7 or 40 ranges (CTAs x warps;
+    # the rule's at K=20 000 and B=64 on an H100 is 6 x 16): one warp alone,
+    # one warp for 4 rows in clusters of 2, clusters of 7, 5 warps for 8 rows
+    # in clusters of 8; and 3 ranges for 5 rows in clusters of 3
+    *((64, 20_000, g) for g in ((1, 1, 1), (4, 1, 2), (2, 1, 7), (8, 5, 8))), (5, 200, (2, 1, 3)),
 ])
-def test_metric_bundle_and_g_inv_match_plain_and_fp64(dev, monkeypatch, b, k, n_splits):
+def test_metric_bundle_and_g_inv_match_plain_and_fp64(dev, b, k, geometry):
     """Both kernels against their plain fp32 versions and an fp64 evaluation;
     the last rows of a batch lie far from every centroid (G^{-1} = lbd I).
-    A given ``n_splits`` replaces the wrappers' own choice of ranges."""
-    if n_splits is not None:
-        monkeypatch.setattr(metric_kernels, "k_splits", lambda b, k, device: n_splits)
+    A given ``geometry`` launches ``metric_bundle_at_f32`` and
+    ``g_inv_at_f32`` in place of the wrappers' rule."""
     c, m = _bank(k, 7 * k + b)
     rng = np.random.default_rng(b + 1)
     z = c[rng.integers(0, k, size=b)] + 0.05 * rng.normal(size=(b, 16))
@@ -501,12 +507,17 @@ def test_metric_bundle_and_g_inv_match_plain_and_fp64(dev, monkeypatch, b, k, n_
         z[-2:] += 100.0
     zt, ct, mt = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (z, c, m))
     before = (metric_bundle.launches, g_inv.launches)
-    got = metric_bundle(zt, ct, mt, 4.0, 0.01)
-    gi_k = g_inv(zt, ct, mt, 4.0, 0.01)
+    if geometry is None:
+        got = metric_bundle(zt, ct, mt, 4.0, 0.01)
+        gi_k = g_inv(zt, ct, mt, 4.0, 0.01)
+        assert (metric_bundle.launches, g_inv.launches) == (before[0] + 1, before[1] + 1)
+    else:
+        lib = kernel_library()
+        got = hmc_sweep.metric_at(lib, "metric_bundle", zt, ct, mt, geometry)
+        (gi_k,) = hmc_sweep.metric_at(lib, "g_inv", zt, ct, mt, geometry)
     plain = metric_bundle_ref(zt, ct, mt, 4.0, 0.01)
     want64 = metric_bundle_ref(zt.double(), ct.double(), mt.double(), 4.0, 0.01)
     torch.cuda.synchronize()
-    assert (metric_bundle.launches, g_inv.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(gi_k, got[0])  # the same front half
     torch.testing.assert_close(gi_k, g_inv_ref(zt, ct, mt, 4.0, 0.01), rtol=1e-5, atol=1e-6)
     for out, p, e, (rtol, atol) in zip(got, plain, want64, BUNDLE_TOL):
@@ -520,6 +531,71 @@ def test_metric_bundle_and_g_inv_match_plain_and_fp64(dev, monkeypatch, b, k, n_
     if b > 1:
         eye = torch.eye(16, device=dev)
         torch.testing.assert_close(got[0][-2:], 0.01 * eye.expand(2, 16, 16), rtol=0, atol=0)
+
+
+def test_metric_kernels_replay_in_a_cuda_graph(dev):
+    """The chol-bundle, metric-bundle and G^{-1} launchers neither
+    synchronise nor allocate (no workspace at any K): after a warm-up launch
+    each captures into a CUDA graph, with one CTA a row (K=50) and with
+    clusters (K=20 000), whose replay gives the eager launches' bits."""
+    for k in (50, 20_000):
+        c, m = _bank(k, 23)
+        rng = np.random.default_rng(k + 1)
+        z = c[rng.integers(0, k, size=64)] + 0.05 * rng.normal(size=(64, 16))
+        zt, ct, mt = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (z, c, m))
+        calls = (lambda: chol_bundle(zt, ct, mt, 4.0, 0.01 + 1e-6),
+                 lambda: metric_bundle(zt, ct, mt, 4.0, 0.01),
+                 lambda: (g_inv(zt, ct, mt, 4.0, 0.01),))
+        eager = [call() for call in calls]
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = [call() for call in calls]
+        graph.replay()
+        torch.cuda.synchronize()
+        for want, got in zip(eager, replayed):
+            assert all(map(torch.equal, got, want)), k
+
+
+@pytest.mark.parametrize("kernel", ["chol_bundle", "metric_bundle", "g_inv"])
+def test_metric_geometry_matches_the_launchers(dev, kernel):
+    """``metric_kernels.hmc_geometry`` of the metric kernels with their own
+    cluster slots against the launchers' rule, read from the library; G^{-1}
+    takes the metric bundle's geometry."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slots = metric_kernels.hmc_cluster_slots(dev, kernel)
+    for k in (1, 37, 50, 200, 2000, 20_000):
+        for b in list(range(1, 70)) + [100, 300, 1000]:
+            g = metric_kernels.hmc_geometry(b, k, sms, slots, kernel)
+            assert metric_kernels.launch_hmc_geometry(b, k, dev, kernel) == g, (b, k)
+            assert g == metric_kernels.launch_hmc_geometry(b, k, dev, "metric_bundle") or (
+                kernel == "chol_bundle")
+            assert 1 <= g.ctas <= 8 and (g.ctas == 1 or g.clusters <= slots(*g[:3])), (b, k, g)
+
+
+def test_sharded_g_inv_shard_views_launch_g_inv(dev):
+    """``g_inv_sharded`` hands the G^{-1} kernel views into one contiguous
+    padded bank (``shard_metric``): each shard starts 64-byte aligned, so the
+    kernel's bulk copies take it, and each shard's G^{-1} equals its plain
+    version."""
+    from rlvae_tpu_torch.geometry.metric import CentroidMetric
+    from rlvae_tpu_torch.parallel import shard_metric
+    from rlvae_tpu_torch.parallel.mesh import Mesh
+
+    c, m = _bank(37, 6)
+    metric = CentroidMetric.create(c, m, temperature=0.5, regularization=0.01)
+    metric = CentroidMetric(metric.centroids.to(dev), metric.matrices.to(dev),
+                            metric.temperature, metric.regularization)
+    z = torch.tensor(c[:9] + 0.05, dtype=torch.float32, device=dev)
+    for ep in (2, 4):
+        for index in range(ep):
+            shard = shard_metric(Mesh(dp=1, ep=ep, data_index=0, model_index=index), metric)
+            assert shard.centroids.data_ptr() % 64 == 0 and shard.matrices.data_ptr() % 64 == 0
+            before = g_inv.launches
+            got = g_inv(z, shard.centroids, shard.matrices, 4.0, 0.0)
+            assert g_inv.launches == before + 1
+            torch.testing.assert_close(got, g_inv_ref(z, shard.centroids, shard.matrices, 4.0, 0.0),
+                                       rtol=1e-5, atol=1e-6)
 
 
 def test_metric_bundle_rejects_bad_inputs(dev):

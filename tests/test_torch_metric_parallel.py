@@ -188,6 +188,23 @@ def test_shard_metric_cuts_contiguous_slices_of_the_padded_bank():
     assert tmp.shard_metric(create_mesh(), tm).n_centroids == 37
 
 
+@pytest.mark.parametrize("shards", [2, 4])
+def test_shard_views_start_where_the_kernels_bulk_copies_need(shards):
+    """A shard is a view into the padded bank at a whole number of
+    centroids (64-byte rows of c, 1 KB of M): its start keeps the bank's
+    64-byte alignment, so the metric kernels' 16-byte check passes (their
+    bulk copies need it; on the card ``g_inv`` launches on these views)."""
+    from rlvae_tpu_torch.ops.metric_kernels import _check_bank_alignment
+
+    _, tm = _pair("k37")
+    for i in range(shards):
+        s = tmp.shard_metric(Mesh(dp=1, ep=shards, data_index=0, model_index=i), tm)
+        assert s.centroids.storage_offset() * 4 % 64 == 0, i
+        assert s.matrices.storage_offset() * 4 % 64 == 0, i
+        assert s.centroids.data_ptr() % 16 == 0 and s.matrices.data_ptr() % 16 == 0, i
+        _check_bank_alignment("g_inv", s.centroids, s.matrices)
+
+
 # ---------------------------------------------------------------------------
 # one process: the 1 x 1 mesh
 # ---------------------------------------------------------------------------
