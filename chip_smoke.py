@@ -96,6 +96,23 @@ Phases, each printing one JSON line with its elapsed seconds:
    of a second run, and the first DENSE_REPLAY_STEPS MCMC steps replayed on
    the CPU from the card's state (also with every proposal accepted, so
    that the leapfrog endpoints are compared where the chain rejects).
+11. ``checkpoint``: save, resume and reload the full-width default model in
+   a temporary run directory outside the tree.  A ``Trainer`` at B=16 (5
+   steps an epoch) is stopped by ``stop_flag`` after epoch 0 (``preempted``,
+   ``best`` and ``last`` written); ``last`` restored on the card and with
+   ``map_location="cpu"`` gives the live weights and Adam state bit for bit;
+   a fresh ``Trainer`` (other seeded flows) with ``fit(resume=True)`` starts
+   from exactly that state and runs epochs 1 and 2 (steps 6-15, the best
+   validation loss no worse, the learning rate and Adam step counts carried),
+   and ``evaluate()`` reads ``best`` without touching the live weights.  Then
+   ``ModelManager.from_checkpoint(run_dir, preset, "best")`` on the card
+   behind a ``BatchingEngine``: a B=64 ``reconstruct`` bit for bit equal to a
+   model loaded from the slot by hand, the engine's 64 rows (one batch)
+   equal to it, and a B=64 forward replayed on the CPU from the same slot
+   and noise within ``compare_forward``'s tolerances.  Seconds and bytes of
+   every save and restore; the counters are zeroed just before the first
+   ``fit`` and read after the CPU replay (chol-bundle, IAF-chain forward and
+   backward, G^{-1}).
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -109,6 +126,7 @@ import copy
 import faulthandler
 import json
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -1384,9 +1402,14 @@ def expected_launches(**nonzero):
 
 def run_train(torch, model_config=None, steps: int = TRAIN_STEPS, per_step=None, dev=None):
     """``steps`` Trainer steps of ``model_config`` (the default preset) at
-    B=16 with one validation pass; ``per_step`` is the launch count every
-    step must show (the default model's: chol-bundle 2, IAF-chain forward
-    and backward 1 each)."""
+    B=16 with one validation pass, in a temporary run directory;
+    ``per_step`` is the launch count every step must show (the default
+    model's: chol-bundle 2, IAF-chain forward and backward 1 each)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as run_dir:
+        return _train_and_replay(torch, run_dir, model_config, steps, per_step, dev)
+
+
+def _train_and_replay(torch, run_dir, model_config, steps, per_step, dev):
     from rlvae_tpu_torch.data import CYCLIC_SPRITES, CyclicDataModule
     from rlvae_tpu_torch.models import PRESETS, create_model
     from rlvae_tpu_torch.train import TRAINING_PRESETS, Trainer, make_optimizer, make_train_step
@@ -1400,7 +1423,7 @@ def run_train(torch, model_config=None, steps: int = TRAIN_STEPS, per_step=None,
     data = CyclicDataModule({**CYCLIC_SPRITES, "synthetic_n_test": TRAIN_BATCH}, seed=0)
     data.setup(cfg)
     model = create_model(model_config, seed=0)
-    trainer = Trainer(model, data, cfg, seed=0, device=dev)
+    trainer = Trainer(model, data, cfg, run_dir=run_dir, seed=0, device=dev)
     check(dev is not None or trainer.device.type == "cuda", f"trainer on {trainer.device}")
     setup_s = time.perf_counter() - t0
 
@@ -2115,6 +2138,178 @@ def run_dense_chain(torch, dev=None):
     }
 
 
+# ---------------------------------------------------------------------------
+# checkpoint phase
+# ---------------------------------------------------------------------------
+
+CKPT_EPOCHS = 3  # epoch 0 stopped by stop_flag, epochs 1 and 2 resumed
+
+
+def _timed_slots(ckpt, log):
+    """Time every save and restore of a CheckpointManager: one record in
+    ``log`` per call with the slot, seconds and bytes."""
+    save, restore = ckpt.save, ckpt.restore
+
+    def timed(op, fn):
+        def call(slot, *args, **kwargs):
+            t = time.perf_counter()
+            out = fn(slot, *args, **kwargs)
+            log.append({"op": op, "slot": slot, "seconds": time.perf_counter() - t,
+                        "bytes": ckpt.path(slot).stat().st_size,
+                        **({"map_location": str(kwargs["map_location"])}
+                           if kwargs.get("map_location") is not None else {})})
+            return out
+        return call
+
+    ckpt.save, ckpt.restore = timed("save", save), timed("restore", restore)
+    return ckpt
+
+
+def _same_bits(torch, a, b) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+
+def _same_adam(torch, a, b) -> bool:
+    return a["lr"] == b["lr"] and a["state"].keys() == b["state"].keys() and all(
+        _same_bits(torch, a["state"][k], b["state"][k]) for k in a["state"])
+
+
+def run_checkpoint(torch, dev=None):
+    """Save, resume and reload the full-width default model in a temporary
+    run directory: a Trainer at B=16 stopped by ``stop_flag`` after epoch 0,
+    the ``last`` slot restored on the card and on the CPU against the live
+    state, a fresh Trainer resumed for epochs 1 and 2, ``evaluate()`` on the
+    ``best`` slot, then ``ModelManager.from_checkpoint(..., "best")`` behind
+    the engine, against a model loaded from the slot by hand and against the
+    CPU."""
+    from rlvae_tpu_torch import BatchingEngine, ModelManager, PRESETS, ServeConfig
+    from rlvae_tpu_torch.data import CYCLIC_SPRITES, CyclicDataModule
+    from rlvae_tpu_torch.models import create_model
+    from rlvae_tpu_torch.train import (
+        TRAINING_PRESETS,
+        CheckpointManager,
+        Trainer,
+        adam_state,
+        get_lr,
+    )
+
+    preset = PRESETS["riemannian_flow_vae"]
+    cfg = copy.deepcopy(TRAINING_PRESETS["default"])
+    cfg["data"]["batch_size"] = TRAIN_BATCH
+    cfg["n_train_samples"], cfg["n_val_samples"] = TRAIN_STEPS * TRAIN_BATCH, TRAIN_BATCH
+    data = CyclicDataModule({**CYCLIC_SPRITES, "synthetic_n_test": TRAIN_BATCH}, seed=0)
+    data.setup(cfg)
+    slots = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as run_dir:
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+
+        # train with a stop after epoch 0
+        trainer = Trainer(create_model(preset, seed=0), data, cfg, run_dir=run_dir, seed=0,
+                          device=dev, stop_flag=lambda: len(trainer.history) >= 1)
+        check(dev is not None or trainer.device.type == "cuda", f"trainer on {trainer.device}")
+        ckpt = _timed_slots(trainer.checkpoints, slots)
+        first = trainer.fit()
+        check(first["preempted"] and first["epochs_run"] == 1 and first["steps"] == TRAIN_STEPS,
+              f"the stopped fit: {({k: v for k, v in first.items() if k != 'history'})}")
+        check(ckpt.exists("best") and ckpt.exists("last"), "no best or last slot")
+        live = trainer.model.state_dict()
+        live_opt = adam_state(trainer.model, trainer.optimizer)
+
+        # the restored state, on the card and on the CPU
+        on_card = ckpt.restore("last")
+        check(all(v.device.type == trainer.device.type for v in on_card["params"].values()),
+              "the last slot did not restore onto the trainer's device")
+        check(_same_bits(torch, on_card["params"], live), "restored weights differ")
+        check(_same_adam(torch, on_card["optimizer"], live_opt), "restored Adam state differs")
+        on_cpu = ckpt.restore("last", map_location="cpu")
+        check(all(v.device.type == "cpu" for v in on_cpu["params"].values()), "not on the CPU")
+        check(_same_bits(torch, on_cpu["params"], live)
+              and _same_adam(torch, on_cpu["optimizer"], live_opt),
+              "the last slot restored on the CPU differs from the live state")
+        check(on_card["epoch"] == 0 and on_card["step"] == TRAIN_STEPS, "last slot's counters")
+
+        # resume: a fresh trainer (other seeded flows) continues at epoch 1
+        resumed = Trainer(create_model(preset, seed=1), data, cfg, run_dir=run_dir, seed=0,
+                          device=dev)
+        _timed_slots(resumed.checkpoints, slots)
+        seen, step = [], resumed.train_step
+
+        def first_step_state(x, noise):
+            if not seen:
+                seen.append((adam_state(resumed.model, resumed.optimizer),
+                             {k: v.clone() for k, v in resumed.model.state_dict().items()}))
+            return step(x, noise)
+
+        resumed.train_step = first_step_state
+        second = resumed.fit(max_epochs=CKPT_EPOCHS, resume=True)
+        resumed.train_step = step
+        check(_same_adam(torch, seen[0][0], live_opt) and _same_bits(torch, seen[0][1], live),
+              "the resumed run did not start from the saved weights and Adam state")
+        check([h["epoch"] for h in resumed.history] == list(range(1, CKPT_EPOCHS))
+              and second["steps"] == CKPT_EPOCHS * TRAIN_STEPS and not second["preempted"],
+              f"resumed epochs {[h['epoch'] for h in resumed.history]}, {second['steps']} steps")
+        check(second["best_val_loss"] <= first["best_val_loss"], "best val loss got worse")
+        check(get_lr(resumed.optimizer) == live_opt["lr"], "the learning rate did not carry")
+        counts = {float(s["step"]) for s in adam_state(resumed.model,
+                                                        resumed.optimizer)["state"].values()}
+        check(counts == {float(second["steps"])}, f"Adam step counts {counts}")
+        before = {k: v.clone() for k, v in resumed.model.state_dict().items()}
+        test_best = resumed.evaluate()
+        check(_same_bits(torch, resumed.model.state_dict(), before),
+              "evaluate() changed the live weights")
+        check(all(np.isfinite(v) for v in test_best.values()), "non-finite evaluate()")
+        fit_s = time.perf_counter() - t0
+
+        # serve from the best slot
+        t1 = time.perf_counter()
+        manager = ModelManager.from_checkpoint(run_dir, preset, "best", device=dev)
+        load_s = time.perf_counter() - t1
+        check(dev is not None or manager.device.type == "cuda", f"manager on {manager.device}")
+        check(all(p.device.type == manager.device.type for p in manager.model.parameters()),
+              "the served weights are not on the manager's device")
+        best = _timed_slots(CheckpointManager(Path(run_dir) / "checkpoints"), slots).restore(
+            "best", map_location=manager.device)
+        by_hand_model = create_model(preset)
+        by_hand_model.load_state_dict(best["params"])
+        by_hand = ModelManager(by_hand_model, device=manager.device)
+        rng = np.random.default_rng(9)
+        seqs = rng.uniform(size=(SERVE_BATCH, 8, 3, 64, 64)).astype(np.float32)
+        served = manager.reconstruct(seqs)
+        check(served.shape == seqs.shape and np.isfinite(served).all(), "bad reconstruct")
+        check(np.array_equal(served, by_hand.reconstruct(seqs)),
+              "reconstruct from the checkpoint differs from the model loaded by hand")
+        engine = BatchingEngine.from_manager(
+            manager, ServeConfig(buckets=(SERVE_BATCH,), max_wait_ms=2000))
+        try:
+            engine.warmup({"reconstruct": seqs[0]})
+            futs = [engine.submit("reconstruct", s_) for s_ in seqs]
+            rows = [f.result(timeout=60) for f in futs]
+            stats = engine.stats_snapshot()
+        finally:
+            engine.stop()
+        check(stats["batches"] == 1, f"the {SERVE_BATCH} requests took {stats['batches']} batches")
+        check(all(np.array_equal(r, served[i]) for i, r in enumerate(rows)),
+              "engine rows differ from the manager's reconstruct")
+        eps = torch.tensor(rng.normal(size=(SERVE_BATCH, 16)), dtype=torch.float32)
+        out_dev = manager.forward(seqs, eps=eps.to(manager.device))
+        torch.cuda.synchronize()
+        cpu = ModelManager.from_checkpoint(run_dir, preset, "best", device="cpu")
+        compare = compare_forward(torch, out_dev, cpu.forward(seqs, eps=eps))
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    return {
+        "model": "riemannian_flow_vae", "batch": TRAIN_BATCH,
+        "stopped": {k: v for k, v in first.items() if k != "history"},
+        "resumed": {k: v for k, v in second.items() if k != "history"},
+        "evaluate_best": test_best, "slots": slots, "fit_s": fit_s, "load_s": load_s,
+        "engine": {"batches": stats["batches"], "requests": stats["requests"]},
+        "cuda_vs_cpu": compare, "launches": launches,
+    }
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(HANG_GUARD_S, exit=True)
     import torch
@@ -2164,7 +2359,9 @@ def main() -> None:
     emit("ep", **ep)
     dense = run_dense_chain(torch)
     emit("dense_chain", **dense)
-    # launches: the sum over the seven main paths' runs (each read between
+    checkpoint = run_checkpoint(torch)
+    emit("checkpoint", **checkpoint)
+    # launches: the sum over the eight main paths' runs (each read between
     # zeroing the counters and the end of its run), with each path's count
     # beside it; every kernel is launched by the paths it belongs to
     paths = {"serve": (serve["launches"], ("chol_bundle", "iaf_chain_fwd")),
@@ -2177,7 +2374,9 @@ def main() -> None:
              "fast": (fast["launches"], ("chol_bundle", "g_inv", "decode_mse_fwd",
                                          "decode_mse_bwd_dh", "decode_mse_bwd_dw")),
              "ep": (ep["launches"], ("hmc_partials",)),
-             "dense_chain": (dense["launches"], ("hmc_terms",))}
+             "dense_chain": (dense["launches"], ("hmc_terms",)),
+             "checkpoint": (checkpoint["launches"], ("chol_bundle", "iaf_chain_fwd",
+                                                     "iaf_chain_bwd", "g_inv"))}
     for path, (counts, kernels) in paths.items():
         for name in kernels:
             check(counts[name] > 0, f"the {path} path did not launch {name}")

@@ -7,7 +7,9 @@ Five slices are ported:
   dynamic-batching :class:`~rlvae_tpu_torch.serving.BatchingEngine`;
 - training: :class:`~rlvae_tpu_torch.train.Trainer` with Adam and coupled
   weight decay on :mod:`rlvae_tpu_torch.data` (``python -m
-  rlvae_tpu_torch.train``);
+  rlvae_tpu_torch.train``), with a run directory of checkpoint slots
+  (``best``, ``last``), resume and preemption; a trained model is served by
+  ``ModelManager.from_checkpoint`` / ``from_run``;
 - prior generation: ``ModelManager.sample_random``,
   ``sample_random_batched_seeds``, ``sample_latent`` and the engine's
   ``generate`` op, with the geodesic, centroid-aware, weighted-mixture and

@@ -11,12 +11,17 @@
 - :func:`params_to_numpy` goes the other way: the port's parameters as a
   nested numpy tree keyed as the JAX ``params``, so tests can compare
   updated parameters with JAX's.
+- :func:`checkpoint_from_jax` turns a JAX checkpoint slot, restored to
+  numpy, into the port's slot dict (``train/checkpoints.py``), and
+  :func:`adam_state_from_jax_opt_leaves` carries JAX's flat optimizer leaves
+  onto the port's Adam state by parameter name.  Neither imports JAX: they
+  read numpy trees in JAX's flattening order (:func:`jax_leaves`).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -39,41 +44,116 @@ def _tensor(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32))  # a contiguous copy
 
 
-def net_state_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """{layer: {kernel [in,out], bias}} -> {layer.weight [out,in], layer.bias}."""
-    state = {}
-    for layer, p in params.items():
+def _net_leaves(params: Mapping[str, Any]) -> Iterator[Tuple[str, np.ndarray]]:
+    """{layer: {kernel [in,out], bias}} -> (layer.bias, bias), (layer.weight, kernel.T),
+    layers sorted."""
+    for layer in sorted(params):
+        p = params[layer]
         if set(p) != {"kernel", "bias"}:
             raise ValueError(f"unexpected parameters {sorted(p)} in layer {layer!r}")
-        state[f"{layer}.weight"] = _tensor(np.asarray(p["kernel"]).T)
-        state[f"{layer}.bias"] = _tensor(p["bias"])
-    return state
+        yield f"{layer}.bias", np.asarray(p["bias"])
+        yield f"{layer}.weight", np.asarray(p["kernel"]).T
 
 
-def flows_state_from_jax(flows) -> Dict[str, torch.Tensor]:
-    """[[{w0.., b0..} per block] per flow] -> TemporalFlows state entries."""
-    state = {}
+def _flow_leaves(flows) -> Iterator[Tuple[str, np.ndarray]]:
+    """[[{w0.., b0..} per block] per flow] -> TemporalFlows names, keys sorted."""
     for fi, flow in enumerate(flows):
         for bi, block in enumerate(flow):
-            for key, value in block.items():
+            for key in sorted(block):
                 kind, li = key[0], key[1:]
                 if kind not in "wb" or not li.isdigit():
                     raise ValueError(f"unexpected MADE parameter {key!r}")
                 field = "weights" if kind == "w" else "biases"
-                state[f"flows.{fi}.blocks.{bi}.{field}.{li}"] = _tensor(value)
-    return state
+                yield f"flows.{fi}.blocks.{bi}.{field}.{li}", np.asarray(block[key])
+
+
+def net_state_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """{layer: {kernel [in,out], bias}} -> {layer.weight [out,in], layer.bias}."""
+    return {k: _tensor(a) for k, a in _net_leaves(params)}
+
+
+def jax_leaves(params: Mapping[str, Any]) -> List[Tuple[str, np.ndarray]]:
+    """Each leaf of a JAX ``params`` tree as (the port's parameter name, the
+    array in the port's layout), in the order ``jax.tree_util.tree_leaves``
+    flattens the tree: dict keys sorted, lists in order.  That is also the
+    order of each moment's leaves in the optax state."""
+    leaves = []
+    for comp in sorted(params):
+        if comp in ("encoder", "decoder"):
+            inner = _net_leaves(params[comp])
+        elif comp == "flows":
+            inner = _flow_leaves(params[comp])
+        else:
+            raise ValueError(f"unexpected component {comp!r} in the JAX params")
+        leaves += [(f"{comp}.{k}", a) for k, a in inner]
+    return leaves
 
 
 def from_jax_variables(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The port's RlVAE state dict from the JAX model's ``variables``."""
     params = tree["params"] if "params" in tree else tree
-    state = {}
-    for comp in ("encoder", "decoder"):
-        for k, v in net_state_from_flax(params[comp]).items():
-            state[f"{comp}.{k}"] = v
-    for k, v in flows_state_from_jax(params.get("flows", [])).items():
-        state[f"flows.{k}"] = v
-    return state
+    return {k: _tensor(a) for k, a in jax_leaves(params)}
+
+
+def _like(template, leaves: Iterator[Any]):
+    """``leaves`` (in flattening order) put into the structure of ``template``."""
+    if isinstance(template, Mapping):
+        return {k: _like(template[k], leaves) for k in sorted(template)}
+    if isinstance(template, (list, tuple)):
+        return [_like(v, leaves) for v in template]
+    leaf = np.asarray(next(leaves))
+    if leaf.shape != np.shape(template):
+        raise ValueError(f"optimizer leaf of shape {leaf.shape} where the parameter "
+                         f"has {np.shape(template)}")
+    return leaf
+
+
+def _adam_state(opt_leaves, params: Mapping[str, Any]) -> Dict[str, Any]:
+    if isinstance(opt_leaves, Mapping):
+        opt_leaves = [opt_leaves[str(i)] for i in range(len(opt_leaves))]
+    n = len(jax_leaves(params))
+    if len(opt_leaves) != 3 + 2 * n:
+        raise ValueError(f"{len(opt_leaves)} optimizer leaves; the optimizer of "
+                         f"{n} parameters has {3 + 2 * n}")
+    # InjectHyperparamsState(count, {learning_rate}, (decay: no leaves,
+    # ScaleByAdamState(count, mu, nu), scale: no leaves))
+    lr, count, moments = opt_leaves[1], opt_leaves[2], opt_leaves[3:]
+    mu = jax_leaves(_like(params, iter(moments[:n])))
+    nu = jax_leaves(_like(params, iter(moments[n:])))
+    step = float(np.asarray(count))  # optax's int32 count is torch's float step
+    return {"lr": float(np.asarray(lr)), "state": {
+        name: {"step": torch.tensor(step, dtype=torch.float32), "exp_avg": _tensor(m),
+               "exp_avg_sq": _tensor(v)}
+        for (name, m), (_, v) in zip(mu, nu)}}
+
+
+def adam_state_from_jax_opt_leaves(opt_leaves, model: torch.nn.Module) -> Dict[str, Any]:
+    """The port's optimizer slot from the flat leaves of JAX's optimizer state
+    (``opt_leaves`` of a ``last`` checkpoint: a list, or a dict keyed "0",
+    "1", ...).  JAX's optimizer is ``inject_hyperparams(chain(
+    add_decayed_weights | identity, scale_by_adam, scale))``
+    (``rlvae_tpu/train/optim.py:20-30``), whose leaves are the injected
+    count, the learning rate, Adam's count, then its first and second
+    moments in the parameters' flattening order.  Returns ``{"lr": float,
+    "state": {name: {"step", "exp_avg", "exp_avg_sq"}}}``, the moments
+    transposed with the kernels they belong to."""
+    return _adam_state(opt_leaves, params_to_numpy(model))
+
+
+def checkpoint_from_jax(restored: Mapping[str, Any]) -> Dict[str, Any]:
+    """A JAX checkpoint slot (the dict orbax restores: ``variables``,
+    ``step``, ``val_loss``, and in ``last`` also ``epoch`` and
+    ``opt_leaves``) as the port's slot dict (``params``, ``step``,
+    ``val_loss``, and ``epoch`` and ``optimizer`` where JAX has them)."""
+    params = restored["variables"]["params"]
+    slot: Dict[str, Any] = {"params": from_jax_variables(params),
+                            "step": int(restored["step"]),
+                            "val_loss": float(restored["val_loss"])}
+    if "epoch" in restored:
+        slot["epoch"] = int(restored["epoch"])
+    if "opt_leaves" in restored:
+        slot["optimizer"] = _adam_state(restored["opt_leaves"], params)
+    return slot
 
 
 def params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:

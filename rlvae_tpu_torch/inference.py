@@ -1,10 +1,13 @@
 """ModelManager: the inference API of the port.
 
-Port of ``rlvae_tpu/inference.py:57-175`` for the ops of the ported slices:
-``encode``, ``decode``, ``reconstruct``, ``embed_sequence`` and the
+Port of ``rlvae_tpu/inference.py:57-205`` for the ops of the ported slices:
+``encode``, ``decode``, ``reconstruct``, ``embed_sequence``, the
 generation ops ``sample_random``, ``sample_random_batched_seeds`` and
-``sample_latent``.  Inputs are numpy arrays (or tensors); outputs are numpy
-arrays, as on the JAX side.  The model lives on one device, resolved by
+``sample_latent``, and ``get_model_info``.  A manager holds a model built
+from a config (``from_config``: pretrained nets, seeded flows) or a trained
+one from a Trainer run's checkpoint (``from_checkpoint``, ``from_run``).
+Inputs are numpy arrays (or tensors); outputs are numpy arrays, as on the
+JAX side.  The model lives on one device, resolved by
 :func:`rlvae_tpu_torch.device.resolve_device`: the CUDA card unless the
 caller asks for another.  The noise of every op comes from a
 ``torch.Generator`` on that device seeded with ``seed``; it cannot reproduce
@@ -20,6 +23,8 @@ independently, as JAX's ``vmap`` does).
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
@@ -28,6 +33,7 @@ import torch
 from rlvae_tpu_torch.device import DeviceLike, resolve_device
 from rlvae_tpu_torch.models import RlVAE, create_model
 from rlvae_tpu_torch.samplers.hmc import concat_rows
+from rlvae_tpu_torch.train.checkpoints import CheckpointManager
 from rlvae_tpu_torch.utils.output import ModelOutput
 
 
@@ -46,6 +52,40 @@ class ModelManager:
         random flows."""
         device = resolve_device(device)  # fail before the weights are read
         return cls(create_model(model_config, seed=seed), device)
+
+    @classmethod
+    def from_checkpoint(cls, run_dir: str | Path, model_config: Dict[str, Any],
+                        slot: str = "best", device: DeviceLike = None) -> "ModelManager":
+        """Model of ``model_config`` with the weights of a Trainer run's
+        checkpoint slot (``run_dir/checkpoints/<slot>``).  The slot's
+        tensors are read straight onto ``device``.  The config is an
+        argument because the run's ``model_config.json`` is the model
+        summary, not a ``create_model`` config."""
+        device = resolve_device(device)
+        state = CheckpointManager(Path(run_dir) / "checkpoints").restore(slot, map_location=device)
+        model = create_model(model_config).to(device)
+        model.load_state_dict(state["params"])
+        return cls(model, device)
+
+    @classmethod
+    def from_run(cls, run_dir: str | Path, slot: str = "best",
+                 device: DeviceLike = None) -> "ModelManager":
+        """``from_checkpoint`` with the ``model`` section of the run's
+        ``config.yaml``, which the port's training entry point writes as
+        JSON text.  A YAML-only ``config.yaml`` (a JAX run's) raises: the
+        port reads no YAML, and its checkpoints are not orbax's."""
+        cfg_path = Path(run_dir) / "config.yaml"
+        if not cfg_path.exists():
+            raise FileNotFoundError(f"No config.yaml in {run_dir}")
+        try:
+            full = json.loads(cfg_path.read_text())
+        except json.JSONDecodeError as e:
+            raise ValueError(
+                f"{cfg_path} is not JSON: the port reads the config.yaml that "
+                "`python -m rlvae_tpu_torch.train` writes (JSON text), not a YAML-only one such "
+                "as a JAX run's; pass the model config to ModelManager.from_checkpoint"
+            ) from e
+        return cls.from_checkpoint(run_dir, full["model"], slot=slot, device=device)
 
     def _tensor(self, a) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
@@ -113,3 +153,9 @@ class ModelManager:
         with torch.no_grad():
             z = self.model.sample_riemannian_prior(n, method, generator=self._generator(seed))
         return z.float().cpu().numpy()
+
+    # -- info -----------------------------------------------------------------
+
+    def get_model_info(self) -> Dict[str, Any]:
+        """The model summary with its parameter count (JAX's ``get_model_info``)."""
+        return self.model.get_model_summary(include_parameter_count=True)

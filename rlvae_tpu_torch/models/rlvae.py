@@ -360,6 +360,46 @@ class RlVAE(nn.Module):
         recon = self.decode(z_seq.reshape(-1, self.latent_dim))["reconstruction"]
         return recon.reshape(num_samples, n_obs, *self.input_dim)
 
+    # -- introspection ----------------------------------------------------------
+
+    def param_count(self) -> int:
+        """Number of trainable parameters (JAX: ``param_count(variables)``)."""
+        return sum(p.numel() for p in self.parameters())
+
+    def get_model_summary(self, include_parameter_count: bool = False) -> Dict[str, Any]:
+        """The dict of JAX's ``get_model_summary`` (``rlvae_tpu/models/rlvae.py:568``):
+        without the parameter count it is the checkpoints' ``model_config.json``
+        sidecar, with it ``ModelManager.get_model_info`` (JAX passes the
+        variables for that)."""
+        metric = self.metric
+        summary: Dict[str, Any] = {
+            "model_name": self.name,
+            "architecture": {
+                "latent_dim": self.latent_dim,
+                "n_flows": self.n_flows,
+                "input_dim": list(self.input_dim),
+                "encoder": type(self.encoder).__name__,
+                "decoder": type(self.decoder).__name__,
+            },
+            "configuration": {
+                "posterior_type": self.posterior_type,
+                "sampling_method": self.sampling_method,
+                "use_riemannian": self.use_riemannian,
+                "loop_mode": self.loop_mode,
+                "beta": self.beta,
+                "riemannian_beta": self.riemannian_beta,
+            },
+            # JAX holds the metric's scalars as float32 arrays
+            "metric": None if metric is None else {
+                "n_centroids": metric.n_centroids,
+                "temperature": float(np.float32(metric.temperature)),
+                "regularization": float(np.float32(metric.regularization)),
+            },
+        }
+        if include_parameter_count:
+            summary["parameter_count"] = self.param_count()
+        return summary
+
 
 def _hmc_config(method: str) -> HMCConfig:
     return HMCConfig(init="centroids" if method == "official" else "randn")

@@ -1,6 +1,7 @@
 """Train a model preset on synthetic cyclic sprites.
 
-    python -m rlvae_tpu_torch.train --steps 20 --batch-size 16
+    python -m rlvae_tpu_torch.train --steps 20 --batch-size 16 --run-dir runs/a
+    python -m rlvae_tpu_torch.train --steps 20 --batch-size 16 --run-dir runs/a --resume
     python -m rlvae_tpu_torch.train --model riemannian_flow_vae_fast --steps 20
 
 Runs on the CUDA card unless ``--device`` names another device, and fails
@@ -8,8 +9,15 @@ without one.  The model is ``PRESETS[--model]`` (``riemannian_flow_vae``
 unless ``--model`` says otherwise; the counterpart of the JAX package's
 ``model=`` override), with pretrained encoder and decoder and seeded flows;
 the training settings are a training preset (``default`` unless
-``--preset`` says otherwise).  Prints one JSON line per epoch and a summary
-line.
+``--preset`` says otherwise).  The run directory (``--run-dir``,
+``outputs/run`` by default as in JAX) receives ``config.yaml``, the
+checkpoint slots ``checkpoints/{best,last}``, ``metrics.jsonl`` and
+``summary.json``; ``config.yaml`` holds ``{"model", "training", "seed"}`` as
+JSON text, which YAML readers also read, and
+``ModelManager.from_run(run_dir)`` loads the trained model from it.
+``--resume`` continues from ``checkpoints/last`` (``Trainer.fit``);
+``--steps`` counts the steps of this invocation.  Prints one JSON line per
+epoch and a summary line.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+from pathlib import Path
 from typing import Optional, Sequence
 
 from rlvae_tpu_torch.data import CyclicDataModule
@@ -37,6 +46,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument("--model", default="riemannian_flow_vae", choices=sorted(PRESETS))
     p.add_argument("--preset", default="default", choices=sorted(TRAINING_PRESETS))
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--run-dir", default="outputs/run",
+                   help="checkpoints, metrics and config.yaml (default: outputs/run)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the run directory's 'last' checkpoint")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)  # fails at once without the card
@@ -45,15 +58,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         cfg["data"]["batch_size"] = args.batch_size
     if args.steps is not None:  # synthesize no more training sequences than the run uses
         cfg["n_train_samples"] = args.steps * cfg["data"]["batch_size"]
+    run_dir = Path(args.run_dir)
+    run_dir.mkdir(parents=True, exist_ok=True)
+    model_cfg = PRESETS[args.model]
+    (run_dir / "config.yaml").write_text(json.dumps(
+        {"model": model_cfg, "training": cfg, "seed": args.seed}, indent=2))
     data = CyclicDataModule(seed=args.seed)
     data.setup(cfg)
-    model = create_model(PRESETS[args.model], seed=args.seed)
-    trainer = Trainer(model, data, cfg, seed=args.seed, device=device)
-    result = trainer.fit(max_steps=args.steps)
+    model = create_model(model_cfg, seed=args.seed)
+    trainer = Trainer(model, data, cfg, run_dir=run_dir, seed=args.seed, device=device)
+    result = trainer.fit(max_steps=args.steps, resume=args.resume)
     for summary in result["history"]:
         print(json.dumps(summary), flush=True)
     summary = {k: v for k, v in result.items() if k != "history"}
-    print(json.dumps({"device": str(device), **summary}), flush=True)
+    print(json.dumps({"device": str(device), "run_dir": str(run_dir), **summary}), flush=True)
     return result
 
 

@@ -6,11 +6,13 @@ The JAX package's optimizer is ``add_decayed_weights(wd) -> scale_by_adam()
 the gradient before the moments; b1 0.9, b2 0.999, eps 1e-8).  That is the
 arithmetic of ``torch.optim.Adam(weight_decay=wd)``.  The plateau scheduler
 and early stopping run on the host from the epoch-end validation loss.
+:func:`adam_state` and :func:`load_adam_state` carry Adam's state in and out
+of checkpoints keyed by parameter name.
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterable, Mapping
+from typing import Any, Dict, Iterable, Mapping
 
 import torch
 
@@ -29,6 +31,36 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> torch.optim.Optimizer
     for group in optimizer.param_groups:
         group["lr"] = float(lr)
     return optimizer
+
+
+def adam_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """The checkpoints' ``optimizer`` entry: ``{"lr": float, "state": {name:
+    {"step", "exp_avg", "exp_avg_sq"}}}``, Adam's state of each of
+    ``model``'s parameters by name (a parameter that has taken no step has
+    no entry), copied."""
+    state = {}
+    for name, p in model.named_parameters():
+        st = optimizer.state.get(p)
+        if st:
+            state[name] = {k: st[k].detach().clone() for k in ("step", "exp_avg", "exp_avg_sq")}
+    return {"lr": get_lr(optimizer), "state": state}
+
+
+def load_adam_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                    state: Mapping[str, Any]) -> None:
+    """Put a copy of an :func:`adam_state` dict into ``optimizer``, made over
+    ``model``'s parameters.  The step counts go to the host, where
+    ``torch.optim.Adam`` keeps them (one on the card would make every step
+    read it back); ``load_state_dict`` moves the moments to their
+    parameters' device."""
+    sd = optimizer.state_dict()
+    names = {id(p): name for name, p in model.named_parameters()}
+    index = [names[id(p)] for g in optimizer.param_groups for p in g["params"]]
+    sd["state"] = {i: {k: v.detach().to("cpu" if k == "step" else v.device, copy=True)
+                       for k, v in state["state"][name].items()}
+                   for i, name in enumerate(index) if name in state["state"]}
+    optimizer.load_state_dict(sd)
+    set_lr(optimizer, state["lr"])
 
 
 class PlateauScheduler:

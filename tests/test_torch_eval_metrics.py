@@ -110,7 +110,7 @@ def test_trainer_reports_the_metrics(tmp_path):
                              "test_path": str(tmp_path / "none.npz"), "sequence_length": 3,
                              "image_size": [8, 8], "synthetic_n_test": 4}, seed=1)
     data.setup(cfg)
-    trainer = Trainer(model, data, cfg, seed=0, device="cpu")
+    trainer = Trainer(model, data, cfg, run_dir=tmp_path / "run", seed=0, device="cpu")
     history = trainer.fit(max_epochs=1, max_steps=2)["history"]
     for k in PLAIN_KEYS + METRIC_KEYS:
         assert np.isfinite(history[0][f"val/{k}"]), k

@@ -236,11 +236,14 @@ def test_engine_generate_official_rows_equal_single_seed_calls(manager):
 
 
 # ---------------------------------------------------------------------------
-# Trainer.evaluate: JAX's default split, and no guessing of the best weights
+# Trainer.evaluate: JAX's default split and the best checkpoint's weights
 # ---------------------------------------------------------------------------
 
 
 def test_evaluate_defaults_to_test_split_and_refuses_best_weights(manager, tmp_path):
+    """evaluate() defaults to the test split and to the run's ``best`` slot:
+    it refuses (FileNotFoundError naming the slot) while there is none, then
+    evaluates the slot's weights and leaves the live weights as they were."""
     from rlvae_tpu_torch.data import CYCLIC_SPRITES, CyclicDataModule
     from rlvae_tpu_torch.train import TRAINING_PRESETS
 
@@ -251,8 +254,8 @@ def test_evaluate_defaults_to_test_split_and_refuses_best_weights(manager, tmp_p
                              "test_path": str(tmp_path / "none.npz"), "sequence_length": 4,
                              "image_size": [8, 8], "synthetic_n_test": 3}, seed=1)
     data.setup(cfg)
-    trainer = Trainer(manager.model, data, cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    trainer = Trainer(manager.model, data, cfg, run_dir=tmp_path / "run", seed=0, device="cpu")
+    with pytest.raises(FileNotFoundError, match="best"):
         trainer.evaluate()
     with pytest.raises(ValueError, match="weights"):
         trainer.evaluate(weights="last")
@@ -264,3 +267,16 @@ def test_evaluate_defaults_to_test_split_and_refuses_best_weights(manager, tmp_p
     assert seen == ["test"] and np.isfinite(metrics["loss"])
     trainer.evaluate("val", weights="live")
     assert seen == ["test", "val"]
+
+    live = {k: v.clone() for k, v in manager.model.state_dict().items()}
+    best = {k: v * 1.05 for k, v in live.items()}
+    trainer.checkpoints.save("best", {"params": best, "step": 0, "val_loss": 0.0})
+    from_best = trainer.evaluate()
+    assert seen == ["test", "val", "test"]
+    assert all(torch.equal(v, manager.model.state_dict()[k]) for k, v in live.items())
+    assert from_best["loss"] != metrics["loss"]
+    manager.model.load_state_dict(best)
+    try:
+        assert trainer.evaluate(weights="live") == from_best
+    finally:
+        manager.model.load_state_dict(live)

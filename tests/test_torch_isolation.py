@@ -1,7 +1,7 @@
-"""The port stands alone: no JAX and nothing of rlvae_tpu is imported by
-rlvae_tpu_torch or chip_smoke.py; the entry points do not fall back to the
-CPU; the kernel build targets sm_90a from csrc/ into an ignored directory
-and raises without nvcc."""
+"""The port stands alone: no JAX, orbax, optax and nothing of rlvae_tpu is
+imported by rlvae_tpu_torch or chip_smoke.py; the entry points do not fall
+back to the CPU; the kernel build targets sm_90a from csrc/ into an ignored
+directory and raises without nvcc."""
 
 import os
 import re
@@ -21,7 +21,7 @@ from rlvae_tpu_torch.ops.recon_kernels import decode_mse, decode_mse_bwd_dh, dec
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "rlvae_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|flax|rlvae_tpu)(\.|\s|$)", re.M)
+FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|flax|orbax|optax|rlvae_tpu)(\.|\s|$)", re.M)
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -30,7 +30,8 @@ import rlvae_tpu_torch, chip_smoke
 for info in pkgutil.walk_packages(rlvae_tpu_torch.__path__, "rlvae_tpu_torch."):
     importlib.import_module(info.name)
 new = set(sys.modules) - before
-bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib", "flax", "rlvae_tpu"))
+bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "optax",
+                                                  "rlvae_tpu"))
 print(len(new), bad)
 sys.exit(1 if bad else 0)
 """
@@ -53,6 +54,8 @@ def test_default_device_is_the_card():
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         ModelManager.from_config(PRESETS["riemannian_flow_vae"])
+    with pytest.raises(RuntimeError, match="CUDA"):  # before the run directory is read
+        ModelManager.from_checkpoint("no-such-run", PRESETS["riemannian_flow_vae"])
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"

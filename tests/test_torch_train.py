@@ -35,6 +35,7 @@ Tolerances and why:
 """
 
 import copy
+import json
 from pathlib import Path
 
 import jax
@@ -382,10 +383,12 @@ def test_trainer_fit_on_cpu(tmp_path):
                              "image_size": [16, 16]}, seed=1)
     data.setup(cfg)
     launches = (chol_bundle.launches, iaf_chain_fwd.launches, iaf_chain_bwd.launches)
-    trainer = Trainer(model, data, cfg, seed=0, device="cpu")
+    trainer = Trainer(model, data, cfg, run_dir=tmp_path / "run", seed=0, device="cpu")
     result = trainer.fit(max_epochs=3, max_steps=5)  # 3 steps per epoch at batch 4
     assert result["steps"] == 5 and result["epochs_run"] == 2
-    assert len(result["history"]) == 2 and len(trainer.step_log) == 5
+    step_records = [json.loads(line) for line in (tmp_path / "run" / "metrics.jsonl")
+                    .read_text().splitlines() if '"lr"' in line]
+    assert len(result["history"]) == 2 and [r["_step"] for r in step_records] == [1, 2, 3, 4, 5]
     for summary in result["history"]:
         assert all(np.isfinite(v) for v in summary.values())
     assert set(result["history"][0]) >= {"val/loss", "train/loss", "train/grad_norm"}
