@@ -21,8 +21,9 @@ Phases, each printing one JSON line with its elapsed seconds:
    version, and the metric bundle and G^{-1} to theirs and to an fp64
    evaluation, at K=50, 200 and 20 000 and B=1, 7, 64 and 1000, each case
    printing its launch geometry, bit-identical in a graph replay at B=64;
-   the HMC terms likewise at B=1, 37, 64 and 1000 and on a K=37 bank padded
-   to 40 (every geometry their rule picks), bit-identical on relaunch and
+   the HMC terms likewise at B=1, 37, 64, 1000, 50 and 4096 (the adaptive
+   sampler's calibration chains and warm-start pool) and on a K=37 bank
+   padded to 40 (every geometry their rule picks), bit-identical on relaunch and
    in a graph replay; rows far from every centroid.  The decode+MSE forward, dh and dW/db are held to
    their plain versions (the forward's loss also to fp64) at M=128 (the fast
    train step's B=16), 512 and 37 rows, N=12288 and 300, on the pretrained
@@ -113,6 +114,30 @@ Phases, each printing one JSON line with its elapsed seconds:
    every save and restore; the counters are zeroed just before the first
    ``fit`` and read after the CPU replay (chol-bundle, IAF-chain forward and
    backward, G^{-1}).
+12. ``adaptive``: ``BatchingEngine.from_manager(ModelManager.from_config(
+   PRESETS["riemannian_flow_vae"]), generate_method="adaptive")``.  The
+   manager's ``adaptive_plan`` calibrates with a 4096-entry pool (the
+   counters zeroed just before): B4 launches per chain run, 1 + 40 x 6 and
+   1 + 13 (n_lf + 1) at B=50, 1 + 128 (n_lf + 1) at B=4096; host seconds,
+   and a second calibration on the same draws profiled (device time, busy
+   share) and equal to the plan bit for bit.  64 ``generate`` requests from
+   8 threads, one seed each, after a warm-up: 1 + 12 (n_lf + 1) B4 launches
+   and one IAF-chain launch per batch; host ms of a B=64 batch, planned
+   and official, in turns.  The planned chain of one batch and 64 of the
+   pool's rows (all 128 steps from their centroid starts) replayed step by
+   step on the CPU from the card's state.  ``sample_random(64, "adaptive")``
+   (the budget sampler): its launches against its n_lf and steps, the first
+   3 MCMC steps of its phase A replayed on the CPU.  ``estimate_nll`` at
+   B=16, S=50 (one chol-bundle and 50 IAF-chain launches) against the CPU:
+   every sample's log w and the NLL, without the Gaussian's constant.
+   One B=64 ``reconstruct`` bucket of ``hybrid_rlvae`` with ``sampling.method:
+   hmc`` (200 B4 launches at K=200) on frames decoded from the metric's
+   centroids; the encoder on them against the CPU; each of the posterior
+   chain's 20 steps replayed on the CPU from the card's state (also for
+   uniform-noise frames, whose chain diverges, in JAX as here), then the
+   rest of the forward from the card's encoder output and z0.
+   ``interpolate`` (linear, spherical, 10 steps) against the CPU between
+   the card's embeddings, the encoder held to the CPU as well.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -125,6 +150,7 @@ from __future__ import annotations
 import copy
 import faulthandler
 import json
+import math
 import subprocess
 import tempfile
 import threading
@@ -136,6 +162,9 @@ import numpy as np
 PRETRAINED = Path(__file__).resolve().parent / "data" / "pretrained"
 HANG_GUARD_S = 540
 SERVE_BATCH = 64  # the engine's largest bucket: the main path's batch
+# the adaptive sampler's calibration: one chain per centroid of the K=50
+# metric, and the manager's warm-start pool
+ADAPTIVE_CHAINS, ADAPTIVE_POOL = 50, 4096
 N_RECONSTRUCT, N_THREADS, N_ENCODE, N_DECODE = 64, 8, 16, 16
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32 outside the
 # tensor cores, and HBM3 bandwidth.
@@ -160,15 +189,17 @@ N_TRANSITIONS = 7  # 8 frames -> 7 transitions
 # most IAF_FP64_FACTOR times the plain fp32 version's (or HMC_RTOL of scale):
 # the gradient goes through an inverse of G^{-1}
 HMC_LP_ATOL, HMC_RTOL = 1e-5, 1e-4
-HMC_BATCHES = (1, SERVE_BATCH, 1000)
+HMC_BATCHES = (1, ADAPTIVE_CHAINS, SERVE_BATCH, 1000, ADAPTIVE_POOL)
 # the metric kernels B1, B6 and B7: one row, a ragged batch, the serving
 # bucket and a large batch (rows blocked 8 a CTA)
 METRIC_BATCHES = (1, 7, SERVE_BATCH, 1000)
 # the HMC terms and partials at every geometry their rule picks for K = 50,
 # 200 and 20 000 (csrc/hmc_bank.cuh: rows blocked 1, 2, 4 or 8 a CTA; the cluster
 # size the largest, up to 8, whose clusters the card holds in one wave, e.g.
-# 6 at B=64, K=20 000 on the H100)
-HMC_KERNEL_BATCHES = (1, 37, SERVE_BATCH, 1000)
+# 6 at B=64, K=20 000 on the H100); the HMC terms also at the adaptive
+# sampler's calibration chains (one per centroid, B=50) and warm-start pool
+# (B=4096: 512 CTAs of 8 rows, the K=20 000 cluster cut to 1)
+HMC_KERNEL_BATCHES = (1, 37, SERVE_BATCH, 1000, ADAPTIVE_CHAINS, ADAPTIVE_POOL)
 # device time per launch: this many launches captured in one CUDA graph
 GRAPH_LAUNCHES = 20
 # generation: the batches of sample_random_batched_seeds, the chain's launches
@@ -690,7 +721,8 @@ def padded_bank(dev):
 def run_hmc_checks(torch, dev):
     """The HMC terms against their plain fp32 version and an fp64 evaluation
     at each bank of :func:`metric_banks` and the padded K=37 bank, B = 1, 37,
-    64 and 1000 (every geometry the rule picks there); bit-identical on
+    64, 1000, 50 and 4096 (every geometry the rule picks there, and the
+    adaptive sampler's calibration and pool); bit-identical on
     relaunch and in a CUDA-graph replay, the padded bank bit-identical to the
     unpadded one, far rows on the plateau with a zero gradient; each case
     timed with CUDA events and as device time per launch."""
@@ -2310,6 +2342,559 @@ def run_checkpoint(torch, dev=None):
     }
 
 
+# ---------------------------------------------------------------------------
+# adaptive phase
+# ---------------------------------------------------------------------------
+
+ADAPTIVE_REQUESTS, ADAPTIVE_THREADS = 64, 8
+PLAN_STEPS = 12  # the planned chain's MCMC steps (sample_prior_hmc_planned)
+POOL_REPLAY_ROWS = 64  # pool rows replayed on the CPU: rows are independent
+BUDGET_SEED, BUDGET_REPLAY_STEPS = 41, 3
+NLL_BATCH, NLL_SAMPLES = 16, 50
+INTERP_STEPS = 10
+# card vs CPU, relative: every sample's log w and the NLL, each with the
+# constant 0.5*T*C*H*W*log(2 pi) of the unit-variance Gaussian taken out (it
+# is ~85% of the NLL and would hide the proposal's half log det), as the CPU
+# tests hold the port to JAX; interpolated frames as the forward's
+# reconstruction
+NLL_RTOL = 1e-5
+
+
+def planned_launches(n_lf: int, steps: int = PLAN_STEPS) -> int:
+    """HMC terms launches of one planned chain: one at the start, then n_lf
+    leapfrog steps and the accept test per MCMC step."""
+    return 1 + steps * (n_lf + 1)
+
+
+def counted_phases(torch, fn):
+    """(``fn()``, one record per chain run inside it): the HMC terms
+    launches of each ``run_adaptive_prior_chain`` and ``run_hmc_chain_fixed``
+    call, read from the launch counter around the call, with its rows and
+    steps."""
+    from rlvae_tpu_torch.ops.metric_kernels import hmc_terms
+    from rlvae_tpu_torch.samplers import hmc as shmc
+
+    phases, saved = [], {n: getattr(shmc, n) for n in ("run_adaptive_prior_chain",
+                                                       "run_hmc_chain_fixed")}
+
+    def wrap(name, inner):
+        def wrapped(terms, z0, gammas, *args, **kwargs):
+            before = hmc_terms.launches
+            out = inner(terms, z0, gammas, *args, **kwargs)
+            phases.append({"chain": name, "rows": int(z0.shape[0]), "steps": int(gammas.shape[0]),
+                           "hmc_terms": hmc_terms.launches - before})
+            return out
+        return wrapped
+
+    try:
+        for name, inner in saved.items():
+            setattr(shmc, name, wrap(name, inner))
+        return fn(), phases
+    finally:
+        for name, inner in saved.items():
+            setattr(shmc, name, inner)
+
+
+def calibration_draws(torch, dev, k: int, d: int = 16):
+    """The draws ``calibrate_adaptive_plan`` takes from the manager's
+    generator (seeded PLAN_SEED on ``dev``), in its order."""
+    from rlvae_tpu_torch.inference import PLAN_SEED
+    from rlvae_tpu_torch.samplers.hmc import (
+        ADAPTIVE_WARMUP_A,
+        adaptive_warmup_b_steps,
+        draw_chain_noise,
+        draw_jitters,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(PLAN_SEED)
+    noise = dict(zip(("gammas_a", "unifs_a"), draw_chain_noise(gen, ADAPTIVE_WARMUP_A, k, d, dev)))
+    noise.update(zip(("gammas_b", "unifs_b"),
+                     draw_chain_noise(gen, adaptive_warmup_b_steps(ADAPTIVE_WARMUP_A), k, d, dev)))
+    noise["cidx"] = torch.randint(0, k, (ADAPTIVE_POOL,), generator=gen, device=dev)
+    noise.update(zip(("gammas_p", "unifs_p"), draw_chain_noise(gen, 128, ADAPTIVE_POOL, d, dev)))
+    noise["jitters_p"] = draw_jitters(gen, 128, ADAPTIVE_POOL, device=dev)
+    return noise
+
+
+def _cpu_metric(metric):
+    from rlvae_tpu_torch.geometry.metric import CentroidMetric
+
+    return CentroidMetric(metric.centroids.cpu(), metric.matrices.cpu(), metric.temperature,
+                          metric.regularization)
+
+
+def replay_fixed(torch, metric, z0, eps, noise, n_lf, rows=None):
+    """A fixed-eps chain stepped on the card with ``fixed_mcmc_step``, each
+    step replayed on the CPU (plain terms) from the card's state before it
+    with the same draws, for ``rows`` (all by default).  Returns (the card's
+    final states, step stats, accepted count)."""
+    from rlvae_tpu_torch.samplers.hmc import _terms_fn, fixed_mcmc_step
+
+    terms, cpu_terms = _terms_fn(metric), _terms_fn(_cpu_metric(metric))
+    sel = slice(None) if rows is None else rows.to(z0.device)
+    stats, accepted = _step_stats(), 0
+    with torch.no_grad():
+        log_pi, grad = terms(z0)
+        carry = (z0, log_pi, -grad)
+        for s in range(noise["gammas"].shape[0]):
+            gamma, u, e = noise["gammas"][s], noise["unifs"][s], eps * noise["jitters"][s]
+            nxt, acc, alpha = fixed_mcmc_step(terms, carry, gamma, u, e, n_lf)
+            cpu_carry = tuple(t[sel].cpu() for t in carry)
+            c_nxt, c_acc, _ = fixed_mcmc_step(cpu_terms, cpu_carry, gamma[sel].cpu(),
+                                              u[sel].cpu(), e[sel].cpu(), n_lf)
+            _compare_step(stats, acc[sel].cpu(), alpha[sel].cpu(), u[sel].cpu(),
+                          nxt[0][sel].cpu(), c_acc, c_nxt[0])
+            accepted += int(acc[sel].sum())
+            carry = nxt
+    check(stats["flips_outside_margin"] == 0,
+          f"card and CPU accept decisions differ on {stats['flips_outside_margin']} non-tie rows")
+    check(stats["max_z_rel_err"] <= CHAIN_Z_RTOL,
+          f"fixed-eps chain vs CPU replay: z differs by {stats['max_z_rel_err']} of scale")
+    return carry[0], stats, accepted
+
+
+def replay_budget_start(torch, manager, seed):
+    """The budget sampler's first BUDGET_REPLAY_STEPS MCMC steps (phase A:
+    dual averaging at n_lf 5 from centroid starts) on the card, from the
+    draws of ``sample_random(64, "adaptive", seed)``, each replayed on the
+    CPU from the card's carry (z, log pi, -grad, x, x_bar, h_bar); the
+    stepped chain is ``run_adaptive_prior_chain``'s."""
+    from rlvae_tpu_torch.samplers.hmc import (
+        ADAPTIVE_NLF_A,
+        ADAPTIVE_TARGET_A,
+        ADAPTIVE_WARMUP_A,
+        DualAveraging,
+        HMCConfig,
+        _terms_fn,
+        adaptive_mcmc_step,
+        draw_chain_noise,
+        run_adaptive_prior_chain,
+    )
+
+    metric = manager.model.metric
+    dev, b = manager.device, SERVE_BATCH
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z0 = metric.centroids[torch.randint(0, metric.n_centroids, (b,), generator=gen, device=dev)]
+    gammas, unifs = draw_chain_noise(gen, ADAPTIVE_WARMUP_A, b, 16, dev)
+    cfg = HMCConfig(init="centroids")
+    terms, cpu_terms = _terms_fn(metric), _terms_fn(_cpu_metric(metric))
+    eps0 = torch.tensor(cfg.eps_lf, dtype=torch.float32, device=dev)
+    da = DualAveraging(torch.log(10.0 * eps0), ADAPTIVE_TARGET_A, ADAPTIVE_WARMUP_A, True)
+    cpu_da = DualAveraging(da.mu.cpu(), da.target, da.warmup, True)
+    stats, da_err = _step_stats(), 0.0
+    with torch.no_grad():
+        log_pi, grad = terms(z0)
+        log_eps0 = torch.log(eps0).expand(b)
+        carry = (z0, log_pi, -grad, log_eps0, log_eps0, torch.zeros(b, device=dev))
+        for t in range(BUDGET_REPLAY_STEPS):
+            nxt, acc, alpha = adaptive_mcmc_step(terms, carry, gammas[t], unifs[t], t,
+                                                 ADAPTIVE_NLF_A, da)
+            c_nxt, c_acc, _ = adaptive_mcmc_step(cpu_terms, tuple(x.cpu() for x in carry),
+                                                 gammas[t].cpu(), unifs[t].cpu(), t,
+                                                 ADAPTIVE_NLF_A, cpu_da)
+            _compare_step(stats, acc.cpu(), alpha.cpu(), unifs[t].cpu(), nxt[0].cpu(), c_acc,
+                          c_nxt[0])
+            same = acc.cpu() == c_acc
+            da_err = max(da_err, float(((nxt[4].cpu() - c_nxt[4]).abs()
+                                        / c_nxt[4].abs().clamp_min(1.0))[same].max()))
+            carry = nxt
+        zs, _ = run_adaptive_prior_chain(
+            terms, z0, gammas[:BUDGET_REPLAY_STEPS], unifs[:BUDGET_REPLAY_STEPS],
+            HMCConfig(init="centroids", mcmc_steps=BUDGET_REPLAY_STEPS, n_lf=ADAPTIVE_NLF_A),
+            target_accept=ADAPTIVE_TARGET_A, warmup=ADAPTIVE_WARMUP_A)
+    check(torch.equal(zs[-1], carry[0]),
+          "the stepped phase A differs from run_adaptive_prior_chain")
+    check(stats["flips_outside_margin"] == 0,
+          f"budget phase A: accept decisions differ on {stats['flips_outside_margin']} "
+          f"non-tie rows")
+    check(stats["max_z_rel_err"] <= CHAIN_Z_RTOL,
+          f"budget phase A vs CPU replay: z differs by {stats['max_z_rel_err']} of scale")
+    return {"steps": BUDGET_REPLAY_STEPS, **stats, "x_bar_max_rel_err": da_err}
+
+
+def hmc_hybrid_config():
+    """``PRESETS["hybrid_rlvae"]`` with ``sampling.method: hmc``."""
+    from rlvae_tpu_torch.models import PRESETS
+
+    cfg = copy.deepcopy(PRESETS["hybrid_rlvae"])
+    cfg["sampling"]["method"] = "hmc"
+    return cfg
+
+
+def run_adaptive(torch, dev=None):
+    """The adaptive generation path behind the engine, at full width on the
+    default preset (section 12 of the module docstring)."""
+    from rlvae_tpu_torch import BatchingEngine, ModelManager, PRESETS, ServeConfig
+    from rlvae_tpu_torch.utils.output import ModelOutput
+    from rlvae_tpu_torch.samplers.hmc import (
+        ADAPTIVE_NLF_A,
+        ADAPTIVE_WARMUP_A,
+        HMCConfig,
+        adaptive_warmup_b_steps,
+        calibrate_adaptive_plan,
+        planned_starts,
+        sample_prior_hmc_adaptive_budget,
+        sample_prior_hmc_planned,
+    )
+
+    t_phase, laps = time.perf_counter(), {}
+    manager = ModelManager.from_config(PRESETS["riemannian_flow_vae"], seed=0, device=dev)
+    check(dev is not None or manager.device.type == "cuda", f"manager on {manager.device}")
+    dev, model, metric = manager.device, manager.model, manager.model.metric
+    check(metric.n_centroids == ADAPTIVE_CHAINS, f"the default metric has K={metric.n_centroids}")
+    engine = BatchingEngine.from_manager(manager, ServeConfig(max_wait_ms=20.0),
+                                         generate_method="adaptive")
+    try:
+        # 1. the calibration behind the engine, through the manager's cache
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t = time.perf_counter()
+        plan, phases = counted_phases(torch, lambda: manager.adaptive_plan(ADAPTIVE_POOL))
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t
+        calib_counts = launch_counts()
+        n_lf = plan["n_lf"]
+        warm_b = adaptive_warmup_b_steps(ADAPTIVE_WARMUP_A)
+        want_phases = [
+            {"chain": "run_adaptive_prior_chain", "rows": ADAPTIVE_CHAINS,
+             "steps": ADAPTIVE_WARMUP_A, "hmc_terms": 1 + ADAPTIVE_WARMUP_A * (ADAPTIVE_NLF_A + 1)},
+            {"chain": "run_adaptive_prior_chain", "rows": ADAPTIVE_CHAINS, "steps": warm_b,
+             "hmc_terms": 1 + warm_b * (n_lf + 1)},
+            {"chain": "run_hmc_chain_fixed", "rows": ADAPTIVE_POOL, "steps": 128,
+             "hmc_terms": 1 + 128 * (n_lf + 1)}]
+        check(phases == want_phases, f"calibration phases {phases}, expected {want_phases}")
+        check(calib_counts == expected_launches(hmc_terms=sum(p["hmc_terms"] for p in phases)),
+              f"the calibration launched {calib_counts}")
+        check(manager.adaptive_plan() is plan, "the plan was not cached")
+        for key in ("eps", "pool", "pool_eps"):
+            check(bool(torch.isfinite(plan[key]).all()), f"non-finite plan {key}")
+        check(plan["pool"].shape == (ADAPTIVE_POOL, 16) and 2 <= n_lf <= 128, "bad plan")
+        # the calibration again, profiled, on the draws calibration_draws
+        # makes: device time and busy share, and the same plan bit for bit
+        again = {}
+        cal_noise = calibration_draws(torch, dev, metric.n_centroids)
+        busy_ms, kernels = device_time_by_kernel(torch, lambda: again.update(
+            calibrate_adaptive_plan(metric, HMCConfig(init="centroids"),
+                                    pool_size=ADAPTIVE_POOL, noise=cal_noise)))
+        b4_us = sum(k["us"] for k in kernels if "hmc_terms" in k["name"])
+        laps["calibration"] = time.perf_counter() - t_phase
+        check(all(torch.equal(again[k], plan[k]) for k in ("eps", "pool", "pool_eps"))
+              and again["n_lf"] == n_lf, "the calibration on its own draws differs from the plan")
+
+        # 2. generate requests, one seed each, from several threads
+        engine.warmup({"generate": np.uint32(0)})
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        stats0 = engine.stats_snapshot()
+        results, errors = {}, []
+        t = time.perf_counter()
+
+        def client(tid: int) -> None:
+            try:
+                futs = {i: engine.submit("generate", np.uint32(1000 + i))
+                        for i in range(tid, ADAPTIVE_REQUESTS, ADAPTIVE_THREADS)}
+                for i, f in futs.items():
+                    results[i] = f.result(timeout=120)
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(ADAPTIVE_THREADS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        gen_s = time.perf_counter() - t
+        gen_counts = launch_counts()
+        stats = engine.stats_snapshot()
+    finally:
+        engine.stop()
+    check(not any(th.is_alive() for th in threads), "a generate client did not finish")
+    if errors:
+        raise errors[0]
+    batches = stats["batches"] - stats0["batches"]
+    check(sorted(results) == list(range(ADAPTIVE_REQUESTS)), "missing generate results")
+    for r in results.values():
+        check(r.shape == (8, 3, 64, 64) and np.isfinite(r).all() and r.min() >= 0.0
+              and r.max() <= 1.0, "bad adaptive generate result")
+    want = expected_launches(hmc_terms=batches * planned_launches(n_lf), iaf_chain_fwd=batches)
+    check(gen_counts == want, f"{batches} adaptive generate batches launched {gen_counts}, "
+                              f"expected {want}")
+    launches = {k: calib_counts[k] + gen_counts[k] for k in calib_counts}
+    laps["generate"] = time.perf_counter() - t_phase
+
+    # host ms of one B=64 batch, adaptive (planned) and official, in this call
+    seeds = list(range(SERVE_BATCH))
+    host_ms = {}
+    for method in ("adaptive", "official", "adaptive", "official"):
+        t = time.perf_counter()
+        manager.sample_random_batched_seeds(seeds, method=method)
+        host_ms.setdefault(method, []).append((time.perf_counter() - t) * 1e3)
+
+    # 3. the planned chain of one batch, replayed on the CPU step by step
+    noise = concat_rows_for(torch, manager, seeds, plan)
+    z0, eps = planned_starts(metric, plan, noise["idx"])
+    z_card, plan_stats, plan_acc = replay_fixed(torch, metric, z0, eps, noise, n_lf)
+    with torch.no_grad():
+        check(torch.equal(z_card, sample_prior_hmc_planned(metric, SERVE_BATCH, plan, noise=noise)),
+              "the stepped planned chain differs from sample_prior_hmc_planned")
+    # 64 of the pool's rows, from their centroid starts, with the calibration's draws
+    cal = calibration_draws(torch, dev, metric.n_centroids)
+    cidx = cal["cidx"]
+    rows = torch.arange(0, ADAPTIVE_POOL, ADAPTIVE_POOL // POOL_REPLAY_ROWS, device=dev)
+    pool_card, pool_stats, pool_acc = replay_fixed(
+        torch, metric, metric.centroids[cidx], plan["eps"][cidx],
+        {"gammas": cal["gammas_p"], "unifs": cal["unifs_p"], "jitters": cal["jitters_p"]},
+        n_lf, rows)
+    check(torch.equal(pool_card, plan["pool"]), "the stepped pool differs from the plan's pool")
+    laps["replays"] = time.perf_counter() - t_phase
+
+    # 4. the budget sampler: sample_random without the plan
+    zero_launch_counts()
+    t = time.perf_counter()
+    x_budget = manager.sample_random(SERVE_BATCH, "adaptive", seed=BUDGET_SEED)
+    budget_ms = (time.perf_counter() - t) * 1e3
+    budget_counts = launch_counts()
+    with torch.no_grad():
+        _, diag = sample_prior_hmc_adaptive_budget(
+            metric, SERVE_BATCH, HMCConfig(init="centroids"), return_chain=True,
+            generator=torch.Generator(device=dev).manual_seed(BUDGET_SEED))
+    n_s, steps_s = diag["n_lf_sampling"], diag["steps_sampling"]
+    want = expected_launches(
+        hmc_terms=(1 + ADAPTIVE_WARMUP_A * (ADAPTIVE_NLF_A + 1)) + (1 + warm_b * (n_s + 1))
+        + (1 + steps_s * (n_s + 1)), iaf_chain_fwd=1)
+    check(budget_counts == want, f"the budget sampler launched {budget_counts}, expected {want}")
+    check(x_budget.shape == (SERVE_BATCH, 8, 3, 64, 64) and np.isfinite(x_budget).all(),
+          "bad budget-sampler output")
+    check(diag["leapfrog_spent"] <= 100 * 15, f"budget overspent: {diag['leapfrog_spent']}")
+    budget_replay = replay_budget_start(torch, manager, BUDGET_SEED)
+    laps["budget"] = time.perf_counter() - t_phase
+
+    # 5. estimate_nll at B=16, S=50, card vs CPU
+    rng = np.random.default_rng(16)
+    x_nll = torch.tensor(rng.uniform(size=(NLL_BATCH, 8, 3, 64, 64)), dtype=torch.float32)
+    eps_nll = torch.randn((NLL_SAMPLES, NLL_BATCH, 16),
+                          generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    zero_launch_counts()
+    t = time.perf_counter()
+    nll, log_w = estimate_nll_and_log_w(torch, model, x_nll.to(dev), eps_nll)
+    torch.cuda.synchronize()
+    nll_ms = (time.perf_counter() - t) * 1e3
+    nll_counts = launch_counts()
+    check(nll_counts == expected_launches(chol_bundle=1, iaf_chain_fwd=NLL_SAMPLES),
+          f"estimate_nll launched {nll_counts}")
+    nll_cpu, log_w_cpu = estimate_nll_and_log_w(torch, cpu_model, x_nll, eps_nll.cpu())
+    log_px_const = 0.5 * x_nll[0].numel() * math.log(2 * math.pi)
+    nll, log_w = nll.cpu(), log_w.cpu()
+    nll_errs = {
+        "log_w": float(((log_w - log_w_cpu).abs() / (log_w_cpu + log_px_const).abs()).max()),
+        "nll": float(((nll - nll_cpu).abs() / (nll_cpu - log_px_const).abs()).max()),
+        "nll_with_constant": float(((nll - nll_cpu).abs() / nll_cpu.abs()).max())}
+    check(log_w.shape == (NLL_SAMPLES, NLL_BATCH) and bool(torch.isfinite(log_w).all())
+          and bool(torch.isfinite(nll).all()), "non-finite estimate_nll on the card")
+    for k in ("log_w", "nll"):
+        check(nll_errs[k] <= NLL_RTOL, f"estimate_nll card vs CPU: {k} {nll_errs[k]} > {NLL_RTOL}")
+
+    laps["nll"] = time.perf_counter() - t_phase
+    # 6. the posterior HMC: one B=64 reconstruct bucket of the hmc hybrid model
+    posterior = run_posterior_hmc(torch, dev)
+    laps["posterior_hmc"] = time.perf_counter() - t_phase
+
+    # 7. interpolation, card vs CPU: the CPU builds the path between the
+    # card's embeddings (the encoder alone is held to the CPU at the
+    # forward's mu tolerance, as for the posterior HMC) and decodes it
+    cpu_manager = ModelManager(cpu_model, device="cpu")
+    frames = rng.uniform(size=(2, 3, 64, 64)).astype(np.float32)
+    enc_card, enc_cpu = manager.encode(frames), cpu_manager.encode(frames)
+    interp = {"encoder_card_vs_cpu_max_abs": float(np.abs(enc_card.embedding
+                                                          - enc_cpu.embedding).max())}
+    check(interp["encoder_card_vs_cpu_max_abs"] <= E2E_TOL["mu"],
+          f"interpolate encoder card vs CPU: {interp['encoder_card_vs_cpu_max_abs']}")
+    cpu_manager.encode = lambda x: ModelOutput(embedding=manager.encode(x).embedding)
+    for mode in ("linear", "spherical"):
+        zero_launch_counts()
+        got = manager.interpolate(frames[0], frames[1], INTERP_STEPS, mode)
+        check(launch_counts() == expected_launches(), f"interpolate launched {launch_counts()}")
+        want_x = cpu_manager.interpolate(frames[0], frames[1], INTERP_STEPS, mode)
+        d = np.abs(got - want_x)
+        interp[mode] = {"mean_abs": float(d.mean()), "max_abs": float(d.max())}
+        check(got.shape == (INTERP_STEPS, 3, 64, 64) and np.isfinite(got).all()
+              and interp[mode]["mean_abs"] <= E2E_TOL["recon_mean_abs"],
+              f"interpolate {mode} card vs CPU: {interp[mode]}")
+
+    eps_plan = plan["eps"].float().cpu()
+    return {
+        "model": "riemannian_flow_vae", "engine": "BatchingEngine(generate_method='adaptive')",
+        "calibration": {
+            "n_lf": n_lf, "eps_min": float(eps_plan.min()), "eps_max": float(eps_plan.max()),
+            "eps_median": float(np.median(eps_plan.numpy())), "accept_rate": plan["accept_rate"],
+            "calibration_lf": plan["calibration_lf"], "chains": plan["chains"],
+            "pool": ADAPTIVE_POOL, "host_s": calib_s, "phases": phases,
+            "profiled_device_busy_ms": busy_ms, "device_busy_share": busy_ms / (calib_s * 1e3),
+            "hmc_terms_profiled_ms": b4_us / 1e3,
+            "n_kernel_launches_profiled": sum(k["calls"] for k in kernels),
+            "top_kernels": kernels[:6]},
+        "generate": {"requests": ADAPTIVE_REQUESTS, "threads": ADAPTIVE_THREADS,
+                     "batches": batches, "seconds": gen_s, "launches": gen_counts,
+                     "hmc_terms_per_batch": planned_launches(n_lf),
+                     "host_ms_b64": host_ms,
+                     "stats": {k: v for k, v in stats.items() if not k.endswith("_hist")}},
+        "launches": launches,
+        "planned_chain_card_vs_cpu": {"batch": SERVE_BATCH, "accepted": plan_acc, **plan_stats},
+        "pool_card_vs_cpu": {"rows": POOL_REPLAY_ROWS, "steps": 128, "accepted": pool_acc,
+                             **pool_stats},
+        "replay_tolerance": {"z_rel": CHAIN_Z_RTOL, "accept_margin": ACCEPT_MARGIN},
+        "budget": {"batch": SERVE_BATCH, "host_ms": budget_ms, "launches": budget_counts,
+                   "n_lf_sampling": n_s, "steps_sampling": steps_s,
+                   "leapfrog_spent": diag["leapfrog_spent"],
+                   "accept_rate": float(diag["accept_rate"]),
+                   "eps_tuned_median": float(diag["eps_tuned"].median()),
+                   "replay": budget_replay},
+        "nll": {"batch": NLL_BATCH, "samples": NLL_SAMPLES, "ms": nll_ms, "launches": nll_counts,
+                "nll_mean": float(nll.mean()), "log_px_constant": log_px_const,
+                "card_vs_cpu_rel": nll_errs, "rtol": NLL_RTOL},
+        "posterior_hmc": posterior,
+        "interpolate": {"steps": INTERP_STEPS, "card_vs_cpu": interp,
+                        "tolerance_mean_abs": E2E_TOL["recon_mean_abs"]},
+        "seconds": time.perf_counter() - t_phase, "elapsed_s_after": laps,
+    }
+
+
+def estimate_nll_and_log_w(torch, model, x, eps):
+    """``model.estimate_nll`` on the draws ``eps`` [S, B, D], and the log
+    weights [S, B] it reduces, read at its logsumexp."""
+    seen, logsumexp = {}, torch.logsumexp
+
+    def recording(t, dim):
+        seen["log_w"] = t
+        return logsumexp(t, dim)
+
+    torch.logsumexp = recording
+    try:
+        with torch.no_grad():
+            nll = model.estimate_nll(x, eps.shape[0], noise=eps)
+    finally:
+        torch.logsumexp = logsumexp
+    return nll, seen["log_w"]
+
+
+def concat_rows_for(torch, manager, seeds, plan):
+    """The planned chain's draws of a batch of seeds, each row's from its own
+    generator (``sample_random_batched_seeds``' contract)."""
+    from rlvae_tpu_torch.samplers import concat_rows
+
+    return concat_rows([manager.model.draw_generation_noise(
+        1, "adaptive", torch.Generator(device=manager.device).manual_seed(s), plan=plan)
+        for s in seeds])
+
+
+def run_posterior_hmc(torch, dev):
+    """One B=64 ``reconstruct`` bucket of ``hybrid_rlvae`` with
+    ``sampling.method: hmc`` behind the engine (200 HMC terms launches at
+    K=200, one IAF-chain launch), and a B=64 forward held against the CPU on
+    the same draws.  The sequences are frames the pretrained decoder makes
+    from the metric's first 64 centroids (in-distribution: their posteriors
+    lie near the centroids, where the target's gradient is not zero); the
+    posterior chain of uniform-noise frames is replayed as well (their
+    posteriors lie on the target's plateau, and the chain diverges)."""
+    from rlvae_tpu_torch import BatchingEngine, ModelManager, ServeConfig
+
+    manager = ModelManager.from_config(hmc_hybrid_config(), seed=0, device=dev)
+    model = manager.model
+    check(model.sampling_method == "hmc" and model.metric.n_centroids == 200,
+          "the hmc hybrid model was not built")
+    with torch.no_grad():
+        frames = model.decode(model.metric.centroids[:SERVE_BATCH])["reconstruction"]
+    seqs = np.repeat(frames.float().cpu().numpy()[:, None], 8, axis=1)
+    engine = BatchingEngine.from_manager(
+        manager, ServeConfig(buckets=(SERVE_BATCH,), max_wait_ms=2000))
+    try:
+        engine.warmup({"reconstruct": seqs[0]})
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t = time.perf_counter()
+        futs = [engine.submit("reconstruct", s_) for s_ in seqs]
+        rows = [f.result(timeout=120) for f in futs]
+        bucket_ms = (time.perf_counter() - t) * 1e3
+        counts = launch_counts()
+        batches = engine.stats_snapshot()["batches"]
+    finally:
+        engine.stop()
+    check(counts == expected_launches(hmc_terms=200 * batches, iaf_chain_fwd=batches),
+          f"{batches} posterior-HMC reconstruct batches launched {counts}")
+    for r in rows:
+        check(r.shape == (8, 3, 64, 64) and np.isfinite(r).all(), "bad reconstruct result")
+    gen = torch.Generator(device=manager.device).manual_seed(9)
+    noise = manager.model.draw_posterior_noise(SERVE_BATCH, gen)
+    check(sorted(noise) == ["eps", "gammas"] and noise["gammas"].shape == (20, SERVE_BATCH, 16),
+          f"posterior hmc noise {sorted(noise)}")
+    out_gpu = manager.forward(seqs, noise=noise)
+    torch.cuda.synchronize()
+    # The CPU replays the forward stage by stage from the card's state, as the
+    # chains are replayed: each of the posterior chain's 20 MCMC steps from
+    # the card's z before it (the chain diverges on this encoder's
+    # posteriors, exp(-log_var) up to ~6e3, in JAX as here, so only
+    # per-step errors are meaningful), then the flows, decoder and losses
+    # from the card's encoder output and z0 at compare_forward's tolerances.
+    # The encoder alone is held to the CPU on the same frames at
+    # compare_forward's mu and log_var tolerances.
+    cpu_model = copy.deepcopy(manager.model).to("cpu")
+    with torch.no_grad():
+        x0 = torch.from_numpy(seqs[:, 0])
+        enc = manager.model.encode(x0.to(dev))
+        enc_card = {k: v.float().cpu() for k, v in enc.items()}
+        enc_cpu = cpu_model.encode(x0)
+        chain = replay_posterior_chain(torch, manager.model.metric, enc["embedding"].float(),
+                                       enc["log_covariance"].float(), noise)
+        noise_frames = torch.tensor(np.random.default_rng(8).uniform(size=(SERVE_BATCH, 3, 64, 64)),
+                                    dtype=torch.float32, device=dev)
+        enc_noise = manager.model.encode(noise_frames)
+        diverging = replay_posterior_chain(torch, manager.model.metric,
+                                           enc_noise["embedding"].float(),
+                                           enc_noise["log_covariance"].float(), noise)
+    diverging.pop("z0")
+    check(torch.equal(chain.pop("z0"), out_gpu.z[:, 0]),
+          "the stepped posterior chain differs from the forward's z0")
+    encoder = {k: float((enc_card[k] - enc_cpu[k].float()).abs().max())
+               for k in ("embedding", "log_covariance")}
+    for k, tol in (("embedding", E2E_TOL["mu"]), ("log_covariance", E2E_TOL["log_var"])):
+        check(encoder[k] <= tol, f"posterior-HMC encoder card vs CPU: {k} = {encoder[k]} > {tol}")
+    z0_card = out_gpu.z[:, 0].float().cpu()
+    cpu_model.encode = lambda _x0: enc_card
+    cpu_model.sample_z0 = lambda _mu, _log_var, _noise: z0_card
+    out_cpu = ModelManager(cpu_model, device="cpu").forward(
+        seqs, noise={k: v.cpu() for k, v in noise.items()})
+    return {"model": "hybrid_rlvae, sampling.method=hmc", "batches": batches,
+            "bucket_host_ms": bucket_ms, "launches": counts,
+            "encoder_card_vs_cpu_max_abs": encoder, "chain_card_vs_cpu": chain,
+            "noise_frames_chain_card_vs_cpu": diverging,
+            "cuda_vs_cpu_from_card_z0": compare_forward(torch, out_gpu, out_cpu)}
+
+
+def replay_posterior_chain(torch, metric, mu, log_var, noise):
+    """The posterior chain on the card one MCMC step at a time, each step
+    replayed on the CPU (plain terms) from the card's z before it with the
+    same momentum; z within CHAIN_Z_RTOL of max(1, |z|).  Also the rows
+    whose target gradient is not zero (off the log 1e-10 plateau) at the
+    start of each step (one terms launch each, outside the counted runs)."""
+    from rlvae_tpu_torch.samplers.hmc import _terms_fn, posterior_hmc_step
+
+    terms, cpu_terms = _terms_fn(metric), _terms_fn(_cpu_metric(metric))
+    inv_var = torch.exp(-log_var)
+    z = mu + noise["eps"] * torch.exp(0.5 * log_var)
+    err, scale, off_plateau = 0.0, [], []
+    for gamma in noise["gammas"]:
+        off_plateau.append(int((terms(z)[1].abs().amax(1) > 0).sum()))
+        nxt = posterior_hmc_step(terms, z, gamma, mu, inv_var)
+        c_nxt = posterior_hmc_step(cpu_terms, z.cpu(), gamma.cpu(), mu.cpu(), inv_var.cpu())
+        err = max(err, float(((nxt.cpu() - c_nxt).abs() / c_nxt.abs().clamp_min(1.0)).max()))
+        scale.append(float(nxt.abs().max()))
+        z = nxt
+    check(err <= CHAIN_Z_RTOL, f"posterior chain vs CPU replay: z differs by {err} of scale")
+    return {"steps": len(scale), "max_z_rel_err": err, "tolerance": CHAIN_Z_RTOL,
+            "max_abs_z_by_step": scale, "rows_off_plateau_by_step": off_plateau, "z0": z}
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(HANG_GUARD_S, exit=True)
     import torch
@@ -2361,7 +2946,9 @@ def main() -> None:
     emit("dense_chain", **dense)
     checkpoint = run_checkpoint(torch)
     emit("checkpoint", **checkpoint)
-    # launches: the sum over the eight main paths' runs (each read between
+    adaptive = run_adaptive(torch)
+    emit("adaptive", **adaptive)
+    # launches: the sum over the main paths' runs (each read between
     # zeroing the counters and the end of its run), with each path's count
     # beside it; every kernel is launched by the paths it belongs to
     paths = {"serve": (serve["launches"], ("chol_bundle", "iaf_chain_fwd")),
@@ -2376,7 +2963,12 @@ def main() -> None:
              "ep": (ep["launches"], ("hmc_partials",)),
              "dense_chain": (dense["launches"], ("hmc_terms",)),
              "checkpoint": (checkpoint["launches"], ("chol_bundle", "iaf_chain_fwd",
-                                                     "iaf_chain_bwd", "g_inv"))}
+                                                     "iaf_chain_bwd", "g_inv")),
+             "adaptive": (adaptive["launches"], ("hmc_terms", "iaf_chain_fwd")),
+             "budget": (adaptive["budget"]["launches"], ("hmc_terms", "iaf_chain_fwd")),
+             "nll": (adaptive["nll"]["launches"], ("chol_bundle", "iaf_chain_fwd")),
+             "posterior_hmc": (adaptive["posterior_hmc"]["launches"], ("hmc_terms",
+                                                                       "iaf_chain_fwd"))}
     for path, (counts, kernels) in paths.items():
         for name in kernels:
             check(counts[name] > 0, f"the {path} path did not launch {name}")
@@ -2393,6 +2985,15 @@ def main() -> None:
         posterior["metric_bundle_launches_per_forward"])
     records["hmc_partials"]["launches_per_ep_chain"] = ep["launches"]["hmc_partials"]
     records["hmc_terms"]["launches_per_dense_k20000_chain"] = dense["launches"]["hmc_terms"]
+    records["hmc_terms"]["launches_per_calibration_phase"] = [
+        p["hmc_terms"] for p in adaptive["calibration"]["phases"]]
+    records["hmc_terms"]["launches_per_planned_generate"] = (
+        adaptive["generate"]["hmc_terms_per_batch"])
+    records["hmc_terms"]["launches_per_posterior_hmc_forward"] = (
+        adaptive["posterior_hmc"]["launches"]["hmc_terms"] // adaptive["posterior_hmc"]["batches"])
+    records["chol_bundle"]["launches_per_estimate_nll"] = adaptive["nll"]["launches"]["chol_bundle"]
+    records["iaf_chain_fwd"]["launches_per_estimate_nll"] = (
+        adaptive["nll"]["launches"]["iaf_chain_fwd"])
 
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": list(records.values())}), flush=True)

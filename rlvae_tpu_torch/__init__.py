@@ -1,6 +1,6 @@
 """rlvae_tpu_torch: the PyTorch/CUDA port of rlvae_tpu.
 
-Five slices are ported:
+What is ported:
 
 - serving: :class:`~rlvae_tpu_torch.inference.ModelManager` (``encode``,
   ``decode``, ``reconstruct``, ``embed_sequence``) behind the
@@ -10,13 +10,18 @@ Five slices are ported:
   rlvae_tpu_torch.train``), with a run directory of checkpoint slots
   (``best``, ``last``), resume and preemption; a trained model is served by
   ``ModelManager.from_checkpoint`` / ``from_run``;
-- prior generation: ``ModelManager.sample_random``,
-  ``sample_random_batched_seeds``, ``sample_latent`` and the engine's
-  ``generate`` op, with the geodesic, centroid-aware, weighted-mixture and
-  basic priors and the manifold-HMC chains (:mod:`rlvae_tpu_torch.samplers`);
+- generation and inference: ``ModelManager.sample_random``,
+  ``sample_random_batched_seeds``, ``sample_latent``, ``adaptive_plan``,
+  ``interpolate`` (with :func:`~rlvae_tpu_torch.inference.slerp`) and the
+  engine's ``generate`` op, with the geodesic, centroid-aware,
+  weighted-mixture and basic priors and the manifold-HMC chains (official,
+  adaptive, planned on a calibrated plan; :mod:`rlvae_tpu_torch.samplers`),
+  the generation-sampler zoo (``SAMPLER_REGISTRY``) and
+  ``RlVAE.estimate_nll``;
 - the consumers of the metric tensor G: ``PRESETS["hybrid_rlvae"]``, a
   Gaussian posterior sampled by ``standard``, ``basic``, ``enhanced``,
-  ``geodesic`` or ``official``; the evaluation step's analysis metrics;
+  ``geodesic``, ``official`` or ``hmc`` (posterior-tempered HMC, no
+  gradient on the card); the evaluation step's analysis metrics;
   ``riemannian_full_kl`` and the metric's ``g``, ``chol_g``, ``dist2`` and
   ``diagnostics``;
 - the fast and stable presets (``PRESETS["riemannian_flow_vae_fast"]``,
@@ -33,11 +38,11 @@ first use on the card.
 """
 
 from rlvae_tpu_torch.device import resolve_device
-from rlvae_tpu_torch.inference import ModelManager
+from rlvae_tpu_torch.inference import ModelManager, slerp
 from rlvae_tpu_torch.models import PRESETS, RlVAE, create_model
 from rlvae_tpu_torch.serving import BatchingEngine, EngineStats, ServeConfig
 
 __all__ = [
     "BatchingEngine", "EngineStats", "ModelManager", "PRESETS", "RlVAE",
-    "ServeConfig", "create_model", "resolve_device",
+    "ServeConfig", "create_model", "resolve_device", "slerp",
 ]

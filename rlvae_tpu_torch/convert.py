@@ -16,12 +16,16 @@
   :func:`adam_state_from_jax_opt_leaves` carries JAX's flat optimizer leaves
   onto the port's Adam state by parameter name.  Neither imports JAX: they
   read numpy trees in JAX's flattening order (:func:`jax_leaves`).
+- :func:`plan_from_jax` turns a calibrated adaptive-sampler plan of the JAX
+  package (``calibrate_adaptive_plan``: numpy arrays and Python scalars)
+  into the port's plan (tensors on a device), so a JAX plan drives the
+  port's planned chain.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, Iterator, List, Mapping, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -190,3 +194,20 @@ def load_pretrained_net(module: torch.nn.Module, path: str | Path) -> None:
     if shapes != expected:
         raise ValueError(f"pretrained shapes {shapes} do not match the model's {expected}")
     module.load_state_dict(state)
+
+
+def plan_from_jax(plan: Mapping[str, Any], device: Optional[torch.device] = None) -> Dict[str, Any]:
+    """A JAX adaptive-sampler plan as the port's: every array (``eps`` [K],
+    ``pool`` [P, D], ``pool_eps`` [P]) an fp32 tensor on ``device``, every
+    integer scalar (``n_lf``, ``chains``, ``calibration_lf``) an ``int``,
+    every other scalar (``accept_rate``, ``path_length``) a ``float``."""
+    out: Dict[str, Any] = {}
+    for key, value in plan.items():
+        arr = np.asarray(value)
+        if arr.ndim > 0:
+            out[key] = torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(device)
+        elif np.issubdtype(arr.dtype, np.integer):
+            out[key] = int(arr)
+        else:
+            out[key] = float(arr)
+    return out

@@ -1,9 +1,10 @@
 """ModelManager: the inference API of the port.
 
-Port of ``rlvae_tpu/inference.py:57-205`` for the ops of the ported slices:
-``encode``, ``decode``, ``reconstruct``, ``embed_sequence``, the
-generation ops ``sample_random``, ``sample_random_batched_seeds`` and
-``sample_latent``, and ``get_model_info``.  A manager holds a model built
+Port of ``rlvae_tpu/inference.py:48-205``: ``encode``, ``decode``,
+``reconstruct``, ``embed_sequence``, the generation ops ``sample_random``,
+``sample_random_batched_seeds``, ``sample_latent`` and ``adaptive_plan``,
+``interpolate`` (``linear``, ``spherical``; ``geodesic`` waits for the
+geodesic solver) with :func:`slerp`, and ``get_model_info``.  A manager holds a model built
 from a config (``from_config``: pretrained nets, seeded flows) or a trained
 one from a Trainer run's checkpoint (``from_checkpoint``, ``from_run``).
 Inputs are numpy arrays (or tensors); outputs are numpy arrays, as on the
@@ -18,7 +19,9 @@ JAX's bits.
 ``sample_random(1, seed=seeds[i])`` gives.  Each row's draws come from its
 own generator, in the order a one-row ``sample_random`` draws them; then one
 batched call runs every row at once (the prior and the chain treat rows
-independently, as JAX's ``vmap`` does).
+independently, as JAX's ``vmap`` does).  For ``method="adaptive"`` every
+row runs the planned chain on the manager's cached :meth:`adaptive_plan`,
+as JAX's does; ``sample_random`` runs the budgeted adaptive sampler.
 """
 
 from __future__ import annotations
@@ -32,9 +35,24 @@ import torch
 
 from rlvae_tpu_torch.device import DeviceLike, resolve_device
 from rlvae_tpu_torch.models import RlVAE, create_model
-from rlvae_tpu_torch.samplers.hmc import concat_rows
+from rlvae_tpu_torch.samplers.hmc import HMCConfig, calibrate_adaptive_plan, concat_rows
 from rlvae_tpu_torch.train.checkpoints import CheckpointManager
 from rlvae_tpu_torch.utils.output import ModelOutput
+
+
+PLAN_SEED = 12  # the calibration's seed, JAX's PRNGKey(12)
+
+
+def slerp(t, z1: torch.Tensor, z2: torch.Tensor) -> torch.Tensor:
+    """Spherical interpolation between latent vectors at ``t`` (a scalar or
+    a column broadcast against them), as ``rlvae_tpu/inference.py:48-55``:
+    the angle of the normalised vectors (norms guarded by +1e-8, cosine
+    clipped to +-(1 - 1e-7)), applied to the unnormalised ones."""
+    z1n = z1 / (torch.linalg.vector_norm(z1, dim=-1, keepdim=True) + 1e-8)
+    z2n = z2 / (torch.linalg.vector_norm(z2, dim=-1, keepdim=True) + 1e-8)
+    omega = torch.arccos(torch.clamp((z1n * z2n).sum(-1, keepdim=True), -1 + 1e-7, 1 - 1e-7))
+    so = torch.sin(omega)
+    return (torch.sin((1.0 - t) * omega) / so) * z1 + (torch.sin(t * omega) / so) * z2
 
 
 class ModelManager:
@@ -43,6 +61,7 @@ class ModelManager:
     def __init__(self, model: RlVAE, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval().requires_grad_(False)
+        self._adaptive_plan: Optional[Dict[str, Any]] = None
 
     @classmethod
     def from_config(cls, model_config: Dict[str, Any], seed: int = 0,
@@ -130,29 +149,67 @@ class ModelManager:
 
     def sample_random(self, n: int, method: str = "geodesic", seed: int = 0,
                       n_obs: Optional[int] = None) -> np.ndarray:
-        """Prior samples decoded to sequences [n, n_obs, C, H, W]."""
+        """Prior samples decoded to sequences [n, n_obs, C, H, W];
+        ``method="adaptive"`` runs the budgeted adaptive sampler, as JAX's."""
         with torch.no_grad():  # not inference_mode: the 'basic' prior differentiates
             x = self.model.generate(n, n_obs or 8, method, generator=self._generator(seed))
         return x.float().cpu().numpy()
 
     def sample_random_batched_seeds(self, seeds: Sequence[int], method: str = "geodesic",
                                     n_obs: int = 8) -> np.ndarray:
-        """Row i equals ``sample_random(1, method, seed=seeds[i], n_obs)``; all
-        rows run as one batch."""
+        """Row i equals ``sample_random(1, method, seed=seeds[i], n_obs)``
+        (for ``adaptive``: ``RlVAE.generate`` on the plan of
+        :meth:`adaptive_plan` with that seed's generator); all rows run as
+        one batch."""
         seeds = [int(s) for s in np.asarray(seeds, dtype=np.uint32).reshape(-1)]
         if not seeds:
             return np.zeros((0, n_obs, *self.model.input_dim), np.float32)
-        noise = concat_rows([self.model.draw_generation_noise(1, method, self._generator(s))
-                              for s in seeds])
+        plan = self.adaptive_plan() if method == "adaptive" else None
+        noise = concat_rows([self.model.draw_generation_noise(1, method, self._generator(s),
+                                                              plan=plan) for s in seeds])
         with torch.no_grad():
-            x = self.model.generate(len(seeds), n_obs, method, noise=noise)
+            x = self.model.generate(len(seeds), n_obs, method, noise=noise, plan=plan)
         return x.float().cpu().numpy()
+
+    def adaptive_plan(self, pool_size: int = 4096,
+                      config: Optional[HMCConfig] = None) -> Dict[str, Any]:
+        """The calibrated adaptive-sampler plan of this model's metric
+        (``calibrate_adaptive_plan`` from a generator on the manager's device
+        seeded 12, with a warm-start pool of ``pool_size``), built at the
+        first call and cached: later calls return it whatever they ask."""
+        if self.model.metric is None:
+            raise ValueError("adaptive generation requires a metric")
+        if self._adaptive_plan is None:
+            with torch.no_grad():
+                self._adaptive_plan = calibrate_adaptive_plan(
+                    self.model.metric, config or HMCConfig(init="centroids"),
+                    pool_size=pool_size, generator=self._generator(PLAN_SEED))
+        return self._adaptive_plan
 
     def sample_latent(self, n: int, method: str = "geodesic", seed: int = 0) -> np.ndarray:
         """Prior latents [n, D]."""
         with torch.no_grad():
             z = self.model.sample_riemannian_prior(n, method, generator=self._generator(seed))
         return z.float().cpu().numpy()
+
+    def interpolate(self, x1, x2, n_steps: int = 10, mode: str = "linear") -> np.ndarray:
+        """Decoded frames along a path between the embeddings of frames
+        ``x1`` and ``x2`` [C, H, W]: ``n_steps`` points at ``linspace(0, 1)``,
+        ``spherical`` by :func:`slerp`, otherwise straight (``linear``).
+        ``geodesic`` (a path under the learned metric) raises: it needs the
+        geodesic solver, not ported yet."""
+        if mode == "geodesic":
+            raise NotImplementedError(
+                "interpolate(mode='geodesic') needs geometry/geodesics.py, which is not ported "
+                "yet (ROADMAP queue A4)")
+        mu1, mu2 = (self._tensor(self.encode(np.asarray(x, np.float32)[None]).embedding[0])
+                    for x in (x1, x2))
+        ts = torch.linspace(0.0, 1.0, n_steps, device=self.device)[:, None]
+        if mode == "spherical":
+            zs = slerp(ts, mu1, mu2)
+        else:
+            zs = (1.0 - ts) * mu1[None] + ts * mu2[None]
+        return self.decode(zs)
 
     # -- info -----------------------------------------------------------------
 

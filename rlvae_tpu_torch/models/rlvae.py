@@ -45,18 +45,24 @@ sees them.
 Generation (``sample_riemannian_prior``, ``generate``; JAX
 ``rlvae.py:426-474``) draws prior latents by one of the prior methods or the
 manifold-HMC chain (``official``: centroid starts; ``hmc``: normal starts;
-one ``hmc_terms`` launch per target evaluation, 1601 per chain), evolves
-them through the temporal flows (one IAF-chain launch) and decodes them.
-Every draw can be passed in as ``noise`` (:meth:`draw_generation_noise`
-says what it holds); otherwise it comes from ``generator``.
+one ``hmc_terms`` launch per target evaluation, 1601 per chain; ``adaptive``
+with a calibrated ``plan``: the planned fixed-eps chain, 1 + 12 (n_lf + 1)
+evaluations; without one, the budgeted three-phase sampler), evolves them
+through the temporal flows (one IAF-chain launch) and decodes them.  Every
+draw can be passed in as ``noise`` (:meth:`draw_generation_noise` says what
+it holds); otherwise it comes from ``generator``.
 
-Not ported yet (raise ``NotImplementedError``): the ``adaptive`` prior
-chain and the posterior ``hmc`` method (ROADMAP queue A1).
+:meth:`RlVAE.estimate_nll` is the importance-sampled negative
+log-likelihood (JAX ``rlvae.py:476-558``): one chol-bundle launch for the
+``riemannian_metric`` posterior's proposal, then per sample one IAF-chain
+launch and a decode.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
+
+import math
 
 import numpy as np
 import torch
@@ -68,7 +74,15 @@ from rlvae_tpu_torch.geometry.metric import CentroidMetric
 from rlvae_tpu_torch.models import losses
 from rlvae_tpu_torch.nets.registry import create_decoder, create_encoder
 from rlvae_tpu_torch.ops.recon_kernels import DecodeMSE
-from rlvae_tpu_torch.samplers.hmc import HMCConfig, draw_hmc_noise, sample_prior_hmc
+from rlvae_tpu_torch.geometry import metric as gm
+from rlvae_tpu_torch.samplers.hmc import (
+    HMCConfig,
+    draw_hmc_noise,
+    draw_planned_noise,
+    sample_prior_hmc,
+    sample_prior_hmc_adaptive_budget,
+    sample_prior_hmc_planned,
+)
 from rlvae_tpu_torch.samplers.riemannian import (
     PRIOR_METHODS,
     draw_posterior_noise,
@@ -317,20 +331,26 @@ class RlVAE(nn.Module):
     def _check_generation_method(self, method: str) -> None:
         if method not in GENERATION_METHODS:
             raise ValueError(f"Unknown prior sampling method: {method}")
-        if method == "adaptive" and self.metric is not None:
-            raise NotImplementedError(
-                "generation method 'adaptive' (sample_prior_hmc_adaptive_budget, "
-                "calibrate_adaptive_plan, sample_prior_hmc_planned) is not ported yet "
-                "(ROADMAP queue A1)"
-            )
 
     def draw_generation_noise(self, num_samples: int, method: str = "geodesic",
-                              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                              generator: Optional[torch.Generator] = None,
+                              plan: Optional[Mapping[str, Any]] = None) -> Dict[str, torch.Tensor]:
         """Every draw of ``sample_riemannian_prior(num_samples, method)``, in
         order: the chain's ``z0``, ``gammas`` [S, n, D] and ``unifs`` [S, n]
-        for ``hmc``/``official``, the prior's draws otherwise."""
+        for ``hmc``/``official``; for ``adaptive`` on a ``plan`` the planned
+        chain's ``idx``, ``gammas``, ``unifs`` and ``jitters`` [S, n]; the
+        prior's draws otherwise.  ``adaptive`` without a plan raises: the
+        budget sampler's sampling-phase draws follow its n_lf decision,
+        which takes the median over the whole batch."""
         self._check_generation_method(method)
         metric = self.metric
+        if method == "adaptive" and metric is not None:
+            if plan is None:
+                raise ValueError(
+                    "adaptive generation without a plan runs the budget sampler, whose "
+                    "sampling-phase draws depend on its n_lf decision over the whole batch; "
+                    "pass plan= (ModelManager.adaptive_plan()) or sample with a generator")
+            return draw_planned_noise(metric, num_samples, plan, generator=generator)
         if method in HMC_METHODS and metric is not None:
             return draw_hmc_noise(metric, num_samples, _hmc_config(method), generator)
         return draw_prior_noise(metric, method, num_samples, self.latent_dim, generator,
@@ -338,13 +358,25 @@ class RlVAE(nn.Module):
 
     def sample_riemannian_prior(self, num_samples: int, method: str = "geodesic",
                                 generator: Optional[torch.Generator] = None,
-                                noise: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+                                noise: Optional[Mapping[str, torch.Tensor]] = None,
+                                plan: Optional[Mapping[str, Any]] = None) -> torch.Tensor:
         """Prior latents [num_samples, D]: ``hmc``/``official`` run the
-        manifold-HMC chain, the other methods ``sample_prior``."""
+        manifold-HMC chain; ``adaptive`` the planned chain on ``plan`` (from
+        ``calibrate_adaptive_plan``), else the budgeted adaptive sampler
+        (whose draws ``noise`` may hold in part: see
+        ``sample_prior_hmc_adaptive_budget``); the other methods
+        ``sample_prior``."""
         self._check_generation_method(method)
+        metric = self.metric
+        if method == "adaptive" and metric is not None:
+            if plan is not None:
+                return sample_prior_hmc_planned(metric, num_samples, plan, generator=generator,
+                                                noise=noise)
+            return sample_prior_hmc_adaptive_budget(metric, num_samples,
+                                                    HMCConfig(init="centroids"),
+                                                    generator=generator, noise=noise)
         if noise is None:
             noise = self.draw_generation_noise(num_samples, method, generator)
-        metric = self.metric
         if method in HMC_METHODS and metric is not None:
             return sample_prior_hmc(metric, num_samples, _hmc_config(method), z0=noise["z0"],
                                     gammas=noise["gammas"], unifs=noise["unifs"])
@@ -352,13 +384,58 @@ class RlVAE(nn.Module):
 
     def generate(self, num_samples: int, n_obs: int = 8, method: str = "geodesic",
                  generator: Optional[torch.Generator] = None,
-                 noise: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+                 noise: Optional[Mapping[str, torch.Tensor]] = None,
+                 plan: Optional[Mapping[str, Any]] = None) -> torch.Tensor:
         """Sample prior latents, evolve them through time, decode them:
         [num_samples, n_obs, *input_dim]."""
-        z0 = self.sample_riemannian_prior(num_samples, method, generator, noise)
+        z0 = self.sample_riemannian_prior(num_samples, method, generator, noise, plan)
         z_seq, _ = apply_temporal_flows(self.flows, z0, n_obs)
         recon = self.decode(z_seq.reshape(-1, self.latent_dim))["reconstruction"]
         return recon.reshape(num_samples, n_obs, *self.input_dim)
+
+    def estimate_nll(self, x: torch.Tensor, n_samples: int = 50,
+                     generator: Optional[torch.Generator] = None,
+                     noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Importance-sampled negative log-likelihood per sequence, [B]:
+        -(logsumexp_S(log w) - log S) with log w = log p(x|z0) + log p(z0) -
+        log q(z0|x0) over S posterior samples.  The proposal q is the
+        ``riemannian_metric`` posterior N(mu, G^{-1}(mu)) (one chol-bundle
+        launch for L and its half logdet from L's diagonal) or N(mu, σ^2);
+        the prior is the standard normal, as the reference's own estimator;
+        p(x|z0) is a unit-variance Gaussian over the decoded sequence (z_t
+        the flows' images of z0).  ``noise`` is ε [S, B, D], else drawn
+        from ``generator`` one sample's [B, D] at a time."""
+        b, n_obs, d = x.shape[0], x.shape[1], self.latent_dim
+        if noise is None:
+            noise = torch.stack([torch.randn((b, d), generator=generator, device=x.device)
+                                 for _ in range(n_samples)])
+        noise = noise.to(device=x.device, dtype=torch.float32)
+        enc = self.encode(x[:, 0])
+        mu, log_var = enc["embedding"], enc["log_covariance"]
+        log_2pi = math.log(2 * math.pi)
+        metric = self.metric
+        riemannian = self.posterior_type == "riemannian_metric" and metric is not None
+        if riemannian:
+            l_mu = gm.chol_g_inv(metric, mu)
+            half_logdet = torch.log(torch.diagonal(l_mu, dim1=-2, dim2=-1)).sum(-1)
+        else:
+            std = torch.exp(0.5 * log_var)
+        log_w = []
+        for eps in noise:
+            if riemannian:
+                z0 = mu + torch.einsum("bij,bj->bi", l_mu, eps)
+                log_qz = -0.5 * (eps ** 2).sum(1) - 0.5 * d * log_2pi - half_logdet
+            else:
+                z0 = mu + eps * std
+                log_qz = -0.5 * (eps ** 2).sum(1) - 0.5 * d * log_2pi - 0.5 * log_var.sum(1)
+            log_pz = -0.5 * (z0 ** 2).sum(1) - 0.5 * d * log_2pi
+            z_seq, _ = apply_temporal_flows(self.flows, z0, n_obs)
+            recon = self._decode_seq(z_seq.reshape(b * n_obs, d), b, n_obs).float()
+            log_px_z = (-0.5 * ((recon - x) ** 2).reshape(b, -1).sum(1)
+                        - 0.5 * x[0].numel() * log_2pi)
+            log_w.append(log_px_z + log_pz - log_qz)
+        log_w = torch.stack(log_w)
+        return -(torch.logsumexp(log_w, dim=0) - log_w.new_tensor(float(len(noise))).log())
 
     # -- introspection ----------------------------------------------------------
 

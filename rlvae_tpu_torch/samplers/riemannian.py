@@ -4,8 +4,7 @@ Port of ``reparam``, ``sample_posterior`` and ``sample_metric_aware_posterior``
 (``rlvae_tpu/samplers/riemannian.py:58-176``) and of the prior methods of
 ``sample_prior`` (:184-296): ``geodesic`` (the default), ``centroid_aware``,
 ``weighted_mixture`` and ``basic``.  ``geodesic_exact`` needs the geodesic
-solver (``geometry/geodesics.py``), which is not ported yet; nor is the
-posterior ``hmc`` method (``sample_posterior_hmc``).
+solver (``geometry/geodesics.py``), which is not ported yet.
 
 Posterior methods (``sampling.method`` of a Gaussian-posterior model):
 
@@ -15,11 +14,15 @@ Posterior methods (``sampling.method`` of a Gaussian-posterior model):
     geodesic  a point on the segment between the two nearest centroids plus
               G-shaped noise (one metric-bundle launch for G)
     official  0.1-scale chol(G^{-1}(mu)) at the hardcoded T = 0.1
+    hmc       posterior-tempered HMC from mu + ε σ, 20 x 5 leapfrog steps
+              (:func:`~rlvae_tpu_torch.samplers.hmc.sample_posterior_hmc`:
+              200 HMC-terms launches; no gradient on the card)
 
 The posterior's noise is always passed in: JAX draws it from its own keys,
-and the tests hand both sides the same numbers.  It is ε [B, D], and for
-``geodesic`` also t [B, 1] (uniform), drawn in that order by
-:func:`draw_posterior_noise`, the one place that draws it.  A prior's
+and the tests hand both sides the same numbers.  It is ε [B, D], for
+``geodesic`` also t [B, 1] (uniform), and for ``hmc`` also the momenta
+``gammas`` [20, B, D], drawn in that order by :func:`draw_posterior_noise`,
+the one place that draws it.  A prior's
 noise may be passed in too: a mapping with one entry per draw, in the order
 :func:`draw_prior_noise` draws them from a ``torch.Generator`` when it is not
 given:
@@ -42,6 +45,7 @@ import torch
 from rlvae_tpu_torch.geometry import metric as gm
 from rlvae_tpu_torch.geometry.metric import CentroidMetric
 from rlvae_tpu_torch.ops import linalg as _lin
+from rlvae_tpu_torch.samplers.hmc import draw_posterior_hmc_noise, sample_posterior_hmc
 
 Noise = Mapping[str, torch.Tensor]
 
@@ -76,23 +80,25 @@ def sample_metric_aware_posterior(
 POSTERIOR_METHODS = ("standard", "basic", "enhanced", "geodesic", "official", "hmc")
 
 
+POSTERIOR_HMC_STEPS = 20  # sample_posterior_hmc's n_steps as sample_posterior calls it
+
+
 def _check_posterior_method(method: str) -> None:
     if method not in POSTERIOR_METHODS:
         raise ValueError(f"Unknown posterior sampling method: {method}")
-    if method == "hmc":
-        raise NotImplementedError(
-            "posterior method 'hmc' (sample_posterior_hmc, refine_for_training) is not "
-            "ported yet (ROADMAP queue A1)"
-        )
 
 
 def draw_posterior_noise(metric: Optional[CentroidMetric], method: str, batch: int,
                          latent_dim: int, generator: Optional[torch.Generator],
                          device=None) -> Dict[str, torch.Tensor]:
     """Every draw of posterior ``method`` for ``batch`` rows, in order: ε
-    [B, D], then for ``geodesic`` with a metric t [B, 1]."""
+    [B, D], then with a metric t [B, 1] for ``geodesic`` or ``gammas``
+    [20, B, D] for ``hmc``."""
     if metric is not None:
         _check_posterior_method(method)
+    if metric is not None and method == "hmc":
+        return draw_posterior_hmc_noise(batch, latent_dim, POSTERIOR_HMC_STEPS, generator,
+                                        device)
     noise = {"eps": torch.randn((batch, latent_dim), generator=generator, device=device)}
     if metric is not None and method == "geodesic":
         noise["t"] = torch.rand((batch, 1), generator=generator, device=device)
@@ -115,6 +121,8 @@ def sample_posterior(metric: Optional[CentroidMetric], mu: torch.Tensor,
     if method == "geodesic":
         return _posterior_geodesic(metric, mu, log_var, eps,
                                    noise["t"].to(device=mu.device, dtype=mu.dtype))
+    if method == "hmc":
+        return sample_posterior_hmc(metric, mu, log_var, eps, noise["gammas"])
     return _posterior_official(metric, mu, log_var, eps)
 
 

@@ -121,8 +121,9 @@ def test_unported_and_unknown_methods_raise():
                   decoder_config={"architecture": "mlp", "hidden_dims": [32]})
     with pytest.raises(NotImplementedError, match="A4"):
         model.sample_riemannian_prior(2, "geodesic_exact")
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        model.generate(2, 3, "adaptive")
+    # adaptive is ported; without a plan its draws depend on the whole batch
+    with pytest.raises(ValueError, match="plan"):
+        model.draw_generation_noise(2, "adaptive")
     with pytest.raises(ValueError, match="Unknown prior"):
         model.sample_riemannian_prior(2, "nope")
     # without a metric every method is the standard normal draw

@@ -42,7 +42,7 @@ def even_slots(sms):
 CARDS = {"h100": (132, h100_slots), "small": (16, even_slots(16)),
          "large": (264, even_slots(264))}
 BANKS = (1, 3, 4, 5, 37, 40, 50, 127, 128, 200, 255, 256, 257, 1000, 2000, 5000, 20_000)
-BATCHES = list(range(1, 70)) + [100, 127, 128, 129, 300, 1000, 1024]
+BATCHES = list(range(1, 70)) + [100, 127, 128, 129, 300, 1000, 1024, 4096]
 
 
 def ranges(k, g):
@@ -105,6 +105,20 @@ def test_h100_geometry_at_the_measured_shapes():
             (1000, 20_000): (8, 8, 1, 125)}
     for (b, k), g in want.items():
         assert tuple(hmc_geometry(b, k, sms, h100_slots)) == g, (b, k)
+
+
+def test_h100_geometry_at_the_adaptive_samplers_shapes():
+    """The adaptive sampler's calibration runs one chain per centroid (B=50
+    at K=50: one CTA a row) and its warm-start pool B=4096 (512 CTAs of 8
+    rows and 8 warps); the posterior HMC B=64 at K=200.  At K=20 000 the
+    4096 rows' 512 clusters are more than the card holds at any cluster
+    size, so the rule cuts the cluster to 1 CTA."""
+    want = {(50, 50): (1, 13, 1, 50), (4096, 50): (8, 8, 1, 512), (64, 200): (1, 16, 1, 64),
+            (4096, 200): (8, 8, 1, 512), (4096, 20_000): (8, 8, 1, 512)}
+    for (b, k), g in want.items():
+        assert tuple(hmc_geometry(b, k, 132, h100_slots)) == g, (b, k)
+    # with a cluster of 8 the bank would split 8 ways; 512 > 15 clusters fit
+    assert -(-20_000 // HMC_CHUNK) // HMC_MIN_CTA_CHUNKS >= 8 and h100_slots(8, 8, 8) < 512
 
 
 @pytest.mark.parametrize("b", [1, 37, 64, 1000])

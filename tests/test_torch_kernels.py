@@ -296,7 +296,7 @@ def _hmc_err(got, want64):
             float((g.double() - g64).abs().max() / g64.abs().max().clamp_min(1e-30)))
 
 
-@pytest.mark.parametrize("b", [1, 64, 1000])
+@pytest.mark.parametrize("b", [1, 50, 64, 1000, 4096])
 @pytest.mark.parametrize("k", [1, 50, 200, 20_000])
 def test_hmc_terms_matches_plain_and_fp64(dev, b, k):
     """The kernel against its plain fp32 version (log pi atol 1e-5, grad
@@ -400,6 +400,30 @@ def test_hmc_geometry_matches_the_launchers(dev):
             g = metric_kernels.hmc_geometry(b, k, sms, slots)
             assert metric_kernels.launch_hmc_geometry(b, k, dev) == g, (b, k)
             assert 1 <= g.ctas <= 8 and (g.ctas == 1 or g.clusters <= slots(*g[:3])), (b, k, g)
+
+
+def test_posterior_hmc_train_forward_raises_without_a_backward(dev):
+    """The HMC terms kernel has no backward (JAX's Pallas kernel has no VJP
+    either): a train forward of the posterior-HMC model with grad enabled
+    raises, naming it, instead of a silent zero gradient through the
+    target; under no_grad it runs (200 terms launches)."""
+    from pathlib import Path
+
+    from rlvae_tpu_torch.geometry import load_metric
+    from rlvae_tpu_torch.models import RlVAE
+
+    metric = load_metric(Path(__file__).resolve().parents[1] / "data" / "pretrained" / "metric.npz")
+    net = {"architecture": "mlp", "hidden_dims": [32]}
+    model = RlVAE(input_dim=(3, 8, 8), n_flows=2, flow_hidden_size=32, metric=metric,
+                  posterior_type="gaussian", sampling_method="hmc", encoder_config=net,
+                  decoder_config=net).to(dev).train()
+    x = torch.rand((2, 3, 3, 8, 8), device=dev)
+    with pytest.raises(NotImplementedError, match="backward"):
+        model(x, generator=torch.Generator(device=dev).manual_seed(0), train=True)
+    before = hmc_terms.launches
+    with torch.no_grad():
+        out = model(x, generator=torch.Generator(device=dev).manual_seed(0))
+    assert hmc_terms.launches == before + 200 and torch.isfinite(out.loss)
 
 
 def test_hmc_terms_rejects_bad_inputs(dev):

@@ -104,10 +104,15 @@ def test_standard_and_missing_metric_are_reparameterization():
 
 
 def test_posterior_hmc_raises_naming_its_queue():
+    """The posterior HMC is ported; what still raises is its gradient
+    through the HMC terms kernel, which has no backward: tensors off the
+    CPU that autograd would differentiate (meta tensors stand in for the
+    card's here)."""
     _, tm = _metrics("metric_T0.7_scaled.npz")
-    mu = torch.zeros(2, 16)
+    mu = torch.zeros(2, 16, device="meta", requires_grad=True)
+    gammas = torch.zeros(20, 2, 16, device="meta")
     with pytest.raises(NotImplementedError, match="A1"):
-        tsr.sample_posterior(tm, mu, mu, "hmc", {"eps": mu})
+        tsr.sample_posterior(tm, mu, mu, "hmc", {"eps": mu.detach(), "gammas": gammas})
     with pytest.raises(ValueError, match="Unknown posterior"):
         tsr.sample_posterior(tm, mu, mu, "nope", {"eps": mu})
 
