@@ -138,6 +138,23 @@ Phases, each printing one JSON line with its elapsed seconds:
    rest of the forward from the card's encoder output and z0.
    ``interpolate`` (linear, spherical, 10 steps) against the CPU between
    the card's embeddings, the encoder held to the CPU as well.
+13. ``experiment``: ``rlvae_tpu_torch.experiment.main`` (``python -m
+   rlvae_tpu_torch.experiment``) over ``conf/``, in temporary run
+   directories, at full width, cut in epochs and sequences (32 train, 8
+   validation, 16 test): ``model=riemannian_flow_vae training=quick`` for 2
+   epochs with ``training.trainer.profile=true`` (its files, chol-bundle 2
+   and IAF-chain forward and backward 1 per train step, chol-bundle 3,
+   IAF-chain forward 1 and G^{-1} 1 per evaluation batch, StepTimer keys in
+   every step record, the epoch-0 trace naming the IAF-chain kernels, a
+   ``viz/error`` record per due visualization module), then
+   ``ModelManager.from_run`` on its directory, a B=64 forward on the card
+   against the CPU; ``experiment=comparison_study`` (``vanilla_vae``
+   launches nothing); ``-m model=hybrid_rlvae
+   model.sampling.method=enhanced,geodesic`` (the metric bundle once per
+   train step and evaluation batch in the ``geodesic`` job, never in the
+   ``enhanced`` one); one ``model=riemannian_flow_vae_fast`` epoch (the
+   decode+MSE kernels once each per train step).  The counters are zeroed
+   before the first run and read after the last.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -2895,6 +2912,213 @@ def replay_posterior_chain(torch, metric, mu, log_var, noise):
             "max_abs_z_by_step": scale, "rows_off_plateau_by_step": off_plateau, "z0": z}
 
 
+# ---------------------------------------------------------------------------
+# experiment phase
+# ---------------------------------------------------------------------------
+
+# the runs' sizes: full width, cut in epochs and sequences only (training
+# quick: batch 4, a step record every step)
+EXP_TRAIN, EXP_VAL, EXP_TEST = 32, 8, 16
+EXP_CUT = [f"training.n_train_samples={EXP_TRAIN}", f"training.n_val_samples={EXP_VAL}",
+           f"data.synthetic_n_test={EXP_TEST}"]
+TIMER_KEYS = ("step_time_avg", "step_time_p50", "step_time_p99", "steps_per_sec")
+# the kernels of the IAF chain's forward and backward, as the profiler names them
+B2_B3_NAMES = ("iaf_chain_fwd_kernel", "iaf_chain_bwd_kernel")
+
+
+def counted_trainers():
+    """(runs, restore): every Trainer built until ``restore()`` appends one
+    ``{"train": [...], "eval": [...]}`` to ``runs``, with each train step's
+    and each evaluation batch's kernel launches, read from the counters
+    around the step."""
+    from rlvae_tpu_torch.train import trainer as trainer_module
+
+    runs = []
+    make_train, make_eval = trainer_module.make_train_step, trainer_module.make_eval_step
+
+    def counting(kind, step):
+        def counted(*args, **kwargs):
+            before = launch_counts()
+            out = step(*args, **kwargs)
+            runs[-1][kind].append({k: v - before[k] for k, v in launch_counts().items()})
+            return out
+        return counted
+
+    def make_train_step(*args, **kwargs):
+        runs.append({"train": [], "eval": []})
+        return counting("train", make_train(*args, **kwargs))
+
+    def make_eval_step(*args, **kwargs):
+        return counting("eval", make_eval(*args, **kwargs))
+
+    trainer_module.make_train_step, trainer_module.make_eval_step = make_train_step, make_eval_step
+
+    def restore():
+        trainer_module.make_train_step, trainer_module.make_eval_step = make_train, make_eval
+
+    return runs, restore
+
+
+def run_totals(run):
+    return {k: sum(c[k] for c in run["train"] + run["eval"]) for k in expected_launches()}
+
+
+def trace_kernels(trace_dir: Path):
+    """(kernel names, device-busy share) of the Chrome trace under
+    ``trace_dir``: the kernels' summed durations over the trace's span."""
+    (path,) = trace_dir.glob("trace_*.json")
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    return sorted({e["name"] for e in kernels}), sum(e["dur"] for e in kernels) / span
+
+
+def step_records(run_dir: Path):
+    return [r for r in map(json.loads, (run_dir / "metrics.jsonl").read_text().splitlines())
+            if "train/loss" in r and "epoch" not in r]
+
+
+def run_experiment(torch, dev=None):
+    """``rlvae_tpu_torch.experiment.main`` as a user runs it, in temporary
+    run directories: a single run of the default model with the epoch-0
+    profile, ``from_run`` on its directory against the CPU, the comparison
+    study, a two-job ``-m`` multirun of ``hybrid_rlvae`` over
+    ``sampling.method=enhanced,geodesic``, and one run of the fast preset.
+    ``dev`` (the CPU, for a rehearsal) adds ``training.trainer.accelerator=cpu``."""
+    from rlvae_tpu_torch import ModelManager, experiment
+    from rlvae_tpu_torch.config import load_yaml
+
+    device = [] if dev is None else [f"training.trainer.accelerator={dev.type}"]
+    b123 = expected_launches(chol_bundle=2, iaf_chain_fwd=1, iaf_chain_bwd=1)
+    out, runs_by_name = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_experiment_") as tmp:
+        tmp = Path(tmp)
+        runs, restore = counted_trainers()
+        try:
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            single = tmp / "single"
+            (result,) = experiment.main(["model=riemannian_flow_vae", "training=quick",
+                                         "training.trainer.max_epochs=2",
+                                         "training.trainer.profile=true", *EXP_CUT, *device,
+                                         f"run.dir={single}"])
+            out["single_s"] = time.perf_counter() - t0
+            runs_by_name["single"] = runs[-1]
+
+            t = time.perf_counter()
+            experiment.main(["experiment=comparison_study", *EXP_CUT, *device,
+                             "experiment.training_override.n_epochs=1",
+                             f"experiment.training_override.n_train_samples={EXP_TRAIN // 2}",
+                             f"experiment.training_override.n_val_samples={EXP_VAL}",
+                             f"run.dir={tmp / 'comparison'}"])
+            out["comparison_s"] = time.perf_counter() - t
+            runs_by_name["vanilla_vae"], runs_by_name["riemannian_flow_vae"] = runs[-2:]
+
+            t = time.perf_counter()
+            experiment.main(["-m", "model=hybrid_rlvae", "model.sampling.method=enhanced,geodesic",
+                             "training=quick", "training.trainer.max_epochs=1", *EXP_CUT, *device,
+                             f"sweep.dir={tmp / 'sweep'}"])
+            out["multirun_s"] = time.perf_counter() - t
+            runs_by_name["hybrid_enhanced"], runs_by_name["hybrid_geodesic"] = runs[-2:]
+
+            t = time.perf_counter()
+            experiment.main(["model=riemannian_flow_vae_fast", "training=quick",
+                             "training.trainer.max_epochs=1", *EXP_CUT, *device,
+                             f"run.dir={tmp / 'fast'}"])
+            out["fast_s"] = time.perf_counter() - t
+            runs_by_name["fast"] = runs[-1]
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        out["runs_s"] = time.perf_counter() - t0
+        launches = launch_counts()
+        check(len(runs) == 6, f"{len(runs)} trainers in the experiment phase")
+
+        # the single run: files, launches, step records, the profile
+        for f in ("config.yaml", "results.yaml", "metrics.jsonl", "checkpoints/best/state.pt",
+                  "checkpoints/last/state.pt", "checkpoints/model_config.json"):
+            check((single / f).exists(), f"the single run wrote no {f}")
+        res = load_yaml((single / "results.yaml").read_text())
+        check(res["epochs_run"] == 2 and all(np.isfinite(v) for v in res["test"].values()),
+              f"single run results {res}")
+        run = runs_by_name["single"]
+        n_steps = 2 * EXP_TRAIN // 4
+        check(len(run["train"]) == n_steps and all(c == b123 for c in run["train"]),
+              f"single run steps launched {run['train']}")
+        b137 = expected_launches(chol_bundle=3, iaf_chain_fwd=1, g_inv=1)
+        check(run["eval"] and all(c == b137 for c in run["eval"]),
+              f"single run evaluation batches launched {run['eval']}")
+        records = step_records(single)
+        check(len(records) == n_steps and all(set(TIMER_KEYS) <= set(r) for r in records),
+              "step records without StepTimer keys")
+        names, busy = trace_kernels(single / "profile")
+        for want in B2_B3_NAMES:
+            check(any(want in n for n in names), f"the epoch-0 profile names no {want}: {names}")
+        viz_errors = [r for r in map(json.loads, (single / "metrics.jsonl").read_text()
+                                     .splitlines()) if "viz/error" in r]
+        check(len(viz_errors) == 5, f"{len(viz_errors)} viz/error records")  # 4 at epoch 0, 1 at 1
+        out["single"] = {"result": {k: result[k] for k in ("best_val_loss", "epochs_run", "steps",
+                                                           "train_time")},
+                         "test": res["test"], "launches": run_totals(run),
+                         "launches_per_step": run["train"][0],
+                         "launches_per_eval_batch": run["eval"][0],
+                         "step_time": {k: records[-1][k] for k in TIMER_KEYS},
+                         "profile": {"kernel_names": len(names), "device_busy_share": busy,
+                                     "iaf": [n for n in names if "iaf_chain" in n]}}
+
+        # the trained run served from its directory, card against the CPU
+        rng = np.random.default_rng(17)
+        seqs = rng.uniform(size=(SERVE_BATCH, 8, 3, 64, 64)).astype(np.float32)
+        eps = torch.tensor(rng.normal(size=(SERVE_BATCH, 16)), dtype=torch.float32)
+        card = ModelManager.from_run(single, device=dev)
+        check(dev is not None or card.device.type == "cuda", f"from_run on {card.device}")
+        out_card = card.forward(seqs, eps=eps.to(card.device))
+        torch.cuda.synchronize()
+        cpu = ModelManager.from_run(single, device="cpu")
+        out["from_run_cuda_vs_cpu"] = compare_forward(torch, out_card, cpu.forward(seqs, eps=eps))
+
+        cmp = load_yaml((tmp / "comparison" / "results.yaml").read_text())
+        check(sorted(cmp["models"]) == ["riemannian_flow_vae", "vanilla_vae"]
+              and sorted(cmp["comparison"]) == sorted(cmp["models"]),
+              f"comparison results {sorted(cmp)}")
+        for name, r in cmp["models"].items():
+            finite = [r["best_val_loss"], *r["test"].values()]
+            check(all(np.isfinite(v) for v in finite), f"comparison {name} not finite")
+        check(all(c == b123 for c in runs_by_name["riemannian_flow_vae"]["train"]),
+              "comparison riemannian_flow_vae steps")
+        check(sum(run_totals(runs_by_name["vanilla_vae"]).values()) == 0,
+              "the vanilla VAE launched a kernel")
+        out["comparison"] = {name: {"best_val_loss": r["best_val_loss"],
+                                    "launches": run_totals(runs_by_name[name])}
+                             for name, r in cmp["models"].items()}
+
+        methods = [load_yaml((tmp / "sweep" / str(i) / "config.yaml").read_text())["model"]
+                   ["sampling"]["method"] for i in (0, 1)]
+        check(methods == ["enhanced", "geodesic"], f"multirun jobs {methods}")
+        enhanced, geodesic = runs_by_name["hybrid_enhanced"], runs_by_name["hybrid_geodesic"]
+        check(all(c["metric_bundle"] == 0 for c in enhanced["train"] + enhanced["eval"]),
+              "the enhanced job launched the metric bundle")
+        check(all(c["metric_bundle"] == 1 for c in geodesic["train"] + geodesic["eval"])
+              and geodesic["train"] and geodesic["eval"],
+              f"geodesic job: {geodesic['train'][:1]} {geodesic['eval'][:1]}")
+        out["multirun"] = {m: {"launches": run_totals(r), "launches_per_step": r["train"][0],
+                               "launches_per_eval_batch": r["eval"][0],
+                               "step_time": {k: step_records(tmp / "sweep" / str(i))[-1][k]
+                                             for k in TIMER_KEYS}}
+                           for i, (m, r) in enumerate(zip(methods, (enhanced, geodesic)))}
+
+        fast = runs_by_name["fast"]
+        b5 = expected_launches(chol_bundle=2, decode_mse_fwd=1, decode_mse_bwd_dh=1,
+                               decode_mse_bwd_dw=1)
+        check(fast["train"] and all(c == b5 for c in fast["train"]),
+              f"fast run steps launched {fast['train'][:1]}")
+        out["fast"] = {"launches": run_totals(fast), "launches_per_step": fast["train"][0],
+                       "step_time": {k: step_records(tmp / "fast")[-1][k] for k in TIMER_KEYS}}
+    out["launches"] = launches
+    return out
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(HANG_GUARD_S, exit=True)
     import torch
@@ -2948,6 +3172,8 @@ def main() -> None:
     emit("checkpoint", **checkpoint)
     adaptive = run_adaptive(torch)
     emit("adaptive", **adaptive)
+    exp = run_experiment(torch)
+    emit("experiment", **exp)
     # launches: the sum over the main paths' runs (each read between
     # zeroing the counters and the end of its run), with each path's count
     # beside it; every kernel is launched by the paths it belongs to
@@ -2968,7 +3194,10 @@ def main() -> None:
              "budget": (adaptive["budget"]["launches"], ("hmc_terms", "iaf_chain_fwd")),
              "nll": (adaptive["nll"]["launches"], ("chol_bundle", "iaf_chain_fwd")),
              "posterior_hmc": (adaptive["posterior_hmc"]["launches"], ("hmc_terms",
-                                                                       "iaf_chain_fwd"))}
+                                                                       "iaf_chain_fwd")),
+             "experiment": (exp["launches"], ("chol_bundle", "iaf_chain_fwd", "iaf_chain_bwd",
+                                              "g_inv", "metric_bundle", "decode_mse_fwd",
+                                              "decode_mse_bwd_dh", "decode_mse_bwd_dw"))}
     for path, (counts, kernels) in paths.items():
         for name in kernels:
             check(counts[name] > 0, f"the {path} path did not launch {name}")
@@ -2994,6 +3223,12 @@ def main() -> None:
     records["chol_bundle"]["launches_per_estimate_nll"] = adaptive["nll"]["launches"]["chol_bundle"]
     records["iaf_chain_fwd"]["launches_per_estimate_nll"] = (
         adaptive["nll"]["launches"]["iaf_chain_fwd"])
+    for name, rec in records.items():
+        rec["launches_per_experiment_run"] = {
+            "single": exp["single"]["launches"][name],
+            **{f"comparison_{m}": r["launches"][name] for m, r in exp["comparison"].items()},
+            **{f"multirun_{m}": r["launches"][name] for m, r in exp["multirun"].items()},
+            "fast": exp["fast"]["launches"][name]}
 
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": list(records.values())}), flush=True)

@@ -27,7 +27,11 @@ What is ported:
 - the fast and stable presets (``PRESETS["riemannian_flow_vae_fast"]``,
   ``["riemannian_flow_vae_stable"]``): sampling-direction flows, and in the
   fast preset's training the fused decode+MSE loss
-  (:class:`~rlvae_tpu_torch.ops.recon_kernels.DecodeMSE`).
+  (:class:`~rlvae_tpu_torch.ops.recon_kernels.DecodeMSE`);
+- the experiment runner ``python -m rlvae_tpu_torch.experiment``:
+  Hydra-style composition over ``conf/`` (:mod:`rlvae_tpu_torch.config`),
+  single runs, comparison studies, sweeps and multiruns, with the trainer's
+  callbacks, step timing, trace and NaN checks.
 
 Hand-written CUDA kernels (``csrc/``) compute the chol-bundle, the IAF
 chain's forward and backward, the HMC chain's target and gradient, the

@@ -7,8 +7,12 @@ synthesize-or-load path of ``rlvae_tpu/data/cyclic.py``.
   drop-remainder, as the JAX package's numpy iterator does.
 - :class:`CyclicDataModule` wires train/val/test from the data and training
   config nodes: files when they exist (``.npz``, ``.npy``),
-  otherwise synthetic sequences (:mod:`rlvae_tpu_torch.data.synth`); the
-  validation split is the head of the test split.
+  otherwise synthetic sequences (:mod:`rlvae_tpu_torch.data.synth`) of
+  ``data.sequence_length`` frames of ``data.channels`` x
+  ``data.image_size``; the validation split is the head of the test split.
+  ``get_sample_batch`` and ``get_data_stats`` (with the datasets'
+  ``get_sequence_info`` and ``get_dataset_stats``) serve the experiment
+  runner and the visualization hook.
 
 One process only: the JAX module's per-host sharding, its native C++
 prefetching loader (the numpy iterator is that module's own fallback) and
@@ -83,6 +87,30 @@ class CyclicSequenceDataset:
             "fraction_cyclic": n_cyclic / max(len(self), 1),
             "mean_cycle_mse": float(mse.mean()) if len(self) else 0.0,
             "max_cycle_mse": float(mse.max()) if len(self) else 0.0,
+            "first_5_mse": [float(v) for v in mse[:5]],
+        }
+
+    def get_sequence_info(self, idx: int) -> Dict[str, Any]:
+        seq = self.data[idx]
+        return {
+            "index": idx,
+            "shape": tuple(seq.shape),
+            "min": float(seq.min()),
+            "max": float(seq.max()),
+            "mean": float(seq.mean()),
+            "cycle_mse": float(np.mean((seq[0] - seq[-1]) ** 2)),
+        }
+
+    def get_dataset_stats(self) -> Dict[str, Any]:
+        return {
+            "n_sequences": len(self),
+            "sequence_length": int(self.data.shape[1]),
+            "image_shape": tuple(self.data.shape[2:]),
+            "pixel_min": float(self.data.min()),
+            "pixel_max": float(self.data.max()),
+            "pixel_mean": float(self.data.mean()),
+            "pixel_std": float(self.data.std()),
+            "cyclicity": self.cyclicity_report,
         }
 
 
@@ -177,3 +205,16 @@ class CyclicDataModule:
 
     def steps_per_epoch(self) -> int:
         return len(self.train) // self.batch_size
+
+    def get_sample_batch(self, split: str = "val", n: int = 8) -> np.ndarray:
+        """The first ``n`` sequences of a split (the visualizations' fixed batch)."""
+        ds = {"train": self.train, "val": self.val, "test": self.test}[split]
+        return ds.data[:n]
+
+    def get_data_stats(self) -> Dict[str, Any]:
+        return {
+            "train": self.train.get_dataset_stats() if self.train else None,
+            "val": self.val.get_dataset_stats() if self.val else None,
+            "test": self.test.get_dataset_stats() if self.test else None,
+            "batch_size": self.batch_size,
+        }

@@ -26,7 +26,6 @@ as JAX's does; ``sample_random`` runs the budgeted adaptive sampler.
 
 from __future__ import annotations
 
-import json
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Sequence
 
@@ -90,20 +89,20 @@ class ModelManager:
     def from_run(cls, run_dir: str | Path, slot: str = "best",
                  device: DeviceLike = None) -> "ModelManager":
         """``from_checkpoint`` with the ``model`` section of the run's
-        ``config.yaml``, which the port's training entry point writes as
-        JSON text.  A YAML-only ``config.yaml`` (a JAX run's) raises: the
-        port reads no YAML, and its checkpoints are not orbax's."""
+        ``config.yaml``: the YAML the experiment runner
+        (``python -m rlvae_tpu_torch.experiment``) and ``python -m
+        rlvae_tpu_torch.train`` write, the JSON text older runs of the
+        latter wrote, or a JAX run's.  A JAX run's checkpoint slots are
+        orbax directories, which raise: convert them with
+        ``rlvae_tpu_torch.convert.checkpoint_from_jax``."""
+        from rlvae_tpu_torch.config import load_yaml
+
         cfg_path = Path(run_dir) / "config.yaml"
         if not cfg_path.exists():
             raise FileNotFoundError(f"No config.yaml in {run_dir}")
-        try:
-            full = json.loads(cfg_path.read_text())
-        except json.JSONDecodeError as e:
-            raise ValueError(
-                f"{cfg_path} is not JSON: the port reads the config.yaml that "
-                "`python -m rlvae_tpu_torch.train` writes (JSON text), not a YAML-only one such "
-                "as a JAX run's; pass the model config to ModelManager.from_checkpoint"
-            ) from e
+        full = load_yaml(cfg_path.read_text()) or {}
+        if not isinstance(full.get("model"), dict):
+            raise ValueError(f"{cfg_path} has no 'model' section")
         return cls.from_checkpoint(run_dir, full["model"], slot=slot, device=device)
 
     def _tensor(self, a) -> torch.Tensor:

@@ -1,6 +1,15 @@
-"""The Riemannian Flow VAE and its factory."""
+"""The Riemannian Flow VAE, its factory and the comparison-study helpers."""
 
-from rlvae_tpu_torch.models.factory import PRESETS, create_hybrid_model, create_model
+from rlvae_tpu_torch.models.factory import (
+    PRESETS,
+    VANILLA_OVERRIDES,
+    apply_model_overrides,
+    create_comparison_suite,
+    create_hybrid_model,
+    create_model,
+)
+from rlvae_tpu_torch.models.metrics import MetricsCollector
 from rlvae_tpu_torch.models.rlvae import RlVAE
 
-__all__ = ["PRESETS", "RlVAE", "create_hybrid_model", "create_model"]
+__all__ = ["MetricsCollector", "PRESETS", "RlVAE", "VANILLA_OVERRIDES", "apply_model_overrides",
+           "create_comparison_suite", "create_hybrid_model", "create_model"]

@@ -1,8 +1,10 @@
 """Model factory: builds an :class:`RlVAE` from a plain config dict.
 
-Port of ``rlvae_tpu/models/factory.py:40-100``.  The config is a plain dict
-with the keys of a composed ``conf/model/*.yaml`` node (the port reads no
-YAML).  Each preset holds the values that the JAX factory ends up using for
+Port of ``rlvae_tpu/models/factory.py``.  The config is a plain dict with
+the keys of a ``conf/model/*.yaml`` node, as :mod:`rlvae_tpu_torch.config`
+composes it; :func:`apply_model_overrides` and
+:func:`create_comparison_suite` build a comparison study's models.  Each
+preset holds the values that the JAX factory ends up using for
 the YAML of its name:
 
 - ``riemannian_flow_vae``: the reference model (density-direction flows,
@@ -188,3 +190,44 @@ def create_hybrid_model(config: Mapping[str, Any], seed: int = 0,
     """``create_model`` under the name ``hybrid_rlvae``, as the JAX factory's
     ``create_hybrid_model``."""
     return create_model(config, seed=seed, name=name or "hybrid_rlvae")
+
+
+VANILLA_OVERRIDES = {
+    "n_flows": 0,
+    "riemannian_beta": 0.0,
+    "posterior": {"type": "gaussian"},
+    "sampling": {"use_riemannian": False, "method": "standard"},
+    "loop": {"mode": "open", "penalty": 0.0},
+    "pretrained": {"metric_path": None},
+}
+
+
+def apply_model_overrides(model_config: Mapping[str, Any], model_name: str) -> Dict[str, Any]:
+    """The model config a comparison study trains under ``model_name``:
+    ``vanilla_vae`` switches the flows, the Riemannian KL, the metric and
+    the loop penalty off (:data:`VANILLA_OVERRIDES`); any other name keeps
+    the config.  A copy, one level deep, as JAX's."""
+    cfg = {k: (dict(v) if isinstance(v, Mapping) else v) for k, v in model_config.items()}
+    if model_name == "vanilla_vae":
+        for k, v in VANILLA_OVERRIDES.items():
+            if isinstance(v, Mapping):
+                # an empty YAML section ('sampling:') reads as None
+                if not isinstance(cfg.get(k), Mapping):
+                    cfg[k] = {}
+                cfg[k] = {**cfg[k], **v}
+            else:
+                cfg[k] = v
+    return cfg
+
+
+def create_comparison_suite(config: Mapping[str, Any], seed: int = 0) -> Dict[str, RlVAE]:
+    """One model per ``experiment.models`` entry of a composed config, or
+    ``{"main": model}`` when it names none."""
+    experiment = config.get("experiment", {}) or {}
+    model_cfg = dict(config.get("model", config))
+    names = list(experiment.get("models", []) or [])
+    if not names:
+        return {"main": create_model(model_cfg, seed=seed)}
+    return {nm: create_model(apply_model_overrides(model_cfg, nm), seed=seed, name=nm)
+            for nm in names}
+

@@ -1,7 +1,14 @@
 """Training: Adam with coupled weight decay, plateau LR, early stopping,
-checkpoint slots and a one-device trainer (``python -m
-rlvae_tpu_torch.train``)."""
+checkpoint slots, callbacks, a one-device trainer (``python -m
+rlvae_tpu_torch.train``) and the training/generation pipelines."""
 
+from rlvae_tpu_torch.train.callbacks import (
+    CallbackHandler,
+    MetricConsoleLoggerCallback,
+    ProgressBarCallback,
+    TrainingCallback,
+    WandbCallback,
+)
 from rlvae_tpu_torch.train.checkpoints import CheckpointManager
 from rlvae_tpu_torch.train.optim import (
     EarlyStopping,
@@ -12,11 +19,19 @@ from rlvae_tpu_torch.train.optim import (
     make_optimizer,
     set_lr,
 )
+from rlvae_tpu_torch.train.pipelines import GenerationPipeline, TrainingPipeline
 from rlvae_tpu_torch.train.presets import TRAINING_PRESETS
-from rlvae_tpu_torch.train.trainer import Trainer, make_eval_step, make_train_step
+from rlvae_tpu_torch.train.trainer import (
+    Trainer,
+    make_eval_step,
+    make_train_step,
+    resolve_trainer_device,
+)
 
 __all__ = [
-    "CheckpointManager", "EarlyStopping", "PlateauScheduler", "TRAINING_PRESETS", "Trainer",
-    "adam_state", "get_lr", "load_adam_state", "make_eval_step", "make_optimizer",
-    "make_train_step", "set_lr",
+    "CallbackHandler", "CheckpointManager", "EarlyStopping", "GenerationPipeline",
+    "MetricConsoleLoggerCallback", "PlateauScheduler", "ProgressBarCallback", "TRAINING_PRESETS",
+    "Trainer", "TrainingCallback", "TrainingPipeline", "WandbCallback", "adam_state", "get_lr",
+    "load_adam_state", "make_eval_step", "make_optimizer", "make_train_step",
+    "resolve_trainer_device", "set_lr",
 ]

@@ -12,9 +12,11 @@ the training settings are a training preset (``default`` unless
 ``--preset`` says otherwise).  The run directory (``--run-dir``,
 ``outputs/run`` by default as in JAX) receives ``config.yaml``, the
 checkpoint slots ``checkpoints/{best,last}``, ``metrics.jsonl`` and
-``summary.json``; ``config.yaml`` holds ``{"model", "training", "seed"}`` as
-JSON text, which YAML readers also read, and
-``ModelManager.from_run(run_dir)`` loads the trained model from it.
+``summary.json``; ``config.yaml`` holds ``{"model", "training", "seed"}``
+(YAML, written by :func:`rlvae_tpu_torch.config.save_config`), and
+``ModelManager.from_run(run_dir)`` loads the trained model from it.  The
+Hydra-style runs over ``conf/`` are ``python -m
+rlvae_tpu_torch.experiment``.
 ``--resume`` continues from ``checkpoints/last`` (``Trainer.fit``);
 ``--steps`` counts the steps of this invocation.  Prints one JSON line per
 epoch and a summary line.
@@ -28,6 +30,7 @@ import json
 from pathlib import Path
 from typing import Optional, Sequence
 
+from rlvae_tpu_torch.config import Config, save_config
 from rlvae_tpu_torch.data import CyclicDataModule
 from rlvae_tpu_torch.device import resolve_device
 from rlvae_tpu_torch.models import PRESETS, create_model
@@ -61,8 +64,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     run_dir = Path(args.run_dir)
     run_dir.mkdir(parents=True, exist_ok=True)
     model_cfg = PRESETS[args.model]
-    (run_dir / "config.yaml").write_text(json.dumps(
-        {"model": model_cfg, "training": cfg, "seed": args.seed}, indent=2))
+    save_config(Config({"model": model_cfg, "training": cfg, "seed": args.seed}),
+                run_dir / "config.yaml")
     data = CyclicDataModule(seed=args.seed)
     data.setup(cfg)
     model = create_model(model_cfg, seed=args.seed)

@@ -67,9 +67,15 @@ class CheckpointManager:
 
     def restore(self, slot: str, map_location: Any = None) -> Dict[str, Any]:
         """The dict last saved to ``slot``; tensors on their saved device, or
-        on ``map_location``."""
+        on ``map_location``.  A slot directory without ``state.pt`` (a JAX
+        run's orbax slot) raises ``ValueError``."""
         target = self.path(slot)
         if not target.exists():
+            if target.parent.is_dir() and any(target.parent.iterdir()):
+                raise ValueError(
+                    f"checkpoint slot {slot!r} in {self.directory} holds no {STATE_FILE}: it is "
+                    "not the port's format (a JAX run's orbax slot?); restore it with orbax and "
+                    "convert it with rlvae_tpu_torch.convert.checkpoint_from_jax")
             raise FileNotFoundError(f"no checkpoint slot {slot!r} in {self.directory}")
         return torch.load(target, map_location=map_location, weights_only=True)
 

@@ -16,16 +16,26 @@ Port of the single-device per-step path of ``rlvae_tpu/train/trainer.py``:
   checkpoint slots ``best`` and ``last`` (:mod:`.checkpoints`), the metrics
   files (:class:`~rlvae_tpu_torch.utils.logging.MetricsLogger`), resume from
   ``last``, and a stop at the next epoch boundary on SIGTERM or a
-  ``stop_flag``.
+  ``stop_flag``.  It fires JAX's callback events (:mod:`.callbacks`), calls
+  ``viz_hook`` at every epoch end, adds ``StepTimer`` keys to every logged
+  step record (the logged step waits for the card, as JAX's
+  ``block_until_ready`` does), traces epoch 0 into ``run_dir/profile`` with
+  ``trainer.profile`` and checks every step for NaN/Inf with
+  ``debug_nan_checks`` (:mod:`rlvae_tpu_torch.utils.debug`).
+
+The trainer config's device keys (:func:`resolve_trainer_device`):
+``trainer.accelerator`` ``auto``, ``gpu`` or ``cuda`` is the card (and
+raises without one), ``cpu`` the CPU; ``tpu`` raises.  ``trainer.devices``
+other than 1 and ``trainer.model_parallel`` > 1 raise: data and model
+parallelism are ROADMAP A5.  ``epoch_jit``, ``eval_jit`` and
+``epoch_jit_chunk_steps`` are accepted and run this per-step path (a
+captured epoch is ROADMAP A3).
 
 The posterior noise (ε, and t for the ``geodesic`` posterior method; see
 ``RlVAE.draw_posterior_noise``) is drawn from a ``torch.Generator`` on the
 model's device, seeded from the trainer's seed; the step functions take it
 as an argument (the mapping, or ε alone), so tests can hand both frameworks
 the same numbers.
-
-Not ported yet: callbacks, ``debug_nan_checks``, the compiled-epoch paths,
-and data/model parallelism.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ import torch
 from rlvae_tpu_torch.data.cyclic import CyclicDataModule
 from rlvae_tpu_torch.device import DeviceLike, resolve_device
 from rlvae_tpu_torch.models.rlvae import RlVAE
+from rlvae_tpu_torch.train.callbacks import CallbackHandler, TrainingCallback
 from rlvae_tpu_torch.train.checkpoints import CheckpointManager
 from rlvae_tpu_torch.train.optim import (
     EarlyStopping,
@@ -53,16 +64,40 @@ from rlvae_tpu_torch.train.optim import (
     make_optimizer,
     set_lr,
 )
+from rlvae_tpu_torch.utils.debug import add_nan_checks
 from rlvae_tpu_torch.utils.logging import MetricsLogger
+from rlvae_tpu_torch.utils.profiling import StepTimer, trace
 
 Metrics = Dict[str, torch.Tensor]
 Noise = Union[torch.Tensor, Mapping[str, torch.Tensor]]
 LOSS_KEYS = ("loss", "recon_loss", "kld_loss", "flow_loss", "loop_penalty")
 EVAL_KEYS = ("loss", "recon_loss", "kld_loss", "flow_loss")
+ACCELERATORS = {"auto": "cuda", "gpu": "cuda", "cuda": "cuda", "cpu": "cpu"}
 
 
-def make_train_step(model: RlVAE, optimizer: torch.optim.Optimizer) -> Callable[..., Metrics]:
+def resolve_trainer_device(trainer_cfg: Mapping[str, Any],
+                           device: DeviceLike = None) -> torch.device:
+    """The device a trainer config asks for (``device``, when given, wins
+    over ``trainer.accelerator``); raises for what the port does not run."""
+    accelerator = str(trainer_cfg.get("accelerator", "auto")).lower()
+    if accelerator not in ACCELERATORS:
+        raise ValueError(f"training.trainer.accelerator {accelerator!r}: the port runs on "
+                         f"{sorted(ACCELERATORS)} (a TPU is the JAX package's)")
+    devices = trainer_cfg.get("devices", 1)
+    if devices not in (None, "auto", 1, "1"):
+        raise ValueError(f"training.trainer.devices={devices!r}: the port trains on one "
+                         "device; data parallelism is ROADMAP A5")
+    if int(trainer_cfg.get("model_parallel", 1)) > 1:
+        raise ValueError("training.trainer.model_parallel > 1: model parallelism is not "
+                         "ported (ROADMAP A5)")
+    return resolve_device(ACCELERATORS[accelerator] if device is None else device)
+
+
+def make_train_step(model: RlVAE, optimizer: torch.optim.Optimizer,
+                    nan_checks: bool = False) -> Callable[..., Metrics]:
     """``step(batch, noise) -> metrics``: one forward/backward/Adam update.
+    With ``nan_checks`` every step checks its loss terms, gradients and
+    parameters and raises ``FloatingPointError`` at the first NaN or Inf.
 
     Every parameter gets a gradient tensor before the update, zeros where the
     loss does not reach it (at n_obs=8 the 8th flow is unused): the JAX
@@ -86,7 +121,7 @@ def make_train_step(model: RlVAE, optimizer: torch.optim.Optimizer) -> Callable[
         metrics["grad_norm"] = grad_norm
         return metrics
 
-    return step
+    return add_nan_checks(step, model) if nan_checks else step
 
 
 def make_eval_step(model: RlVAE) -> Callable[..., Metrics]:
@@ -103,34 +138,43 @@ def make_eval_step(model: RlVAE) -> Callable[..., Metrics]:
 
 class Trainer:
     """Epoch-driven trainer with validation, plateau LR, early stopping,
-    checkpoints and preemption.
+    checkpoints, preemption, callbacks and an epoch-end ``viz_hook``.
 
     ``run_dir`` receives ``checkpoints/{best,last}`` with the
     ``model_config.json`` sidecar, ``metrics.jsonl`` and ``summary.json``
-    (``outputs/run`` by default, as in JAX: pass a directory of your own).
-    ``best`` is written at every improved validation loss, ``last`` when
-    ``fit`` returns, a stop by SIGTERM or ``stop_flag`` included.  With
-    ``trainer.handle_preemption`` (on by default) a SIGTERM received on the
-    main thread during ``fit`` stops training at the next epoch boundary;
-    ``stop_flag()`` is polled before and after every epoch and does the same.
+    (``outputs/run`` by default, as in JAX: pass a directory of your own),
+    and ``profile/`` with ``trainer.profile``.  ``best`` is written at every
+    improved validation loss, ``last`` when ``fit`` returns, a stop by
+    SIGTERM or ``stop_flag`` included.  With ``trainer.handle_preemption``
+    (on by default) a SIGTERM received on the main thread during ``fit``
+    stops training at the next epoch boundary; ``stop_flag()`` is polled
+    before and after every epoch and does the same.  ``device`` overrides
+    the config's ``trainer.accelerator`` (:func:`resolve_trainer_device`).
+    ``viz_hook(epoch=, model=, variables=, trainer=)`` is called after every
+    epoch's validation, with the model's state dict as ``variables``.
     """
 
     def __init__(self, model: RlVAE, data_module: CyclicDataModule,
                  training_config: Mapping[str, Any], run_dir: Union[str, Path] = "outputs/run",
-                 logger: Optional[MetricsLogger] = None, seed: int = 42,
+                 logger: Optional[MetricsLogger] = None,
+                 viz_hook: Optional[Callable[..., Any]] = None, seed: int = 42,
+                 callbacks: Optional[List[TrainingCallback]] = None,
                  stop_flag: Optional[Callable[[], bool]] = None, device: DeviceLike = None):
-        self.device = resolve_device(device)
+        self.cfg = dict(training_config)
+        trainer_cfg = self.cfg.get("trainer", {})
+        self.device = resolve_trainer_device(trainer_cfg, device)
         self.model = model.to(self.device)
         self.data = data_module
-        self.cfg = dict(training_config)
         self.seed = seed
         self.run_dir = Path(run_dir)
         self.logger = logger or MetricsLogger(self.run_dir)
+        self.viz_hook = viz_hook
+        self.callbacks = CallbackHandler(callbacks)
         self.stop_flag = stop_flag
 
-        trainer_cfg = self.cfg.get("trainer", {})
         self.max_epochs = int(trainer_cfg.get("max_epochs", 30))
         self.log_every = int(trainer_cfg.get("log_every_n_steps", 10))
+        self.profile = bool(trainer_cfg.get("profile", False))
         self.handle_preemption = bool(trainer_cfg.get("handle_preemption", True))
         self._preempted = False
         opt_cfg = self.cfg.get("optimizer", {})
@@ -142,13 +186,19 @@ class Trainer:
         self.early_stopping = EarlyStopping.from_config(self.cfg.get("early_stopping", {}))
         self.checkpoints = CheckpointManager(self.run_dir / "checkpoints",
                                              self.model.get_model_summary())
-        self.train_step = make_train_step(self.model, self.optimizer)
+        self.train_step = make_train_step(
+            self.model, self.optimizer, nan_checks=bool(self.cfg.get("debug_nan_checks", False)))
         self.eval_step = make_eval_step(self.model)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.history: List[Dict[str, float]] = []  # one summary per epoch
+        self.callbacks.on_init_end(self.cfg, trainer=self)
 
     def _to_device(self, batch: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(self.device)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # -- checkpoint state -------------------------------------------------------
 
@@ -214,25 +264,38 @@ class Trainer:
         first_step = step
         epoch = start_epoch - 1
         t_start = time.perf_counter()
+        timer = StepTimer()
         prev_handler = self._install_preemption_handler()
         try:
+            self.callbacks.on_train_begin(self.cfg, trainer=self)
             for epoch in range(start_epoch, max_epochs):
                 if self._stop_requested():
                     self.logger.log({"preempted_at": epoch}, step=step)
                     epoch -= 1  # this epoch did not run
                     break
                 t_epoch = time.perf_counter()
+                self.callbacks.on_epoch_begin(self.cfg, epoch=epoch, trainer=self)
                 last: Optional[Metrics] = None
-                for batch in self.data.train_batches(epoch):
-                    if max_steps is not None and step - first_step >= max_steps:
-                        break
-                    x = self._to_device(batch)
-                    noise = self.model.draw_posterior_noise(x.shape[0], self.generator)
-                    last = self.train_step(x, noise)
-                    step += 1
-                    if step % self.log_every == 0:
-                        self.logger.log({"lr": get_lr(self.optimizer), **{
-                            f"train/{k}": float(v) for k, v in last.items()}}, step=step)
+                with trace(self.run_dir / "profile", enabled=self.profile and epoch == 0):
+                    for batch in self.data.train_batches(epoch):
+                        if max_steps is not None and step - first_step >= max_steps:
+                            break
+                        self.callbacks.call_event("on_train_step_begin", self.cfg, step=step)
+                        x = self._to_device(batch)
+                        noise = self.model.draw_posterior_noise(x.shape[0], self.generator)
+                        timer.start()
+                        last = self.train_step(x, noise)
+                        if (step + 1) % self.log_every == 0:
+                            self._sync()  # the logged step is timed to its end on the card
+                        timer.stop()
+                        step += 1
+                        if step % self.log_every == 0:
+                            host = {f"train/{k}": float(v) for k, v in last.items()}
+                            host["lr"] = get_lr(self.optimizer)
+                            host.update(timer.metrics())
+                            self.logger.log(host, step=step)
+                            self.callbacks.on_train_step_end(self.cfg, step=step, logs=host)
+                            self.callbacks.on_log(self.cfg, host, step=step)
 
                 val = self.evaluate("val", epoch, weights="live")
                 val_loss = val.get("loss", float("nan"))
@@ -246,10 +309,16 @@ class Trainer:
                     summary.update({f"train/{k}": float(v) for k, v in last.items()})
                 self.logger.log(summary, step=step)
                 self.history.append(summary)
+                self.callbacks.on_evaluate(self.cfg, epoch=epoch, metrics=val)
+                self.callbacks.on_epoch_end(self.cfg, epoch=epoch, logs=summary, trainer=self)
                 if val_loss < best_val:
                     best_val = val_loss
                     self.checkpoints.save("best", {"params": self._params(), "step": step,
                                                    "val_loss": val_loss})
+                    self.callbacks.on_save(self.cfg, slot="best", step=step)
+                if self.viz_hook is not None:
+                    self.viz_hook(epoch=epoch, model=self.model,
+                                  variables=self.model.state_dict(), trainer=self)
                 stop = self.early_stopping.update(val_loss)
                 if stop:
                     self.logger.log({"early_stopped_at": epoch}, step=step)
@@ -269,6 +338,8 @@ class Trainer:
                   "train_time": time.perf_counter() - t_start, "preempted": self._preempted,
                   "history": self.history}
         self.logger.summary({k: v for k, v in result.items() if k != "history"})
+        self.callbacks.on_save(self.cfg, slot="last", step=step)
+        self.callbacks.on_train_end(self.cfg, result=dict(result))
         return result
 
     def evaluate(self, split: str = "test", epoch: int = 0,
@@ -280,7 +351,7 @@ class Trainer:
         slot of the run directory (as JAX restores it when no variables are
         given) and leaves the live weights as they were; ``"live"`` evaluates
         the model as it stands.  Raises ``FileNotFoundError`` when there is
-        no ``best`` slot."""
+        no ``best`` slot.  Fires ``on_eval_step_begin``/``_end`` per batch."""
         if weights == "live":
             return self._evaluate(split, epoch)
         if weights != "best":
@@ -298,10 +369,13 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1 + epoch)
         acc: Dict[str, List[float]] = {}
         sizes: List[int] = []
-        for batch in batches:
+        for i, batch in enumerate(batches):
+            self.callbacks.call_event("on_eval_step_begin", self.cfg, step=i)
             x = self._to_device(batch)
             metrics = self.eval_step(x, self.model.draw_posterior_noise(x.shape[0], gen))
+            host = {k: float(v) for k, v in metrics.items()}
             sizes.append(x.shape[0])
-            for k, v in metrics.items():
-                acc.setdefault(k, []).append(float(v))
+            for k, v in host.items():
+                acc.setdefault(k, []).append(v)
+            self.callbacks.call_event("on_eval_step_end", self.cfg, step=i, logs=host)
         return {k: float(np.average(v, weights=sizes)) for k, v in acc.items()}

@@ -13,11 +13,13 @@ import copy
 import json
 import os
 import signal
+import sys
 
 import jax
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from rlvae_tpu.models import create_model as jax_create_model
 from rlvae_tpu_torch import ModelManager, PRESETS, create_model
@@ -127,7 +129,7 @@ def test_checkpoint_save_that_fails_keeps_the_old_slot(tmp_path, monkeypatch):
     assert os.listdir(tmp_path / "last") == [STATE_FILE]
 
 
-def test_metrics_logger_files(tmp_path):
+def test_metrics_logger_files(tmp_path, monkeypatch):
     logger = MetricsLogger(tmp_path / "run")
     logger.log({"loss": torch.tensor(2.5), "note": "text"}, step=3)
     logger.log({"val/loss": np.float32(1.25)})
@@ -141,8 +143,9 @@ def test_metrics_logger_files(tmp_path):
     assert records[1]["val/loss"] == 1.25 and all("_time" in r for r in records)
     assert json.loads((tmp_path / "run" / "table.json").read_text()) == [{"a": 1}, {"b": 2.0}]
     assert json.loads((tmp_path / "run" / "summary.json").read_text())["steps"] == 3
-    with pytest.raises(NotImplementedError, match="disabled"):
-        MetricsLogger(tmp_path / "w", mode="online")
+    # any mode: without wandb the logger keeps to the local files, as JAX's
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    assert MetricsLogger(tmp_path / "w", mode="online").wandb_run is None
 
 
 # ---------------------------------------------------------------------------
@@ -334,25 +337,36 @@ def test_from_checkpoint_from_run_and_model_info(tmp_path):
 
     with pytest.raises(FileNotFoundError, match="config.yaml"):
         ModelManager.from_run(run, device="cpu")
-    (run / "config.yaml").write_text(json.dumps({"model": TINY, "seed": 0}))
-    from_run = ModelManager.from_run(run, device="cpu")
-    assert _state_equal(from_run.model.state_dict(), best)
-    (run / "config.yaml").write_text("model:\n  latent_dim: 16\n")  # a JAX run's YAML
-    with pytest.raises(ValueError, match="not JSON"):
+    # the JSON text older runs of the training CLI wrote, and the YAML of a
+    # JAX run or of the port's runner: the model section either way
+    for text in (json.dumps({"model": TINY, "seed": 0}),
+                 yaml.safe_dump({"model": TINY, "seed": 0}, sort_keys=False)):
+        (run / "config.yaml").write_text(text)
+        from_run = ModelManager.from_run(run, device="cpu")
+        assert _state_equal(from_run.model.state_dict(), best)
+    (run / "config.yaml").write_text("seed: 0\n")
+    with pytest.raises(ValueError, match="no 'model' section"):
         ModelManager.from_run(run, device="cpu")
     with pytest.raises(FileNotFoundError, match="'missing'"):
         ModelManager.from_checkpoint(run, TINY, slot="missing", device="cpu")
+    # a JAX run's slot is an orbax directory, not the port's state.pt
+    orbax_slot = run / "checkpoints" / "orbax"
+    orbax_slot.mkdir()
+    (orbax_slot / "_CHECKPOINT_METADATA").write_text("{}")
+    with pytest.raises(ValueError, match="convert.checkpoint_from_jax"):
+        ModelManager.from_checkpoint(run, TINY, slot="orbax", device="cpu")
 
 
 def test_cli_run_dir_and_resume(tmp_path):
     """``python -m rlvae_tpu_torch.train`` at full width on the CPU: one step
     into a run directory, then one more step resumed from it; the run's
-    config.yaml (JSON text) reloads the model through ``from_run``."""
+    config.yaml (YAML, through ``save_config``) reloads the model through
+    ``from_run``."""
     run = tmp_path / "cli"
     args = ["--device", "cpu", "--run-dir", str(run), "--steps", "1", "--batch-size", "2"]
     first = train_main(args)
     assert first["steps"] == 1 and first["epochs_run"] == 1
-    cfg = json.loads((run / "config.yaml").read_text())
+    cfg = yaml.safe_load((run / "config.yaml").read_text())
     assert cfg["model"] == PRESETS["riemannian_flow_vae"] and cfg["seed"] == 42
     assert cfg["training"]["data"]["batch_size"] == 2
     second = train_main(args + ["--resume"])

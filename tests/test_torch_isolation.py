@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import rlvae_tpu_torch
-from rlvae_tpu_torch import ModelManager, PRESETS, resolve_device
+from rlvae_tpu_torch import ModelManager, PRESETS, experiment, resolve_device
 from rlvae_tpu_torch.ops import build
 from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_fwd
 from rlvae_tpu_torch.ops.metric_kernels import chol_bundle, g_inv, hmc_terms, metric_bundle
@@ -43,17 +43,38 @@ def test_import_pulls_in_no_jax_and_no_rlvae_tpu():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+_CONFIG_PROBE = """
+import sys
+before = set(sys.modules)
+import rlvae_tpu_torch.config, rlvae_tpu_torch.experiment
+bad = sorted(m for m in set(sys.modules) - before
+             if m.split(".")[0] in ("yaml", "rlvae_tpu", "jax"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_config_imports_no_yaml_and_no_rlvae_tpu():
+    """PyYAML loads lazily, where a file is read or written."""
+    proc = subprocess.run([sys.executable, "-c", _CONFIG_PROBE], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_import_statement_of_jax_or_rlvae_tpu(path):
     assert not FORBIDDEN.search(path.read_text()), path
 
 
-def test_default_device_is_the_card():
+def test_default_device_is_the_card(tmp_path):
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         ModelManager.from_config(PRESETS["riemannian_flow_vae"])
+    with pytest.raises(RuntimeError, match="CUDA"):  # before the run directory is written
+        experiment.main([f"run.dir={tmp_path / 'run'}"])
+    assert not (tmp_path / "run").exists()
     with pytest.raises(RuntimeError, match="CUDA"):  # before the run directory is read
         ModelManager.from_checkpoint("no-such-run", PRESETS["riemannian_flow_vae"])
     with pytest.raises(RuntimeError, match="CUDA"):
