@@ -155,6 +155,30 @@ Phases, each printing one JSON line with its elapsed seconds:
    ``enhanced`` one); one ``model=riemannian_flow_vae_fast`` epoch (the
    decode+MSE kernels once each per train step).  The counters are zeroed
    before the first run and read after the last.
+14. ``convnets``: ``conf/model/cnn_rlvae.yaml``, ``resnet_rlvae.yaml`` and
+   ``mlp_rlvae.yaml`` composed from ``conf/`` at their published widths
+   (64x64 frames, 8 flows; their MLP artifacts do not fit, so the nets keep
+   their seeded init, as in JAX), with dropout 0.1 and BatchNorm.  For each:
+   CONVNET_STEPS ``Trainer`` steps at B=16 (synthetic sprites, 8 frames)
+   with one validation batch; per step chol-bundle 2, IAF-chain forward and
+   backward 1 each, no decode+MSE; G^{-1} once in the validation; the
+   running statistics all moved.  Each step is replayed on the CPU from the
+   card's state with the same batch, noise and dropout masks (the card's
+   ``DropoutMasks`` recorded): every loss term and the statistics after it
+   held to CONVNET_REPLAY_TOL (grad_norm and the nets' step-1 gradients
+   reported: at the reference flow init they are not reproducible across
+   devices).  One warm step's host ms, CUDA-event ms, profiled device time
+   and busy share, split into the ported kernels, cuDNN convolutions,
+   reductions, elementwise kernels and products.  Then ``ModelManager.from_run`` on the
+   run (``best`` bit for bit) behind a ``BatchingEngine`` with
+   ``generate_method="official"``: 64 requests of each of ``reconstruct``
+   (chol-bundle 2, IAF-chain forward 1), ``encode``, ``decode`` (none) and
+   ``generate`` (1601 HMC-terms launches, IAF-chain forward 1), each in one
+   bucket, and a B=CONVNET_CMP_BATCH forward held to the CPU within
+   CONVNET_E2E_TOL (the reconstruction on frame 0, CONVNET_RECON0_TOL).
+   Last, one fp32-policy ``cnn_rlvae`` run at the near-identity flow init
+   replayed on the CPU at 1e-4, grad_norm included, and the encoder's and
+   decoder's step-1 gradients at 1e-3.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -1376,7 +1400,7 @@ E2E_TOL = {
 }
 
 
-def compare_forward(torch, a, b):
+def compare_forward(torch, a, b, tolerances=E2E_TOL):
     a = {k: v.float().cpu() for k, v in a.items()}
     b = {k: v.float() for k, v in b.items()}
     for k, v in a.items():
@@ -1392,9 +1416,9 @@ def compare_forward(torch, a, b):
         "recon_mean_abs": float((a["recon_x"] - b["recon_x"]).abs().mean()),
         "recon_loss": rel("recon_loss"), "flow_loss": rel("flow_loss"), "loss": rel("loss"),
     }
-    for k, tol in E2E_TOL.items():
+    for k, tol in tolerances.items():
         check(got[k] <= tol, f"card vs CPU forward: {k} = {got[k]} > {tol}")
-    return {"errors": got, "tolerances": E2E_TOL,
+    return {"errors": got, "tolerances": tolerances,
             "recon_max_abs": float((a["recon_x"] - b["recon_x"]).abs().max())}
 
 
@@ -2877,7 +2901,7 @@ def run_posterior_hmc(torch, dev):
     for k, tol in (("embedding", E2E_TOL["mu"]), ("log_covariance", E2E_TOL["log_var"])):
         check(encoder[k] <= tol, f"posterior-HMC encoder card vs CPU: {k} = {encoder[k]} > {tol}")
     z0_card = out_gpu.z[:, 0].float().cpu()
-    cpu_model.encode = lambda _x0: enc_card
+    cpu_model.encode = lambda _x0, *_: enc_card
     cpu_model.sample_z0 = lambda _mu, _log_var, _noise: z0_card
     out_cpu = ModelManager(cpu_model, device="cpu").forward(
         seqs, noise={k: v.cpu() for k, v in noise.items()})
@@ -3119,6 +3143,359 @@ def run_experiment(torch, dev=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# convnets phase
+# ---------------------------------------------------------------------------
+
+CONF = Path(__file__).resolve().parent / "conf"
+CONVNET_MODELS = ("cnn_rlvae", "resnet_rlvae", "mlp_rlvae")
+CONVNET_STEPS = 3
+CONVNET_CUT = {}  # extra overrides by model (a CPU rehearsal narrows the nets here)
+CONVNET_IMAGE = 64
+# the card-vs-CPU forward's batch: every row is independent in eval (BatchNorm
+# reads its running statistics), and the CPU runs the full-width nets
+CONVNET_CMP_BATCH = 16
+# the fp32-policy run: fp32 nets at the near-identity flow init, where the
+# latent stays O(10) and every step's gradients are reproducible
+CONVNET_FP32 = ("model.encoder.dtype=float32", "model.decoder.dtype=float32",
+                "+model.flow_log_var_bias_init=0.0")
+# Card step vs the same step replayed on the CPU from the card's state, batch,
+# noise and dropout masks.  The shipped configs train at the reference flow
+# init, where each transition scales the latent ~20x: at step 1 |z| reaches
+# ~4e8 (measured), and there the flows' weight gradients are not
+# reproducible across devices even in fp32 (a summation order moves them by
+# up to 0.7 of their scale; the grad norm, which they dominate, by 47x in
+# bf16), as tests/test_torch_train.py finds for JAX's own steps.  So the
+# bf16 runs gate what the step computes before its backward: every loss
+# term, and the BatchNorm statistics it leaves; grad_norm and the nets'
+# gradients are reported.  Those losses are dominated by frames decoded
+# from latents up to ~1e8, which carry bf16's 2^-8 relative rounding, and
+# the decoder's statistics are of such activations: the largest errors read
+# in three calls were 2.5e-3 (cnn recon_loss, step 3), flow_loss 6.7e-3,
+# the statistics 1.0e-2 (cnn, step 1).  Steps 2 and 3 start from states
+# that cuDNN's non-deterministic weight gradients make differ per call, so
+# the tolerances keep 5x or more.  The fp32 run, at the near-identity flow
+# init, holds losses, statistics and grad_norm to 1e-4 (measured 4.9e-5 at
+# most, grad_norm), and gates the encoder's and decoder's step-1 gradients
+# (global relative L2 of each net) at 1e-3: cuDNN picks its own fp32
+# algorithms, whose sums differ from the CPU's, and a BatchNorm's backward
+# subtracts two batch means from every cotangent (the decoder's 1.2e-4).
+CONVNET_REPLAY_TOL = {
+    "bfloat16": {"loss_rel": 2e-2, "flow_loss_rel": 5e-2, "stats_rel": 5e-2},
+    "float32": {"loss_rel": 1e-4, "flow_loss_rel": 1e-4, "stats_rel": 1e-4,
+                "grad_norm_rel": 1e-4, "net_grad_rel": 1e-3},
+}
+# Card vs CPU forward of the served nets (E2E_TOL holds the MLP phases).
+# The frames t >= 1 decode latents that the reference-init flows scale ~20x
+# per transition (|z| up to 4e8 measured), where the conv decoders, which
+# have no output activation, round apart on the two devices: the resnet's
+# mean |d recon| over all frames read 2.5e-3 and 2.8e-2 in two calls.  So
+# the reconstruction is gated on frame 0, decoded from z0 (measured at most
+# 1.3e-5, the resnet's), and reported over all frames; z relative to its
+# scale measured 4.6e-4 to 9.9e-4 over three calls.
+CONVNET_E2E_TOL = {k: v for k, v in E2E_TOL.items() if k != "recon_mean_abs"}
+CONVNET_E2E_TOL["z_rel"] = 5e-3
+CONVNET_RECON0_TOL = 1e-3  # mean |d recon| of frame 0
+PORTED_KERNEL_NAMES = ("chol_bundle_kernel", "iaf_chain_fwd_kernel", "iaf_chain_bwd_kernel",
+                       "hmc_terms_kernel", "metric_bundle_kernel", "hmc_partials_kernel",
+                       "g_inv", "fwd_kernel", "dh_kernel", "dw_kernel", "sum_kernel")
+
+
+def net_buffers(model):
+    """The nets' BatchNorm running statistics, copied."""
+    return {k: v.detach().clone() for k, v in model.named_buffers()
+            if k.startswith(("encoder.", "decoder."))}
+
+
+def conv_config(name, *overrides):
+    """A model config composed from ``conf/`` at its published widths, cut
+    only in what ``CONVNET_CUT`` and the overrides say."""
+    from rlvae_tpu_torch.config import compose
+
+    return compose(CONF, "config", [f"model={name}", *CONVNET_CUT.get(name, ()), *overrides])
+
+
+def device_split(kernels):
+    """Profiled device us by kind of kernel: the ported kernels (csrc/),
+    cuDNN convolutions, reductions (BatchNorm's statistics, the norms and
+    the loss sums), elementwise kernels (BatchNorm's normalisation, casts,
+    activations, dropout), cuBLAS/CUTLASS products, and the rest (Adam's
+    fused kernels, copies).  Ranges that are user annotations
+    (``Optimizer.step#...``) span other kernels and are left out."""
+    split = {"ported_us": 0.0, "conv_us": 0.0, "reduce_us": 0.0, "elementwise_us": 0.0,
+             "gemm_us": 0.0, "other_us": 0.0}
+    for k in kernels:
+        name = k["name"].lower()
+        if "#" in name:
+            continue
+        if any(n in name for n in PORTED_KERNEL_NAMES):
+            kind = "ported_us"
+        elif any(n in name for n in ("conv", "cudnn", "dgrad", "wgrad", "fprop", "implicit",
+                                     "winograd", "nchw", "nhwc")):
+            kind = "conv_us"
+        elif "reduce" in name:
+            kind = "reduce_us"
+        elif "elementwise" in name:
+            kind = "elementwise_us"
+        elif any(n in name for n in ("gemm", "cutlass", "cublas")):
+            kind = "gemm_us"
+        else:
+            kind = "other_us"
+        split[kind] += k["us"]
+    split["busy_us"] = sum(split.values())
+    return split
+
+
+def conv_train_and_replay(torch, name, cfg, run_dir, dev, dtype="bfloat16"):
+    """CONVNET_STEPS Trainer steps of ``cfg``'s model at B=16 with one
+    validation batch, each step's launches gated and the step replayed on
+    the CPU from the card's state with the same batch, noise and dropout
+    masks; then one warm step timed and profiled."""
+    import warnings
+
+    from rlvae_tpu_torch.data import CYCLIC_SPRITES, CyclicDataModule
+    from rlvae_tpu_torch.models import create_model
+    from rlvae_tpu_torch.nets import DropoutMasks
+    from rlvae_tpu_torch.train import TRAINING_PRESETS, Trainer, make_optimizer, make_train_step
+
+    model_cfg = cfg["model"]
+    tcfg = copy.deepcopy(TRAINING_PRESETS["default"])
+    tcfg["data"]["batch_size"] = TRAIN_BATCH
+    tcfg["n_train_samples"], tcfg["n_val_samples"] = CONVNET_STEPS * TRAIN_BATCH, TRAIN_BATCH
+    data = CyclicDataModule({**CYCLIC_SPRITES, "image_size": [CONVNET_IMAGE] * 2,
+                             "synthetic_n_test": TRAIN_BATCH}, seed=0)
+    data.setup(tcfg)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        model = create_model(model_cfg, seed=0)
+    loaded = not any("pretrained components not loaded" in str(w.message) for w in caught)
+    trainer = Trainer(model, data, tcfg, run_dir=run_dir, seed=0, device=dev)
+    check(dev is not None or trainer.device.type == "cuda", f"trainer on {trainer.device}")
+    before = net_buffers(model)
+
+    records, step = [], trainer.train_step
+
+    def recorded_step(x, noise):
+        rec = {"state": {k: v.detach().clone() for k, v in model.state_dict().items()},
+               "opt": copy.deepcopy(trainer.optimizer.state_dict()), "x": x.cpu(),
+               "noise": {k: v.cpu() for k, v in noise.items()}}
+        masks = DropoutMasks(trainer.generator, record=True)
+        counts = launch_counts()
+        t = time.perf_counter()
+        metrics = step(x, noise, masks)
+        torch.cuda.synchronize()
+        rec["host_ms"] = (time.perf_counter() - t) * 1e3
+        rec["launches"] = {k: v - counts[k] for k, v in launch_counts().items()}
+        rec["metrics"] = {k: float(v) for k, v in metrics.items()}
+        rec["masks"] = [m.cpu() for m in masks.drawn]
+        if not records:
+            rec["grads"] = {n: q.grad.detach().cpu().clone() for n, q in model.named_parameters()}
+        records.append(rec)
+        return metrics
+
+    trainer.train_step = recorded_step
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    result = trainer.fit(max_steps=CONVNET_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = launch_counts()
+    trainer.train_step = step
+    per_step = expected_launches(chol_bundle=2, iaf_chain_fwd=1, iaf_chain_bwd=1)
+    check(result["steps"] == CONVNET_STEPS == len(records), f"{name}: ran {result['steps']} steps")
+    for i, rec in enumerate(records):
+        check(rec["launches"] == per_step, f"{name} step {i + 1} launched {rec['launches']}")
+        check(all(np.isfinite(v) for v in rec["metrics"].values()), f"{name} step {i + 1} not finite")
+        check(len(rec["masks"]) > 0, f"{name} step {i + 1} drew no dropout mask")
+    check(launches["g_inv"] == 1,  # n_val_samples = TRAIN_BATCH: one validation batch
+          f"{name}: {launches['g_inv']} G^-1 launches in one validation batch")
+    validation = result["history"][-1]
+    check(all(np.isfinite(v) for v in validation.values()), f"{name}: non-finite validation")
+    after = net_buffers(model)
+    moved = [k for k in before if not torch.equal(before[k], after[k])]
+    check(len(moved) == len(before), f"{name}: running stats that did not move: "
+          f"{sorted(set(before) - set(moved))[:4]}")
+
+    # the same steps on the CPU, each from the card's state, noise and masks
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cpu_model = create_model(model_cfg, seed=0)
+    opt_cfg = tcfg["optimizer"]
+    cpu_opt = make_optimizer(cpu_model.parameters(), opt_cfg["lr"], opt_cfg["weight_decay"])
+    cpu_step = make_train_step(cpu_model, cpu_opt)
+    tol = CONVNET_REPLAY_TOL[dtype]
+    errors = []
+    for i, rec in enumerate(records):
+        cpu_model.load_state_dict(rec["state"])
+        cpu_opt.load_state_dict(rec["opt"])
+        m = {k: float(v) for k, v in
+             cpu_step(rec["x"], rec["noise"], DropoutMasks(replay=rec["masks"])).items()}
+        err = {k: abs(rec["metrics"][k] - m[k]) / max(abs(m[k]), 1e-12)
+               for k in ("loss", "recon_loss", "kld_loss", "flow_loss", "grad_norm")}
+        if i == 0:
+            for net in ("encoder", "decoder", "flows"):
+                names = [n for n, _ in cpu_model.named_parameters() if n.startswith(net + ".")]
+                want = torch.cat([cpu_model.get_parameter(n).grad.flatten() for n in names])
+                got = torch.cat([rec["grads"][n].flatten() for n in names])
+                err[f"{net}_grad_rel"] = float((got - want).norm() / want.norm().clamp_min(1e-30))
+            if "net_grad_rel" in tol:
+                for net in ("encoder", "decoder"):
+                    check(err[f"{net}_grad_rel"] <= tol["net_grad_rel"],
+                          f"{name} step 1 {net} gradients: card vs CPU {err[f'{net}_grad_rel']}")
+        if i + 1 < len(records):
+            cpu_stats = net_buffers(cpu_model)
+            err["stats_rel"] = max(
+                [float((records[i + 1]["state"][k].cpu() - v).abs().max()
+                       / v.abs().max().clamp_min(1e-12)) for k, v in cpu_stats.items()],
+                default=0.0)
+            check(err["stats_rel"] <= tol["stats_rel"],
+                  f"{name} step {i + 1} BatchNorm stats: card vs CPU {err['stats_rel']}")
+        errors.append(err)
+        for k in ("loss", "recon_loss", "kld_loss", "flow_loss"):
+            t = tol["flow_loss_rel" if k == "flow_loss" else "loss_rel"]
+            check(err[k] <= t, f"{name} step {i + 1} {k}: card vs CPU {err[k]}")
+        if "grad_norm_rel" in tol:
+            check(err["grad_norm"] <= tol["grad_norm_rel"],
+                  f"{name} step {i + 1} grad_norm: card vs CPU {err['grad_norm']}")
+    replay_s = time.perf_counter() - t0
+
+    # one warm step: host ms (synchronised), device ms (CUDA events), profile
+    x = records[-1]["x"].to(trainer.device)
+    noise = {k: v.to(trainer.device) for k, v in records[-1]["noise"].items()}
+    gen = torch.Generator(device=trainer.device).manual_seed(1)
+    warm = lambda: step(x, noise, DropoutMasks(gen))  # noqa: E731
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        warm()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+    step_ms = time_ms(torch, warm, 3)
+    _, kernels = device_time_by_kernel(torch, warm)
+    split = device_split(kernels)
+    busy_ms = split["busy_us"] / 1e3
+    return {
+        "dtype": dtype, "pretrained_loaded": loaded, "steps": result["steps"],
+        "batch": TRAIN_BATCH, "fit_s": fit_s, "replay_s": replay_s,
+        "launches": launches, "launches_per_step": records[0]["launches"],
+        "losses": [r["metrics"]["loss"] for r in records],
+        "step_host_ms": [r["host_ms"] for r in records],
+        "dropout_masks_per_step": len(records[0]["masks"]),
+        "batchnorm_buffers": len(before),
+        "validation": {k: v for k, v in validation.items() if k.startswith("val/")},
+        "card_vs_cpu": {"errors": errors, "tolerances": tol},
+        "warm_step": {"host_ms_median": float(np.median(host)), "device_events_ms": step_ms,
+                      "profiled_device_busy_ms": busy_ms,
+                      "device_busy_share": busy_ms / float(np.median(host)),
+                      "device_split_us": split, "top_kernels": kernels[:8]},
+    }
+
+
+def conv_serve(torch, name, run_dir, dev):
+    """``ModelManager.from_run`` on the run's ``best`` slot behind a
+    ``BatchingEngine``: 64 requests of each op (``reconstruct``, ``encode``,
+    ``decode``, and ``generate`` seeds through the official chain), each op
+    in one bucket with its launches gated; a forward on the card against the
+    CPU."""
+    from rlvae_tpu_torch import BatchingEngine, ModelManager, ServeConfig
+    from rlvae_tpu_torch.train import CheckpointManager
+
+    t0 = time.perf_counter()
+    manager = ModelManager.from_run(run_dir, device=dev)
+    load_s = time.perf_counter() - t0
+    check(dev is not None or manager.device.type == "cuda", f"manager on {manager.device}")
+    best = CheckpointManager(Path(run_dir) / "checkpoints").restore("best",
+                                                                    map_location=manager.device)
+    state = manager.model.state_dict()
+    check(all(torch.equal(state[k], v) for k, v in best["params"].items()),
+          f"{name}: from_run did not restore the best slot bit for bit")
+    rng = np.random.default_rng(8)
+    size = (3, CONVNET_IMAGE, CONVNET_IMAGE)
+    seqs = rng.uniform(size=(SERVE_BATCH, 8, *size)).astype(np.float32)
+    latents = rng.normal(size=(SERVE_BATCH, 16)).astype(np.float32)
+    engine = BatchingEngine.from_manager(
+        manager, ServeConfig(buckets=(SERVE_BATCH,), max_wait_ms=2000),
+        generate_method="official")
+    out = {}
+    try:
+        engine.warmup({"reconstruct": seqs[0], "encode": seqs[0, 0], "decode": latents[0]})
+        for op, items, want in (
+                ("reconstruct", list(seqs), expected_launches(chol_bundle=2, iaf_chain_fwd=1)),
+                ("encode", list(seqs[:, 0]), expected_launches()),
+                ("decode", list(latents), expected_launches()),
+                ("generate", [np.uint32(s) for s in range(SERVE_BATCH)],
+                 expected_launches(iaf_chain_fwd=1, **GEN_LAUNCHES["official"]))):
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            batches = engine.stats_snapshot()["batches"]
+            t = time.perf_counter()
+            rows = [f.result(timeout=120) for f in [engine.submit(op, i) for i in items]]
+            ms = (time.perf_counter() - t) * 1e3
+            counts = launch_counts()
+            check(engine.stats_snapshot()["batches"] - batches == 1,
+                  f"{name}: the {len(items)} {op} requests took more than one batch")
+            check(counts == want, f"{name}: one {op} batch launched {counts}")
+            check(all(np.isfinite(r).all() for r in rows), f"{name}: non-finite {op} rows")
+            out[op] = {"requests": len(items), "host_ms": ms, "launches": counts,
+                       "row_shape": list(np.shape(rows[0]))}
+    finally:
+        engine.stop()
+    check(out["reconstruct"]["row_shape"] == [8, *size] and out["generate"]["row_shape"]
+          == [8, *size], f"{name}: bad row shapes {out}")
+
+    x = seqs[:CONVNET_CMP_BATCH]
+    eps = torch.tensor(rng.normal(size=(CONVNET_CMP_BATCH, 16)), dtype=torch.float32)
+    out_gpu = manager.forward(x, eps=eps.to(manager.device))
+    torch.cuda.synchronize()
+    cpu = ModelManager(copy.deepcopy(manager.model).to("cpu"), device="cpu")
+    out_cpu = cpu.forward(x, eps=eps)
+    compare = compare_forward(torch, out_gpu, out_cpu, CONVNET_E2E_TOL)
+    compare["recon_mean_abs_value"] = float(out_cpu["recon_x"].abs().mean())
+    compare["z_max_abs"] = float(out_cpu["z"].abs().max())
+    compare["recon_mean_abs_by_frame"] = [
+        float((out_gpu["recon_x"][:, t].float().cpu() - out_cpu["recon_x"][:, t]).abs().mean())
+        for t in range(x.shape[1])]
+    compare["recon0_tolerance"] = CONVNET_RECON0_TOL
+    check(compare["recon_mean_abs_by_frame"][0] <= CONVNET_RECON0_TOL,
+          f"{name}: card vs CPU frame-0 reconstruction {compare['recon_mean_abs_by_frame'][0]}")
+    launches = {k: sum(o["launches"][k] for o in out.values()) for k in expected_launches()}
+    return {"load_s": load_s, "ops": out, "cuda_vs_cpu": compare, "launches": launches}
+
+
+def run_convnets(torch, dev=None):
+    """The convolutional families and dropout: for each of ``cnn_rlvae``,
+    ``resnet_rlvae`` and ``mlp_rlvae`` composed from ``conf/`` at their
+    published widths (64x64 frames, 8 flows), CONVNET_STEPS Trainer steps
+    replayed on the CPU, then the run served from ``from_run``; and one
+    fp32-policy ``cnn_rlvae`` run at the near-identity flow init, replayed
+    at 1e-4."""
+    from rlvae_tpu_torch.config import save_config
+
+    out, totals = {}, expected_launches()
+    for name in CONVNET_MODELS:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as run_dir:
+            cfg = conv_config(name)
+            train = conv_train_and_replay(torch, name, cfg, run_dir, dev)
+            save_config(cfg, Path(run_dir) / "config.yaml")
+            serve = conv_serve(torch, name, run_dir, dev)
+        out[name] = {"train": train, "serve": serve, "seconds": time.perf_counter() - t0}
+        for k in totals:
+            totals[k] += train["launches"][k] + serve["launches"][k]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cnn_fp32_") as run_dir:
+        train = conv_train_and_replay(torch, "cnn_rlvae", conv_config("cnn_rlvae", *CONVNET_FP32),
+                                      run_dir, dev, dtype="float32")
+    out["cnn_rlvae_fp32"] = {"train": train, "seconds": time.perf_counter() - t0}
+    for k in totals:
+        totals[k] += train["launches"][k]
+    out["launches"] = totals
+    return out
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(HANG_GUARD_S, exit=True)
     import torch
@@ -3174,6 +3551,8 @@ def main() -> None:
     emit("adaptive", **adaptive)
     exp = run_experiment(torch)
     emit("experiment", **exp)
+    conv = run_convnets(torch)
+    emit("convnets", **conv)
     # launches: the sum over the main paths' runs (each read between
     # zeroing the counters and the end of its run), with each path's count
     # beside it; every kernel is launched by the paths it belongs to
@@ -3197,7 +3576,9 @@ def main() -> None:
                                                                        "iaf_chain_fwd")),
              "experiment": (exp["launches"], ("chol_bundle", "iaf_chain_fwd", "iaf_chain_bwd",
                                               "g_inv", "metric_bundle", "decode_mse_fwd",
-                                              "decode_mse_bwd_dh", "decode_mse_bwd_dw"))}
+                                              "decode_mse_bwd_dh", "decode_mse_bwd_dw")),
+             "convnets": (conv["launches"], ("chol_bundle", "iaf_chain_fwd", "iaf_chain_bwd",
+                                             "g_inv", "hmc_terms"))}
     for path, (counts, kernels) in paths.items():
         for name in kernels:
             check(counts[name] > 0, f"the {path} path did not launch {name}")
@@ -3208,6 +3589,8 @@ def main() -> None:
         rec["launches_per_train_step"] = train["launches_per_step"][name]
         rec["launches_per_geodesic_train_step"] = posterior["train"]["launches_per_step"][name]
         rec["launches_per_fast_train_step"] = fast["train"]["launches_per_step"][name]
+        rec["launches_per_convnet_train_step"] = {
+            m: conv[m]["train"]["launches_per_step"][name] for m in CONVNET_MODELS}
     records["hmc_terms"]["launches_per_official_chain"] = next(
         c["launches"]["hmc_terms"] for c in generate["calls"] if c["method"] == "official")
     records["metric_bundle"]["launches_per_geodesic_forward"] = (

@@ -4,15 +4,32 @@
   ``params/hidden_0/kernel``) into a nested dict; the port's own copy of
   ``rlvae_tpu/data/convert.py:113-123``.
 - :func:`from_jax_variables` maps the JAX model's ``variables`` (nested
-  numpy arrays) onto the port's state dict: Flax kernels are stored
-  ``[in, out]`` and become ``nn.Linear.weight`` ``[out, in]``; the flows'
-  ``w0..wL`` / ``b0..bL`` per MADE block keep their ``[in, out]`` layout.
-  The masks are recomputed by the port, not carried.
-- :func:`params_to_numpy` goes the other way: the port's parameters as a
-  nested numpy tree keyed as the JAX ``params``, so tests can compare
-  updated parameters with JAX's.
+  numpy arrays: ``params`` and, for nets with BatchNorm, ``stats``) onto
+  the port's state dict.  The layer trees nest as the Flax modules do
+  (``stage0_block0/conv1`` is ``stage0_block0.conv1``), and each layer maps
+  by its leaves:
+
+  - ``Dense`` ``{kernel [in, out], bias}`` -> ``nn.Linear`` ``weight``
+    ``[out, in]``, ``bias``;
+  - ``Conv`` ``{kernel [kh, kw, in, out] (HWIO), bias}`` -> :class:`Conv`
+    ``weight`` ``[out, in, kh, kw]`` (OIHW), ``bias``;
+  - ``ConvTranspose`` (the layers named ``deconv_*``, ``up<i>`` and
+    ``final``, :func:`is_transposed`) ``{kernel [kh, kw, in, out], bias}``
+    -> :class:`ConvTranspose` ``weight`` ``[in, out, kh, kw]``: the kernel
+    flipped in H and W, the layout ``F.conv_transpose2d`` correlates
+    (``nets/layers.py``);
+  - ``BatchNorm`` ``{scale, bias}`` -> ``weight``, ``bias``, and its
+    ``stats`` ``{mean, var}`` -> the buffers ``mean``, ``var``;
+  - the flows' ``w0..wL`` / ``b0..bL`` per MADE block keep their
+    ``[in, out]`` layout.  The masks are recomputed by the port, not
+    carried.
+- :func:`params_to_numpy` and :func:`stats_to_numpy` go the other way: the
+  port's parameters and BatchNorm buffers as nested numpy trees keyed as
+  the JAX ``params`` and ``stats``, so tests can compare updated state
+  with JAX's.
 - :func:`checkpoint_from_jax` turns a JAX checkpoint slot, restored to
-  numpy, into the port's slot dict (``train/checkpoints.py``), and
+  numpy, into the port's slot dict (``train/checkpoints.py``; ``stats``
+  become the buffers in ``params``, as the port's state dict holds them), and
   :func:`adam_state_from_jax_opt_leaves` carries JAX's flat optimizer leaves
   onto the port's Adam state by parameter name.  Neither imports JAX: they
   read numpy trees in JAX's flattening order (:func:`jax_leaves`).
@@ -24,6 +41,7 @@
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
@@ -45,18 +63,51 @@ def load_component_npz(path: str | Path) -> Dict[str, Any]:
 
 
 def _tensor(a) -> torch.Tensor:
-    return torch.tensor(np.asarray(a, np.float32))  # a contiguous copy
+    return torch.tensor(np.ascontiguousarray(a, np.float32))  # a contiguous copy
 
 
-def _net_leaves(params: Mapping[str, Any]) -> Iterator[Tuple[str, np.ndarray]]:
-    """{layer: {kernel [in,out], bias}} -> (layer.bias, bias), (layer.weight, kernel.T),
-    layers sorted."""
-    for layer in sorted(params):
-        p = params[layer]
-        if set(p) != {"kernel", "bias"}:
-            raise ValueError(f"unexpected parameters {sorted(p)} in layer {layer!r}")
+def is_transposed(layer: str) -> bool:
+    """Whether the layer of this dotted name is a Flax ``ConvTranspose``:
+    the CNN decoder's ``deconv_<i>``/``deconv_out`` and the ResNet
+    decoder's ``up<i>``/``final`` (``rlvae_tpu/nets/cnn.py``, ``resnet.py``)."""
+    return re.fullmatch(r"deconv_\w+|up\d+|final", layer.rsplit(".", 1)[-1]) is not None
+
+
+def _layer_leaves(layer: str, p: Mapping[str, Any]) -> Iterator[Tuple[str, np.ndarray]]:
+    """One Flax layer's leaves, keys sorted, as (port name, array in the port's layout)."""
+    keys = set(p)
+    if keys == {"kernel", "bias"}:
+        k = np.asarray(p["kernel"])
+        if k.ndim == 2:
+            w = k.T
+        elif k.ndim == 4:
+            w = np.flip(k, (0, 1)).transpose(2, 3, 0, 1) if is_transposed(layer) \
+                else k.transpose(3, 2, 0, 1)
+        else:
+            raise ValueError(f"kernel of shape {k.shape} in layer {layer!r}")
         yield f"{layer}.bias", np.asarray(p["bias"])
-        yield f"{layer}.weight", np.asarray(p["kernel"]).T
+        yield f"{layer}.weight", w
+    elif keys == {"scale", "bias"}:
+        yield f"{layer}.bias", np.asarray(p["bias"])
+        yield f"{layer}.weight", np.asarray(p["scale"])
+    elif keys == {"mean", "var"}:
+        yield f"{layer}.mean", np.asarray(p["mean"])
+        yield f"{layer}.var", np.asarray(p["var"])
+    else:
+        raise ValueError(f"unexpected parameters {sorted(p)} in layer {layer!r}")
+
+
+def _net_leaves(params: Mapping[str, Any], prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
+    """A net's ``params`` or ``stats`` tree -> (port name, array), in JAX's
+    flattening order (keys sorted at every level)."""
+    for name in sorted(params):
+        node = params[name]
+        if not isinstance(node, Mapping):
+            raise ValueError(f"unexpected leaf {prefix}{name!r} outside a layer")
+        if all(isinstance(v, Mapping) for v in node.values()):
+            yield from _net_leaves(node, f"{prefix}{name}.")
+        else:
+            yield from _layer_leaves(f"{prefix}{name}", node)
 
 
 def _flow_leaves(flows) -> Iterator[Tuple[str, np.ndarray]]:
@@ -71,9 +122,11 @@ def _flow_leaves(flows) -> Iterator[Tuple[str, np.ndarray]]:
                 yield f"flows.{fi}.blocks.{bi}.{field}.{li}", np.asarray(block[key])
 
 
-def net_state_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """{layer: {kernel [in,out], bias}} -> {layer.weight [out,in], layer.bias}."""
-    return {k: _tensor(a) for k, a in _net_leaves(params)}
+def net_state_from_flax(params: Mapping[str, Any],
+                        stats: Optional[Mapping[str, Any]] = None) -> Dict[str, torch.Tensor]:
+    """A Flax net's ``params`` (and ``batch_stats``) -> the port's net state
+    dict (module docstring)."""
+    return {k: _tensor(a) for k, a in [*_net_leaves(params), *_net_leaves(stats or {})]}
 
 
 def jax_leaves(params: Mapping[str, Any]) -> List[Tuple[str, np.ndarray]]:
@@ -94,9 +147,15 @@ def jax_leaves(params: Mapping[str, Any]) -> List[Tuple[str, np.ndarray]]:
 
 
 def from_jax_variables(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The port's RlVAE state dict from the JAX model's ``variables``."""
+    """The port's RlVAE state dict from the JAX model's ``variables``
+    (``params``, and ``stats`` where the nets have BatchNorm), or from a
+    ``params`` tree alone."""
     params = tree["params"] if "params" in tree else tree
-    return {k: _tensor(a) for k, a in jax_leaves(params)}
+    state = {k: _tensor(a) for k, a in jax_leaves(params)}
+    stats = tree.get("stats") if "params" in tree else None
+    for comp, net_stats in (stats or {}).items():
+        state.update({f"{comp}.{k}": _tensor(a) for k, a in _net_leaves(net_stats or {})})
+    return state
 
 
 def _like(template, leaves: Iterator[Any]):
@@ -150,7 +209,7 @@ def checkpoint_from_jax(restored: Mapping[str, Any]) -> Dict[str, Any]:
     ``opt_leaves``) as the port's slot dict (``params``, ``step``,
     ``val_loss``, and ``epoch`` and ``optimizer`` where JAX has them)."""
     params = restored["variables"]["params"]
-    slot: Dict[str, Any] = {"params": from_jax_variables(params),
+    slot: Dict[str, Any] = {"params": from_jax_variables(restored["variables"]),
                             "step": int(restored["step"]),
                             "val_loss": float(restored["val_loss"])}
     if "epoch" in restored:
@@ -160,18 +219,39 @@ def checkpoint_from_jax(restored: Mapping[str, Any]) -> Dict[str, Any]:
     return slot
 
 
+def _flax_layer(layer: str, kind: str, a: np.ndarray):
+    """(Flax leaf name, array in Flax's layout) of the port's ``layer.kind``."""
+    if kind in ("mean", "var"):
+        return kind, a
+    if kind == "bias":
+        return "bias", a
+    if a.ndim == 1:  # a BatchNorm's weight
+        return "scale", a
+    if a.ndim == 2:
+        return "kernel", a.T
+    if is_transposed(layer):
+        return "kernel", np.ascontiguousarray(a.transpose(2, 3, 0, 1)[::-1, ::-1])
+    return "kernel", a.transpose(2, 3, 1, 0)
+
+
+def _nest(tree: Dict[str, Any], path: str, key: str, a: np.ndarray) -> None:
+    node = tree
+    for part in path.split("."):
+        node = node.setdefault(part, {})
+    node[key] = a
+
+
 def params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
     """The RlVAE's parameters keyed as the JAX ``params`` tree: ``encoder`` /
-    ``decoder`` ``{layer: {kernel [in, out], bias}}`` and ``flows`` as
-    ``[[{w0.., b0..} per block] per flow]``."""
+    ``decoder`` as nested Flax layers (``{kernel, bias}``, ``{scale, bias}``)
+    in Flax's layouts, and ``flows`` as ``[[{w0.., b0..} per block] per flow]``."""
     params: Dict[str, Any] = {"encoder": {}, "decoder": {}, "flows": []}
     for name, p in model.named_parameters():
         a = p.detach().float().cpu().numpy().copy()
         comp, rest = name.split(".", 1)
         if comp in ("encoder", "decoder"):
             layer, kind = rest.rsplit(".", 1)
-            params[comp].setdefault(layer, {})["kernel" if kind == "weight" else "bias"] = (
-                a.T if kind == "weight" else a)
+            _nest(params[comp], layer, *_flax_layer(layer, kind, a))
         elif comp == "flows":
             _, fi, _, bi, field, li = rest.split(".")  # flows.{fi}.blocks.{bi}.{field}.{li}
             flows = params["flows"]
@@ -185,15 +265,26 @@ def params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
     return params
 
 
+def stats_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
+    """The RlVAE's BatchNorm buffers keyed as the JAX ``stats`` tree:
+    ``{"encoder": {layer: {mean, var}}, "decoder": {...}}`` (empty for MLP nets)."""
+    stats: Dict[str, Any] = {"encoder": {}, "decoder": {}}
+    for comp in stats:
+        for name, b in getattr(model, comp).named_buffers():
+            layer, kind = name.rsplit(".", 1)
+            _nest(stats[comp], layer, kind, b.detach().float().cpu().numpy().copy())
+    return stats
+
+
 def load_pretrained_net(module: torch.nn.Module, path: str | Path) -> None:
-    """Load a component ``.npz`` (``params/<layer>/{kernel,bias}``) into a net."""
+    """Load a component ``.npz`` (``params/<layer>/{kernel,bias}``) into a net;
+    ``ValueError`` when its layers or shapes are not the net's."""
     state = net_state_from_flax(load_component_npz(path)["params"])
-    current = module.state_dict()
     shapes = {k: tuple(v.shape) for k, v in state.items()}
-    expected = {k: tuple(v.shape) for k, v in current.items()}
+    expected = {k: tuple(v.shape) for k, v in module.named_parameters()}
     if shapes != expected:
         raise ValueError(f"pretrained shapes {shapes} do not match the model's {expected}")
-    module.load_state_dict(state)
+    module.load_state_dict({**module.state_dict(), **state})  # BatchNorm stats stay
 
 
 def plan_from_jax(plan: Mapping[str, Any], device: Optional[torch.device] = None) -> Dict[str, Any]:

@@ -20,7 +20,11 @@ the YAML of its name:
 
 Relative artifact paths resolve against the working directory first, then
 against the repository root.  A configured but missing encoder or decoder
-artifact is a loud warning and a seeded random init, as on the JAX side.
+artifact is a loud warning and a seeded random init, as on the JAX side;
+so is an artifact that does not fit its net, which leaves both nets at
+their init (:func:`load_pretrained_nets`).  The ``cnn_rlvae`` and
+``resnet_rlvae`` configs name the MLP artifacts, so they start from their
+seeded init, as in JAX.
 """
 
 from __future__ import annotations
@@ -178,11 +182,27 @@ def create_model(config: Mapping[str, Any], seed: int = 0, name: Optional[str] =
         seed=seed,
         name=name or str(config.get("name", "rlvae")),
     )
-    for kind in ("encoder", "decoder"):
-        path = resolve_artifact(pretrained.get(f"{kind}_path"), kind)
-        if path:
-            load_pretrained_net(getattr(model, kind), path)
+    load_pretrained_nets(model, {kind: resolve_artifact(pretrained.get(f"{kind}_path"), kind)
+                                 for kind in ("encoder", "decoder")})
     return model
+
+
+def load_pretrained_nets(model: RlVAE, paths: Mapping[str, Optional[Path]]) -> None:
+    """Load the encoder and decoder artifacts named in ``paths`` (None: keep
+    the net's init), both or neither: an artifact whose layers or shapes are
+    not the net's (a cnn or resnet config pointing at the MLP artifacts) is
+    a warning, and both nets keep their seeded init, as JAX's
+    ``RlVAE.init`` does (``rlvae_tpu/models/rlvae.py:151-164``)."""
+    saved = {kind: {k: v.clone() for k, v in getattr(model, kind).state_dict().items()}
+             for kind in paths}
+    try:
+        for kind, path in paths.items():
+            if path:
+                load_pretrained_net(getattr(model, kind), path)
+    except (ValueError, OSError) as e:
+        for kind, state in saved.items():
+            getattr(model, kind).load_state_dict(state)
+        warnings.warn(f"pretrained components not loaded: {e}")
 
 
 def create_hybrid_model(config: Mapping[str, Any], seed: int = 0,

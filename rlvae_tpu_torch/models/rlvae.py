@@ -19,22 +19,32 @@ one chol-bundle launch at z0).
 recompute backward twice and, in the density direction, the IAF-chain
 backward kernel once (the ``sampling`` direction runs the flows as plain
 ops, with no kernel).  Callers that only infer run it under
-``torch.inference_mode()``.  ``train`` changes nothing for the ported nets
-(MLPs without dropout or batch norm), as in JAX, except through the two
-reconstruction-loss knobs of ``rlvae_tpu/models/rlvae.py:316-356``, which
-act only when ``train`` is set:
+``torch.inference_mode()``.  ``train`` reaches the nets, as JAX's
+``_apply_net`` (``rlvae_tpu/models/rlvae.py:236-260``) does: BatchNorm
+layers (CNN, ResNet) normalise by the batch's statistics and move their
+running ones once per train forward (the encoder's over the B frames 0,
+the decoder's over the B*T decoded frames), and dropout acts, with
+keep-masks from ``dropout`` (a :class:`~rlvae_tpu_torch.nets.DropoutMasks`,
+or a ``torch.Generator`` to draw them from; the forward's ``generator``
+when not given), the encoder's first.  In eval the running statistics
+are read and dropout is off.  ``train`` also lets the two
+reconstruction-loss knobs of ``rlvae_tpu/models/rlvae.py:316-356`` act:
 
-- ``fused_decode_mse``: the reconstruction loss is one
+- ``fused_decode_mse`` (MLP decoders without dropout, as in JAX): the
+  reconstruction loss is one
   :class:`~rlvae_tpu_torch.ops.recon_kernels.DecodeMSE` over the decoder's
   last hidden layer (``decode_mse`` forward, its dh and dW/db kernels in
   the backward), and the full decode is not run: ``recon_x`` is None.  JAX
   still writes the decode in its ``forward`` but its ``jit`` removes it as
   dead code in a train step; run eagerly it would write the [B*T, C*H*W]
   reconstruction that the kernel exists to avoid.
-- ``remat_decode`` (when the fused loss is not taken): the decode and the
-  reconstruction loss run under ``torch.utils.checkpoint``, so the backward
-  decodes again instead of keeping the decoder's activations; the numbers
-  are the plain path's, and ``recon_x`` is None for the same reason.
+- ``remat_decode`` (when the fused loss is not taken, and the decoder has
+  no BatchNorm, whose running statistics the recompute would move twice:
+  JAX skips it there too): the decode and the reconstruction loss run
+  under ``torch.utils.checkpoint``, so the backward decodes again instead
+  of keeping the decoder's activations, on the dropout masks of the first
+  pass; the numbers are the plain path's, and ``recon_x`` is None for the
+  same reason.
 
 With ``compute_metrics`` the reconstruction is decoded all the same (the
 analysis metrics read it).  The metric's centroids and matrices are
@@ -72,6 +82,8 @@ from torch.utils.checkpoint import checkpoint
 from rlvae_tpu_torch.flows.temporal import TemporalFlows, apply_temporal_flows
 from rlvae_tpu_torch.geometry.metric import CentroidMetric
 from rlvae_tpu_torch.models import losses
+from rlvae_tpu_torch.nets.layers import BatchNorm, DropoutMasks, MaskFn, init_net
+from rlvae_tpu_torch.nets.mlp import MLPDecoder
 from rlvae_tpu_torch.nets.registry import create_decoder, create_encoder
 from rlvae_tpu_torch.ops.recon_kernels import DecodeMSE
 from rlvae_tpu_torch.geometry import metric as gm
@@ -100,12 +112,21 @@ HMC_METHODS = ("hmc", "official")
 GENERATION_METHODS = PRIOR_METHODS + HMC_METHODS + ("adaptive",)
 
 
-def _init_linear(layer: nn.Linear, generator: torch.Generator) -> None:
-    """Seeded torch-default init: U(-1/sqrt(fan_in), +1/sqrt(fan_in))."""
-    bound = 1.0 / np.sqrt(layer.in_features)
-    with torch.no_grad():
-        layer.weight.copy_((torch.rand(layer.weight.shape, generator=generator) * 2 - 1) * bound)
-        layer.bias.copy_((torch.rand(layer.bias.shape, generator=generator) * 2 - 1) * bound)
+DropoutLike = Union[torch.Generator, MaskFn, None]
+
+
+class _Rewind:
+    """Masks handed out again in order on a rerun: a checkpointed decode's
+    recompute sees the masks of its first pass."""
+
+    def __init__(self, masks: MaskFn):
+        self.masks, self.drawn, self.i = masks, [], 0
+
+    def __call__(self, shape, rate, device):
+        if self.i == len(self.drawn):
+            self.drawn.append(self.masks(shape, rate, device))
+        self.i += 1
+        return self.drawn[self.i - 1]
 
 
 class RlVAE(nn.Module):
@@ -164,9 +185,7 @@ class RlVAE(nn.Module):
         self.encoder = create_encoder(self.input_dim, latent_dim, encoder_config)
         self.decoder = create_decoder(self.input_dim, latent_dim, decoder_config)
         for module in (self.encoder, self.decoder):
-            for layer in module.modules():
-                if isinstance(layer, nn.Linear):
-                    _init_linear(layer, generator)
+            init_net(module, generator)
         self.flows = TemporalFlows(
             latent_dim, n_flows, flow_hidden_size, flow_n_blocks, flow_n_hidden,
             direction=flow_direction, log_var_bias_init=flow_log_var_bias_init,
@@ -194,11 +213,17 @@ class RlVAE(nn.Module):
 
     # -- forward --------------------------------------------------------------
 
-    def encode(self, x0: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return self.encoder(x0)
+    def encode(self, x0: torch.Tensor, train: bool = False,
+               masks: Optional[MaskFn] = None) -> Dict[str, torch.Tensor]:
+        return self.encoder(x0, train, masks)
 
-    def decode(self, z: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return self.decoder(z)
+    def decode(self, z: torch.Tensor, train: bool = False,
+               masks: Optional[MaskFn] = None) -> Dict[str, torch.Tensor]:
+        return self.decoder(z, train, masks)
+
+    def has_batch_stats(self, net: str) -> bool:
+        """Whether the encoder's or decoder's layers keep BatchNorm statistics."""
+        return any(isinstance(m, BatchNorm) for m in getattr(self, net).modules())
 
     def _posterior_metric(self) -> Optional[CentroidMetric]:
         """The metric a Gaussian posterior samples with (None: plain
@@ -231,13 +256,15 @@ class RlVAE(nn.Module):
                 noise: Union[torch.Tensor, Mapping[str, torch.Tensor], None] = None,
                 generator: Optional[torch.Generator] = None, train: bool = False,
                 compute_metrics: bool = False, *,
-                eps: Optional[torch.Tensor] = None) -> ModelOutput:
+                eps: Optional[torch.Tensor] = None,
+                dropout: DropoutLike = None) -> ModelOutput:
         """Forward with losses.  ``noise`` is the posterior noise: a mapping
         as :meth:`draw_posterior_noise` returns, or ε [B, D] alone (also
         accepted as ``eps=``); drawn from ``generator`` when not given.
         ``compute_metrics`` adds ``metrics`` (``losses.additional_metrics``).
-        ``train`` lets ``fused_decode_mse`` and ``remat_decode`` act (module
-        docstring); it changes nothing else for the ported nets."""
+        ``train`` runs the nets in train mode, with dropout masks from
+        ``dropout`` (else ``generator``), and lets ``fused_decode_mse`` and
+        ``remat_decode`` act (module docstring)."""
         batch_size, n_obs = x.shape[0], x.shape[1]
         if eps is not None:
             if noise is not None:
@@ -247,7 +274,12 @@ class RlVAE(nn.Module):
             noise = self.draw_posterior_noise(batch_size, generator)
         elif isinstance(noise, torch.Tensor):
             noise = {"eps": noise}
-        enc = self.encode(x[:, 0])
+        masks = None
+        if train:
+            source = generator if dropout is None else dropout
+            masks = DropoutMasks(source) if source is None or isinstance(
+                source, torch.Generator) else source
+        enc = self.encode(x[:, 0], train, masks)
         mu, log_var = enc["embedding"], enc["log_covariance"]
         z0 = self.sample_z0(mu, log_var, noise)
 
@@ -262,15 +294,22 @@ class RlVAE(nn.Module):
             z_seq = torch.cat([z_seq[:, :-1], z_seq[:, :1]], dim=1)
 
         z_flat = z_seq.reshape(batch_size * n_obs, self.latent_dim)
-        # as rlvae_tpu/models/rlvae.py:322-333; the port's only decoder is the
-        # MLP, with neither dropout (the registry refuses it) nor batch norm
+        # as rlvae_tpu/models/rlvae.py:322-333: the fused loss for MLP decoders
+        # without dropout, remat only where no BatchNorm statistics would move twice
         recon = None
-        if self.fused_decode_mse and train:
+        if (self.fused_decode_mse and train and isinstance(self.decoder, MLPDecoder)
+                and self.decoder.dropout == 0):
             recon_loss = self._fused_recon_loss(z_flat, x)
-        elif self.remat_decode and train:
-            recon_loss = checkpoint(self._decode_loss, z_flat, x, use_reentrant=False)
+        elif self.remat_decode and train and not self.has_batch_stats("decoder"):
+            rewind = _Rewind(masks)
+
+            def decode_loss(z_flat, x):
+                rewind.i = 0
+                return self._decode_loss(z_flat, x, rewind)
+
+            recon_loss = checkpoint(decode_loss, z_flat, x, use_reentrant=False)
         else:
-            recon = self._decode_seq(z_flat, batch_size, n_obs)
+            recon = self._decode_seq(z_flat, batch_size, n_obs, train, masks)
             recon_loss = losses.reconstruction_loss(recon, x, self.loop_mode)
         if compute_metrics and recon is None:
             recon = self._decode_seq(z_flat, batch_size, n_obs)
@@ -298,14 +337,16 @@ class RlVAE(nn.Module):
                                                        self._posterior_metric())
         return out
 
-    def _decode_seq(self, z_flat: torch.Tensor, batch_size: int, n_obs: int) -> torch.Tensor:
-        recon = self.decode(z_flat)["reconstruction"]
+    def _decode_seq(self, z_flat: torch.Tensor, batch_size: int, n_obs: int,
+                    train: bool = False, masks: Optional[MaskFn] = None) -> torch.Tensor:
+        recon = self.decode(z_flat, train, masks)["reconstruction"]
         return recon.reshape(batch_size, n_obs, *self.input_dim)
 
-    def _decode_loss(self, z_flat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """Decode and reconstruction loss: the body that ``remat_decode``
-        checkpoints."""
-        recon = self._decode_seq(z_flat, x.shape[0], x.shape[1])
+    def _decode_loss(self, z_flat: torch.Tensor, x: torch.Tensor,
+                     masks: MaskFn) -> torch.Tensor:
+        """Train decode and reconstruction loss: the body that
+        ``remat_decode`` checkpoints."""
+        recon = self._decode_seq(z_flat, x.shape[0], x.shape[1], True, masks)
         return losses.reconstruction_loss(recon, x, self.loop_mode)
 
     def _fused_recon_loss(self, z_flat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

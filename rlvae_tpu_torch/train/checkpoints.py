@@ -21,9 +21,11 @@ What the trainer stores in each slot (JAX's contents, keyed for PyTorch):
 - ``last``: ``{"params", "optimizer", "step", "epoch", "val_loss"}``, where
   ``val_loss`` is the best validation loss so far.
 
-``params`` maps each parameter name to its tensor; ``optimizer`` holds the
-learning rate and Adam's ``step``, ``exp_avg`` and ``exp_avg_sq`` per
-parameter name.  The metric (read from its ``.npz`` by the model's config)
+``params`` is the model's state dict: each parameter and each BatchNorm
+running statistic (``<layer>.mean``/``.var``, JAX's ``stats``) by name, so
+a restore gives both back bit for bit; ``optimizer`` holds the learning
+rate and Adam's ``step``, ``exp_avg`` and ``exp_avg_sq`` per parameter
+name.  The metric (read from its ``.npz`` by the model's config)
 and the flows' masks (recomputed) are not saved.
 """
 

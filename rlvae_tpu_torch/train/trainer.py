@@ -35,7 +35,11 @@ The posterior noise (ε, and t for the ``geodesic`` posterior method; see
 ``RlVAE.draw_posterior_noise``) is drawn from a ``torch.Generator`` on the
 model's device, seeded from the trainer's seed; the step functions take it
 as an argument (the mapping, or ε alone), so tests can hand both frameworks
-the same numbers.
+the same numbers.  Dropout masks come from the same generator, after each
+step's noise.  A train step moves the nets' BatchNorm running statistics;
+validation and ``evaluate`` run the nets in eval mode, on the running
+statistics, without dropout.  The checkpoint slots' ``params`` hold the
+model's whole state dict, BatchNorm buffers included.
 """
 
 from __future__ import annotations
@@ -94,9 +98,15 @@ def resolve_trainer_device(trainer_cfg: Mapping[str, Any],
 
 
 def make_train_step(model: RlVAE, optimizer: torch.optim.Optimizer,
-                    nan_checks: bool = False) -> Callable[..., Metrics]:
-    """``step(batch, noise) -> metrics``: one forward/backward/Adam update.
-    With ``nan_checks`` every step checks its loss terms, gradients and
+                    nan_checks: bool = False,
+                    generator: Optional[torch.Generator] = None) -> Callable[..., Metrics]:
+    """``step(batch, noise, dropout=None) -> metrics``: one
+    forward/backward/Adam update.  The nets run in train mode: BatchNorm
+    layers move their running statistics once per step (buffers, which the
+    optimizer never sees; their scale and bias are parameters, decayed as
+    in JAX), and dropout draws its masks from ``dropout`` (a
+    ``DropoutMasks`` or a generator), else from ``generator``.  With
+    ``nan_checks`` every step checks its loss terms, gradients and
     parameters and raises ``FloatingPointError`` at the first NaN or Inf.
 
     Every parameter gets a gradient tensor before the update, zeros where the
@@ -107,9 +117,9 @@ def make_train_step(model: RlVAE, optimizer: torch.optim.Optimizer,
     """
     params = [p for p in model.parameters() if p.requires_grad]
 
-    def step(batch: torch.Tensor, noise: Noise) -> Metrics:
+    def step(batch: torch.Tensor, noise: Noise, dropout=None) -> Metrics:
         optimizer.zero_grad(set_to_none=True)
-        out = model(batch, noise, train=True)
+        out = model(batch, noise, train=True, dropout=generator if dropout is None else dropout)
         out.loss.backward()
         for p in params:
             if p.grad is None:
@@ -186,10 +196,11 @@ class Trainer:
         self.early_stopping = EarlyStopping.from_config(self.cfg.get("early_stopping", {}))
         self.checkpoints = CheckpointManager(self.run_dir / "checkpoints",
                                              self.model.get_model_summary())
-        self.train_step = make_train_step(
-            self.model, self.optimizer, nan_checks=bool(self.cfg.get("debug_nan_checks", False)))
-        self.eval_step = make_eval_step(self.model)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.train_step = make_train_step(
+            self.model, self.optimizer, nan_checks=bool(self.cfg.get("debug_nan_checks", False)),
+            generator=self.generator)
+        self.eval_step = make_eval_step(self.model)
         self.history: List[Dict[str, float]] = []  # one summary per epoch
         self.callbacks.on_init_end(self.cfg, trainer=self)
 

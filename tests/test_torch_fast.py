@@ -267,9 +267,9 @@ def test_fused_train_forward_launches_the_wrappers_and_no_full_decode(ref, monke
     calls = {"decode": 0}
     own_forward = MLPDecoder.forward
 
-    def counting_forward(self, z):
+    def counting_forward(self, z, *args):
         calls["decode"] += 1
-        return own_forward(self, z)
+        return own_forward(self, z, *args)
 
     monkeypatch.setattr(MLPDecoder, "forward", counting_forward)
     x, eps = torch.from_numpy(_batch()), _eps(jax.random.PRNGKey(KEY))

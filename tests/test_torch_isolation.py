@@ -61,6 +61,14 @@ def test_config_imports_no_yaml_and_no_rlvae_tpu():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_the_scan_covers_the_net_families():
+    """``PORT_FILES`` globs the package, so the scan below reads every module,
+    the CNN and ResNet nets and their layers included."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for mod in ("layers", "cnn", "resnet", "mlp", "registry"):
+        assert f"rlvae_tpu_torch/nets/{mod}.py" in names
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_import_statement_of_jax_or_rlvae_tpu(path):
     assert not FORBIDDEN.search(path.read_text()), path

@@ -57,12 +57,27 @@ def test_mlp_decoder(npz, dtype):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL[dtype])
 
 
-def test_unported_architectures_raise():
-    for arch in ("cnn", "resnet"):
-        with pytest.raises(NotImplementedError):
-            create_encoder(SHAPE, 16, {"architecture": arch})
+@pytest.mark.parametrize("arch", ["mlp", "cnn", "resnet"])
+def test_every_architecture_builds(arch):
+    """Each registry architecture builds at the full width with its defaults
+    (cnn and resnet: dropout 0.1) and runs a frame; the MLP artifacts do
+    not fit the conv nets, nor a narrower MLP."""
+    enc = create_encoder(SHAPE, 16, {"architecture": arch})
+    dec = create_decoder(SHAPE, 16, {"architecture": arch})
+    assert enc.dropout == dec.dropout == (0.0 if arch == "mlp" else 0.1)
+    with torch.no_grad():
+        mu = enc(torch.zeros(1, *SHAPE))["embedding"]
+        assert dec(mu)["reconstruction"].shape == (1, *SHAPE)
+    if arch != "mlp":
+        with pytest.raises(ValueError):
+            load_pretrained_net(enc, DATA / "encoder.npz")
     with pytest.raises(ValueError):
         load_pretrained_net(create_encoder((3, 8, 8), 16), DATA / "encoder.npz")
+
+
+def test_unknown_architecture_raises():
+    with pytest.raises(ValueError, match="Unknown architecture"):
+        create_encoder(SHAPE, 16, {"architecture": "transformer"})
 
 
 def test_decoder_without_hidden_layers_rounds_the_latent_as_jax():

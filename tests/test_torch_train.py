@@ -420,11 +420,15 @@ def test_params_to_numpy_round_trip():
 
 def test_unported_training_options_raise():
     """remat_decode and fused_decode_mse are ported (tests/test_torch_fast.py
-    holds them against JAX): each builds a model with its knob set; decoder
-    dropout is still not ported and raises."""
+    holds them against JAX), and so is dropout (tests/test_torch_convnets.py):
+    each builds a model with its knob set; the flows' Jacobi fixed-point
+    blocks are still not ported and raise."""
     for knob in ("remat_decode", "fused_decode_mse"):
         model = create_model({**PRESETS["riemannian_flow_vae"], knob: True, "pretrained": {}})
         assert getattr(model, knob) is True
+    model = create_model({**PRESETS["riemannian_flow_vae"], "pretrained": {},
+                          "encoder": {"architecture": "mlp", "dropout": 0.1}})
+    assert model.encoder.dropout == 0.1
     with pytest.raises(NotImplementedError):
         create_model({**PRESETS["riemannian_flow_vae"], "pretrained": {},
-                      "encoder": {"architecture": "mlp", "dropout": 0.1}})
+                      "flow_fixedpoint_iters": 2})
