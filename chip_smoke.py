@@ -180,6 +180,37 @@ Phases, each printing one JSON line with its elapsed seconds:
    replayed on the CPU at 1e-4, grad_norm included, and the encoder's and
    decoder's step-1 gradients at 1e-3.
 
+15. ``geometry``: the latent geometry and RHVAE metric pre-training.  On
+   the default model at full width (``PRESETS["riemannian_flow_vae"]``,
+   K=50 metric at T=3.0, D=16): ``interpolate(x1, x2, 10,
+   mode="geodesic")`` (200 metric-bundle launches, one per Adam step; the
+   latent path replayed on the CPU from the card's embeddings, held by
+   its points and by its energy against the band of the CPU's last 20
+   iterates; host ms per Adam step warm, profiled device ms per step and
+   busy share);
+   ``sample_latent(64, "geodesic_exact")`` (80 metric-bundle launches and
+   one G^{-1}) and a 64-request ``generate`` bucket of an engine with
+   ``generate_method="geodesic_exact"`` (one dispatch, plus one IAF-chain
+   launch, equal to a direct ``sample_random_batched_seeds``), both
+   replayed on the CPU from the card's draws; on 64 centroid-to-centroid
+   pairs the Christoffel symbols (one launch), ``exp_map`` (32 RK4 steps,
+   one launch per stage), ``log_map`` and ``geodesic_interpolate(method=
+   "shooting")`` (GEO_SHOOT; their launches counted), each against the
+   CPU (log_map and the shooting path on GEO_LOG_REPLAY_ROWS rows); the
+   Gaussian curvature on a 32 x 32 grid of the centroids' PCA plane (the
+   plain path, no launch) against the CPU.  Then ``train_metric`` of the
+   RHVAE at the published widths (3x64x64, latent 16, batch 64, 3 leapfrog
+   and 3 fixed-point steps), warm-started from the pretrained encoder and
+   decoder, 3 steps on synthetic sprites frames (16 G^{-1} launches per
+   step), each step replayed on the CPU from the card's weights and draws
+   (loss and gradient norm at the train phase's tolerances); one more
+   step's host ms and CUDA-event ms.  The consolidated K=192 metric is saved and loaded
+   through ``save_metric``/``load_metric``, held to the plain versions of
+   the chol-bundle, metric bundle, G^{-1} and HMC terms, and swapped into
+   the default model behind an engine: one 64-request ``reconstruct``
+   bucket (chol-bundle 2, IAF-chain forward 1) and one ``official``
+   ``generate`` bucket (1601 HMC-terms launches, IAF-chain forward 1).
+
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 run exits non-zero; a hang dumps every thread's stack and exits.  Without a
@@ -2457,13 +2488,6 @@ def calibration_draws(torch, dev, k: int, d: int = 16):
     return noise
 
 
-def _cpu_metric(metric):
-    from rlvae_tpu_torch.geometry.metric import CentroidMetric
-
-    return CentroidMetric(metric.centroids.cpu(), metric.matrices.cpu(), metric.temperature,
-                          metric.regularization)
-
-
 def replay_fixed(torch, metric, z0, eps, noise, n_lf, rows=None):
     """A fixed-eps chain stepped on the card with ``fixed_mcmc_step``, each
     step replayed on the CPU (plain terms) from the card's state before it
@@ -2471,7 +2495,7 @@ def replay_fixed(torch, metric, z0, eps, noise, n_lf, rows=None):
     final states, step stats, accepted count)."""
     from rlvae_tpu_torch.samplers.hmc import _terms_fn, fixed_mcmc_step
 
-    terms, cpu_terms = _terms_fn(metric), _terms_fn(_cpu_metric(metric))
+    terms, cpu_terms = _terms_fn(metric), _terms_fn(metric.to("cpu"))
     sel = slice(None) if rows is None else rows.to(z0.device)
     stats, accepted = _step_stats(), 0
     with torch.no_grad():
@@ -2518,7 +2542,7 @@ def replay_budget_start(torch, manager, seed):
     z0 = metric.centroids[torch.randint(0, metric.n_centroids, (b,), generator=gen, device=dev)]
     gammas, unifs = draw_chain_noise(gen, ADAPTIVE_WARMUP_A, b, 16, dev)
     cfg = HMCConfig(init="centroids")
-    terms, cpu_terms = _terms_fn(metric), _terms_fn(_cpu_metric(metric))
+    terms, cpu_terms = _terms_fn(metric), _terms_fn(metric.to("cpu"))
     eps0 = torch.tensor(cfg.eps_lf, dtype=torch.float32, device=dev)
     da = DualAveraging(torch.log(10.0 * eps0), ADAPTIVE_TARGET_A, ADAPTIVE_WARMUP_A, True)
     cpu_da = DualAveraging(da.mu.cpu(), da.target, da.warmup, True)
@@ -2920,7 +2944,7 @@ def replay_posterior_chain(torch, metric, mu, log_var, noise):
     start of each step (one terms launch each, outside the counted runs)."""
     from rlvae_tpu_torch.samplers.hmc import _terms_fn, posterior_hmc_step
 
-    terms, cpu_terms = _terms_fn(metric), _terms_fn(_cpu_metric(metric))
+    terms, cpu_terms = _terms_fn(metric), _terms_fn(metric.to("cpu"))
     inv_var = torch.exp(-log_var)
     z = mu + noise["eps"] * torch.exp(0.5 * log_var)
     err, scale, off_plateau = 0.0, [], []
@@ -3496,6 +3520,480 @@ def run_convnets(torch, dev=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# geometry phase
+# ---------------------------------------------------------------------------
+
+GEO_PAIRS = 64            # centroid-to-centroid pairs of exp_map, log_map, shooting
+GEO_SHOOT = {"n_steps": 8, "n_iters": 6}  # log_map's RK4 steps and Gauss-Newton iterations
+GEO_SHOOT_POINTS = 9      # points of the shooting interpolation (k = 1 replay step)
+GEO_LOG_REPLAY_ROWS = 1   # rows of log_map and the shooting path replayed on the CPU
+GEO_EXACT_SEED, GEO_EXACT_ITERS = 5, 80
+GEO_CURV_GRID = 32        # the curvature's grid on the centroids' PCA plane
+GEO_INTERP_ITERS = 200    # interpolate(mode="geodesic"): energy_path's Adam steps
+GEO_ENERGY_BAND = 20      # the CPU path's last iterates whose energies bound the card's
+GEO_PROFILE_ITERS = 20    # Adam steps of the profiled energy path
+RHVAE_BATCH, RHVAE_STEPS = 64, 3
+# Card vs CPU.  The geodesic solvers feed every rounding difference back
+# (Adam's m / sqrt(v) turns last-bit gradient differences into lr-sized
+# steps; shooting follows a curved ODE), so whole results are held at these
+# tolerances, each relative to max(1, |value|) unless said otherwise.
+GEO_TOL = {
+    "christoffel_rel": 1e-4,      # of the largest |Gamma|, one launch vs plain
+    "exp_map": 1e-4,              # endpoint and path of 32 RK4 steps
+    "log_map": 1e-3,              # the shooting velocity (fixed point of Gauss-Newton)
+    "shooting": 1e-3,             # the shooting path
+    "energy_path": 1e-2,          # points of the interpolation's energy path, which lies
+                                  # where the metric barely curves (tests: JAX vs port up
+                                  # to 4.2e-3 with the inputs' last bits)
+    "energy_rtol": 2e-3,          # its energy (tests: up to 8.7e-4), or within the band of
+                                  # the CPU's last GEO_ENERGY_BAND iterates (Adam at lr 0.05
+                                  # does not settle: its iterates circle the optimum)
+    "geodesic_exact": 2e-3,       # prior latents, pairs of distinct centroids
+    "curvature": 1e-3,            # of the largest |K| on the grid
+    "frames": 1e-3,               # decoded frames, pixels in [0, 1]
+}
+
+
+def counted(torch, fn):
+    """(``fn()``, the launches it made): counters zeroed just before, read
+    just after a synchronisation."""
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _scaled(got, want, floor=1.0) -> float:
+    """max |got - want| over max(floor, max |want|), on the CPU."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()) / max(floor, float(want.abs().max()))
+
+
+def pca_plane(c: np.ndarray, n: int):
+    """(basis [D, 2], origin [D], grid [n*n, 2]): the centroids' first two
+    principal directions, their mean, and an n x n grid over the range of
+    the centroids' coordinates in that plane."""
+    origin = c.mean(0)
+    _, _, vt = np.linalg.svd(c - origin, full_matrices=False)
+    basis = vt[:2].T.astype(np.float32)
+    coords = (c - origin) @ basis
+    axes = [np.linspace(coords[:, i].min(), coords[:, i].max(), n) for i in range(2)]
+    grid = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 2).astype(np.float32)
+    return basis, origin.astype(np.float32), grid
+
+
+def energy_path_trace(torch, metric, z0, z1, n_points, n_iters, lr=0.05):
+    """``energy_path`` of one pair stepped here with its own ``energy_grad``
+    and ``adam_update`` (the path held equal to ``energy_path``'s bit for
+    bit), with each iterate's energy: (path [n_points, D], energies)."""
+    from rlvae_tpu_torch.geometry import geodesics as tgeo
+
+    a, b = z0[None].float(), z1[None].float()
+    ts = tgeo._linspace01(n_points, a.device)[1:-1, None]
+    x = (1.0 - ts) * a[:, None] + ts * b[:, None]
+    mu, nu, energies = torch.zeros_like(x), torch.zeros_like(x), []
+    with torch.no_grad():
+        for count in range(1, n_iters + 1):
+            x, mu, nu = tgeo.adam_update(x, tgeo.energy_grad(metric, a, b, x), mu, nu, count, lr)
+            energies.append(float(tgeo._segment_energy(
+                metric, torch.cat([a[:, None], x, b[:, None]], dim=1))[0]))
+        path = torch.cat([a[:, None], x, b[:, None]], dim=1)[0]
+        check(torch.equal(path, tgeo.energy_path(metric, z0, z1, n_points=n_points,
+                                                 n_iters=n_iters, lr=lr)),
+              "the stepped energy path differs from energy_path")
+    return path, energies
+
+
+def exact_prior_replay(torch, metric, cpu_metric, z, noise):
+    """The ``geodesic_exact`` prior latents z (on the card) replayed on the CPU
+    from the same draws.  Rows whose pair is one centroid have a zero-length
+    path, whose tangent (the noise's direction) is rounding noise on either
+    device: they are held to lie within the noise's reach of the centroid."""
+    from rlvae_tpu_torch.samplers import sample_prior
+
+    noise_cpu = {k: v.cpu() for k, v in noise.items()}
+    with torch.no_grad():
+        z_cpu = sample_prior(cpu_metric, z.shape[0], 16, "geodesic_exact", noise=noise_cpu)
+    same = (noise_cpu["i1"] == noise_cpu["i2"])
+    err = _scaled(z.cpu()[~same], z_cpu[~same]) if bool((~same).any()) else 0.0
+    check(err <= GEO_TOL["geodesic_exact"], f"geodesic_exact: card vs CPU {err}")
+    reach_ok = True
+    for i in torch.nonzero(same).flatten().tolist():
+        c = cpu_metric.centroids[noise_cpu["i1"][i]]
+        eig = float(torch.linalg.eigvalsh(cpu_metric.g_inv(c[None]))[0].max())
+        reach = 0.2 * float(noise_cpu["eps"][i].norm()) * eig ** 0.5 + 0.1
+        reach_ok = reach_ok and float((z.cpu()[i] - c).abs().max()) <= reach
+        reach_ok = reach_ok and float((z_cpu[i] - c).abs().max()) <= reach
+    check(reach_ok, "a zero-length geodesic_exact row left its centroid's noise reach")
+    return {"max_err": err, "zero_length_rows": int(same.sum())}
+
+
+def run_geometry(torch, dev=None):
+    """The latent geometry and RHVAE metric pre-training (section 15 of the
+    module docstring)."""
+    from rlvae_tpu_torch import BatchingEngine, ModelManager, PRESETS, ServeConfig
+    from rlvae_tpu_torch.convert import load_pretrained_net
+    from rlvae_tpu_torch.data import generate_cyclic_sequences
+    from rlvae_tpu_torch.geometry import curvature as tcurv
+    from rlvae_tpu_torch.geometry import geodesics as tgeo
+    from rlvae_tpu_torch.geometry import load_metric, save_metric
+    from rlvae_tpu_torch.geometry.pretrain import RHVAE, train_metric
+    from rlvae_tpu_torch.nets import create_decoder, create_encoder
+    from rlvae_tpu_torch.ops.metric_kernels import (
+        chol_bundle,
+        chol_bundle_ref,
+        g_inv,
+        g_inv_ref,
+        hmc_terms,
+        hmc_terms_ref,
+        metric_bundle,
+        metric_bundle_ref,
+    )
+    from rlvae_tpu_torch.samplers import concat_rows
+
+    t_phase, laps, total = time.perf_counter(), {}, {}
+    manager = ModelManager.from_config(PRESETS["riemannian_flow_vae"], seed=0, device=dev)
+    check(dev is not None or manager.device.type == "cuda", f"manager on {manager.device}")
+    dev, model, metric = manager.device, manager.model, manager.model.metric
+    cpu_metric = metric.to("cpu")
+    c = cpu_metric.centroids
+    out = {"metric": f"K={metric.n_centroids}, T={metric.temperature}"}
+
+    # 1. interpolate(mode="geodesic"): 200 Adam steps, one metric bundle each
+    rng = np.random.default_rng(11)
+    x1 = rng.uniform(size=(3, 64, 64)).astype(np.float32)
+    x2 = rng.uniform(size=(3, 64, 64)).astype(np.float32)
+    t = time.perf_counter()
+    frames, counts = counted(torch, lambda: manager.interpolate(x1, x2, n_steps=10,
+                                                                mode="geodesic"))
+    interp_s = time.perf_counter() - t
+    check(counts == expected_launches(metric_bundle=GEO_INTERP_ITERS),
+          f"interpolate(geodesic) launched {counts}")
+    check(counts["metric_bundle"] >= 200, "fewer than 200 metric-bundle launches")
+    add_counts(total, counts)
+    check(frames.shape == (10, 3, 64, 64) and np.isfinite(frames).all(), "bad geodesic frames")
+    mu1, mu2 = (manager._tensor(manager.encode(x[None]).embedding[0]) for x in (x1, x2))
+    path, energies_card = energy_path_trace(torch, metric, mu1, mu2, 10, GEO_INTERP_ITERS)
+    energy = energies_card[-1]
+    path_cpu, energies = energy_path_trace(torch, cpu_metric, mu1.cpu(), mu2.cpu(), 10,
+                                           GEO_INTERP_ITERS)
+    again = manager.decode(path)
+    band = max(abs(e - energies[-1]) for e in energies[-GEO_ENERGY_BAND:])
+    interp = {"host_s": interp_s, "launches": counts,
+              "path_err": _scaled(path, path_cpu),
+              "energy": energy, "energy_cpu": energies[-1],
+              "energy_rel": abs(energy - energies[-1]) / abs(energies[-1]),
+              "energy_band_rel": band / abs(energies[-1]),
+              "energy_at": {str(i): [energies_card[i - 1], energies[i - 1]]
+                            for i in (1, 2, 3, 5, 10, 50, 100, 150, 200)},
+              "frames_vs_decoded_path": float(np.abs(again - frames).max())}
+    check(interp["path_err"] <= GEO_TOL["energy_path"], f"geodesic path: card vs CPU {interp}")
+    check(interp["energy_rel"] <= max(GEO_TOL["energy_rtol"], interp["energy_band_rel"]),
+          f"geodesic energy: card vs CPU {interp}")
+    check(interp["frames_vs_decoded_path"] <= GEO_TOL["frames"], f"geodesic frames {interp}")
+    # GEO_PROFILE_ITERS Adam steps of the same path, warm: host ms per step
+    # unprofiled, then device time per step from a profiled run (the
+    # profiler's own cost grows with the launches, ~60 a step), busy share
+    short = lambda: tgeo.energy_path(metric, mu1, mu2, n_points=10,  # noqa: E731
+                                     n_iters=GEO_PROFILE_ITERS)
+    short()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    short()
+    torch.cuda.synchronize()
+    interp["warm_host_ms_per_step"] = (time.perf_counter() - t) * 1e3 / GEO_PROFILE_ITERS
+    busy_ms, kernels = device_time_by_kernel(torch, short)
+    interp["device_ms_per_step"] = busy_ms / GEO_PROFILE_ITERS
+    interp["device_busy_share"] = interp["device_ms_per_step"] / interp["warm_host_ms_per_step"]
+    interp["kernel_launches_per_step"] = sum(k["calls"] for k in kernels) / GEO_PROFILE_ITERS
+    interp["top_kernels"] = kernels[:8]
+    out["interpolate"] = interp
+    laps["interpolate"] = time.perf_counter() - t_phase
+
+    # 2. the geodesic_exact prior: sample_latent, then a 64-request bucket
+    t = time.perf_counter()
+    z, counts = counted(torch, lambda: torch.from_numpy(
+        manager.sample_latent(SERVE_BATCH, "geodesic_exact", seed=GEO_EXACT_SEED)))
+    exact = {"sample_latent_host_s": time.perf_counter() - t, "launches": counts}
+    check(counts == expected_launches(metric_bundle=GEO_EXACT_ITERS, g_inv=1),
+          f"sample_latent(geodesic_exact) launched {counts}")
+    add_counts(total, counts)
+    noise = model.draw_generation_noise(SERVE_BATCH, "geodesic_exact",
+                                        manager._generator(GEO_EXACT_SEED))
+    exact["sample_latent_vs_cpu"] = exact_prior_replay(torch, metric, cpu_metric, z, noise)
+    engine = BatchingEngine.from_manager(manager, ServeConfig(buckets=(SERVE_BATCH,),
+                                                              max_wait_ms=2000),
+                                         generate_method="geodesic_exact")
+    seeds = list(range(100, 100 + SERVE_BATCH))
+    try:
+        engine.warmup({"generate": np.uint32(0)})
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        stats0 = engine.stats_snapshot()
+        t = time.perf_counter()
+        futs = [engine.submit("generate", np.uint32(s)) for s in seeds]
+        rows = [f.result(timeout=120) for f in futs]
+        exact["bucket_host_s"] = time.perf_counter() - t
+        counts = launch_counts()
+        batches = engine.stats_snapshot()["batches"] - stats0["batches"]
+    finally:
+        engine.stop()
+    check(batches == 1, f"the {SERVE_BATCH} geodesic_exact requests took {batches} dispatches")
+    check(counts == expected_launches(metric_bundle=GEO_EXACT_ITERS, g_inv=1, iaf_chain_fwd=1),
+          f"the geodesic_exact bucket launched {counts}")
+    add_counts(total, counts)
+    exact["bucket_launches"] = counts
+    for r in rows:
+        check(r.shape == (8, 3, 64, 64) and np.isfinite(r).all(), "bad geodesic_exact row")
+    direct = manager.sample_random_batched_seeds(seeds, method="geodesic_exact")
+    exact["bucket_vs_direct_call"] = float(np.abs(np.stack(rows) - direct).max())
+    check(exact["bucket_vs_direct_call"] == 0.0, "the engine's rows differ from a direct call")
+    bucket_noise = concat_rows([model.draw_generation_noise(1, "geodesic_exact",
+                                                            manager._generator(s))
+                                for s in seeds])
+    with torch.no_grad():
+        z_bucket = model.sample_riemannian_prior(SERVE_BATCH, "geodesic_exact",
+                                                 noise=bucket_noise)
+    exact["bucket_vs_cpu"] = exact_prior_replay(torch, metric, cpu_metric, z_bucket, bucket_noise)
+    out["geodesic_exact"] = exact
+    laps["geodesic_exact"] = time.perf_counter() - t_phase
+
+    # 3. Christoffel symbols, exp_map, log_map and shooting on 64 centroid pairs
+    i1 = torch.arange(GEO_PAIRS) % metric.n_centroids
+    i2 = (i1 + 1 + torch.arange(GEO_PAIRS) // metric.n_centroids) % metric.n_centroids
+    z0, z1 = metric.centroids[i1.to(dev)], metric.centroids[i2.to(dev)]
+    shots = {}
+    with torch.no_grad():
+        gam, counts = counted(torch, lambda: tgeo.christoffel(metric, z0))
+        check(counts == expected_launches(metric_bundle=1), f"christoffel launched {counts}")
+        add_counts(total, counts)
+        shots["christoffel_rel"] = _scaled(gam, tgeo.christoffel(cpu_metric, z0.cpu()), 0.0)
+        t = time.perf_counter()
+        (end, path), counts = counted(torch, lambda: tgeo.exp_map(metric, z0, z1 - z0,
+                                                                  return_path=True))
+        shots["exp_map_host_s"] = time.perf_counter() - t
+        check(counts == expected_launches(metric_bundle=4 * 32), f"exp_map launched {counts}")
+        add_counts(total, counts)
+        end_cpu, path_cpu = tgeo.exp_map(cpu_metric, z0.cpu(), (z1 - z0).cpu(), return_path=True)
+        shots["exp_map"] = max(_scaled(end, end_cpu), _scaled(path, path_cpu))
+    t = time.perf_counter()
+    v, counts = counted(torch, lambda: tgeo.log_map(metric, z0, z1, **GEO_SHOOT))
+    shots["log_map_host_s"] = time.perf_counter() - t
+    n, it = GEO_SHOOT["n_steps"], GEO_SHOOT["n_iters"]
+    want_b6 = 120 + 4 * n * (1 + 2 * it)  # the energy init, the start, 2 shots per iteration
+    check(counts == expected_launches(metric_bundle=want_b6), f"log_map launched {counts}")
+    add_counts(total, counts)
+    shots["log_map_launches"] = counts
+    t = time.perf_counter()
+    geo, counts = counted(torch, lambda: tgeo.geodesic_interpolate(
+        metric, z0, z1, n_points=GEO_SHOOT_POINTS, method="shooting", **GEO_SHOOT))
+    shots["shooting_host_s"] = time.perf_counter() - t
+    seg = GEO_SHOOT_POINTS - 1
+    replay_steps = -(-n // seg) * seg  # the replay at a multiple of the segments, >= n
+    check(counts == expected_launches(metric_bundle=want_b6 + 4 * replay_steps),
+          f"shooting launched {counts}")
+    add_counts(total, counts)
+    check(bool(torch.isfinite(v).all()) and bool(torch.isfinite(geo).all()),
+          "non-finite log_map or shooting path")
+    with torch.no_grad():
+        hit = tgeo.exp_map(metric, z0, v, n_steps=n)
+    shots["shooting_residual_median"] = float((hit - z1).norm(dim=-1).median())
+    # the CPU's log_map of the first rows, and its shooting path replayed
+    # from that velocity as geodesic_interpolate replays it (one log_map on
+    # the CPU serves both: it is the costly part)
+    rows = slice(0, GEO_LOG_REPLAY_ROWS)
+    v_cpu = tgeo.log_map(cpu_metric, z0[rows].cpu(), z1[rows].cpu(), **GEO_SHOOT)
+    with torch.no_grad():
+        _, geo_cpu = tgeo.exp_map(cpu_metric, z0[rows].cpu(), v_cpu, n_steps=replay_steps,
+                                  return_path=True)
+    geo_cpu = geo_cpu[:, ::replay_steps // seg]
+    shots["log_map"] = _scaled(v[rows], v_cpu)
+    shots["shooting"] = _scaled(geo[rows], geo_cpu)
+    for key in ("christoffel_rel", "exp_map", "log_map", "shooting"):
+        check(shots[key] <= GEO_TOL[key], f"{key}: card vs CPU {shots[key]} > {GEO_TOL[key]}")
+    out["shooting"] = shots
+    laps["shooting"] = time.perf_counter() - t_phase
+
+    # 4. the Gaussian curvature on a grid of the centroids' PCA plane (plain path)
+    basis, origin, grid = pca_plane(c.numpy(), GEO_CURV_GRID)
+    t = time.perf_counter()
+    curv, counts = counted(torch, lambda: tcurv.gaussian_curvature_2d(
+        metric, torch.from_numpy(basis).to(dev), torch.from_numpy(origin).to(dev),
+        torch.from_numpy(grid).to(dev)))
+    curv_s = time.perf_counter() - t
+    check(counts == expected_launches(), f"the curvature launched {counts}")
+    curv_cpu = tcurv.gaussian_curvature_2d(cpu_metric, torch.from_numpy(basis),
+                                           torch.from_numpy(origin), torch.from_numpy(grid))
+    curv_err = _scaled(curv, curv_cpu, 0.0)
+    check(bool(torch.isfinite(curv).all()) and curv_err <= GEO_TOL["curvature"],
+          f"curvature: card vs CPU {curv_err}")
+    out["curvature"] = {"grid": GEO_CURV_GRID, "host_s": curv_s, "max_rel_err": curv_err,
+                        "k_min": float(curv_cpu.min()), "k_max": float(curv_cpu.max())}
+    laps["curvature"] = time.perf_counter() - t_phase
+
+    # 5. RHVAE metric pre-training at the published widths, warm-started
+    frames_np = generate_cyclic_sequences(RHVAE_BATCH * RHVAE_STEPS // 8, seed=0)
+    frames_np = frames_np.reshape(-1, 3, 64, 64)
+    warm = {}
+    for name, make in (("encoder", create_encoder), ("decoder", create_decoder)):
+        net = make((3, 64, 64), 16)
+        load_pretrained_net(net, PRETRAINED / f"{name}.npz")
+        warm[name] = net.state_dict()
+    rhvae = RHVAE().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    draws = [rhvae.draw_noise(RHVAE_BATCH, gen, dev) for _ in range(RHVAE_STEPS)]
+    steps = []
+
+    def pre(module, args):
+        if steps:
+            steps[-1]["grad_norm"] = _grad_norm(torch, module)
+        steps.append({"state": {k: v.detach().cpu().clone() for k, v in module.state_dict().items()},
+                      "x": args[0].detach().cpu(),
+                      "noise": {k: v.detach().cpu() for k, v in args[1].items()}})
+
+    def post(module, args, result):
+        steps[-1]["loss"] = float(result["loss"].detach())
+
+    hooks = [rhvae.register_forward_pre_hook(pre), rhvae.register_forward_hook(post)]
+    t = time.perf_counter()
+    try:
+        (learned, info), counts = counted(torch, lambda: train_metric(
+            rhvae, frames_np, n_epochs=1, batch_size=RHVAE_BATCH, warm_start=warm, noise=draws))
+    finally:
+        for h in hooks:
+            h.remove()
+    train_s = time.perf_counter() - t
+    steps[-1]["grad_norm"] = _grad_norm(torch, rhvae)
+    g_inv_per_forward = 5 * 3 + 1  # (3 fixed-point + 2) per leapfrog step x 3, and the loss's
+    check(counts == expected_launches(g_inv=RHVAE_STEPS * g_inv_per_forward),
+          f"train_metric launched {counts}")
+    add_counts(total, counts)
+    check(len(steps) == RHVAE_STEPS and learned.n_centroids == RHVAE_BATCH * RHVAE_STEPS,
+          f"{len(steps)} steps, K={learned.n_centroids}")
+    cpu_rhvae = RHVAE()
+    rh_errors = []
+    for i, rec in enumerate(steps):
+        cpu_rhvae.load_state_dict(rec["state"])
+        cpu_rhvae.zero_grad(set_to_none=True)
+        res = cpu_rhvae(rec["x"], rec["noise"])
+        res["loss"].backward()
+        loss_cpu, gn_cpu = float(res["loss"].detach()), _grad_norm(torch, cpu_rhvae)
+        err = {"loss_rel": abs(rec["loss"] - loss_cpu) / abs(loss_cpu),
+               "grad_norm_rel": abs(rec["grad_norm"] - gn_cpu) / gn_cpu,
+               "loss": rec["loss"], "grad_norm": rec["grad_norm"]}
+        rh_errors.append(err)
+        check(np.isfinite(rec["loss"]) and err["loss_rel"] <= TRAIN_TOL["loss_rel"],
+              f"RHVAE step {i + 1} loss: card vs CPU {err}")
+        check(err["grad_norm_rel"] <= TRAIN_TOL["grad_norm_rel"],
+              f"RHVAE step {i + 1} grad_norm: card vs CPU {err}")
+    # one more forward and backward at the trained state, warm, on the host
+    # clock and on CUDA events (not profiled: ~3e4 launches a step, each
+    # costing the profiler more than the step itself)
+    x_last = torch.from_numpy(frames_np[:RHVAE_BATCH]).to(dev)
+    step = lambda: rhvae(x_last, draws[0])["loss"].backward()  # noqa: E731
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    step_host_ms = (time.perf_counter() - t) * 1e3
+    out["rhvae"] = {"steps": RHVAE_STEPS, "batch": RHVAE_BATCH, "train_s": train_s,
+                    "launches": counts, "g_inv_per_step": counts["g_inv"] // RHVAE_STEPS,
+                    "card_vs_cpu": rh_errors, "loss_history": info["loss_history"],
+                    "n_centroids": learned.n_centroids, "warm_step_host_ms": step_host_ms,
+                    "warm_step_event_ms": time_ms(torch, step, 1, warmup=0)}
+    laps["rhvae"] = time.perf_counter() - t_phase
+
+    # 6. the learned metric: saved, loaded, through the kernels and served
+    with tempfile.TemporaryDirectory() as tmp:
+        save_metric(learned, Path(tmp) / "metric.npz")
+        loaded = load_metric(Path(tmp) / "metric.npz")
+    check(torch.equal(loaded.centroids, learned.centroids)
+          and torch.equal(loaded.matrices, learned.matrices)
+          and (loaded.temperature, loaded.regularization)
+          == (float(np.float32(learned.temperature)), float(np.float32(learned.regularization))),
+          "the learned metric did not round-trip through save_metric/load_metric")
+    lm = loaded.to(dev)
+    zr = np.random.default_rng(12)
+    zk = lm.centroids[torch.from_numpy(zr.integers(0, lm.n_centroids, SERVE_BATCH)).to(dev)]
+    zk = (zk + 0.05 * torch.from_numpy(zr.normal(size=(SERVE_BATCH, 16))).float().to(dev))
+    zk = zk.contiguous()
+    bank = (lm.centroids, lm.matrices, 1.0 / lm.temperature ** 2)
+    kern = {}
+    l_k, ld_k = chol_bundle(zk, *bank, lm.regularization + 1e-6)
+    l_p, ld_p = chol_bundle_ref(zk, *bank, lm.regularization + 1e-6)
+    kern["chol_bundle"] = max(float((l_k - l_p).abs().max()), float((ld_k - ld_p).abs().max()))
+    check(bool(torch.all((l_k - l_p).abs() <= CHOL_ATOL + CHOL_RTOL * l_p.abs())
+               and torch.all((ld_k - ld_p).abs() <= CHOL_ATOL + CHOL_RTOL * ld_p.abs())),
+          f"chol_bundle disagrees on the learned metric: {kern['chol_bundle']}")
+    got, plain = metric_bundle(zk, *bank, lm.regularization), metric_bundle_ref(
+        zk, *bank, lm.regularization)
+    for name, k_out, p_out in zip(("g_inv", "l", "logdet", "g"), got, plain):
+        rtol, atol = BUNDLE_TOL[name]
+        check(bool(torch.all((k_out - p_out).abs() <= atol + rtol * p_out.abs())),
+              f"metric_bundle {name} disagrees on the learned metric")
+    kern["metric_bundle"] = max(float((k - p).abs().max()) for k, p in zip(got, plain))
+    gi_k, gi_p = g_inv(zk, *bank, lm.regularization), g_inv_ref(zk, *bank, lm.regularization)
+    kern["g_inv"] = float((gi_k - gi_p).abs().max())
+    check(bool(torch.all((gi_k - gi_p).abs() <= 1e-6 + 1e-5 * gi_p.abs())),
+          f"g_inv disagrees on the learned metric: {kern['g_inv']}")
+    log_eps = float(np.log(np.float32(1e-10)))
+    lp_k, gr_k = hmc_terms(zk, *bank, lm.regularization, log_eps)
+    lp_p, gr_p = hmc_terms_ref(zk, *bank, lm.regularization, log_eps)
+    g_scale = float(gr_p.abs().max().clamp_min(1e-30))
+    kern["hmc_terms"] = {"log_pi_abs": float((lp_k - lp_p).abs().max()),
+                         "grad_rel": float((gr_k - gr_p).abs().max()) / g_scale}
+    check(kern["hmc_terms"]["log_pi_abs"] <= HMC_LP_ATOL
+          and kern["hmc_terms"]["grad_rel"] <= HMC_RTOL,
+          f"hmc_terms disagrees on the learned metric: {kern['hmc_terms']}")
+    model.set_metric(lm)
+    rng = np.random.default_rng(13)
+    seqs = rng.uniform(size=(SERVE_BATCH, 8, 3, 64, 64)).astype(np.float32)
+    engine = BatchingEngine.from_manager(manager, ServeConfig(buckets=(SERVE_BATCH,),
+                                                              max_wait_ms=2000),
+                                         generate_method="official")
+    served = {}
+    try:
+        engine.warmup({"reconstruct": seqs[0], "generate": np.uint32(0)})
+        for op, items, per_batch in (
+                ("reconstruct", list(seqs), expected_launches(chol_bundle=2, iaf_chain_fwd=1)),
+                ("generate", [np.uint32(s) for s in range(SERVE_BATCH)],
+                 expected_launches(hmc_terms=CHAIN_LAUNCHES, iaf_chain_fwd=1))):
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            b0 = engine.stats_snapshot()["batches"]
+            t = time.perf_counter()
+            res = [f.result(timeout=120) for f in [engine.submit(op, it) for it in items]]
+            host_s = time.perf_counter() - t
+            counts = launch_counts()
+            batches = engine.stats_snapshot()["batches"] - b0
+            check(batches == 1 and counts == per_batch,
+                  f"{op} on the learned metric: {batches} batches, launches {counts}")
+            check(all(r.shape == (8, 3, 64, 64) and np.isfinite(r).all() for r in res),
+                  f"bad {op} result on the learned metric")
+            add_counts(total, counts)
+            served[op] = {"host_s": host_s, "launches": counts}
+    finally:
+        engine.stop()
+    out["learned_metric"] = {"n_centroids": lm.n_centroids, "temperature": lm.temperature,
+                             "kernels_vs_plain": kern, "served": served}
+    laps["learned_metric"] = time.perf_counter() - t_phase
+    out.update({"launches": total, "laps_s": laps, "tolerances": GEO_TOL,
+                "nvidia_smi": nvidia_smi()})
+    return out
+
+
+def _grad_norm(torch, module) -> float:
+    return float(torch.sqrt(sum((p.grad.detach().float() ** 2).sum()
+                                for p in module.parameters() if p.grad is not None)))
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(HANG_GUARD_S, exit=True)
     import torch
@@ -3553,6 +4051,8 @@ def main() -> None:
     emit("experiment", **exp)
     conv = run_convnets(torch)
     emit("convnets", **conv)
+    geometry = run_geometry(torch)
+    emit("geometry", **geometry)
     # launches: the sum over the main paths' runs (each read between
     # zeroing the counters and the end of its run), with each path's count
     # beside it; every kernel is launched by the paths it belongs to
@@ -3578,7 +4078,9 @@ def main() -> None:
                                               "g_inv", "metric_bundle", "decode_mse_fwd",
                                               "decode_mse_bwd_dh", "decode_mse_bwd_dw")),
              "convnets": (conv["launches"], ("chol_bundle", "iaf_chain_fwd", "iaf_chain_bwd",
-                                             "g_inv", "hmc_terms"))}
+                                             "g_inv", "hmc_terms")),
+             "geometry": (geometry["launches"], ("chol_bundle", "iaf_chain_fwd", "hmc_terms",
+                                                 "metric_bundle", "g_inv"))}
     for path, (counts, kernels) in paths.items():
         for name in kernels:
             check(counts[name] > 0, f"the {path} path did not launch {name}")
@@ -3595,6 +4097,11 @@ def main() -> None:
         c["launches"]["hmc_terms"] for c in generate["calls"] if c["method"] == "official")
     records["metric_bundle"]["launches_per_geodesic_forward"] = (
         posterior["metric_bundle_launches_per_forward"])
+    records["metric_bundle"]["launches_per_geodesic_interpolation"] = (
+        geometry["interpolate"]["launches"]["metric_bundle"])
+    records["metric_bundle"]["launches_per_log_map"] = (
+        geometry["shooting"]["log_map_launches"]["metric_bundle"])
+    records["g_inv"]["launches_per_rhvae_step"] = geometry["rhvae"]["g_inv_per_step"]
     records["hmc_partials"]["launches_per_ep_chain"] = ep["launches"]["hmc_partials"]
     records["hmc_terms"]["launches_per_dense_k20000_chain"] = dense["launches"]["hmc_terms"]
     records["hmc_terms"]["launches_per_calibration_phase"] = [

@@ -33,6 +33,11 @@
   :func:`adam_state_from_jax_opt_leaves` carries JAX's flat optimizer leaves
   onto the port's Adam state by parameter name.  Neither imports JAX: they
   read numpy trees in JAX's flattening order (:func:`jax_leaves`).
+- :func:`rhvae_state_from_jax` and :func:`rhvae_params_to_numpy` carry the
+  RHVAE's parameters (``encoder``, ``decoder`` and ``metric``, the metric
+  net, ``metric_net`` in the port) across in both directions;
+  :func:`save_component_npz` writes a net in the flat component format
+  :func:`load_component_npz` reads (and JAX's ``load_component_npz`` does).
 - :func:`plan_from_jax` turns a calibrated adaptive-sampler plan of the JAX
   package (``calibrate_adaptive_plan``: numpy arrays and Python scalars)
   into the port's plan (tensors on a device), so a JAX plan drives the
@@ -245,14 +250,14 @@ def params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
     """The RlVAE's parameters keyed as the JAX ``params`` tree: ``encoder`` /
     ``decoder`` as nested Flax layers (``{kernel, bias}``, ``{scale, bias}``)
     in Flax's layouts, and ``flows`` as ``[[{w0.., b0..} per block] per flow]``."""
-    params: Dict[str, Any] = {"encoder": {}, "decoder": {}, "flows": []}
+    params: Dict[str, Any] = {"encoder": net_params_to_numpy(model.encoder),
+                              "decoder": net_params_to_numpy(model.decoder), "flows": []}
     for name, p in model.named_parameters():
-        a = p.detach().float().cpu().numpy().copy()
         comp, rest = name.split(".", 1)
         if comp in ("encoder", "decoder"):
-            layer, kind = rest.rsplit(".", 1)
-            _nest(params[comp], layer, *_flax_layer(layer, kind, a))
-        elif comp == "flows":
+            continue
+        if comp == "flows":
+            a = p.detach().float().cpu().numpy().copy()
             _, fi, _, bi, field, li = rest.split(".")  # flows.{fi}.blocks.{bi}.{field}.{li}
             flows = params["flows"]
             while len(flows) <= int(fi):
@@ -274,6 +279,51 @@ def stats_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
             layer, kind = name.rsplit(".", 1)
             _nest(stats[comp], layer, kind, b.detach().float().cpu().numpy().copy())
     return stats
+
+
+RHVAE_COMPONENTS = (("encoder", "encoder"), ("decoder", "decoder"), ("metric", "metric_net"))
+
+
+def rhvae_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's RHVAE state dict from JAX's RHVAE ``params`` (numpy trees
+    ``encoder``, ``decoder`` and ``metric``)."""
+    return {f"{port}.{k}": _tensor(a) for jax_name, port in RHVAE_COMPONENTS
+            for k, a in _net_leaves(params[jax_name])}
+
+
+def net_params_to_numpy(module: torch.nn.Module) -> Dict[str, Any]:
+    """A net's parameters as a Flax ``params`` tree (layers nested by their
+    dotted names, Flax's layouts)."""
+    tree: Dict[str, Any] = {}
+    for name, p in module.named_parameters():
+        layer, kind = name.rsplit(".", 1)
+        _nest(tree, layer, *_flax_layer(layer, kind, p.detach().float().cpu().numpy().copy()))
+    return tree
+
+
+def rhvae_params_to_numpy(rhvae: torch.nn.Module) -> Dict[str, Any]:
+    """The RHVAE's parameters keyed as JAX's ``params``: ``encoder``,
+    ``decoder`` and ``metric`` Flax trees."""
+    return {jax_name: net_params_to_numpy(getattr(rhvae, port))
+            for jax_name, port in RHVAE_COMPONENTS}
+
+
+def save_component_npz(module: torch.nn.Module, path: str | Path) -> None:
+    """Write a net as a flat component ``.npz`` (``params/<layer>/{kernel,
+    bias}`` in Flax's layouts), the format :func:`load_pretrained_net` and
+    the JAX package's loaders read."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            key = f"{prefix}/{k}"
+            if isinstance(v, dict):
+                walk(v, key)
+            else:
+                flat[key] = v
+
+    walk(net_params_to_numpy(module), "params")
+    np.savez(path, **flat)
 
 
 def load_pretrained_net(module: torch.nn.Module, path: str | Path) -> None:

@@ -1,8 +1,10 @@
 """Pretrained-metric loading from ``.npz`` artifacts.
 
 Port of the ``.npz`` path of ``rlvae_tpu/geometry/loader.py``: the same key
-aliases, overrides, defaults and validation.  ``.pt`` artifacts are not
-read here; convert them to ``.npz`` with the JAX package first.
+aliases, overrides, defaults, validation report, save and conversion (in
+the canonical keys, so each package reads the other's files).  ``.pt``
+artifacts are not read here; convert them to ``.npz`` with the JAX package
+first.
 """
 
 from __future__ import annotations
@@ -97,19 +99,33 @@ def extract_components(
     }
 
 
-def validate_components(centroids: np.ndarray, matrices: np.ndarray) -> None:
-    """Shape / NaN checks (raise) and a PSD check (warn), as the JAX loader."""
-    if matrices.shape != (centroids.shape[0], centroids.shape[1], centroids.shape[1]):
+def validate_components(centroids: np.ndarray, matrices: np.ndarray) -> Dict[str, Any]:
+    """Consistency / NaN checks (raise) and a PSD check (warn), as the JAX
+    loader, with its report dict."""
+    report: Dict[str, Any] = {
+        "n_centroids": int(centroids.shape[0]),
+        "latent_dim": int(centroids.shape[1]),
+        "shapes_consistent": matrices.shape
+        == (centroids.shape[0], centroids.shape[1], centroids.shape[1]),
+        "centroids_finite": bool(np.isfinite(centroids).all()),
+        "matrices_finite": bool(np.isfinite(matrices).all()),
+    }
+    if not report["shapes_consistent"]:
         raise ValueError(
             f"Inconsistent shapes: centroids {centroids.shape}, matrices {matrices.shape}"
         )
-    if not (np.isfinite(centroids).all() and np.isfinite(matrices).all()):
+    if not (report["centroids_finite"] and report["matrices_finite"]):
         raise ValueError("Metric data contains NaN or inf values")
     min_eig = float(np.linalg.eigvalsh(matrices.astype(np.float64)).min())
-    if min_eig < -1e-6:
+    report["min_eigenvalue"] = min_eig
+    report["all_psd"] = bool(min_eig >= -1e-6)
+    if not report["all_psd"]:
         warnings.warn(
             f"Some metric matrices are not positive semidefinite (min eigval {min_eig:.3e})"
         )
+    report["valid"] = (report["shapes_consistent"] and report["centroids_finite"]
+                       and report["matrices_finite"])
+    return report
 
 
 def load_metric(
@@ -126,3 +142,35 @@ def load_metric(
         comp["centroids"], comp["matrices"], comp["temperature"],
         comp["regularization"],
     )
+
+
+def validate_metric_file(path: str | Path) -> Dict[str, Any]:
+    """Standalone validation report for a metric file."""
+    comp = extract_components(read_raw(path))
+    report = validate_components(comp["centroids"], comp["matrices"])
+    report["temperature"] = comp["temperature"]
+    report["regularization"] = comp["regularization"]
+    return report
+
+
+def save_metric(metric: CentroidMetric, path: str | Path) -> None:
+    """Save in the canonical ``.npz`` format, with the JAX package's key
+    names and dtypes, so each package loads the other's files."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(
+        path,
+        centroids=metric.centroids.detach().float().cpu().numpy(),
+        M_matrices=metric.matrices.detach().float().cpu().numpy(),
+        temperature=np.float32(metric.temperature),
+        regularization=np.float32(metric.regularization),
+        latent_dim=np.int32(metric.latent_dim),
+        n_centroids=np.int32(metric.n_centroids),
+    )
+
+
+def convert_metric_file(src: str | Path, dst: str | Path, **overrides) -> Dict[str, Any]:
+    """Convert a metric artifact (any key aliases) to canonical ``.npz``;
+    returns the report of the written file."""
+    save_metric(load_metric(src, **overrides), dst)
+    return validate_metric_file(dst)

@@ -13,14 +13,16 @@ deterministic, added to the diagonal before factorization.
 Each function runs a CUDA kernel for tensors on the card and its plain
 PyTorch version for tensors on the CPU, through an autograd Function of
 :mod:`rlvae_tpu_torch.ops.metric_kernels`, so each is differentiable in
-``z`` on either device:
+``z``, and in the bank where its tensors require grad, on either device:
 
 - ``chol_g_inv`` and ``logdet_g_inv``: the chol-bundle (``CholBundle``,
   ``CholBundleLogdet``);
 - ``g_inv``: the G^{-1} kernel (``GInv``);
 - ``g``: the metric bundle (``MetricBundleG``) when ``jitter == 0`` and ``z``
   is [B, D], as the JAX package's ``g`` dispatches to its fused kernel;
-  otherwise G^{-1} and unrolled Cholesky solves.
+  otherwise G^{-1} and unrolled Cholesky solves;
+- ``g_inv_and_g``: G^{-1} and G of one metric-bundle launch
+  (``MetricBundleGInvG``), for the Christoffel symbols.
 
 ``chol_g``, ``logdet_g``, ``dist2`` and ``diagnostics`` read G through those.
 ``log_sqrt_det_g_inv`` (from ``logdet_g_inv``) and ``grad_log_sqrt_det_g_inv``
@@ -32,7 +34,7 @@ kernel for both.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -63,9 +65,62 @@ class CentroidMetric:
         return cls(centroids.contiguous(), matrices.contiguous(),
                    float(temperature), float(regularization))
 
+    @classmethod
+    def identity(cls, latent_dim: int, n_centroids: int = 1, temperature: float = 0.1,
+                 regularization: float = 0.01,
+                 generator: Optional[torch.Generator] = None) -> "CentroidMetric":
+        """Identity metric matrices at zero centroids, or at standard-normal
+        ones drawn from ``generator`` (JAX's ``key``)."""
+        if generator is None:
+            centroids = torch.zeros((n_centroids, latent_dim))
+        else:
+            centroids = torch.randn((n_centroids, latent_dim), generator=generator,
+                                    device=generator.device)
+        matrices = torch.eye(latent_dim).expand(n_centroids, latent_dim, latent_dim)
+        return cls(centroids.float().contiguous(),
+                   matrices.to(centroids.device).contiguous(),
+                   float(temperature), float(regularization))
+
     @property
     def n_centroids(self) -> int:
         return int(self.centroids.shape[0])
+
+    @property
+    def latent_dim(self) -> int:
+        return int(self.centroids.shape[1])
+
+    def to(self, device) -> "CentroidMetric":
+        """The same metric with its bank on ``device``."""
+        return CentroidMetric(self.centroids.to(device), self.matrices.to(device),
+                              self.temperature, self.regularization)
+
+    # Method views over the functional API, as the JAX package's ----------
+    def weights(self, z: torch.Tensor) -> torch.Tensor:
+        return weights(self, z)
+
+    def g_inv(self, z: torch.Tensor) -> torch.Tensor:
+        return g_inv(self, z)
+
+    def g(self, z: torch.Tensor) -> torch.Tensor:
+        return g(self, z)
+
+    def chol_g_inv(self, z: torch.Tensor, jitter: float = 1e-6) -> torch.Tensor:
+        return chol_g_inv(self, z, jitter)
+
+    def logdet_g(self, z: torch.Tensor) -> torch.Tensor:
+        return logdet_g(self, z)
+
+    def log_sqrt_det_g_inv(self, z: torch.Tensor) -> torch.Tensor:
+        return log_sqrt_det_g_inv(self, z)
+
+    def grad_log_sqrt_det_g_inv(self, z: torch.Tensor) -> torch.Tensor:
+        return grad_log_sqrt_det_g_inv(self, z)
+
+    def dist2(self, z1: torch.Tensor, z2: torch.Tensor) -> torch.Tensor:
+        return dist2(self, z1, z2)
+
+    def diagnostics(self, z: torch.Tensor) -> Dict[str, Any]:
+        return diagnostics(self, z)
 
 
 def weights(metric: CentroidMetric, z: torch.Tensor) -> torch.Tensor:
@@ -95,7 +150,7 @@ def g_inv(metric: CentroidMetric, z: torch.Tensor) -> torch.Tensor:
 
 def chol_g_inv(metric: CentroidMetric, z: torch.Tensor, jitter: float = 1e-6) -> torch.Tensor:
     """L with L L^T = G^{-1}(z) + jitter*I, from the chol-bundle kernel
-    (its plain version for CPU tensors); differentiable in ``z``."""
+    (its plain version for CPU tensors); differentiable."""
     return _mk.CholBundle.apply(
         _rows(z), metric.centroids, metric.matrices,
         1.0 / metric.temperature ** 2, metric.regularization + jitter,
@@ -104,7 +159,7 @@ def chol_g_inv(metric: CentroidMetric, z: torch.Tensor, jitter: float = 1e-6) ->
 
 def logdet_g_inv(metric: CentroidMetric, z: torch.Tensor) -> torch.Tensor:
     """log det G^{-1}(z), shape [B]: the bundle's logdet output (jitter 0),
-    from one chol-bundle launch; differentiable in ``z``."""
+    from one chol-bundle launch; differentiable."""
     return _mk.CholBundleLogdet.apply(
         _rows(z), metric.centroids, metric.matrices,
         1.0 / metric.temperature ** 2, metric.regularization,
@@ -118,6 +173,12 @@ def g(metric: CentroidMetric, z: torch.Tensor, jitter: float = 0.0) -> torch.Ten
     if jitter == 0.0 and z.dim() == 2:
         return _mk.MetricBundleG.apply(_rows(z), *_bank(metric))
     return _lin.inv_psd_small(g_inv(metric, z), jitter=jitter)
+
+
+def g_inv_and_g(metric: CentroidMetric, z: torch.Tensor):
+    """(G^{-1}(z), G(z)), each [B, D, D], from one metric-bundle launch
+    (``MetricBundleGInvG``; the plain version for CPU tensors); differentiable."""
+    return _mk.MetricBundleGInvG.apply(_rows(z), *_bank(metric))
 
 
 def chol_g(metric: CentroidMetric, z: torch.Tensor, jitter: float = 1e-6) -> torch.Tensor:

@@ -51,14 +51,23 @@ PyTorch version (``*_ref``) for CPU tensors; there is no other route.  Each
 wrapper's ``launches`` counts the calls that launched its kernel.
 
 :class:`CholBundle` and :class:`CholBundleLogdet` make the bundle's factor L
-and its logdet differentiable in ``z``, as ``chol_g_inv_fused`` does on the
-JAX side (``metric_kernels.py:759-784``): the forward is one
-:func:`chol_bundle` launch; the backward re-evaluates :func:`chol_bundle_ref`
-under autograd and returns its VJP (the JAX package recomputes through its
-XLA path with ``jax.vjp``, not a kernel).  :class:`MetricBundleG` (G) and
-:class:`GInv` (G^{-1}) do the same for the metric bundle, as ``g_fused``
-(:788-805) does.  The metric's centroids and matrices are buffers and get no
-gradient.
+and its logdet differentiable, as ``chol_g_inv_fused`` does on the JAX side
+(``metric_kernels.py:759-784``): the forward is one :func:`chol_bundle`
+launch; the backward re-evaluates :func:`chol_bundle_ref` under autograd and
+returns its VJP (the JAX package recomputes through its XLA path with
+``jax.vjp``, not a kernel).  :class:`GInv` (G^{-1}) does the same with
+:func:`g_inv_ref`.  :class:`MetricBundleG` (G) and :class:`MetricBundleGInvG`
+(the pair (G^{-1}, G) of one launch), as ``g_fused`` (:788-805), map G's
+cotangent onto G^{-1}'s lower triangle through the saved G (dG = -G dA G;
+:func:`_g_inv_cotangent`) and take
+:func:`g_inv_ref`'s VJP: the exact derivative, without a recompute through
+the unrolled factorization.  As JAX's VJPs, the backward gives the
+cotangents of ``z``, ``centroids`` and ``matrices``, each where the input
+requires grad (the RHVAE's batch-local metric is built from the encoder's
+mu and the metric net's L L^T).  The recompute reads the saved inputs
+themselves, not detached copies, and builds its graph when the backward
+runs under ``create_graph=True``, so a VJP is itself differentiable (the
+RHVAE differentiates a loss through the gradient of its Hamiltonian).
 """
 
 from __future__ import annotations
@@ -141,29 +150,47 @@ def chol_bundle(
 chol_bundle.launches = 0
 
 
-def _save(ctx, z, centroids, matrices, inv_t2: float, diag: float) -> None:
-    ctx.save_for_backward(z, centroids, matrices)
+def _save(ctx, z, centroids, matrices, inv_t2: float, diag: float, *outputs) -> None:
+    ctx.save_for_backward(z, centroids, matrices, *outputs)
     ctx.scalars = (inv_t2, diag)
 
 
-def _recompute_vjp(ctx, plain, cotangent):
-    """VJP in z of ``plain(z, centroids, matrices, inv_t2, diag)``, the
-    kernel's plain version re-evaluated under autograd (the JAX package
-    recomputes through its XLA path)."""
-    z, centroids, matrices = ctx.saved_tensors
+def _detached(z, centroids, matrices):
+    """The kernel wrappers' inputs: the raw wrappers take no tensor that
+    requires grad."""
+    return z.detach(), centroids.detach(), matrices.detach()
+
+
+def _recompute_vjp(ctx, plain, *cotangents):
+    """VJP of ``plain(z, centroids, matrices, inv_t2, diag)`` (one output, or
+    a tuple of them), the kernel's plain version re-evaluated under autograd
+    from the saved inputs (the JAX package recomputes through its XLA path):
+    the cotangent of each of z, centroids and matrices that requires grad,
+    else None.  Under ``create_graph=True`` (grad mode on in the backward)
+    the result carries its own graph."""
+    saved = ctx.saved_tensors[:3]
+    need = ctx.needs_input_grad[:3]
+    if not any(need):
+        return None, None, None, None, None
     with torch.enable_grad():
-        zz = z.detach().requires_grad_(True)
-        (dz,) = torch.autograd.grad(plain(zz, centroids, matrices, *ctx.scalars), zz, cotangent)
-    return dz, None, None, None, None
+        # each input that needs grad enters as an alias of its own (a view),
+        # so the grads are partials even where z was computed from the bank
+        # (the RHVAE's z from the encoder's mu); the others enter detached
+        args = [t.view_as(t) if n else t.detach() for t, n in zip(saved, need)]
+        out = plain(*args, *ctx.scalars)
+        outs = out if isinstance(out, tuple) else (out,)
+        grads = iter(torch.autograd.grad(outs, [a for a, n in zip(args, need) if n], cotangents,
+                                         create_graph=torch.is_grad_enabled()))
+    return (*(next(grads) if n else None for n in need), None, None)
 
 
 class CholBundle(torch.autograd.Function):
-    """L = chol_bundle(z, ...)[0], differentiable in ``z``."""
+    """L = chol_bundle(z, ...)[0], differentiable in z, centroids and matrices."""
 
     @staticmethod
     def forward(ctx, z, centroids, matrices, inv_t2: float, diag: float):
         _save(ctx, z, centroids, matrices, inv_t2, diag)
-        return chol_bundle(z.detach(), centroids, matrices, inv_t2, diag)[0]
+        return chol_bundle(*_detached(z, centroids, matrices), inv_t2, diag)[0]
 
     @staticmethod
     def backward(ctx, dl):
@@ -171,12 +198,12 @@ class CholBundle(torch.autograd.Function):
 
 
 class CholBundleLogdet(torch.autograd.Function):
-    """logdet = chol_bundle(z, ...)[1], differentiable in ``z``."""
+    """logdet = chol_bundle(z, ...)[1], differentiable in z, centroids and matrices."""
 
     @staticmethod
     def forward(ctx, z, centroids, matrices, inv_t2: float, diag: float):
         _save(ctx, z, centroids, matrices, inv_t2, diag)
-        return chol_bundle(z.detach(), centroids, matrices, inv_t2, diag)[1]
+        return chol_bundle(*_detached(z, centroids, matrices), inv_t2, diag)[1]
 
     @staticmethod
     def backward(ctx, dld):
@@ -427,26 +454,60 @@ def g_inv(
 g_inv.launches = 0
 
 
+def _g_inv_cotangent(g: torch.Tensor, dg: torch.Tensor) -> torch.Tensor:
+    """The cotangent of A = G^{-1} from G's.  G = A^{-1} gives dG = -G dA G,
+    so S = -G^T dG G^T; and G reads only A's lower triangle (the unrolled
+    Cholesky's, on the JAX side as in the plain version), so S folds onto
+    it: tril(S) + tril(S^T, -1).  The exact derivative JAX's VJP takes
+    through its solves, from three products of the saved G instead of a
+    recompute through the factorization (~10^3 autograd nodes a call)."""
+    gt = g.transpose(-1, -2)
+    s = -(gt @ dg @ gt)
+    return torch.tril(s) + torch.tril(s.transpose(-1, -2), -1)
+
+
 class MetricBundleG(torch.autograd.Function):
-    """G = metric_bundle(z, ...)[3], differentiable in ``z``."""
+    """G = metric_bundle(z, ...)[3], differentiable in z, centroids and
+    matrices.  The backward maps G's cotangent onto G^{-1}'s with the saved G
+    (:func:`_g_inv_cotangent`) and takes the VJP of G^{-1}'s plain version
+    from the saved inputs; saved as an output of this Function, G carries
+    the graph of a second derivative back through it."""
 
     @staticmethod
     def forward(ctx, z, centroids, matrices, inv_t2: float, lbd: float):
-        _save(ctx, z, centroids, matrices, inv_t2, lbd)
-        return metric_bundle(z.detach(), centroids, matrices, inv_t2, lbd)[3]
+        g = metric_bundle(*_detached(z, centroids, matrices), inv_t2, lbd)[3]
+        _save(ctx, z, centroids, matrices, inv_t2, lbd, g)
+        return g
 
     @staticmethod
     def backward(ctx, dg):
-        return _recompute_vjp(ctx, lambda *a: metric_bundle_ref(*a)[3], dg)
+        return _recompute_vjp(ctx, g_inv_ref, _g_inv_cotangent(ctx.saved_tensors[3], dg))
+
+
+class MetricBundleGInvG(torch.autograd.Function):
+    """(G^{-1}, G) = metric_bundle(z, ...)[0, 3] from one launch,
+    differentiable in z, centroids and matrices (the Christoffel symbols
+    read both); the backward as :class:`MetricBundleG`'s, with G^{-1}'s own
+    cotangent added."""
+
+    @staticmethod
+    def forward(ctx, z, centroids, matrices, inv_t2: float, lbd: float):
+        gi, _, _, g = metric_bundle(*_detached(z, centroids, matrices), inv_t2, lbd)
+        _save(ctx, z, centroids, matrices, inv_t2, lbd, g)
+        return gi, g
+
+    @staticmethod
+    def backward(ctx, dgi, dg):
+        return _recompute_vjp(ctx, g_inv_ref, dgi + _g_inv_cotangent(ctx.saved_tensors[3], dg))
 
 
 class GInv(torch.autograd.Function):
-    """G^{-1} = g_inv(z, ...), differentiable in ``z``."""
+    """G^{-1} = g_inv(z, ...), differentiable in z, centroids and matrices."""
 
     @staticmethod
     def forward(ctx, z, centroids, matrices, inv_t2: float, lbd: float):
         _save(ctx, z, centroids, matrices, inv_t2, lbd)
-        return g_inv(z.detach(), centroids, matrices, inv_t2, lbd)
+        return g_inv(*_detached(z, centroids, matrices), inv_t2, lbd)
 
     @staticmethod
     def backward(ctx, dgi):

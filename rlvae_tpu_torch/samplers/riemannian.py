@@ -2,9 +2,11 @@
 
 Port of ``reparam``, ``sample_posterior`` and ``sample_metric_aware_posterior``
 (``rlvae_tpu/samplers/riemannian.py:58-176``) and of the prior methods of
-``sample_prior`` (:184-296): ``geodesic`` (the default), ``centroid_aware``,
-``weighted_mixture`` and ``basic``.  ``geodesic_exact`` needs the geodesic
-solver (``geometry/geodesics.py``), which is not ported yet.
+``sample_prior`` (:184-296): ``geodesic`` (the default), ``geodesic_exact``
+(the interpolation point on the energy-minimized geodesic between the
+centroid pair: ``energy_path`` with 12 points and 80 Adam steps, one
+metric-bundle launch each, then the metric noise through one G^{-1}
+launch), ``centroid_aware``, ``weighted_mixture`` and ``basic``.
 
 Posterior methods (``sampling.method`` of a Gaussian-posterior model):
 
@@ -29,6 +31,8 @@ given:
 
     geodesic          i1 [n], i2 [n] (centroid indices), t [n, 1] (uniform),
                       eps [n, D] (standard normal)
+    geodesic_exact    i1 [n], i2 [n], s [n] (uniform, before the scaling to
+                      the path's n_points - 1 segments), eps [n, D]
     centroid_aware    idx [n], eps [n, D]
     weighted_mixture  idx [n] (categorical, p ~ exp(-|c|/2)), eps [n, D]
     basic             eps [n, D]
@@ -43,6 +47,7 @@ import numpy as np
 import torch
 
 from rlvae_tpu_torch.geometry import metric as gm
+from rlvae_tpu_torch.geometry.geodesics import energy_path
 from rlvae_tpu_torch.geometry.metric import CentroidMetric
 from rlvae_tpu_torch.ops import linalg as _lin
 from rlvae_tpu_torch.samplers.hmc import draw_posterior_hmc_noise, sample_posterior_hmc
@@ -202,11 +207,6 @@ def _sym_sqrt(mat: torch.Tensor, clamp: float = 1e-8) -> torch.Tensor:
 def _check_method(method: str) -> None:
     if method not in PRIOR_METHODS:
         raise ValueError(f"Unknown prior sampling method: {method}")
-    if method == "geodesic_exact":
-        raise NotImplementedError(
-            "prior method 'geodesic_exact' needs geometry/geodesics.py, which is not ported "
-            "yet (ROADMAP queue A4)"
-        )
 
 
 def draw_prior_noise(metric: Optional[CentroidMetric], method: str, n: int, latent_dim: int,
@@ -230,6 +230,10 @@ def draw_prior_noise(metric: Optional[CentroidMetric], method: str, n: int, late
         i1, i2 = randint(), randint()
         t = torch.rand((n, 1), generator=generator, device=device)
         return {"i1": i1, "i2": i2, "t": t, "eps": randn()}
+    if method == "geodesic_exact":
+        i1, i2 = randint(), randint()
+        s = torch.rand((n,), generator=generator, device=device)
+        return {"i1": i1, "i2": i2, "s": s, "eps": randn()}
     if method == "centroid_aware":
         return {"idx": randint(), "eps": randn()}
     # weighted_mixture: categorical with p ~ exp(-|c| / 2)
@@ -252,6 +256,8 @@ def sample_prior(metric: Optional[CentroidMetric], num_samples: int, latent_dim:
     noise = {k: v.to(dev) for k, v in noise.items()}
     if method == "geodesic":
         return _prior_geodesic(metric, noise)
+    if method == "geodesic_exact":
+        return _prior_geodesic_exact(metric, noise)
     if method == "centroid_aware":
         return _prior_centroid_aware(metric, noise)
     if method == "weighted_mixture":
@@ -270,6 +276,28 @@ def _prior_geodesic(metric: CentroidMetric, noise: Noise) -> torch.Tensor:
     eps = noise["eps"].float()
     parallel = (eps * direction).sum(-1, keepdim=True) * direction
     perp = eps - parallel
+    sqrt_gi = _sym_sqrt(gm.g_inv(metric, z_path))
+    return z_path + 0.2 * torch.einsum("bij,bj->bi", sqrt_gi, perp)
+
+
+def _prior_geodesic_exact(metric: CentroidMetric, noise: Noise, n_points: int = 12,
+                          n_iters: int = 80) -> torch.Tensor:
+    """The ``geodesic`` prior with the point taken on the energy-minimized
+    geodesic between the centroid pair (linear inside the discrete segment
+    that holds it), and the metric noise perpendicular to that segment."""
+    start, end = metric.centroids[noise["i1"].long()], metric.centroids[noise["i2"].long()]
+    paths = energy_path(metric, start, end, n_points=n_points, n_iters=n_iters)
+    n = paths.shape[0]
+    s = noise["s"].float() * (n_points - 1)
+    lo = torch.clamp(torch.floor(s).long(), 0, n_points - 2)
+    frac = (s - lo)[:, None]
+    rows = torch.arange(n, device=paths.device)
+    z_lo, z_hi = paths[rows, lo], paths[rows, lo + 1]
+    z_path = (1.0 - frac) * z_lo + frac * z_hi
+    tangent = z_hi - z_lo
+    tangent = tangent / (torch.linalg.vector_norm(tangent, dim=-1, keepdim=True) + 1e-8)
+    eps = noise["eps"].float()
+    perp = eps - (eps * tangent).sum(-1, keepdim=True) * tangent
     sqrt_gi = _sym_sqrt(gm.g_inv(metric, z_path))
     return z_path + 0.2 * torch.einsum("bij,bj->bi", sqrt_gi, perp)
 

@@ -49,6 +49,7 @@ from rlvae_tpu_torch.train import Trainer
 DATA = Path(__file__).resolve().parents[1] / "data" / "pretrained"
 METRIC = DATA / "metric_T0.7_scaled.npz"
 Z_ATOL = 1e-5
+GEODESIC_EXACT_ATOL = 1e-4
 X_ATOL = 5e-4
 ROW_ATOL = 1e-6
 
@@ -65,6 +66,10 @@ def _jax_prior_draws(jm, method, key, n):
         k1, k2, k3, k4 = jax.random.split(key, 4)
         return {"i1": jax.random.randint(k1, (n,), 0, kc), "i2": jax.random.randint(k2, (n,), 0, kc),
                 "t": jax.random.uniform(k3, (n, 1)), "eps": jax.random.normal(k4, (n, d))}
+    if method == "geodesic_exact":
+        k1, k2, k3, k4 = jax.random.split(key, 4)
+        return {"i1": jax.random.randint(k1, (n,), 0, kc), "i2": jax.random.randint(k2, (n,), 0, kc),
+                "s": jax.random.uniform(k3, (n,)), "eps": jax.random.normal(k4, (n, d))}
     if method == "basic":
         return {"eps": jax.random.normal(key, (n, d))}
     k1, k2 = jax.random.split(key)
@@ -115,12 +120,21 @@ def test_prior_methods_launch_nothing_on_the_cpu():
 
 
 def test_unported_and_unknown_methods_raise():
-    _, tm = _metrics()
+    """``geodesic_exact`` was refused until the geodesic solver was ported;
+    now the same call is held to JAX's prior on JAX's draws (the point on
+    the 12-point energy path of 80 Adam steps: within GEODESIC_EXACT_ATOL,
+    as whole energy paths in tests/test_torch_geodesics.py; measured
+    1.7e-6)."""
+    jm, tm = _metrics()
     model = RlVAE(input_dim=(3, 8, 8), n_flows=1, flow_hidden_size=32, metric=tm,
                   encoder_config={"architecture": "mlp", "hidden_dims": [32]},
                   decoder_config={"architecture": "mlp", "hidden_dims": [32]})
-    with pytest.raises(NotImplementedError, match="A4"):
-        model.sample_riemannian_prior(2, "geodesic_exact")
+    key = jax.random.PRNGKey(3)
+    want = np.asarray(jsr.sample_prior(jm, key, 2, 16, "geodesic_exact"))
+    noise = _torch(_jax_prior_draws(jm, "geodesic_exact", key, 2))
+    assert bool((noise["i1"] != noise["i2"]).all())  # no zero-length path among the draws
+    got = model.sample_riemannian_prior(2, "geodesic_exact", noise=noise).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=GEODESIC_EXACT_ATOL)
     # adaptive is ported; without a plan its draws depend on the whole batch
     with pytest.raises(ValueError, match="plan"):
         model.draw_generation_noise(2, "adaptive")

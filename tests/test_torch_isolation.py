@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import rlvae_tpu_torch
-from rlvae_tpu_torch import ModelManager, PRESETS, experiment, resolve_device
+from rlvae_tpu_torch import ModelManager, PRESETS, components, experiment, resolve_device
 from rlvae_tpu_torch.ops import build
 from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_fwd
 from rlvae_tpu_torch.ops.metric_kernels import chol_bundle, g_inv, hmc_terms, metric_bundle
@@ -69,6 +69,15 @@ def test_the_scan_covers_the_net_families():
         assert f"rlvae_tpu_torch/nets/{mod}.py" in names
 
 
+def test_the_scan_covers_the_geometry_stack():
+    """The geodesics, curvature, metric pre-training and the components
+    entry point are read by the scan below and imported by the probe above."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for mod in ("geometry/geodesics", "geometry/curvature", "geometry/pretrain",
+                "geometry/loader", "geometry/metric", "components"):
+        assert f"rlvae_tpu_torch/{mod}.py" in names
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_import_statement_of_jax_or_rlvae_tpu(path):
     assert not FORBIDDEN.search(path.read_text()), path
@@ -85,6 +94,9 @@ def test_default_device_is_the_card(tmp_path):
     assert not (tmp_path / "run").exists()
     with pytest.raises(RuntimeError, match="CUDA"):  # before the run directory is read
         ModelManager.from_checkpoint("no-such-run", PRESETS["riemannian_flow_vae"])
+    with pytest.raises(RuntimeError, match="CUDA"):  # before anything is trained or written
+        components.main(["--out-dir", str(tmp_path / "components")])
+    assert not (tmp_path / "components").exists()
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"

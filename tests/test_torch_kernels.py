@@ -660,6 +660,36 @@ def test_g_and_g_inv_gradients_on_the_card_equal_the_cpu(dev, which):
     torch.testing.assert_close(grads[1], grads[0], rtol=1e-4, atol=1e-5 * grads[0].abs().max())
 
 
+def test_g_inv_and_g_pair_on_the_card_equals_the_cpu(dev):
+    """MetricBundleGInvG: the forward is one metric-bundle launch whose (G^{-1},
+    G) it returns bit for bit; its backward (the plain recompute) gives the
+    cotangents of z, the centroids and the matrices, and a second derivative
+    in z through ``create_graph=True``, all as on the CPU."""
+    from rlvae_tpu_torch.ops.metric_kernels import MetricBundleGInvG
+
+    c, m = _bank(200, 4)
+    rng = torch.Generator().manual_seed(2)
+    w1, w2 = torch.randn(7, 16, 16, generator=rng), torch.randn(7, 16, 16, generator=rng)
+    u = torch.randn(7, 16, generator=rng)
+    grads = []
+    for device in ("cpu", dev):
+        leaves = [torch.tensor(a, dtype=torch.float32, device=device, requires_grad=True)
+                  for a in (c[:7] + 0.05, c, m)]
+        zz, cc, mm = leaves
+        before = metric_bundle.launches
+        gi, g = MetricBundleGInvG.apply(zz, cc, mm, 1.0 / 0.7 ** 2, 0.01)
+        assert metric_bundle.launches == before + (1 if zz.is_cuda else 0)
+        if zz.is_cuda:
+            want = metric_bundle(zz.detach(), cc.detach(), mm.detach(), 1.0 / 0.7 ** 2, 0.01)
+            assert torch.equal(gi, want[0]) and torch.equal(g, want[3])
+        loss = (gi * w1.to(device)).sum() + (g * w2.to(device)).sum()
+        (gz,) = torch.autograd.grad(loss, zz, create_graph=True)
+        ((gz * u.to(device)).sum() + loss).backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    for got, want in zip(grads[1], grads[0]):
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4 * want.abs().max())
+
+
 @pytest.mark.parametrize("b,k,geometry", [
     *((b, k, None) for k in (1, 37, 50, 200, 20_000) for b in (1, 37, 64)),
     # a given geometry (rows per CTA, warps per CTA, CTAs per cluster) in place
