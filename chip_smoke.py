@@ -210,6 +210,28 @@ Phases, each printing one JSON line with its elapsed seconds:
    the default model behind an engine: one 64-request ``reconstruct``
    bucket (chol-bundle 2, IAF-chain forward 1) and one ``official``
    ``generate`` bucket (1601 HMC-terms launches, IAF-chain forward 1).
+16. ``dp``: data parallelism through ``python -m
+   rlvae_tpu_torch.parallel.dp_verify`` (its ranks are subprocesses; each
+   zeroes and reads its own launch counters around every step): the
+   default preset at full width, global B=16, 3 DP steps in an NCCL world
+   of one rank (equal to the plain trainer bit for bit) and in a gloo world
+   of two ranks sharing ``cuda:0`` (NCCL refuses that) in the 2 x 1 and
+   1 x 2 (DP x TP) layouts, each with a 4-step epoch on 64 sequences and a
+   resume, plus 3 ``cnn_rlvae`` steps on 2 x 1 and 3 steps of the fast
+   preset on 1 x 2 (its decoder's output layer gathered for the fused
+   kernel); per rank and step chol-bundle 2, IAF-chain forward and
+   backward 1 (the fast preset: chol-bundle 2, each decode+MSE kernel 1,
+   no IAF chain); every step replayed in one process on the card (loss,
+   step 1's grad_norm, Adam's first moment and the update leaf by leaf, at
+   ``dp_verify.CARD_TOL``), the epoch's rows against ``host_epoch_perm``,
+   the BatchNorm statistics against the shards' mean, the all-reduce's
+   count and bytes against ``comm_audit.step_plan``.  The step's host ms,
+   the all-reduce's ms and share, and the busy share per rank; the
+   ``kernels`` line's ``launches_per_dp_train_step_per_rank`` are the
+   counts of rank 0's first step of each layout.  Then
+   ``BatchingEngine.from_manager(..., devices=["cuda:0", "cuda:0"])``: one
+   bucket of 3 of each op (``generate`` geodesic), every row against the
+   one-device manager's.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -232,7 +254,7 @@ from pathlib import Path
 import numpy as np
 
 PRETRAINED = Path(__file__).resolve().parent / "data" / "pretrained"
-HANG_GUARD_S = 540
+HANG_GUARD_S = 780
 SERVE_BATCH = 64  # the engine's largest bucket: the main path's batch
 # the adaptive sampler's calibration: one chain per centroid of the K=50
 # metric, and the manager's warm-start pool
@@ -3989,6 +4011,167 @@ def run_geometry(torch, dev=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# dp phase
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 3
+DP_TRAIN_ROWS = 64   # the epoch's sequences: 32 per rank, 4 steps of 8 rows on each
+DP_LAYOUTS = "1,2"   # the gloo world's meshes: 2 x 1 (DP) and 1 x 2 (DP x TP)
+# more models in the gloo world: a BatchNorm model's step on 2 x 1, and the
+# fast preset (fused decode+MSE) on 1 x 2, its decoder's output layer
+# gathered over the model group for the kernel
+DP_EXTRA = {"cnn_rlvae": 1, "riemannian_flow_vae_fast": 2}
+DP_SERVE_DEVICES = ("cuda:0", "cuda:0")
+DP_SERVE_BUCKET = 3  # a bucket the two replicas do not divide
+DP_SERVE_TOL = 1e-4  # max |row - one replica's row| of reconstruct, encode and decode
+
+
+def dp_verify_run(tmp: str, name: str, argv) -> dict:
+    """``python -m rlvae_tpu_torch.parallel.dp_verify`` in-process (its ranks
+    are subprocesses); its summary with the host seconds it took."""
+    from rlvae_tpu_torch.parallel import dp_verify
+
+    out = Path(tmp) / name
+    t0 = time.perf_counter()
+    rc = dp_verify.main([*argv, "--out", str(out)])
+    summary = json.loads((out / "summary.json").read_text()) if (out / "summary.json").exists() \
+        else {"ok": False, "layouts": {}}
+    check(rc == 0 and summary["ok"],
+          f"dp_verify {name}: {[v.get('failures') for v in summary['layouts'].values()]} "
+          f"(rank logs under {out})")
+    summary["host_s"] = time.perf_counter() - t0
+    return summary
+
+
+def _dp_step_figures(layout: dict) -> dict:
+    """Per-rank step ms, the flat all-reduce's ms and share of it, and the
+    profiled step's busy share."""
+    step_ms = [1e3 * s for s in layout["step_s"]]
+    ar_ms = [1e3 * s for s in layout["all_reduce_s"]]
+    out = {"step_ms": step_ms, "all_reduce_ms": ar_ms,
+           "all_reduce_share": [a / s for a, s in zip(ar_ms, step_ms)],
+           "all_reduce_bytes": layout["collectives"]["all-reduce"]["bytes"],
+           "param_bytes": layout["param_bytes"]}
+    if "busy_ms" in layout:
+        out["busy_share"] = [b / (1e3 * s) for b, s in zip(layout["busy_ms"],
+                                                          layout["profiled_step_s"])]
+    return out
+
+
+def run_dp(torch, dev=None):
+    """The data-parallel path: an NCCL world of one rank and a gloo world of
+    two ranks on ``cuda:0`` through ``dp_verify`` (the default preset at full
+    width, global B=16), then data-parallel serving over two replicas on
+    ``cuda:0``.  ``dev`` the CPU rehearses it there (gloo for both worlds)."""
+    cpu = dev is not None and torch.device(dev).type == "cpu"
+    kind, one_rank_backend = ("cpu", "gloo") if cpu else ("cuda", "nccl")
+    default = expected_launches()
+    # each layout's launches per rank and step
+    per_step = {"1": {**default, "chol_bundle": 2, "iaf_chain_fwd": 1, "iaf_chain_bwd": 1}}
+    per_step.update({"2": per_step["1"], "cnn_rlvae": per_step["1"],
+                     "riemannian_flow_vae_fast": {**default, "chol_bundle": 2,
+                                                  "decode_mse_fwd": 1, "decode_mse_bwd_dh": 1,
+                                                  "decode_mse_bwd_dw": 1}})
+    common = ["--device", kind, "--model", "riemannian_flow_vae", "--batch", str(TRAIN_BATCH),
+              "--steps", str(DP_STEPS), "--timeout", "400"]
+    launches = {name: 0 for name in _wrappers()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        nccl = dp_verify_run(tmp, "nccl1", ["--world", "1", "--backend", one_rank_backend,
+                                            "--epochs", "0", *common])
+        check(nccl["layouts"]["1"]["steps_vs_plain"]["bitwise"],
+              "the one-rank NCCL world's steps differ from the plain trainer's bits")
+        gloo = dp_verify_run(tmp, "gloo2", ["--world", "2", "--backend", "gloo",
+                                            "--model-parallel", DP_LAYOUTS, "--epochs", "1",
+                                            "--train-rows", str(DP_TRAIN_ROWS),
+                                            "--extra", ",".join(f"{n}@{m}" for n, m in
+                                                                DP_EXTRA.items()), *common])
+    for world, summary in (("nccl1", nccl), ("gloo2", gloo)):
+        for name, layout in summary["layouts"].items():
+            for r, steps in enumerate(layout["launches"]):
+                for i, counts in enumerate(steps):
+                    check(counts == (dict.fromkeys(default, 0) if cpu else per_step[name]),
+                          f"{world} layout {name} rank {r} step {i + 1} launched {counts}")
+                    add_counts(launches, counts)
+    dp = gloo["layouts"]["1"]
+    check(dp["collectives"]["all-reduce"] == dp["plan"]["all-reduce"]
+          and dp["collectives"]["all-gather"]["count"] == 0,
+          f"the DP step's collectives {dp['collectives']} are not the plan {dp['plan']}")
+    check(dp["rows_equal_host_epoch_perm"] and dp["chunked_equals_resident"],
+          "a rank's epoch rows are not its host_epoch_perm column")
+    serve = run_dp_serving(torch, ("cpu", "cpu") if cpu else DP_SERVE_DEVICES, cpu)
+    add_counts(launches, serve["launches"])
+    # the counts measured on rank 0's first step of each layout
+    measured = {f"{world}_{name}": layout["launches"][0][0]
+                for world, summary in (("nccl1", nccl), ("gloo2", gloo))
+                for name, layout in summary["layouts"].items()}
+    return {"launches": launches, "launches_per_step": measured, "serving": serve,
+            "nccl_world_1": {"host_s": nccl["host_s"], "steps_vs_plain":
+                             nccl["layouts"]["1"]["steps_vs_plain"],
+                             **_dp_step_figures(nccl["layouts"]["1"])},
+            "gloo_world_2": {"host_s": gloo["host_s"],
+                             **{name: {k: layout.get(k) for k in (
+                                 "mesh", "collectives", "plan", "steps_vs_plain", "epochs",
+                                 "rows_equal_host_epoch_perm", "chunked_equals_resident",
+                                 "bn_vs_shard_mean_rel", "bn_shard_vs_plain_rel",
+                                 "tolerances", "model")}
+                                | _dp_step_figures(layout)
+                                for name, layout in gloo["layouts"].items()}}}
+
+
+def run_dp_serving(torch, devices=DP_SERVE_DEVICES, cpu: bool = False):
+    """``BatchingEngine.from_manager(..., devices=["cuda:0", "cuda:0"])``:
+    one bucket of each op, every row against the one-device manager's."""
+    from rlvae_tpu_torch import BatchingEngine, ModelManager, PRESETS, ServeConfig
+
+    manager = ModelManager.from_config(PRESETS["riemannian_flow_vae"], seed=0,
+                                       device=devices[0])
+    rng = np.random.default_rng(11)
+    n = DP_SERVE_BUCKET
+    x = rng.uniform(size=(n, 8, 3, 64, 64)).astype(np.float32)
+    z = rng.normal(size=(n, 16)).astype(np.float32)
+    seeds = np.uint32(SERVE_SEEDS[:n])
+    items = {"reconstruct": x, "encode": x[:, 0], "decode": z, "generate": seeds}
+    want = {"reconstruct": manager.reconstruct(x, seed=0),
+            "encode": manager.encode(x[:, 0]).embedding, "decode": manager.decode(z),
+            "generate": manager.sample_random_batched_seeds(seeds)}
+    engine = BatchingEngine.from_manager(manager, ServeConfig(buckets=(n,), max_wait_ms=2000),
+                                         devices=devices)
+    got, host_ms, per_op, launches = {}, {}, {}, {name: 0 for name in _wrappers()}
+    try:
+        for op, batch in items.items():
+            t0 = time.perf_counter()
+
+            def dispatch(op=op, batch=batch):
+                futs = [engine.submit(op, row) for row in batch]
+                return np.stack([f.result(timeout=300) for f in futs])
+
+            got[op], per_op[op] = counted(torch, dispatch)
+            host_ms[op] = (time.perf_counter() - t0) * 1e3
+            add_counts(launches, per_op[op])
+        stats = engine.stats_snapshot()
+        ndev = {op: engine.ops[op].last_out_ndev for op in items}
+    finally:
+        engine.stop()
+    check(stats["batches"] == len(items), f"{stats['batches']} dispatches for {len(items)} ops")
+    check(all(v == len(devices) for v in ndev.values()), f"replicas used: {ndev}")
+    errors = {op: float(np.abs(got[op] - want[op]).max()) for op in items}
+    errors["generate_mean_abs"] = float(np.abs(got["generate"] - want["generate"]).mean())
+    for op in ("reconstruct", "encode", "decode"):
+        check(errors[op] <= DP_SERVE_TOL, f"DP serving {op}: {errors[op]} from one replica")
+    check(errors["generate"] <= GEN_ROW_TOL["max_abs"]
+          and errors["generate_mean_abs"] <= GEN_ROW_TOL["mean_abs"],
+          f"DP serving generate rows: {errors}")
+    for op in ("reconstruct", "generate"):
+        check(cpu or per_op[op]["iaf_chain_fwd"] > 0, f"DP serving {op} launched no IAF chain")
+    check(cpu or per_op["reconstruct"]["chol_bundle"] > 0, "DP serving launched no chol-bundle")
+    return {"devices": list(devices), "bucket": n, "launches": launches,
+            "launches_per_op": per_op,
+            "max_abs_vs_one_replica": errors, "tolerance": {"rows": DP_SERVE_TOL,
+                                                            "generate": GEN_ROW_TOL},
+            "host_ms": host_ms}
+
+
 def _grad_norm(torch, module) -> float:
     return float(torch.sqrt(sum((p.grad.detach().float() ** 2).sum()
                                 for p in module.parameters() if p.grad is not None)))
@@ -4053,6 +4236,8 @@ def main() -> None:
     emit("convnets", **conv)
     geometry = run_geometry(torch)
     emit("geometry", **geometry)
+    dp = run_dp(torch)
+    emit("dp", **dp, nvidia_smi=smi)
     # launches: the sum over the main paths' runs (each read between
     # zeroing the counters and the end of its run), with each path's count
     # beside it; every kernel is launched by the paths it belongs to
@@ -4080,7 +4265,10 @@ def main() -> None:
              "convnets": (conv["launches"], ("chol_bundle", "iaf_chain_fwd", "iaf_chain_bwd",
                                              "g_inv", "hmc_terms")),
              "geometry": (geometry["launches"], ("chol_bundle", "iaf_chain_fwd", "hmc_terms",
-                                                 "metric_bundle", "g_inv"))}
+                                                 "metric_bundle", "g_inv")),
+             "dp": (dp["launches"], ("chol_bundle", "iaf_chain_fwd", "iaf_chain_bwd",
+                                     "decode_mse_fwd", "decode_mse_bwd_dh",
+                                     "decode_mse_bwd_dw"))}
     for path, (counts, kernels) in paths.items():
         for name in kernels:
             check(counts[name] > 0, f"the {path} path did not launch {name}")
@@ -4089,6 +4277,11 @@ def main() -> None:
         for path, (counts, _) in paths.items():
             rec[f"launches_{path}"] = counts[name]
         rec["launches_per_train_step"] = train["launches_per_step"][name]
+        # measured on rank 0's first step: the one-rank NCCL world, the
+        # two-rank gloo world's DP and DP x TP layouts, the fast preset's DP x TP
+        rec["launches_per_dp_train_step_per_rank"] = {
+            key: dp["launches_per_step"][key].get(name, 0)
+            for key in ("nccl1_1", "gloo2_1", "gloo2_2", "gloo2_riemannian_flow_vae_fast")}
         rec["launches_per_geodesic_train_step"] = posterior["train"]["launches_per_step"][name]
         rec["launches_per_fast_train_step"] = fast["train"]["launches_per_step"][name]
         rec["launches_per_convnet_train_step"] = {

@@ -14,7 +14,12 @@ synthesize-or-load path of ``rlvae_tpu/data/cyclic.py``.
   ``get_sequence_info`` and ``get_dataset_stats``) serve the experiment
   runner and the visualization hook.
 
-One process only: the JAX module's per-host sharding, its native C++
+In a data-parallel world each rank keeps its strided slice of the training
+sequences, as each JAX host does: ``process_index``/``process_count``
+default to the world's data index and data-axis size (the world's ranks
+over ``trainer.model_parallel`` of the training config given to
+``setup``), and a run outside a world keeps every sequence.  Validation
+and test stay whole on every rank.  The JAX module's native C++
 prefetching loader (the numpy iterator is that module's own fallback) and
 its ``.pt`` loading are not ported.  ``CYCLIC_SPRITES`` holds the values of
 ``conf/data/cyclic_sprites.yaml`` as a plain dict.
@@ -23,7 +28,7 @@ its ``.pt`` loading are not ported.  ``CYCLIC_SPRITES`` holds the values of
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, Iterator, Mapping, Optional
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -126,16 +131,34 @@ def batch_iterator(data: np.ndarray, batch_size: int, shuffle: bool = True, seed
         yield data[idx[b * batch_size : (b + 1) * batch_size]]
 
 
+def data_shard(training_config: Optional[Mapping[str, Any]] = None,
+               index: Optional[int] = None, count: Optional[int] = None) -> Tuple[int, int]:
+    """(data index, data-axis size) of this rank: the given values, else the
+    world's (its ranks over the config's ``trainer.model_parallel``), else
+    (0, 1) outside a world."""
+    if index is None or count is None:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            mp = int(dict(training_config or {}).get("trainer", {}).get("model_parallel", 1))
+            index = dist.get_rank() // mp if index is None else index
+            count = dist.get_world_size() // mp if count is None else count
+    return (0 if index is None else int(index)), (1 if count is None else int(count))
+
+
 class CyclicDataModule:
     """Train/val/test splits from the data and training config nodes."""
 
-    def __init__(self, data_config: Optional[Mapping[str, Any]] = None, seed: int = 42):
+    def __init__(self, data_config: Optional[Mapping[str, Any]] = None, seed: int = 42,
+                 process_index: Optional[int] = None, process_count: Optional[int] = None):
         self.config = dict(CYCLIC_SPRITES if data_config is None else data_config)
         self.seed = seed
         self.train: Optional[CyclicSequenceDataset] = None
         self.val: Optional[CyclicSequenceDataset] = None
         self.test: Optional[CyclicSequenceDataset] = None
         self.batch_size = 8
+        self.process_index = process_index
+        self.process_count = process_count
 
     def _resolve(self, key: str) -> Optional[Path]:
         raw = self.config.get(key)
@@ -183,6 +206,11 @@ class CyclicDataModule:
         )
         if n_train is not None:
             train_raw = train_raw[: int(n_train)]
+        index, count = data_shard(tc, self.process_index, self.process_count)
+        self.process_index, self.process_count = index, count
+        if count > 1:  # equal shard sizes keep every rank's step count in lockstep
+            per_host = train_raw.shape[0] // count
+            train_raw = train_raw[index::count][:per_host]
         self.train = CyclicSequenceDataset(train_raw, verify_cyclicity=verify,
                                            cyclicity_threshold=thresh)
         self.val = CyclicSequenceDataset(test_raw, n_samples=n_val, verify_cyclicity=False,

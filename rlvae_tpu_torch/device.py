@@ -3,6 +3,8 @@
 Entry points run on the CUDA card unless the caller names another device.
 There is no quiet CPU fallback: asking for the card on a machine without
 one is an error, so a run never reports CPU numbers as device numbers.
+In a ``torch.distributed`` world (one process per device) rank 0 is the
+process that writes a run's files (:func:`is_main_process`).
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -24,3 +27,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "plain PyTorch versions on the CPU"
         )
     return dev
+
+
+def world_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def is_main_process() -> bool:
+    """Rank 0 of an initialised world, or the only process."""
+    return not world_initialized() or dist.get_rank() == 0

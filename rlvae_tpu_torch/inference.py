@@ -26,6 +26,7 @@ as JAX's does; ``sample_random`` runs the budgeted adaptive sampler.
 
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Sequence
 
@@ -125,18 +126,33 @@ class ModelManager:
 
     def encode(self, x) -> ModelOutput:
         """Frame(s) [B, C, H, W] -> (embedding, log_covariance), numpy."""
+        return ModelOutput({k: v.float().cpu().numpy() for k, v in self.encode_rows(x).items()})
+
+    def encode_rows(self, x) -> ModelOutput:
+        """:meth:`encode` as tensors on the device, without waiting for them."""
         with torch.inference_mode():
-            out = self.model.encode(self._tensor(x))
-        return ModelOutput({k: v.float().cpu().numpy() for k, v in out.items()})
+            return self.model.encode(self._tensor(x))
 
     def decode(self, z) -> np.ndarray:
+        return self.decode_rows(z).float().cpu().numpy()
+
+    def decode_rows(self, z) -> torch.Tensor:
+        """:meth:`decode` as a tensor on the device, without waiting for it."""
         with torch.inference_mode():
-            out = self.model.decode(self._tensor(z))["reconstruction"]
-        return out.float().cpu().numpy()
+            return self.model.decode(self._tensor(z))["reconstruction"]
 
     def reconstruct(self, x_seq, seed: int = 0) -> np.ndarray:
         """[B, T, C, H, W] -> reconstructed sequences."""
-        return self.forward(x_seq, seed).recon_x.float().cpu().numpy()
+        return self.reconstruct_rows(x_seq, seed).float().cpu().numpy()
+
+    def reconstruct_rows(self, x_seq, seed: int = 0,
+                         noise: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+        """:meth:`reconstruct` as a tensor on the device, without waiting for
+        it; ``noise``, when given, is the posterior noise (moved to the
+        device) in place of the draw from ``seed``."""
+        if noise is not None:
+            noise = {k: v.to(self.device) for k, v in noise.items()}
+        return self.forward(x_seq, seed, noise=noise).recon_x
 
     def embed_sequence(self, x_seq, seed: int = 0) -> np.ndarray:
         """[B, T, C, H, W] -> latent trajectories [B, T, D]."""
@@ -161,15 +177,30 @@ class ModelManager:
         (for ``adaptive``: ``RlVAE.generate`` on the plan of
         :meth:`adaptive_plan` with that seed's generator); all rows run as
         one batch."""
+        return self.generate_rows(seeds, method, n_obs).float().cpu().numpy()
+
+    def generate_rows(self, seeds: Sequence[int], method: str = "geodesic",
+                      n_obs: int = 8) -> torch.Tensor:
+        """:meth:`sample_random_batched_seeds` as a tensor on the device,
+        without waiting for it."""
         seeds = [int(s) for s in np.asarray(seeds, dtype=np.uint32).reshape(-1)]
         if not seeds:
-            return np.zeros((0, n_obs, *self.model.input_dim), np.float32)
+            return torch.zeros((0, n_obs, *self.model.input_dim), device=self.device)
         plan = self.adaptive_plan() if method == "adaptive" else None
         noise = concat_rows([self.model.draw_generation_noise(1, method, self._generator(s),
                                                               plan=plan) for s in seeds])
         with torch.no_grad():
-            x = self.model.generate(len(seeds), n_obs, method, noise=noise, plan=plan)
-        return x.float().cpu().numpy()
+            return self.model.generate(len(seeds), n_obs, method, noise=noise, plan=plan)
+
+    def replica(self, device: DeviceLike) -> "ModelManager":
+        """This manager on its own device, else a manager of a copy of this
+        model on ``device``, sharing this manager's adaptive plan once it is
+        built."""
+        if torch.device(device) == self.device:
+            return self
+        other = ModelManager(copy.deepcopy(self.model), device)
+        other._adaptive_plan = self._adaptive_plan
+        return other
 
     def adaptive_plan(self, pool_size: int = 4096,
                       config: Optional[HMCConfig] = None) -> Dict[str, Any]:

@@ -124,7 +124,11 @@ def conv(x, w, b, stride, padding, transposed=False, output_padding=(0, 0)):
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Flax ``Dense(dtype=dtype)``: input and parameters cast to ``dtype``;
-    fp32 under :func:`ieee_fp32`."""
+    fp32 under :func:`ieee_fp32`.  A tensor-parallel layer
+    (``parallel.sharding.ShardedLinear``) computes on its slice."""
+    sharded = getattr(layer, "sharded_dense", None)
+    if sharded is not None:
+        return sharded(x, dtype)
     x, w, b = x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype)
     if dtype == torch.float32 and x.dim() == 2:
         return _IEEELinear.apply(x, w, b)

@@ -5,9 +5,9 @@
 
 The counterpart of the EP segment of ``scripts/multihost_verify.py``
 (``_run_ep_segment``).  The launcher starts ``--world`` ranks as
-subprocesses of this module.  They join one process group through a
-``file://`` store under ``--out`` (gloo for ``--device cpu``; NCCL with one
-card per rank for ``--device cuda``, the default) and lay themselves out as
+subprocesses of this module (:mod:`.launch`).  They join one process group
+through a ``file://`` store under ``--out`` (gloo for ``--device cpu``; NCCL
+with one card per rank for ``--device cuda``, the default) and lay themselves out as
 a (world / model-parallel) x model-parallel mesh.  Each rank reads the bank,
 the rows z and the chains' draws from ``OUT/inputs.npz`` (written from
 ``--seed`` when absent), runs ``hmc_terms_sharded``, ``g_inv_sharded``,
@@ -20,8 +20,8 @@ atol 1e-5, grad and G^{-1} 1e-4 and 1e-5, L 1e-4, chain z 1e-4 and accept
 rate 1e-6), checks that the ranks of one model group agree bit for bit and
 that each evaluation of the terms made exactly one model-group all-reduce,
 prints one JSON line and exits non-zero on any failure.  Every wait is
-bounded: the process group's own timeout (60 s) and ``--timeout`` for the
-whole run.
+bounded: the process group's own timeout and ``--timeout`` for the whole
+run.
 """
 
 from __future__ import annotations
@@ -29,17 +29,11 @@ from __future__ import annotations
 import argparse
 import faulthandler
 import json
-import os
-import subprocess
 import sys
-import time
-from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
 
-REPO_ROOT = Path(__file__).resolve().parents[2]
-GROUP_TIMEOUT_S = 60
 TOL = {"log_pi": 1e-5, "grad": 1e-4, "g_inv": 1e-5, "chol": 1e-4, "chain_z": 1e-4,
        "accept_rate": 1e-6}
 
@@ -97,21 +91,14 @@ def run_rank(args) -> None:
     import torch.distributed as dist
 
     from rlvae_tpu_torch.parallel import metric_parallel as mp
+    from rlvae_tpu_torch.parallel.launch import default_backend, init_world
     from rlvae_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, create_mesh
 
     # a rank that hangs writes every thread's stack to its log and exits
     # before the launcher's deadline
     faulthandler.dump_traceback_later(max(1.0, args.timeout - 10.0), exit=True)
     out = Path(args.out).resolve()
-    if args.device == "cpu":
-        torch.set_num_threads(1)
-        device, backend = torch.device("cpu"), "gloo"
-    else:
-        device, backend = torch.device("cuda", args.rank), "nccl"
-        torch.cuda.set_device(device)
-    dist.init_process_group(backend, init_method=f"file://{out / 'store'}",
-                            world_size=args.world, rank=args.rank,
-                            timeout=timedelta(seconds=GROUP_TIMEOUT_S))
+    device = init_world(default_backend(args.device), args.world, args.rank, out, args.device)
     try:
         mesh = create_mesh(args.model_parallel)
         inputs = np.load(out / "inputs.npz")
@@ -149,47 +136,26 @@ def run_rank(args) -> None:
 
 def launch(args) -> int:
     """Start every rank, wait with a deadline, then assemble and check."""
+    from rlvae_tpu_torch.parallel.launch import check_backend, default_backend, rank_logs, \
+        spawn_ranks
+
     out = Path(args.out).resolve()  # the file:// store needs an absolute path
     out.mkdir(parents=True, exist_ok=True)
     dp = args.world // args.model_parallel
     if args.world < 1 or args.model_parallel < 1 or dp * args.model_parallel != args.world:
         raise SystemExit(f"--world {args.world} must be a multiple of --model-parallel "
                          f"{args.model_parallel}")
+    check_backend(default_backend(args.device), args.world, args.device)
     if not (out / "inputs.npz").exists():
         make_inputs(out / "inputs.npz", args.seed, rows=4 * dp)
-    for stale in [out / "store", out / "result.npz", *out.glob("rank*")]:
+    for stale in [out / "result.npz", *out.glob("rank*")]:
         stale.unlink(missing_ok=True)
-    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": os.pathsep.join(
-        [str(REPO_ROOT), *filter(None, [os.environ.get("PYTHONPATH")])])}
-    procs = []
-    for r in range(args.world):
-        argv = [sys.executable, "-m", "rlvae_tpu_torch.parallel.ep_verify", "--rank", str(r),
-                "--world", str(args.world), "--model-parallel", str(args.model_parallel),
-                "--device", args.device, "--out", str(out), "--timeout", str(args.timeout)]
-        with open(out / f"rank{r}.log", "w") as log:
-            procs.append(subprocess.Popen(argv, cwd=REPO_ROOT, env=env, stdout=log,
-                                          stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + args.timeout
-    failed = []
-    try:
-        for r, p in enumerate(procs):
-            try:
-                p.communicate(timeout=max(1.0, deadline - time.monotonic()))
-            except subprocess.TimeoutExpired:
-                failed.append(f"rank {r} timed out after {args.timeout} s")
-                break
-            if p.returncode != 0:  # the others may wait on it in a collective: stop them
-                failed.append(f"rank {r} exited {p.returncode}")
-                break
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+    argv = ["--world", str(args.world), "--model-parallel", str(args.model_parallel),
+            "--device", args.device, "--out", str(out), "--timeout", str(args.timeout)]
+    failed = spawn_ranks("rlvae_tpu_torch.parallel.ep_verify", argv, args.world, out,
+                         args.timeout)
     if failed:
-        for r in range(args.world):
-            tail = (out / f"rank{r}.log").read_text()[-2000:]
-            print(f"--- rank {r} log ---\n{tail}", file=sys.stderr)
+        print(rank_logs(out, args.world), file=sys.stderr)
         print(json.dumps({"ok": False, "failed": failed}))
         return 1
     summary = check(out, args.world, args.model_parallel)

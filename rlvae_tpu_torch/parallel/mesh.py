@@ -12,14 +12,24 @@ the slices of the batch).
 With no process group initialised the layout is the trivial 1 x 1 one with
 no groups: one process on one card needs no ``init_process_group``, and
 every collective is the identity.
+
+:func:`resolve_num_devices` maps the trainer config's ``devices`` onto the
+size of the data axis, as ``rlvae_tpu/parallel/mesh.py:40-51`` maps it onto
+a device count; :func:`is_main_process` is the rank that writes a run's
+files (JAX's ``process_index() == 0``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch.distributed as dist
+
+from rlvae_tpu_torch.device import is_main_process, world_initialized
+
+__all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "create_mesh", "is_main_process",
+           "resolve_num_devices", "world_initialized"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -75,3 +85,21 @@ def create_mesh(model_parallel: int = 1) -> Mesh:
             data_group = g
     return Mesh(dp=dp, ep=ep, data_index=rank // ep, model_index=rank % ep,
                 model_group=model_group, data_group=data_group)
+
+
+def resolve_num_devices(devices_config: Union[int, str, None],
+                        mesh: Optional[Mesh] = None) -> int:
+    """The size of the data axis that the trainer config's ``devices`` asks
+    for: ``None``/``"auto"`` is 1 (the reference's single device),
+    ``"all"`` the data axis of ``mesh`` (1 without one), and an int is
+    clamped to that axis, as JAX clamps it to the devices that exist.
+    Without a mesh an int above 1 is returned as asked: nothing here
+    starts processes, so the caller refuses it (one process drives one
+    device; a data-parallel run is launched as a world)."""
+    if devices_config in (None, "auto"):
+        return 1
+    available = 1 if mesh is None else mesh.dp
+    if devices_config == "all":
+        return available
+    n = max(1, int(devices_config))
+    return n if mesh is None else min(n, available)

@@ -41,11 +41,11 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from rlvae_tpu_torch.geometry.metric import CentroidMetric
 from rlvae_tpu_torch.ops import linalg as _lin
 from rlvae_tpu_torch.ops.metric_kernels import GInv, hmc_partials
+from rlvae_tpu_torch.parallel.collectives import all_reduce
 from rlvae_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from rlvae_tpu_torch.samplers.hmc import LOG_EPS, HMCConfig, draw_hmc_noise, run_prior_chain
 
@@ -55,12 +55,10 @@ def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
 
     Every collective of this module is a call of this function, and
     ``all_reduce_sum.calls[axis]`` counts them: one all-reduce each where
-    the group exists, the identity on a 1 x 1 mesh."""
+    the group exists (through the counted wrapper of :mod:`.collectives`,
+    so the audit sees it too), the identity on a 1 x 1 mesh."""
     all_reduce_sum.calls[axis] += 1
-    group = mesh.group(axis)
-    if group is not None:
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
-    return x
+    return all_reduce(x, mesh.group(axis))
 
 
 all_reduce_sum.calls = {DATA_AXIS: 0, MODEL_AXIS: 0}

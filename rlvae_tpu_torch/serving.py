@@ -1,7 +1,7 @@
 """Dynamic-batching inference engine.
 
-Port of ``rlvae_tpu/serving.py:41-409`` without the mesh-sharded op table
-(ops ``reconstruct``, ``encode``, ``decode`` and ``generate``):
+Port of ``rlvae_tpu/serving.py:41-409`` (ops ``reconstruct``, ``encode``,
+``decode`` and ``generate``):
 
 - **Bucketed shapes**: every micro-batch is padded (by repeating its last
   row) up to one of a few power-of-two sizes, so the device sees a bounded
@@ -10,6 +10,11 @@ Port of ``rlvae_tpu/serving.py:41-409`` without the mesh-sharded op table
   one device call, up to ``max_batch`` or ``max_wait_ms``.
 - **Single device owner**: one dispatcher thread makes every device call;
   request threads enqueue and wait on futures.
+
+- **Data-parallel serving** (:func:`make_sharded_ops`): one process holds
+  one model replica per listed device; each padded batch is split over the
+  replicas, every replica is launched before any result is read back, and
+  the rows come back in order.
 
 Every wait is bounded: :meth:`BatchingEngine.run` takes a timeout, an op
 that raises fails the futures of its batch (never the dispatcher), and a
@@ -28,7 +33,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["ServeConfig", "BatchingEngine", "EngineStats"]
+__all__ = ["ServeConfig", "BatchingEngine", "EngineStats", "make_sharded_ops"]
 
 
 @dataclass(frozen=True)
@@ -83,6 +88,71 @@ class _Request:
         self.t_enqueue = time.perf_counter()
 
 
+def make_sharded_ops(manager, devices: Sequence[Any], generate_n_obs: int = 8,
+                     generate_method: str = "geodesic") -> Dict[str, Callable[[np.ndarray],
+                                                                             np.ndarray]]:
+    """The op table of ``manager`` dispatched over one replica per entry of
+    ``devices`` (``rlvae_tpu/serving.py:99-170``, with a device list in
+    place of JAX's mesh; a device may repeat, and the manager's own device
+    is the manager itself: ``[manager.device]`` is the one-device table).
+
+    A batch whose length the replica count does not divide is padded up by
+    repeating its last row and cut back after the gather, so any bucket
+    works.  Each replica gets a contiguous slice; all are launched before
+    any output is copied back.  ``encode`` and ``decode`` are row-wise;
+    ``reconstruct`` draws its posterior noise for the batch it is given
+    from a generator on the manager's device seeded 0 (what
+    ``manager.reconstruct(x, seed=0)`` draws), pads it as the rows and
+    splits it with them; ``generate`` draws each row from its own seed, so
+    padding never changes a row.  ``op.mesh`` is the device list and
+    ``op.last_out_ndev`` the number of replicas the last dispatch ran on."""
+    import torch
+
+    replicas = [manager.replica(d) for d in devices]
+    if not replicas:
+        raise ValueError("make_sharded_ops needs at least one device")
+    ndev = len(replicas)
+
+    def generate(rep, seeds, _):
+        if generate_method == "adaptive":  # every replica runs the manager's plan
+            rep._adaptive_plan = manager.adaptive_plan()
+        return rep.generate_rows(seeds, generate_method, generate_n_obs)
+
+    def posterior_noise(n):
+        gen = torch.Generator(device=manager.device).manual_seed(0)
+        return manager.model.draw_posterior_noise(n, gen)
+
+    def sharded(run, dtype, draw=None):
+        def op(batch):
+            batch = np.asarray(batch, dtype)
+            n = batch.shape[0]
+            m = -(-n // ndev) * ndev
+            noise = draw(n) if draw is not None else None
+            if m > n:
+                batch = np.concatenate([batch, np.broadcast_to(batch[-1:],
+                                                               (m - n, *batch.shape[1:]))])
+                if noise is not None:
+                    noise = {k: torch.cat([v, v[-1:].expand(m - n, *v.shape[1:])])
+                             for k, v in noise.items()}
+            per = m // ndev
+            outs = [run(rep, batch[i * per:(i + 1) * per],
+                        None if noise is None else {k: v[i * per:(i + 1) * per]
+                                                    for k, v in noise.items()})
+                    for i, rep in enumerate(replicas)]
+            op.last_out_ndev = ndev
+            return torch.cat([o.float().cpu() for o in outs]).numpy()[:n]
+
+        op.mesh = tuple(r.device for r in replicas)
+        op.last_out_ndev = 0
+        return op
+
+    return {"reconstruct": sharded(lambda rep, x, noise: rep.reconstruct_rows(x, noise=noise),
+                                   np.float32, posterior_noise),
+            "encode": sharded(lambda rep, x, _: rep.encode_rows(x)["embedding"], np.float32),
+            "decode": sharded(lambda rep, z, _: rep.decode_rows(z), np.float32),
+            "generate": sharded(generate, np.uint32)}
+
+
 def _fail(reqs, exc: BaseException) -> None:
     for r in reqs:
         if not r.future.done():
@@ -116,8 +186,8 @@ class BatchingEngine:
 
     @classmethod
     def from_manager(cls, manager, config: ServeConfig = ServeConfig(),
-                     generate_n_obs: int = 8,
-                     generate_method: str = "geodesic") -> "BatchingEngine":
+                     generate_n_obs: int = 8, generate_method: str = "geodesic",
+                     devices: Optional[Sequence[Any]] = None) -> "BatchingEngine":
         """The op table of a :class:`rlvae_tpu_torch.inference.ModelManager`:
         ``reconstruct`` (sequences), ``encode`` (frames -> embedding),
         ``decode`` (latents -> frames) and ``generate`` (one uint32 seed per
@@ -126,15 +196,15 @@ class BatchingEngine:
         without changing any request's output
         (``ModelManager.sample_random_batched_seeds``).  The posterior noise
         of ``reconstruct`` is seeded with 0 for every batch, as the JAX
-        engine's fixed key."""
-        ops = {
-            "reconstruct": lambda x: manager.reconstruct(x, seed=0),
-            "encode": lambda x: manager.encode(x).embedding,
-            "decode": lambda z: manager.decode(z),
-            "generate": lambda seeds: manager.sample_random_batched_seeds(
-                seeds, method=generate_method, n_obs=generate_n_obs),
-        }
-        return cls(ops, config)
+        engine's fixed key.
+
+        The ops are :func:`make_sharded_ops` over ``devices``, the
+        manager's own device by default; with more than one, every dispatch
+        is split over one replica per device: data-parallel serving, the
+        counterpart of JAX's ``mesh=``."""
+        return cls(make_sharded_ops(manager, devices or [manager.device],
+                                    generate_n_obs=generate_n_obs,
+                                    generate_method=generate_method), config)
 
     # -- client side --------------------------------------------------------
 

@@ -19,6 +19,8 @@ import sys
 import time
 from typing import Any, Dict, Iterable, List, Optional
 
+from rlvae_tpu_torch.device import is_main_process
+
 
 class TrainingCallback:
     """Base class; subclasses override any subset of the hooks.  Every hook
@@ -163,8 +165,8 @@ class WandbCallback(TrainingCallback):
         self.is_available = True
 
     def setup(self, training_config, model_config=None, project_name="rlvae_tpu"):
-        """Start a run (one process: always the main one)."""
-        if not self.is_available:
+        """Start a run (on rank 0 of a world only, as JAX's process 0)."""
+        if not self.is_available or not is_main_process():
             return False
         self._run = self._wandb.init(project=project_name, config=dict(training_config))
         if model_config is not None:

@@ -10,6 +10,9 @@ writes a temporary file in the slot's directory and ``os.replace``-s it
 over ``state.pt``, so a reader sees the old slot or the new one, never half
 of one (the counterpart of orbax's ``force=True`` overwrite).
 
+In a ``torch.distributed`` world rank 0 alone writes (the sidecar and
+every save; JAX's process 0), and every rank restores.
+
 Writes are synchronous (JAX's ``use_async=False``); :meth:`wait` is kept as
 a no-op so callers written against the JAX manager port unchanged.  Tensors
 keep their device in the file: a slot saved from the card restores onto the
@@ -38,6 +41,8 @@ from typing import Any, Dict, Mapping, Optional
 
 import torch
 
+from rlvae_tpu_torch.device import is_main_process
+
 STATE_FILE = "state.pt"
 
 
@@ -47,7 +52,7 @@ class CheckpointManager:
     def __init__(self, directory: str | Path, model_config: Optional[Mapping[str, Any]] = None):
         self.directory = Path(directory)
         self.directory.mkdir(parents=True, exist_ok=True)
-        if model_config is not None:
+        if model_config is not None and is_main_process():
             (self.directory / "model_config.json").write_text(
                 json.dumps(model_config, indent=2, default=str))
 
@@ -56,7 +61,9 @@ class CheckpointManager:
         return self.directory / slot / STATE_FILE
 
     def save(self, slot: str, state: Mapping[str, Any]) -> None:
-        """Write ``state`` to ``slot``, replacing what it held."""
+        """Write ``state`` to ``slot``, replacing what it held (on rank 0)."""
+        if not is_main_process():
+            return
         target = self.path(slot)
         target.parent.mkdir(parents=True, exist_ok=True)
         tmp = target.with_name(f".{STATE_FILE}.{os.getpid()}.tmp")

@@ -24,7 +24,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 
-from rlvae_tpu_torch.data.cyclic import CyclicDataModule, CyclicSequenceDataset
+from rlvae_tpu_torch.data.cyclic import CyclicDataModule, CyclicSequenceDataset, data_shard
 from rlvae_tpu_torch.samplers.generation import SAMPLER_REGISTRY, BaseGenerationSampler
 from rlvae_tpu_torch.train.checkpoints import CheckpointManager
 from rlvae_tpu_torch.train.trainer import Trainer
@@ -64,10 +64,18 @@ def _data_module_from_arrays(train_data, eval_data,
         eval_arr = train[: max(batch_size, train.shape[0] // 10)]
     else:
         eval_arr = _sequences(eval_data, "eval_data")
+    # in a data-parallel world each rank trains on its strided rows, as
+    # CyclicDataModule.setup slices them; evaluation stays whole
+    index, count = data_shard(training_config)
+    if count > 1:
+        per_host = train.shape[0] // count
+        train = train[index::count][:per_host]
+        batch_size = min(batch_size, max(1, train.shape[0]))
     if eval_arr.shape[0] < batch_size:
         reps = -(-batch_size // eval_arr.shape[0])
         eval_arr = np.tile(eval_arr, (reps, 1, 1, 1, 1))[:batch_size]
-    dm = CyclicDataModule({"synthetic_fallback": False, "verify_cyclicity": False})
+    dm = CyclicDataModule({"synthetic_fallback": False, "verify_cyclicity": False},
+                          process_index=index, process_count=count)
     dm.batch_size = batch_size
     dm.train = CyclicSequenceDataset(train, verify_cyclicity=False)
     dm.val = CyclicSequenceDataset(eval_arr, verify_cyclicity=False)

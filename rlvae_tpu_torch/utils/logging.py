@@ -11,8 +11,9 @@ the card waits for the card: callers log only values they already read.
 ``mode`` is ``"online"``, ``"offline"`` or ``"disabled"``.  Any mode but
 ``disabled`` starts a wandb run when ``wandb`` imports and mirrors every
 ``log``, ``log_table``, ``log_image`` and ``summary`` to it; without wandb
-the logger keeps to the local files, as JAX's does.  The port runs in one
-process, so the logger always writes (JAX's writes on process 0 only).
+the logger keeps to the local files, as JAX's does.  In a
+``torch.distributed`` world only rank 0 writes and logs (JAX's process 0):
+on every other rank each method does nothing.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import json
 import time
 from pathlib import Path
 from typing import Any, Callable, Mapping, Optional, Sequence
+
+from rlvae_tpu_torch.device import is_main_process
 
 
 def _wandb():
@@ -36,11 +39,14 @@ class MetricsLogger:
                  run_name: Optional[str] = None, config: Optional[Mapping[str, Any]] = None,
                  mode: str = "disabled", on_log: Optional[Callable[[dict], Any]] = None):
         self.run_dir = Path(run_dir)
-        self.run_dir.mkdir(parents=True, exist_ok=True)
-        (self.run_dir / "metrics.jsonl").touch()  # present from the start, as JAX's
         # a live-progress consumer (an app's progress bar): gets every record
         self.on_log = on_log
         self.wandb_run = None
+        self.is_main = is_main_process()
+        if not self.is_main:
+            return
+        self.run_dir.mkdir(parents=True, exist_ok=True)
+        (self.run_dir / "metrics.jsonl").touch()  # present from the start, as JAX's
         wandb = _wandb() if mode != "disabled" else None
         if wandb is not None:
             self.wandb_run = wandb.init(project=project, name=run_name,
@@ -48,6 +54,8 @@ class MetricsLogger:
                                         dir=str(self.run_dir))
 
     def log(self, metrics: Mapping[str, Any], step: Optional[int] = None) -> None:
+        if not self.is_main:
+            return
         record: dict = {"_time": time.time()}
         if step is not None:
             record["_step"] = int(step)
@@ -67,6 +75,8 @@ class MetricsLogger:
             self.wandb_run.log(dict(metrics), step=step)
 
     def log_table(self, name: str, rows: Sequence[Mapping[str, Any]]) -> None:
+        if not self.is_main:
+            return
         (self.run_dir / f"{name}.json").write_text(json.dumps(list(rows), indent=2, default=str))
         if self.wandb_run is not None:
             import wandb
@@ -86,6 +96,8 @@ class MetricsLogger:
             self.wandb_run.log({name: wandb.Image(str(path))}, step=step)
 
     def summary(self, values: Mapping[str, Any]) -> None:
+        if not self.is_main:
+            return
         (self.run_dir / "summary.json").write_text(json.dumps(dict(values), indent=2, default=str))
         if self.wandb_run is not None:
             for k, v in values.items():
