@@ -35,7 +35,12 @@ Phases, each printing one JSON line with its elapsed seconds:
    G^{-1} sum and gradient contraction) are held to their plain version and
    to fp64 at K=50, 200, 20 000 and 37 padded to 40, B=64, 37, 1 and 1000,
    bit-identical on relaunch and in a graph replay, with the geometry of
-   each case.
+   each case.  The IAF-chain kernels' Jacobi mode (``fp_iters`` K = 2, 8,
+   15; the backward at K + 1 sweeps) at B = 16 and 64 in both
+   instantiations against the plain versions and fp64, bit-identical on
+   relaunch and in a graph replay, K = 15 = D - 1 against the sequential
+   kernel (within fp32 rounding: layer 0 is a full product there), timed at
+   B=64 beside the sequential mode with the dependent layer steps.
 4. ``serve``: ``ModelManager.from_config(PRESETS["riemannian_flow_vae"])`` on
    the card behind a ``BatchingEngine``; 64 ``reconstruct`` requests from 8
    threads plus 16 ``encode`` and 16 ``decode``, after one warm-up call per
@@ -232,6 +237,27 @@ Phases, each printing one JSON line with its elapsed seconds:
    ``BatchingEngine.from_manager(..., devices=["cuda:0", "cuda:0"])``: one
    bucket of 3 of each op (``generate`` geodesic), every row against the
    one-device manager's.
+17. ``fixedpoint``: ``PRESETS["riemannian_flow_vae"]`` with
+   ``flow_fixedpoint_iters: 8``: 5 Trainer steps at B=16 (chol-bundle 2,
+   the IAF-chain forward in the Jacobi mode and its backward at 9 sweeps,
+   1 each), each replayed on the CPU's plain Jacobi chain, and the
+   validation pass (G^{-1}); one B=64 ``reconstruct`` bucket (chol-bundle
+   2, IAF-chain forward 1), a B=64 forward against the CPU and the card's
+   chain against the CPU's from the card's own z0; ``fixedpoint_error`` at
+   K=8 per transition and the two modes' chains, reported, not gated.
+18. ``research``: ``LVAE_IAF``, ``RIEM`` (the K=50 metric at T=3.0) and
+   ``LVAE_GUGUS`` (``lvaegg``, its Riemannian prior on) at their published
+   widths (3x64x64, latent 16, 8 visits, MLP nets 12288->512->16): 3 Adam
+   steps at B=16 each (a warmup step, then the visit branch at the first
+   visit and a later one), each replayed on the CPU from the card's state
+   on the same draws; GUGUS estimates its local metrics on the card first.
+   Each generates 16 sequences against the CPU on the same draws (GUGUS by
+   manifold HMC on its one-centroid metric: 321 HMC-terms launches, B4 at
+   K=1, which is also held to its plain version and fp64 and timed).  RIEM
+   launches the chol-bundle (its rejection sampler's volumes and boundary
+   prior) and the metric bundle (its metric step); the flow models' IAFs
+   run as plain ops, as in JAX.  ``lvaega``'s training draw, which autograd
+   would differentiate through B4, raises.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -771,6 +797,145 @@ def run_iaf_bwd_checks(torch, dev):
                            f"{IAF_RTOL}) per transition; both instantiations (weights resident, "
                            f"streamed); bit-identical on relaunch")
     return record, cases
+
+
+# The Jacobi fixed-point mode of the IAF-chain kernels (fp_iters = K): the
+# forward at K and its backward at K + 1 sweeps, at K = 2, the fixedpoint
+# phase's 8, and D - 1 = 15 (exact: also held to the sequential kernel)
+JACOBI_ITERS = (2, 8, 15)
+JACOBI_BATCHES = (TRAIN_BATCH, SERVE_BATCH)
+
+
+def layer_steps(k: int = 0, backward: bool = False, nt: int = N_TRANSITIONS, nb: int = 2,
+                d: int = 16, nh: int = 3) -> int:
+    """Dependent layer steps of one chain launch: per block, each MADE pass
+    (NH+1 layers; the forward's D passes or K+1 Jacobi passes; the
+    backward's recomputed pass, its sweeps, D or K+1, and the final VJP),
+    plus the flip."""
+    passes = ((d if k == 0 else k + 1) + 2) if backward else (d if k == 0 else k + 1)
+    return nt * nb * (passes * (nh + 1) + 1)
+
+
+def run_iaf_jacobi_checks(torch, dev):
+    """The IAF-chain kernels in the Jacobi mode, both instantiations, at the
+    near-identity init: the forward (z, ld and the residual ys) against its
+    plain version and an fp64 evaluation; the backward at K+1 sweeps from the
+    plain residual against its plain version and fp64; each bit-identical on
+    relaunch and in a CUDA-graph replay; K = D - 1 against the sequential
+    kernel (within fp32 rounding, not bitwise: layer 0 is a full product
+    there, D incremental FMAs in the sequential mode).  Times at B=64 (graph
+    replay and CUDA events) with the bound and the dependent layer steps."""
+    from rlvae_tpu_torch.ops.iaf_kernels import (
+        _launch_bwd,
+        _launch_fwd,
+        iaf_chain_bwd,
+        iaf_chain_bwd_ref,
+        iaf_chain_fwd,
+        iaf_chain_fwd_ref,
+        launch_geometry,
+    )
+
+    nt, d, nb = N_TRANSITIONS, 16, 2
+    w = chain_weights(torch, dev, 0.0)
+    w64 = [x.double() for x in w]
+    rng = np.random.default_rng(7)
+    cases, timing = [], {"fwd": {}, "bwd": {}}
+    for b in JACOBI_BATCHES:
+        z0 = torch.tensor(rng.normal(size=(b, d)), dtype=torch.float32, device=dev)
+        dz = torch.tensor(rng.normal(size=(nt, b, d)), dtype=torch.float32, device=dev)
+        dld = torch.tensor(rng.normal(size=(nt, b)), dtype=torch.float32, device=dev)
+        for k in JACOBI_ITERS:
+            s = k + 1
+            z_p, ld_p, ys_p = iaf_chain_fwd_ref(z0, *w, return_ys=True, fp_iters=k)
+            z_e, ld_e, ys_e = iaf_chain_fwd_ref(z0.double(), *w64, return_ys=True, fp_iters=k)
+            g_p = iaf_chain_bwd_ref(ys_p, dz, dld, *w, n_sweeps=s)
+            g_e = iaf_chain_bwd_ref(ys_e, dz.double(), dld.double(), *w64, n_sweeps=s)
+            fwd_pe = max(_scaled_err(z_p.double(), z_e), _scaled_err(ld_p.double(), ld_e))
+            bwd_pe = _bwd_err(g_p, g_e)
+            case = {"shape": f"B={b},K={k},sweeps={s},D=16,H=256,NB=2,NH=3,NT={nt}",
+                    "geometry": launch_geometry(b, d, 256, 3, fp_iters=k), "ok": True,
+                    "max_abs_err": 0.0}
+            for inst, streamed in (("resident", False), ("streamed", True)):
+                fwd = lambda: _launch_fwd(z0, w, True, stream_weights=streamed, fp_iters=k)  # noqa: E731
+                bwd = lambda: _launch_bwd(ys_p, dz, dld, w, stream_weights=streamed,  # noqa: E731
+                                          n_sweeps=s)
+                out_f, out_b = fwd(), bwd()
+                again_f, again_b = fwd(), bwd()
+                check(all(map(torch.equal, out_f, again_f)) and torch.equal(out_b[0], again_b[0])
+                      and all(map(torch.equal, out_b[1], again_b[1])),
+                      f"the Jacobi kernels ({inst}) changed on relaunch at B={b}, K={k}")
+                z_k, ld_k, ys_k = out_f
+                rel_f = max(_scaled_err(z_k, z_p), _scaled_err(ld_k, ld_p),
+                            _scaled_err(ys_k, ys_p))
+                rel_fe = max(_scaled_err(z_k.double(), z_e), _scaled_err(ld_k.double(), ld_e))
+                rel_b, rel_be = _bwd_err(out_b, g_p), _bwd_err(out_b, g_e)
+                ok = (rel_f <= IAF_RTOL and rel_fe <= max(IAF_FP64_FACTOR * fwd_pe, IAF_RTOL)
+                      and rel_b <= IAF_RTOL and rel_be <= max(IAF_FP64_FACTOR * bwd_pe, IAF_RTOL))
+                case[inst] = {
+                    "fwd": {"vs_plain_max_rel_err": rel_f, "vs_fp64_max_rel_err": rel_fe,
+                            "plain_fp32_vs_fp64_max_rel_err": fwd_pe},
+                    "bwd": {"vs_plain_max_rel_err": rel_b, "vs_fp64_max_rel_err": rel_be,
+                            "plain_fp32_vs_fp64_max_rel_err": bwd_pe}, "ok": ok}
+                case["ok"] &= ok
+                case["max_abs_err"] = max(case["max_abs_err"],
+                                          float((z_k - z_p).abs().max()),
+                                          float((ld_k - ld_p).abs().max()), _bwd_abs(out_b, g_p))
+                check(ok, f"the Jacobi kernels ({inst}) disagree at B={b}, K={k}: fwd "
+                          f"{rel_f}, {rel_fe} (plain {fwd_pe}); bwd {rel_b}, {rel_be} "
+                          f"(plain {bwd_pe})")
+            eager_f = iaf_chain_fwd(z0, *w, return_ys=True, fp_iters=k)
+            eager_b = iaf_chain_bwd(ys_p, dz, dld, *w, n_sweeps=s)
+            case["bit_identical_in_graph_replay"] = (
+                graph_replay_equal(torch, lambda: iaf_chain_fwd(z0, *w, return_ys=True,
+                                                                fp_iters=k), eager_f)
+                and graph_replay_equal(torch, lambda: (lambda g: (g[0], *g[1]))(
+                    iaf_chain_bwd(ys_p, dz, dld, *w, n_sweeps=s)), (eager_b[0], *eager_b[1])))
+            check(case["bit_identical_in_graph_replay"],
+                  f"the Jacobi kernels changed in a CUDA-graph replay at B={b}, K={k}")
+            if k == d - 1:
+                z_s, ld_s = iaf_chain_fwd(z0, *w)
+                case["vs_sequential_kernel"] = {
+                    "max_rel_err": max(_scaled_err(eager_f[0], z_s), _scaled_err(eager_f[1], ld_s)),
+                    "bitwise": bool(torch.equal(eager_f[0], z_s) and torch.equal(eager_f[1], ld_s))}
+                check(case["vs_sequential_kernel"]["max_rel_err"] <= IAF_RTOL,
+                      f"the exact Jacobi mode disagrees with the sequential kernel at B={b}")
+            if b == SERVE_BATCH:
+                zf, ldf = iaf_chain_fwd(z0, *w, fp_iters=k)
+                bms, by = bound_ms(nbytes(z0, *w, zf, ldf), b * nt * nb * s * pass_flops())
+                timing["fwd"][f"K={k}"] = with_device_ms(torch, {
+                    "ms": time_ms(torch, lambda: iaf_chain_fwd(z0, *w, fp_iters=k), 10),
+                    "plain_ms": time_ms(torch, lambda: iaf_chain_fwd_ref(z0, *w, fp_iters=k), 2,
+                                        warmup=1),
+                    "bound_ms": bms, "bound_by": by, "dependent_layer_steps": layer_steps(k)},
+                    lambda: iaf_chain_fwd(z0, *w, fp_iters=k))
+                # per block: the recomputed pass, s sweeps, the final VJP and
+                # its outer products, each about one MADE pass
+                bms, by = bound_ms(nbytes(ys_p, dz, dld, *w, eager_b[0], *eager_b[1]),
+                                   b * nt * nb * (s + 3) * pass_flops())
+                timing["bwd"][f"sweeps={s}"] = with_device_ms(torch, {
+                    "ms": time_ms(torch, lambda: iaf_chain_bwd(ys_p, dz, dld, *w, n_sweeps=s), 5),
+                    "plain_ms": time_ms(torch, lambda: iaf_chain_bwd_ref(ys_p, dz, dld, *w,
+                                                                         n_sweeps=s), 2, warmup=1),
+                    "bound_ms": bms, "bound_by": by,
+                    "dependent_layer_steps": layer_steps(k, backward=True)},
+                    lambda: iaf_chain_bwd(ys_p, dz, dld, *w, n_sweeps=s))
+            cases.append(case)
+    # the sequential mode beside them, same inputs and call: the comparison's base
+    z0 = torch.tensor(rng.normal(size=(SERVE_BATCH, d)), dtype=torch.float32, device=dev)
+    timing["fwd"]["sequential"] = {"device_ms": device_ms(torch, lambda: iaf_chain_fwd(z0, *w))[0],
+                                   "dependent_layer_steps": layer_steps()}
+    _, _, ys = iaf_chain_fwd(z0, *w, return_ys=True)
+    dz = torch.tensor(rng.normal(size=(nt, SERVE_BATCH, d)), dtype=torch.float32, device=dev)
+    dld = torch.tensor(rng.normal(size=(nt, SERVE_BATCH)), dtype=torch.float32, device=dev)
+    timing["bwd"]["sequential"] = {
+        "device_ms": device_ms(torch, lambda: iaf_chain_bwd(ys, dz, dld, *w))[0],
+        "dependent_layer_steps": layer_steps(backward=True)}
+    tolerance = (f"near-identity chain: |kernel-plain| <= {IAF_RTOL}*scale (z, ld, ys per "
+                 f"transition; dz0 and weight grads per tensor); vs fp64 <= max("
+                 f"{IAF_FP64_FACTOR}x the plain fp32 version's, {IAF_RTOL}); both "
+                 f"instantiations; bit-identical on relaunch and in a CUDA-graph replay; "
+                 f"K=15 vs the sequential kernel <= {IAF_RTOL}*scale (not bitwise)")
+    return {"cases": cases, "timing_b64": timing, "tolerance": tolerance}
 
 
 def hmc_flops(b: int, k: int, d: int = 16) -> float:
@@ -4172,6 +4337,302 @@ def run_dp_serving(torch, devices=DP_SERVE_DEVICES, cpu: bool = False):
             "host_ms": host_ms}
 
 
+# ---------------------------------------------------------------------------
+# fixedpoint phase
+# ---------------------------------------------------------------------------
+
+FIXEDPOINT_ITERS = 8  # the default preset's flow_fixedpoint_iters in this phase
+# the B=64 forward against the CPU: E2E_TOL, but the bf16 encoder's mu and
+# log_var, z0 = mu + L eps, and the latents the flows carry z0's error to
+# (relative to each step's scale), within one bf16 step (2^-8): on this
+# phase's batch the two devices' roundings of mu part by 1.3e-3, over
+# E2E_TOL's 1e-3, which was set on the serve phase's batch.  The chain
+# itself is held at IAF_RTOL from the card's own z0 (chain_vs_cpu).
+FIXEDPOINT_E2E_TOL = {**E2E_TOL, "mu": 2 ** -8, "log_var": 2 ** -8, "z0": 2 ** -8,
+                      "z_rel": 2 ** -8}
+
+
+def run_fixedpoint(torch, dev=None):
+    """The default preset with ``flow_fixedpoint_iters: 8``: Trainer steps
+    (chol-bundle 2, the Jacobi IAF-chain forward and its backward at 9
+    sweeps, each replayed on the CPU's plain Jacobi chain), the validation
+    pass (G^{-1}); one B=64 ``reconstruct`` bucket (chol-bundle 2, the Jacobi
+    forward 1) and a B=64 forward against the CPU; then, outside the counted
+    runs, the Jacobi chain's deviation from the sequential one at K=8 on the
+    bucket's latents (``fixedpoint_error`` per transition, and the two
+    kernels' chains), reported and not gated: convergence below D - 1
+    iterations depends on the weights."""
+    from rlvae_tpu_torch import BatchingEngine, ModelManager, PRESETS, ServeConfig
+    from rlvae_tpu_torch.flows import fixedpoint_error
+    from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_fwd, stack_chain
+
+    preset = {**PRESETS["riemannian_flow_vae"], "flow_fixedpoint_iters": FIXEDPOINT_ITERS}
+    train = run_train(torch, preset, dev=dev)
+
+    manager = ModelManager.from_config(preset, seed=0, device=dev)
+    check(dev is not None or manager.device.type == "cuda", f"manager on {manager.device}")
+    check(manager.model.flows.fixedpoint_iters == FIXEDPOINT_ITERS, "the Jacobi mode was not set")
+    rng = np.random.default_rng(8)
+    seqs = rng.uniform(size=(SERVE_BATCH, 8, 3, 64, 64)).astype(np.float32)
+    engine = BatchingEngine.from_manager(
+        manager, ServeConfig(buckets=(SERVE_BATCH,), max_wait_ms=2000))
+    try:
+        engine.warmup({"reconstruct": seqs[0]})
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t = time.perf_counter()
+        rows = [f.result(timeout=60) for f in [engine.submit("reconstruct", s_) for s_ in seqs]]
+        bucket_ms = (time.perf_counter() - t) * 1e3
+        counts = launch_counts()
+        stats = engine.stats_snapshot()
+    finally:
+        engine.stop()
+    check(stats["batches"] == 1, f"the {SERVE_BATCH} requests took {stats['batches']} dispatches")
+    check(counts == expected_launches(chol_bundle=2, iaf_chain_fwd=1),
+          f"one Jacobi reconstruct batch launched {counts}")
+    for r in rows:
+        check(r.shape == (8, 3, 64, 64) and np.isfinite(r).all(), "bad reconstruct result")
+
+    eps = torch.tensor(rng.normal(size=(SERVE_BATCH, 16)), dtype=torch.float32)
+    out_gpu = manager.forward(seqs, eps=eps.to(manager.device))
+    torch.cuda.synchronize()
+    cpu = ModelManager(copy.deepcopy(manager.model).to("cpu"), device="cpu")
+    compare = compare_forward(torch, out_gpu, cpu.forward(seqs, eps=eps), FIXEDPOINT_E2E_TOL)
+    forward = profile_forward(torch, manager, seqs, {"eps": eps.to(manager.device)})
+
+    flows = manager.model.flows
+    chain = [flows.flows[min(t, flows.n_flows - 1)] for t in range(N_TRANSITIONS)]
+    z = out_gpu["z"].float()
+    # the Jacobi chain alone: the card's latents against the CPU's plain
+    # Jacobi chain from the card's own z0
+    cpu_chain = [cpu.model.flows.flows[min(t, flows.n_flows - 1)] for t in range(N_TRANSITIONS)]
+    with torch.no_grad():
+        z_cpu, _ = iaf_chain_fwd(z[:, 0].cpu().contiguous(), *stack_chain(cpu_chain),
+                                 fp_iters=FIXEDPOINT_ITERS)
+    chain_err = _scaled_err(z[:, 1:].transpose(0, 1).cpu(), z_cpu)
+    check(chain_err <= IAF_RTOL, f"the card's Jacobi chain vs the CPU's: {chain_err}")
+    per_transition = [fixedpoint_error(iaf, z[:, t].contiguous(), FIXEDPOINT_ITERS)
+                      for t, iaf in enumerate(chain)]
+    z_j, ld_j = iaf_chain_fwd(z[:, 0].contiguous(), *stack_chain(chain), fp_iters=FIXEDPOINT_ITERS)
+    z_s, ld_s = iaf_chain_fwd(z[:, 0].contiguous(), *stack_chain(chain))
+    return {
+        "model": "riemannian_flow_vae", "flow_fixedpoint_iters": FIXEDPOINT_ITERS,
+        "train": train,
+        "reconstruct_bucket": {"batch": SERVE_BATCH, "host_ms": bucket_ms, "launches": counts,
+                               "stats": {k: v for k, v in stats.items()
+                                         if not k.endswith("_hist")}},
+        "cuda_vs_cpu": compare, "forward_b64": forward,
+        "chain_vs_cpu": {"z_max_rel_err": chain_err, "tolerance": IAF_RTOL},
+        "fixedpoint_error_k8": {
+            "per_transition_max_rel_y_and_abs_logdet": per_transition,
+            "chain_vs_sequential_kernel": {"z_max_rel_err": _scaled_err(z_j, z_s),
+                                           "ld_max_abs_err": float((ld_j - ld_s).abs().max())},
+            "gated": False},
+        "launches": {k: counts[k] + train["launches"][k] for k in counts},
+    }
+
+
+# ---------------------------------------------------------------------------
+# research phase
+# ---------------------------------------------------------------------------
+
+RESEARCH_BATCH = TRAIN_BATCH
+RESEARCH_GEN = 16  # rows of each model's generate
+# per step: (epoch, visit): a warmup step (the per-frame objective), then the
+# visit branch at the first visit and a later one: RIEM's last (its boundary
+# prior carries the metric's volume), the flow models' fourth (from the last,
+# seven density-direction IAFs at the reference init take |z| past fp32's
+# range, in JAX as here)
+RESEARCH_STEPS = ((0, None), (100, 0), (100, "later"))
+RESEARCH_LATER_VISIT = {"riem": 7, "lvae_iaf": 3, "gugus_lvaegg": 3}
+RESEARCH_TOL = {"loss_rel": 1e-3, "grad_norm_rel": 2e-2}  # as TRAIN_TOL: bf16 nets
+GUGUS_HMC_LAUNCHES = 1 + 20 * (15 + 1)  # generate_hmc: 20 MCMC steps of 15 leapfrogs
+GEN_MIN_MATCHING_ROWS = RESEARCH_GEN - 1  # an HMC accept decision may flip on a near-tie
+
+
+def research_noise(torch, name, model, b, epoch, gen):
+    """One training step's draws for the research model ``name`` (module
+    docstrings of ``models/research``), on the CPU."""
+    d, t = model.latent_dim, model.n_obs
+    rows = b * t if epoch < model.warmup else b
+    noise = {"eps": torch.randn((rows, d), generator=gen)}
+    if name == "riem":
+        noise["gamma"] = torch.randn((rows, d), generator=gen)
+        if epoch >= model.warmup:
+            noise["cand"] = 2.0 * torch.rand((b, 64, d), generator=gen) - 1.0
+            noise["u"] = torch.rand((b, 64), generator=gen)
+    return noise
+
+
+def research_models(torch):
+    """The three research models at their published defaults (3x64x64,
+    latent 16, 8 visits, MLP nets 12288->512->16; LVAE_IAF's flows of
+    hidden 128; RIEM on the K=50 metric at T=3.0; LVAE_GUGUS ``lvaegg`` with
+    its Riemannian prior on), seeded."""
+    from rlvae_tpu_torch.geometry import load_metric
+    from rlvae_tpu_torch.models.research import LVAE_GUGUS, LVAE_IAF, RIEM
+
+    metric = load_metric(PRETRAINED / "metric_T0.7_scaled.npz", temperature_override=3.0)
+    return {"lvae_iaf": LVAE_IAF(seed=0), "riem": RIEM(metric=metric, seed=0),
+            "gugus_lvaegg": LVAE_GUGUS(variant="lvaegg", use_riemann_prior=True, seed=0)}
+
+
+def hmc_k1_check(torch, metric, dev):
+    """B4 at K=1 (GUGUS's one-centroid metric) against its plain version and
+    fp64 at the generate batch, timed: outside the counted runs."""
+    from rlvae_tpu_torch.ops.metric_kernels import hmc_terms, hmc_terms_ref
+    from rlvae_tpu_torch.samplers.hmc import LOG_EPS
+
+    b = RESEARCH_GEN
+    z = (metric.centroids + torch.tensor(np.random.default_rng(9).normal(size=(b, 16)),
+                                         dtype=torch.float32, device=dev)).contiguous()
+    args = (metric.centroids, metric.matrices, 1.0 / metric.temperature ** 2,
+            metric.regularization, LOG_EPS)
+    got, want = hmc_terms(z, *args), hmc_terms_ref(z, *args)
+    want64 = hmc_terms_ref(z.double(), *(a.double() if torch.is_tensor(a) else a for a in args))
+    err = _terms_err(got, want)
+    err64, err64_p = _terms_err(got, want64), _terms_err(want, want64)
+    ok = err[1] and err64[0]["grad_rel"] <= max(IAF_FP64_FACTOR * err64_p[0]["grad_rel"], HMC_RTOL)
+    check(ok, f"hmc_terms at K=1 disagrees: {err[0]}, vs fp64 {err64[0]} (plain {err64_p[0]})")
+    bms, by = bound_ms(nbytes(z, metric.centroids, metric.matrices, *got), hmc_flops(b, 1))
+    return with_device_ms(torch, {
+        "shape": f"B={b},K=1,D=16", "vs_plain": err[0], "vs_fp64": err64[0],
+        "plain_vs_fp64": err64_p[0], "ms": time_ms(torch, lambda: hmc_terms(z, *args), 20),
+        "plain_ms": time_ms(torch, lambda: hmc_terms_ref(z, *args), 5),
+        "bound_ms": bms, "bound_by": by}, lambda: hmc_terms(z, *args))
+
+
+def _research_step(torch, model, opt, x, noise, vi, epoch):
+    opt.zero_grad(set_to_none=True)
+    out = model(x, noise=noise, vi_index=vi, epoch=epoch, train=True)
+    out.loss.backward()
+    metrics = {k: float(out[k].detach()) for k in ("loss", "reconstruction_loss", "reg_loss")}
+    metrics["grad_norm"] = _grad_norm(torch, model)
+    opt.step()
+    return metrics
+
+
+def run_research(torch, dev=None):
+    """LVAE_IAF, RIEM and LVAE_GUGUS (``lvaegg``) on the card at their
+    published widths: each takes the RESEARCH_STEPS Adam steps at B=16 (each
+    step replayed on the CPU from the card's weights and Adam state before
+    it, on the same draws: losses and grad norm), then generates 16
+    sequences (against the CPU on the same draws).  GUGUS first estimates
+    its local metrics on the card, and generates by manifold HMC on its
+    one-centroid metric (B4 at K=1: 321 launches); its ``lvaega`` training
+    draw, which autograd would differentiate through B4, raises.  The
+    counters are zeroed just before and read just after each model's
+    steps and generate; B4 at K=1 is held to its plain version and fp64
+    apart from them."""
+    from rlvae_tpu_torch.convert import gugus_host_state, set_gugus_host_state
+    from rlvae_tpu_torch.models.research import LVAE_GUGUS
+
+    dev = torch.device("cuda") if dev is None else dev
+    rng = np.random.default_rng(10)
+    seqs = rng.uniform(size=(RESEARCH_BATCH * len(RESEARCH_STEPS), 8, 3, 64, 64)).astype(np.float32)
+    out, total = {}, {name: 0 for name in _wrappers()}
+    for name, cpu_model in research_models(torch).items():
+        model = copy.deepcopy(cpu_model).to(dev)
+        rec = {}
+        if name.startswith("gugus"):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                model.retrieve_metric_local(torch.from_numpy(seqs).to(dev))
+            rec["retrieve_metric_local_s"] = time.perf_counter() - t0
+            set_gugus_host_state(cpu_model, gugus_host_state(model))
+            rec["temperature"] = model.sampled_metric.temperature
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        cpu_opt = torch.optim.Adam(cpu_model.parameters(), lr=1e-3)
+        gen = torch.Generator().manual_seed(11)
+        steps, errors = [], []
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        for i, (epoch, vi) in enumerate(RESEARCH_STEPS):
+            vi = RESEARCH_LATER_VISIT[name] if vi == "later" else (vi or 0)
+            x = torch.from_numpy(seqs[i * RESEARCH_BATCH:(i + 1) * RESEARCH_BATCH])
+            noise = research_noise(torch, name, model, RESEARCH_BATCH, epoch, gen)
+            state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+            opt_state = copy.deepcopy(opt.state_dict())
+            before = launch_counts()
+            t0 = time.perf_counter()
+            m = _research_step(torch, model, opt, x.to(dev),
+                               {k: v.to(dev) for k, v in noise.items()}, vi, epoch)
+            torch.cuda.synchronize()
+            m["host_ms"] = (time.perf_counter() - t0) * 1e3
+            m["launches"] = {k: v - before[k] for k, v in launch_counts().items() if v - before[k]}
+            check(all(np.isfinite(v) for v in (m["loss"], m["grad_norm"])),
+                  f"{name} step {i + 1} not finite")
+            steps.append(m)
+            cpu_model.load_state_dict(state)
+            cpu_opt.load_state_dict(opt_state)
+            c = _research_step(torch, cpu_model, cpu_opt, x, noise, vi, epoch)
+            err = {k: abs(m[k] - c[k]) / max(abs(c[k]), 1e-12)
+                   for k in ("loss", "reconstruction_loss", "reg_loss", "grad_norm")}
+            errors.append(err)
+            for k in ("loss", "reconstruction_loss", "reg_loss"):
+                check(err[k] <= RESEARCH_TOL["loss_rel"] or abs(m[k] - c[k]) <= 1e-5,
+                      f"{name} step {i + 1} {k}: card vs CPU {err[k]}")
+            check(err["grad_norm"] <= RESEARCH_TOL["grad_norm_rel"],
+                  f"{name} step {i + 1} grad_norm: card vs CPU {err['grad_norm']}")
+        cpu_model.load_state_dict({k: v.detach().cpu() for k, v in model.state_dict().items()})
+        with torch.no_grad():
+            if name.startswith("gugus"):
+                noise = {"gammas": torch.randn((20, RESEARCH_GEN, 16), generator=gen),
+                         "unifs": torch.rand((20, RESEARCH_GEN), generator=gen)}
+                before = launch_counts()["hmc_terms"]
+                t0 = time.perf_counter()
+                got = model.generate_hmc(RESEARCH_GEN, noise={k: v.to(dev) for k, v in noise.items()})
+                torch.cuda.synchronize()
+                rec["generate_hmc_s"] = time.perf_counter() - t0
+                rec["generate_hmc_launches"] = launch_counts()["hmc_terms"] - before
+                check(rec["generate_hmc_launches"] == GUGUS_HMC_LAUNCHES,
+                      f"generate_hmc launched hmc_terms {rec['generate_hmc_launches']} times")
+                want = cpu_model.generate_hmc(RESEARCH_GEN, noise=noise)
+            else:
+                noise = {"z": torch.randn((RESEARCH_GEN, 16), generator=gen),
+                         "gamma": torch.randn((RESEARCH_GEN, 16), generator=gen)}
+                got = model.generate(RESEARCH_GEN, noise={k: v.to(dev) for k, v in noise.items()})
+                want = cpu_model.generate(RESEARCH_GEN, noise=noise)
+        torch.cuda.synchronize()
+        rec["launches"] = launch_counts()
+        got = got.float().cpu()
+        check(tuple(got.shape) == (RESEARCH_GEN, 8, 3, 64, 64) and bool(torch.isfinite(got).all()),
+              f"bad {name} generate output")
+        row_err = (got - want.float()).abs().flatten(1)
+        rows_ok = int(((row_err.mean(1) <= GEN_ROW_TOL["mean_abs"])
+                       & (row_err.amax(1) <= GEN_ROW_TOL["max_abs"])).sum())
+        check(rows_ok >= (GEN_MIN_MATCHING_ROWS if name.startswith("gugus") else RESEARCH_GEN),
+              f"{name} generate: {rows_ok} of {RESEARCH_GEN} rows match the CPU")
+        rec.update({"steps": steps, "card_vs_cpu": {"errors": errors, "tolerances": RESEARCH_TOL},
+                    "generate": {"rows": RESEARCH_GEN, "rows_matching_cpu": rows_ok,
+                                 "mean_abs": float(row_err.mean()),
+                                 "tolerance": GEN_ROW_TOL}})
+        for k, v in rec["launches"].items():
+            total[k] += v
+        if name.startswith("gugus"):
+            rec["hmc_terms_k1"] = hmc_k1_check(torch, model.hmc_metric(0), dev)
+            lvaega = LVAE_GUGUS(variant="lvaega", use_riemann_prior=True, seed=0).to(dev)
+            lvaega.load_state_dict(model.state_dict())
+            set_gugus_host_state(lvaega, gugus_host_state(model))
+            try:
+                lvaega(torch.from_numpy(seqs[:RESEARCH_BATCH]).to(dev), vi_index=0, epoch=100,
+                       train=True, generator=gen)
+                raised = False
+            except NotImplementedError:
+                raised = True
+            # on the CPU the plain terms are differentiable, as JAX's XLA terms are
+            check(raised == (dev.type == "cuda"),
+                  f"lvaega's HMC training draw on {dev.type}: raised={raised}")
+            rec["lvaega_train_draw_raises"] = raised
+        out[name] = rec
+    check(total["chol_bundle"] > 0 and total["metric_bundle"] > 0 and total["hmc_terms"] > 0,
+          f"the research path did not launch B1, B6 and B4: {total}")
+    check(total["iaf_chain_fwd"] == 0 and total["iaf_chain_bwd"] == 0,
+          f"the research models' flows launched the IAF chain: {total}")
+    out["launches"] = total
+    return out
+
+
 def _grad_norm(torch, module) -> float:
     return float(torch.sqrt(sum((p.grad.detach().float() ** 2).sum()
                                 for p in module.parameters() if p.grad is not None)))
@@ -4187,6 +4648,12 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's deterministic algorithms, so each call checks the same
+    # computation: with its default ones the convnets phase's bf16 cnn step 2
+    # (from a reference-init step 1 whose card-vs-CPU grad_norm differs 47x)
+    # read BatchNorm statistics 4e-4 to 7e-4 from the CPU in four calls and
+    # 0.28 in one; deterministic, 1.2e-3 in two
+    torch.backends.cudnn.deterministic = True
     dev = torch.device("cuda")
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = nvidia_smi()
@@ -4211,6 +4678,9 @@ def main() -> None:
     for name, (record, cases) in run_decode_checks(torch, dev).items():
         records[name] = record
         emit("kernels", kernel=name, tolerance=record["tolerance"], cases=cases)
+    jacobi = run_iaf_jacobi_checks(torch, dev)
+    emit("kernels", kernel="iaf_chain_fwd+iaf_chain_bwd (Jacobi mode)",
+         tolerance=jacobi["tolerance"], cases=jacobi["cases"])
 
     serve = run_serve(torch)
     emit("serve", **serve)
@@ -4238,6 +4708,10 @@ def main() -> None:
     emit("geometry", **geometry)
     dp = run_dp(torch)
     emit("dp", **dp, nvidia_smi=smi)
+    fixedpoint = run_fixedpoint(torch)
+    emit("fixedpoint", **fixedpoint)
+    research = run_research(torch)
+    emit("research", **research)
     # launches: the sum over the main paths' runs (each read between
     # zeroing the counters and the end of its run), with each path's count
     # beside it; every kernel is launched by the paths it belongs to
@@ -4268,7 +4742,10 @@ def main() -> None:
                                                  "metric_bundle", "g_inv")),
              "dp": (dp["launches"], ("chol_bundle", "iaf_chain_fwd", "iaf_chain_bwd",
                                      "decode_mse_fwd", "decode_mse_bwd_dh",
-                                     "decode_mse_bwd_dw"))}
+                                     "decode_mse_bwd_dw")),
+             "fixedpoint": (fixedpoint["launches"], ("chol_bundle", "iaf_chain_fwd",
+                                                     "iaf_chain_bwd", "g_inv")),
+             "research": (research["launches"], ("chol_bundle", "metric_bundle", "hmc_terms"))}
     for path, (counts, kernels) in paths.items():
         for name in kernels:
             check(counts[name] > 0, f"the {path} path did not launch {name}")
@@ -4296,6 +4773,23 @@ def main() -> None:
         geometry["shooting"]["log_map_launches"]["metric_bundle"])
     records["g_inv"]["launches_per_rhvae_step"] = geometry["rhvae"]["g_inv_per_step"]
     records["hmc_partials"]["launches_per_ep_chain"] = ep["launches"]["hmc_partials"]
+    # the Jacobi mode (fixedpoint phase: K=8, backward at 9 sweeps) of B2/B3
+    for name, mode in (("iaf_chain_fwd", "fwd"), ("iaf_chain_bwd", "bwd")):
+        records[name]["jacobi"] = {
+            "cases": [c["shape"] for c in jacobi["cases"]], "tolerance": jacobi["tolerance"],
+            "timing_b64": jacobi["timing_b64"][mode],
+            "launches_per_fixedpoint_train_step":
+                fixedpoint["train"]["launches_per_step"][name]}
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                           max(c["max_abs_err"] for c in jacobi["cases"]))
+    records["iaf_chain_fwd"]["jacobi"]["launches_per_fixedpoint_reconstruct_bucket"] = (
+        fixedpoint["reconstruct_bucket"]["launches"]["iaf_chain_fwd"])
+    records["hmc_terms"]["k1"] = research["gugus_lvaegg"]["hmc_terms_k1"]
+    records["hmc_terms"]["launches_per_gugus_generate_hmc"] = (
+        research["gugus_lvaegg"]["generate_hmc_launches"])
+    for name in ("chol_bundle", "metric_bundle", "hmc_terms"):
+        records[name]["launches_research_by_model"] = {
+            m: research[m]["launches"][name] for m in ("lvae_iaf", "riem", "gugus_lvaegg")}
     records["hmc_terms"]["launches_per_dense_k20000_chain"] = dense["launches"]["hmc_terms"]
     records["hmc_terms"]["launches_per_calibration_phase"] = [
         p["hmc_terms"] for p in adaptive["calibration"]["phases"]]

@@ -38,6 +38,15 @@
   net, ``metric_net`` in the port) across in both directions;
   :func:`save_component_npz` writes a net in the flat component format
   :func:`load_component_npz` reads (and JAX's ``load_component_npz`` does).
+- :func:`research_state_from_jax` maps the research models' ``params``
+  (``LVAE_IAF``, ``LVAE_GUGUS``, ``RIEM``: ``encoder``, ``decoder``,
+  ``flows`` (per visit transition; ``lvaega2``'s weight-normed blocks hold
+  ``w<l>_v`` and ``w<l>_g``, the port's ``weights`` and ``gains``),
+  ``posterior_flow``, VAMP's ``pseudo`` and RIEM's empty ``dynamics``) onto
+  the port's state dict; a JAX gradient tree maps the same way.
+  :func:`gugus_host_state` copies ``LVAE_GUGUS``'s estimated metrics
+  (``gm_list``, ``g_list``, ``sampled_metric``) off a JAX model as numpy,
+  and :func:`set_gugus_host_state` puts them on the port's.
 - :func:`plan_from_jax` turns a calibrated adaptive-sampler plan of the JAX
   package (``calibrate_adaptive_plan``: numpy arrays and Python scalars)
   into the port's plan (tensors on a device), so a JAX plan drives the
@@ -335,6 +344,70 @@ def load_pretrained_net(module: torch.nn.Module, path: str | Path) -> None:
     if shapes != expected:
         raise ValueError(f"pretrained shapes {shapes} do not match the model's {expected}")
     module.load_state_dict({**module.state_dict(), **state})  # BatchNorm stats stay
+
+
+def _made_leaves(block: Mapping[str, Any], prefix: str) -> Iterator[Tuple[str, np.ndarray]]:
+    """One MADE block's ``w<l>``/``b<l>`` (or weight-normed ``w<l>_v``,
+    ``w<l>_g``) -> the port's names under ``prefix``."""
+    fields = {"w": "weights", "b": "biases", "v": "weights", "g": "gains"}
+    for key in sorted(block):
+        m = re.fullmatch(r"([wb])(\d+)(?:_([vg]))?", key)
+        if m is None or (m.group(1) == "b" and m.group(3)):
+            raise ValueError(f"unexpected MADE parameter {key!r}")
+        kind, li, wn = m.groups()
+        yield f"{prefix}.{fields[wn or kind]}.{li}", np.asarray(block[key])
+
+
+def research_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A research model's state dict (``LVAE_IAF``, ``LVAE_GUGUS``,
+    ``RIEM``) from its JAX ``variables`` or ``params`` tree (or a gradient
+    tree of the same shape)."""
+    params = tree["params"] if "params" in tree else tree
+    state: Dict[str, np.ndarray] = {}
+    for comp in sorted(params):
+        node = params[comp]
+        if comp in ("encoder", "decoder"):
+            state.update((f"{comp}.{k}", a) for k, a in _net_leaves(node))
+        elif comp == "flows":
+            for fi, flow in enumerate(node):
+                for bi, block in enumerate(flow):
+                    state.update(_made_leaves(block, f"flows.{fi}.blocks.{bi}"))
+        elif comp == "posterior_flow":
+            for bi, block in enumerate(node):
+                state.update(_made_leaves(block, f"posterior_flow.blocks.{bi}"))
+        elif comp == "pseudo":
+            state["pseudo_kernel"] = np.asarray(node["kernel"])
+            state["pseudo_bias"] = np.asarray(node["bias"])
+        elif comp == "dynamics":
+            if node:
+                raise ValueError("RIEM's dynamics carry no parameters in the port")
+        else:
+            raise ValueError(f"unexpected component {comp!r} in the research params")
+    return {k: _tensor(a) for k, a in state.items()}
+
+
+def gugus_host_state(model: Any) -> Dict[str, Any]:
+    """``LVAE_GUGUS``'s estimated metrics, read off a model of either
+    package, as numpy: ``gm_list``, ``g_list`` and the sampled metric's
+    (centroids, m_flat, temperature, lbd), or None."""
+    sm = model.sampled_metric
+    return {
+        "gm_list": [np.asarray(g, np.float32) for g in model.gm_list],
+        "g_list": [np.asarray(g, np.float32) for g in model.g_list],
+        "sampled_metric": None if sm is None else (
+            np.asarray(sm.centroids, np.float32), np.asarray(sm.m_flat, np.float32),
+            float(sm.temperature), float(sm.lbd)),
+    }
+
+
+def set_gugus_host_state(model: Any, state: Mapping[str, Any]) -> None:
+    """The metrics of :func:`gugus_host_state` onto a port ``LVAE_GUGUS``."""
+    from rlvae_tpu_torch.models.research._sampled import SampledMetric
+
+    model.gm_list = [np.array(g, np.float32) for g in state["gm_list"]]
+    model.g_list = [np.array(g, np.float32) for g in state["g_list"]]
+    sm = state["sampled_metric"]
+    model.sampled_metric = None if sm is None else SampledMetric(*sm)
 
 
 def plan_from_jax(plan: Mapping[str, Any], device: Optional[torch.device] = None) -> Dict[str, Any]:

@@ -2,11 +2,14 @@
 // one launch.  Per transition, per MADE block, D sequential updates
 //   y_i = (x_i - mu_i(y)) * exp(-clamp(s_i(y), -1.5, 1.5)),  ld -= clamp(s_i)
 // then the dims are flipped; the flipped output feeds the next block, and the
-// last block's output is the transition's z.
+// last block's output is the transition's z.  With K > 0 (fp_iters) each block
+// is instead solved by Jacobi fixed-point iteration: K full MADE passes
+//   y <- (x - mu(y)) * exp(-clamp(s(y)))  from y = 0,
+// then one more whose clamped s gives ld -= sum_i s_i (exact at K >= D - 1).
 //
 // Replaces the forward Pallas kernel of rlvae_tpu/ops/iaf_kernels.py:504-583
-// (_build_fused_iaf_chain's fwd_pallas: _iaf_chain_fwd_kernel -> _transition_fwd_body
-// -> _made_pass).  When `ys_out` is non-null it also writes that kernel's
+// (_build_fused_iaf_chain's fwd_pallas at :555: _iaf_chain_fwd_kernel ->
+// _transition_fwd_body, both modes (:125-170) -> _made_pass).  When `ys_out` is non-null it also writes that kernel's
 // residual ys [NT, NB, B, D], each block's output before the flip, which is all
 // the backward (csrc/iaf_chain_bwd.cu) reads; serving passes null.
 //
@@ -14,7 +17,8 @@
 // per row at D=16, H=256, NH=3; 224 passes are ~64 MFLOP per row, 0.06 ms for
 // B=64 at the fp32 peak) but the chain of dependent steps: NT*NB*D = 224
 // sequential MADE passes of NH+1 = 4 layers each, 896 layer steps whose
-// latency adds up whatever the batch.
+// latency adds up whatever the batch.  In the Jacobi mode a block takes K+1
+// passes instead of D: at K=8, 14 x (9 x 4 + 1) = 518 dependent layer steps.
 //
 // Design (see iaf_cluster.cuh): a cluster of C=8 CTAs owns R rows for the whole
 // chain, so each layer step is spread over 8 SMs, and each CTA keeps its
@@ -32,7 +36,15 @@
 //     lanes by shuffles and sent to every peer; every CTA adds the C partials
 //     in rank order and applies the same update to its own copy of y and ld.
 // Two exchanges per pass at NH=3 (NH-1 in general), each a wait on a local
-// mbarrier.  The latent, ld and ys never leave shared memory between
+// mbarrier.
+// The Jacobi mode (K > 0) cannot use either shortcut of a sequential pass:
+// every column of y changes each pass, so layer 0 is the full [R,D]x[D,H]
+// product (layer0(), whole in every CTA), and every output column is needed,
+// so each CTA's K-slice partial of all 2D columns is sent to every peer
+// ([2][C][R][D2P] floats instead of [2][C][R] float2s; iaf_chain_fwd_geometry
+// reports the shared memory) and added in rank order.  The update is Jacobi,
+// not Gauss-Seidel, with one y buffer: a pass reads y only in layer 0, which is
+// finished (a barrier) before any thread writes the next iterate.  The latent, ld and ys never leave shared memory between
 // transitions; rank 0 writes the outputs.  fp32 FMAs and expf: no tensor
 // cores, no TF32 (s feeds exp(-s)).  No atomics: a relaunch gives the same bits.
 #include "iaf_cluster.cuh"
@@ -46,25 +58,27 @@ struct FwdParams {
   const float *z0, *w0, *b0, *wh, *bh, *wo, *bo;
   float *z, *ld, *ys;
   int B, D, H, NB, NH, NT;
+  int K;  // Jacobi iterations per block; 0: the sequential update
   Layout L;
   long long* prof;  // -DIAF_PROFILE: null, or FWD_PHASES clock64 sums (PhaseClock)
 };
 
 // The profile's phases (-DIAF_PROFILE): a block's start, with the weights'
-// wait (0); layer 0's update + barrier (1); per hidden layer the product +
-// barrier (2) and its exchange (3); the output partial and its exchange (4);
-// the y update + barrier (5); a block's end: residual, flip, outputs (6); and
-// the whole kernel (7).
+// wait (0); layer 0's update (the Jacobi mode: its whole product) + barrier
+// (1); per hidden layer the product + barrier (2) and its exchange (3); the
+// output partial and its exchange (4); the y update + barrier (5); a block's
+// end: residual, flip, outputs (6); and the whole kernel (7).
 constexpr int FWD_PHASES = 8;
 
 // Shared-memory carve-up, in floats after BAR_BYTES of mbarriers.
 struct FwdSmem {
   int wsz, bsz;
-  int wbuf, bbuf, act0, xa, red, part, x, y, ld, floats;
+  int wbuf, bbuf, act0, xa, red, part, last, sc, x, y, ld, floats;
 };
 
+// `jacobi`: the K > 0 mode's larger partials and its two staging buffers.
 __host__ __device__ inline FwdSmem fwd_smem(int R, bool resident, const Layout& L, int D, int H,
-                                            int NH) {
+                                            int NH, bool jacobi) {
   FwdSmem s;
   // W0 | WH column slices (128-byte aligned) | WO rows [HC][2D]
   s.wsz = round32(round32(D * H) + (NH - 1) * L.LS + L.HC * 2 * D);
@@ -75,7 +89,10 @@ __host__ __device__ inline FwdSmem fwd_smem(int R, bool resident, const Layout& 
   s.act0 = o; o += R * H;                  // layer 0, whole
   s.xa = o;   o += NH > 2 ? 2 * R * H : 0;  // exchanged hidden layers, whole
   s.red = o;  o += THREADS * R;
-  s.part = o; o += 2 * CLUSTER_CTAS * R * 2;  // [2][C][R] float2 partials
+  // [2][C][R] float2 partials, or (jacobi) [2][C][R][D2P] of all 2D columns
+  s.part = o; o += 2 * CLUSTER_CTAS * R * (jacobi ? L.D2P : 2);
+  s.last = o; o += jacobi ? R * L.HC : 0;  // the last hidden layer, this CTA's columns
+  s.sc = o;   o += jacobi ? R * L.DP : 0;  // the final pass's clamped s
   s.x = o;    o += R * L.DP;
   s.y = o;    o += R * L.DP;
   s.ld = o;   o += round4(R);
@@ -83,8 +100,9 @@ __host__ __device__ inline FwdSmem fwd_smem(int R, bool resident, const Layout& 
   return s;
 }
 
-inline size_t fwd_smem_bytes(int R, bool resident, const Layout& L, int D, int H, int NH) {
-  return BAR_BYTES + sizeof(float) * (size_t)fwd_smem(R, resident, L, D, H, NH).floats;
+inline size_t fwd_smem_bytes(int R, bool resident, const Layout& L, int D, int H, int NH,
+                             bool jacobi) {
+  return BAR_BYTES + sizeof(float) * (size_t)fwd_smem(R, resident, L, D, H, NH, jacobi).floats;
 }
 
 // MADE block n's weights into dst: W0 whole [D][H], this CTA's column slice of
@@ -123,7 +141,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const bool quad = tid < R * lanes;       // thread (row qr, quad qq) of a layer's output
   const bool quad_active = quad && 4 * qq < ncols;
 
-  const FwdSmem S = fwd_smem(R, RESIDENT, L, D, H, NH);
+  const int K = p.K, D2 = 2 * D, D2P = L.D2P;
+  const FwdSmem S = fwd_smem(R, RESIDENT, L, D, H, NH, K > 0);
   uint64_t* wbar = reinterpret_cast<uint64_t*>(smem_raw);
   uint64_t* abar = wbar + 2;
   uint64_t* pbar = wbar + 4;
@@ -134,6 +153,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* xa = f + S.xa;
   float* red = f + S.red;
   float2* part = reinterpret_cast<float2*>(f + S.part);
+  float* part_j = f + S.part;  // the Jacobi mode's [2][C][R][D2P] partials
+  float* last = f + S.last;
+  float* sc_s = f + S.sc;
   float* x_s = f + S.x;
   float* y_s = f + S.y;
   float* ld_s = f + S.ld;
@@ -183,16 +205,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const float* bias = bbuf + (n & 1) * S.bsz;  // b0 [H] | bh[l] at H + l*HC | bo
     const float* bo = bias + H + (NH - 1) * HC;
 
-    // layer 0 at y = 0 is b0; after each pass only y's column i changes, so
-    // layer 0 follows it with one FMA per entry: a0 = b0 + sum_{d<i} y_d W0[d]
-    if (tid < H) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) act0[r * H + tid] = bias[tid];
-    }
-    __syncthreads();
-    clk.lap(0);
-    for (int i = 0; i < D; ++i) {
-      // this quad's values of the last layer before the output (no ReLU on layer 0)
+    // NH-1 hidden layers from act0 (layer 0, whole): this quad's values of the
+    // last layer before the output (layer 0's own when NH = 1: no ReLU there)
+    auto hidden = [&]() -> float4 {
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (NH == 1 && quad_active)
         v = *reinterpret_cast<const float4*>(act0 + qr * H + col0 + 4 * qq);
@@ -219,52 +234,116 @@ __global__ void __launch_bounds__(THREADS, 1)
           clk.lap(3);
         }
       }
-      // output layer, columns i (mu) and D+i (s): this CTA's K-slice partial
-      float pm = 0.f, ps = 0.f;
-      if (quad_active) {
-        const float* wo_q = WO + (size_t)(4 * qq) * wos;
-        pm = fmaf(v.x, wo_q[i], pm);
-        pm = fmaf(v.y, wo_q[wos + i], pm);
-        pm = fmaf(v.z, wo_q[2 * wos + i], pm);
-        pm = fmaf(v.w, wo_q[3 * wos + i], pm);
-        ps = fmaf(v.x, wo_q[D + i], ps);
-        ps = fmaf(v.y, wo_q[wos + D + i], ps);
-        ps = fmaf(v.z, wo_q[2 * wos + D + i], ps);
-        ps = fmaf(v.w, wo_q[3 * wos + D + i], ps);
-      }
-      for (int off = 1; off < lanes; off <<= 1) {  // the row's lanes, same bits in each
-        pm += __shfl_xor_sync(0xffffffffu, pm, off);
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      }
-      float2* pb = part + (up & 1) * C * R;
-      expect_bytes(pbar, up, 8u * C * R);
-      if (quad) send_v2(pb + rank * R + qr, make_float2(pm, ps), &pbar[up & 1], qq, lanes);
-      wait_bytes(pbar, up);
-      ++up;
-      clk.lap(4);
-      if (tid < R) {
-        float2 s = pb[tid];
-        for (int q = 1; q < C; ++q) {
-          const float2 o = pb[q * R + tid];
-          s.x += o.x;
-          s.y += o.y;
-        }
-        const float mu = s.x + bo[i];
-        const float sc = fminf(fmaxf(s.y + bo[D + i], -LOG_VAR_CLAMP), LOG_VAR_CLAMP);
-        y_s[tid * DP + i] = (x_s[tid * DP + i] - mu) * expf(-sc);
-        ld_s[tid] -= sc;
-      }
-      __syncthreads();
-      clk.lap(5);
-      if (i + 1 < D) {
-        if (tid < H) {
-          const float w = W0[(size_t)i * H + tid];
+      return v;
+    };
+
+    if (K > 0) {
+      // Jacobi: K passes from y = 0, then the final one, which also gives ld
+      for (int pass = 0; pass <= K; ++pass) {
+        layer0<R>(y_s, DP, D, W0, bias, H, act0);
+        __syncthreads();  // y is not read again in this pass
+        clk.lap(1);
+        const float4 v = hidden();
+        if (quad) *reinterpret_cast<float4*>(last + qr * HC + 4 * qq) = v;
+        __syncthreads();
+        // output layer, all 2D columns: this CTA's K-slice partial, to every peer
+        float* pb = part_j + (up & 1) * C * R * D2P;
+        expect_bytes(pbar, up, 4u * C * R * D2P);
+        const int q4 = D2P / 4;
+        if (tid < R * q4) {
+          const int r = tid / q4, j0 = 4 * (tid - r * q4);
+          float o[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int cc = 0; cc < ncols; ++cc) {
+            const float a = last[r * HC + cc];
+            const float* wrow = WO + (size_t)cc * wos;
 #pragma unroll
-          for (int r = 0; r < R; ++r)
-            act0[r * H + tid] = fmaf(y_s[r * DP + i], w, act0[r * H + tid]);
+            for (int jj = 0; jj < 4; ++jj)
+              if (j0 + jj < D2) o[jj] = fmaf(a, wrow[j0 + jj], o[jj]);
+          }
+          send_v4(pb + (rank * R + r) * D2P + j0, make_float4(o[0], o[1], o[2], o[3]),
+                  &pbar[up & 1]);
+        }
+        wait_bytes(pbar, up);
+        ++up;
+        clk.lap(4);
+        if (tid < R * D) {  // every CTA: the C partials in rank order, the same update
+          const int r = tid / D, j = tid - r * D;
+          float mu = pb[r * D2P + j], sp = pb[r * D2P + D + j];
+          for (int q = 1; q < C; ++q) {
+            mu += pb[(q * R + r) * D2P + j];
+            sp += pb[(q * R + r) * D2P + D + j];
+          }
+          mu += bo[j];
+          const float sc = fminf(fmaxf(sp + bo[D + j], -LOG_VAR_CLAMP), LOG_VAR_CLAMP);
+          y_s[r * DP + j] = (x_s[r * DP + j] - mu) * expf(-sc);
+          if (pass == K) sc_s[r * DP + j] = sc;
         }
         __syncthreads();
-        clk.lap(1);
+        clk.lap(5);
+      }
+      if (tid < R) {  // ld -= sum_i s_i of the final pass, in column order
+        float acc = 0.f;
+        for (int j = 0; j < D; ++j) acc += sc_s[tid * DP + j];
+        ld_s[tid] -= acc;
+      }
+    } else {
+      // layer 0 at y = 0 is b0; after each pass only y's column i changes, so
+      // layer 0 follows it with one FMA per entry: a0 = b0 + sum_{d<i} y_d W0[d]
+      if (tid < H) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) act0[r * H + tid] = bias[tid];
+      }
+      __syncthreads();
+      clk.lap(0);
+      for (int i = 0; i < D; ++i) {
+        const float4 v = hidden();
+        // output layer, columns i (mu) and D+i (s): this CTA's K-slice partial
+        float pm = 0.f, ps = 0.f;
+        if (quad_active) {
+          const float* wo_q = WO + (size_t)(4 * qq) * wos;
+          pm = fmaf(v.x, wo_q[i], pm);
+          pm = fmaf(v.y, wo_q[wos + i], pm);
+          pm = fmaf(v.z, wo_q[2 * wos + i], pm);
+          pm = fmaf(v.w, wo_q[3 * wos + i], pm);
+          ps = fmaf(v.x, wo_q[D + i], ps);
+          ps = fmaf(v.y, wo_q[wos + D + i], ps);
+          ps = fmaf(v.z, wo_q[2 * wos + D + i], ps);
+          ps = fmaf(v.w, wo_q[3 * wos + D + i], ps);
+        }
+        for (int off = 1; off < lanes; off <<= 1) {  // the row's lanes, same bits in each
+          pm += __shfl_xor_sync(0xffffffffu, pm, off);
+          ps += __shfl_xor_sync(0xffffffffu, ps, off);
+        }
+        float2* pb = part + (up & 1) * C * R;
+        expect_bytes(pbar, up, 8u * C * R);
+        if (quad) send_v2(pb + rank * R + qr, make_float2(pm, ps), &pbar[up & 1], qq, lanes);
+        wait_bytes(pbar, up);
+        ++up;
+        clk.lap(4);
+        if (tid < R) {
+          float2 s = pb[tid];
+          for (int q = 1; q < C; ++q) {
+            const float2 o = pb[q * R + tid];
+            s.x += o.x;
+            s.y += o.y;
+          }
+          const float mu = s.x + bo[i];
+          const float sc = fminf(fmaxf(s.y + bo[D + i], -LOG_VAR_CLAMP), LOG_VAR_CLAMP);
+          y_s[tid * DP + i] = (x_s[tid * DP + i] - mu) * expf(-sc);
+          ld_s[tid] -= sc;
+        }
+        __syncthreads();
+        clk.lap(5);
+        if (i + 1 < D) {
+          if (tid < H) {
+            const float w = W0[(size_t)i * H + tid];
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              act0[r * H + tid] = fmaf(y_s[r * DP + i], w, act0[r * H + tid]);
+          }
+          __syncthreads();
+          clk.lap(1);
+        }
       }
     }
 
@@ -311,8 +390,9 @@ FwdKernel fwd_kernel(int R, bool resident) {
 
 // The weights are resident where two MADE blocks' fit in the CTA's shared
 // memory and every WO row is a whole number of 16-byte units (D even).
-bool fwd_resident(int R, const Layout& L, int D, int H, int NH) {
-  return D % 2 == 0 && fwd_smem_bytes(R, true, L, D, H, NH) <= (size_t)max_optin_smem();
+bool fwd_resident(int R, const Layout& L, int D, int H, int NH, bool jacobi) {
+  return D % 2 == 0 &&
+         fwd_smem_bytes(R, true, L, D, H, NH, jacobi) <= (size_t)max_optin_smem();
 }
 
 bool valid_shape(int D, int H, int NB, int NH) {
@@ -322,31 +402,36 @@ bool valid_shape(int D, int H, int NB, int NH) {
 // The forward at R rows per cluster; stream_weights forces the streamed
 // instantiation; prof as FwdParams::prof.
 cudaError_t launch_fwd(FwdParams p, int R, bool stream_weights, cudaStream_t stream) {
+  if (p.K < 0) return cudaErrorInvalidValue;
   if (p.B <= 0 || p.NT <= 0) return cudaSuccess;
   if (!valid_shape(p.D, p.H, p.NB, p.NH) || fwd_kernel(R, true) == nullptr)
     return cudaErrorInvalidValue;
   p.L = make_layout(p.D, p.H);
-  const bool resident = !stream_weights && fwd_resident(R, p.L, p.D, p.H, p.NH);
+  const bool jacobi = p.K > 0;
+  const bool resident = !stream_weights && fwd_resident(R, p.L, p.D, p.H, p.NH, jacobi);
   if (resident && p.NH > 1) {
     const cudaError_t err = encode_wh_map(&p.wh_map, p.wh, p.H,
                                           (long long)p.NT * p.NB * (p.NH - 1) * p.H, p.L.HC);
     if (err != cudaSuccess) return err;
   }
   return launch_clusters(fwd_kernel(R, resident), p, (p.B + R - 1) / R,
-                         fwd_smem_bytes(R, resident, p.L, p.D, p.H, p.NH), stream);
+                         fwd_smem_bytes(R, resident, p.L, p.D, p.H, p.NH, jacobi), stream);
 }
 
 }  // namespace
 
 // The entries' shared arguments as FwdParams.
 #define FWD_PARAMS \
-  FwdParams { {}, z0, w0, b0, wh, bh, wo, bo, z_out, ld_out, ys_out, B, D, H, NB, NH, NT, {}, nullptr }
+  FwdParams {                                                                               \
+    {}, z0, w0, b0, wh, bh, wo, bo, z_out, ld_out, ys_out, B, D, H, NB, NH, NT, K, {}, nullptr \
+  }
 
+// K: Jacobi iterations per block (0: the sequential update).
 extern "C" int iaf_chain_fwd_f32(const float* z0, const float* w0, const float* b0,
                                  const float* wh, const float* bh, const float* wo,
                                  const float* bo, float* z_out, float* ld_out,
                                  float* ys_out, int B, int D, int H, int NB, int NH,
-                                 int NT, cudaStream_t stream) {
+                                 int NT, int K, cudaStream_t stream) {
   return static_cast<int>(launch_fwd(FWD_PARAMS, cluster_rows(B), false, stream));
 }
 
@@ -357,7 +442,8 @@ extern "C" int iaf_chain_fwd_at_f32(const float* z0, const float* w0, const floa
                                     const float* wh, const float* bh, const float* wo,
                                     const float* bo, float* z_out, float* ld_out,
                                     float* ys_out, int B, int D, int H, int NB, int NH,
-                                    int NT, int R, int stream_weights, cudaStream_t stream) {
+                                    int NT, int K, int R, int stream_weights,
+                                    cudaStream_t stream) {
   return static_cast<int>(launch_fwd(FWD_PARAMS, R, stream_weights != 0, stream));
 }
 
@@ -367,7 +453,7 @@ extern "C" int iaf_chain_fwd_profile_f32(const float* z0, const float* w0, const
                                          const float* wh, const float* bh, const float* wo,
                                          const float* bo, float* z_out, float* ld_out,
                                          float* ys_out, int B, int D, int H, int NB, int NH,
-                                         int NT, long long* prof, cudaStream_t stream) {
+                                         int NT, int K, long long* prof, cudaStream_t stream) {
   FwdParams p = FWD_PARAMS;
   p.prof = prof;
   return static_cast<int>(launch_fwd(p, cluster_rows(B), false, stream));
@@ -376,13 +462,15 @@ extern "C" int iaf_chain_fwd_profile_f32(const float* z0, const float* w0, const
 
 // out[0..5] = R, C, clusters, dynamic shared memory per CTA (bytes), weights
 // resident (1/0), and clusters of this shape the card holds at once: the
-// forward's geometry at (B, D, H, NH) under the fixed rule.
-extern "C" int iaf_chain_fwd_geometry(int B, int D, int H, int NH, int* out) {
-  if (B <= 0 || !valid_shape(D, H, 1, NH)) return static_cast<int>(cudaErrorInvalidValue);
+// forward's geometry at (B, D, H, NH) and K Jacobi iterations (0: the
+// sequential mode) under the fixed rule.
+extern "C" int iaf_chain_fwd_geometry(int B, int D, int H, int NH, int K, int* out) {
+  if (B <= 0 || K < 0 || !valid_shape(D, H, 1, NH))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int R = cluster_rows(B);
   const Layout L = make_layout(D, H);
-  const bool resident = fwd_resident(R, L, D, H, NH);
-  const size_t smem = fwd_smem_bytes(R, resident, L, D, H, NH);
+  const bool resident = fwd_resident(R, L, D, H, NH, K > 0);
+  const size_t smem = fwd_smem_bytes(R, resident, L, D, H, NH, K > 0);
   int active = 0;
   const cudaError_t err =
       max_active_clusters(reinterpret_cast<const void*>(fwd_kernel(R, resident)), smem, &active);

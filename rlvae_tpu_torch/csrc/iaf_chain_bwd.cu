@@ -2,28 +2,31 @@
 // transitions in one launch.
 //
 // Replaces bwd_pallas of rlvae_tpu/ops/iaf_kernels.py:585 (pallas_call at :604),
-// i.e. _iaf_chain_bwd_kernel with adj_sweeps = D, the default that
-// get_fused_iaf_chain resolves when fp_iters == 0; its body is
-// _transition_bwd_adjoint_body (:232-301).  Transitions run in reverse.  The
+// i.e. _iaf_chain_bwd_kernel with adj_sweeps = n_sweeps >= 1: D, the default
+// that get_fused_iaf_chain resolves when fp_iters == 0, or K + 1 after the
+// forward's K-iteration Jacobi mode (:493-496); its body is
+// _transition_bwd_adjoint_body (:232-301).  (adj_sweeps = 0, the sequential
+// _transition_bwd_body at :172, is not ported.)  Transitions run in reverse.  The
 // cotangent of transition t's output is dz[t] plus what transition t+1 carried
 // back; the final dim flip's adjoint comes first, then each MADE block in reverse:
 //   1. one MADE pass at the block's output y (the forward's residual ys) gives the
 //      activations, the ReLU gates, e = exp(-clamp(s_pre)) and the clamp gate
 //      |s_pre| < 1.5;
-//   2. D Jacobi sweeps lam <- dy + J^T lam solve the block's adjoint system
-//      exactly: J^T lam backpropagates dout = [-lam e, g_s (-lam y - dld)] through
-//      the output layer, the ReLU-gated hidden layers and layer 0 (no weight
-//      gradients), and J^T is strictly triangular (MADE output i sees only inputs
-//      < i), so it is nilpotent of index <= D;
+//   2. n_sweeps Jacobi sweeps lam <- dy + J^T lam solve the block's adjoint
+//      system, exactly at n_sweeps >= D: J^T lam backpropagates
+//      dout = [-lam e, g_s (-lam y - dld)] through the output layer, the
+//      ReLU-gated hidden layers and layer 0 (no weight gradients), and J^T is
+//      strictly triangular (MADE output i sees only inputs < i), so it is
+//      nilpotent of index <= D;
 //   3. one more pass at lam writes the weight gradients (outer products);
 //   4. dx = lam e is the cotangent of the block's input, flipped into the previous
 //      block's output (or carried to transition t-1 after block 0).
 //
 // What bounds it on an H100: the chain of dependent steps, not the arithmetic
 // (~76 MFLOP per row, 0.07 ms for B=64 at the fp32 peak).  Per MADE block: the
-// recomputed pass, D sweeps and the final VJP, each NH+1 layer steps, and the
+// recomputed pass, n_sweeps (D) sweeps and the final VJP, each NH+1 layer steps, and the
 // flip: 14 x ((16 + 2) x 4 + 1) = 1022 dependent layer steps at D=16, NH=3,
-// NT=7, NB=2.
+// NT=7, NB=2; 14 x ((9 + 2) x 4 + 1) = 630 at the K=8 forward's 9 sweeps.
 //
 // Design: the forward's cluster geometry (iaf_cluster.cuh).  Layer 0 of the
 // recomputed pass is whole in every CTA; each CTA keeps its column slices of
@@ -58,6 +61,7 @@ struct BwdParams {
   const float *ys, *dz, *dld, *w0, *b0, *wh, *bh, *wo, *bo;
   float *dz0, *gw0, *gb0, *gwh, *gbh, *gwo, *gbo;
   int B, D, H, NB, NH, NT;
+  int n_sweeps;  // adjoint sweeps per block, >= 1
   Layout L;
   long long* prof;  // -DIAF_PROFILE: null, or BWD_PHASES clock64 sums (PhaseClock)
 };
@@ -325,9 +329,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (RESIDENT) mbar_wait(bbar, s & 1);
     clk.lap(1);
 
-    // 2. D adjoint sweeps, then 3. one more pass that writes the weight gradients
-    for (int sweep = 0; sweep <= D; ++sweep) {
-      const bool grads = sweep == D;
+    // 2. n_sweeps adjoint sweeps, then 3. one more pass that writes the weight
+    // gradients
+    for (int sweep = 0; sweep <= p.n_sweeps; ++sweep) {
+      const bool grads = sweep == p.n_sweeps;
       if (grads) {
         float* gwo = p.gwo + slot * H * D2;
         for (int idx = tid; idx < ncols * D2; idx += THREADS) {
@@ -539,6 +544,7 @@ bool valid_shape(int D, int H, int NB, int NH) {
 // The backward at R rows per cluster; stream_weights forces the streamed
 // instantiation; prof as BwdParams::prof.
 cudaError_t launch_bwd(BwdParams p, int R, bool stream_weights, cudaStream_t stream) {
+  if (p.n_sweeps < 1) return cudaErrorInvalidValue;
   if (p.B <= 0 || p.NT <= 0) return cudaSuccess;
   if (!valid_shape(p.D, p.H, p.NB, p.NH) || bwd_kernel(R, true) == nullptr)
     return cudaErrorInvalidValue;
@@ -559,20 +565,21 @@ cudaError_t launch_bwd(BwdParams p, int R, bool stream_weights, cudaStream_t str
 #define BWD_PARAMS                                                                              \
   BwdParams {                                                                                   \
     {}, ys, dz, dld, w0, b0, wh, bh, wo, bo, dz0, gw0, gb0, gwh, gbh, gwo, gbo, B, D, H, NB, NH, \
-        NT, {}, nullptr                                                                         \
+        NT, n_sweeps, {}, nullptr                                                               \
   }
 
 // Shapes (all fp32, contiguous): ys [NT, NB, B, D], dz [NT, B, D], dld [NT, B], the
 // weights as for iaf_chain_fwd_f32; out dz0 [B, D] and the per-cluster partials
 // gw0 [NCL, NT, NB, D, H], gb0 [NCL, NT, NB, H], gwh [NCL, NT, NB, NH-1, H, H],
 // gbh [NCL, NT, NB, NH-1, H], gwo [NCL, NT, NB, H, 2D], gbo [NCL, NT, NB, 2D] with
-// NCL = n_clusters = ceil(B / R) under the rule (an error otherwise).
+// NCL = n_clusters = ceil(B / R) under the rule (an error otherwise); n_sweeps
+// adjoint sweeps per block (>= 1; D is exact).
 extern "C" int iaf_chain_bwd_f32(const float* ys, const float* dz, const float* dld,
                                  const float* w0, const float* b0, const float* wh,
                                  const float* bh, const float* wo, const float* bo,
                                  float* dz0, float* gw0, float* gb0, float* gwh, float* gbh,
                                  float* gwo, float* gbo, int B, int D, int H, int NB, int NH,
-                                 int NT, int n_clusters, cudaStream_t stream) {
+                                 int NT, int n_sweeps, int n_clusters, cudaStream_t stream) {
   const int R = cluster_rows(B);
   if (B > 0 && n_clusters != (B + R - 1) / R) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_bwd(BWD_PARAMS, R, false, stream));
@@ -585,8 +592,8 @@ extern "C" int iaf_chain_bwd_at_f32(const float* ys, const float* dz, const floa
                                     const float* bh, const float* wo, const float* bo,
                                     float* dz0, float* gw0, float* gb0, float* gwh,
                                     float* gbh, float* gwo, float* gbo, int B, int D, int H,
-                                    int NB, int NH, int NT, int R, int stream_weights,
-                                    cudaStream_t stream) {
+                                    int NB, int NH, int NT, int n_sweeps, int R,
+                                    int stream_weights, cudaStream_t stream) {
   return static_cast<int>(launch_bwd(BWD_PARAMS, R, stream_weights != 0, stream));
 }
 
@@ -598,7 +605,7 @@ extern "C" int iaf_chain_bwd_profile_f32(const float* ys, const float* dz, const
                                          const float* bh, const float* wo, const float* bo,
                                          float* dz0, float* gw0, float* gb0, float* gwh,
                                          float* gbh, float* gwo, float* gbo, int B, int D, int H,
-                                         int NB, int NH, int NT, long long* prof,
+                                         int NB, int NH, int NT, int n_sweeps, long long* prof,
                                          cudaStream_t stream) {
   BwdParams p = BWD_PARAMS;
   p.prof = prof;

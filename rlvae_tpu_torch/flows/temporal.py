@@ -9,13 +9,15 @@ the last flow, the last flow is reused.
   Function :class:`~rlvae_tpu_torch.ops.iaf_kernels.IAFChain`; autograd
   through the weight stacking applies the masks and sums the gradients of
   the reused flow (:mod:`rlvae_tpu_torch.ops.iaf_kernels`).
+  ``fixedpoint_iters = K > 0`` runs each MADE block of the chain as K
+  Jacobi passes and a final one (exact at K >= D - 1), and the backward
+  at K + 1 adjoint sweeps: the JAX package's kernel pair with ``fp_iters =
+  K`` (its CPU path differentiates through the iterations instead).
 - ``sampling`` direction: one :func:`~rlvae_tpu_torch.flows.iaf.iaf_inverse`
   per transition in a plain loop (one parallel MADE pass per block), as
   the JAX package runs it; it launches no kernel, and autograd
-  differentiates it.
-
-The Jacobi fixed-point blocks (``fixedpoint_iters > 0``) are not ported yet
-and raise.
+  differentiates it.  ``fixedpoint_iters`` does not apply to it and is
+  ignored, as in JAX (``rlvae_tpu/flows/temporal.py:155-161``).
 """
 
 from __future__ import annotations
@@ -41,15 +43,13 @@ class TemporalFlows(nn.Module):
             raise ValueError("direction must be 'density' or 'sampling'")
         if fixedpoint_iters < 0:
             raise ValueError("fixedpoint_iters must be >= 0")
-        if fixedpoint_iters > 0:
-            raise NotImplementedError("flow_fixedpoint_iters > 0 (Jacobi blocks) is not ported yet")
         self.latent_dim = latent_dim
         self.n_flows = n_flows
         self.hidden_size = hidden_size
         self.n_blocks = n_blocks
         self.n_hidden = n_hidden
         self.direction = direction
-        self.fixedpoint_iters = fixedpoint_iters
+        self.fixedpoint_iters = int(fixedpoint_iters)
         self.flows = nn.ModuleList(
             IAF(latent_dim, hidden_size, n_blocks, n_hidden, generator, log_var_bias_init)
             for _ in range(n_flows)
@@ -75,6 +75,7 @@ def apply_temporal_flows(
             zs.append(z_t)
             lds.append(ld)
         return torch.stack(zs, dim=1), torch.stack(lds, dim=1)
-    z_rest, lds = IAFChain.apply(z0.float().contiguous(), *stack_chain(chain))
+    z_rest, lds = IAFChain.apply(z0.float().contiguous(), *stack_chain(chain),
+                                 flows.fixedpoint_iters)
     z_seq = torch.cat([z0[:, None, :].float(), z_rest.transpose(0, 1)], dim=1)
     return z_seq, lds.transpose(0, 1)

@@ -18,7 +18,10 @@ one chol-bundle launch at z0).
 ``forward`` is differentiable: ``loss.backward()`` runs the chol-bundle's
 recompute backward twice and, in the density direction, the IAF-chain
 backward kernel once (the ``sampling`` direction runs the flows as plain
-ops, with no kernel).  Callers that only infer run it under
+ops, with no kernel).  ``flow_fixedpoint_iters = K > 0`` runs the chain's
+MADE blocks by K Jacobi passes and a final one in the same launch, and its
+backward at K + 1 adjoint sweeps (``flows/temporal.py``); the sampling
+direction ignores it, as in JAX.  Callers that only infer run it under
 ``torch.inference_mode()``.  ``train`` reaches the nets, as JAX's
 ``_apply_net`` (``rlvae_tpu/models/rlvae.py:236-260``) does: BatchNorm
 layers (CNN, ResNet) normalise by the batch's statistics and move their

@@ -80,17 +80,19 @@ SIGNATURES = {
     # rows, warps, ctas, out int[1]: the same for B1's and B6's own kernels
     "chol_bundle_cluster_slots": (_C_INT,) * 3 + (_C_PTR,),
     "metric_bundle_cluster_slots": (_C_INT,) * 3 + (_C_PTR,),
-    # z0, w0, b0, wh, bh, wo, bo, z, ld, ys (null: not written), B, D, H, NB, NH, NT, stream
-    "iaf_chain_fwd_f32": (_C_PTR,) * 10 + (_C_INT,) * 6 + (_C_PTR,),
-    # ... B, D, H, NB, NH, NT, R, stream_weights, stream: a given R, or streamed weights
-    "iaf_chain_fwd_at_f32": (_C_PTR,) * 10 + (_C_INT,) * 8 + (_C_PTR,),
+    # z0, w0, b0, wh, bh, wo, bo, z, ld, ys (null: not written), B, D, H, NB, NH, NT,
+    # K (Jacobi iterations per block; 0: the sequential update), stream
+    "iaf_chain_fwd_f32": (_C_PTR,) * 10 + (_C_INT,) * 7 + (_C_PTR,),
+    # ... B, D, H, NB, NH, NT, K, R, stream_weights, stream: a given R, or streamed weights
+    "iaf_chain_fwd_at_f32": (_C_PTR,) * 10 + (_C_INT,) * 9 + (_C_PTR,),
     # ys, dz, dld, w0, b0, wh, bh, wo, bo, dz0, gw0, gb0, gwh, gbh, gwo, gbo,
-    # B, D, H, NB, NH, NT, n_clusters, stream
-    "iaf_chain_bwd_f32": (_C_PTR,) * 16 + (_C_INT,) * 7 + (_C_PTR,),
-    # ... B, D, H, NB, NH, NT, R, stream_weights, stream
-    "iaf_chain_bwd_at_f32": (_C_PTR,) * 16 + (_C_INT,) * 8 + (_C_PTR,),
-    # B, D, H, NH, out int[6]: R, C, clusters, smem bytes, resident, active clusters
-    "iaf_chain_fwd_geometry": (_C_INT,) * 4 + (_C_PTR,),
+    # B, D, H, NB, NH, NT, n_sweeps, n_clusters, stream
+    "iaf_chain_bwd_f32": (_C_PTR,) * 16 + (_C_INT,) * 8 + (_C_PTR,),
+    # ... B, D, H, NB, NH, NT, n_sweeps, R, stream_weights, stream
+    "iaf_chain_bwd_at_f32": (_C_PTR,) * 16 + (_C_INT,) * 9 + (_C_PTR,),
+    # B, D, H, NH (, K for the forward), out int[6]: R, C, clusters, smem
+    # bytes, resident, active clusters
+    "iaf_chain_fwd_geometry": (_C_INT,) * 5 + (_C_PTR,),
     "iaf_chain_bwd_geometry": (_C_INT,) * 4 + (_C_PTR,),
     # h (bf16), w, b, x, rw, partials, loss, M, K, N, ctas, row groups, stream
     "decode_mse_fwd_f32": (_C_PTR,) * 7 + (_C_INT,) * 5 + (_C_PTR,),
@@ -111,10 +113,10 @@ SIGNATURES = {
 # csrc/hmc_bank.cuh's front half, int64[9] each decode+MSE kernel).
 PROFILES = ("IAF_PROFILE", "HMC_PROFILE", "DECODE_PROFILE")
 PROFILE_SIGNATURES = {
-    # ... as iaf_chain_fwd_f32 up to NT, then prof, stream
-    "iaf_chain_fwd_profile_f32": (_C_PTR,) * 10 + (_C_INT,) * 6 + (_C_PTR,) * 2,
-    # ... as iaf_chain_bwd_f32 up to NT, then prof, stream
-    "iaf_chain_bwd_profile_f32": (_C_PTR,) * 16 + (_C_INT,) * 6 + (_C_PTR,) * 2,
+    # ... as iaf_chain_fwd_f32 up to K, then prof, stream
+    "iaf_chain_fwd_profile_f32": (_C_PTR,) * 10 + (_C_INT,) * 7 + (_C_PTR,) * 2,
+    # ... as iaf_chain_bwd_f32 up to n_sweeps, then prof, stream
+    "iaf_chain_bwd_profile_f32": (_C_PTR,) * 16 + (_C_INT,) * 7 + (_C_PTR,) * 2,
     # ... as hmc_terms_at_f32 up to ctas, then prof, stream
     "hmc_terms_profile_f32": (_C_PTR,) * 3 + (_C_FLOAT,) * 3 + (_C_PTR,) * 2 + (_C_INT,) * 5
                              + (_C_PTR,) * 2,

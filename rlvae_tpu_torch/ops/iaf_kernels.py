@@ -13,10 +13,16 @@ per use):
 - :func:`iaf_chain_fwd` (``csrc/iaf_chain.cu``, replacing ``fwd_pallas``)
   returns z [NT, B, D] (each transition's output), ld [NT, B] (its
   log|det J|) and, when asked, the residual ys [NT, NB, B, D] (each block's
-  output before the flip).
+  output before the flip).  ``fp_iters = K > 0`` runs each block as the
+  Jacobi fixed-point iteration of ``_transition_fwd_body``
+  (``iaf_kernels.py:125-170``): K full MADE passes from y = 0, then one more
+  whose (mu, s) give the output and the log-det; exact at K >= D - 1.
 - :func:`iaf_chain_bwd` (``csrc/iaf_chain_bwd.cu``, replacing
-  ``bwd_pallas``) is the exact adjoint VJP: from ys and the cotangents
-  (dz, dld) it returns dz0 and the gradients of the six stacked weights.
+  ``bwd_pallas``) is the adjoint VJP: from ys and the cotangents (dz, dld)
+  it returns dz0 and the gradients of the six stacked weights, after
+  ``n_sweeps`` adjoint sweeps per block (:func:`adjoint_sweeps`: D, exact,
+  or K + 1 after a K-iteration forward, as ``get_fused_iaf_chain`` resolves
+  ``adj_sweeps``, ``iaf_kernels.py:493-496``).
 - :class:`IAFChain` is the ``torch.autograd.Function`` around the pair (the
   counterpart of the ``jax.custom_vjp`` at ``iaf_kernels.py:666-680``).
   Autograd through :func:`stack_chain` then applies the masks and sums the
@@ -36,7 +42,7 @@ the card cannot hold.  ``iaf_chain_fwd.launches`` and
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -79,17 +85,23 @@ def chain_geometry(b: int) -> ChainGeometry:
     return ChainGeometry(r, CLUSTER_CTAS, -(-b // r))
 
 
-def launch_geometry(b: int, d: int, h: int, nh: int, backward: bool = False) -> dict:
+def launch_geometry(b: int, d: int, h: int, nh: int, backward: bool = False,
+                    fp_iters: int = 0) -> dict:
     """The launcher's own geometry at batch ``b`` and shape (d, h, nh),
     read from the kernel library (needs a card): R, C, clusters, dynamic
     shared memory per CTA, whether the weights are resident in it, and how
-    many such clusters the card holds at once."""
+    many such clusters the card holds at once.  The forward's shared memory
+    depends on the mode: ``fp_iters > 0`` exchanges all 2D output columns
+    per pass, not two."""
     from rlvae_tpu_torch.ops.build import kernel_library
 
     lib, out = kernel_library(), (ctypes.c_int * 6)()
-    fn = lib.iaf_chain_bwd_geometry if backward else lib.iaf_chain_fwd_geometry
-    raise_on_error("iaf_chain_bwd_geometry" if backward else "iaf_chain_fwd_geometry",
-                   fn(b, d, h, nh, ctypes.cast(out, ctypes.c_void_p)))
+    ptr = ctypes.cast(out, ctypes.c_void_p)
+    if backward:
+        raise_on_error("iaf_chain_bwd_geometry", lib.iaf_chain_bwd_geometry(b, d, h, nh, ptr))
+    else:
+        raise_on_error("iaf_chain_fwd_geometry",
+                       lib.iaf_chain_fwd_geometry(b, d, h, nh, fp_iters, ptr))
     keys = ("rows", "ctas", "clusters", "smem_bytes_per_cta", "weights_resident",
             "max_active_clusters")
     return dict(zip(keys, list(out)))
@@ -140,25 +152,45 @@ def _shapes(z0: torch.Tensor, w0, b0, wh, bh, wo, bo, name: str = "iaf_chain_fwd
     return b, d, h, nb, nh, nt
 
 
-def iaf_chain_fwd_ref(z0: torch.Tensor, w0, b0, wh, bh, wo, bo, return_ys: bool = False):
+def _check_fp_iters(fp_iters: int) -> int:
+    if int(fp_iters) != fp_iters or fp_iters < 0:
+        raise ValueError(f"iaf_chain_fwd: fp_iters must be an integer >= 0, got {fp_iters!r}")
+    return int(fp_iters)
+
+
+def iaf_chain_fwd_ref(z0: torch.Tensor, w0, b0, wh, bh, wo, bo, return_ys: bool = False,
+                      fp_iters: int = 0):
     """Plain PyTorch version: (z [NT, B, D], ld [NT, B]), plus ys [NT, NB, B, D]
-    when ``return_ys``, in the weights' dtype."""
+    when ``return_ys``, in the weights' dtype.  ``fp_iters = K > 0``: each
+    block by K Jacobi passes from y = 0 and a final one (module docstring)."""
     b, d, h, nb, nh, nt = _shapes(z0, w0, b0, wh, bh, wo, bo)
+    fp_iters = _check_fp_iters(fp_iters)
     x = z0.to(w0.dtype)
     zs, lds, ys = [], [], []
     for t in range(nt):
         ld = torch.zeros(b, dtype=x.dtype, device=z0.device)
         for blk in range(nb):
-            y = torch.zeros_like(x)
-            for i in range(d):
+
+            def made(y):  # (mu, clamped s) of this block at y
                 a = y @ w0[t, blk] + b0[t, blk]  # no activation after layer 0
                 for li in range(nh - 1):
                     a = torch.relu(a @ wh[t, blk, li] + bh[t, blk, li])
                 out = a @ wo[t, blk] + bo[t, blk]
-                s = torch.clamp(out[:, d + i], -LOG_VAR_CLAMP, LOG_VAR_CLAMP)
-                y = y.clone()
-                y[:, i] = (x[:, i] - out[:, i]) * torch.exp(-s)
-                ld = ld - s
+                return out[:, :d], torch.clamp(out[:, d:], -LOG_VAR_CLAMP, LOG_VAR_CLAMP)
+
+            y = torch.zeros_like(x)
+            if fp_iters > 0:
+                # Jacobi: every column of the next iterate from the previous one
+                for _ in range(fp_iters + 1):
+                    mu, s = made(y)
+                    y = (x - mu) * torch.exp(-s)
+                ld = ld - s.sum(1)
+            else:
+                for i in range(d):
+                    mu, s = made(y)
+                    y = y.clone()
+                    y[:, i] = (x[:, i] - mu[:, i]) * torch.exp(-s[:, i])
+                    ld = ld - s[:, i]
             ys.append(y)
             x = torch.flip(y, dims=(1,))
         zs.append(x)
@@ -168,16 +200,17 @@ def iaf_chain_fwd_ref(z0: torch.Tensor, w0, b0, wh, bh, wo, bo, return_ys: bool 
     return torch.stack(zs), torch.stack(lds)
 
 
-def iaf_chain_fwd(z0: torch.Tensor, w0, b0, wh, bh, wo, bo, return_ys: bool = False):
+def iaf_chain_fwd(z0: torch.Tensor, w0, b0, wh, bh, wo, bo, return_ys: bool = False,
+                  fp_iters: int = 0):
     """(z [NT, B, D], ld [NT, B]) and, when ``return_ys``, ys [NT, NB, B, D];
-    kernel on CUDA, plain version on CPU."""
+    kernel on CUDA, plain version on CPU; ``fp_iters`` as for the plain version."""
     if z0.device.type == "cpu":
-        return iaf_chain_fwd_ref(z0, w0, b0, wh, bh, wo, bo, return_ys)
-    return _launch_fwd(z0, (w0, b0, wh, bh, wo, bo), return_ys)
+        return iaf_chain_fwd_ref(z0, w0, b0, wh, bh, wo, bo, return_ys, fp_iters)
+    return _launch_fwd(z0, (w0, b0, wh, bh, wo, bo), return_ys, fp_iters=fp_iters)
 
 
 def _launch_fwd(z0: torch.Tensor, weights: Stack, return_ys: bool = False,
-                stream_weights: bool = False):
+                stream_weights: bool = False, fp_iters: int = 0):
     """The forward kernel on CUDA tensors.  ``stream_weights`` runs the
     instantiation that reads its weights from global memory even where they
     would fit in shared memory (for the checks that hold both to the plain
@@ -187,6 +220,7 @@ def _launch_fwd(z0: torch.Tensor, weights: Stack, return_ys: bool = False,
     w0, b0, wh, bh, wo, bo = weights
     check_inputs("iaf_chain_fwd", z0.device, z0=z0, w0=w0, b0=b0, wh=wh, bh=bh, wo=wo, bo=bo)
     b, d, h, nb, nh, nt = _shapes(z0, w0, b0, wh, bh, wo, bo)
+    fp_iters = _check_fp_iters(fp_iters)
     if not (1 <= d <= MAX_DIM and 4 <= h <= MAX_HIDDEN and h % 4 == 0 and nb >= 1
             and nh >= 1 and nt >= 1):
         raise ValueError(
@@ -200,7 +234,7 @@ def _launch_fwd(z0: torch.Tensor, weights: Stack, return_ys: bool = False,
         from rlvae_tpu_torch.ops.build import kernel_library
 
         args = (z0.data_ptr(), *(w.data_ptr() for w in weights), z.data_ptr(), ld.data_ptr(),
-                ys.data_ptr() if return_ys else None, b, d, h, nb, nh, nt)
+                ys.data_ptr() if return_ys else None, b, d, h, nb, nh, nt, fp_iters)
         lib = kernel_library()
         if stream_weights:
             code = lib.iaf_chain_fwd_at_f32(*args, cluster_rows(b), 1, stream_handle(z0.device))
@@ -228,15 +262,30 @@ def _bwd_shapes(ys, dz, dld, w0, b0, wh, bh, wo, bo):
     return b, d, h, nb, nh, nt
 
 
+def adjoint_sweeps(d: int, fp_iters: int = 0) -> int:
+    """The backward's sweeps per block after a forward of ``fp_iters``
+    Jacobi iterations: D (exact: the adjoint system is nilpotent of index
+    <= D) after the sequential forward, K + 1 after a K-iteration one."""
+    return d if fp_iters == 0 else fp_iters + 1
+
+
+def _check_sweeps(n_sweeps, d: int) -> int:
+    n_sweeps = d if n_sweeps is None else n_sweeps
+    if int(n_sweeps) != n_sweeps or n_sweeps < 1:
+        raise ValueError(f"iaf_chain_bwd: n_sweeps must be an integer >= 1, got {n_sweeps!r}")
+    return int(n_sweeps)
+
+
 def iaf_chain_bwd_ref(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
-                      w0, b0, wh, bh, wo, bo) -> Grads:
+                      w0, b0, wh, bh, wo, bo, n_sweeps: Optional[int] = None) -> Grads:
     """Plain PyTorch version: (dz0 [B, D], (dw0, db0, dwh, dbh, dwo, dbo)).
 
     A direct transcription of ``_transition_bwd_adjoint_body``
-    (``rlvae_tpu/ops/iaf_kernels.py:232-301``) with D sweeps, run over the
-    transitions in reverse; in the weights' dtype.
+    (``rlvae_tpu/ops/iaf_kernels.py:232-301``) with ``n_sweeps`` sweeps (D
+    when None), run over the transitions in reverse; in the weights' dtype.
     """
     b, d, h, nb, nh, nt = _bwd_shapes(ys, dz, dld, w0, b0, wh, bh, wo, bo)
+    n_sweeps = _check_sweeps(n_sweeps, d)
     dt = w0.dtype
     grads = tuple(torch.zeros_like(w) for w in (w0, b0, wh, bh, wo, bo))
     gw0, gb0, gwh, gbh, gwo, gbo = grads
@@ -259,7 +308,7 @@ def iaf_chain_bwd_ref(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
                 return torch.cat([-lam * e, gate_s * (-lam * y - dld_t)], dim=1)
 
             lam = dy
-            for _ in range(d):  # D sweeps: exact, the adjoint system is nilpotent
+            for _ in range(n_sweeps):  # D sweeps are exact: the adjoint system is nilpotent
                 da = dout_of(lam) @ WO.T
                 for li in reversed(range(nh - 1)):
                     da = (gates[li] * da) @ WH[li].T
@@ -291,8 +340,9 @@ def bwd_workspace(b: int, weights: Stack) -> list:
 
 
 def iaf_chain_bwd(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
-                  w0, b0, wh, bh, wo, bo) -> Grads:
-    """(dz0, stacked weight gradients); kernel on CUDA, plain version on CPU.
+                  w0, b0, wh, bh, wo, bo, n_sweeps: Optional[int] = None) -> Grads:
+    """(dz0, stacked weight gradients) after ``n_sweeps`` adjoint sweeps per
+    block (D when None); kernel on CUDA, plain version on CPU.
 
     The kernel writes each cluster's weight-gradient partials to its own
     slot of a [n_clusters, ...] workspace (:func:`chain_geometry`); they are
@@ -300,12 +350,12 @@ def iaf_chain_bwd(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
     the clusters ran in.
     """
     if ys.device.type == "cpu":
-        return iaf_chain_bwd_ref(ys, dz, dld, w0, b0, wh, bh, wo, bo)
-    return _launch_bwd(ys, dz, dld, (w0, b0, wh, bh, wo, bo))
+        return iaf_chain_bwd_ref(ys, dz, dld, w0, b0, wh, bh, wo, bo, n_sweeps)
+    return _launch_bwd(ys, dz, dld, (w0, b0, wh, bh, wo, bo), n_sweeps=n_sweeps)
 
 
 def _launch_bwd(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor, weights: Stack,
-                stream_weights: bool = False) -> Grads:
+                stream_weights: bool = False, n_sweeps: Optional[int] = None) -> Grads:
     """The backward kernel on CUDA tensors; ``stream_weights`` as for
     :func:`_launch_fwd`."""
     if ys.device.type != "cuda":
@@ -314,6 +364,7 @@ def _launch_bwd(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor, weights: 
     check_inputs("iaf_chain_bwd", ys.device, ys=ys, dz=dz, dld=dld, w0=w0, b0=b0, wh=wh,
                  bh=bh, wo=wo, bo=bo)
     b, d, h, nb, nh, nt = _bwd_shapes(ys, dz, dld, w0, b0, wh, bh, wo, bo)
+    n_sweeps = _check_sweeps(n_sweeps, d)
     if not (1 <= d <= MAX_DIM and 4 <= h <= MAX_HIDDEN and h % 4 == 0 and nb >= 1
             and 1 <= nh <= MAX_HIDDEN_LAYERS and nt >= 1):
         raise ValueError(
@@ -328,7 +379,7 @@ def _launch_bwd(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor, weights: 
     from rlvae_tpu_torch.ops.build import kernel_library
 
     args = (ys.data_ptr(), dz.data_ptr(), dld.data_ptr(), *(w.data_ptr() for w in weights),
-            dz0.data_ptr(), *(p.data_ptr() for p in parts), b, d, h, nb, nh, nt)
+            dz0.data_ptr(), *(p.data_ptr() for p in parts), b, d, h, nb, nh, nt, n_sweeps)
     lib = kernel_library()
     if stream_weights:
         code = lib.iaf_chain_bwd_at_f32(*args, cluster_rows(b), 1, stream_handle(ys.device))
@@ -343,25 +394,31 @@ iaf_chain_bwd.launches = 0
 
 
 class IAFChain(torch.autograd.Function):
-    """(z, ld) = iaf_chain_fwd(z0, *weights), differentiable in z0 and the six
-    stacked weights; the backward is :func:`iaf_chain_bwd`.
+    """(z, ld) = iaf_chain_fwd(z0, *weights, fp_iters=fp_iters), differentiable
+    in z0 and the six stacked weights; the backward is :func:`iaf_chain_bwd`
+    at :func:`adjoint_sweeps` sweeps.
 
     The adjoint reads only the residual ys (each block's output), so that is
     what the forward saves besides the weights; it asks the forward for ys
     only when some input needs a gradient, so inference keeps its launch.
+    At ``fp_iters = K < D - 1`` the gradient is the implicit adjoint at K + 1
+    sweeps, as JAX's kernel pair gives it, not autodiff through the
+    iterations.
     """
 
     @staticmethod
-    def forward(ctx, z0, w0, b0, wh, bh, wo, bo):
+    def forward(ctx, z0, w0, b0, wh, bh, wo, bo, fp_iters=0):
         weights = tuple(w.detach() for w in (w0, b0, wh, bh, wo, bo))
         if not any(ctx.needs_input_grad):
-            return iaf_chain_fwd(z0.detach(), *weights)
-        z, ld, ys = iaf_chain_fwd(z0.detach(), *weights, return_ys=True)
+            return iaf_chain_fwd(z0.detach(), *weights, fp_iters=fp_iters)
+        z, ld, ys = iaf_chain_fwd(z0.detach(), *weights, return_ys=True, fp_iters=fp_iters)
         ctx.save_for_backward(ys, *weights)
+        ctx.n_sweeps = adjoint_sweeps(z0.shape[1], fp_iters)
         return z, ld
 
     @staticmethod
     def backward(ctx, dz, dld):
         ys, *weights = ctx.saved_tensors
-        dz0, grads = iaf_chain_bwd(ys, dz.contiguous(), dld.contiguous(), *weights)
-        return (dz0, *grads)
+        dz0, grads = iaf_chain_bwd(ys, dz.contiguous(), dld.contiguous(), *weights,
+                                   n_sweeps=ctx.n_sweeps)
+        return (dz0, *grads, None)

@@ -61,7 +61,7 @@ def fwd_at(lib, z0, w, r, stream_weights, ys=True):
     y = torch.empty((nt, nb, b, D), device=z0.device) if ys else None
     code = lib.iaf_chain_fwd_at_f32(z0.data_ptr(), *(x.data_ptr() for x in w), z.data_ptr(),
                                     ld.data_ptr(), y.data_ptr() if ys else None, b, D, H, nb,
-                                    nh, nt, r, stream_weights, stream_handle(z0.device))
+                                    nh, nt, 0, r, stream_weights, stream_handle(z0.device))
     if code != 0:
         raise RuntimeError(f"iaf_chain_fwd_at_f32(R={r}) failed: cudaError_t {code}")
     return z, ld, y
@@ -74,7 +74,7 @@ def bwd_at(lib, ys, dz, dld, w, r, stream_weights):
     parts = [torch.empty((-(-b // r), *x.shape), device=ys.device) for x in w]
     code = lib.iaf_chain_bwd_at_f32(ys.data_ptr(), dz.data_ptr(), dld.data_ptr(),
                                     *(x.data_ptr() for x in w), dz0.data_ptr(),
-                                    *(p.data_ptr() for p in parts), b, D, H, nb, nh, nt, r,
+                                    *(p.data_ptr() for p in parts), b, D, H, nb, nh, nt, D, r,
                                     stream_weights, stream_handle(ys.device))
     if code != 0:
         raise RuntimeError(f"iaf_chain_bwd_at_f32(R={r}) failed: cudaError_t {code}")
@@ -87,7 +87,7 @@ def fwd_profile(lib, z0, w, prof):
     ld = torch.empty((nt, b), device=z0.device)
     code = lib.iaf_chain_fwd_profile_f32(z0.data_ptr(), *(x.data_ptr() for x in w), z.data_ptr(),
                                          ld.data_ptr(), None, b, D, H, nb, w[2].shape[2] + 1, nt,
-                                         prof.data_ptr(), stream_handle(z0.device))
+                                         0, prof.data_ptr(), stream_handle(z0.device))
     if code != 0:
         raise RuntimeError(f"iaf_chain_fwd_profile_f32 failed: cudaError_t {code}")
 
@@ -99,7 +99,7 @@ def bwd_profile(lib, ys, dz, dld, w, prof):
     code = lib.iaf_chain_bwd_profile_f32(ys.data_ptr(), dz.data_ptr(), dld.data_ptr(),
                                          *(x.data_ptr() for x in w), dz0.data_ptr(),
                                          *(p.data_ptr() for p in parts), b, D, H, nb,
-                                         w[2].shape[2] + 1, nt, prof.data_ptr(),
+                                         w[2].shape[2] + 1, nt, D, prof.data_ptr(),
                                          stream_handle(ys.device))
     if code != 0:
         raise RuntimeError(f"iaf_chain_bwd_profile_f32 failed: cudaError_t {code}")

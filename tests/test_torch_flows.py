@@ -7,6 +7,8 @@ operations); the chain rtol 1e-4 relative to each transition's largest
 |z|: at the reference init every block scales the latent by up to
 exp(1.5) per dim, so rounding differences grow with the chain."""
 
+import copy
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -141,7 +143,25 @@ def test_temporal_chain_reference_init_per_transition():
 
 
 def test_unported_options_raise():
-    """The Jacobi fixed-point blocks are not ported; the sampling direction
-    is (tests/test_torch_fast.py)."""
-    with pytest.raises(NotImplementedError):
-        TemporalFlows(16, n_flows=1, fixedpoint_iters=4)
+    """The Jacobi fixed-point blocks are ported (tests/test_torch_fixedpoint.py):
+    a chain with ``fixedpoint_iters=4`` builds and equals JAX's kernel pair
+    at fp_iters=4 (interpret mode), and the sampling direction ignores the
+    option, as JAX's does; a negative count still raises."""
+    with pytest.raises(ValueError):
+        TemporalFlows(4, n_flows=1, fixedpoint_iters=-1)
+    g = torch.Generator().manual_seed(3)
+    flows = TemporalFlows(6, n_flows=1, hidden_size=8, n_blocks=2, n_hidden=2,
+                          log_var_bias_init=0.0, fixedpoint_iters=4, generator=g)
+    x = np.random.default_rng(3).normal(size=(3, 6)).astype(np.float32)
+    z_t, ld_t = apply_temporal_flows(flows, torch.from_numpy(x), 3)
+    chain = get_fused_iaf_chain(6, 8, 2, 2, 2, interpret=True, fp_iters=4)
+    z_j, ld_j = chain([_jax_iaf(flows.flows[0])] * 2, jnp.asarray(x))
+    _close_scaled(np.moveaxis(z_t.detach().numpy()[:, 1:], 1, 0), np.asarray(z_j), 1e-5)
+    np.testing.assert_allclose(ld_t.detach().numpy(), np.asarray(ld_j).T, rtol=1e-5, atol=1e-5)
+    sampling = TemporalFlows(6, n_flows=1, hidden_size=8, n_blocks=2, n_hidden=2,
+                             direction="sampling", fixedpoint_iters=4, generator=g)
+    plain = copy.deepcopy(sampling)
+    plain.fixedpoint_iters = 0
+    for a_, b_ in zip(apply_temporal_flows(sampling, torch.from_numpy(x), 3),
+                      apply_temporal_flows(plain, torch.from_numpy(x), 3)):
+        assert torch.equal(a_, b_)

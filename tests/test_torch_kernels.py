@@ -9,7 +9,9 @@ IAF-chain backward (near-identity flows) within 1e-4 of each output's
 largest entry, the forward's residual ys within 1e-4 of its scale, both at
 B up to 300 (more clusters than one wave), in the instantiation with
 weights in shared memory and the streamed one (NH=16, and the shipped
-NH=3 forced), and bit-identical on relaunch; HMC
+NH=3 forced), and bit-identical on relaunch; the same tolerances for the
+Jacobi mode (fp_iters K = 2, 8, 15, backward at K + 1 sweeps), which at
+K = D - 1 also agrees with the sequential kernel within them; HMC
 terms: log pi atol 1e-5 and grad within 1e-4 of its scale against the plain
 version, and against fp64 no worse than 4x the plain version (or 1e-4 of
 scale).  Metric bundle and G^{-1}: against the plain version at the JAX
@@ -279,6 +281,166 @@ def test_iaf_chain_function_launches_both_kernels(dev):
     assert (iaf_chain_fwd.launches, iaf_chain_bwd.launches) == (fwd + 1, bwd + 1)
     assert torch.isfinite(z0.grad).all()
     assert all(p.grad is not None for p in flows.flows[0].parameters())
+
+
+# the Jacobi mode (fp_iters = K): the kernel at K and its backward at K + 1
+# sweeps against the plain versions, in both instantiations
+JACOBI_ITERS = [2, 8, 15]  # 15 = D - 1: exact
+
+
+@pytest.mark.parametrize("k", JACOBI_ITERS)
+@pytest.mark.parametrize("b", [1, 7, 16, 64, 300])
+@pytest.mark.parametrize("stream_weights", [False, True])
+def test_iaf_chain_jacobi_matches_plain(dev, b, k, stream_weights):
+    w, z0, dz, dld = _chain_problem(dev, b)
+    before = iaf_chain_fwd.launches, iaf_chain_bwd.launches
+    z, ld, ys = _launch_fwd(z0, w, return_ys=True, stream_weights=stream_weights, fp_iters=k)
+    z_p, ld_p, ys_p = iaf_chain_fwd_ref(z0, *w, return_ys=True, fp_iters=k)
+    dz0, grads = _launch_bwd(ys_p, dz, dld, w, stream_weights=stream_weights, n_sweeps=k + 1)
+    dz0_p, grads_p = iaf_chain_bwd_ref(ys_p, dz, dld, *w, n_sweeps=k + 1)
+    torch.cuda.synchronize()
+    assert (iaf_chain_fwd.launches, iaf_chain_bwd.launches) == (before[0] + 1, before[1] + 1)
+    scale = z_p.abs().flatten(1).max(1).values[:, None, None]
+    assert torch.all((z - z_p).abs() <= 1e-4 * scale)
+    torch.testing.assert_close(ld, ld_p, rtol=1e-4, atol=1e-4)
+    _scaled_close(ys, ys_p)
+    for got, want in zip((dz0, *grads), (dz0_p, *grads_p)):
+        _scaled_close(got, want)
+    again = _launch_fwd(z0, w, return_ys=True, stream_weights=stream_weights, fp_iters=k)
+    assert all(map(torch.equal, (z, ld, ys), again))
+
+
+@pytest.mark.parametrize("d,h,nh", [(16, 256, 1), (16, 256, 2), (32, 256, 3), (6, 100, 3),
+                                    (5, 20, 3)])
+def test_iaf_chain_jacobi_other_shapes_match_plain(dev, d, h, nh):
+    """The Jacobi mode off the presets: no hidden layer, one, the largest D,
+    partial or empty column slices, an odd D (streamed)."""
+    w, z0, dz, dld = _chain_problem(dev, 20, nh=nh, d=d, h=h)
+    _hold_to_plain_jacobi(w, z0, dz, dld, 3)
+
+
+def _hold_to_plain_jacobi(w, z0, dz, dld, k):
+    z, ld, ys = iaf_chain_fwd(z0, *w, return_ys=True, fp_iters=k)
+    z_p, ld_p, ys_p = iaf_chain_fwd_ref(z0, *w, return_ys=True, fp_iters=k)
+    dz0, grads = iaf_chain_bwd(ys_p, dz, dld, *w, n_sweeps=k + 1)
+    dz0_p, grads_p = iaf_chain_bwd_ref(ys_p, dz, dld, *w, n_sweeps=k + 1)
+    torch.cuda.synchronize()
+    scale = z_p.abs().flatten(1).max(1).values[:, None, None]
+    assert torch.all((z - z_p).abs() <= 1e-4 * scale)
+    torch.testing.assert_close(ld, ld_p, rtol=1e-4, atol=1e-4)
+    _scaled_close(ys, ys_p)
+    for got, want in zip((dz0, *grads), (dz0_p, *grads_p)):
+        if want.numel():
+            _scaled_close(got, want)
+
+
+@pytest.mark.parametrize("b", [7, 64])
+def test_iaf_chain_jacobi_at_d_minus_1_is_the_sequential_chain(dev, b):
+    """At K = D - 1 the Jacobi iterate is exact: the mode agrees with the
+    sequential kernel within fp32 rounding, not bitwise (layer 0 is a full
+    product there, D incremental FMAs here), and so does the backward at D
+    sweeps against the backward at K + 1 = D."""
+    w, z0, dz, dld = _chain_problem(dev, b)
+    z_j, ld_j, ys_j = iaf_chain_fwd(z0, *w, return_ys=True, fp_iters=15)
+    z_s, ld_s, ys_s = iaf_chain_fwd(z0, *w, return_ys=True)
+    torch.cuda.synchronize()
+    scale = z_s.abs().flatten(1).max(1).values[:, None, None]
+    assert torch.all((z_j - z_s).abs() <= 1e-4 * scale)
+    torch.testing.assert_close(ld_j, ld_s, rtol=1e-4, atol=1e-4)
+    _scaled_close(ys_j, ys_s)
+
+
+def test_iaf_chain_jacobi_geometry_and_graph_replay(dev):
+    """The mode's larger partials still leave the shipped shape's weights in
+    shared memory at every R, and both kernels replay in a CUDA graph bit
+    for bit."""
+    for b in (1, 9, 17, 33, 64):
+        got = launch_geometry(b, 16, 256, 3, fp_iters=8)
+        seq = launch_geometry(b, 16, 256, 3)
+        assert got["weights_resident"] == 1 and got["max_active_clusters"] >= 1
+        assert got["smem_bytes_per_cta"] > seq["smem_bytes_per_cta"]
+    w, z0, dz, dld = _chain_problem(dev, 64)
+    eager_f = iaf_chain_fwd(z0, *w, return_ys=True, fp_iters=8)
+    eager_b = iaf_chain_bwd(eager_f[2], dz, dld, *w, n_sweeps=9)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_f = iaf_chain_fwd(z0, *w, return_ys=True, fp_iters=8)
+        out_b = iaf_chain_bwd(out_f[2], dz, dld, *w, n_sweeps=9)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(map(torch.equal, out_f, eager_f))
+    assert torch.equal(out_b[0], eager_b[0]) and all(map(torch.equal, out_b[1], eager_b[1]))
+
+
+def test_iaf_chain_function_jacobi_equals_the_cpu(dev):
+    """IAFChain at fp_iters = 8 on the card (forward at K, backward at K + 1
+    sweeps) against the same Function on the CPU's plain versions."""
+    g = torch.Generator().manual_seed(1)
+    flows = TemporalFlows(16, 8, 256, 2, 3, log_var_bias_init=0.0, generator=g)
+    z0 = torch.randn(16, 16, generator=g)
+    outs = {}
+    for d in (dev, "cpu"):
+        f = flows.to(d)
+        f.zero_grad()
+        z = z0.detach().clone().to(d).requires_grad_(True)
+        zt, ld = IAFChain.apply(z, *stack_chain([f.flows[min(t, 7)] for t in range(7)]), 8)
+        (zt.square().sum() + ld.sum()).backward()
+        outs[str(d)] = (zt.detach().cpu(), z.grad.cpu(), f.flows[0].blocks[0].weights[1].grad.cpu())
+    for got, want in zip(outs[str(dev)], outs["cpu"]):
+        _scaled_close(got, want)
+
+
+def test_iaf_chain_jacobi_rejects_bad_modes(dev):
+    w, z0, dz, dld = _chain_problem(dev, 4)
+    with pytest.raises(ValueError):
+        iaf_chain_fwd(z0, *w, fp_iters=-1)
+    _, _, ys = iaf_chain_fwd(z0, *w, return_ys=True)
+    with pytest.raises(ValueError):
+        iaf_chain_bwd(ys, dz, dld, *w, n_sweeps=0)
+
+
+def test_research_models_launch_their_kernels(dev):
+    """RIEM's forward launches the chol-bundle (its rejection sampler's
+    volumes) and the metric bundle (its metric step); GUGUS's generate_hmc
+    launches B4 at K=1, 1 + 20 (15 + 1) times, and equals the CPU's on the
+    same draws; ``lvaega``'s training draw raises on the card (B4 has no
+    backward)."""
+    from rlvae_tpu_torch.convert import gugus_host_state, set_gugus_host_state
+    from rlvae_tpu_torch.geometry import CentroidMetric
+    from rlvae_tpu_torch.models.research import LVAE_GUGUS, RIEM
+
+    g = torch.Generator().manual_seed(0)
+    net = {"architecture": "mlp", "hidden_dims": [32], "dtype": "float32"}
+    kw = dict(input_dim=(3, 8, 8), latent_dim=16, n_obs=3, warmup=0, encoder_config=net,
+              decoder_config=net)
+    x = torch.rand((4, 3, 3, 8, 8), generator=g)
+    c = torch.randn((6, 16), generator=g)
+    a = torch.randn((6, 16, 16), generator=g) / 4
+    metric = CentroidMetric.create(c.numpy(), (a @ a.transpose(1, 2) + 0.1 * torch.eye(16)).numpy(),
+                                   temperature=1.0)
+    riem = RIEM(metric=metric, **kw).to(dev)
+    before = chol_bundle.launches, metric_bundle.launches
+    out = riem(x.to(dev), vi_index=2, generator=g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.loss)
+    assert (chol_bundle.launches - before[0], metric_bundle.launches - before[1]) == (2, 1)
+
+    gugus = LVAE_GUGUS(variant="lvaeg2", use_riemann_prior=True, hidden_size=16, **kw)
+    gugus.retrieve_metric_all(x)
+    noise = {"gammas": torch.randn((20, 5, 16), generator=g), "unifs": torch.rand((20, 5), generator=g)}
+    with torch.no_grad():
+        want = gugus.generate_hmc(5, noise=noise)
+        gugus.to(dev)
+        before = hmc_terms.launches
+        got = gugus.generate_hmc(5, noise={k: v.to(dev) for k, v in noise.items()})
+    torch.cuda.synchronize()
+    assert hmc_terms.launches - before == 1 + 20 * 16
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    lvaega = LVAE_GUGUS(variant="lvaega", use_riemann_prior=True, hidden_size=16, **kw).to(dev)
+    set_gugus_host_state(lvaega, gugus_host_state(gugus))
+    with pytest.raises(NotImplementedError):
+        lvaega(x.to(dev), vi_index=0, train=True, generator=g)
 
 
 def _bank(k, seed):

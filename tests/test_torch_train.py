@@ -63,7 +63,13 @@ from rlvae_tpu_torch.geometry.metric import CentroidMetric
 from rlvae_tpu_torch.models import PRESETS, create_model
 from rlvae_tpu_torch.models.rlvae import RlVAE
 from rlvae_tpu_torch.ops import linalg as tlin
-from rlvae_tpu_torch.ops.iaf_kernels import iaf_chain_bwd, iaf_chain_fwd
+from rlvae_tpu_torch.flows import apply_temporal_flows
+from rlvae_tpu_torch.ops.iaf_kernels import (
+    iaf_chain_bwd,
+    iaf_chain_fwd,
+    iaf_chain_fwd_ref,
+    stack_chain,
+)
 from rlvae_tpu_torch.ops.metric_kernels import CholBundle, chol_bundle
 from rlvae_tpu_torch.train import (
     TRAINING_PRESETS,
@@ -420,15 +426,22 @@ def test_params_to_numpy_round_trip():
 
 def test_unported_training_options_raise():
     """remat_decode and fused_decode_mse are ported (tests/test_torch_fast.py
-    holds them against JAX), and so is dropout (tests/test_torch_convnets.py):
-    each builds a model with its knob set; the flows' Jacobi fixed-point
-    blocks are still not ported and raise."""
+    holds them against JAX), and so are dropout (tests/test_torch_convnets.py)
+    and the flows' Jacobi fixed-point blocks (tests/test_torch_fixedpoint.py
+    holds the model against JAX): each builds a model with its knob set; the
+    fixed-point model's chain is the plain Jacobi chain at that count."""
     for knob in ("remat_decode", "fused_decode_mse"):
         model = create_model({**PRESETS["riemannian_flow_vae"], knob: True, "pretrained": {}})
         assert getattr(model, knob) is True
     model = create_model({**PRESETS["riemannian_flow_vae"], "pretrained": {},
                           "encoder": {"architecture": "mlp", "dropout": 0.1}})
     assert model.encoder.dropout == 0.1
-    with pytest.raises(NotImplementedError):
-        create_model({**PRESETS["riemannian_flow_vae"], "pretrained": {},
-                      "flow_fixedpoint_iters": 2})
+    model = create_model({**PRESETS["riemannian_flow_vae"], "pretrained": {},
+                          "flow_fixedpoint_iters": 2})
+    assert model.flows.fixedpoint_iters == 2
+    z0 = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 16)).astype(np.float32))
+    chain = [model.flows.flows[min(t, 7)] for t in range(7)]
+    with torch.no_grad():
+        z_seq, lds = apply_temporal_flows(model.flows, z0, 8)
+        z_ref, ld_ref = iaf_chain_fwd_ref(z0, *stack_chain(chain), fp_iters=2)
+    assert torch.equal(z_seq[:, 1:], z_ref.transpose(0, 1)) and torch.equal(lds, ld_ref.T)
