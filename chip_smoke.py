@@ -40,7 +40,12 @@ Phases, each printing one JSON line with its elapsed seconds:
    instantiations against the plain versions and fp64, bit-identical on
    relaunch and in a graph replay, K = 15 = D - 1 against the sequential
    kernel (within fp32 rounding: layer 0 is a full product there), timed at
-   B=64 beside the sequential mode with the dependent layer steps.
+   B=64 beside the sequential mode with the dependent layer steps.  The
+   IAF-chain backward's sequential mode (``n_sweeps = 0``, JAX's
+   ``adj_sweeps = 0``) at B = 1, 16, 37 and 64 in both instantiations
+   against its plain version (near-identity init) and fp64 (reference
+   init), bit-identical on relaunch and in a graph replay, at B=64 against
+   the adjoint mode after the MADE masks, and timed beside the adjoint mode.
 4. ``serve``: ``ModelManager.from_config(PRESETS["riemannian_flow_vae"])`` on
    the card behind a ``BatchingEngine``; 64 ``reconstruct`` requests from 8
    threads plus 16 ``encode`` and 16 ``decode``, after one warm-up call per
@@ -218,11 +223,11 @@ Phases, each printing one JSON line with its elapsed seconds:
 16. ``dp``: data parallelism through ``python -m
    rlvae_tpu_torch.parallel.dp_verify`` (its ranks are subprocesses; each
    zeroes and reads its own launch counters around every step): the
-   default preset at full width, global B=16, 3 DP steps in an NCCL world
+   default preset at full width, global B=16, 2 DP steps in an NCCL world
    of one rank (equal to the plain trainer bit for bit) and in a gloo world
    of two ranks sharing ``cuda:0`` (NCCL refuses that) in the 2 x 1 and
    1 x 2 (DP x TP) layouts, each with a 4-step epoch on 64 sequences and a
-   resume, plus 3 ``cnn_rlvae`` steps on 2 x 1 and 3 steps of the fast
+   resume, plus 2 ``cnn_rlvae`` steps on 2 x 1 and 2 steps of the fast
    preset on 1 x 2 (its decoder's output layer gathered for the fused
    kernel); per rank and step chol-bundle 2, IAF-chain forward and
    backward 1 (the fast preset: chol-bundle 2, each decode+MSE kernel 1,
@@ -257,7 +262,22 @@ Phases, each printing one JSON line with its elapsed seconds:
    launches the chol-bundle (its rejection sampler's volumes and boundary
    prior) and the metric bundle (its metric step); the flow models' IAFs
    run as plain ops, as in JAX.  ``lvaega``'s training draw, which autograd
-   would differentiate through B4, raises.
+   would differentiate through B4, raises.  ``VAMP`` (50 pseudo-inputs) and
+   ``GPVAE`` (Cauchy prior over 8 visits) likewise take 3 Adam steps each,
+   replayed on the CPU, and generate 16 rows (VAMP's through
+   ``VampSampler``), launching nothing of the port.  Then
+   ``python -m rlvae_tpu_torch.research_cli`` trains each of the five
+   ported models for 2 epochs on the card (RESEARCH_CLI_ARGS), finite
+   losses, MSE and NLL.
+19. ``seq_bwd``: ``PRESETS["riemannian_flow_vae"]`` with
+   ``iaf_kernels.ADJ_SWEEPS_OVERRIDE = 0``: 3 Trainer steps at B=16
+   (chol-bundle 2, IAF-chain forward 1, backward 1 in its sequential mode,
+   which ``iaf_chain_bwd.sequential_launches`` counts: every backward
+   launch of the run, and none in the paths before it), each replayed on
+   the CPU under the same override (its plain sequential backward) at
+   TRAIN_TOL, the validation pass (G^{-1}); one batch's gradients in the
+   two modes against each other (JAX's ``grad_probe`` deviation,
+   SEQ_GRAD_TOL).
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -280,7 +300,9 @@ from pathlib import Path
 import numpy as np
 
 PRETRAINED = Path(__file__).resolve().parent / "data" / "pretrained"
-HANG_GUARD_S = 780
+# the whole run's hang guard: under the run's 1200 s limit, with room for a
+# host 1.6x slower than one on which the script took 650 s
+HANG_GUARD_S = 1080
 SERVE_BATCH = 64  # the engine's largest bucket: the main path's batch
 # the adaptive sampler's calibration: one chain per centroid of the K=50
 # metric, and the manager's warm-start pool
@@ -583,6 +605,14 @@ def pass_flops(d=16, h=256, nh=3):
     return 2 * (d * h + (nh - 1) * h * h + h * 2 * d)
 
 
+def seq_step_flops(i, h=256, nh=3):
+    """FLOP of reverse step i of the sequential backward for one row: the
+    recomputed pass, its VJP and the weight-gradient outer products, each
+    over what the step needs (layer 0's first i input columns, the hidden
+    layers, the output columns i and D + i)."""
+    return 3 * 2 * (i * h + (nh - 1) * h * h + 2 * h)
+
+
 IAF_FWD_BATCHES = (1, 7, TRAIN_BATCH, SERVE_BATCH)
 
 
@@ -807,11 +837,14 @@ JACOBI_BATCHES = (TRAIN_BATCH, SERVE_BATCH)
 
 
 def layer_steps(k: int = 0, backward: bool = False, nt: int = N_TRANSITIONS, nb: int = 2,
-                d: int = 16, nh: int = 3) -> int:
+                d: int = 16, nh: int = 3, sequential: bool = False) -> int:
     """Dependent layer steps of one chain launch: per block, each MADE pass
     (NH+1 layers; the forward's D passes or K+1 Jacobi passes; the
-    backward's recomputed pass, its sweeps, D or K+1, and the final VJP),
+    backward's recomputed pass, its sweeps, D or K+1, and the final VJP;
+    the sequential backward's D reverse steps, each a pass and its VJP),
     plus the flip."""
+    if sequential:
+        return nt * nb * (d * 2 * (nh + 1) + 1)
     passes = ((d if k == 0 else k + 1) + 2) if backward else (d if k == 0 else k + 1)
     return nt * nb * (passes * (nh + 1) + 1)
 
@@ -935,6 +968,101 @@ def run_iaf_jacobi_checks(torch, dev):
                  f"{IAF_FP64_FACTOR}x the plain fp32 version's, {IAF_RTOL}); both "
                  f"instantiations; bit-identical on relaunch and in a CUDA-graph replay; "
                  f"K=15 vs the sequential kernel <= {IAF_RTOL}*scale (not bitwise)")
+    return {"cases": cases, "timing_b64": timing, "tolerance": tolerance}
+
+
+# The sequential mode of the IAF-chain backward (n_sweeps = 0, JAX's
+# adj_sweeps = 0, reached through ADJ_SWEEPS_OVERRIDE): the train step's
+# B=16, the serving bucket's 64, one row, and 37, not a multiple of R = 8
+SEQ_BWD_BATCHES = (1, TRAIN_BATCH, 37, SERVE_BATCH)
+
+
+def run_iaf_seq_bwd_checks(torch, dev):
+    """The backward's sequential mode in both instantiations: (a) at the
+    near-identity init against its plain version; (b) at the reference init
+    against fp64, no less accurate than the plain fp32 version (the
+    adjoint's tolerances); bit-identical on relaunch; at B=64 against the
+    adjoint mode after the MADE masks (the raw entries the masks zero
+    differ), bit-identical in a CUDA-graph replay, and timed (a replayed
+    graph and CUDA events) beside its plain version, the adjoint mode in
+    the same call, its bound and its dependent layer steps."""
+    from rlvae_tpu_torch.ops.iaf_kernels import (
+        _launch_bwd,
+        iaf_chain_bwd,
+        iaf_chain_bwd_ref,
+        iaf_chain_fwd_ref,
+        launch_geometry,
+    )
+
+    nt, d, nb = N_TRANSITIONS, 16, 2
+    weights = {"near_identity": chain_weights(torch, dev, 0.0),
+               "model_init": chain_weights(torch, dev, -2.0)}
+    rng = np.random.default_rng(12)
+    cases, timing = [], None
+    for b in SEQ_BWD_BATCHES:
+        z0 = torch.tensor(rng.normal(size=(b, d)), dtype=torch.float32, device=dev)
+        dz = torch.tensor(rng.normal(size=(nt, b, d)), dtype=torch.float32, device=dev)
+        dld = torch.tensor(rng.normal(size=(nt, b)), dtype=torch.float32, device=dev)
+        case = {"shape": f"B={b},D=16,H=256,NB=2,NH=3,NT={nt}",
+                "geometry": launch_geometry(b, d, 256, 3, backward=True), "ok": True,
+                "max_abs_err": 0.0}
+        for init, w in weights.items():
+            _, _, ys = iaf_chain_fwd_ref(z0, *w, return_ys=True)
+            want = iaf_chain_bwd_ref(ys, dz, dld, *w, n_sweeps=0, z0=z0)
+            want64 = iaf_chain_bwd_ref(ys.double(), dz.double(), dld.double(),
+                                       *(x.double() for x in w), n_sweeps=0, z0=z0.double())
+            plain64 = _bwd_err(want, want64)
+            for inst, streamed in (("resident", False), ("streamed", True)):
+                got = _launch_bwd(ys, dz, dld, w, stream_weights=streamed, n_sweeps=0, z0=z0)
+                again = _launch_bwd(ys, dz, dld, w, stream_weights=streamed, n_sweeps=0, z0=z0)
+                torch.cuda.synchronize()
+                check(torch.equal(got[0], again[0]) and all(map(torch.equal, got[1], again[1])),
+                      f"the sequential backward ({inst}) changed on relaunch at B={b}")
+                rel, rel64 = _bwd_err(got, want), _bwd_err(got, want64)
+                ok = (rel <= IAF_RTOL if init == "near_identity"
+                      else rel64 <= max(IAF_FP64_FACTOR * plain64, IAF_RTOL))
+                case[f"{init}_{inst}"] = {"vs_plain_max_rel_err": rel,
+                                          "vs_fp64_max_rel_err": rel64,
+                                          "plain_fp32_vs_fp64_max_rel_err": plain64, "ok": ok}
+                case["ok"] &= ok
+                case["max_abs_err"] = max(case["max_abs_err"], _bwd_abs(got, want))
+                check(ok, f"the sequential backward ({inst}, {init}) disagrees at B={b}: "
+                          f"{rel}, vs fp64 {rel64} (plain fp32 {plain64})")
+        cases.append(case)
+        if b != SERVE_BATCH:
+            continue
+        w = weights["near_identity"]
+        _, _, ys = iaf_chain_fwd_ref(z0, *w, return_ys=True)
+        seq = lambda: iaf_chain_bwd(ys, dz, dld, *w, n_sweeps=0, z0=z0)  # noqa: E731
+        eager = seq()
+        case["bit_identical_in_graph_replay"] = graph_replay_equal(
+            torch, lambda: (lambda g: (g[0], *g[1]))(seq()), (eager[0], *eager[1]))
+        check(case["bit_identical_in_graph_replay"],
+              "the sequential backward changed in a CUDA-graph replay at B=64")
+        adj = iaf_chain_bwd(ys, dz, dld, *w)
+        masks = [(x != 0).to(torch.float32) for x in w]
+        case["vs_adjoint_after_masks_max_rel_err"] = _bwd_err(
+            (eager[0], [g * m for g, m in zip(eager[1], masks)]),
+            (adj[0], [g * m for g, m in zip(adj[1], masks)]))
+        check(case["vs_adjoint_after_masks_max_rel_err"] <= IAF_RTOL,
+              f"the sequential backward vs the adjoint mode at B=64: "
+              f"{case['vs_adjoint_after_masks_max_rel_err']}")
+        # per block, D reverse steps
+        bms, by = bound_ms(nbytes(ys, dz, dld, z0, *w, eager[0], *eager[1]),
+                           b * nt * nb * sum(seq_step_flops(i) for i in range(d)))
+        timing = with_device_ms(torch, {
+            "ms": time_ms(torch, seq, 5),
+            "plain_ms": time_ms(torch, lambda: iaf_chain_bwd_ref(ys, dz, dld, *w, n_sweeps=0,
+                                                                 z0=z0), 1, warmup=1),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "dependent_layer_steps": layer_steps(sequential=True),
+            "adjoint_device_ms_same_call": device_ms(
+                torch, lambda: iaf_chain_bwd(ys, dz, dld, *w))[0]}, seq)
+    tolerance = (f"near-identity chain: |kernel-plain| <= {IAF_RTOL}*scale (dz0 by its "
+                 f"largest entry, weight grads per transition); reference init: error vs fp64 "
+                 f"<= max({IAF_FP64_FACTOR}x the plain fp32 version's, {IAF_RTOL}); both "
+                 f"instantiations; bit-identical on relaunch and in a CUDA-graph replay; at "
+                 f"B=64 vs the adjoint mode <= {IAF_RTOL}*scale after the MADE masks")
     return {"cases": cases, "timing_b64": timing, "tolerance": tolerance}
 
 
@@ -1681,6 +1809,13 @@ def launch_counts():
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+def sequential_bwd_launches() -> int:
+    """Launches of the IAF-chain backward in its sequential mode, a running
+    total: :func:`zero_launch_counts` leaves it, so a phase reads a
+    difference."""
+    return _wrappers()["iaf_chain_bwd"].sequential_launches
+
+
 def zero_launch_counts():
     for fn in _wrappers().values():
         fn.launches = 0
@@ -1738,11 +1873,13 @@ def _train_and_replay(torch, run_dir, model_config, steps, per_step, dev):
     trainer.train_step = recorded_step
     torch.cuda.synchronize()
     zero_launch_counts()
+    seq_before = sequential_bwd_launches()
     t_fit = time.perf_counter()
     result = trainer.fit(max_steps=steps)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t_fit
     launches = launch_counts()
+    seq_launches = sequential_bwd_launches() - seq_before
     trainer.train_step = step
     check(result["steps"] == steps == len(records), f"ran {result['steps']} steps")
     for i, rec in enumerate(records):
@@ -1796,6 +1933,7 @@ def _train_and_replay(torch, run_dir, model_config, steps, per_step, dev):
         "device_busy_share": busy_ms / step_ms,
         "setup_s": setup_s, "fit_s": fit_s,
         "launches": launches, "launches_per_step": records[0]["launches"],
+        "iaf_chain_bwd_sequential_launches": seq_launches,
         "losses": [r["metrics"]["loss"] for r in records],
         "validation": {k: v for k, v in validation.items() if k.startswith("val/")},
         "card_vs_cpu": {"errors": errors, "tolerances": TRAIN_TOL},
@@ -4180,7 +4318,7 @@ def run_geometry(torch, dev=None):
 # dp phase
 # ---------------------------------------------------------------------------
 
-DP_STEPS = 3
+DP_STEPS = 2  # 3 until the sequential backward's phase joined the run (its time budget)
 DP_TRAIN_ROWS = 64   # the epoch's sequences: 32 per rank, 4 steps of 8 rows on each
 DP_LAYOUTS = "1,2"   # the gloo world's meshes: 2 x 1 (DP) and 1 x 2 (DP x TP)
 # more models in the gloo world: a BatchNorm model's step on 2 x 1, and the
@@ -4433,6 +4571,81 @@ def run_fixedpoint(torch, dev=None):
 
 
 # ---------------------------------------------------------------------------
+# seq_bwd phase
+# ---------------------------------------------------------------------------
+
+SEQ_BWD_STEPS = 3
+# the two backward modes' gradients of one batch on the card: JAX's
+# grad_probe deviation (scripts/bench_iaf_fixedpoint.py), max over the
+# parameters of max|g_seq - g_adj| / max(1e-3, max|g_adj|).  The modes
+# differ only in the flows' fp32 summation order; an H100 read 3.4e-6
+SEQ_GRAD_TOL = 1e-4
+
+
+def seq_grad_probe(torch, dev):
+    """The default preset's gradients on one B=16 batch and noise, with the
+    sequential backward and with the adjoint, on the same weights."""
+    from rlvae_tpu_torch.models import PRESETS, create_model
+    from rlvae_tpu_torch.ops import iaf_kernels
+
+    model = create_model(PRESETS["riemannian_flow_vae"], seed=0).to(dev)
+    rng = np.random.default_rng(13)
+    x = torch.tensor(rng.uniform(size=(TRAIN_BATCH, 8, 3, 64, 64)), dtype=torch.float32,
+                     device=dev)
+    noise = {"eps": torch.tensor(rng.normal(size=(TRAIN_BATCH, 16)), dtype=torch.float32,
+                                 device=dev)}
+    grads, counts = {}, {}
+    prev = iaf_kernels.ADJ_SWEEPS_OVERRIDE
+    for label, sweeps in (("sequential", 0), ("adjoint", None)):
+        iaf_kernels.ADJ_SWEEPS_OVERRIDE = sweeps
+        try:
+            model.zero_grad(set_to_none=True)
+            before = (launch_counts()["iaf_chain_bwd"], sequential_bwd_launches())
+            model(x, noise, train=True).loss.backward()
+            torch.cuda.synchronize()
+            counts[label] = {"all": launch_counts()["iaf_chain_bwd"] - before[0],
+                             "sequential": sequential_bwd_launches() - before[1]}
+            grads[label] = [p.grad.detach().clone() for p in model.parameters()
+                            if p.grad is not None]
+        finally:
+            iaf_kernels.ADJ_SWEEPS_OVERRIDE = prev
+    worst = max(float((a - b).abs().max()) / max(1e-3, float(b.abs().max()))
+                for a, b in zip(grads["sequential"], grads["adjoint"]))
+    return {"max_scaled_grad_dev": worst, "tolerance": SEQ_GRAD_TOL,
+            "iaf_chain_bwd_launches": counts, "parameters": len(grads["adjoint"])}
+
+
+def run_seq_bwd(torch, dev=None):
+    """The default preset's training with the IAF-chain backward in its
+    sequential mode (``ADJ_SWEEPS_OVERRIDE = 0``, as JAX's override forces
+    ``adj_sweeps = 0``): SEQ_BWD_STEPS Trainer steps at B=16 (chol-bundle 2,
+    IAF-chain forward and backward 1 each), each replayed on the CPU under
+    the same override (its plain sequential backward), the validation pass
+    (G^{-1}); then, outside the counted run, one batch's gradients in the
+    two modes against each other."""
+    from rlvae_tpu_torch.ops import iaf_kernels
+
+    prev = iaf_kernels.ADJ_SWEEPS_OVERRIDE
+    iaf_kernels.ADJ_SWEEPS_OVERRIDE = 0
+    try:
+        train = run_train(torch, steps=SEQ_BWD_STEPS, dev=dev)
+    finally:
+        iaf_kernels.ADJ_SWEEPS_OVERRIDE = prev
+    check(train["iaf_chain_bwd_sequential_launches"] == train["launches"]["iaf_chain_bwd"] > 0,
+          f"the seq_bwd run launched the backward {train['launches']['iaf_chain_bwd']} times, "
+          f"{train['iaf_chain_bwd_sequential_launches']} in the sequential mode")
+    probe = seq_grad_probe(torch, torch.device("cuda") if dev is None else dev)
+    check(probe["iaf_chain_bwd_launches"] == {"sequential": {"all": 1, "sequential": 1},
+                                              "adjoint": {"all": 1, "sequential": 0}},
+          f"the probe's backward launches by mode: {probe['iaf_chain_bwd_launches']}")
+    check(probe["max_scaled_grad_dev"] <= SEQ_GRAD_TOL,
+          f"the sequential backward's gradients vs the adjoint's: {probe}")
+    check(iaf_kernels.ADJ_SWEEPS_OVERRIDE is None, "ADJ_SWEEPS_OVERRIDE was not restored")
+    return {"model": "riemannian_flow_vae", "adj_sweeps_override": 0, "train": train,
+            "vs_adjoint": probe, "launches": train["launches"]}
+
+
+# ---------------------------------------------------------------------------
 # research phase
 # ---------------------------------------------------------------------------
 
@@ -4445,6 +4658,17 @@ RESEARCH_GEN = 16  # rows of each model's generate
 # range, in JAX as here)
 RESEARCH_STEPS = ((0, None), (100, 0), (100, "later"))
 RESEARCH_LATER_VISIT = {"riem": 7, "lvae_iaf": 3, "gugus_lvaegg": 3}
+RESEARCH_FRAMES = 8
+# the research CLI on the card, once per ported model: sprites frames
+# (3x64x64) at the published widths, 2 epochs (a warmup epoch, then the
+# visit branch) of 2 steps at B=16, missing visits and pixels, the MSE and a
+# 4-sample NLL on 8 sequences.  Cut: 4 visits (from the last of 8 the
+# reference-init flows take |z| past fp32's range, in JAX too), 32 sequences.
+RESEARCH_CLI_MODELS = ("lvae_iaf", "vamp", "gpvae", "riem", "gugus")
+RESEARCH_CLI_ARGS = ["--dataset", "sprites", "--n_obs", "4", "--n_train", "32", "--n_eval", "8",
+                     "--batch_size", "16", "--num_epochs", "2", "--warmup", "1",
+                     "--compute_nll", "1", "--nll_n_samples", "4", "--prob_missing_data",
+                     "0.25", "--prob_missing_pixels", "0.1", "--seed", "5"]
 RESEARCH_TOL = {"loss_rel": 1e-3, "grad_norm_rel": 2e-2}  # as TRAIN_TOL: bf16 nets
 GUGUS_HMC_LAUNCHES = 1 + 20 * (15 + 1)  # generate_hmc: 20 MCMC steps of 15 leapfrogs
 GEN_MIN_MATCHING_ROWS = RESEARCH_GEN - 1  # an HMC accept decision may flip on a near-tie
@@ -4453,8 +4677,12 @@ GEN_MIN_MATCHING_ROWS = RESEARCH_GEN - 1  # an HMC accept decision may flip on a
 def research_noise(torch, name, model, b, epoch, gen):
     """One training step's draws for the research model ``name`` (module
     docstrings of ``models/research``), on the CPU."""
-    d, t = model.latent_dim, model.n_obs
-    rows = b * t if epoch < model.warmup else b
+    d = model.latent_dim
+    if name == "gpvae":  # the posterior over each latent's trajectory
+        return {"eps": torch.randn((b, d, model.time_length), generator=gen)}
+    if name == "vamp":  # frames modelled independently
+        return {"eps": torch.randn((b * RESEARCH_FRAMES, d), generator=gen)}
+    rows = b * model.n_obs if epoch < model.warmup else b
     noise = {"eps": torch.randn((rows, d), generator=gen)}
     if name == "riem":
         noise["gamma"] = torch.randn((rows, d), generator=gen)
@@ -4465,16 +4693,18 @@ def research_noise(torch, name, model, b, epoch, gen):
 
 
 def research_models(torch):
-    """The three research models at their published defaults (3x64x64,
-    latent 16, 8 visits, MLP nets 12288->512->16; LVAE_IAF's flows of
-    hidden 128; RIEM on the K=50 metric at T=3.0; LVAE_GUGUS ``lvaegg`` with
-    its Riemannian prior on), seeded."""
+    """The research models at their published defaults (3x64x64, latent 16,
+    8 visits, MLP nets 12288->512->16; LVAE_IAF's flows of hidden 128; RIEM
+    on the K=50 metric at T=3.0; LVAE_GUGUS ``lvaegg`` with its Riemannian
+    prior on; VAMP's 50 pseudo-inputs; GPVAE's Cauchy prior over 8 visits,
+    its encoder 12288->512->48), seeded."""
     from rlvae_tpu_torch.geometry import load_metric
-    from rlvae_tpu_torch.models.research import LVAE_GUGUS, LVAE_IAF, RIEM
+    from rlvae_tpu_torch.models.research import GPVAE, LVAE_GUGUS, LVAE_IAF, RIEM, VAMP
 
     metric = load_metric(PRETRAINED / "metric_T0.7_scaled.npz", temperature_override=3.0)
     return {"lvae_iaf": LVAE_IAF(seed=0), "riem": RIEM(metric=metric, seed=0),
-            "gugus_lvaegg": LVAE_GUGUS(variant="lvaegg", use_riemann_prior=True, seed=0)}
+            "gugus_lvaegg": LVAE_GUGUS(variant="lvaegg", use_riemann_prior=True, seed=0),
+            "vamp": VAMP(seed=0), "gpvae": GPVAE(time_length=RESEARCH_FRAMES, seed=0)}
 
 
 def hmc_k1_check(torch, metric, dev):
@@ -4503,27 +4733,60 @@ def hmc_k1_check(torch, metric, dev):
 
 
 def _research_step(torch, model, opt, x, noise, vi, epoch):
+    """One Adam step: the model's loss terms (each output named ``*loss``:
+    GPVAE keeps the reference fork's names) and the gradient norm."""
     opt.zero_grad(set_to_none=True)
     out = model(x, noise=noise, vi_index=vi, epoch=epoch, train=True)
     out.loss.backward()
-    metrics = {k: float(out[k].detach()) for k in ("loss", "reconstruction_loss", "reg_loss")}
+    metrics = {k: float(v.detach()) for k, v in out.items() if k.endswith("loss")}
     metrics["grad_norm"] = _grad_norm(torch, model)
     opt.step()
     return metrics
 
 
+def research_cli_runs(torch, dev):
+    """``python -m rlvae_tpu_torch.research_cli`` in-process, once per ported
+    model, on ``dev``: RESEARCH_CLI_ARGS in a temporary output directory,
+    the result line read from its standard output.  Its models launch no
+    kernel of the port (RIEM runs there without a metric, as in JAX)."""
+    import contextlib
+    import io
+
+    from rlvae_tpu_torch import research_cli
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_research_cli_") as tmp:
+        for model in RESEARCH_CLI_MODELS:
+            buf, before = io.StringIO(), launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = research_cli.main(["--model", model, "--device", dev.type,
+                                        *RESEARCH_CLI_ARGS, "--output_dir", tmp])
+            torch.cuda.synchronize()
+            result = json.loads(buf.getvalue().strip().splitlines()[-1])
+            values = [result[k] for k in ("final_loss", "eval_mse", "eval_nll") if k in result]
+            check(rc == 0 and result["model"] == model and all(np.isfinite(values)),
+                  f"research_cli --model {model}: rc {rc}, {result}")
+            runs[model] = {**result, "host_s": time.perf_counter() - t0,
+                           "launches": {k: v - before[k] for k, v in launch_counts().items()
+                                        if v - before[k]}}
+    return runs
+
+
 def run_research(torch, dev=None):
-    """LVAE_IAF, RIEM and LVAE_GUGUS (``lvaegg``) on the card at their
-    published widths: each takes the RESEARCH_STEPS Adam steps at B=16 (each
-    step replayed on the CPU from the card's weights and Adam state before
-    it, on the same draws: losses and grad norm), then generates 16
-    sequences (against the CPU on the same draws).  GUGUS first estimates
+    """LVAE_IAF, RIEM, LVAE_GUGUS (``lvaegg``), VAMP and GPVAE on the card at
+    their published widths: each takes the RESEARCH_STEPS Adam steps at B=16
+    (each step replayed on the CPU from the card's weights and Adam state
+    before it, on the same draws: losses and grad norm), then generates 16
+    sequences (against the CPU on the same draws; VAMP's frames through
+    ``VampSampler``).  GUGUS first estimates
     its local metrics on the card, and generates by manifold HMC on its
     one-centroid metric (B4 at K=1: 321 launches); its ``lvaega`` training
     draw, which autograd would differentiate through B4, raises.  The
     counters are zeroed just before and read just after each model's
     steps and generate; B4 at K=1 is held to its plain version and fp64
-    apart from them."""
+    apart from them.  Then the research CLI trains each of the five ported
+    models (:func:`research_cli_runs`)."""
     from rlvae_tpu_torch.convert import gugus_host_state, set_gugus_host_state
     from rlvae_tpu_torch.models.research import LVAE_GUGUS
 
@@ -4548,7 +4811,8 @@ def run_research(torch, dev=None):
         torch.cuda.synchronize()
         zero_launch_counts()
         for i, (epoch, vi) in enumerate(RESEARCH_STEPS):
-            vi = RESEARCH_LATER_VISIT[name] if vi == "later" else (vi or 0)
+            # (VAMP and GPVAE take no visit)
+            vi = RESEARCH_LATER_VISIT.get(name, 0) if vi == "later" else (vi or 0)
             x = torch.from_numpy(seqs[i * RESEARCH_BATCH:(i + 1) * RESEARCH_BATCH])
             noise = research_noise(torch, name, model, RESEARCH_BATCH, epoch, gen)
             state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
@@ -4566,10 +4830,9 @@ def run_research(torch, dev=None):
             cpu_model.load_state_dict(state)
             cpu_opt.load_state_dict(opt_state)
             c = _research_step(torch, cpu_model, cpu_opt, x, noise, vi, epoch)
-            err = {k: abs(m[k] - c[k]) / max(abs(c[k]), 1e-12)
-                   for k in ("loss", "reconstruction_loss", "reg_loss", "grad_norm")}
+            err = {k: abs(m[k] - c[k]) / max(abs(c[k]), 1e-12) for k in c}
             errors.append(err)
-            for k in ("loss", "reconstruction_loss", "reg_loss"):
+            for k in (k for k in c if k != "grad_norm"):
                 check(err[k] <= RESEARCH_TOL["loss_rel"] or abs(m[k] - c[k]) <= 1e-5,
                       f"{name} step {i + 1} {k}: card vs CPU {err[k]}")
             check(err["grad_norm"] <= RESEARCH_TOL["grad_norm_rel"],
@@ -4588,6 +4851,20 @@ def run_research(torch, dev=None):
                 check(rec["generate_hmc_launches"] == GUGUS_HMC_LAUNCHES,
                       f"generate_hmc launched hmc_terms {rec['generate_hmc_launches']} times")
                 want = cpu_model.generate_hmc(RESEARCH_GEN, noise=noise)
+            elif name == "vamp":  # through the sampler: a component, then its Gaussian
+                from rlvae_tpu_torch.samplers import VampSampler
+
+                noise = {"idx": torch.randint(0, model.number_components, (RESEARCH_GEN,),
+                                              generator=gen),
+                         "eps": torch.randn((RESEARCH_GEN, 16), generator=gen)}
+                card, cpu = VampSampler(model), VampSampler(cpu_model)
+                got = torch.from_numpy(card._decode(card.sample_latents(
+                    RESEARCH_GEN, noise={k: v.to(dev) for k, v in noise.items()})))
+                want = torch.from_numpy(cpu._decode(cpu.sample_latents(RESEARCH_GEN, noise=noise)))
+            elif name == "gpvae":
+                noise = {"eps": torch.randn((RESEARCH_GEN, 16, RESEARCH_FRAMES), generator=gen)}
+                got = model.generate(RESEARCH_GEN, noise={k: v.to(dev) for k, v in noise.items()})
+                want = cpu_model.generate(RESEARCH_GEN, noise=noise)
             else:
                 noise = {"z": torch.randn((RESEARCH_GEN, 16), generator=gen),
                          "gamma": torch.randn((RESEARCH_GEN, 16), generator=gen)}
@@ -4596,7 +4873,8 @@ def run_research(torch, dev=None):
         torch.cuda.synchronize()
         rec["launches"] = launch_counts()
         got = got.float().cpu()
-        check(tuple(got.shape) == (RESEARCH_GEN, 8, 3, 64, 64) and bool(torch.isfinite(got).all()),
+        shape = (RESEARCH_GEN, 3, 64, 64) if name == "vamp" else (RESEARCH_GEN, 8, 3, 64, 64)
+        check(tuple(got.shape) == shape and bool(torch.isfinite(got).all()),
               f"bad {name} generate output")
         row_err = (got - want.float()).abs().flatten(1)
         rows_ok = int(((row_err.mean(1) <= GEN_ROW_TOL["mean_abs"])
@@ -4630,6 +4908,7 @@ def run_research(torch, dev=None):
     check(total["iaf_chain_fwd"] == 0 and total["iaf_chain_bwd"] == 0,
           f"the research models' flows launched the IAF chain: {total}")
     out["launches"] = total
+    out["cli"] = research_cli_runs(torch, dev)
     return out
 
 
@@ -4681,7 +4960,13 @@ def main() -> None:
     jacobi = run_iaf_jacobi_checks(torch, dev)
     emit("kernels", kernel="iaf_chain_fwd+iaf_chain_bwd (Jacobi mode)",
          tolerance=jacobi["tolerance"], cases=jacobi["cases"])
+    seq_checks = run_iaf_seq_bwd_checks(torch, dev)
+    emit("kernels", kernel="iaf_chain_bwd (sequential mode)", tolerance=seq_checks["tolerance"],
+         cases=seq_checks["cases"], timing_b64=seq_checks["timing_b64"])
 
+    # every phase before seq_bwd runs the backward in the adjoint mode (in
+    # this process: the dp phase's ranks count in their own)
+    seq_before_paths = sequential_bwd_launches()
     serve = run_serve(torch)
     emit("serve", **serve)
     train = run_train(torch)
@@ -4712,6 +4997,11 @@ def main() -> None:
     emit("fixedpoint", **fixedpoint)
     research = run_research(torch)
     emit("research", **research)
+    check(sequential_bwd_launches() == seq_before_paths,
+          f"{sequential_bwd_launches() - seq_before_paths} sequential backward launches in the "
+          f"adjoint paths")
+    seq_bwd = run_seq_bwd(torch)
+    emit("seq_bwd", **seq_bwd)
     # launches: the sum over the main paths' runs (each read between
     # zeroing the counters and the end of its run), with each path's count
     # beside it; every kernel is launched by the paths it belongs to
@@ -4745,7 +5035,9 @@ def main() -> None:
                                      "decode_mse_bwd_dw")),
              "fixedpoint": (fixedpoint["launches"], ("chol_bundle", "iaf_chain_fwd",
                                                      "iaf_chain_bwd", "g_inv")),
-             "research": (research["launches"], ("chol_bundle", "metric_bundle", "hmc_terms"))}
+             "research": (research["launches"], ("chol_bundle", "metric_bundle", "hmc_terms")),
+             "seq_bwd": (seq_bwd["launches"], ("chol_bundle", "iaf_chain_fwd", "iaf_chain_bwd",
+                                               "g_inv"))}
     for path, (counts, kernels) in paths.items():
         for name in kernels:
             check(counts[name] > 0, f"the {path} path did not launch {name}")
@@ -4784,6 +5076,15 @@ def main() -> None:
                                            max(c["max_abs_err"] for c in jacobi["cases"]))
     records["iaf_chain_fwd"]["jacobi"]["launches_per_fixedpoint_reconstruct_bucket"] = (
         fixedpoint["reconstruct_bucket"]["launches"]["iaf_chain_fwd"])
+    # the sequential mode of B3 (seq_bwd phase: ADJ_SWEEPS_OVERRIDE = 0)
+    records["iaf_chain_bwd"]["sequential"] = {
+        "cases": [c["shape"] for c in seq_checks["cases"]], "tolerance": seq_checks["tolerance"],
+        "timing_b64": seq_checks["timing_b64"],
+        "launches_seq_bwd": seq_bwd["launches"]["iaf_chain_bwd"],
+        "launches_per_seq_bwd_train_step": seq_bwd["train"]["launches_per_step"]["iaf_chain_bwd"],
+        "vs_adjoint_gradients": seq_bwd["vs_adjoint"]}
+    records["iaf_chain_bwd"]["max_abs_err"] = max(
+        records["iaf_chain_bwd"]["max_abs_err"], *(c["max_abs_err"] for c in seq_checks["cases"]))
     records["hmc_terms"]["k1"] = research["gugus_lvaegg"]["hmc_terms_k1"]
     records["hmc_terms"]["launches_per_gugus_generate_hmc"] = (
         research["gugus_lvaegg"]["generate_hmc_launches"])

@@ -39,11 +39,17 @@
   :func:`save_component_npz` writes a net in the flat component format
   :func:`load_component_npz` reads (and JAX's ``load_component_npz`` does).
 - :func:`research_state_from_jax` maps the research models' ``params``
-  (``LVAE_IAF``, ``LVAE_GUGUS``, ``RIEM``: ``encoder``, ``decoder``,
-  ``flows`` (per visit transition; ``lvaega2``'s weight-normed blocks hold
-  ``w<l>_v`` and ``w<l>_g``, the port's ``weights`` and ``gains``),
-  ``posterior_flow``, VAMP's ``pseudo`` and RIEM's empty ``dynamics``) onto
-  the port's state dict; a JAX gradient tree maps the same way.
+  (``LVAE_IAF``, ``LVAE_GUGUS``, ``RIEM``, ``VAMP``, ``GPVAE``:
+  ``encoder``, ``decoder``, ``flows`` (per visit transition; ``lvaega2``'s
+  weight-normed blocks hold ``w<l>_v`` and ``w<l>_g``, the port's
+  ``weights`` and ``gains``), ``posterior_flow``, the VAMP prior's
+  ``pseudo`` Linear (``kernel`` [C, prod(input_dim)] and ``bias``, the
+  port's ``pseudo_kernel`` and ``pseudo_bias``, in the same layout: the
+  pseudo-inputs are the kernel's rows) and RIEM's empty ``dynamics``) onto
+  the port's state dict; a JAX gradient tree maps the same way.  The
+  research heads ``SVAEEncoderMLP`` (``hidden_<i>``, ``embedding``,
+  ``log_concentration``) and ``DiscriminatorMLP`` (``hidden_<i>``,
+  ``out``) are Dense stacks: :func:`net_state_from_flax` carries them.
   :func:`gugus_host_state` copies ``LVAE_GUGUS``'s estimated metrics
   (``gm_list``, ``g_list``, ``sampled_metric``) off a JAX model as numpy,
   and :func:`set_gugus_host_state` puts them on the port's.
@@ -360,8 +366,8 @@ def _made_leaves(block: Mapping[str, Any], prefix: str) -> Iterator[Tuple[str, n
 
 def research_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A research model's state dict (``LVAE_IAF``, ``LVAE_GUGUS``,
-    ``RIEM``) from its JAX ``variables`` or ``params`` tree (or a gradient
-    tree of the same shape)."""
+    ``RIEM``, ``VAMP``, ``GPVAE``) from its JAX ``variables`` or ``params``
+    tree (or a gradient tree of the same shape)."""
     params = tree["params"] if "params" in tree else tree
     state: Dict[str, np.ndarray] = {}
     for comp in sorted(params):

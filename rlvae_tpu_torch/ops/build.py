@@ -85,11 +85,12 @@ SIGNATURES = {
     "iaf_chain_fwd_f32": (_C_PTR,) * 10 + (_C_INT,) * 7 + (_C_PTR,),
     # ... B, D, H, NB, NH, NT, K, R, stream_weights, stream: a given R, or streamed weights
     "iaf_chain_fwd_at_f32": (_C_PTR,) * 10 + (_C_INT,) * 9 + (_C_PTR,),
-    # ys, dz, dld, w0, b0, wh, bh, wo, bo, dz0, gw0, gb0, gwh, gbh, gwo, gbo,
-    # B, D, H, NB, NH, NT, n_sweeps, n_clusters, stream
-    "iaf_chain_bwd_f32": (_C_PTR,) * 16 + (_C_INT,) * 8 + (_C_PTR,),
+    # ys, dz, dld, z0 (the sequential mode's; null otherwise), w0, b0, wh, bh, wo,
+    # bo, dz0, gw0, gb0, gwh, gbh, gwo, gbo, B, D, H, NB, NH, NT, n_sweeps (0: the
+    # sequential mode), n_clusters, stream
+    "iaf_chain_bwd_f32": (_C_PTR,) * 17 + (_C_INT,) * 8 + (_C_PTR,),
     # ... B, D, H, NB, NH, NT, n_sweeps, R, stream_weights, stream
-    "iaf_chain_bwd_at_f32": (_C_PTR,) * 16 + (_C_INT,) * 9 + (_C_PTR,),
+    "iaf_chain_bwd_at_f32": (_C_PTR,) * 17 + (_C_INT,) * 9 + (_C_PTR,),
     # B, D, H, NH (, K for the forward), out int[6]: R, C, clusters, smem
     # bytes, resident, active clusters
     "iaf_chain_fwd_geometry": (_C_INT,) * 5 + (_C_PTR,),
@@ -116,7 +117,7 @@ PROFILE_SIGNATURES = {
     # ... as iaf_chain_fwd_f32 up to K, then prof, stream
     "iaf_chain_fwd_profile_f32": (_C_PTR,) * 10 + (_C_INT,) * 7 + (_C_PTR,) * 2,
     # ... as iaf_chain_bwd_f32 up to n_sweeps, then prof, stream
-    "iaf_chain_bwd_profile_f32": (_C_PTR,) * 16 + (_C_INT,) * 7 + (_C_PTR,) * 2,
+    "iaf_chain_bwd_profile_f32": (_C_PTR,) * 17 + (_C_INT,) * 7 + (_C_PTR,) * 2,
     # ... as hmc_terms_at_f32 up to ctas, then prof, stream
     "hmc_terms_profile_f32": (_C_PTR,) * 3 + (_C_FLOAT,) * 3 + (_C_PTR,) * 2 + (_C_INT,) * 5
                              + (_C_PTR,) * 2,

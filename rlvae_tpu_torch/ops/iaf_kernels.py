@@ -22,9 +22,17 @@ per use):
   it returns dz0 and the gradients of the six stacked weights, after
   ``n_sweeps`` adjoint sweeps per block (:func:`adjoint_sweeps`: D, exact,
   or K + 1 after a K-iteration forward, as ``get_fused_iaf_chain`` resolves
-  ``adj_sweeps``, ``iaf_kernels.py:493-496``).
+  ``adj_sweeps``, ``iaf_kernels.py:493-496``).  ``n_sweeps = 0`` is the
+  sequential mode, ``_transition_bwd_body`` (``iaf_kernels.py:172-229``,
+  ``adj_sweeps = 0``): D reverse steps per block, each a MADE pass
+  recomputed at the output masked to the columns before the step's, the
+  update's VJP and the weight gradients added up; it also reads z0, the
+  chain's input (each block's input is z0 or a flipped residual).  It
+  equals the adjoint mode up to fp32 order, except in the raw weight
+  gradients that the MADE masks zero afterwards.
 - :class:`IAFChain` is the ``torch.autograd.Function`` around the pair (the
-  counterpart of the ``jax.custom_vjp`` at ``iaf_kernels.py:666-680``).
+  counterpart of the ``jax.custom_vjp`` at ``iaf_kernels.py:666-680``);
+  :data:`ADJ_SWEEPS_OVERRIDE` picks its backward mode as JAX's does.
   Autograd through :func:`stack_chain` then applies the masks and sums the
   gradients of a flow that appears at several transitions.
 
@@ -36,7 +44,9 @@ and cluster count, :func:`launch_geometry` the rest from the library.  Each wrap
 PyTorch version (:func:`iaf_chain_fwd_ref`, :func:`iaf_chain_bwd_ref`) for
 CPU tensors; it raises on a shape the kernel does not take, or a cluster
 the card cannot hold.  ``iaf_chain_fwd.launches`` and
-``iaf_chain_bwd.launches`` count kernel launches.
+``iaf_chain_bwd.launches`` count kernel launches;
+``iaf_chain_bwd.sequential_launches`` counts those of the backward in its
+sequential mode.
 """
 
 from __future__ import annotations
@@ -56,6 +66,11 @@ MAX_HIDDEN_LAYERS = 16  # MAX_NH (the backward)
 CLUSTER_CTAS = 8  # C
 CLUSTERS_PER_WAVE = 8
 MAX_CLUSTER_ROWS = 8
+
+# The backward mode of :class:`IAFChain`, read on every call, as JAX's
+# ``ADJ_SWEEPS_OVERRIDE`` (``rlvae_tpu/ops/iaf_kernels.py:477-480``): None is
+# auto (:func:`adjoint_sweeps`), an int the sweep count, 0 the sequential mode.
+ADJ_SWEEPS_OVERRIDE: Optional[int] = None
 
 Stack = Tuple[torch.Tensor, ...]
 
@@ -269,23 +284,31 @@ def adjoint_sweeps(d: int, fp_iters: int = 0) -> int:
     return d if fp_iters == 0 else fp_iters + 1
 
 
-def _check_sweeps(n_sweeps, d: int) -> int:
+def _check_sweeps(n_sweeps, d: int, z0: Optional[torch.Tensor] = None) -> int:
+    """The sweep count (D when None); 0, the sequential mode, needs z0 [B, D]."""
     n_sweeps = d if n_sweeps is None else n_sweeps
-    if int(n_sweeps) != n_sweeps or n_sweeps < 1:
-        raise ValueError(f"iaf_chain_bwd: n_sweeps must be an integer >= 1, got {n_sweeps!r}")
+    if int(n_sweeps) != n_sweeps or n_sweeps < 0:
+        raise ValueError(f"iaf_chain_bwd: n_sweeps must be an integer >= 0, got {n_sweeps!r}")
+    if n_sweeps == 0 and z0 is None:
+        raise ValueError("iaf_chain_bwd: the sequential mode (n_sweeps=0) needs z0")
     return int(n_sweeps)
 
 
 def iaf_chain_bwd_ref(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
-                      w0, b0, wh, bh, wo, bo, n_sweeps: Optional[int] = None) -> Grads:
+                      w0, b0, wh, bh, wo, bo, n_sweeps: Optional[int] = None,
+                      z0: Optional[torch.Tensor] = None) -> Grads:
     """Plain PyTorch version: (dz0 [B, D], (dw0, db0, dwh, dbh, dwo, dbo)).
 
     A direct transcription of ``_transition_bwd_adjoint_body``
     (``rlvae_tpu/ops/iaf_kernels.py:232-301``) with ``n_sweeps`` sweeps (D
     when None), run over the transitions in reverse; in the weights' dtype.
+    ``n_sweeps = 0``: ``_transition_bwd_body`` (:172-229) instead, from the
+    chain's input ``z0`` (:func:`_seq_bwd_ref`).
     """
     b, d, h, nb, nh, nt = _bwd_shapes(ys, dz, dld, w0, b0, wh, bh, wo, bo)
-    n_sweeps = _check_sweeps(n_sweeps, d)
+    n_sweeps = _check_sweeps(n_sweeps, d, z0)
+    if n_sweeps == 0:
+        return _seq_bwd_ref(ys, dz, dld, z0, w0, b0, wh, bh, wo, bo)
     dt = w0.dtype
     grads = tuple(torch.zeros_like(w) for w in (w0, b0, wh, bh, wo, bo))
     gw0, gb0, gwh, gbh, gwo, gbo = grads
@@ -331,6 +354,64 @@ def iaf_chain_bwd_ref(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
     return carry, grads
 
 
+def _seq_bwd_ref(ys, dz, dld, z0, w0, b0, wh, bh, wo, bo) -> Grads:
+    """The sequential mode's plain version: ``_transition_bwd_body``
+    (``rlvae_tpu/ops/iaf_kernels.py:172-229``) per transition, in reverse.
+    Per block, D reverse steps i = D-1 ... 0: the MADE pass at the block's
+    output masked to columns < i, the VJP of the update at column i, and
+    the weight gradients of each step added up.  A block's input is z0 for
+    the chain's first, else the previous block's output flipped."""
+    b, d, h, nb, nh, nt = _bwd_shapes(ys, dz, dld, w0, b0, wh, bh, wo, bo)
+    if tuple(z0.shape) != (b, d):
+        raise ValueError(f"iaf_chain_bwd: z0 has shape {tuple(z0.shape)}, expected {(b, d)}")
+    dt = w0.dtype
+    grads = tuple(torch.zeros_like(w) for w in (w0, b0, wh, bh, wo, bo))
+    gw0, gb0, gwh, gbh, gwo, gbo = grads
+    col = torch.arange(d, device=ys.device)
+    zero = torch.zeros((), dtype=dt, device=ys.device)
+    carry = torch.zeros((b, d), dtype=dt, device=ys.device)
+    for t in reversed(range(nt)):
+        dy = torch.flip(dz[t].to(dt) + carry, dims=(1,))  # adjoint of the final flip
+        dld_t = dld[t].to(dt)[:, None]
+        for blk in reversed(range(nb)):
+            y_out = ys[t, blk].to(dt)
+            if blk > 0:
+                x_b = torch.flip(ys[t, blk - 1].to(dt), dims=(1,))
+            else:
+                x_b = z0.to(dt) if t == 0 else torch.flip(ys[t - 1, nb - 1].to(dt), dims=(1,))
+            W0, WH, WO = w0[t, blk], wh[t, blk], wo[t, blk]
+            dx = torch.zeros_like(dy)
+            for i in reversed(range(d)):
+                sel, before = col == i, col < i
+                y_in = torch.where(before, y_out, zero)
+                acts = [y_in @ W0 + b0[t, blk]]  # no activation after layer 0
+                for li in range(nh - 1):
+                    acts.append(torch.relu(acts[-1] @ WH[li] + bh[t, blk, li]))
+                out = acts[-1] @ WO + bo[t, blk]
+                mu, s_pre = out[:, :d], out[:, d:]
+                e = torch.exp(-torch.clamp(s_pre, -LOG_VAR_CLAMP, LOG_VAR_CLAMP))
+                u = (x_b - mu) * e
+                du = torch.where(sel, dy, zero)
+                dx = dx + du * e
+                ds = -du * u - torch.where(sel, dld_t, zero)
+                ds_pre = torch.where(s_pre.abs() < LOG_VAR_CLAMP, ds, zero)
+                dout = torch.cat([-du * e, ds_pre], dim=1)
+                gwo[t, blk] += acts[-1].T @ dout
+                gbo[t, blk] += dout.sum(0)
+                da = dout @ WO.T
+                for li in reversed(range(nh - 1)):
+                    g = torch.where(acts[li + 1] > 0, da, zero)
+                    gwh[t, blk, li] += acts[li].T @ g
+                    gbh[t, blk, li] += g.sum(0)
+                    da = g @ WH[li].T
+                gw0[t, blk] += y_in.T @ da
+                gb0[t, blk] += da.sum(0)
+                dy = dy + torch.where(before, da @ W0.T, zero)
+            dy = torch.flip(dx, dims=(1,)) if blk > 0 else dx
+        carry = dy
+    return carry, grads
+
+
 def bwd_workspace(b: int, weights: Stack) -> list:
     """The backward kernel's weight-gradient partials: one [n_clusters, *w.shape]
     buffer per stacked weight, one slot per cluster of :func:`chain_geometry`."""
@@ -340,9 +421,11 @@ def bwd_workspace(b: int, weights: Stack) -> list:
 
 
 def iaf_chain_bwd(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
-                  w0, b0, wh, bh, wo, bo, n_sweeps: Optional[int] = None) -> Grads:
+                  w0, b0, wh, bh, wo, bo, n_sweeps: Optional[int] = None,
+                  z0: Optional[torch.Tensor] = None) -> Grads:
     """(dz0, stacked weight gradients) after ``n_sweeps`` adjoint sweeps per
-    block (D when None); kernel on CUDA, plain version on CPU.
+    block (D when None; 0: the sequential mode, which reads the chain's
+    input ``z0``); kernel on CUDA, plain version on CPU.
 
     The kernel writes each cluster's weight-gradient partials to its own
     slot of a [n_clusters, ...] workspace (:func:`chain_geometry`); they are
@@ -350,12 +433,13 @@ def iaf_chain_bwd(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
     the clusters ran in.
     """
     if ys.device.type == "cpu":
-        return iaf_chain_bwd_ref(ys, dz, dld, w0, b0, wh, bh, wo, bo, n_sweeps)
-    return _launch_bwd(ys, dz, dld, (w0, b0, wh, bh, wo, bo), n_sweeps=n_sweeps)
+        return iaf_chain_bwd_ref(ys, dz, dld, w0, b0, wh, bh, wo, bo, n_sweeps, z0)
+    return _launch_bwd(ys, dz, dld, (w0, b0, wh, bh, wo, bo), n_sweeps=n_sweeps, z0=z0)
 
 
 def _launch_bwd(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor, weights: Stack,
-                stream_weights: bool = False, n_sweeps: Optional[int] = None) -> Grads:
+                stream_weights: bool = False, n_sweeps: Optional[int] = None,
+                z0: Optional[torch.Tensor] = None) -> Grads:
     """The backward kernel on CUDA tensors; ``stream_weights`` as for
     :func:`_launch_fwd`."""
     if ys.device.type != "cuda":
@@ -364,7 +448,13 @@ def _launch_bwd(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor, weights: 
     check_inputs("iaf_chain_bwd", ys.device, ys=ys, dz=dz, dld=dld, w0=w0, b0=b0, wh=wh,
                  bh=bh, wo=wo, bo=bo)
     b, d, h, nb, nh, nt = _bwd_shapes(ys, dz, dld, w0, b0, wh, bh, wo, bo)
-    n_sweeps = _check_sweeps(n_sweeps, d)
+    n_sweeps = _check_sweeps(n_sweeps, d, z0)
+    if n_sweeps == 0:
+        check_inputs("iaf_chain_bwd", ys.device, z0=z0)
+        if tuple(z0.shape) != (b, d):
+            raise ValueError(f"iaf_chain_bwd: z0 has shape {tuple(z0.shape)}, expected {(b, d)}")
+    else:
+        z0 = None  # the adjoint mode does not read it
     if not (1 <= d <= MAX_DIM and 4 <= h <= MAX_HIDDEN and h % 4 == 0 and nb >= 1
             and 1 <= nh <= MAX_HIDDEN_LAYERS and nt >= 1):
         raise ValueError(
@@ -378,7 +468,8 @@ def _launch_bwd(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor, weights: 
     parts = bwd_workspace(b, weights)
     from rlvae_tpu_torch.ops.build import kernel_library
 
-    args = (ys.data_ptr(), dz.data_ptr(), dld.data_ptr(), *(w.data_ptr() for w in weights),
+    args = (ys.data_ptr(), dz.data_ptr(), dld.data_ptr(), None if z0 is None else z0.data_ptr(),
+            *(w.data_ptr() for w in weights),
             dz0.data_ptr(), *(p.data_ptr() for p in parts), b, d, h, nb, nh, nt, n_sweeps)
     lib = kernel_library()
     if stream_weights:
@@ -387,23 +478,27 @@ def _launch_bwd(ys: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor, weights: 
         code = lib.iaf_chain_bwd_f32(*args, parts[0].shape[0], stream_handle(ys.device))
     raise_on_error("iaf_chain_bwd", code)
     iaf_chain_bwd.launches += 1
+    iaf_chain_bwd.sequential_launches += int(n_sweeps == 0)
     return dz0, tuple(p.sum(0) for p in parts)
 
 
 iaf_chain_bwd.launches = 0
+iaf_chain_bwd.sequential_launches = 0
 
 
 class IAFChain(torch.autograd.Function):
     """(z, ld) = iaf_chain_fwd(z0, *weights, fp_iters=fp_iters), differentiable
     in z0 and the six stacked weights; the backward is :func:`iaf_chain_bwd`
-    at :func:`adjoint_sweeps` sweeps.
+    at :data:`ADJ_SWEEPS_OVERRIDE` sweeps when it is set (0: the sequential
+    mode), else at :func:`adjoint_sweeps` sweeps, resolved on every call as
+    JAX's ``get_fused_iaf_chain`` resolves ``adj_sweeps``.
 
     The adjoint reads only the residual ys (each block's output), so that is
-    what the forward saves besides the weights; it asks the forward for ys
-    only when some input needs a gradient, so inference keeps its launch.
-    At ``fp_iters = K < D - 1`` the gradient is the implicit adjoint at K + 1
-    sweeps, as JAX's kernel pair gives it, not autodiff through the
-    iterations.
+    what the forward saves besides the weights (the sequential mode also
+    z0); it asks the forward for ys only when some input needs a gradient,
+    so inference keeps its launch.  At ``fp_iters = K < D - 1`` the gradient
+    is the implicit adjoint at K + 1 sweeps, as JAX's kernel pair gives it,
+    not autodiff through the iterations.
     """
 
     @staticmethod
@@ -412,13 +507,18 @@ class IAFChain(torch.autograd.Function):
         if not any(ctx.needs_input_grad):
             return iaf_chain_fwd(z0.detach(), *weights, fp_iters=fp_iters)
         z, ld, ys = iaf_chain_fwd(z0.detach(), *weights, return_ys=True, fp_iters=fp_iters)
-        ctx.save_for_backward(ys, *weights)
-        ctx.n_sweeps = adjoint_sweeps(z0.shape[1], fp_iters)
+        n_sweeps = ADJ_SWEEPS_OVERRIDE
+        if n_sweeps is None:
+            n_sweeps = adjoint_sweeps(z0.shape[1], fp_iters)
+        ctx.n_sweeps = _check_sweeps(n_sweeps, z0.shape[1], z0)
+        saved = (z0.detach().contiguous(),) if ctx.n_sweeps == 0 else ()
+        ctx.save_for_backward(ys, *weights, *saved)
         return z, ld
 
     @staticmethod
     def backward(ctx, dz, dld):
         ys, *weights = ctx.saved_tensors
+        z0 = weights.pop() if ctx.n_sweeps == 0 else None
         dz0, grads = iaf_chain_bwd(ys, dz.contiguous(), dld.contiguous(), *weights,
-                                   n_sweeps=ctx.n_sweeps)
+                                   n_sweeps=ctx.n_sweeps, z0=z0)
         return (dz0, *grads, None)

@@ -1,6 +1,6 @@
 """The IAF-chain kernels on one card: checks and a sweep of their geometry.
 
-    python -m rlvae_tpu_torch.ops.iaf_sweep [--sweep] [--out DIR]
+    python -m rlvae_tpu_torch.ops.iaf_sweep [--sweep] [--n-sweeps N] [--out DIR]
 
 Builds the kernels, prints the ``-Xptxas -v`` lines of the two IAF-chain
 kernels and, for the shipped shape (D=16, H=256, NB=2, NH=3, NT=7) and for
@@ -13,7 +13,12 @@ relaunched for bit-identity.  The profile build (``-DIAF_PROFILE``, a
 library of its own) then sums clock64 laps per phase of a MADE pass on one
 thread of each kernel, at the rule's geometry, converted to us with the
 launch's CUDA-event time.  With ``--sweep`` it also times each (R, weights
-resident or streamed) at B = 1, 16, 64 with CUDA events.  One JSON line per
+resident or streamed) at B = 1, 16, 64 with CUDA events.  ``--n-sweeps N``
+runs the backward's checks, profile and sweep with N adjoint sweeps per
+block (D, the default, is exact); ``--n-sweeps 0`` selects the sequential
+mode (JAX's ``adj_sweeps = 0``), whose profile is per reverse step: the
+recomputed pass with the update's VJP, the VJP's products, gathers and
+outer products, and dy's exchange and update.  One JSON line per
 result; ``--out`` also writes them to ``DIR/iaf_sweep.jsonl``.  Needs a CUDA
 card.
 """
@@ -44,6 +49,10 @@ FWD_PHASES = ("block_start", "layer0", "hidden_products", "hidden_exchange",
               "output_partial_exchange", "y_update", "block_end", "total")
 BWD_PHASES = ("block_start", "recompute", "wo_t_gate", "gather", "wh_t_product",
               "lam_partial_exchange", "lam_update", "grad_writes", "block_end", "total")
+# the same slots in the sequential mode, per reverse step
+SEQ_BWD_PHASES = ("block_start", "recompute_and_update_vjp", "wo_t_gate", "gather",
+                  "wh_t_product", "dy_partial_exchange", "dy_update", "outer_products",
+                  "block_end", "total")
 
 
 def chain(dev, nh=NH, bias=0.0, seed=0):
@@ -67,15 +76,16 @@ def fwd_at(lib, z0, w, r, stream_weights, ys=True):
     return z, ld, y
 
 
-def bwd_at(lib, ys, dz, dld, w, r, stream_weights):
+def bwd_at(lib, ys, dz, dld, w, r, stream_weights, n_sweeps=D, z0=None):
     nt, nb, b, _ = ys.shape
     nh = w[2].shape[2] + 1
     dz0 = torch.empty((b, D), device=ys.device)
     parts = [torch.empty((-(-b // r), *x.shape), device=ys.device) for x in w]
     code = lib.iaf_chain_bwd_at_f32(ys.data_ptr(), dz.data_ptr(), dld.data_ptr(),
+                                    z0.data_ptr() if n_sweeps == 0 else None,
                                     *(x.data_ptr() for x in w), dz0.data_ptr(),
-                                    *(p.data_ptr() for p in parts), b, D, H, nb, nh, nt, D, r,
-                                    stream_weights, stream_handle(ys.device))
+                                    *(p.data_ptr() for p in parts), b, D, H, nb, nh, nt,
+                                    n_sweeps, r, stream_weights, stream_handle(ys.device))
     if code != 0:
         raise RuntimeError(f"iaf_chain_bwd_at_f32(R={r}) failed: cudaError_t {code}")
     return dz0, tuple(p.sum(0) for p in parts)
@@ -92,14 +102,15 @@ def fwd_profile(lib, z0, w, prof):
         raise RuntimeError(f"iaf_chain_fwd_profile_f32 failed: cudaError_t {code}")
 
 
-def bwd_profile(lib, ys, dz, dld, w, prof):
+def bwd_profile(lib, ys, dz, dld, w, prof, n_sweeps=D, z0=None):
     nt, nb, b, _ = ys.shape
     dz0 = torch.empty((b, D), device=ys.device)
     parts = ik.bwd_workspace(b, w)
     code = lib.iaf_chain_bwd_profile_f32(ys.data_ptr(), dz.data_ptr(), dld.data_ptr(),
+                                         z0.data_ptr() if n_sweeps == 0 else None,
                                          *(x.data_ptr() for x in w), dz0.data_ptr(),
                                          *(p.data_ptr() for p in parts), b, D, H, nb,
-                                         w[2].shape[2] + 1, nt, D, prof.data_ptr(),
+                                         w[2].shape[2] + 1, nt, n_sweeps, prof.data_ptr(),
                                          stream_handle(ys.device))
     if code != 0:
         raise RuntimeError(f"iaf_chain_bwd_profile_f32 failed: cudaError_t {code}")
@@ -126,6 +137,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--n-sweeps", type=int, default=D,
+                    help="the backward's adjoint sweeps per block; 0: the sequential mode")
     ap.add_argument("--deadline-s", type=float, default=420.0,
                     help="dump every thread's stack and exit after this long")
     args = ap.parse_args(argv)
@@ -136,6 +149,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     lines = []
+    n = args.n_sweeps
 
     def emit(**rec):
         lines.append(rec)
@@ -162,13 +176,13 @@ def main(argv=None) -> int:
         dz = torch.randn(NT, b, D, device=dev, generator=gen)
         dld = torch.randn(NT, b, device=dev, generator=gen)
         z_p, ld_p, ys_p = ik.iaf_chain_fwd_ref(z0, *w, return_ys=True)
-        dz0_p, g_p = ik.iaf_chain_bwd_ref(ys_p, dz, dld, *w)
+        dz0_p, g_p = ik.iaf_chain_bwd_ref(ys_p, dz, dld, *w, n_sweeps=n, z0=z0)
         for r in ROWS:
             for stream_weights in (0, 1):
                 z, ld, ys = fwd_at(lib, z0, w, r, stream_weights)
                 z2, ld2, ys2 = fwd_at(lib, z0, w, r, stream_weights)
-                dz0, g = bwd_at(lib, ys_p, dz, dld, w, r, stream_weights)
-                dz0b, gb = bwd_at(lib, ys_p, dz, dld, w, r, stream_weights)
+                dz0, g = bwd_at(lib, ys_p, dz, dld, w, r, stream_weights, n, z0)
+                dz0b, gb = bwd_at(lib, ys_p, dz, dld, w, r, stream_weights, n, z0)
                 torch.cuda.synchronize()
                 fe = max(rel_err(z, z_p), rel_err(ld, ld_p), rel_err(ys, ys_p))
                 be = max(rel_err(a, e) for a, e in zip((dz0, *g), (dz0_p, *g_p)))
@@ -176,7 +190,7 @@ def main(argv=None) -> int:
                         and torch.equal(dz0, dz0b) and all(map(torch.equal, g, gb)))
                 good = fe <= RTOL and be <= RTOL and same
                 ok &= good
-                emit(kind="check", batch=b, rows=r, streamed=stream_weights,
+                emit(kind="check", batch=b, rows=r, streamed=stream_weights, n_sweeps=n,
                      fwd_rel_err=fe, bwd_rel_err=be, relaunch_bit_identical=same, ok=good)
 
     # NH=16: its weights do not fit, the streamed instantiation runs
@@ -186,20 +200,21 @@ def main(argv=None) -> int:
         dz = torch.randn(NT, b, D, device=dev, generator=gen)
         dld = torch.randn(NT, b, device=dev, generator=gen)
         z_p, ld_p, ys_p = ik.iaf_chain_fwd_ref(z0, *w16, return_ys=True)
-        dz0_p, g_p = ik.iaf_chain_bwd_ref(ys_p, dz, dld, *w16)
+        dz0_p, g_p = ik.iaf_chain_bwd_ref(ys_p, dz, dld, *w16, n_sweeps=n, z0=z0)
         z, ld, ys = ik.iaf_chain_fwd(z0, *w16, return_ys=True)
-        dz0, g = ik.iaf_chain_bwd(ys_p, dz, dld, *w16)
+        dz0, g = ik.iaf_chain_bwd(ys_p, dz, dld, *w16, n_sweeps=n, z0=z0)
         torch.cuda.synchronize()
         fe = max(rel_err(z, z_p), rel_err(ld, ld_p), rel_err(ys, ys_p))
         be = max(rel_err(a, e) for a, e in zip((dz0, *g), (dz0_p, *g_p)))
         good = fe <= RTOL and be <= RTOL
         ok &= good
-        emit(kind="check", batch=b, nh=16, geometry=ik.launch_geometry(b, D, H, 16),
+        emit(kind="check", batch=b, nh=16, n_sweeps=n, geometry=ik.launch_geometry(b, D, H, 16),
              fwd_rel_err=fe, bwd_rel_err=be, ok=good)
 
     # where the time goes: clock64 sums per phase of cluster 0's rank 0
     # (the profile build), at the rule's geometry, converted to us with the
-    # launch's own CUDA-event time
+    # launch's own CUDA-event time; per MADE pass, per sweep (the final VJP
+    # counted as one), or per reverse step of the sequential mode
     plib = kernel_library(profile=True)
     wm = chain(dev, bias=-2.0)
     for b in BATCHES:
@@ -209,13 +224,15 @@ def main(argv=None) -> int:
         _, _, ys = ik.iaf_chain_fwd(z0, *wm, return_ys=True)
         for name, phases, launch, passes in (
                 ("fwd", FWD_PHASES, lambda pr: fwd_profile(plib, z0, wm, pr), NT * NB * D),
-                ("bwd", BWD_PHASES, lambda pr: bwd_profile(plib, ys, dz, dld, wm, pr),
-                 NT * NB * (D + 1))):
+                ("bwd", SEQ_BWD_PHASES if n == 0 else BWD_PHASES,
+                 lambda pr: bwd_profile(plib, ys, dz, dld, wm, pr, n, z0),
+                 NT * NB * (D if n == 0 else n + 1))):
             prof = torch.zeros(len(phases), dtype=torch.int64, device=dev)
             ms = time_ms(lambda: launch(prof))
             cycles = prof.tolist()
             us_per_cycle = ms * 1e3 / max(cycles[-1], 1)
             emit(kind="profile", kernel=name, batch=b, rows=ik.cluster_rows(b), ms=ms,
+                 n_sweeps=n if name == "bwd" else None,
                  passes=passes, cycles_total=cycles[-1],
                  us_per_pass={k: v * us_per_cycle / passes for k, v in zip(phases, cycles)})
 
@@ -229,13 +246,14 @@ def main(argv=None) -> int:
             for r in ROWS:
                 for stream_weights in (0, 1):
                     f_ms = time_ms(lambda: fwd_at(lib, z0, wm, r, stream_weights, ys=False))
-                    b_ms = time_ms(lambda: bwd_at(lib, ys, dz, dld, wm, r, stream_weights),
-                                   iters=5)
-                    emit(kind="time", batch=b, rows=r, streamed=stream_weights,
+                    b_ms = time_ms(lambda: bwd_at(lib, ys, dz, dld, wm, r, stream_weights, n,
+                                                  z0), iters=5)
+                    emit(kind="time", batch=b, rows=r, streamed=stream_weights, n_sweeps=n,
                          clusters=-(-b // r), fwd_ms=f_ms, bwd_ms=b_ms)
             emit(kind="time_default", batch=b,
                  fwd_ms=time_ms(lambda: ik.iaf_chain_fwd(z0, *wm)),
-                 bwd_ms=time_ms(lambda: ik.iaf_chain_bwd(ys, dz, dld, *wm), iters=5))
+                 bwd_ms=time_ms(lambda: ik.iaf_chain_bwd(ys, dz, dld, *wm, n_sweeps=n, z0=z0),
+                                iters=5))
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         with open(args.out / "iaf_sweep.jsonl", "w") as fh:

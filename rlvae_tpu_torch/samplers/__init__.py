@@ -7,6 +7,7 @@ from rlvae_tpu_torch.samplers.generation import (
     BaseGenerationSampler,
     NormalSampler,
     RHVAEGenerationSampler,
+    VampSampler,
 )
 from rlvae_tpu_torch.samplers.hmc import (
     HMCConfig,
@@ -50,5 +51,5 @@ __all__ = [
     "run_adaptive_prior_chain", "run_hmc_chain_fixed", "run_prior_chain",
     "sample_metric_aware_posterior", "sample_posterior", "sample_posterior_hmc",
     "sample_prior", "sample_prior_hmc", "sample_prior_hmc_adaptive",
-    "sample_prior_hmc_adaptive_budget", "sample_prior_hmc_planned", "tempering",
+    "sample_prior_hmc_adaptive_budget", "sample_prior_hmc_planned", "tempering", "VampSampler",
 ]

@@ -8,15 +8,14 @@ the model's decoder.
   draws ``num_samples`` latents in batches, decodes them and optionally
   writes ``generated.npz`` and ``sampler_config.json``;
 - :class:`NormalSampler`: z ~ N(0, I);
+- :class:`VampSampler`: a VAMP model's mixture prior, each sample from one
+  pseudo-input's posterior, its log-variance through tanh;
 - :class:`RHVAEGenerationSampler`: the official manifold-HMC chain from
   centroid starts (1601 ``hmc_terms`` launches a batch);
 - :class:`AdaptiveRHVAEGenerationSampler`: ``fit`` calibrates the adaptive
   plan with a warm-start pool; each batch is the planned fixed-eps chain,
   and with ``persistent=True`` each chain's final state goes back into its
   own pool slot (its eps stays paired with the slot).
-
-JAX's ``VampSampler`` needs the VAMP research model, which is not ported
-(ROADMAP queue A7).
 
 A sampler's randomness comes from one ``torch.Generator`` on the metric's
 (or model's) device seeded with ``sample``'s ``seed``; each batch draws from
@@ -113,6 +112,29 @@ class NormalSampler(BaseGenerationSampler):
         return torch.randn((n, self.latent_dim), generator=generator, device=self.device())
 
 
+class VampSampler(BaseGenerationSampler):
+    """VampPrior mixture sampling (reference vamp_sampler.py:40-112) of a
+    :class:`~rlvae_tpu_torch.models.research.VAMP`: the pseudo-inputs
+    encoded, a component index per sample (``idx`` [n]), and a draw from
+    that component's Gaussian (``eps`` [n, D]) with its log-variance clamped
+    by tanh, as pythae does (vamp_sampler.py:66,90): without it a sharp
+    component samples with exponentially wrong variance."""
+
+    name = "VampSampler"
+
+    def sample_latents(self, n, generator=None, noise=None):
+        dev = self.device()
+        mu_k, lv_k = self.model.pseudo_posteriors()  # [C, D]
+        if noise is not None:
+            idx = torch.as_tensor(noise["idx"], device=dev).long()
+            eps = torch.as_tensor(noise["eps"], dtype=torch.float32, device=dev)
+        else:
+            idx = torch.randint(0, self.model.number_components, (n,), generator=generator,
+                                device=dev)
+            eps = torch.randn((n, self.model.latent_dim), generator=generator, device=dev)
+        return mu_k[idx] + torch.exp(0.5 * torch.tanh(lv_k[idx])) * eps
+
+
 def _model_metric(model, metric):
     metric = metric if metric is not None else model.metric
     if metric is None:
@@ -187,6 +209,7 @@ class AdaptiveRHVAEGenerationSampler(BaseGenerationSampler):
 
 SAMPLER_REGISTRY = {
     "normal": NormalSampler,
+    "vamp": VampSampler,
     "rhvae": RHVAEGenerationSampler,
     "rhvae_adaptive": AdaptiveRHVAEGenerationSampler,
 }

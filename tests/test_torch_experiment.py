@@ -458,5 +458,5 @@ def test_training_and_generation_pipelines(tmp_path):
     assert recorder.events[-1][0] == "on_train_end"
     images = GenerationPipeline(model)(num_samples=5, batch_size=2, seed=3)
     assert images.shape == (5, 3, 8, 8) and np.isfinite(images).all()
-    with pytest.raises(NotImplementedError, match="Available"):
-        GenerationPipeline(model, "vamp")
+    with pytest.raises(NotImplementedError, match="Available"):  # vamp is registered now
+        GenerationPipeline(model, "no_such_sampler")

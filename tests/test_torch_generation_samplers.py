@@ -98,10 +98,11 @@ def _planned_draws(key, n, steps):
 
 
 def test_registry_and_decode(model_pair):
-    """The registry holds JAX's samplers but VAMP (its research model is not
-    ported); a sampler decodes latents as the JAX sampler does."""
+    """The registry holds every one of JAX's samplers (``vamp`` since its
+    research model is ported); a sampler decodes latents as the JAX sampler
+    does."""
     jm, jv, pm = model_pair
-    assert set(tgen.SAMPLER_REGISTRY) == set(jgen.SAMPLER_REGISTRY) - {"vamp"}
+    assert set(tgen.SAMPLER_REGISTRY) == set(jgen.SAMPLER_REGISTRY)
     assert tgen.SAMPLER_REGISTRY["rhvae_adaptive"] is tgen.AdaptiveRHVAEGenerationSampler
     for name, cls in tgen.SAMPLER_REGISTRY.items():
         assert cls.name == jgen.SAMPLER_REGISTRY[name].name

@@ -11,7 +11,11 @@ B up to 300 (more clusters than one wave), in the instantiation with
 weights in shared memory and the streamed one (NH=16, and the shipped
 NH=3 forced), and bit-identical on relaunch; the same tolerances for the
 Jacobi mode (fp_iters K = 2, 8, 15, backward at K + 1 sweeps), which at
-K = D - 1 also agrees with the sequential kernel within them; HMC
+K = D - 1 also agrees with the sequential kernel within them; the
+backward's sequential mode (n_sweeps = 0) within 1e-4 of scale of its plain
+version (near-identity flows), against fp64 at the reference init no worse
+than 4x the plain version (or 1e-4 of scale), equal to the adjoint mode
+after the masks, bit-identical on relaunch and in a CUDA-graph replay; HMC
 terms: log pi atol 1e-5 and grad within 1e-4 of its scale against the plain
 version, and against fp64 no worse than 4x the plain version (or 1e-4 of
 scale).  Metric bundle and G^{-1}: against the plain version at the JAX
@@ -398,6 +402,118 @@ def test_iaf_chain_jacobi_rejects_bad_modes(dev):
     _, _, ys = iaf_chain_fwd(z0, *w, return_ys=True)
     with pytest.raises(ValueError):
         iaf_chain_bwd(ys, dz, dld, *w, n_sweeps=0)
+
+
+# the sequential mode of the backward (n_sweeps = 0, JAX's adj_sweeps = 0):
+# against its plain version and fp64, in both instantiations; 37 is not a
+# multiple of the cluster rows (R = 8)
+SEQ_BATCHES = [1, 16, 37, 64]
+
+
+def _seq_case(dev, b, bias):
+    g = torch.Generator().manual_seed(b)
+    flows = TemporalFlows(16, 8, 256, 2, 3, log_var_bias_init=bias, generator=g)
+    w = stack_chain([flows.to(dev).requires_grad_(False).flows[min(t, 7)] for t in range(7)])
+    z0 = torch.randn(b, 16, generator=g).to(dev)
+    dz = torch.randn(7, b, 16, generator=g).to(dev)
+    dld = torch.randn(7, b, generator=g).to(dev)
+    _, _, ys = iaf_chain_fwd_ref(z0, *w, return_ys=True)
+    return w, z0, dz, dld, ys
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).abs().max()) / max(
+        float(want.double().abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("b", SEQ_BATCHES)
+@pytest.mark.parametrize("stream_weights", [False, True])
+@pytest.mark.parametrize("bias", [0.0, -2.0])
+def test_iaf_chain_sequential_bwd_matches_plain_and_fp64(dev, b, stream_weights, bias):
+    """Near-identity flows (bias 0): within 1e-4 of each output's scale of
+    the plain version.  The reference init (bias -2), whose gradients are
+    ill-conditioned in fp32: against fp64 no worse than 4x the plain fp32
+    version (or 1e-4 of scale), as chip_smoke.py holds the adjoint mode.
+    Bit-identical on relaunch."""
+    w, z0, dz, dld, ys = _seq_case(dev, b, bias)
+    before = iaf_chain_bwd.launches
+    got = _launch_bwd(ys, dz, dld, w, stream_weights=stream_weights, n_sweeps=0, z0=z0)
+    again = _launch_bwd(ys, dz, dld, w, stream_weights=stream_weights, n_sweeps=0, z0=z0)
+    want = iaf_chain_bwd_ref(ys, dz, dld, *w, n_sweeps=0, z0=z0)
+    torch.cuda.synchronize()
+    assert iaf_chain_bwd.launches == before + 2
+    assert torch.equal(got[0], again[0]) and all(map(torch.equal, got[1], again[1]))
+    pairs = list(zip((got[0], *got[1]), (want[0], *want[1])))
+    if bias == 0.0:
+        for g_, w_ in pairs:
+            _scaled_close(g_, w_)
+    else:
+        want64 = iaf_chain_bwd_ref(ys.double(), dz.double(), dld.double(),
+                                   *(x.double() for x in w), n_sweeps=0, z0=z0.double())
+        for (g_, p_), e_ in zip(pairs, (want64[0], *want64[1])):
+            assert _rel(g_, e_) <= max(4.0 * _rel(p_, e_), 1e-4)
+
+
+def test_iaf_chain_sequential_bwd_replays_in_a_cuda_graph_and_equals_the_adjoint(dev):
+    """Captured after an eager launch, the replay gives the eager bits; the
+    gradients equal the adjoint mode's within 1e-4 of scale after the MADE
+    masks (the raw entries the masks zero differ between the modes), and
+    the adjoint's launch is not counted as a sequential one."""
+    w, z0, dz, dld, ys = _seq_case(dev, 64, 0.0)
+    eager = iaf_chain_bwd(ys, dz, dld, *w, n_sweeps=0, z0=z0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = iaf_chain_bwd(ys, dz, dld, *w, n_sweeps=0, z0=z0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], eager[0]) and all(map(torch.equal, out[1], eager[1]))
+    sequential = iaf_chain_bwd.sequential_launches
+    adj = iaf_chain_bwd(ys, dz, dld, *w)
+    assert iaf_chain_bwd.sequential_launches == sequential  # the adjoint is not counted
+    _scaled_close(eager[0], adj[0])
+    for g_, a_, w_ in zip(eager[1], adj[1], w):
+        mask = (w_ != 0).to(g_.dtype)
+        _scaled_close(g_ * mask, a_ * mask)
+
+
+@pytest.mark.parametrize("d,h,nh", [(16, 256, 1), (16, 256, 2), (6, 100, 3), (5, 20, 3)])
+def test_iaf_chain_sequential_bwd_other_shapes_match_plain(dev, d, h, nh):
+    """Off the presets: no or one more hidden layer, partial or empty column
+    slices, an odd D (streamed)."""
+    w, z0, dz, dld = _chain_problem(dev, 20, nh=nh, d=d, h=h)
+    _, _, ys = iaf_chain_fwd_ref(z0, *w, return_ys=True)
+    got = iaf_chain_bwd(ys, dz, dld, *w, n_sweeps=0, z0=z0)
+    want = iaf_chain_bwd_ref(ys, dz, dld, *w, n_sweeps=0, z0=z0)
+    torch.cuda.synchronize()
+    for g_, w_ in zip((got[0], *got[1]), (want[0], *want[1])):
+        if w_.numel():
+            _scaled_close(g_, w_)
+
+
+def test_iaf_chain_function_under_the_override_equals_the_cpu(dev, monkeypatch):
+    """IAFChain with ADJ_SWEEPS_OVERRIDE = 0: one forward and one backward
+    launch in the sequential mode on the card, against the same Function on
+    the CPU's plain versions."""
+    from rlvae_tpu_torch.ops import iaf_kernels
+
+    monkeypatch.setattr(iaf_kernels, "ADJ_SWEEPS_OVERRIDE", 0)
+    g = torch.Generator().manual_seed(2)
+    flows = TemporalFlows(16, 8, 256, 2, 3, log_var_bias_init=0.0, generator=g)
+    z0 = torch.randn(16, 16, generator=g)
+    outs = {}
+    for d in (dev, "cpu"):
+        f = flows.to(d)
+        f.zero_grad()
+        z = z0.detach().clone().to(d).requires_grad_(True)
+        launches = (iaf_chain_bwd.launches, iaf_chain_bwd.sequential_launches)
+        zt, ld = IAFChain.apply(z, *stack_chain([f.flows[min(t, 7)] for t in range(7)]))
+        (zt.square().sum() + ld.sum()).backward()
+        assert (iaf_chain_bwd.launches, iaf_chain_bwd.sequential_launches) == tuple(
+            n + (d == dev) for n in launches)
+        outs[str(d)] = (zt.detach().cpu(), z.grad.cpu(), f.flows[0].blocks[0].weights[1].grad.cpu())
+    for got, want in zip(outs[str(dev)], outs["cpu"]):
+        _scaled_close(got, want)
 
 
 def test_research_models_launch_their_kernels(dev):
