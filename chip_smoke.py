@@ -58,9 +58,15 @@ Phases, each printing one JSON line with its elapsed seconds:
    around every step (chol-bundle 2, IAF-chain forward 1, backward 1); the
    validation pass reports the six analysis metrics and launches G^{-1}.  Each
    card step is replayed on the CPU from the card's weights and optimizer
-   state just before it, with the same batch and noise; losses, grad_norm
-   and the step-1 gradients are compared.  One warm step is timed with CUDA
-   events and one is profiled.
+   state just before it, with the same batch and noise: the losses are
+   gated, grad_norm and the step-1 gradients reported (at the reference
+   flow init they are ill-conditioned), and the card's step-1 gradients
+   held to an fp64 step on the CPU no less closely than the CPU's.  Then
+   GRAD_WITNESS_STEPS steps of the same path at the near-identity flow
+   init (``flow_log_var_bias_init: 0``), replayed with the losses,
+   grad_norm and step-1 gradients gated.  The posterior, fast, fixedpoint
+   and seq_bwd phases replay their ``Trainer`` steps the same way.  One
+   warm step is timed with CUDA events and one is profiled.
 6. ``generate``: a full-width ``ModelManager`` on the card generates through
    ``sample_random_batched_seeds`` at B=1 and B=64 with the ``geodesic``
    prior and the ``official`` manifold-HMC chain, and at B=64 with the other
@@ -120,7 +126,9 @@ Phases, each printing one JSON line with its elapsed seconds:
    behind a ``BatchingEngine``: a B=64 ``reconstruct`` bit for bit equal to a
    model loaded from the slot by hand, the engine's 64 rows (one batch)
    equal to it, and a B=64 forward replayed on the CPU from the same slot
-   and noise within ``compare_forward``'s tolerances.  Seconds and bytes of
+   and noise (``compare_trained_forward``: the bf16 encoder layer by layer
+   from the card's inputs, the rest from the card's encodings, within
+   ``compare_forward``'s tolerances).  Seconds and bytes of
    every save and restore; the counters are zeroed just before the first
    ``fit`` and read after the CPU replay (chol-bundle, IAF-chain forward and
    backward, G^{-1}).
@@ -158,13 +166,17 @@ Phases, each printing one JSON line with its elapsed seconds:
    every step record, the epoch-0 trace naming the IAF-chain kernels, a
    ``viz/error`` record per due visualization module), then
    ``ModelManager.from_run`` on its directory, a B=64 forward on the card
-   against the CPU; ``experiment=comparison_study`` (``vanilla_vae``
-   launches nothing); ``-m model=hybrid_rlvae
+   against the CPU (``compare_trained_forward``);
+   ``experiment=comparison_study`` (``vanilla_vae`` launches nothing); ``-m model=hybrid_rlvae
    model.sampling.method=enhanced,geodesic`` (the metric bundle once per
    train step and evaluation batch in the ``geodesic`` job, never in the
    ``enhanced`` one); one ``model=riemannian_flow_vae_fast`` epoch (the
    decode+MSE kernels once each per train step).  The counters are zeroed
-   before the first run and read after the last.
+   before the first run and read after the last.  Every run's training
+   batches come from the native C++ loader (``data.use_native_loader``,
+   JAX's default; its epochs counted), built with g++ on the card's host;
+   a data module as the single run's gives each epoch's batches as a
+   permutation of its training rows, the same twice for one seed.
 14. ``convnets``: ``conf/model/cnn_rlvae.yaml``, ``resnet_rlvae.yaml`` and
    ``mlp_rlvae.yaml`` composed from ``conf/`` at their published widths
    (64x64 frames, 8 flows; their MLP artifacts do not fit, so the nets keep
@@ -185,7 +197,8 @@ Phases, each printing one JSON line with its elapsed seconds:
    (chol-bundle 2, IAF-chain forward 1), ``encode``, ``decode`` (none) and
    ``generate`` (1601 HMC-terms launches, IAF-chain forward 1), each in one
    bucket, and a B=CONVNET_CMP_BATCH forward held to the CPU within
-   CONVNET_E2E_TOL (the reconstruction on frame 0, CONVNET_RECON0_TOL).
+   CONVNET_E2E_TOL (the reconstruction on frame 0, CONVNET_RECON0_TOL;
+   ``mlp_rlvae``'s bf16 encoder through ``compare_trained_forward``).
    Last, one fp32-policy ``cnn_rlvae`` run at the near-identity flow init
    replayed on the CPU at 1e-4, grad_norm included, and the encoder's and
    decoder's step-1 gradients at 1e-3.
@@ -265,10 +278,19 @@ Phases, each printing one JSON line with its elapsed seconds:
    would differentiate through B4, raises.  ``VAMP`` (50 pseudo-inputs) and
    ``GPVAE`` (Cauchy prior over 8 visits) likewise take 3 Adam steps each,
    replayed on the CPU, and generate 16 rows (VAMP's through
-   ``VampSampler``), launching nothing of the port.  Then
-   ``python -m rlvae_tpu_torch.research_cli`` trains each of the five
-   ported models for 2 epochs on the card (RESEARCH_CLI_ARGS), finite
-   losses, MSE and NLL.
+   ``VampSampler``), launching nothing of the port.  ``LLDM`` at JAX's
+   defaults (3x64x64, latent 12, 8 visits, MLP nets, the posterior IAF, the
+   standard prior, eps-net hidden 128): its eps-net pre-trained
+   LLDM_PRETRAIN steps on the card's encodings (the first step
+   replayed on the CPU), the sampled metric of 16 centroids from the data
+   end's encodings attached, 3 Adam steps at B=16 and LLDM_LR (the warmup
+   branch, the first visit, the last visit against the metric's volume)
+   replayed on the CPU; ``reconstruct``, ``oversample``, ``predict``, ``get_nll`` and a
+   16-sequence ``generate`` (HMC 100 x 10) against the CPU on the same
+   draws, the CPU's metric built from the card's encodings; no kernel
+   launched.  Then ``python -m rlvae_tpu_torch.research_cli`` trains each
+   of the six models for 2 epochs on the card (RESEARCH_CLI_ARGS), finite
+   losses, MSE and NLL (LLDM has no NLL estimate, as in JAX).
 19. ``seq_bwd``: ``PRESETS["riemannian_flow_vae"]`` with
    ``iaf_kernels.ADJ_SWEEPS_OVERRIDE = 0``: 3 Trainer steps at B=16
    (chol-bundle 2, IAF-chain forward 1, backward 1 in its sequential mode,
@@ -287,11 +309,13 @@ CUDA card the run fails at once.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import faulthandler
 import json
 import math
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -1768,15 +1792,106 @@ def compare_forward(torch, a, b, tolerances=E2E_TOL):
             "recon_max_abs": float((a["recon_x"] - b["recon_x"]).abs().max())}
 
 
+# A trained bf16 MLP encoder, card vs CPU.  Each hidden activation is an
+# fp32 sum rounded to bf16, and where that sum lies next to a bf16 boundary
+# the two devices round it to neighbouring values (a flip of one bf16
+# step), which the heads carry into mu as that step times a weight: an
+# H100 (700 W) read a trained default model's mu 9.5e-7 off the CPU's, and
+# 5.4e-3 and 5.8e-3 in runs with a flip.  So the encoder is replayed layer
+# by layer from the card's input to each layer (every activation within
+# one bf16 step of the CPU's, the flips counted; the fp32 heads within
+# ENCODER_HEAD_TOL of max(1, |.|)), and the rest of the forward runs on the
+# CPU from the card's encodings at the caller's tolerances.
+ENCODER_HEAD_TOL = 1e-5
+
+
+def encoder_replay(torch, encoder, cpu, x0):
+    """The MLP ``encoder`` (on the card) on frames ``x0``, each layer
+    replayed by ``cpu`` (its weights on the CPU) from the card's input to
+    it; returns the flips and the heads' errors."""
+    from rlvae_tpu_torch.nets.layers import dense
+
+    h, flips, worst = x0.reshape(x0.shape[0], -1), 0, 0.0
+    with torch.no_grad():
+        for i in range(len(encoder.hidden_dims)):
+            a = torch.relu(dense(getattr(encoder, f"hidden_{i}"), h, encoder.dtype))
+            b = torch.relu(dense(getattr(cpu, f"hidden_{i}"), h.cpu(), cpu.dtype)).float()
+            # one step at the larger of the two; at 2^-8 at least, where an
+            # fp32 sum next to zero may take the ReLU's other side
+            d, top = (a.float().cpu() - b).abs(), torch.maximum(a.float().cpu().abs(), b.abs())
+            step = torch.finfo(encoder.dtype).eps * torch.exp2(
+                torch.floor(torch.log2(top.clamp_min(2 ** -8))))
+            check(bool((d <= step).all()),
+                  f"encoder layer {i}: card vs CPU beyond one {encoder.dtype} step")
+            flips += int((d > 0).sum())
+            worst = max(worst, float(d.max()))
+            h = a
+        heads = {}
+        for name, key in (("embedding", "mu"), ("log_var", "log_var")):
+            a = dense(getattr(encoder, name), h, torch.float32).cpu()
+            b = dense(getattr(cpu, name), h.cpu(), torch.float32)
+            heads[key] = float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+            check(heads[key] <= ENCODER_HEAD_TOL,
+                  f"encoder {key} from the card's hidden layer: card vs CPU {heads[key]}")
+    return {"hidden_flips": flips, "hidden_max_abs": worst, "heads_max_scaled": heads,
+            "activations": int(x0.shape[0]) * sum(encoder.hidden_dims)}
+
+
+def compare_trained_forward(torch, card, cpu, seqs, eps, tolerances=E2E_TOL):
+    """A trained model's forward on the card (``card``, a ModelManager)
+    against ``cpu`` (the same weights on the CPU) with posterior noise
+    ``eps``: a bf16 MLP encoder replayed by :func:`encoder_replay`, the
+    rest from the card's encodings; any other encoder as
+    :func:`compare_forward`.  Returns (the errors, the card's output, the
+    CPU's)."""
+    from rlvae_tpu_torch.nets.mlp import MLPEncoder
+
+    out_card = card.forward(seqs, eps=eps.to(card.device))
+    encoder = card.model.encoder
+    if not (isinstance(encoder, MLPEncoder) and encoder.dtype == torch.bfloat16):
+        out_cpu = cpu.forward(seqs, eps=eps)
+        return compare_forward(torch, out_card, out_cpu, tolerances), out_card, out_cpu
+    x0 = torch.from_numpy(np.ascontiguousarray(seqs[:, 0])).to(card.device)
+    with torch.no_grad():
+        enc = card.model.encode(x0)
+    check(torch.equal(enc["embedding"], out_card["mu"]), "the encoder's mu differs from the forward's")
+    replay = encoder_replay(torch, encoder, cpu.model.encoder, x0)
+    enc_card = {k: v.float().cpu() for k, v in enc.items()}
+    cpu.model.encode = lambda _x0, *_: enc_card
+    try:
+        out_cpu = cpu.forward(seqs, eps=eps)
+    finally:
+        del cpu.model.encode
+    return ({**compare_forward(torch, out_card, out_cpu, tolerances), "encoder_replay": replay},
+            out_card, out_cpu)
+
+
 # ---------------------------------------------------------------------------
 # train phase
 # ---------------------------------------------------------------------------
 
 # Card step vs the same step replayed on the CPU from the card's weights and
 # optimizer state just before it.  The nets run bf16 activations, which the
-# two devices round at other places (2^-8 relative per rounding), and the
-# reference-init flows scale the latent ~20x per transition, so gradients
-# are compared relative to each tensor's largest entry.
+# two devices round at other places (2^-8 relative per rounding), and
+# gradients are compared relative to each tensor's largest entry.  At the
+# presets' reference flow init each density-direction transition scales
+# the latent ~20x, and there the step's gradients are ill-conditioned in
+# any precision under fp64.  `python3 chip_smoke.py --replay-witness` on
+# an H100 (700 W), at the native loader's batches, 3 steps: the default
+# model's step-1 gradients read 1.9e-3 card vs CPU with bf16 nets and 0.26
+# with fp32 nets, where the card's lie 7.7e-2 of scale from an fp64 step's
+# and the CPU's 0.44; the geodesic hybrid 0.64 (bf16; card 56 and CPU 113
+# of scale from fp64) and 2.3e-2 (fp32; both 1.0); at 5 steps' data the
+# default read 4.3e-2 in bf16.  At the near-identity init (log-sigma bias
+# 0) the same replays read 1.3e-3 (bf16) and 1.0e-6 (fp32), 8.1e-7 and
+# 1.1e-6 on the hybrid, the fp32 steps 1e-6 from fp64 on both devices.
+# So a reference-init run gates its losses, reports grad_norm and the
+# card-vs-CPU gradients, and holds the card's step-1 gradients to an fp64
+# step (fp64_grads): no farther from it than FP64_GRAD_FACTOR times the
+# CPU's, or within TRAIN_TOL["grad_rel"] of its scale; a near-identity run
+# of the same path (GRAD_WITNESS_STEPS) gates all three card vs CPU.
+GRAD_WITNESS_STEPS = 1
+FP64_GRAD_FACTOR = IAF_FP64_FACTOR
 TRAIN_TOL = {
     "loss_rel": 1e-3,       # loss, recon_loss, kld_loss, flow_loss, every step
     # the nets' weight gradients come out of bf16 products: one bf16 step is
@@ -1830,17 +1945,54 @@ def run_train(torch, model_config=None, steps: int = TRAIN_STEPS, per_step=None,
     """``steps`` Trainer steps of ``model_config`` (the default preset) at
     B=16 with one validation pass, in a temporary run directory;
     ``per_step`` is the launch count every step must show (the default
-    model's: chol-bundle 2, IAF-chain forward and backward 1 each)."""
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as run_dir:
-        return _train_and_replay(torch, run_dir, model_config, steps, per_step, dev)
-
-
-def _train_and_replay(torch, run_dir, model_config, steps, per_step, dev):
-    from rlvae_tpu_torch.data import CYCLIC_SPRITES, CyclicDataModule
-    from rlvae_tpu_torch.models import PRESETS, create_model
-    from rlvae_tpu_torch.train import TRAINING_PRESETS, Trainer, make_optimizer, make_train_step
+    model's: chol-bundle 2, IAF-chain forward and backward 1 each); step 1
+    also against :func:`fp64_grads`.  Then GRAD_WITNESS_STEPS steps at the
+    near-identity flow init, whose gradients are gated card vs CPU
+    (``near_identity``; its launches apart)."""
+    from rlvae_tpu_torch.models import PRESETS
 
     model_config = model_config or PRESETS["riemannian_flow_vae"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as run_dir:
+        out = _train_and_replay(torch, run_dir, model_config, steps, per_step, dev, fp64=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as run_dir:
+        out["near_identity"] = _train_and_replay(
+            torch, run_dir, {**model_config, "flow_log_var_bias_init": 0.0},
+            GRAD_WITNESS_STEPS, per_step, dev, witness=True)
+    return out
+
+
+def fp64_grads(torch, model_config, state, x, noise):
+    """The step-1 gradients of ``model_config`` at ``state`` on batch ``x``
+    and ``noise``, in float64 on the CPU (the MLP nets' products too)."""
+    import torch.nn.functional as F
+
+    from rlvae_tpu_torch.models import create_model
+    from rlvae_tpu_torch.nets import mlp
+
+    model = create_model(model_config, seed=0)
+    model.load_state_dict(state)
+    model.double()
+    plain = mlp.dense
+    mlp.dense = lambda layer, h, dtype: F.linear(h.double(), layer.weight.double(),
+                                                 layer.bias.double())
+    try:
+        out = model(x.double(), {k: v.double() if v.is_floating_point() else v
+                                 for k, v in noise.items()}, train=True)
+        out.loss.backward()
+    finally:
+        mlp.dense = plain
+    return [torch.zeros_like(p) if p.grad is None else p.grad for p in model.parameters()]
+
+
+def _train_and_replay(torch, run_dir, model_config, steps, per_step, dev, witness=False,
+                      fp64=False):
+    """The run of :func:`run_train`; ``witness``: gate the gradients card
+    vs CPU and skip the timings; ``fp64``: also hold the card's and the
+    CPU's step-1 gradients to :func:`fp64_grads` (gated unless ``witness``)."""
+    from rlvae_tpu_torch.data import CYCLIC_SPRITES, CyclicDataModule
+    from rlvae_tpu_torch.models import create_model
+    from rlvae_tpu_torch.train import TRAINING_PRESETS, Trainer, make_optimizer, make_train_step
+
     per_step = per_step or expected_launches(chol_bundle=2, iaf_chain_fwd=1, iaf_chain_bwd=1)
     cfg = copy.deepcopy(TRAINING_PRESETS["default"])
     cfg["data"]["batch_size"] = TRAIN_BATCH
@@ -1898,7 +2050,12 @@ def _train_and_replay(torch, run_dir, model_config, steps, per_step, dev):
     opt_cfg = cfg["optimizer"]
     cpu_opt = make_optimizer(cpu_model.parameters(), opt_cfg["lr"], opt_cfg["weight_decay"])
     cpu_step = make_train_step(cpu_model, cpu_opt)
-    errors = []
+
+    def grad_rel(grads):  # the worst parameter's |d| over its largest |g|, and its name
+        return max((float((g - p.grad).abs().max() / p.grad.abs().max().clamp_min(1e-30)), name)
+                   for g, (name, p) in zip(grads, cpu_model.named_parameters()))
+
+    errors, init = [], "near-identity" if witness else "reference"
     for i, rec in enumerate(records):
         cpu_model.load_state_dict(rec["state"])
         cpu_opt.load_state_dict(rec["opt"])
@@ -1907,17 +2064,30 @@ def _train_and_replay(torch, run_dir, model_config, steps, per_step, dev):
                for k in ("loss", "recon_loss", "kld_loss", "flow_loss", "grad_norm")}
         err["loop_penalty_abs"] = abs(rec["metrics"]["loop_penalty"] - m["loop_penalty"])
         if i == 0:
-            err["grad_rel"] = max(
-                float((g - p.grad).abs().max() / p.grad.abs().max().clamp_min(1e-30))
-                for g, p in zip(rec["grads"], cpu_model.parameters()))
+            err["grad_rel"], err["grad_rel_param"] = grad_rel(rec["grads"])
+            cpu_grads = [p.grad.detach().clone() for p in cpu_model.parameters()]
+            rec0 = rec
         errors.append(err)
         for k in ("loss", "recon_loss", "kld_loss", "flow_loss"):
             check(err[k] <= TRAIN_TOL["loss_rel"], f"step {i + 1} {k}: card vs CPU {err[k]}")
-        check(err["grad_norm"] <= TRAIN_TOL["grad_norm_rel"],
-              f"step {i + 1} grad_norm: card vs CPU {err['grad_norm']}")
+        check(not witness or err["grad_norm"] <= TRAIN_TOL["grad_norm_rel"],
+              f"step {i + 1} grad_norm at the {init} init: card vs CPU {err['grad_norm']}")
         check(err["loop_penalty_abs"] <= 1e-6, f"step {i + 1} loop_penalty differs")
-    check(errors[0]["grad_rel"] <= TRAIN_TOL["grad_rel"],
-          f"step-1 gradients: card vs CPU {errors[0]['grad_rel']}")
+    check(not witness or errors[0]["grad_rel"] <= TRAIN_TOL["grad_rel"],
+          f"step-1 gradients at the {init} init: card vs CPU {errors[0]['grad_rel']}")
+    if fp64:  # the card's and the CPU's step-1 gradients against float64's
+        exact = fp64_grads(torch, model_config, rec0["state"], rec0["x"], rec0["noise"])
+        for who, grads in (("card", rec0["grads"]), ("cpu", cpu_grads)):
+            errors[0][f"{who}_vs_fp64"], errors[0][f"{who}_vs_fp64_param"] = max(
+                (float((g - e).abs().max() / e.abs().max().clamp_min(1e-30)), name)
+                for g, e, (name, _) in zip(grads, exact, cpu_model.named_parameters()))
+        bound = max(FP64_GRAD_FACTOR * errors[0]["cpu_vs_fp64"], TRAIN_TOL["grad_rel"])
+        check(witness or errors[0]["card_vs_fp64"] <= bound,
+              f"step-1 gradients vs fp64: card {errors[0]['card_vs_fp64']}, CPU "
+              f"{errors[0]['cpu_vs_fp64']}")
+    if witness:
+        return {"model_config": {"flow_log_var_bias_init": 0.0}, "steps": result["steps"],
+                "launches": launches, "card_vs_cpu": {"errors": errors, "tolerances": TRAIN_TOL}}
 
     # one warm step, timed and profiled
     x = records[-1]["x"].to(trainer.device)
@@ -2723,10 +2893,8 @@ def run_checkpoint(torch, dev=None):
         check(all(np.array_equal(r, served[i]) for i, r in enumerate(rows)),
               "engine rows differ from the manager's reconstruct")
         eps = torch.tensor(rng.normal(size=(SERVE_BATCH, 16)), dtype=torch.float32)
-        out_dev = manager.forward(seqs, eps=eps.to(manager.device))
-        torch.cuda.synchronize()
         cpu = ModelManager.from_checkpoint(run_dir, preset, "best", device="cpu")
-        compare = compare_forward(torch, out_dev, cpu.forward(seqs, eps=eps))
+        compare = compare_trained_forward(torch, manager, cpu, seqs, eps)[0]
         torch.cuda.synchronize()
         launches = launch_counts()
     return {
@@ -3351,6 +3519,56 @@ def step_records(run_dir: Path):
             if "train/loss" in r and "epoch" not in r]
 
 
+def counted_loader_epochs():
+    """(seeds, restore): every epoch that the native batch loader serves
+    until ``restore()`` appends its seed to ``seeds``."""
+    from rlvae_tpu_torch.data.native_loader import NativeBatchLoader
+
+    seeds, epoch = [], NativeBatchLoader.epoch
+
+    def counted(self, seed=0, shuffle=True):
+        seeds.append(seed)
+        yield from epoch(self, seed, shuffle)
+
+    NativeBatchLoader.epoch = counted
+
+    def restore():
+        NativeBatchLoader.epoch = epoch
+
+    return seeds, restore
+
+
+def native_loader_check():
+    """A data module as the single run's (synthetic sprites, EXP_TRAIN
+    sequences, batch 4, seed 42): each of two epochs' batches through the
+    native loader are a permutation of the training rows, the same when
+    the epoch is asked for twice, and the two epochs' orders differ."""
+    from rlvae_tpu_torch.data import CYCLIC_SPRITES, CyclicDataModule
+    from rlvae_tpu_torch.data import native_loader
+
+    t0 = time.perf_counter()
+    dm = CyclicDataModule({**CYCLIC_SPRITES, "synthetic_n_test": EXP_TEST}, seed=42)
+    dm.setup({"data": {"batch_size": 4}, "n_train_samples": EXP_TRAIN,
+              "n_val_samples": EXP_VAL})
+    row_of = {r.tobytes(): i for i, r in enumerate(dm.train.data)}
+    check(len(row_of) == len(dm.train.data), "repeated training rows")
+    orders = []
+    for epoch in (0, 1):
+        batches = list(dm.train_batches(epoch))
+        again = list(dm.train_batches(epoch))
+        check(len(batches) == len(again) == EXP_TRAIN // 4
+              and all(np.array_equal(a, c) for a, c in zip(batches, again)),
+              f"epoch {epoch}: the native loader's batches differ for one seed")
+        order = [row_of.get(r.tobytes(), -1) for batch in batches for r in batch]
+        check(sorted(order) == list(range(EXP_TRAIN)),
+              f"epoch {epoch}: the batches are not a permutation of the rows: {order}")
+        orders.append(order)
+    check(orders[0] != orders[1], "two epochs in one order")
+    check(dm._native_loader is not None, "the data module batched without the native loader")
+    return {"library": native_loader.library_path().name, "host_s": time.perf_counter() - t0,
+            "batches_per_epoch": EXP_TRAIN // 4, "epoch_orders": orders}
+
+
 def run_experiment(torch, dev=None):
     """``rlvae_tpu_torch.experiment.main`` as a user runs it, in temporary
     run directories: a single run of the default model with the epoch-0
@@ -3367,6 +3585,7 @@ def run_experiment(torch, dev=None):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_experiment_") as tmp:
         tmp = Path(tmp)
         runs, restore = counted_trainers()
+        loader_seeds, restore_loader = counted_loader_epochs()
         try:
             torch.cuda.synchronize()
             zero_launch_counts()
@@ -3403,10 +3622,14 @@ def run_experiment(torch, dev=None):
             runs_by_name["fast"] = runs[-1]
         finally:
             restore()
+            restore_loader()
         torch.cuda.synchronize()
         out["runs_s"] = time.perf_counter() - t0
         launches = launch_counts()
         check(len(runs) == 6, f"{len(runs)} trainers in the experiment phase")
+        # single 2, comparison 1 + 1, multirun 1 + 1, fast 1
+        check(len(loader_seeds) == 7, f"the native loader served {len(loader_seeds)} epochs")
+        out["native_loader"] = {**native_loader_check(), "epochs_served": len(loader_seeds)}
 
         # the single run: files, launches, step records, the profile
         for f in ("config.yaml", "results.yaml", "metrics.jsonl", "checkpoints/best/state.pt",
@@ -3446,10 +3669,8 @@ def run_experiment(torch, dev=None):
         eps = torch.tensor(rng.normal(size=(SERVE_BATCH, 16)), dtype=torch.float32)
         card = ModelManager.from_run(single, device=dev)
         check(dev is not None or card.device.type == "cuda", f"from_run on {card.device}")
-        out_card = card.forward(seqs, eps=eps.to(card.device))
-        torch.cuda.synchronize()
         cpu = ModelManager.from_run(single, device="cpu")
-        out["from_run_cuda_vs_cpu"] = compare_forward(torch, out_card, cpu.forward(seqs, eps=eps))
+        out["from_run_cuda_vs_cpu"] = compare_trained_forward(torch, card, cpu, seqs, eps)[0]
 
         cmp = load_yaml((tmp / "comparison" / "results.yaml").read_text())
         check(sorted(cmp["models"]) == ["riemannian_flow_vae", "vanilla_vae"]
@@ -3797,11 +4018,9 @@ def conv_serve(torch, name, run_dir, dev):
 
     x = seqs[:CONVNET_CMP_BATCH]
     eps = torch.tensor(rng.normal(size=(CONVNET_CMP_BATCH, 16)), dtype=torch.float32)
-    out_gpu = manager.forward(x, eps=eps.to(manager.device))
-    torch.cuda.synchronize()
     cpu = ModelManager(copy.deepcopy(manager.model).to("cpu"), device="cpu")
-    out_cpu = cpu.forward(x, eps=eps)
-    compare = compare_forward(torch, out_gpu, out_cpu, CONVNET_E2E_TOL)
+    compare, out_gpu, out_cpu = compare_trained_forward(torch, manager, cpu, x, eps,
+                                                        CONVNET_E2E_TOL)
     compare["recon_mean_abs_value"] = float(out_cpu["recon_x"].abs().mean())
     compare["z_max_abs"] = float(out_cpu["z"].abs().max())
     compare["recon_mean_abs_by_frame"] = [
@@ -4664,7 +4883,7 @@ RESEARCH_FRAMES = 8
 # visit branch) of 2 steps at B=16, missing visits and pixels, the MSE and a
 # 4-sample NLL on 8 sequences.  Cut: 4 visits (from the last of 8 the
 # reference-init flows take |z| past fp32's range, in JAX too), 32 sequences.
-RESEARCH_CLI_MODELS = ("lvae_iaf", "vamp", "gpvae", "riem", "gugus")
+RESEARCH_CLI_MODELS = ("lvae_iaf", "vamp", "gpvae", "riem", "gugus", "lldm")
 RESEARCH_CLI_ARGS = ["--dataset", "sprites", "--n_obs", "4", "--n_train", "32", "--n_eval", "8",
                      "--batch_size", "16", "--num_epochs", "2", "--warmup", "1",
                      "--compute_nll", "1", "--nll_n_samples", "4", "--prob_missing_data",
@@ -4672,6 +4891,38 @@ RESEARCH_CLI_ARGS = ["--dataset", "sprites", "--n_obs", "4", "--n_train", "32", 
 RESEARCH_TOL = {"loss_rel": 1e-3, "grad_norm_rel": 2e-2}  # as TRAIN_TOL: bf16 nets
 GUGUS_HMC_LAUNCHES = 1 + 20 * (15 + 1)  # generate_hmc: 20 MCMC steps of 15 leapfrogs
 GEN_MIN_MATCHING_ROWS = RESEARCH_GEN - 1  # an HMC accept decision may flip on a near-tie
+# LLDM: the eps-net's pre-training (steps, batch), the sampled metric's
+# centroids, the steps (epoch, visit): the warmup branch, the first visit,
+# the last (against the metric's volume), the oversampled timeline's extra
+# steps, and generate's HMC (MCMC steps, leapfrogs: JAX's defaults)
+LLDM_PRETRAIN = (20, 128)
+LLDM_CENTROIDS = 16
+LLDM_STEPS = ((0, None), (100, 0), (100, 7))
+LLDM_SUPP_STEPS = 4
+LLDM_HMC = (100, 10)
+# Adam's lr for LLDM's steps.  At the research phase's 1e-3 the first
+# (warmup) step moves the encoder's log-variance head by several units, the
+# latents grow by orders of magnitude, both boundary KLs sit at their clamp
+# (500 and -2: the metric prior gives no gradient), and rounding-level
+# changes of the frames move the next step's gradient norm by tens of
+# percent on the CPU alone; at 1e-4 the KLs are live and the steps are well
+# conditioned
+LLDM_LR = 1e-4
+# card vs CPU: the encoder's mu and log_var within 2^-8 of max(1, |z|)
+# (the bf16 encoder's rounding, as FIXEDPOINT_E2E_TOL); latents the CPU
+# computes from the card's encodings (the fp32 eps-net and DDIM bridge)
+# within 1e-4 of max(1, |z|) (on an H100, 5.5e-7 to 9.1e-6); frames by their
+# mean |d| and each pixel's |d|: the bf16 decoder's hidden layer rounds at
+# other places on the two devices, and the DDIM bridge scales the latents
+# it reads by up to sqrt(abar_end / abar_0) ~ 49 (on an H100, frames of
+# latents equal to 1e-5 read 1e-8 to 5.8e-4 apart on average and up to
+# 1.8e-2 in a pixel of generate's, latents to |z| ~ 80); the NLL (a mean
+# of per-frame Gaussian log-likelihoods) relatively; the eps-net's first
+# pre-training step (Adam's update is ~lr per weight) absolutely; an HMC
+# step replayed from the card's state within 1e-4 of max(1, |z|), but at
+# an accept tie
+LLDM_TOL = {"z_encoder": 2 ** -8, "z": 1e-4, "frames_mean_abs": 2 ** -10,
+            "frames_max_abs": 2 ** -5, "nll_rel": 1e-3, "pretrain_abs": 1e-4, "hmc_step": 1e-4}
 
 
 def research_noise(torch, name, model, b, epoch, gen):
@@ -4749,7 +5000,6 @@ def research_cli_runs(torch, dev):
     model, on ``dev``: RESEARCH_CLI_ARGS in a temporary output directory,
     the result line read from its standard output.  Its models launch no
     kernel of the port (RIEM runs there without a metric, as in JAX)."""
-    import contextlib
     import io
 
     from rlvae_tpu_torch import research_cli
@@ -4908,8 +5158,244 @@ def run_research(torch, dev=None):
     check(total["iaf_chain_fwd"] == 0 and total["iaf_chain_bwd"] == 0,
           f"the research models' flows launched the IAF chain: {total}")
     out["launches"] = total
+    out["lldm"] = run_lldm(torch, dev)
     out["cli"] = research_cli_runs(torch, dev)
     return out
+
+
+def _lldm_close(torch, got, want, what, z_tol=LLDM_TOL["z"]):
+    """Latents [..., D] within ``z_tol`` of max(1, |z|), or frames within
+    LLDM_TOL's mean and per-pixel |d|; returns the errors."""
+    got, want = got.detach().float().cpu(), want.detach().float()
+    check(bool(torch.isfinite(got).all()), f"LLDM {what}: non-finite on the card")
+    if what.startswith("z"):
+        err = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+        check(err <= z_tol, f"LLDM {what}: card vs CPU {err}")
+        return {"max_scaled": err}
+    diff = (got - want).abs()
+    err = {"mean_abs": float(diff.mean()), "max_abs": float(diff.max())}
+    check(err["mean_abs"] <= LLDM_TOL["frames_mean_abs"]
+          and err["max_abs"] <= LLDM_TOL["frames_max_abs"], f"LLDM {what}: card vs CPU {err}")
+    return err
+
+
+@contextlib.contextmanager
+def _encoding_of(model, enc):
+    """Inside, ``model`` encodes every batch of frames as ``enc``, a
+    (mu, log_var, context) triple: the card's, for a CPU replay."""
+    model._encode = lambda frames: enc
+    try:
+        yield
+    finally:
+        del model._encode
+
+
+@contextlib.contextmanager
+def _hmc_traced(trace):
+    """Inside, LLDM's HMC chains append every MCMC step to ``trace``."""
+    from rlvae_tpu_torch.models.research import lldm
+
+    plain = lldm.hmc_sampling
+    lldm.hmc_sampling = lambda *a, **k: plain(*a, **k, trace=trace)
+    try:
+        yield
+    finally:
+        lldm.hmc_sampling = plain
+
+
+LLDM_TIE_MARGIN = 1e-3  # |u - alpha| of an accept that rounding may flip (ROADMAP C3)
+
+
+def _lldm_chain_replay(torch, metric, mu, noise, trace):
+    """Each MCMC step of the card's HMC chain (``trace``) replayed on the CPU
+    from the card's state before it, on the same draws: a row may leave the
+    card's step beyond LLDM_TOL["hmc_step"] of max(1, |z|) only at an
+    accept tie."""
+    from rlvae_tpu_torch.models.research.lldm import hmc_sampling
+
+    z = mu[noise["idx"]]
+    n = z.shape[0]
+    worst, ties, off = 0.0, 0, 0
+    for s, (u, alpha, acc, z_card) in enumerate(trace):
+        step = []
+        got, _ = hmc_sampling(metric, z, n, 1, noise={"idx": torch.arange(n),
+                                                      "rho": noise["rho"][s:s + 1],
+                                                      "u": noise["u"][s:s + 1]}, trace=step)
+        err = ((got - z_card).abs() / z_card.abs().clamp_min(1.0)).amax(1)
+        tie = ((u - alpha).abs() < LLDM_TIE_MARGIN) | ((u - step[0][1]).abs() < LLDM_TIE_MARGIN)
+        ties += int(tie.sum())
+        off += int((err > LLDM_TOL["hmc_step"]).sum())
+        check(not bool(((err > LLDM_TOL["hmc_step"]) & ~tie).any()),
+              f"LLDM HMC step {s + 1}: rows off the CPU's replay without a tie: {err.tolist()}")
+        worst = max(worst, float(err[~tie].max()) if bool((~tie).any()) else 0.0)
+        z = z_card
+    accepted = sum(int(acc.sum()) for _, _, acc, _ in trace)
+    check(0 < accepted, "the LLDM chain accepted no proposal")
+    return {"replayed_steps": len(trace), "max_scaled_step_err": worst, "tie_rows": ties,
+            "rows_off_at_ties": off, "accept_rate": accepted / (n * len(trace))}
+
+
+def run_lldm(torch, dev=None):
+    """LLDM at JAX's defaults with the posterior IAF, on ``dev``, each piece
+    against the CPU on the same draws (module docstring, phase 18).  The
+    launch counters are zeroed before and read after; LLDM launches none."""
+    from rlvae_tpu_torch.models.research import LLDM, pretrain_latent_diffusion
+
+    dev = torch.device("cuda") if dev is None else dev
+    rng = np.random.default_rng(12)
+    b, n_obs = RESEARCH_BATCH, 8
+    seqs = rng.uniform(size=(b * len(LLDM_STEPS), n_obs, 3, 64, 64)).astype(np.float32)
+    cpu_model = LLDM(posterior="iaf", seed=0)
+    model = copy.deepcopy(cpu_model).to(dev)
+    d, gen = model.latent_dim, torch.Generator().manual_seed(13)
+    rec, on_dev = {}, (lambda nz: {k: (v.to(dev) if torch.is_tensor(v) else [a.to(dev) for a in v])
+                                   for k, v in nz.items()})
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+
+    # the eps-net, pre-trained on the card's encodings; its first step replayed
+    steps, bs = LLDM_PRETRAIN
+    with torch.no_grad():
+        latents = model._encode(torch.from_numpy(seqs.reshape(-1, 3, 64, 64)).to(dev))[0].float()
+    noise = {"idx": torch.randint(0, latents.shape[0], (steps, bs), generator=gen),
+             "t": torch.randint(0, model.ldm.n_train_steps, (steps, bs), generator=gen),
+             "eps": torch.randn((steps, bs, d), generator=gen)}
+    first = {k: v[:1] for k, v in noise.items()}
+    one = pretrain_latent_diffusion(latents, n_steps=1, batch_size=bs,
+                                    ldm=copy.deepcopy(cpu_model.ldm), noise=on_dev(first))
+    one_cpu = pretrain_latent_diffusion(latents.cpu(), n_steps=1, batch_size=bs,
+                                        ldm=copy.deepcopy(cpu_model.ldm), noise=first)
+    err = max(float((v.cpu() - one_cpu.state_dict()[k]).abs().max())
+              for k, v in one.state_dict().items())
+    check(err <= LLDM_TOL["pretrain_abs"], f"LLDM pre-training step 1: card vs CPU {err}")
+    t = time.perf_counter()
+    trained = pretrain_latent_diffusion(latents, n_steps=steps, batch_size=bs,
+                                        ldm=copy.deepcopy(cpu_model.ldm), noise=on_dev(noise))
+    torch.cuda.synchronize()
+    rec["pretrain"] = {"steps": steps, "batch": bs, "latents": list(latents.shape),
+                       "host_s": time.perf_counter() - t, "step1_max_abs_vs_cpu": err}
+    model.ldm.load_state_dict(trained.state_dict())
+    cpu_model.ldm.load_state_dict({k: v.cpu() for k, v in trained.state_dict().items()})
+
+    # the sampled metric of the data end's encodings (numpy on the host:
+    # the CPU model shares it, so its prior is built from the card's mu)
+    with torch.no_grad():
+        metric, _, _ = model.retrieve_g(torch.from_numpy(seqs[:, -1]).to(dev), LLDM_CENTROIDS)
+    model.pretrained_metric = cpu_model.pretrained_metric = metric
+    rec["metric"] = {"centroids": int(metric.centroids.shape[0]),
+                     "temperature": metric.temperature}
+
+    # Adam steps, each replayed on the CPU from the card's state before it
+    opt = torch.optim.Adam(model.parameters(), lr=LLDM_LR)
+    cpu_opt = torch.optim.Adam(cpu_model.parameters(), lr=LLDM_LR)
+    rec["steps"], rec["errors"] = [], []
+    for i, (epoch, vi) in enumerate(LLDM_STEPS):
+        x = torch.from_numpy(seqs[i * b:(i + 1) * b])
+        noise = ({"eps": torch.randn((b * n_obs, d), generator=gen)} if epoch < model.warmup
+                 else {"eps": torch.randn((b, d), generator=gen),
+                       "bridge": torch.randn((n_obs - 1, b, d), generator=gen)})
+        state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        opt_state = copy.deepcopy(opt.state_dict())
+        t = time.perf_counter()
+        m = _research_step(torch, model, opt, x.to(dev), on_dev(noise), vi or 0, epoch)
+        torch.cuda.synchronize()
+        m["host_ms"] = (time.perf_counter() - t) * 1e3
+        check(all(np.isfinite(v) for v in (m["loss"], m["grad_norm"])),
+              f"LLDM step {i + 1} not finite")
+        cpu_model.load_state_dict(state)
+        cpu_opt.load_state_dict(opt_state)
+        c = _research_step(torch, cpu_model, cpu_opt, x, noise, vi or 0, epoch)
+        err = {k: abs(m[k] - c[k]) / max(abs(c[k]), 1e-12) for k in c}
+        for k in (k for k in c if k != "grad_norm"):
+            check(err[k] <= RESEARCH_TOL["loss_rel"] or abs(m[k] - c[k]) <= 1e-5,
+                  f"LLDM step {i + 1} {k}: card vs CPU {err[k]}")
+        check(err["grad_norm"] <= RESEARCH_TOL["grad_norm_rel"],
+              f"LLDM step {i + 1} grad_norm: card vs CPU {err['grad_norm']}")
+        rec["steps"].append({"epoch": epoch, "visit": vi, **m})
+        rec["errors"].append(err)
+    cpu_model.load_state_dict({k: v.detach().cpu() for k, v in model.state_dict().items()})
+
+    # inference, card against the CPU on the same draws; the CPU replays
+    # from the card's encodings (held to the CPU's apart), as the DDIM
+    # bridge scales a latent's rounding by up to sqrt(abar_end / abar_i)
+    x, vi, p_vi, n_pred = torch.from_numpy(seqs[:b]), 3, 2, 4
+    inference = {}
+    with torch.no_grad():
+        encodings = {}
+        for key, frames in (("visit", x[:, vi]), ("predict", x[:n_pred, p_vi])):
+            card_enc = model._encode(frames.to(dev))
+            cpu_enc = cpu_model._encode(frames)
+            inference[f"encoder_{key}"] = {
+                k: _lldm_close(torch, a, c, f"z {k} {key}", LLDM_TOL["z_encoder"])
+                for k, a, c in (("mu", card_enc[0], cpu_enc[0]), ("log_var", card_enc[1],
+                                                                  cpu_enc[1]))}
+            encodings[key] = (card_enc[0].cpu(), card_enc[1].cpu(), None)
+        noise = {"eps": torch.randn((b, d), generator=gen),
+                 "bridge": torch.randn((n_obs - 1, b, d), generator=gen)}
+        got = model.reconstruct(x.to(dev), vi, noise=on_dev(noise))
+        with _encoding_of(cpu_model, encodings["visit"]):
+            want = cpu_model.reconstruct(x, vi, noise=noise)
+        inference["reconstruct"] = {"z": _lldm_close(torch, got[0], want[0], "z reconstruct"),
+                                    "recon": _lldm_close(torch, got[1], want[1], "reconstruct")}
+        n_line = n_obs - 1 + LLDM_SUPP_STEPS
+        noise["bridge"] = torch.randn((n_line - 1, b, d), generator=gen)
+        got = model.oversample(x.to(dev), vi, num_supp_steps=LLDM_SUPP_STEPS, noise=on_dev(noise))
+        with _encoding_of(cpu_model, encodings["visit"]):
+            want = cpu_model.oversample(x, vi, num_supp_steps=LLDM_SUPP_STEPS, noise=noise)
+        check(tuple(got[1].shape) == (b * n_line, 3, 64, 64), f"oversample {tuple(got[1].shape)}")
+        inference["oversample"] = {"z": _lldm_close(torch, got[0], want[0], "z oversample"),
+                                   "recon": _lldm_close(torch, got[1], want[1], "oversample")}
+        noise = {"bridge": [torch.randn((n_obs - 1 - p_vi, n_pred * n_pred, d), generator=gen)]}
+        got = model.predict(x[:n_pred].to(dev), p_vi, num_gen_seq=n_pred, noise=on_dev(noise))
+        with _encoding_of(cpu_model, encodings["predict"]):
+            want = cpu_model.predict(x[:n_pred], p_vi, num_gen_seq=n_pred, noise=noise)
+        inference["predict"] = _lldm_close(torch, got.flatten(0, 1), want.flatten(0, 1),
+                                           "predict")
+        n_nll, samples = 2, 4
+        noise = {"eps": torch.randn((n_nll, 1, samples, d), generator=gen),
+                 "bridge": torch.randn((n_nll, 1, n_obs - 1, samples, d), generator=gen)}
+        got = model.get_nll(x[:n_nll].to(dev), vi, n_samples=samples, noise=on_dev(noise))
+        want = cpu_model.get_nll(x[:n_nll], vi, n_samples=samples, noise=noise)
+        rel = abs(got - want) / abs(want)
+        check(np.isfinite(got) and rel <= LLDM_TOL["nll_rel"], f"LLDM get_nll {got} vs {want}")
+        inference["get_nll"] = {"card": got, "cpu": want, "rel": rel}
+
+        # generate: HMC anchors on the first visit's metric, then the bridge;
+        # the CPU's metric is built from the card's encodings of that visit
+        mcmc, n_lf = LLDM_HMC
+        noise = {"idx": torch.randint(0, seqs.shape[0], (RESEARCH_GEN,), generator=gen),
+                 "rho": torch.randn((mcmc, RESEARCH_GEN, d), generator=gen),
+                 "u": torch.rand((mcmc, RESEARCH_GEN), generator=gen),
+                 "bridge": [torch.randn((n_obs - 1, RESEARCH_GEN, d), generator=gen)]}
+        trace, all_seqs = [], torch.from_numpy(seqs).to(dev)
+        t = time.perf_counter()
+        with _hmc_traced(trace):
+            frames, z_seq = model.generate(all_seqs, RESEARCH_GEN, mcmc_steps_nbr=mcmc,
+                                           noise=on_dev(noise))
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t
+        card_enc = model._encode(all_seqs[:, 0])
+        with _encoding_of(cpu_model, (card_enc[0].cpu(), card_enc[1].cpu(), None)):
+            g_metric, mu, _ = cpu_model.retrieve_g(torch.from_numpy(seqs[:, 0]), t_multiplier=0.5)
+        inference["generate"] = {"rows": RESEARCH_GEN, "mcmc_steps": mcmc, "n_lf": n_lf,
+                                 "centroids": int(g_metric.centroids.shape[0]), "host_s": gen_s,
+                                 **_lldm_chain_replay(torch, g_metric, mu, noise, trace)}
+        # the bridge and decoder from the card's anchors
+        frames = frames.float().cpu()
+        check(tuple(frames.shape) == (RESEARCH_GEN, n_obs, 3, 64, 64)
+              and bool(torch.isfinite(frames).all()), "bad LLDM generate output")
+        want_z, want = cpu_model._decode_bridged(z_seq[:, 0].cpu(), 0, noise["bridge"][0])
+        inference["generate"].update({
+            "z_bridged": _lldm_close(torch, z_seq, want_z, "z generate"),
+            "frames_bridged": _lldm_close(torch, frames, want.reshape(frames.shape), "generate"),
+            "max_abs_z": float(z_seq.abs().max())})
+    rec["launches"] = launch_counts()
+    check(sum(rec["launches"].values()) == 0, f"LLDM launched kernels: {rec['launches']}")
+    rec.update({"inference": inference, "tolerances": {
+                    **LLDM_TOL, "steps": RESEARCH_TOL, "tie_margin": LLDM_TIE_MARGIN},
+                "host_s": time.perf_counter() - t0})
+    return rec
 
 
 def _grad_norm(torch, module) -> float:
@@ -5091,6 +5577,8 @@ def main() -> None:
     for name in ("chol_bundle", "metric_bundle", "hmc_terms"):
         records[name]["launches_research_by_model"] = {
             m: research[m]["launches"][name] for m in ("lvae_iaf", "riem", "gugus_lvaegg")}
+    for name, rec in records.items():
+        rec["launches_lldm"] = research["lldm"]["launches"][name]
     records["hmc_terms"]["launches_per_dense_k20000_chain"] = dense["launches"]["hmc_terms"]
     records["hmc_terms"]["launches_per_calibration_phase"] = [
         p["hmc_terms"] for p in adaptive["calibration"]["phases"]]
@@ -5115,5 +5603,102 @@ def main() -> None:
           flush=True)
 
 
+def replay_witness() -> None:
+    """``python3 chip_smoke.py --replay-witness``: the readings behind
+    TRAIN_TOL's and ENCODER_HEAD_TOL's comments, report-only.  The
+    train-step replays of :func:`run_train` (3 steps) at the native
+    loader's batches for the default, geodesic hybrid, fast, fixedpoint and
+    sequential-backward paths, with bf16 and fp32 nets at the reference
+    and the near-identity flow init; then a default model trained 5 steps
+    on the card, its forward against the CPU with bf16 and fp32 nets, and
+    through :func:`compare_trained_forward`.  One JSON line each, with the
+    checks that would have failed."""
+    global check
+    import torch
+
+    from rlvae_tpu_torch.models import PRESETS
+    from rlvae_tpu_torch.ops import iaf_kernels
+    from rlvae_tpu_torch.ops.build import kernel_library
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    emit("device", nvidia_smi=nvidia_smi(), build_s=kernel_library().seconds)
+    gate, failed = check, []
+    check = lambda ok, what: ok or failed.append(what)  # noqa: E731
+
+    def nets(cfg, dtype, bias):
+        return {**cfg, "encoder": {**cfg["encoder"], "dtype": dtype},
+                "decoder": {**cfg["decoder"], "dtype": dtype}, "flow_log_var_bias_init": bias}
+
+    default = PRESETS["riemannian_flow_vae"]
+    paths = {"default": (default, None, None),
+             "geodesic": (geodesic_hybrid_config(), expected_launches(
+                 metric_bundle=1, iaf_chain_fwd=1, iaf_chain_bwd=1), None),
+             "fast": (PRESETS["riemannian_flow_vae_fast"], expected_launches(
+                 chol_bundle=2, decode_mse_fwd=1, decode_mse_bwd_dh=1, decode_mse_bwd_dw=1), None),
+             "fixedpoint": ({**default, "flow_fixedpoint_iters": FIXEDPOINT_ITERS}, None, None),
+             "seq_bwd": (default, None, 0)}
+    try:
+        for path, (cfg, per_step, sweeps) in paths.items():
+            for dtype in ("bfloat16", "float32"):
+                for init, bias in (("reference", cfg["flow_log_var_bias_init"]),
+                                   ("near_identity", 0.0)):
+                    del failed[:]
+                    iaf_kernels.ADJ_SWEEPS_OVERRIDE = sweeps
+                    with tempfile.TemporaryDirectory(prefix="chip_smoke_witness_") as run_dir:
+                        r = _train_and_replay(torch, run_dir, nets(cfg, dtype, bias), 3, per_step,
+                                              None, witness=True, fp64=path != "fast")
+                    iaf_kernels.ADJ_SWEEPS_OVERRIDE = None
+                    errs = r["card_vs_cpu"]["errors"]
+                    emit("replay_witness", path=path, nets=dtype, init=init,
+                         grad_rel=errs[0]["grad_rel"], grad_rel_param=errs[0]["grad_rel_param"],
+                         **{k: v for k, v in errs[0].items() if "fp64" in k},
+                         grad_norm_rel=[e["grad_norm"] for e in errs],
+                         loss_rel=max(e[k] for e in errs for k in
+                                      ("loss", "recon_loss", "kld_loss", "flow_loss")),
+                         would_fail=list(failed))
+        for dtype in ("bfloat16", "float32"):
+            del failed[:]
+            emit("trained_forward_witness", nets=dtype,
+                 **_trained_forward_witness(torch, nets(default, dtype, -2.0)),
+                 would_fail=list(failed))
+    finally:
+        check = gate
+        iaf_kernels.ADJ_SWEEPS_OVERRIDE = None
+
+
+def _trained_forward_witness(torch, model_config):
+    """A default model trained 5 Trainer steps on the card at the native
+    batches, its B=64 forward with ``model_config``'s nets against the CPU:
+    compare_forward's errors, and compare_trained_forward's."""
+    from rlvae_tpu_torch import ModelManager
+    from rlvae_tpu_torch.data import CYCLIC_SPRITES, CyclicDataModule
+    from rlvae_tpu_torch.models import create_model
+    from rlvae_tpu_torch.train import TRAINING_PRESETS, Trainer
+
+    cfg = copy.deepcopy(TRAINING_PRESETS["default"])
+    cfg["data"]["batch_size"] = TRAIN_BATCH
+    cfg["n_train_samples"], cfg["n_val_samples"] = TRAIN_STEPS * TRAIN_BATCH, TRAIN_BATCH
+    data = CyclicDataModule({**CYCLIC_SPRITES, "synthetic_n_test": TRAIN_BATCH}, seed=0)
+    data.setup(cfg)
+    model = create_model(model_config, seed=0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_witness_") as run_dir:
+        Trainer(model, data, cfg, run_dir=run_dir, seed=0).fit(max_steps=TRAIN_STEPS)
+    rng = np.random.default_rng(5)
+    seqs = rng.uniform(size=(SERVE_BATCH, 8, 3, 64, 64)).astype(np.float32)
+    eps = torch.tensor(rng.normal(size=(SERVE_BATCH, 16)), dtype=torch.float32)
+    card = ModelManager(model, device=torch.device("cuda"))
+    cpu = ModelManager(copy.deepcopy(model).to("cpu"), device="cpu")
+    plain = compare_forward(torch, card.forward(seqs, eps=eps.cuda()), cpu.forward(seqs, eps=eps))
+    return {"compare_forward": plain["errors"],
+            "compare_trained_forward": compare_trained_forward(torch, card, cpu, seqs, eps)[0]}
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--replay-witness"]:
+        replay_witness()
+    else:
+        main()

@@ -39,14 +39,18 @@
   :func:`save_component_npz` writes a net in the flat component format
   :func:`load_component_npz` reads (and JAX's ``load_component_npz`` does).
 - :func:`research_state_from_jax` maps the research models' ``params``
-  (``LVAE_IAF``, ``LVAE_GUGUS``, ``RIEM``, ``VAMP``, ``GPVAE``:
+  (``LVAE_IAF``, ``LVAE_GUGUS``, ``RIEM``, ``VAMP``, ``GPVAE``, ``LLDM``:
   ``encoder``, ``decoder``, ``flows`` (per visit transition; ``lvaega2``'s
   weight-normed blocks hold ``w<l>_v`` and ``w<l>_g``, the port's
-  ``weights`` and ``gains``), ``posterior_flow``, the VAMP prior's
-  ``pseudo`` Linear (``kernel`` [C, prod(input_dim)] and ``bias``, the
-  port's ``pseudo_kernel`` and ``pseudo_bias``, in the same layout: the
-  pseudo-inputs are the kernel's rows) and RIEM's empty ``dynamics``) onto
-  the port's state dict; a JAX gradient tree maps the same way.  The
+  ``weights`` and ``gains``), ``posterior_flow`` (a block's context
+  weight ``cw`` included), the VAMP prior's ``pseudo`` Linear (``kernel``
+  [C, prod(input_dim)] and ``bias``, the port's ``pseudo_kernel`` and
+  ``pseudo_bias``, in the same layout: the pseudo-inputs are the kernel's
+  rows), LLDM's raw ``pseudo_inputs`` and RIEM's empty ``dynamics``) onto
+  the port's state dict; a JAX gradient tree maps the same way.
+  :func:`ldm_state_from_jax` carries LLDM's frozen eps-net
+  (``LatentDiffusion.params``, Flax's ``Dense_0..2``), which JAX keeps
+  outside ``params``.  The
   research heads ``SVAEEncoderMLP`` (``hidden_<i>``, ``embedding``,
   ``log_concentration``) and ``DiscriminatorMLP`` (``hidden_<i>``,
   ``out``) are Dense stacks: :func:`net_state_from_flax` carries them.
@@ -354,9 +358,12 @@ def load_pretrained_net(module: torch.nn.Module, path: str | Path) -> None:
 
 def _made_leaves(block: Mapping[str, Any], prefix: str) -> Iterator[Tuple[str, np.ndarray]]:
     """One MADE block's ``w<l>``/``b<l>`` (or weight-normed ``w<l>_v``,
-    ``w<l>_g``) -> the port's names under ``prefix``."""
+    ``w<l>_g``) and context weight ``cw`` -> the port's names under ``prefix``."""
     fields = {"w": "weights", "b": "biases", "v": "weights", "g": "gains"}
     for key in sorted(block):
+        if key == "cw":
+            yield f"{prefix}.cw", np.asarray(block[key])
+            continue
         m = re.fullmatch(r"([wb])(\d+)(?:_([vg]))?", key)
         if m is None or (m.group(1) == "b" and m.group(3)):
             raise ValueError(f"unexpected MADE parameter {key!r}")
@@ -366,7 +373,8 @@ def _made_leaves(block: Mapping[str, Any], prefix: str) -> Iterator[Tuple[str, n
 
 def research_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A research model's state dict (``LVAE_IAF``, ``LVAE_GUGUS``,
-    ``RIEM``, ``VAMP``, ``GPVAE``) from its JAX ``variables`` or ``params``
+    ``RIEM``, ``VAMP``, ``GPVAE``, ``LLDM``; LLDM's eps-net comes from
+    :func:`ldm_state_from_jax`) from its JAX ``variables`` or ``params``
     tree (or a gradient tree of the same shape)."""
     params = tree["params"] if "params" in tree else tree
     state: Dict[str, np.ndarray] = {}
@@ -384,12 +392,21 @@ def research_state_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         elif comp == "pseudo":
             state["pseudo_kernel"] = np.asarray(node["kernel"])
             state["pseudo_bias"] = np.asarray(node["bias"])
+        elif comp == "pseudo_inputs":
+            state["pseudo_inputs"] = np.asarray(node)
         elif comp == "dynamics":
             if node:
                 raise ValueError("RIEM's dynamics carry no parameters in the port")
         else:
             raise ValueError(f"unexpected component {comp!r} in the research params")
     return {k: _tensor(a) for k, a in state.items()}
+
+
+def ldm_state_from_jax(params: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A ``LatentDiffusion``'s state dict from JAX's ``LatentDiffusion.params``
+    (the eps-net's ``Dense_0..2``), its keys under ``prefix`` (``"ldm."``
+    for an ``LLDM``'s)."""
+    return {f"{prefix}net.{k}": v for k, v in net_state_from_flax(params).items()}
 
 
 def gugus_host_state(model: Any) -> Dict[str, Any]:
@@ -408,7 +425,7 @@ def gugus_host_state(model: Any) -> Dict[str, Any]:
 
 def set_gugus_host_state(model: Any, state: Mapping[str, Any]) -> None:
     """The metrics of :func:`gugus_host_state` onto a port ``LVAE_GUGUS``."""
-    from rlvae_tpu_torch.models.research._sampled import SampledMetric
+    from rlvae_tpu_torch.models.research.lldm import SampledMetric
 
     model.gm_list = [np.array(g, np.float32) for g in state["gm_list"]]
     model.g_list = [np.array(g, np.float32) for g in state["g_list"]]

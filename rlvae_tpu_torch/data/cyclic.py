@@ -6,22 +6,27 @@ synthesize-or-load path of ``rlvae_tpu/data/cyclic.py``.
 - :func:`batch_iterator` batches on the host with a seeded shuffle and
   drop-remainder, as the JAX package's numpy iterator does.
 - :class:`CyclicDataModule` wires train/val/test from the data and training
-  config nodes: files when they exist (``.npz``, ``.npy``),
-  otherwise synthetic sequences (:mod:`rlvae_tpu_torch.data.synth`) of
+  config nodes: files when they exist (``.npz``, ``.npy``, and ``.pt`` or
+  ``.pth``: a tensor, or a dict holding one, ``{'data': ...}`` first;
+  loaded with ``torch.load(weights_only=True)``), otherwise synthetic
+  sequences (:mod:`rlvae_tpu_torch.data.synth`) of
   ``data.sequence_length`` frames of ``data.channels`` x
   ``data.image_size``; the validation split is the head of the test split.
   ``get_sample_batch`` and ``get_data_stats`` (with the datasets'
   ``get_sequence_info`` and ``get_dataset_stats``) serve the experiment
   runner and the visualization hook.
+- The training batches go through the native C++ loader
+  (:mod:`rlvae_tpu_torch.data.native_loader`), the JAX package's default
+  and its batch order, unless ``data.use_native_loader`` is false, which
+  takes :func:`batch_iterator` (numpy's order).  Validation and test
+  batches are :func:`batch_iterator`'s in both packages.
 
 In a data-parallel world each rank keeps its strided slice of the training
 sequences, as each JAX host does: ``process_index``/``process_count``
 default to the world's data index and data-axis size (the world's ranks
 over ``trainer.model_parallel`` of the training config given to
 ``setup``), and a run outside a world keeps every sequence.  Validation
-and test stay whole on every rank.  The JAX module's native C++
-prefetching loader (the numpy iterator is that module's own fallback) and
-its ``.pt`` loading are not ported.  ``CYCLIC_SPRITES`` holds the values of
+and test stay whole on every rank.  ``CYCLIC_SPRITES`` holds the values of
 ``conf/data/cyclic_sprites.yaml`` as a plain dict.
 """
 
@@ -60,6 +65,13 @@ def _load_array(path: Path) -> np.ndarray:
         with np.load(path) as zf:
             key = "sequences" if "sequences" in zf.files else zf.files[0]
             return np.asarray(zf[key], np.float32)
+    if path.suffix in (".pt", ".pth"):
+        import torch
+
+        data = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(data, dict):
+            data = data["data"] if "data" in data else next(iter(data.values()))
+        return data.detach().cpu().numpy().astype(np.float32)
     if path.suffix == ".npy":
         return np.load(path).astype(np.float32)
     raise ValueError(f"Unsupported dataset format: {path}")
@@ -79,6 +91,10 @@ class CyclicSequenceDataset:
         self.cyclicity_report: Optional[Dict[str, Any]] = None
         if verify_cyclicity:
             self.cyclicity_report = self.verify_cyclicity()
+
+    @classmethod
+    def from_file(cls, path, **kwargs) -> "CyclicSequenceDataset":
+        return cls(_load_array(Path(path)), **kwargs)
 
     def __len__(self) -> int:
         return self.data.shape[0]
@@ -157,6 +173,7 @@ class CyclicDataModule:
         self.val: Optional[CyclicSequenceDataset] = None
         self.test: Optional[CyclicSequenceDataset] = None
         self.batch_size = 8
+        self._native_loader = None
         self.process_index = process_index
         self.process_count = process_count
 
@@ -165,7 +182,7 @@ class CyclicDataModule:
         if not raw:
             return None
         p = Path(raw)
-        for cand in (p, p.with_suffix(".npz"), p.with_suffix(".npy")):
+        for cand in (p, p.with_suffix(".npz"), p.with_suffix(".npy"), p.with_suffix(".pt")):
             if cand.exists():
                 return cand
         return None
@@ -192,6 +209,7 @@ class CyclicDataModule:
         from the training config."""
         tc = dict(training_config or {})
         self.batch_size = int(tc.get("data", {}).get("batch_size", 8))
+        self._native_loader = None  # it holds the previous split and batch size
         n_train = tc.get("n_train_samples") or self.config.get("max_train_samples")
         n_val = tc.get("n_val_samples") or self.config.get("max_test_samples")
         verify = bool(self.config.get("verify_cyclicity", True))
@@ -219,8 +237,17 @@ class CyclicDataModule:
                                           cyclicity_threshold=thresh)
 
     def train_batches(self, epoch: int = 0) -> Iterator[np.ndarray]:
-        yield from batch_iterator(self.train.data, self.batch_size, shuffle=True,
-                                  seed=self.seed + epoch)
+        """The epoch's shuffled training batches: the native loader's unless
+        ``use_native_loader`` is false (module docstring)."""
+        if self.config.get("use_native_loader", True):
+            if self._native_loader is None:
+                from rlvae_tpu_torch.data.native_loader import NativeBatchLoader
+
+                self._native_loader = NativeBatchLoader(self.train.data, self.batch_size)
+            yield from self._native_loader.epoch(seed=self.seed + epoch, shuffle=True)
+        else:
+            yield from batch_iterator(self.train.data, self.batch_size, shuffle=True,
+                                      seed=self.seed + epoch)
 
     def val_batches(self) -> Iterator[np.ndarray]:
         # the remainder is kept: a split smaller than a batch still evaluates

@@ -1,5 +1,6 @@
 """Synthetic cyclic sequences: the port's own copy of
-``rlvae_tpu/data/synth.py:19-74``.
+``rlvae_tpu/data/synth.py`` (:func:`generate_cyclic_sequences`, and
+:func:`write_synthetic_dataset`, which saves them as a dataset ``.npz``).
 
 The Sprites data is not redistributable, so every config can train on
 deterministic synthetic sequences with the same tensor contract:
@@ -12,6 +13,7 @@ numpy draws, same arrays as the JAX package.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Tuple
 
 import numpy as np
@@ -66,3 +68,12 @@ def generate_cyclic_sequences(
             data[n, t] = _draw_sprite(h, w, cx, cy, size, color, shape, spin * theta)
         data[n, -1] = data[n, 0]  # exact cyclicity
     return data
+
+
+def write_synthetic_dataset(path, n_sequences, n_obs=8, image_size=(64, 64), channels=3, seed=0):
+    """Write a dataset ``.npz`` under the key ``sequences``; returns its shape."""
+    data = generate_cyclic_sequences(n_sequences, n_obs, image_size, channels, seed)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, sequences=data)
+    return data.shape

@@ -9,8 +9,9 @@ Port of ``rlvae_tpu/flows/iaf.py:33-177``.
   through :mod:`rlvae_tpu_torch.ops.iaf_kernels`.
 - Sampling direction (:func:`iaf_inverse`): the blocks in reverse order,
   each one parallel MADE pass: flip, then y = y * exp(s(y)) + mu(y), and
-  log|det J| accumulates sum(s).  The temporal chain runs it as it is (the
-  JAX package has no kernel for this direction either).
+  log|det J| accumulates sum(s); an optional context ``h`` feeds the
+  blocks' context weights.  The temporal chain runs it as it is (the JAX
+  package has no kernel for this direction either).
 - Jacobi fixed-point density direction (:func:`iaf_forward_fixedpoint`):
   each block solves y = (x - mu(y)) * exp(-s(y)) by ``n_iters`` full MADE
   passes from y = 0 and one more whose s gives the log-det, exact at
@@ -34,10 +35,11 @@ class IAF(nn.Module):
 
     def __init__(self, input_dim: int, hidden_size: int = 256, n_blocks: int = 2,
                  n_hidden: int = 3, generator: Optional[torch.Generator] = None,
-                 log_var_bias_init: float = LOG_VAR_BIAS_INIT):
+                 log_var_bias_init: float = LOG_VAR_BIAS_INIT,
+                 context_dim: Optional[int] = None):
         super().__init__()
         self.blocks = nn.ModuleList(
-            MADE(input_dim, [hidden_size] * n_hidden, generator, log_var_bias_init)
+            MADE(input_dim, [hidden_size] * n_hidden, generator, log_var_bias_init, context_dim)
             for _ in range(n_blocks)
         )
 
@@ -101,12 +103,13 @@ def fixedpoint_error(iaf: IAF, x: torch.Tensor, n_iters: int) -> Tuple[float, fl
     return float(rel.max()), float((ld_fp - ld_ref).abs().max())
 
 
-def iaf_inverse(iaf: IAF, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def iaf_inverse(iaf: IAF, y: torch.Tensor,
+                h: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sampling direction f: returns (out, sum log|det J|)."""
     logdet = torch.zeros(y.shape[0], dtype=y.dtype, device=y.device)
     for block in reversed(iaf.blocks):
         y = torch.flip(y, dims=(1,))
-        mu, s = block(y)
+        mu, s = block(y, h)
         y = y * torch.exp(s) + mu
         logdet = logdet + s.sum(-1)
     return y, logdet

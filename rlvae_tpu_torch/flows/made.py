@@ -7,7 +7,10 @@ Port of ``rlvae_tpu/flows/made.py``:
 - hidden masks m_i[None, :] >= m_{i-1}[:, None] in [in, out] orientation;
   the output mask m_last < m_-1, tiled twice for the (mu, log_var) heads;
 - NO activation after layer 0; ReLU after every other hidden layer;
-- log_var clamped to +-1.5; the final log_var bias initialised to -2.0.
+- log_var clamped to +-1.5; the final log_var bias initialised to -2.0;
+- with ``context_dim``, a context weight ``cw`` [context_dim, H0]
+  (U(-1/sqrt(context_dim), +1/sqrt(context_dim))) whose product with a
+  context ``h`` is added after layer 0, with no bias.
 
 Weights are kept in the JAX package's [in, out] layout (``x @ (mask * w)``),
 so the kernels and the converter share one layout with the reference.
@@ -55,7 +58,8 @@ class MADE(nn.Module):
 
     def __init__(self, input_dim: int, hidden_sizes: Sequence[int],
                  generator: Optional[torch.Generator] = None,
-                 log_var_bias_init: float = LOG_VAR_BIAS_INIT):
+                 log_var_bias_init: float = LOG_VAR_BIAS_INIT,
+                 context_dim: Optional[int] = None):
         super().__init__()
         self.input_dim = int(input_dim)
         sizes = [self.input_dim, *hidden_sizes, 2 * self.input_dim]
@@ -70,6 +74,10 @@ class MADE(nn.Module):
             self.biases.append(nn.Parameter(b))
         with torch.no_grad():
             self.biases[-1][self.input_dim:] = log_var_bias_init
+        if context_dim is not None:
+            bound = 1.0 / np.sqrt(context_dim)
+            self.cw = nn.Parameter(
+                (torch.rand(context_dim, hidden_sizes[0], generator=generator) * 2 - 1) * bound)
         for li, m in enumerate(make_masks(self.input_dim, hidden_sizes)):
             # recomputed from the sizes, so not part of the state dict
             self.register_buffer(f"mask{li}", torch.from_numpy(m), persistent=False)
@@ -84,9 +92,12 @@ class MADE(nn.Module):
     def masked_weight(self, li: int) -> torch.Tensor:
         return self.mask(li) * self.weights[li]
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                h: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         d = self.input_dim
         out = x @ self.masked_weight(0) + self.biases[0]  # no activation after layer 0
+        if h is not None and hasattr(self, "cw"):
+            out = out + h @ self.cw
         for li in range(1, self.n_layers - 1):
             out = torch.relu(out @ self.masked_weight(li) + self.biases[li])
         li = self.n_layers - 1

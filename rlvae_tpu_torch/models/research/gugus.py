@@ -48,7 +48,7 @@ from torch import nn
 from rlvae_tpu_torch.flows.iaf import iaf_forward, iaf_inverse
 from rlvae_tpu_torch.flows.made import MADE
 from rlvae_tpu_torch.geometry.metric import CentroidMetric
-from rlvae_tpu_torch.models.research._sampled import SampledMetric, _kmedoids
+from rlvae_tpu_torch.models.research.lldm import SampledMetric, _kmedoids
 from rlvae_tpu_torch.models.research.lvae_iaf import LVAE_IAF, Noise
 from rlvae_tpu_torch.ops.linalg import inv_psd_small
 from rlvae_tpu_torch.samplers.hmc import (

@@ -108,6 +108,11 @@ class _IEEELinear(torch.autograd.Function):
         return gx, gw, gb
 
 
+def ieee_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of fp32 matrices, forward and backward under :func:`ieee_fp32`."""
+    return _IEEELinear.apply(a, b.t(), None)
+
+
 def conv(x, w, b, stride, padding, transposed=False, output_padding=(0, 0)):
     """One (transposed) convolution; fp32 operands under :func:`ieee_fp32`.
     In a lower precision the bias is added to the rounded convolution, as

@@ -4,17 +4,19 @@
     python -m rlvae_tpu_torch.research_cli --model vamp --compute_nll 1
     python -m rlvae_tpu_torch.research_cli --make_masks --prob_missing_data 0.3
     python -m rlvae_tpu_torch.research_cli --model gpvae --device cpu --n_train 8 --n_eval 4
+    python -m rlvae_tpu_torch.research_cli --model lldm --posterior iaf --num_epochs 2
 
 Port of ``scripts/research_cli.py`` with the same arguments, plus ``--device``
 (``cuda`` by default, which raises without a card; ``cpu`` for the tests):
 one CLI over the port's research zoo (``LVAE_IAF``, ``VAMP``, ``GPVAE``,
-``RIEM``, ``LVAE_GUGUS``), with the dataset table (a ``--data_path`` file or
-synthetic cyclic sequences of the dataset's frame shape), the prior and
-posterior switches, missing-data and missing-pixel masks made on the host
-and staged per batch, KL warmup and linear beta scheduling, and the MSE and
-NLL evaluation.  ``--make_masks`` only writes the masks' ``.npz`` (the
-reference's mask script).  ``--model lldm`` raises: LLDM is not ported yet
-(ROADMAP A7c).
+``RIEM``, ``LLDM``, ``LVAE_GUGUS``), with the dataset table (a
+``--data_path`` file, ``.npz``, ``.npy`` or ``.pt``, or synthetic cyclic
+sequences of the dataset's frame shape), the prior and posterior switches,
+missing-data and missing-pixel masks made on the host and staged per batch,
+KL warmup and linear beta scheduling, and the MSE and NLL evaluation (the
+NLL of the models with ``estimate_nll``: not LLDM's, as in JAX).
+``--make_masks`` only writes the masks' ``.npz`` (the reference's mask
+script).
 
 Training is a plain ``torch.optim.Adam`` loop over the model's forward:
 per epoch a seeded permutation of the training sequences, per step the
@@ -56,7 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--model", choices=MODELS, default="lvae_iaf")
     ap.add_argument("--dataset", choices=DATASETS, default="synthetic")
     ap.add_argument("--data_path", type=str, default=None,
-                    help=".npz/.npy sequence file overriding the dataset table")
+                    help=".npz/.npy/.pt sequence file overriding the dataset table")
     ap.add_argument("--latent_dim", type=int, default=16)
     ap.add_argument("--n_obs", type=int, default=8)
     ap.add_argument("--prior", choices=["standard", "vamp"], default="standard")
@@ -105,10 +107,7 @@ def load_data(args):
 
 
 def build_model(args, input_dim):
-    if args.model == "lldm":
-        raise NotImplementedError(
-            "research_cli: --model lldm is not ported yet (ROADMAP A7c, lldm.py)")
-    from rlvae_tpu_torch.models.research import GPVAE, LVAE_GUGUS, LVAE_IAF, RIEM, VAMP
+    from rlvae_tpu_torch.models.research import GPVAE, LLDM, LVAE_GUGUS, LVAE_IAF, RIEM, VAMP
 
     common = dict(input_dim=input_dim, latent_dim=args.latent_dim)
     if args.model == "lvae_iaf":
@@ -125,6 +124,9 @@ def build_model(args, input_dim):
         return GPVAE(time_length=args.n_obs, beta=args.beta, **common)
     if args.model == "riem":
         return RIEM(n_obs=args.n_obs, warmup=args.warmup, beta=args.beta, prior=args.prior,
+                    posterior=args.posterior, **common)
+    if args.model == "lldm":
+        return LLDM(n_obs=args.n_obs, warmup=args.warmup, beta=args.beta, prior=args.prior,
                     posterior=args.posterior, **common)
     if args.model == "gugus":
         return LVAE_GUGUS(n_obs=args.n_obs, warmup=args.warmup, beta=args.beta,

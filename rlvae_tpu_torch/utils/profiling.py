@@ -13,7 +13,7 @@
   CUDA tensor.
 
 JAX's ``scan_slope_time``, ``fori_slope_time`` and ``auto_slope_time``
-time ``lax.scan``/``fori_loop`` programs and are not ported (ROADMAP A6).
+time ``lax.scan``/``fori_loop`` programs and are not ported (ROADMAP A3).
 """
 
 from __future__ import annotations

@@ -212,9 +212,9 @@ def check_epoch_rows(out: Path, summary, inp, world: int, layouts, epochs: int) 
             jdm.setup(cfg)
             rows = jdm.train.data
             steps = (len(rows) * dp) // 8
-            if dp == 1:  # JAX's one-device epoch: default_rng(seed + epoch)'s permutation
-                want = np.concatenate([rows[np.random.default_rng(SEED + e).permutation(
-                    len(rows))[:steps * 8].reshape(steps, 8)] for e in range(epochs)])
+            if dp == 1:  # JAX's one-device epoch: its data module's (native) batches
+                want = np.concatenate([np.stack(list(jdm.train_batches(e)))
+                                       for e in range(epochs)])
             else:
                 rows = rows[np.random.default_rng(SEED + r // mp).permutation(len(rows))]
                 want = np.concatenate([rows[jax_host_epoch_perm(

@@ -3,10 +3,11 @@ against the JAX package's ``run_experiment.py`` on the same overrides.
 
 - What the runner builds: with ``create_model`` and ``Trainer`` replaced on
   both sides by the same recording fakes (nothing trains), the model
-  configs, the training configs, the data modules' batches (JAX's numpy
-  iterator: its native C++ loader's shuffle is not ported) and every file
-  the runner writes are equal, for ``model=riemannian_flow_vae
-  training=quick`` and for the comparison study.
+  configs, the training configs, the data modules' batches (through the
+  native C++ loader, the default, and through the numpy iterator with
+  ``+data.use_native_loader=false``) and every file the runner writes are
+  equal, for ``model=riemannian_flow_vae training=quick`` and for the
+  comparison study.
 - The sweep's ranking: ``run_single_experiment`` replaced on both sides by
   one table of results (NaN and missing objectives among them); the same
   ``results.yaml`` bytes.
@@ -133,12 +134,12 @@ CAPTURED = {
 }
 
 
+@pytest.mark.parametrize("loader", ["native", "numpy"])
 @pytest.mark.parametrize("case", CAPTURED)
-def test_runner_builds_what_jax_builds(case, tmp_path, monkeypatch):
-    # JAX's native C++ batch loader shuffles in its own order and is not
-    # ported (ROADMAP A6); its numpy fallback is the port's iterator
-    overrides = CAPTURED[case] + ["training.trainer.accelerator=cpu", "run.dir=run",
-                                  "+data.use_native_loader=false"]
+def test_runner_builds_what_jax_builds(case, loader, tmp_path, monkeypatch):
+    overrides = CAPTURED[case] + ["training.trainer.accelerator=cpu", "run.dir=run"]
+    if loader == "numpy":
+        overrides.append("+data.use_native_loader=false")
     logs = {}
     for side in ("jax", "port"):
         log = logs[side] = {"models": [], "trainers": [], "data": []}
@@ -164,6 +165,9 @@ def test_runner_builds_what_jax_builds(case, tmp_path, monkeypatch):
         np.testing.assert_array_equal(pdm.get_sample_batch("val", 4),
                                       jdm.get_sample_batch("val", 4))
         want, got = _batches(jdm), _batches(pdm)
+        assert (pdm._native_loader is not None) == (loader == "native")
+        assert (jdm._native_loader is not None and jdm._native_loader.native) == (
+            loader == "native")
         for k in want:
             assert len(got[k]) == len(want[k]) > 0, k
             for a, b in zip(got[k], want[k]):

@@ -5,8 +5,8 @@ masks (``rlvae_tpu_torch.data.masks``) against the JAX package's
 - ``--make_masks``: the same file name and the six masks of the JAX CLI's
   file, bit for bit (host numpy from the same seeds), and the mask makers
   alone at several shapes and probabilities.
-- One tiny epoch per ported model (``lvae_iaf``, ``vamp``, ``gpvae``,
-  ``riem``, ``gugus``) on ``--device cpu``: 1x16x16 frames from a
+- One tiny epoch per model (``lvae_iaf``, ``vamp``, ``gpvae``, ``riem``,
+  ``gugus``, ``lldm``) on ``--device cpu``: 1x16x16 frames from a
   ``--data_path`` ``.npy`` file (synthetic cyclic sequences), latent 4, 4
   visits, 8 training sequences in batches of 4 with missing visits and
   pixels: finite losses, the result line's keys those of the JAX CLI (its
@@ -14,8 +14,7 @@ masks (``rlvae_tpu_torch.data.masks``) against the JAX package's
   ~130 eager JAX compiles; then its evaluation's ``eval_mse``, and
   ``eval_nll`` where the model has ``estimate_nll``, in both packages,
   ``scripts/research_cli.py:239-247``), and the files it writes.
-- ``--model lldm`` raises, naming ROADMAP A7c; the default device is the
-  card, which the CPU does not have.
+- The default device is the card, which the CPU does not have.
 """
 
 import importlib.util
@@ -100,7 +99,7 @@ def jax_result_keys(jax_cli, tiny, tmp_path_factory):
     return set(json.loads((out / "vamp_starmen" / "results.json").read_text())) - {"history"}
 
 
-@pytest.mark.parametrize("model", ["lvae_iaf", "vamp", "gpvae", "riem", "gugus"])
+@pytest.mark.parametrize("model", ["lvae_iaf", "vamp", "gpvae", "riem", "gugus", "lldm"])
 def test_one_tiny_epoch_per_model(model, jax_cli, jax_result_keys, tiny, tmp_path, capsys):
     argv = ["--model", model, "--num_epochs", "2", "--prob_missing_data", "0.25",
             "--prob_missing_pixels", "0.1", *tiny, "--output_dir", str(tmp_path)]
@@ -121,12 +120,6 @@ def test_one_tiny_epoch_per_model(model, jax_cli, jax_result_keys, tiny, tmp_pat
     assert [h["epoch"] for h in history] == [0, 1]
     with np.load(run / "params.npz") as params:
         assert set(params.files) == set(port_model.state_dict())
-
-
-def test_lldm_raises_naming_its_queue(tmp_path):
-    with pytest.raises(NotImplementedError, match="A7c"):
-        research_cli.main(["--model", "lldm", "--device", "cpu", *TINY,
-                           "--output_dir", str(tmp_path)])
 
 
 def test_default_device_is_the_card(tmp_path):
