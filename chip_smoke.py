@@ -103,9 +103,11 @@ Phases, each printing one JSON line with its elapsed seconds:
    and read just after (1601 ``hmc_partials`` launches, no ``hmc_terms``);
    host-clock time, and the busy share of a profiled 2-step chain.
    ``chol_g_inv_sharded`` at B=64 launches the G^{-1} kernel once and is
-   held to the dense chol-bundle factor.  Every
-   MCMC step is replayed on the CPU from the card's state, and the first 10
-   are also taken with the dense ``hmc_terms`` from the same state.
+   held to the dense chol-bundle factor.  A chain of EP_REPLAY_STEPS (25)
+   MCMC steps on the same draws is stepped one step at a time and held to
+   the entry point's, each step replayed on the CPU from the card's state,
+   and the first 10 also taken with the dense ``hmc_terms`` from the same
+   state.
 10. ``dense_chain``: the official chain (100 x 15) at B=64 through
    ``sample_prior_hmc`` on the K=20 000 synthetic bank, where B4 sets the
    wall time: host seconds with the counters zeroed just before and read
@@ -300,8 +302,25 @@ Phases, each printing one JSON line with its elapsed seconds:
    TRAIN_TOL, the validation pass (G^{-1}); one batch's gradients in the
    two modes against each other (JAX's ``grad_probe`` deviation,
    SEQ_GRAD_TOL).
+20. ``deploy``: the deployment surface on the default model at full width
+   (pretrained nets, K=50 metric).  ``export_model`` traces
+   ``reconstruct``, ``encode``, ``decode`` and ``generate`` (geodesic
+   prior) at buckets 1 and 64 with ``torch.export`` (the chol-bundle, IAF
+   chain and G^{-1} as registered ops: counted in each graph) and
+   ``load_exported`` loads them on the card.  The counters are zeroed, then
+   every program runs at a full bucket of 64 and of 1 and a padded bucket
+   (3 rows), and one request per op goes through ``bundle_server`` over
+   HTTP: B1 2 and B2 1 per ``reconstruct``, B7 1 and B2 1 per
+   ``generate``.  Each output is held bit for bit to the live manager's on
+   the same inputs and draws (the same kernels), the HTTP rows to the
+   bundle's; each B=64 program is profiled beside its eager op, the same
+   kernels by name and count; B=64 bundle and eager latencies on the host
+   clock.  ``app_server`` over a run directory of the same weights answers
+   one ``reconstruct`` and one ``generate`` (the live manager's row); where
+   matplotlib imports, ``app.build_report`` renders the dashboard.
 
-Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and as the
+Each phase's record carries its own seconds (``phase_s``); a
+``phase_seconds`` line lists them all.  Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 run exits non-zero; a hang dumps every thread's stack and exits.  Without a
 CUDA card the run fails at once.
@@ -409,6 +428,11 @@ PARTIALS_FP64_RTOL = 1e-5
 PARTIALS_BATCHES = (SERVE_BATCH, 37, 1, 1000)
 # the ep phase: shards of the in-process split, and the dense steps compared
 EP_SHARDS, EP_DENSE_STEPS, EP_PROFILE_STEPS = 4, 10, 2
+# MCMC steps of the stepped and replayed EP chain, held to the entry point's
+# chain of as many steps on the same draws: 100 (the whole official chain)
+# until the deploy phase needed the time; the stepping and its CPU replay
+# were the phase's largest share
+EP_REPLAY_STEPS = 25
 # the dense_chain phase: the official chain on the K=20 000 bank, its first
 # steps replayed on the CPU
 DENSE_REPLAY_STEPS = 3
@@ -427,6 +451,18 @@ def emit(phase: str, **fields) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(f"chip_smoke: {what}")
+
+
+PHASE_S = {}  # seconds of each main-path phase, printed as it ends and once at the end
+
+
+def phase(name: str, run, torch, **extra):
+    """``run(torch)``, its record printed with the phase's own seconds."""
+    t = time.perf_counter()
+    out = run(torch)
+    PHASE_S[name] = round(time.perf_counter() - t, 3)
+    emit(name, **out, phase_s=PHASE_S[name], **extra)
+    return out
 
 
 def nvidia_smi() -> str:
@@ -2632,6 +2668,8 @@ def run_ep(torch, dev=None):
     busy_ms, kernels = device_time_by_kernel(torch, run_short)
     evals = 1 + EP_PROFILE_STEPS * (cfg.n_lf + 1)
 
+    replay_cfg = HMCConfig(mcmc_steps=EP_REPLAY_STEPS)
+
     # the dense chain (B4) on the same draws, for scale
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -2655,7 +2693,9 @@ def run_ep(torch, dev=None):
         "chol_g_inv_sharded": {"batch": b, "g_inv_launches": g_inv_launched,
                                "max_abs_err_vs_dense_chol_bundle": float(chol_err.max()),
                                "tolerance": f"{CHOL_ATOL} + {CHOL_RTOL}|dense|"},
-        "replay": replay_ep_chain(torch, metric, cpu_metric, noise, cfg, z),
+        "replay": replay_ep_chain(
+            torch, metric, cpu_metric, short(EP_REPLAY_STEPS), replay_cfg,
+            sample_prior_hmc_sharded(mesh, metric, b, replay_cfg, **short(EP_REPLAY_STEPS))),
         "launches": launches,
     }
 
@@ -4865,6 +4905,323 @@ def run_seq_bwd(torch, dev=None):
 
 
 # ---------------------------------------------------------------------------
+# deploy phase
+# ---------------------------------------------------------------------------
+
+DEPLOY_BUCKETS = (1, SERVE_BATCH)
+DEPLOY_OPS = ("reconstruct", "encode", "decode", "generate")
+DEPLOY_PADDED = 3  # rows of a padded bucket: the last row (and its draws) repeated
+DEPLOY_TIMED = 5   # host-clock repeats of each B=64 latency
+# the registered ops in each exported program, and the kernels each
+# program launches by profiler name: reconstruct the posterior's and the
+# KL's chol-bundles and the chain, generate (geodesic prior) G^{-1} and the
+# chain, encode and decode none of the port's
+DEPLOY_GRAPH_OPS = {"reconstruct": {"chol_bundle": 2, "iaf_chain_fwd": 1},
+                    "generate": {"g_inv": 1, "iaf_chain_fwd": 1}, "encode": {}, "decode": {}}
+DEPLOY_KERNELS = {"reconstruct": {"B1": 2, "B2": 1}, "generate": {"B7": 1, "B2": 1},
+                  "encode": {}, "decode": {}}
+
+
+KERNEL_LABELS = {"chol_bundle": "B1", "iaf_chain_fwd": "B2", "metric_bundle": "B6",
+                 "g_inv": "B7"}
+PROFILE_ATTEMPTS = 2
+
+
+def kernel_calls(kernels) -> dict:
+    """Profiled launches of B1, B2, B6 and B7 from ``device_time_by_kernel``'s
+    list (G^{-1} is ``metric_bundle_kernel<R, false>``, the bundle ``<R, true>``)."""
+    calls = dict.fromkeys(("B1", "B2", "B6", "B7"), 0)
+    for k in kernels:
+        name = k["name"]
+        if "chol_bundle_kernel" in name:
+            calls["B1"] += k["calls"]
+        elif "iaf_chain_fwd_kernel" in name:
+            calls["B2"] += k["calls"]
+        elif "metric_bundle_kernel" in name:
+            calls["B7" if "false>" in name else "B6"] += k["calls"]
+    return calls
+
+
+def warm_profile(torch, fn):
+    """Kernels of one call of ``fn`` (idempotent) by ``torch.profiler``, as
+    :func:`device_time_by_kernel` lists them, taken in the active step of a
+    schedule after a warm-up step that runs ``fn`` too: started cold in a
+    process that had profiled before, a session's device events came back
+    short (a B=64 ``encode`` program showed no kernel at all, a
+    ``reconstruct`` 228 of its 259 launches, the first chol-bundle among
+    the missing).  After the warm-up the long programs came back whole;
+    the sub-millisecond ``encode`` and ``decode`` still partly or wholly
+    missing.  Also the wrappers' counts of the active call.  Returns
+    (device-busy ms, kernels, counted launches)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        before = launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        after = launch_counts()
+        prof.step()
+    kernels = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        # the schedule's step range (ProfilerStep#N) spans the step's kernels
+        if (us > 0 and "cuda" in str(getattr(evt, "device_type", "")).lower()
+                and not evt.key.startswith("ProfilerStep")):
+            kernels.append({"name": evt.key[:80], "us": float(us), "calls": int(evt.count)})
+    kernels.sort(key=lambda k: -k["us"])
+    counted = {label: after[name] - before[name] for name, label in KERNEL_LABELS.items()}
+    return sum(k["us"] for k in kernels) / 1e3, kernels, counted
+
+
+def profiled_launches(torch, fn):
+    """One profiled call of ``fn`` (:func:`warm_profile`): (B1/B2/B6/B7
+    launches by the profiler, the same by the wrappers' counters,
+    device-busy ms, kernels, attempts).  A call whose profiled launches
+    differ from the counted ones is profiled again, up to PROFILE_ATTEMPTS
+    times; the counters give the exact counts."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        busy_ms, kernels, counted = warm_profile(torch, fn)
+        calls = kernel_calls(kernels)
+        if calls == counted:
+            break
+    return calls, counted, busy_ms, kernels, attempt
+
+
+def deploy_run_dir(torch, manager, root: Path) -> Path:
+    """A run directory of ``manager``'s weights as the app server reads one:
+    the composed config (the default model, synthetic sprites cut to a few
+    sequences) and a ``best`` slot."""
+    from rlvae_tpu_torch.config import compose, save_config
+    from rlvae_tpu_torch.train.checkpoints import CheckpointManager
+
+    run_dir = root / "deploy_run"
+    cfg = compose(CONF, "config", ["training=quick", "training.n_train_samples=8",
+                                   "training.n_val_samples=4", "data.synthetic_n_train=8",
+                                   "data.synthetic_n_test=4"])
+    run_dir.mkdir(parents=True)
+    save_config(cfg, run_dir / "config.yaml")
+    CheckpointManager(run_dir / "checkpoints").save(
+        "best", {"params": manager.model.state_dict(), "step": 0, "val_loss": 0.0})
+    return run_dir
+
+
+def _post(port: int, path: str, payload) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(payload).encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def _get(port: int, path: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=300) as r:
+        return json.loads(r.read())
+
+
+def _host_ms(torch, fn, n: int = DEPLOY_TIMED) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def run_deploy(torch, dev=None):
+    """The deployment surface on the default model at full width
+    (pretrained nets, K=50 metric): ``export_model`` of the four ops at
+    buckets (1, 64), ``load_exported``, every program against the live
+    manager on the same inputs and draws (bit for bit: the same kernels),
+    B1/B2/B7 launches per program counted by the profiler, one request per
+    op through ``bundle_server`` over HTTP and one ``reconstruct`` and one
+    ``generate`` through ``app_server``, and the B=64 bundle and eager
+    latencies."""
+    import importlib.util
+
+    from rlvae_tpu_torch import ModelManager, PRESETS
+    from rlvae_tpu_torch.bundle_server import serve_bundle
+    from rlvae_tpu_torch.export import export_model, load_exported
+    from rlvae_tpu_torch.viz.base import png_b64
+
+    dev = dev or torch.device("cuda")
+    manager = ModelManager.from_config(PRESETS["riemannian_flow_vae"], seed=0, device=dev)
+    rng = np.random.default_rng(24)
+    b = SERVE_BATCH
+    inputs = {"reconstruct": rng.uniform(size=(b, 8, 3, 64, 64)).astype(np.float32),
+              "encode": rng.uniform(size=(b, 3, 64, 64)).astype(np.float32),
+              "decode": rng.normal(size=(b, 16)).astype(np.float32),
+              "generate": rng.integers(0, 2**32, size=b, dtype=np.uint32)}
+    eager = {"reconstruct": lambda x: manager.reconstruct_rows(x, seed=0),
+             "encode": lambda x: manager.encode_rows(x)["embedding"],
+             "decode": manager.decode_rows,
+             "generate": lambda s: manager.generate_rows(s, n_obs=8)}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_deploy_") as tmp:
+        tmp = Path(tmp)
+        t = time.perf_counter()
+        manifest = export_model(manager, tmp / "bundle", ops=DEPLOY_OPS, buckets=DEPLOY_BUCKETS)
+        export_s = time.perf_counter() - t
+        for op in DEPLOY_OPS:
+            for bucket, spec in manifest["programs"][op].items():
+                want = {**dict.fromkeys(spec["registered_ops"], 0), **DEPLOY_GRAPH_OPS[op]}
+                check(spec["registered_ops"] == want,
+                      f"the exported {op} b{bucket} holds {spec['registered_ops']}")
+        t = time.perf_counter()
+        bundle = load_exported(tmp / "bundle", device=dev)
+        load_s = time.perf_counter() - t
+        bundle_bytes = sum(p.stat().st_size for p in (tmp / "bundle").iterdir())
+
+        # warm both sides at every bucket
+        for op in DEPLOY_OPS:
+            for n in DEPLOY_BUCKETS:
+                bundle.run(op, inputs[op][:n])
+                eager[op](inputs[op][:n])
+        torch.cuda.synchronize()
+
+        # the main path, counted from zero: every program at a full bucket of
+        # 64 and of 1 and a padded bucket, then one request per op through
+        # the bundle server over HTTP (its engine pads to bucket 1)
+        zero_launch_counts()
+        cases = {op: {"b64": inputs[op], "b1": inputs[op][:1],
+                      "padded": inputs[op][:DEPLOY_PADDED]} for op in DEPLOY_OPS}
+        got = {op: {case: bundle.run(op, x) for case, x in c.items()} for op, c in cases.items()}
+        httpd, engine = serve_bundle(bundle, port=0, max_wait_ms=2.0)
+        http = {}
+        try:
+            port = httpd.server_address[1]
+            ops = _get(port, "/ops")["ops"]
+            check(ops == {op: list(DEPLOY_BUCKETS) for op in DEPLOY_OPS},
+                  f"the bundle server lists {ops}")
+            for op in DEPLOY_OPS:
+                t = time.perf_counter()
+                out = _post(port, f"/v1/{op}", {"items": [inputs[op][0].tolist()]})["outputs"]
+                http[op] = {"ms": (time.perf_counter() - t) * 1e3,
+                            "bitwise_vs_bundle": bool(np.array_equal(
+                                np.asarray(out, np.float32), got[op]["b1"]))}
+                check(http[op]["bitwise_vs_bundle"], f"the HTTP {op} differs from the bundle")
+            http["stats"] = {k: v for k, v in _get(port, "/stats").items()
+                             if not k.endswith("_hist")}
+        finally:
+            httpd.shutdown()
+            engine.stop()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        runs = len(cases["reconstruct"]) + 1  # of each op: three cases and one HTTP request
+        check(launches == expected_launches(chol_bundle=2 * runs, iaf_chain_fwd=2 * runs,
+                                            g_inv=runs),
+              f"the bundle's programs launched {launches}; expected per run B1 2 and B2 1 "
+              f"(reconstruct), B7 1 and B2 1 (generate), none (encode, decode)")
+
+        # every program against the live manager on the same inputs and draws
+        parity = {}
+        for op in DEPLOY_OPS:
+            x = inputs[op]
+            padded = np.concatenate([x[:DEPLOY_PADDED]] + [x[DEPLOY_PADDED - 1:DEPLOY_PADDED]]
+                                    * (b - DEPLOY_PADDED))
+            if op == "reconstruct":  # the draws of 3 rows from seed 0, the last repeated
+                noise = manager.model.draw_posterior_noise(
+                    DEPLOY_PADDED, torch.Generator(device=dev).manual_seed(0))
+                noise = {k: torch.cat([v, v[-1:].expand(b - DEPLOY_PADDED, *v.shape[1:])])
+                         for k, v in noise.items()}
+                padded_ref = manager.reconstruct_rows(padded, noise=noise)
+            else:
+                padded_ref = eager[op](padded)
+            refs = {"b64": eager[op](x), "b1": eager[op](x[:1]),
+                    "padded": padded_ref[:DEPLOY_PADDED]}
+            parity[op] = {}
+            for case, ref in refs.items():
+                ref, out = ref.float().cpu().numpy(), got[op][case]
+                parity[op][case] = {"bitwise": bool(np.array_equal(out, ref)),
+                                    "max_abs": float(np.abs(out - ref).max()),
+                                    "shape": list(out.shape)}
+                check(parity[op][case]["bitwise"] and np.isfinite(out).all(),
+                      f"the exported {op} ({case}) differs from the live manager: "
+                      f"{parity[op][case]}")
+
+        # launches per program beside the eager op's: the counters' exact
+        # counts, and every expected kernel (and no other) seen by the
+        # profiler, which may come back short (profiled_launches)
+        programs = {}
+        for op in DEPLOY_OPS:
+            x = inputs[op]
+            want = {**dict.fromkeys(KERNEL_LABELS.values(), 0), **DEPLOY_KERNELS[op]}
+            rec = {}
+            for side, fn in (("bundle", lambda: bundle.run_rows(op, x)),
+                             ("eager", lambda: eager[op](x))):
+                calls, counted, busy_ms, kernels, attempts = profiled_launches(torch, fn)
+                check(counted == want, f"the {side} {op} launched {counted}; expected {want}")
+                check(all((calls[k] > 0) == (want[k] > 0) and calls[k] <= want[k] for k in want),
+                      f"the profiler saw the {side} {op} launch {calls}; expected {want}")
+                rec[side] = {"kernels": calls, "counted": counted,
+                             "profiler_complete": calls == counted,
+                             "device_busy_ms": busy_ms,
+                             "n_launches": sum(k["calls"] for k in kernels),
+                             "profile_attempts": attempts,
+                             "port_kernels": [k for k in kernels if any(
+                                 n in k["name"] for n in PORTED_KERNEL_NAMES)]}
+            programs[op] = {**rec["bundle"], "eager": rec["eager"]}
+
+        # B=64 latency on the host clock, inputs uploaded and rows copied back
+        latency = {}
+        for op in ("reconstruct", "generate"):
+            x = inputs[op]
+            latency[op] = {"bundle_ms": _host_ms(torch, lambda: bundle.run(op, x)),
+                           "eager_ms": _host_ms(torch, lambda: eager[op](x).float().cpu())}
+
+        # the app server over a run directory of the same weights
+        from rlvae_tpu_torch.app_server import serve
+
+        deploy_run_dir(torch, manager, tmp / "outputs")
+        server, state = serve(tmp / "outputs", port=0, block=False, device=dev)
+        try:
+            port = server.server_address[1]
+            t = time.perf_counter()
+            rec = _get(port, "/api/model/deploy_run/reconstruct?n=1")
+            gen = _get(port, "/api/model/deploy_run/generate?n=1&seed=7")
+            app_s = time.perf_counter() - t
+            serving = _get(port, "/api/serving")["deploy_run"]
+        finally:
+            server.shutdown()
+            state.close()
+        want_gen = manager.sample_random_batched_seeds([7], n_obs=8)[0]
+        check(len(rec["rows"]) == 2 and len(rec["rows"][0]) == 8 and len(gen["rows"]) == 1,
+              f"the app server answered {len(rec['rows'])} reconstruct rows and "
+              f"{len(gen['rows'])} generate rows")
+        check(gen["rows"][0] == [png_b64(f) for f in want_gen],
+              "the app server's generate row differs from the live manager's")
+        check(serving["requests"] == 2, f"the app server's engine took {serving['requests']}")
+
+        report = None
+        if importlib.util.find_spec("matplotlib") is not None:
+            from rlvae_tpu_torch.app import build_report
+
+            t = time.perf_counter()
+            out = build_report(tmp / "outputs" / "deploy_run", n_samples=2, device=dev)
+            report = {"bytes": out.stat().st_size, "s": time.perf_counter() - t}
+            check("Model inference" in out.read_text(), "the dashboard lacks its inference page")
+    return {"model": "riemannian_flow_vae", "buckets": list(DEPLOY_BUCKETS),
+            "export_s": export_s, "load_s": load_s, "bundle_bytes": bundle_bytes,
+            "torch_export_graph_ops": {op: manifest["programs"][op][str(b)]["registered_ops"]
+                                       for op in DEPLOY_OPS},
+            "parity": parity, "programs": programs, "http": http, "latency_b64": latency,
+            "app_server": {"s": app_s, "engine": {k: v for k, v in serving.items()
+                                                  if not k.endswith("_hist")}},
+            "matplotlib": report is not None, "report": report, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # research phase
 # ---------------------------------------------------------------------------
 
@@ -5432,6 +5789,7 @@ def main() -> None:
     print(f"build_seconds {lib.seconds:.3f}", flush=True)
 
     records = {}
+    t_kernels = time.perf_counter()
     for name, run in (("chol_bundle", run_chol_checks), ("iaf_chain_fwd", run_iaf_checks),
                       ("iaf_chain_bwd", run_iaf_bwd_checks), ("hmc_terms", run_hmc_checks),
                       ("hmc_partials", run_partials_checks)):
@@ -5449,45 +5807,33 @@ def main() -> None:
     seq_checks = run_iaf_seq_bwd_checks(torch, dev)
     emit("kernels", kernel="iaf_chain_bwd (sequential mode)", tolerance=seq_checks["tolerance"],
          cases=seq_checks["cases"], timing_b64=seq_checks["timing_b64"])
+    PHASE_S["build"] = round(lib.seconds, 3)
+    PHASE_S["kernels"] = round(time.perf_counter() - t_kernels, 3)
 
     # every phase before seq_bwd runs the backward in the adjoint mode (in
     # this process: the dp phase's ranks count in their own)
     seq_before_paths = sequential_bwd_launches()
-    serve = run_serve(torch)
-    emit("serve", **serve)
-    train = run_train(torch)
-    emit("train", **train)
-    generate = run_generate(torch)
-    emit("generate", **generate)
-    posterior = run_posterior(torch)
-    emit("posterior", **posterior)
-    fast = run_fast(torch)
-    emit("fast", **fast)
-    ep = run_ep(torch)
-    emit("ep", **ep)
-    dense = run_dense_chain(torch)
-    emit("dense_chain", **dense)
-    checkpoint = run_checkpoint(torch)
-    emit("checkpoint", **checkpoint)
-    adaptive = run_adaptive(torch)
-    emit("adaptive", **adaptive)
-    exp = run_experiment(torch)
-    emit("experiment", **exp)
-    conv = run_convnets(torch)
-    emit("convnets", **conv)
-    geometry = run_geometry(torch)
-    emit("geometry", **geometry)
-    dp = run_dp(torch)
-    emit("dp", **dp, nvidia_smi=smi)
-    fixedpoint = run_fixedpoint(torch)
-    emit("fixedpoint", **fixedpoint)
-    research = run_research(torch)
-    emit("research", **research)
+    serve = phase("serve", run_serve, torch)
+    train = phase("train", run_train, torch)
+    generate = phase("generate", run_generate, torch)
+    posterior = phase("posterior", run_posterior, torch)
+    fast = phase("fast", run_fast, torch)
+    ep = phase("ep", run_ep, torch)
+    dense = phase("dense_chain", run_dense_chain, torch)
+    checkpoint = phase("checkpoint", run_checkpoint, torch)
+    adaptive = phase("adaptive", run_adaptive, torch)
+    exp = phase("experiment", run_experiment, torch)
+    conv = phase("convnets", run_convnets, torch)
+    geometry = phase("geometry", run_geometry, torch)
+    dp = phase("dp", run_dp, torch, nvidia_smi=smi)
+    fixedpoint = phase("fixedpoint", run_fixedpoint, torch)
+    research = phase("research", run_research, torch)
     check(sequential_bwd_launches() == seq_before_paths,
           f"{sequential_bwd_launches() - seq_before_paths} sequential backward launches in the "
           f"adjoint paths")
-    seq_bwd = run_seq_bwd(torch)
-    emit("seq_bwd", **seq_bwd)
+    seq_bwd = phase("seq_bwd", run_seq_bwd, torch)
+    deploy = phase("deploy", run_deploy, torch, nvidia_smi=smi)
+    emit("phase_seconds", **PHASE_S)
     # launches: the sum over the main paths' runs (each read between
     # zeroing the counters and the end of its run), with each path's count
     # beside it; every kernel is launched by the paths it belongs to
@@ -5523,7 +5869,8 @@ def main() -> None:
                                                      "iaf_chain_bwd", "g_inv")),
              "research": (research["launches"], ("chol_bundle", "metric_bundle", "hmc_terms")),
              "seq_bwd": (seq_bwd["launches"], ("chol_bundle", "iaf_chain_fwd", "iaf_chain_bwd",
-                                               "g_inv"))}
+                                               "g_inv")),
+             "deploy": (deploy["launches"], ("chol_bundle", "iaf_chain_fwd", "g_inv"))}
     for path, (counts, kernels) in paths.items():
         for name in kernels:
             check(counts[name] > 0, f"the {path} path did not launch {name}")
@@ -5579,6 +5926,12 @@ def main() -> None:
             m: research[m]["launches"][name] for m in ("lvae_iaf", "riem", "gugus_lvaegg")}
     for name, rec in records.items():
         rec["launches_lldm"] = research["lldm"]["launches"][name]
+    # the exported programs' launches at B=64, by the counters and by the profiler
+    for name, label in KERNEL_LABELS.items():
+        records[name]["launches_per_exported_program"] = {
+            op: p["counted"][label] for op, p in deploy["programs"].items()}
+        records[name]["profiled_launches_per_exported_program"] = {
+            op: p["kernels"][label] for op, p in deploy["programs"].items()}
     records["hmc_terms"]["launches_per_dense_k20000_chain"] = dense["launches"]["hmc_terms"]
     records["hmc_terms"]["launches_per_calibration_phase"] = [
         p["hmc_terms"] for p in adaptive["calibration"]["phases"]]

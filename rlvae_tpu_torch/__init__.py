@@ -31,7 +31,12 @@ What is ported:
 - the experiment runner ``python -m rlvae_tpu_torch.experiment``:
   Hydra-style composition over ``conf/`` (:mod:`rlvae_tpu_torch.config`),
   single runs, comparison studies, sweeps and multiruns, with the trainer's
-  callbacks, step timing, trace and NaN checks.
+  callbacks, step timing, trace and NaN checks;
+- deployment: :mod:`~rlvae_tpu_torch.export` (``torch.export`` programs
+  per op and bucket, the kernels as registered ops), the bundle server,
+  the live app server and the static dashboard (``app_server``, ``app``),
+  and the evaluation utilities (``utils.evaluation``, ``fid``, ``mcmc``,
+  ``tsne``, ``umap_lite``; ``python -m rlvae_tpu_torch.evaluation_cli``).
 
 Hand-written CUDA kernels (``csrc/``) compute the chol-bundle, the IAF
 chain's forward and backward, the HMC chain's target and gradient, the
@@ -41,12 +46,24 @@ package imports PyTorch and numpy only; kernels are built with ``nvcc`` at
 first use on the card.
 """
 
-from rlvae_tpu_torch.device import resolve_device
-from rlvae_tpu_torch.inference import ModelManager, slerp
-from rlvae_tpu_torch.models import PRESETS, RlVAE, create_model
-from rlvae_tpu_torch.serving import BatchingEngine, EngineStats, ServeConfig
+import importlib
 
-__all__ = [
-    "BatchingEngine", "EngineStats", "ModelManager", "PRESETS", "RlVAE",
-    "ServeConfig", "create_model", "resolve_device", "slerp",
-]
+# The names below load at first use, so that a submodule imports only what it
+# needs: the bundle server (rlvae_tpu_torch.bundle_server) runs exported
+# programs without importing a model class.
+_EXPORTS = {
+    "BatchingEngine": "serving", "EngineStats": "serving", "ServeConfig": "serving",
+    "ModelManager": "inference", "slerp": "inference",
+    "PRESETS": "models", "RlVAE": "models", "create_model": "models",
+    "resolve_device": "device",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module 'rlvae_tpu_torch' has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"rlvae_tpu_torch.{_EXPORTS[name]}"), name)
+    globals()[name] = value
+    return value

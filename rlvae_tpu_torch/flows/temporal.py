@@ -28,7 +28,9 @@ import torch
 from torch import nn
 
 from rlvae_tpu_torch.flows.iaf import IAF, iaf_inverse
-from rlvae_tpu_torch.ops.iaf_kernels import IAFChain, stack_chain
+# the module, not its names: ops.iaf_kernels imports flows.made, so either
+# package may be the first one imported
+from rlvae_tpu_torch.ops import iaf_kernels as _iaf
 
 
 class TemporalFlows(nn.Module):
@@ -75,7 +77,7 @@ def apply_temporal_flows(
             zs.append(z_t)
             lds.append(ld)
         return torch.stack(zs, dim=1), torch.stack(lds, dim=1)
-    z_rest, lds = IAFChain.apply(z0.float().contiguous(), *stack_chain(chain),
-                                 flows.fixedpoint_iters)
+    z_rest, lds = _iaf.IAFChain.apply(z0.float().contiguous(), *_iaf.stack_chain(chain),
+                                      flows.fixedpoint_iters)
     z_seq = torch.cat([z0[:, None, :].float(), z_rest.transpose(0, 1)], dim=1)
     return z_seq, lds.transpose(0, 1)

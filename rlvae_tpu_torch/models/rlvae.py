@@ -373,7 +373,10 @@ class RlVAE(nn.Module):
         return next(self.parameters()).device
 
     def _check_generation_method(self, method: str) -> None:
-        if method not in GENERATION_METHODS:
+        """Without a metric every method name is the standard normal draw,
+        as JAX's ``sample_prior`` takes it (its evaluation CLI passes
+        ``standard``)."""
+        if self.metric is not None and method not in GENERATION_METHODS:
             raise ValueError(f"Unknown prior sampling method: {method}")
 
     def draw_generation_noise(self, num_samples: int, method: str = "geodesic",

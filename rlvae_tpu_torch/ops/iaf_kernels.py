@@ -218,7 +218,13 @@ def iaf_chain_fwd_ref(z0: torch.Tensor, w0, b0, wh, bh, wo, bo, return_ys: bool 
 def iaf_chain_fwd(z0: torch.Tensor, w0, b0, wh, bh, wo, bo, return_ys: bool = False,
                   fp_iters: int = 0):
     """(z [NT, B, D], ld [NT, B]) and, when ``return_ys``, ys [NT, NB, B, D];
-    kernel on CUDA, plain version on CPU; ``fp_iters`` as for the plain version."""
+    kernel on CUDA, plain version on CPU; ``fp_iters`` as for the plain version.
+    While a program is exported, the inference call is the registered op
+    (:mod:`rlvae_tpu_torch.ops.export_ops`)."""
+    if not return_ys and torch.compiler.is_exporting():
+        from rlvae_tpu_torch.ops import export_ops
+
+        return export_ops.iaf_chain_fwd(z0, w0, b0, wh, bh, wo, bo, fp_iters)
     if z0.device.type == "cpu":
         return iaf_chain_fwd_ref(z0, w0, b0, wh, bh, wo, bo, return_ys, fp_iters)
     return _launch_fwd(z0, (w0, b0, wh, bh, wo, bo), return_ys, fp_iters=fp_iters)

@@ -48,7 +48,11 @@ metric bundle's, so the two give the same bits).
 Each wrapper (:func:`chol_bundle`, :func:`hmc_terms`, :func:`metric_bundle`,
 :func:`g_inv`, :func:`hmc_partials`) launches its kernel for CUDA tensors and runs its plain
 PyTorch version (``*_ref``) for CPU tensors; there is no other route.  Each
-wrapper's ``launches`` counts the calls that launched its kernel.
+wrapper's ``launches`` counts the calls that launched its kernel.  While a
+program is exported (``torch.compiler.is_exporting()``), the chol-bundle,
+metric bundle and G^{-1} wrappers call their registered ops instead
+(:mod:`rlvae_tpu_torch.ops.export_ops`), whose implementations are these
+same wrappers.
 
 :class:`CholBundle` and :class:`CholBundleLogdet` make the bundle's factor L
 and its logdet differentiable, as ``chol_g_inv_fused`` does on the JAX side
@@ -96,6 +100,14 @@ def chol_bundle_ref(
     return l, _lin.logdet_from_chol(l)
 
 
+def _exported():
+    """The registered ops (:mod:`rlvae_tpu_torch.ops.export_ops`), which a
+    wrapper calls in place of its launch while a program is exported."""
+    from rlvae_tpu_torch.ops import export_ops
+
+    return export_ops
+
+
 def _check_bank_shapes(name: str, z, centroids, matrices) -> Tuple[int, int]:
     """(B, K) of z [B, 16], c [K, 16], M [K, 16, 16]; raise on anything else."""
     d = KERNEL_DIM
@@ -123,6 +135,8 @@ def chol_bundle(
     inv_t2: float, diag: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(L, logdet) of G^{-1}(z) + (diag - lbd) I; kernel on CUDA, plain on CPU."""
+    if torch.compiler.is_exporting():
+        return _exported().chol_bundle(z, centroids, matrices, inv_t2, diag)
     if z.device.type == "cpu":
         return chol_bundle_ref(z, centroids, matrices, inv_t2, diag)
     if z.device.type != "cuda":
@@ -398,6 +412,8 @@ def metric_bundle(
     inv_t2: float, lbd: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(G^{-1}, L, logdet, G) of G^{-1}(z); kernel on CUDA, plain on CPU."""
+    if torch.compiler.is_exporting():
+        return _exported().metric_bundle(z, centroids, matrices, inv_t2, lbd)
     if z.device.type == "cpu":
         return metric_bundle_ref(z, centroids, matrices, inv_t2, lbd)
     if z.device.type != "cuda":
@@ -430,6 +446,8 @@ def g_inv(
     inv_t2: float, lbd: float,
 ) -> torch.Tensor:
     """G^{-1}(z) [B, D, D]; kernel on CUDA, plain on CPU."""
+    if torch.compiler.is_exporting():
+        return _exported().g_inv(z, centroids, matrices, inv_t2, lbd)
     if z.device.type == "cpu":
         return g_inv_ref(z, centroids, matrices, inv_t2, lbd)
     if z.device.type != "cuda":

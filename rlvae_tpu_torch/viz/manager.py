@@ -24,6 +24,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, List, Mapping
 
+from rlvae_tpu_torch.viz.base import BaseVisualization, SharedForward
+
 
 class VisualizationLevel(enum.IntEnum):
     MINIMAL = 0
@@ -62,13 +64,8 @@ class VisualizationConfig:
         return cls(level=level, **kwargs)
 
 
-class _NotPorted:
+class _NotPorted(BaseVisualization):
     """A visualization category whose plots are not ported (ROADMAP A7)."""
-
-    def __init__(self, config: VisualizationConfig, output_dir: Path, logger=None):
-        self.config = config
-        self.output_dir = output_dir
-        self.logger = logger
 
     def run(self, epoch: int, model, variables, sample_batch) -> List[Path]:
         raise NotImplementedError(
@@ -99,7 +96,10 @@ class VisualizationManager:
         self.output_dir = Path(output_dir)
         self.logger = logger
         self.modules: List[Any] = []
+        self._forward = SharedForward()  # one forward per epoch for every module
         self._build_modules()
+        for module, _ in self.modules:
+            module._forward = self._forward
 
     def _build_modules(self) -> None:
         cfg, lvl = self.config, self.config.level
@@ -117,6 +117,7 @@ class VisualizationManager:
         """Run the modules due this epoch; returns the files they wrote."""
         if self.config.frequency <= 0 or epoch % self.config.frequency != 0:
             return []
+        self._forward.reset()
         written: List[Path] = []
         for module, freq in self.modules:
             if freq > 0 and epoch % freq == 0:

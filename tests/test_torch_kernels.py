@@ -1190,3 +1190,76 @@ def test_decode_mse_rejects_bad_inputs(dev):
         decode_mse(hw, torch.zeros((16, 600), device=dev), b, x, rw)
     with pytest.raises(RuntimeError):
         decode_mse(h, w.requires_grad_(True), b, x, rw)
+
+
+_PORT_KERNELS = {"chol_bundle_kernel": chol_bundle, "iaf_chain_fwd_kernel": iaf_chain_fwd,
+                 "metric_bundle_kernel<false>": g_inv}
+
+
+def _kernel_calls(fn, attempts=3):
+    """Launches of the chol-bundle, IAF chain and G^{-1} in one call of
+    ``fn`` (idempotent), by profiler name (G^{-1} is
+    ``metric_bundle_kernel<R, false>``), beside the wrappers' counters.  The
+    call is profiled in the active step of a schedule after a warm-up step
+    that runs ``fn`` too: a session started cold, in a process that had
+    profiled before, missed its first milliseconds of device events.  A
+    call whose profiled launches differ from the counted ones is profiled
+    again, and the counters give the exact counts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            before = {k: w.launches for k, w in _PORT_KERNELS.items()}
+            fn()
+            torch.cuda.synchronize()
+            counted = {k: w.launches - before[k] for k, w in _PORT_KERNELS.items()}
+            prof.step()
+        calls = dict.fromkeys(_PORT_KERNELS, 0)
+        for evt in prof.key_averages():
+            for name in ("chol_bundle_kernel", "iaf_chain_fwd_kernel", "metric_bundle_kernel"):
+                if name in evt.key:
+                    key = name + ("<false>" if name == "metric_bundle_kernel" else "")
+                    if key in calls and (name != "metric_bundle_kernel" or "false>" in evt.key):
+                        calls[key] += int(evt.count)
+        if calls == counted:
+            break
+    return calls, counted
+
+
+@pytest.mark.parametrize("platforms", [("cuda",), ("cpu", "cuda")])
+def test_exported_programs_launch_the_eager_kernels(dev, tmp_path, platforms):
+    """An exported reconstruct and generate on the card launch the eager
+    path's kernels (reconstruct: the chol-bundle twice, the IAF chain once;
+    generate: G^{-1} and the IAF chain once), by the wrappers' counts and
+    by profiler name, and equal it bit for bit; a bundle traced on the CPU
+    and listing both platforms runs on the card the same way."""
+    from rlvae_tpu_torch import ModelManager, PRESETS
+    from rlvae_tpu_torch.export import export_model, load_exported
+
+    cfg = {**PRESETS["riemannian_flow_vae"], "input_dim": [3, 16, 16], "n_flows": 3}
+    trace_dev = "cpu" if "cpu" in platforms else dev
+    manager = ModelManager.from_config(cfg, seed=0, device=dev)
+    tracer = ModelManager.from_config(cfg, seed=0, device=trace_dev)
+    export_model(tracer, tmp_path, ops=("reconstruct", "generate"), buckets=(8,), n_obs=4,
+                 platforms=platforms)
+    bundle = load_exported(tmp_path, device=dev)
+    x = np.random.default_rng(0).uniform(size=(8, 4, 3, 16, 16)).astype(np.float32)
+    seeds = np.arange(8, dtype=np.uint32) * 1000
+    cases = {"reconstruct": (x, lambda: manager.reconstruct_rows(x, seed=0),
+                             {"chol_bundle_kernel": 2, "iaf_chain_fwd_kernel": 1}),
+             "generate": (seeds, lambda: manager.generate_rows(seeds, n_obs=4),
+                          {"metric_bundle_kernel<false>": 1, "iaf_chain_fwd_kernel": 1})}
+    for op, (batch, eager, want) in cases.items():
+        want = {**dict.fromkeys(_PORT_KERNELS, 0), **want}
+        bundle.run(op, batch)  # warm
+        for fn in (eager, lambda: bundle.run_rows(op, batch)):
+            calls, counted = _kernel_calls(fn)
+            assert counted == want, (op, counted)
+            # every launched kernel, and no other, seen by the profiler
+            assert all((calls[k] > 0) == (want[k] > 0) and calls[k] <= want[k]
+                       for k in want), (op, calls)
+        np.testing.assert_array_equal(bundle.run(op, batch), eager().cpu().numpy())
