@@ -72,9 +72,11 @@ Phases, each printing one JSON line with its elapsed seconds:
    prior and the ``official`` manifold-HMC chain, and at B=64 with the other
    prior methods and the ``hmc`` chain.  The launch counters are zeroed just
    before and read just after, and around each call (1601 ``hmc_terms``
-   launches per chain).  One ``official`` call is profiled.  The card's
-   official chain is replayed step by step on the CPU from the card's state
-   before each step with the same noise; one geodesic batch is decoded on
+   launches per chain).  One ``official`` call is profiled.  A chain of
+   GEN_REPLAY_STEPS (25 of the official chain's 100) MCMC steps
+   on the official chain's draws is stepped on the card, held to
+   ``run_prior_chain``'s, and each step replayed on the CPU from the card's
+   state before it with the same noise; one geodesic batch is decoded on
    the card and on the CPU from the same draws.  Then an engine with
    ``generate_method="official"`` answers concurrent seeds [7, 123, 7, 999]
    and a lone request, each row against ``sample_random(1, seed)``.
@@ -103,11 +105,10 @@ Phases, each printing one JSON line with its elapsed seconds:
    and read just after (1601 ``hmc_partials`` launches, no ``hmc_terms``);
    host-clock time, and the busy share of a profiled 2-step chain.
    ``chol_g_inv_sharded`` at B=64 launches the G^{-1} kernel once and is
-   held to the dense chol-bundle factor.  A chain of EP_REPLAY_STEPS (25)
+   held to the dense chol-bundle factor.  A chain of EP_REPLAY_STEPS (10)
    MCMC steps on the same draws is stepped one step at a time and held to
    the entry point's, each step replayed on the CPU from the card's state,
-   and the first 10 also taken with the dense ``hmc_terms`` from the same
-   state.
+   and each also taken with the dense ``hmc_terms`` from the same state.
 10. ``dense_chain``: the official chain (100 x 15) at B=64 through
    ``sample_prior_hmc`` on the K=20 000 synthetic bank, where B4 sets the
    wall time: host seconds with the counters zeroed just before and read
@@ -143,9 +144,9 @@ Phases, each printing one JSON line with its elapsed seconds:
    share) and equal to the plan bit for bit.  64 ``generate`` requests from
    8 threads, one seed each, after a warm-up: 1 + 12 (n_lf + 1) B4 launches
    and one IAF-chain launch per batch; host ms of a B=64 batch, planned
-   and official, in turns.  The planned chain of one batch and 64 of the
-   pool's rows (all 128 steps from their centroid starts) replayed step by
-   step on the CPU from the card's state.  ``sample_random(64, "adaptive")``
+   and official, in turns.  The planned chain of one batch and
+   POOL_REPLAY_ROWS (16) of the pool's rows (all 128 steps from their
+   centroid starts) replayed step by step on the CPU from the card's state.  ``sample_random(64, "adaptive")``
    (the budget sampler): its launches against its n_lf and steps, the first
    3 MCMC steps of its phase A replayed on the CPU.  ``estimate_nll`` at
    B=16, S=50 (one chol-bundle and 50 IAF-chain launches) against the CPU:
@@ -165,8 +166,11 @@ Phases, each printing one JSON line with its elapsed seconds:
    epochs with ``training.trainer.profile=true`` (its files, chol-bundle 2
    and IAF-chain forward and backward 1 per train step, chol-bundle 3,
    IAF-chain forward 1 and G^{-1} 1 per evaluation batch, StepTimer keys in
-   every step record, the epoch-0 trace naming the IAF-chain kernels, a
-   ``viz/error`` record per due visualization module), then
+   every step record, the epoch-0 trace naming the IAF-chain kernels; the
+   visualization level ``full``: where matplotlib is missing, as on the
+   card's box, one ``viz/error`` naming it per due module, 5 in all, after
+   the interactive module's forward and two sliders; where it imports,
+   none), then
    ``ModelManager.from_run`` on its directory, a B=64 forward on the card
    against the CPU (``compare_trained_forward``);
    ``experiment=comparison_study`` (``vanilla_vae`` launches nothing); ``-m model=hybrid_rlvae
@@ -238,12 +242,12 @@ Phases, each printing one JSON line with its elapsed seconds:
 16. ``dp``: data parallelism through ``python -m
    rlvae_tpu_torch.parallel.dp_verify`` (its ranks are subprocesses; each
    zeroes and reads its own launch counters around every step): the
-   default preset at full width, global B=16, 2 DP steps in an NCCL world
-   of one rank (equal to the plain trainer bit for bit) and in a gloo world
-   of two ranks sharing ``cuda:0`` (NCCL refuses that) in the 2 x 1 and
-   1 x 2 (DP x TP) layouts, each with a 4-step epoch on 64 sequences and a
-   resume, plus 2 ``cnn_rlvae`` steps on 2 x 1 and 2 steps of the fast
-   preset on 1 x 2 (its decoder's output layer gathered for the fused
+   default preset at full width, global B=16, DP_STEPS (1) DP step in an
+   NCCL world of one rank (equal to the plain trainer bit for bit) and in a
+   gloo world of two ranks sharing ``cuda:0`` (NCCL refuses that) in the
+   2 x 1 and 1 x 2 (DP x TP) layouts, each with a 3-step epoch on
+   DP_TRAIN_ROWS (48) sequences and a resume, plus a ``cnn_rlvae`` step on
+   2 x 1 and a step of the fast preset on 1 x 2 (its decoder's output layer gathered for the fused
    kernel); per rank and step chol-bundle 2, IAF-chain forward and
    backward 1 (the fast preset: chol-bundle 2, each decode+MSE kernel 1,
    no IAF chain); every step replayed in one process on the card (loss,
@@ -318,6 +322,37 @@ Phases, each printing one JSON line with its elapsed seconds:
    clock.  ``app_server`` over a run directory of the same weights answers
    one ``reconstruct`` and one ``generate`` (the live manager's row); where
    matplotlib imports, ``app.build_report`` renders the dashboard.
+21. ``viz``: the visualization modules, the flow zoo and the slope timers.
+   The default model at full width (pretrained nets, K=50 metric at T=3.0),
+   ``conf/visualization/full.yaml`` (level FULL, curvature, fancy plots),
+   VIZ_SEQS (8) synthetic sequences of 8 x 3 x 64 x 64.  The shared forward
+   on the card gives the latents; from them each module's fields are
+   computed on the card and on the CPU and held to VIZ_TOL field by field:
+   ``manifold`` (log sqrt det G^{-1} on a 60 x 60 grid and along the
+   trajectories, B1; G^{-1}, B7; the 30 x 30 curvature, plain ops),
+   ``flow_analysis`` (the flows' Jacobian spectra by ``jacfwd``, plain ops;
+   log sqrt det and log det G^{-1}, B1), ``interactive`` (9 decoded
+   latents; six temperatures on a 40 x 40 grid, a 30 x 30 field, a 50 x 50
+   field and the dense paths, B1; G on 12 x 12, ``dist2`` on the
+   transitions and 2 500 probes, the energy path at 16 points over 120 Adam
+   steps and ``path_length``, B6; a 24 x 24 curvature; ``generate(4)`` on
+   the geodesic prior, B7 and B2), each module's host seconds and launches
+   by the counters; ``basic`` is the forward's host statistics.  Then the
+   manager at FULL through the trainer's hook (``make_viz_hook``) on the
+   card at epoch 0: where matplotlib is missing each module gives one
+   ``viz/error`` naming it and ``interactive`` leaves its two sliders (its
+   forward launching B1 2 and B2 1); where it imports, every artifact of
+   tests/test_viz.py.  The flow zoo at D=16, B=64 card vs CPU (MAF both
+   ways and its round trip, planar, radial, the flow BatchNorm in train and
+   eval with its inverse, ZOO_TOL); PixelCNN at the reference defaults
+   (1x28x28, 10 layers, 64 channels, 256 embeddings): logits and loss at
+   B=16 against the CPU, one 784-step ``pixelcnn_sample`` of 4 images on the
+   card from passed Gumbel noise, the logits at PCNN_CHECK_STEPS recomputed
+   on the CPU from the card's partial image (the card's choice the CPU's
+   argmax, ties within PCNN_TIE counted); the slope timers on B1 (K=50,
+   B=64): ``scan_slope_time`` over 64 distinct batches in one CUDA graph and
+   ``fori_slope_time`` on one captured launch, reported beside the kernels
+   phase's ``device_ms``, gated on structure only.
 
 Each phase's record carries its own seconds (``phase_s``); a
 ``phase_seconds`` line lists them all.  Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and as the
@@ -390,6 +425,9 @@ GRAPH_LAUNCHES = 20
 # generation: the batches of sample_random_batched_seeds, the chain's launches
 GEN_BATCHES = (1, SERVE_BATCH)
 CHAIN_LAUNCHES = 1 + 100 * (15 + 1)
+# MCMC steps of the official chain stepped on the card and replayed on the
+# CPU (all 100 until the viz phase joined the run: its time budget)
+GEN_REPLAY_STEPS = 25
 # card chain vs its CPU replay, per MCMC step from the card's state: z within
 # CHAIN_Z_RTOL of max(1, |z|) (15 fp32 leapfrog steps); the accept decision
 # identical unless |u - alpha| < ACCEPT_MARGIN (alpha is exp of a difference
@@ -431,11 +469,11 @@ EP_SHARDS, EP_DENSE_STEPS, EP_PROFILE_STEPS = 4, 10, 2
 # MCMC steps of the stepped and replayed EP chain, held to the entry point's
 # chain of as many steps on the same draws: 100 (the whole official chain)
 # until the deploy phase needed the time; the stepping and its CPU replay
-# were the phase's largest share
-EP_REPLAY_STEPS = 25
+# were the phase's largest share; 25 until the viz phase needed the time
+EP_REPLAY_STEPS = 10
 # the dense_chain phase: the official chain on the K=20 000 bank, its first
-# steps replayed on the CPU
-DENSE_REPLAY_STEPS = 3
+# steps replayed on the CPU (3 until the viz phase needed the time)
+DENSE_REPLAY_STEPS = 1
 # the analysis metrics of the evaluation step (losses.additional_metrics)
 EVAL_METRIC_KEYS = ("cyclicity_error", "latent_norm", "latent_variance",
                     "metric_conditioning", "manifold_regularity", "metric_determinant")
@@ -2255,9 +2293,10 @@ def run_generate(torch, dev=None):
 
 
 def replay_chain(torch, manager):
-    """The official chain at B=64 on the card, one MCMC step at a time, each
-    step replayed on the CPU (plain terms) from the card's state before it
-    with the same momenta and uniforms."""
+    """The official chain's first GEN_REPLAY_STEPS MCMC steps at B=64 on the
+    card, one step at a time (held to ``run_prior_chain`` of that many
+    steps), each step replayed on the CPU (plain terms) from the card's
+    state before it with the same momenta and uniforms."""
     from rlvae_tpu_torch.geometry.metric import CentroidMetric
     from rlvae_tpu_torch.samplers import HMCConfig, mcmc_step, run_prior_chain
     from rlvae_tpu_torch.samplers.hmc import _terms_fn
@@ -2266,9 +2305,11 @@ def replay_chain(torch, manager):
     metric = manager.model.metric
     cpu_metric = CentroidMetric(metric.centroids.cpu(), metric.matrices.cpu(),
                                 metric.temperature, metric.regularization)
-    cfg = HMCConfig()
+    cfg = HMCConfig(mcmc_steps=GEN_REPLAY_STEPS)
     gen = torch.Generator(device=manager.device).manual_seed(17)
     noise = manager.model.draw_generation_noise(b, "official", gen)
+    noise = {"z0": noise["z0"], "gammas": noise["gammas"][:GEN_REPLAY_STEPS],
+             "unifs": noise["unifs"][:GEN_REPLAY_STEPS]}
     terms, cpu_terms = _terms_fn(metric), _terms_fn(cpu_metric)
     with torch.no_grad():
         z_ref = run_prior_chain(terms, noise["z0"], noise["gammas"], noise["unifs"], cfg)[0]
@@ -2953,7 +2994,8 @@ def run_checkpoint(torch, dev=None):
 
 ADAPTIVE_REQUESTS, ADAPTIVE_THREADS = 64, 8
 PLAN_STEPS = 12  # the planned chain's MCMC steps (sample_prior_hmc_planned)
-POOL_REPLAY_ROWS = 64  # pool rows replayed on the CPU: rows are independent
+POOL_REPLAY_ROWS = 16  # pool rows replayed on the CPU: rows are independent (64 until the
+                       # viz phase joined the run: its time budget)
 BUDGET_SEED, BUDGET_REPLAY_STEPS = 41, 3
 NLL_BATCH, NLL_SAMPLES = 16, 50
 INTERP_STEPS = 10
@@ -3507,6 +3549,15 @@ TIMER_KEYS = ("step_time_avg", "step_time_p50", "step_time_p99", "steps_per_sec"
 B2_B3_NAMES = ("iaf_chain_fwd_kernel", "iaf_chain_bwd_kernel")
 
 
+def matplotlib_imports() -> bool:
+    """Whether matplotlib imports here (the card's box has none)."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
 def counted_trainers():
     """(runs, restore): every Trainer built until ``restore()`` appends one
     ``{"train": [...], "eval": [...]}`` to ``runs``, with each train step's
@@ -3691,12 +3742,17 @@ def run_experiment(torch, dev=None):
         names, busy = trace_kernels(single / "profile")
         for want in B2_B3_NAMES:
             check(any(want in n for n in names), f"the epoch-0 profile names no {want}: {names}")
-        viz_errors = [r for r in map(json.loads, (single / "metrics.jsonl").read_text()
-                                     .splitlines()) if "viz/error" in r]
-        check(len(viz_errors) == 5, f"{len(viz_errors)} viz/error records")  # 4 at epoch 0, 1 at 1
+        viz_errors = [r["viz/error"] for r in map(json.loads, (single / "metrics.jsonl")
+                                                  .read_text().splitlines()) if "viz/error" in r]
+        if matplotlib_imports():
+            check(not viz_errors, f"viz/error records with matplotlib: {viz_errors}")
+        else:  # each due module fails at its matplotlib import: 4 at epoch 0, 1 at 1
+            check(len(viz_errors) == 5 and all("matplotlib" in e for e in viz_errors),
+                  f"viz/error records without matplotlib: {viz_errors}")
         out["single"] = {"result": {k: result[k] for k in ("best_val_loss", "epochs_run", "steps",
                                                            "train_time")},
                          "test": res["test"], "launches": run_totals(run),
+                         "viz_errors": len(viz_errors),
                          "launches_per_step": run["train"][0],
                          "launches_per_eval_batch": run["eval"][0],
                          "step_time": {k: records[-1][k] for k in TIMER_KEYS},
@@ -3759,7 +3815,7 @@ def run_experiment(torch, dev=None):
 
 CONF = Path(__file__).resolve().parent / "conf"
 CONVNET_MODELS = ("cnn_rlvae", "resnet_rlvae", "mlp_rlvae")
-CONVNET_STEPS = 3
+CONVNET_STEPS = 2  # 3 until the viz phase joined the run (its time budget)
 CONVNET_CUT = {}  # extra overrides by model (a CPU rehearsal narrows the nets here)
 CONVNET_IMAGE = 64
 # the card-vs-CPU forward's batch: every row is independent in eval (BatchNorm
@@ -4577,8 +4633,9 @@ def run_geometry(torch, dev=None):
 # dp phase
 # ---------------------------------------------------------------------------
 
-DP_STEPS = 2  # 3 until the sequential backward's phase joined the run (its time budget)
-DP_TRAIN_ROWS = 64   # the epoch's sequences: 32 per rank, 4 steps of 8 rows on each
+DP_STEPS = 1  # 3 until the seq_bwd phase joined the run, 2 until the viz phase did (its time)
+DP_TRAIN_ROWS = 48   # the epoch's sequences: 24 per rank, 3 steps of 8 rows on each (a chunk
+                     # of 2 and a ragged one in the chunked staging); 64 until the viz phase
 DP_LAYOUTS = "1,2"   # the gloo world's meshes: 2 x 1 (DP) and 1 x 2 (DP x TP)
 # more models in the gloo world: a BatchNorm model's step on 2 x 1, and the
 # fast preset (fused decode+MSE) on 1 x 2, its decoder's output layer
@@ -5222,6 +5279,377 @@ def run_deploy(torch, dev=None):
 
 
 # ---------------------------------------------------------------------------
+# viz phase
+# ---------------------------------------------------------------------------
+
+VIZ_CONFIG = CONF / "visualization" / "full.yaml"  # level FULL, curvature, fancy plots
+VIZ_SEQS = 8  # the config's max_sequences: the hook's sample batch
+# Card vs CPU, each field from the same latents, relative to max(1, |x|)
+# unless said otherwise.  The metric fields come from the kernels on the card
+# and their plain versions on the CPU: log det G^{-1} from the chol-bundle
+# (kernels phase: |k - p| <= 1e-5 + 1e-4 |p|), G^{-1} and G from the metric
+# kernels (G inverts G^{-1}, so its conditioning scales the error).
+VIZ_TOL = {
+    "logdet": 1e-4,        # log sqrt det G^{-1} and log det G^{-1} fields and paths
+    "g_inv": 1e-5,         # G^{-1} along the trajectories, of its largest entry
+    "g": 1e-3,             # G on the ellipse grid, of its largest entry
+    "dist2": 1e-3,         # squared step lengths and the amplification field
+    "spectra": 1e-3,       # the flows' Jacobian singular values (plain ops), relative
+    "curvature": GEO_TOL["curvature"],     # second derivatives: of the largest |K|
+    "energy_path": GEO_TOL["energy_path"],  # 120 Adam steps feed rounding back
+    "length": GEO_TOL["energy_path"],      # the two paths' Riemannian lengths, relative
+}
+ZOO_DIM, ZOO_BATCH = 16, 64
+ZOO_TOL = 1e-4  # the zoo's outputs and log-dets, of max(1, |x|)
+PCNN_LOSS_BATCH, PCNN_SAMPLES = 16, 4
+PCNN_CHECK_STEPS = (0, 1, 29, 391, 783)  # raster steps whose logits the CPU recomputes
+PCNN_TOL = 1e-4  # logits, of their largest |x|
+PCNN_TIE = 1e-3  # an argmax whose two best scores lie this close may flip (counted)
+SLOPE_STACK = 64  # distinct B=64 inputs of scan_slope_time
+
+
+class _VizData:
+    """The data module the trainer's viz hook reads its sample batch from."""
+
+    def __init__(self, x):
+        self.x = x
+
+    def get_sample_batch(self, split="val", n=8):
+        return self.x[:n]
+
+
+class _VizLog:
+    def __init__(self):
+        self.records = []
+
+    def log(self, metrics, step=None):
+        self.records.append(dict(metrics))
+
+    def log_image(self, key, path):
+        pass
+
+
+def _field_err(got, want, floor=1.0) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(got.shape == want.shape, f"field shapes {got.shape} vs {want.shape}")
+    return float(np.max(np.abs(got - want) / np.maximum(floor, np.abs(want))))
+
+
+def _of_largest(got, want) -> float:
+    return float(np.abs(np.asarray(got) - np.asarray(want)).max()
+                 / max(1.0, float(np.abs(np.asarray(want)).max())))
+
+
+def viz_module_fields(torch, card, cpu, z, cfg, out_dir):
+    """Each plotting module's fields from latents ``z`` on the card and on
+    the CPU (the same ``z``), held to VIZ_TOL; per module the card's host
+    seconds and launches, the CPU's seconds, and each field's error."""
+    from rlvae_tpu_torch.viz.flow_analysis import FlowAnalysisVisualizations
+    from rlvae_tpu_torch.viz.interactive import InteractiveVisualizations
+    from rlvae_tpu_torch.viz.manifold import ManifoldVisualizations
+
+    dev = next(card.parameters()).device
+    gen_noise = card.draw_generation_noise(4, "geodesic",
+                                           torch.Generator(device=dev).manual_seed(1))
+    runs = {"manifold": (ManifoldVisualizations, lambda m, mod, noise: mod.fields(m, z)),
+            "flow_analysis": (FlowAnalysisVisualizations, lambda m, mod, noise: mod.fields(m, z)),
+            "interactive": (InteractiveVisualizations,
+                            lambda m, mod, noise: mod.fields(m, z, noise=noise))}
+    out, fields, total = {}, {}, {}
+    for name, (cls, fn) in runs.items():
+        mod = cls(cfg, out_dir, None)
+        t = time.perf_counter()
+        got, counts = counted(torch, lambda: fn(card, mod, gen_noise))
+        host_s = time.perf_counter() - t
+        t = time.perf_counter()
+        want = fn(cpu, mod, {k: v.cpu() for k, v in gen_noise.items()})
+        out[name] = {"host_s": host_s, "cpu_s": time.perf_counter() - t, "launches": counts}
+        fields[name] = (got, want)
+        add_counts(total, counts)
+
+    errs = {}
+    (gm, wm), (gf, wf), (gi, wi) = fields["manifold"], fields["flow_analysis"], fields["interactive"]
+    errs["manifold"] = {"vals": _field_err(gm["vals"], wm["vals"]),
+                        "dets": _field_err(gm["dets"], wm["dets"]),
+                        "g_inv": _of_largest(gm["g_inv"], wm["g_inv"]),
+                        "curv": _of_largest(gm["curv"], wm["curv"])}
+    errs["flow_analysis"] = {
+        "spectra": max(float(np.max(np.abs(a - b) / np.abs(b))) for a, b in
+                       zip(gf["spectra"], wf["spectra"])),
+        "dets": _field_err(gf["dets"], wf["dets"]),
+        "logdet": _field_err(gf["logdet"], wf["logdet"])}
+    fc, fw = gi["fancy"], wi["fancy"]
+    errs["interactive"] = {
+        "geodesic_frames": float(np.abs(gi["geodesic_frames"] - wi["geodesic_frames"]).max()),
+        "geodesic_frames_mean": float(np.abs(gi["geodesic_frames"]
+                                             - wi["geodesic_frames"]).mean()),
+        "metric_slider": _field_err(gi["metric_slider"]["vals"], wi["metric_slider"]["vals"]),
+        "temporal_field": _field_err(gi["temporal"]["field"], wi["temporal"]["field"]),
+        "temporal_dets": _field_err(gi["temporal"]["dets"], wi["temporal"]["dets"]),
+        "det_field": _field_err(fc["det_field"], fw["det_field"]),
+        "det_path": _field_err(fc["det_path"], fw["det_path"]),
+        "g_full": _of_largest(fc["g_full"], fw["g_full"]),
+        "riem": _field_err(fc["riem"] ** 2, fw["riem"] ** 2),
+        "amp2": _field_err(fc["amp2"], fw["amp2"]),
+        "energy_path": _field_err(fc["geodesic"]["geo"], fw["geodesic"]["geo"]),
+        "lengths": max(abs(fc["geodesic"][k] - fw["geodesic"][k]) / abs(fw["geodesic"][k])
+                       for k in ("l_g", "l_l")),
+        "curv": _of_largest(fc["curvature"]["curv"], fw["curvature"]["curv"]),
+        "generated": float(np.abs(gi["generated"] - wi["generated"]).max()),
+        "generated_mean": float(np.abs(gi["generated"] - wi["generated"]).mean())}
+    gates = {"vals": "logdet", "dets": "logdet", "logdet": "logdet", "g_inv": "g_inv",
+             "curv": "curvature", "spectra": "spectra", "metric_slider": "logdet",
+             "temporal_field": "logdet", "temporal_dets": "logdet", "det_field": "logdet",
+             "det_path": "logdet", "g_full": "g", "riem": "dist2", "amp2": "dist2",
+             "energy_path": "energy_path", "lengths": "length"}
+    for module, e in errs.items():
+        for field, err in e.items():
+            if field in gates:
+                check(err <= VIZ_TOL[gates[field]],
+                      f"viz {module} {field}: card vs CPU {err} > {VIZ_TOL[gates[field]]}")
+    for field in ("geodesic_frames", "generated"):
+        check(errs["interactive"][field] <= GEN_ROW_TOL["max_abs"]
+              and errs["interactive"][f"{field}_mean"] <= GEN_ROW_TOL["mean_abs"],
+              f"viz interactive {field}: card vs CPU {errs['interactive']}")
+    for name in out:
+        out[name]["errors"] = errs[name]
+    return out, total
+
+
+def viz_hook_run(torch, card, x, cfg_map, run_dir):
+    """The manager at FULL through the trainer's hook on the card, one epoch
+    (0: every module due).  Where matplotlib is missing each module gives one
+    ``viz/error`` naming it (interactive after its two sliders); where it
+    imports, every artifact that tests/test_viz.py names is written."""
+    from rlvae_tpu_torch.viz import make_viz_hook
+
+    has_mpl = matplotlib_imports()
+    log = _VizLog()
+    hook = make_viz_hook(cfg_map, _VizData(x), run_dir, log)
+    t = time.perf_counter()
+    _, counts = counted(torch, lambda: hook(epoch=0, model=card, variables=None, trainer=None))
+    host_s = time.perf_counter() - t
+    errors = [r for r in log.records if "viz/error" in r]
+    files = sorted(p.name for p in (Path(run_dir) / "visualizations" / "epoch_000").glob("*"))
+    modules = ("BasicVisualizations", "ManifoldVisualizations", "FlowAnalysisVisualizations",
+               "InteractiveVisualizations")
+    if has_mpl:
+        want = {"reconstructions.png", "cyclicity.png", "trajectories.png",
+                "cyclicity_analysis.png", "reconstruction_analysis.png", "manifold_heatmap.png",
+                "curvature.png", "temporal_metric.png", "enhanced_heatmaps.png",
+                "temporal_metric_analysis.png", "sequence_slider.html", "geodesic_slider.html",
+                "metric_slider.html", "temporal_animation.html", "latent_space_explorer.html",
+                "latent_explorer.html", "fancy_geodesics.png", "flow_jacobians.png",
+                "flow_det_evolution.png", "flow_animation.html"}
+        check(not errors and want <= set(files), f"viz hook with matplotlib: {errors} {files}")
+    else:
+        check([e["viz/error"].split(" ")[0] for e in errors] == list(modules)
+              and all("matplotlib" in e["viz/error"] for e in errors),
+              f"viz hook without matplotlib: {errors}")
+        check(files == ["geodesic_slider.html", "sequence_slider.html"],
+              f"viz hook without matplotlib wrote {files}")
+        # interactive's shared forward: the chol-bundle twice, the IAF chain once
+        check(counts == expected_launches(chol_bundle=2, iaf_chain_fwd=1),
+              f"viz hook without matplotlib launched {counts}")
+    return {"matplotlib": has_mpl, "host_s": host_s, "launches": counts, "files": files,
+            "errors": [e["viz/error"] for e in errors]}
+
+
+def zoo_checks(torch, dev):
+    """MAF (both directions and the round trip), planar, radial and the flow
+    BatchNorm (train and eval, and the inverse) on the card against the CPU
+    at D=ZOO_DIM, B=ZOO_BATCH, on the same parameters and inputs."""
+    from rlvae_tpu_torch.flows import batchnorm as fbn
+    from rlvae_tpu_torch.flows import zoo
+
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(ZOO_BATCH, ZOO_DIM)).astype(np.float32)
+    xs = {d: torch.tensor(x, device=d) for d in (dev, "cpu")}
+    gen = torch.Generator().manual_seed(21)
+    maf = zoo.init_maf(ZOO_DIM, generator=gen)
+    planar = {k: v * 30.0 for k, v in zoo.init_planar(ZOO_DIM, gen).items()}
+    radial = {**zoo.init_radial(ZOO_DIM, gen), "beta_raw": torch.tensor(1.5),
+              "log_alpha": torch.tensor(-0.5)}
+    bn_p = {"log_gamma": torch.tensor(rng.normal(size=ZOO_DIM) * 0.3, dtype=torch.float32),
+            "beta": torch.tensor(rng.normal(size=ZOO_DIM), dtype=torch.float32)}
+    bn_s = {"running_mean": torch.tensor(rng.normal(size=ZOO_DIM), dtype=torch.float32),
+            "running_var": torch.tensor(rng.uniform(0.5, 2, size=ZOO_DIM), dtype=torch.float32)}
+
+    def on(d, tree):
+        return {k: v.to(d) for k, v in tree.items()}
+
+    def outputs(d):
+        m = copy.deepcopy(maf).to(d)
+        with torch.no_grad():
+            y, ld = zoo.maf_forward(m, xs[d])
+            back, ld_i = zoo.maf_inverse(m, y)
+            res = {"maf_y": y, "maf_logdet": ld, "maf_x": back, "maf_logdet_inv": ld_i,
+                   "planar": zoo.planar_forward(on(d, planar), xs[d])[0],
+                   "planar_logdet": zoo.planar_forward(on(d, planar), xs[d])[1],
+                   "radial": zoo.radial_forward(on(d, radial), xs[d])[0],
+                   "radial_logdet": zoo.radial_forward(on(d, radial), xs[d])[1]}
+            for train in (True, False):
+                y, ld, st = fbn.batchnorm_forward(on(d, bn_p), on(d, bn_s), xs[d], train=train)
+                xb, ldb = fbn.batchnorm_inverse(on(d, bn_p), st, y, train=train)
+                tag = "train" if train else "eval"
+                res.update({f"bn_{tag}_y": y, f"bn_{tag}_logdet": ld, f"bn_{tag}_x": xb,
+                            f"bn_{tag}_logdet_inv": ldb,
+                            **{f"bn_{tag}_{k}": v for k, v in st.items()}})
+        return {k: v.detach().cpu().numpy() for k, v in res.items()}
+
+    t = time.perf_counter()
+    got = outputs(dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    want = outputs("cpu")
+    errs = {k: _field_err(got[k], want[k]) for k in want}
+    for k, e in errs.items():
+        check(e <= ZOO_TOL, f"zoo {k}: card vs CPU {e}")
+    roundtrip = _field_err(got["maf_x"], x)
+    check(roundtrip <= ZOO_TOL, f"MAF round trip on the card: {roundtrip}")
+    return {"host_s": card_s, "errors": errs, "maf_roundtrip": roundtrip, "tolerance": ZOO_TOL}
+
+
+def pixelcnn_checks(torch, dev):
+    """PixelCNN at the reference defaults: the loss and logits at
+    B=PCNN_LOSS_BATCH against the CPU, then ``pixelcnn_sample`` of
+    PCNN_SAMPLES images on the card (784 steps) from passed Gumbel noise; at
+    PCNN_CHECK_STEPS the CPU recomputes the logits from the card's partial
+    image, and the card's choice must be the CPU's argmax unless the CPU's
+    two best scores lie within PCNN_TIE (counted)."""
+    from rlvae_tpu_torch.flows.pixelcnn import PixelCNN, gumbel, pixelcnn_sample
+
+    cpu = PixelCNN(seed=3)
+    rng = np.random.default_rng(3)
+    for norm in cpu.norms:  # running statistics away from the init's (0, 1)
+        norm.mean.copy_(torch.tensor(rng.normal(size=norm.mean.shape) * 10, dtype=torch.float32))
+        norm.var.copy_(torch.tensor(rng.uniform(50, 200, size=norm.var.shape),
+                                    dtype=torch.float32))
+    card = copy.deepcopy(cpu).to(dev)
+    x = torch.tensor(rng.integers(0, 256, size=(PCNN_LOSS_BATCH, 1, 28, 28)), dtype=torch.int32)
+    with torch.no_grad():
+        out_c, out_p = card(x.to(dev)), cpu(x)
+    logits_err = _of_largest(out_c.out.cpu().numpy(), out_p.out.numpy())
+    loss_rel = abs(float(out_c.loss) - float(out_p.loss)) / abs(float(out_p.loss))
+    check(logits_err <= PCNN_TOL and loss_rel <= PCNN_TOL,
+          f"PixelCNN forward: logits {logits_err}, loss {loss_rel}")
+
+    steps = 28 * 28
+    noise = gumbel((steps, PCNN_SAMPLES, 256), torch.Generator().manual_seed(4))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sample = pixelcnn_sample(card, PCNN_SAMPLES, noise=noise.to(dev))
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t
+    check(sample.shape == (PCNN_SAMPLES, 1, 28, 28) and int(sample.min()) >= 0
+          and int(sample.max()) < 256, "bad PixelCNN samples")
+    img = sample.cpu()
+    ties, step_errs = 0, []
+    for idx in PCNN_CHECK_STEPS:
+        i, j = divmod(idx, 28)
+        partial = img.clone().reshape(PCNN_SAMPLES, -1)
+        partial[:, idx:] = 0  # the image as it stood at step idx
+        partial = partial.reshape(img.shape)
+        with torch.no_grad():
+            lc = card(partial.to(dev)).out[:, :, 0, i, j].cpu()
+            lp = cpu(partial).out[:, :, 0, i, j]
+        step_errs.append(_of_largest(lc.numpy(), lp.numpy()))
+        scores = (lp + noise[idx]).numpy()
+        chosen = img[:, 0, i, j].numpy()
+        top2 = np.sort(scores, -1)[:, -2:]
+        gap = scores.max(-1) - scores[np.arange(PCNN_SAMPLES), chosen]
+        tie = top2[:, 1] - top2[:, 0] <= PCNN_TIE
+        check(bool(np.all((gap == 0) | tie)), f"PixelCNN step {idx}: the card chose {chosen}, "
+                                               f"the CPU's scores {gap}")
+        ties += int(np.sum(tie))
+    check(max(step_errs) <= PCNN_TOL, f"PixelCNN step logits: card vs CPU {step_errs}")
+    return {"loss": float(out_c.loss), "loss_rel": loss_rel, "logits_err": logits_err,
+            "sample_host_s": sample_s, "steps": steps, "step_logits_err": step_errs,
+            "ties": ties, "tolerance": {"logits": PCNN_TOL, "tie": PCNN_TIE}}
+
+
+def slope_timer_checks(torch, metric, chol_device_ms=None):
+    """B1 at the model's K=50 and B=64 through ``scan_slope_time`` (a CUDA
+    graph over SLOPE_STACK distinct batches) and ``fori_slope_time`` (one
+    captured launch replayed); structure gated, times reported."""
+    from rlvae_tpu_torch.ops.metric_kernels import chol_bundle
+    from rlvae_tpu_torch.utils.profiling import fori_slope_time, scan_slope_time
+
+    c, m = metric.centroids, metric.matrices
+    inv_t2, lbd = 1.0 / metric.temperature ** 2, metric.regularization + 1e-6
+    g = torch.Generator(device=c.device).manual_seed(5)
+    stack = c[torch.randint(0, c.shape[0], (SLOPE_STACK, SERVE_BATCH), generator=g,
+                            device=c.device)]
+    stack = stack + 0.05 * torch.randn(stack.shape, generator=g, device=c.device)
+    keys = {"t_small_s", "t_big_s", "dispatch_overhead_s"}
+    scan_s, scan_diag = scan_slope_time(lambda z: chol_bundle(z, c, m, inv_t2, lbd), stack,
+                                        m_small=8, reps=5)
+    fori_s, fori_diag = fori_slope_time(
+        lambda i, z: z + 1e-7 * chol_bundle(z, c, m, inv_t2, lbd)[1][:, None], stack[0].clone(),
+        n_small=8, n_big=SLOPE_STACK, reps=5)
+    check(scan_s > 0 and fori_s > 0, f"slope timers: {scan_s}, {fori_s}")
+    check(keys | {"m_small", "m_big"} <= set(scan_diag)
+          and keys | {"n_small", "n_big"} <= set(fori_diag), "slope timer diagnostics")
+    try:
+        scan_slope_time(lambda z: z, stack[:4], m_small=8)
+        short_stack_raises = False
+    except ValueError:
+        short_stack_raises = True
+    check(short_stack_raises, "scan_slope_time took a stack of 4 at m_small=8")
+    return {"scan_ms": scan_s * 1e3, "fori_ms": fori_s * 1e3, "scan": scan_diag,
+            "fori": fori_diag, "kernels_phase_device_ms": chol_device_ms}
+
+
+def run_viz(torch, dev=None, chol_device_ms=None):
+    """The visualization modules, the flow zoo and the slope timers (section
+    21 of the module docstring)."""
+    from rlvae_tpu_torch import ModelManager, PRESETS
+    from rlvae_tpu_torch.config import load_yaml
+    from rlvae_tpu_torch.data import generate_cyclic_sequences
+    from rlvae_tpu_torch.viz import VisualizationConfig
+    from rlvae_tpu_torch.viz.base import SharedForward
+    from rlvae_tpu_torch.viz.basic import BasicVisualizations
+
+    cfg_map = load_yaml(VIZ_CONFIG.read_text())
+    cfg = VisualizationConfig.from_mapping(cfg_map)
+    check(cfg.max_sequences == VIZ_SEQS and not cfg.disable_curvature
+          and cfg.enable_fancy_plots, f"{VIZ_CONFIG} is not the full level")
+    manager = ModelManager.from_config(PRESETS["riemannian_flow_vae"], seed=0, device=dev)
+    check(dev is not None or manager.device.type == "cuda", f"manager on {manager.device}")
+    cpu = ModelManager.from_config(PRESETS["riemannian_flow_vae"], seed=0, device="cpu")
+    card_model, dev = manager.model, manager.device
+    x = generate_cyclic_sequences(VIZ_SEQS, seed=31)
+    out, total = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_viz_") as tmp:
+        t = time.perf_counter()
+        fwd, counts = counted(torch, lambda: SharedForward()(card_model, x, 0))
+        out["forward"] = {"host_s": time.perf_counter() - t, "launches": counts}
+        add_counts(total, counts)
+        z = fwd.z.float().cpu().numpy()
+        check(z.shape == (VIZ_SEQS, 8, 16) and np.isfinite(z).all(), "bad viz latents")
+        t = time.perf_counter()  # basic: host statistics of the forward's outputs
+        basic = BasicVisualizations(cfg, Path(tmp), None).fields(
+            x, fwd.recon_x.float().cpu().numpy(), z)
+        check(all(np.isfinite(v).all() for v in basic.values()), "basic fields not finite")
+        out["basic"] = {"host_s": time.perf_counter() - t, "launches": expected_launches()}
+        modules, counts = viz_module_fields(torch, card_model, cpu.model, z, cfg, Path(tmp))
+        out["modules"] = modules
+        add_counts(total, counts)
+        out["hook"] = viz_hook_run(torch, card_model, x, cfg_map, Path(tmp) / "run")
+        add_counts(total, out["hook"]["launches"])
+    for name in ("chol_bundle", "iaf_chain_fwd", "metric_bundle", "g_inv"):
+        check(total.get(name, 0) > 0, f"the viz path launched no {name}")
+    out["launches"] = {**expected_launches(), **total}
+    out["zoo"] = zoo_checks(torch, dev)
+    t = time.perf_counter()
+    out["pixelcnn"] = pixelcnn_checks(torch, dev)
+    out["pixelcnn"]["host_s"] = time.perf_counter() - t
+    out["slope_timers"] = slope_timer_checks(torch, card_model.metric, chol_device_ms)
+    out["tolerance"] = {"fields": VIZ_TOL, "frames": GEN_ROW_TOL}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # research phase
 # ---------------------------------------------------------------------------
 
@@ -5833,6 +6261,8 @@ def main() -> None:
           f"adjoint paths")
     seq_bwd = phase("seq_bwd", run_seq_bwd, torch)
     deploy = phase("deploy", run_deploy, torch, nvidia_smi=smi)
+    viz = phase("viz", lambda t: run_viz(t, chol_device_ms=records["chol_bundle"]["device_ms"]),
+                torch, nvidia_smi=smi)
     emit("phase_seconds", **PHASE_S)
     # launches: the sum over the main paths' runs (each read between
     # zeroing the counters and the end of its run), with each path's count
@@ -5870,7 +6300,8 @@ def main() -> None:
              "research": (research["launches"], ("chol_bundle", "metric_bundle", "hmc_terms")),
              "seq_bwd": (seq_bwd["launches"], ("chol_bundle", "iaf_chain_fwd", "iaf_chain_bwd",
                                                "g_inv")),
-             "deploy": (deploy["launches"], ("chol_bundle", "iaf_chain_fwd", "g_inv"))}
+             "deploy": (deploy["launches"], ("chol_bundle", "iaf_chain_fwd", "g_inv")),
+             "viz": (viz["launches"], ("chol_bundle", "iaf_chain_fwd", "metric_bundle", "g_inv"))}
     for path, (counts, kernels) in paths.items():
         for name in kernels:
             check(counts[name] > 0, f"the {path} path did not launch {name}")

@@ -57,6 +57,16 @@
   :func:`gugus_host_state` copies ``LVAE_GUGUS``'s estimated metrics
   (``gm_list``, ``g_list``, ``sampled_metric``) off a JAX model as numpy,
   and :func:`set_gugus_host_state` puts them on the port's.
+- The flow zoo (``rlvae_tpu_torch/flows/zoo.py``, ``batchnorm.py``,
+  ``pixelcnn.py``): :func:`zoo_params_from_jax` carries a MAF's or IAF's
+  MADE blocks (a state dict for :class:`~rlvae_tpu_torch.flows.zoo.MAF` or
+  :class:`~rlvae_tpu_torch.flows.iaf.IAF`) and planar or radial dicts
+  (tensors); :func:`flow_batchnorm_from_jax` the flow BatchNorm's
+  ``(params, state)``; :func:`pixelcnn_state_from_flax` PixelCNN's Flax
+  variables: ``MaskedConv_<i>/Conv_0`` kernels HWIO -> OIHW (the mask stays
+  the port's buffer, recomputed), ``BatchNorm_<i>`` ``scale``/``bias`` and
+  ``batch_stats`` ``mean``/``var`` -> ``norms.<i>``'s weight, bias and
+  running buffers, the 1x1 head ``Conv_0`` -> ``head``.
 - :func:`plan_from_jax` turns a calibrated adaptive-sampler plan of the JAX
   package (``calibrate_adaptive_plan``: numpy arrays and Python scalars)
   into the port's plan (tensors on a device), so a JAX plan drives the
@@ -448,3 +458,53 @@ def plan_from_jax(plan: Mapping[str, Any], device: Optional[torch.device] = None
         else:
             out[key] = float(arr)
     return out
+
+
+def zoo_params_from_jax(family: str, params):
+    """A zoo flow's parameters from JAX's: ``iaf``/``maf`` (a list of MADE
+    block dicts) -> a state dict of the port's module (``blocks.<b>.weights.<l>``,
+    ``blocks.<b>.biases.<l>``); ``planar``/``radial`` -> a dict of fp32 tensors."""
+    if family in ("iaf", "maf"):
+        state: Dict[str, np.ndarray] = {}
+        for bi, block in enumerate(params):
+            state.update(_made_leaves(block, f"blocks.{bi}"))
+        return {k: _tensor(a) for k, a in state.items()}
+    if family in ("planar", "radial"):
+        return {k: _tensor(v) for k, v in params.items()}
+    raise ValueError(f"unknown flow family {family!r}")
+
+
+def flow_batchnorm_from_jax(params: Mapping[str, Any],
+                            state: Mapping[str, Any]) -> Tuple[Dict[str, torch.Tensor],
+                                                               Dict[str, torch.Tensor]]:
+    """The flow BatchNorm's ``(params, state)`` (``log_gamma``, ``beta``;
+    ``running_mean``, ``running_var`` and, after a train forward,
+    ``batch_mean``, ``batch_var``) as fp32 tensors."""
+    return ({k: _tensor(v) for k, v in params.items()},
+            {k: _tensor(v) for k, v in state.items()})
+
+
+def pixelcnn_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A :class:`~rlvae_tpu_torch.flows.pixelcnn.PixelCNN` state dict from
+    Flax's ``{"params", "batch_stats"}`` of JAX's ``PixelCNN``."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    state: Dict[str, np.ndarray] = {}
+    for name, node in params.items():
+        m = re.fullmatch(r"(MaskedConv|BatchNorm)_(\d+)|Conv_0", name)
+        if m is None:
+            raise ValueError(f"unexpected PixelCNN parameter {name!r}")
+        if name == "Conv_0":
+            state["head.weight"] = np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1))
+            state["head.bias"] = np.asarray(node["bias"])
+        elif m.group(1) == "MaskedConv":
+            conv = node["Conv_0"]
+            state[f"convs.{m.group(2)}.weight"] = np.transpose(np.asarray(conv["kernel"]),
+                                                               (3, 2, 0, 1))
+            state[f"convs.{m.group(2)}.bias"] = np.asarray(conv["bias"])
+        else:
+            i = m.group(2)
+            state[f"norms.{i}.weight"] = np.asarray(node["scale"])
+            state[f"norms.{i}.bias"] = np.asarray(node["bias"])
+            state[f"norms.{i}.mean"] = np.asarray(stats[name]["mean"])
+            state[f"norms.{i}.var"] = np.asarray(stats[name]["var"])
+    return {k: _tensor(a) for k, a in state.items()}

@@ -173,8 +173,12 @@ class Conv(nn.Module):
             x, pads = F.pad(x, (wl, wh, hl, hh)), (0, 0)
         else:
             pads = (hl, wl)
-        return conv(x, self.weight.to(self.dtype), self.bias.to(self.dtype),
+        return conv(x, self.kernel_weight().to(self.dtype), self.bias.to(self.dtype),
                     (self.stride, self.stride), pads)
+
+    def kernel_weight(self) -> torch.Tensor:
+        """The weight the convolution applies (a masked layer overrides it)."""
+        return self.weight
 
 
 class ConvTranspose(nn.Module):

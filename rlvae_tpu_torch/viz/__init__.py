@@ -1,5 +1,6 @@
-"""Visualization levels, frequencies and the trainer's epoch-end hook (the
-plotting modules are ROADMAP A7)."""
+"""Visualization levels, frequencies and the trainer's epoch-end hook; the
+plotting modules are ``basic``, ``manifold``, ``flow_analysis`` and
+``interactive``."""
 
 from rlvae_tpu_torch.viz.manager import (
     VisualizationConfig,

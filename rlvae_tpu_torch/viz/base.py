@@ -2,8 +2,9 @@
 
 Output paths per epoch, figure saving that never raises, wandb gating, the
 PCA used by the plots, the per-epoch forward that every module shares
-(:class:`SharedForward`), and :func:`png_b64`, the figure-free thumbnail
-renderer the app server uses.
+(:class:`SharedForward`), :func:`to_numpy` and :func:`on_device` for the
+fields the plotting modules compute, and :func:`png_b64`, the figure-free
+thumbnail renderer of the interactive plots and the app server.
 """
 
 from __future__ import annotations
@@ -44,6 +45,21 @@ class SharedForward:
             with torch.inference_mode():
                 self._memo = model(xt, generator=gen)
         return self._memo
+
+
+def to_numpy(t) -> np.ndarray:
+    """A tensor on any device (or an array) as an fp32 numpy array."""
+    if hasattr(t, "detach"):
+        return t.detach().float().cpu().numpy()
+    return np.asarray(t, np.float32)
+
+
+def on_device(metric, a):
+    """``a`` as an fp32 tensor on the device of ``metric``'s bank: the
+    plots' grids and paths are evaluated where the metric lives."""
+    import torch
+
+    return torch.as_tensor(np.asarray(a, np.float32), device=metric.centroids.device)
 
 
 class BaseVisualization:

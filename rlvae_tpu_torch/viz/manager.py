@@ -7,14 +7,11 @@ each epoch end by the hook :func:`make_viz_hook` builds for the trainer.
 The frequency rules are JAX's: nothing runs unless ``epoch % frequency ==
 0``; then each enabled category runs when ``epoch % <category>_frequency ==
 0``; manifold and flow analysis need level STANDARD or above, interactive
-ADVANCED or above.
-
-The plotting modules themselves (``rlvae_tpu/viz/basic.py``,
-``manifold.py``, ``interactive.py``, ``flow_analysis.py``) are ROADMAP A7:
-each category here raises ``NotImplementedError`` naming A7 when it is due,
-and the dispatch reports it as JAX reports any failing module, with a
-``viz/error`` record through the logger and a printed WARNING, without
-stopping training.
+ADVANCED or above.  The category modules (``basic.py``, ``manifold.py``,
+``flow_analysis.py``, ``interactive.py``) are imported when the manager is
+built, as JAX's are, and share one forward per epoch.  A module that raises
+is reported as JAX reports it, with a ``viz/error`` record through the
+logger and a printed WARNING, without stopping training.
 """
 
 from __future__ import annotations
@@ -24,7 +21,7 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, List, Mapping
 
-from rlvae_tpu_torch.viz.base import BaseVisualization, SharedForward
+from rlvae_tpu_torch.viz.base import SharedForward
 
 
 class VisualizationLevel(enum.IntEnum):
@@ -64,30 +61,6 @@ class VisualizationConfig:
         return cls(level=level, **kwargs)
 
 
-class _NotPorted(BaseVisualization):
-    """A visualization category whose plots are not ported (ROADMAP A7)."""
-
-    def run(self, epoch: int, model, variables, sample_batch) -> List[Path]:
-        raise NotImplementedError(
-            f"{type(self).__name__} is not ported to rlvae_tpu_torch (ROADMAP A7)")
-
-
-class BasicVisualizations(_NotPorted):
-    """Reconstructions, trajectories and cyclicity plots."""
-
-
-class ManifoldVisualizations(_NotPorted):
-    """Latent-manifold plots."""
-
-
-class FlowAnalysisVisualizations(_NotPorted):
-    """Per-transition flow analysis."""
-
-
-class InteractiveVisualizations(_NotPorted):
-    """Interactive HTML views."""
-
-
 class VisualizationManager:
     """Dispatches category modules per epoch by level and frequencies."""
 
@@ -105,12 +78,20 @@ class VisualizationManager:
         cfg, lvl = self.config, self.config.level
         args = (cfg, self.output_dir, self.logger)
         if cfg.enable_basic:
+            from rlvae_tpu_torch.viz.basic import BasicVisualizations
+
             self.modules.append((BasicVisualizations(*args), cfg.basic_frequency))
         if cfg.enable_manifold and lvl >= VisualizationLevel.STANDARD:
+            from rlvae_tpu_torch.viz.manifold import ManifoldVisualizations
+
             self.modules.append((ManifoldVisualizations(*args), cfg.manifold_frequency))
         if cfg.enable_flow_analysis and lvl >= VisualizationLevel.STANDARD:
+            from rlvae_tpu_torch.viz.flow_analysis import FlowAnalysisVisualizations
+
             self.modules.append((FlowAnalysisVisualizations(*args), cfg.flow_frequency))
         if cfg.enable_interactive and lvl >= VisualizationLevel.ADVANCED:
+            from rlvae_tpu_torch.viz.interactive import InteractiveVisualizations
+
             self.modules.append((InteractiveVisualizations(*args), cfg.interactive_frequency))
 
     def visualize_epoch(self, epoch: int, model, variables, sample_batch) -> List[Path]:

@@ -377,31 +377,62 @@ VIZ_CONFIGS = {
 }
 
 
-@pytest.mark.parametrize("name", VIZ_CONFIGS)
-def test_viz_dispatch_matches_jax_and_reports_a7(name, tmp_path, capsys):
-    cfg = VIZ_CONFIGS[name]
+# a case of the full level in which one module raises at every epoch it is due
+RAISES = {"full_manifold_raises": ("full", "ManifoldVisualizations")}
+
+
+def _stub_runs(manager, ran, raises=None):
+    """Each module's ``run`` records (epoch, class name); ``raises`` raises."""
+    for module, _ in manager.modules:
+        cls = type(module).__name__
+
+        def run(epoch, *a, _n=cls):
+            ran.append((epoch, _n))
+            if _n == raises:
+                raise RuntimeError("kaboom")
+            return []
+
+        module.run = run
+
+
+@pytest.mark.parametrize("name", [*VIZ_CONFIGS, *RAISES])
+def test_viz_dispatch_matches_jax(name, tmp_path, capsys):
+    """The port's manager builds JAX's modules for each config and runs them
+    in JAX's order at JAX's epochs, sharing one forward; a module that
+    raises is reported as JAX reports it (a ``viz/error`` record and a
+    printed WARNING) and the epoch's other modules still run."""
+    level, raises = RAISES.get(name, (name, None))
+    cfg = VIZ_CONFIGS[level]
+    jax_logger, logger = _Records(), _Records()
     jax_manager = jax_viz.VisualizationManager(jax_viz.VisualizationConfig.from_mapping(cfg),
-                                               tmp_path / "jax")
-    ran = []
-    for module, _ in jax_manager.modules:
-        module.run = lambda epoch, *a, _n=type(module).__name__: ran.append((epoch, _n)) or []
-    logger = _Records()
+                                               tmp_path / "jax", jax_logger)
     manager = viz.VisualizationManager(viz.VisualizationConfig.from_mapping(cfg),
                                        tmp_path / "port", logger)
     assert manager.config == viz.VisualizationConfig(**{
         **jax_manager.config.__dict__, "level": viz.VisualizationLevel(jax_manager.config.level)})
+    assert [type(m).__name__ for m, _ in manager.modules] == [
+        type(m).__name__ for m, _ in jax_manager.modules]
+    assert [f for _, f in manager.modules] == [f for _, f in jax_manager.modules]
+    assert all(m._forward is manager._forward for m, _ in manager.modules)
+    jax_ran, ran = [], []
+    _stub_runs(jax_manager, jax_ran, raises)
+    _stub_runs(manager, ran, raises)
+    capsys.readouterr()
     for epoch in range(21):
         jax_manager.visualize_epoch(epoch, None, None, None)
         assert manager.visualize_epoch(epoch, None, None, None) == []
-    reported = [(r["epoch"], r["viz/error"].split(" ")[0]) for r in logger.records]
-    assert reported == ran
-    for r in logger.records:
-        assert r["viz/error"].endswith("is not ported to rlvae_tpu_torch (ROADMAP A7)")
-    assert capsys.readouterr().out.count("[viz] WARNING: ") == len(ran)
-    if name == "full":
+    assert ran == jax_ran
+    assert logger.records == jax_logger.records
+    failed = [(e, n) for e, n in ran if n == raises]
+    assert [(r["epoch"], r["viz/error"]) for r in logger.records] == [
+        (e, f"{n} failed at epoch {e}: kaboom") for e, n in failed]
+    assert capsys.readouterr().out.count("[viz] WARNING: ") == 2 * len(failed)  # JAX's and ours
+    if level == "full":
         assert [n for e, n in ran if e == 0] == [
             "BasicVisualizations", "ManifoldVisualizations", "FlowAnalysisVisualizations",
             "InteractiveVisualizations"]
+    if raises:
+        assert failed and len(ran) > len(failed)
 
 
 def test_viz_hook_reads_the_sample_batch(tmp_path):

@@ -1263,3 +1263,61 @@ def test_exported_programs_launch_the_eager_kernels(dev, tmp_path, platforms):
             assert all((calls[k] > 0) == (want[k] > 0) and calls[k] <= want[k]
                        for k in want), (op, calls)
         np.testing.assert_array_equal(bundle.run(op, batch), eager().cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# the visualization fields, the flow zoo and the slope timers, card vs CPU
+# ---------------------------------------------------------------------------
+
+
+def _chip_smoke():
+    import importlib
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+def test_viz_fields_on_the_card_equal_the_cpu(dev, tmp_path):
+    """Each plotting module's fields from the card's latents, on the card
+    (B1, B2, B6, B7 launched) and on the CPU, within chip_smoke's VIZ_TOL;
+    the default preset's architecture at 16x16 frames and 3 flows."""
+    from rlvae_tpu_torch import ModelManager, PRESETS
+    from rlvae_tpu_torch.data import generate_cyclic_sequences
+    from rlvae_tpu_torch.viz import VisualizationConfig, VisualizationLevel
+    from rlvae_tpu_torch.viz.base import SharedForward
+
+    cs = _chip_smoke()
+    cfg_model = {**PRESETS["riemannian_flow_vae"], "input_dim": [3, 16, 16], "n_flows": 3}
+    card = ModelManager.from_config(cfg_model, seed=0, device=dev).model
+    cpu = ModelManager.from_config(cfg_model, seed=0, device="cpu").model
+    x = generate_cyclic_sequences(4, n_obs=4, image_size=(16, 16), seed=1)
+    z = SharedForward()(card, x, 0).z.float().cpu().numpy()
+    cfg = VisualizationConfig(level=VisualizationLevel.FULL, enable_fancy_plots=True,
+                              disable_curvature=False)
+    out, total = cs.viz_module_fields(torch, card, cpu, z, cfg, tmp_path)
+    assert all(total[k] > 0 for k in ("chol_bundle", "iaf_chain_fwd", "metric_bundle", "g_inv"))
+    assert out["interactive"]["launches"]["metric_bundle"] == 1 + 2 + 120 + 2
+
+
+def test_flow_zoo_on_the_card_equals_the_cpu(dev):
+    out = _chip_smoke().zoo_checks(torch, dev)
+    assert out["maf_roundtrip"] <= out["tolerance"]
+
+
+def test_pixelcnn_on_the_card_equals_the_cpu(dev):
+    out = _chip_smoke().pixelcnn_checks(torch, dev)
+    assert out["steps"] == 784 and out["loss_rel"] <= out["tolerance"]["logits"]
+
+
+def test_slope_timers_time_b1_on_the_card(dev):
+    from rlvae_tpu_torch.geometry import load_metric
+
+    cs = _chip_smoke()
+    metric = load_metric(cs.PRETRAINED / "metric_T0.7_scaled.npz",
+                         temperature_override=3.0).to(dev)
+    out = cs.slope_timer_checks(torch, metric)
+    assert out["scan_ms"] > 0 and out["fori_ms"] > 0
