@@ -321,7 +321,17 @@ Phases, each printing one JSON line with its elapsed seconds:
    kernels by name and count; B=64 bundle and eager latencies on the host
    clock.  ``app_server`` over a run directory of the same weights answers
    one ``reconstruct`` and one ``generate`` (the live manager's row); where
-   matplotlib imports, ``app.build_report`` renders the dashboard.
+   matplotlib imports, ``app.build_report`` renders the dashboard.  Then
+   ``run_deploy_methods``: ``generate`` exported by every other prior
+   method JAX's ``export_model`` exports (``weighted_mixture``,
+   ``geodesic_exact``, ``basic``, and the ``official`` and ``hmc`` chains,
+   each one ``while_loop`` op with B4's registered op in its body) and the
+   hybrid model's ``reconstruct`` with the ``hmc`` posterior, at buckets 1
+   and 4; the registered ops of each graph counted; with the counters
+   zeroed, each program at a full bucket of 4 and a padded 3 bit for bit
+   against the live manager, every call's launches the eager call's
+   (1601 B4 a chain, 200 a posterior chain); export and load seconds,
+   program bytes and B=4 host ms beside the manager's.
 21. ``viz``: the visualization modules, the flow zoo and the slope timers.
    The default model at full width (pretrained nets, K=50 metric at T=3.0),
    ``conf/visualization/full.yaml`` (level FULL, curvature, fancy plots),
@@ -5259,6 +5269,7 @@ def run_deploy(torch, dev=None):
         check(gen["rows"][0] == [png_b64(f) for f in want_gen],
               "the app server's generate row differs from the live manager's")
         check(serving["requests"] == 2, f"the app server's engine took {serving['requests']}")
+        methods = run_deploy_methods(torch, dev, manager, tmp / "methods")
 
         report = None
         if importlib.util.find_spec("matplotlib") is not None:
@@ -5275,7 +5286,132 @@ def run_deploy(torch, dev=None):
             "parity": parity, "programs": programs, "http": http, "latency_b64": latency,
             "app_server": {"s": app_s, "engine": {k: v for k, v in serving.items()
                                                   if not k.endswith("_hist")}},
-            "matplotlib": report is not None, "report": report, "launches": launches}
+            "matplotlib": report is not None, "report": report, "launches": launches,
+            "methods": methods}
+
+
+# the deploy phase's exports of the other methods (run_deploy_methods): every
+# prior method JAX's export_model exports but the two above at buckets 1 and
+# 4 on the default model, and the hmc posterior's reconstruct on the hybrid
+DEPLOY_METHODS = ("weighted_mixture", "geodesic_exact", "basic", "official", "hmc")
+DEPLOY_METHOD_BUCKETS = (1, 4)
+DEPLOY_METHOD_TIMED = 3  # host-clock repeats of each B=4 latency
+# the registered ops each program holds (a loop body's once: a prior chain's
+# step evaluates B4 16 times, a posterior step 10 times, an energy-path Adam
+# step its gradient once) ...
+DEPLOY_METHOD_GRAPH_OPS = {
+    "weighted_mixture": {"chol_bundle": 2, "iaf_chain_fwd": 1},
+    "geodesic_exact": {"energy_grad": 1, "g_inv": 1, "iaf_chain_fwd": 1},
+    "basic": {"basic_grad": 10, "iaf_chain_fwd": 1},
+    "official": {"hmc_terms": 1 + 16, "iaf_chain_fwd": 1},
+    "hmc": {"hmc_terms": 1 + 16, "iaf_chain_fwd": 1},
+    "hmc_posterior": {"hmc_terms": 10, "iaf_chain_fwd": 1},
+}
+# ... and what each call launches, the bundle's as the live manager's:
+# basic's gradient B1 once per ascent step, geodesic_exact's energy path B6
+# once per Adam step, a chain 1 + 100 x 16 B4, the posterior 20 x 5 x 2
+DEPLOY_METHOD_LAUNCHES = {
+    "weighted_mixture": {"chol_bundle": 2, "iaf_chain_fwd": 1},
+    "geodesic_exact": {"metric_bundle": 80, "g_inv": 1, "iaf_chain_fwd": 1},
+    "basic": {"chol_bundle": 10, "iaf_chain_fwd": 1},
+    "official": {"hmc_terms": 1601, "iaf_chain_fwd": 1},
+    "hmc": {"hmc_terms": 1601, "iaf_chain_fwd": 1},
+    "hmc_posterior": {"hmc_terms": 200, "iaf_chain_fwd": 1},
+}
+
+
+def _counted(torch, fn):
+    """(``fn()`` as numpy, the wrappers' launches of the call)."""
+    before = launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    return out.float().cpu().numpy(), {k: after[k] - before[k] for k in after}
+
+
+def run_deploy_methods(torch, dev, manager, tmp: Path) -> dict:
+    """The deploy phase's second part: ``export_model`` of ``generate`` by
+    each of DEPLOY_METHODS on ``manager`` (the default model), and of
+    ``reconstruct`` on the hybrid model with the ``hmc`` posterior, at
+    buckets (1, 4); each bundle loaded on the card.  The counters are
+    zeroed; then per program the live manager and the bundle at a full
+    bucket of 4 (bit for bit), and at a padded bucket of 3 rows against the
+    manager on the padded batch and draws (bit for bit), every call's
+    launches equal to DEPLOY_METHOD_LAUNCHES (the chains' 1601 B4, the
+    posterior's 200).  Then the B=4 latency of bundle and manager on the
+    host clock.  No fallback: a registered op that fails to launch fails
+    the phase."""
+    from rlvae_tpu_torch import ModelManager
+    from rlvae_tpu_torch.export import export_model, load_exported
+
+    hybrid = ModelManager.from_config(hmc_hybrid_config(), seed=0, device=dev)
+    rng = np.random.default_rng(26)
+    seeds = rng.integers(0, 2**32, size=4, dtype=np.uint32)
+    x = rng.uniform(size=(4, 8, 3, 64, 64)).astype(np.float32)
+    cases = {m: (manager, "generate", m) for m in DEPLOY_METHODS}
+    cases["hmc_posterior"] = (hybrid, "reconstruct", "geodesic")
+    bundles, out = {}, {}
+    for name, (mgr, op, method) in cases.items():
+        t = time.perf_counter()
+        manifest = export_model(mgr, tmp / name, ops=(op,), buckets=DEPLOY_METHOD_BUCKETS,
+                                generate_method=method)
+        export_s = time.perf_counter() - t
+        for bucket, spec in manifest["programs"][op].items():
+            want = {**dict.fromkeys(spec["registered_ops"], 0), **DEPLOY_METHOD_GRAPH_OPS[name]}
+            check(spec["registered_ops"] == want,
+                  f"the exported {name} b{bucket} holds {spec['registered_ops']}")
+        t = time.perf_counter()
+        bundles[name] = load_exported(tmp / name, device=dev)
+        out[name] = {"op": op, "export_s": export_s, "load_s": time.perf_counter() - t,
+                     "program_bytes": sum(p.stat().st_size for p in (tmp / name).glob("*.pt2")),
+                     "noise": manifest["noise"][op]}
+
+    zero_launch_counts()
+    for name, (mgr, op, _) in cases.items():
+        bundle = bundles[name]
+        if op == "generate":
+            batch, padded = seeds, np.r_[seeds[:3], seeds[2]]
+            eager_full = lambda: mgr.generate_rows(seeds, name)  # noqa: E731
+            eager_padded = lambda: mgr.generate_rows(padded, name)  # noqa: E731
+        else:
+            batch, padded = x, np.concatenate([x[:3], x[2:3]])
+            noise = mgr.model.draw_posterior_noise(3, torch.Generator(device=dev).manual_seed(0))
+            axes = {s["name"]: s.get("row_axis", 0) for s in out[name]["noise"]}
+            noise = {k: torch.cat([v, v.narrow(axes[k], 2, 1)], dim=axes[k])
+                     for k, v in noise.items()}
+            eager_full = lambda: mgr.reconstruct_rows(x, seed=0)  # noqa: E731
+            eager_padded = lambda: mgr.reconstruct_rows(padded, noise=noise)  # noqa: E731
+        want = {**dict.fromkeys(launch_counts(), 0), **DEPLOY_METHOD_LAUNCHES[name]}
+        calls, parity = {}, {}
+        ref_full, calls["eager_b4"] = _counted(torch, eager_full)
+        got_full, calls["bundle_b4"] = _counted(torch, lambda: bundle.run_rows(op, batch))
+        ref_pad, calls["eager_padded"] = _counted(torch, eager_padded)
+        got_pad, calls["bundle_padded"] = _counted(torch, lambda: bundle.run_rows(op, batch[:3]))
+        for case, (got, ref) in {"b4": (got_full, ref_full),
+                                 "padded": (got_pad, ref_pad[:3])}.items():
+            parity[case] = {"bitwise": bool(np.array_equal(got, ref)),
+                            "max_abs": float(np.abs(got - ref).max()), "shape": list(got.shape)}
+            check(parity[case]["bitwise"] and np.isfinite(got).all(),
+                  f"the exported {name} ({case}) differs from the live manager: {parity[case]}")
+        for call, counts in calls.items():
+            check(counts == want, f"the {name} {call} call launched {counts}; expected {want}")
+        out[name].update(parity=parity, launches_per_call={
+            k: v for k, v in calls["bundle_b4"].items() if v})
+    torch.cuda.synchronize()
+    launches = launch_counts()
+
+    # B=4 latency on the host clock, inputs uploaded and rows copied back
+    for name, (mgr, op, _) in cases.items():
+        batch = seeds if op == "generate" else x
+        eager = ((lambda: mgr.generate_rows(seeds, name)) if op == "generate"
+                 else (lambda: mgr.reconstruct_rows(x, seed=0)))
+        out[name]["latency_b4"] = {
+            "bundle_ms": _host_ms(torch, lambda: bundles[name].run(op, batch),
+                                  DEPLOY_METHOD_TIMED),
+            "eager_ms": _host_ms(torch, lambda: eager().float().cpu(), DEPLOY_METHOD_TIMED)}
+    return {"models": {"generate": "riemannian_flow_vae", "hmc_posterior":
+                       "hybrid_rlvae, sampling.method=hmc"},
+            "buckets": list(DEPLOY_METHOD_BUCKETS), "programs": out, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -6301,6 +6437,9 @@ def main() -> None:
              "seq_bwd": (seq_bwd["launches"], ("chol_bundle", "iaf_chain_fwd", "iaf_chain_bwd",
                                                "g_inv")),
              "deploy": (deploy["launches"], ("chol_bundle", "iaf_chain_fwd", "g_inv")),
+             "deploy_methods": (deploy["methods"]["launches"], ("chol_bundle", "iaf_chain_fwd",
+                                                                "hmc_terms", "metric_bundle",
+                                                                "g_inv")),
              "viz": (viz["launches"], ("chol_bundle", "iaf_chain_fwd", "metric_bundle", "g_inv"))}
     for path, (counts, kernels) in paths.items():
         for name in kernels:
@@ -6363,6 +6502,12 @@ def main() -> None:
             op: p["counted"][label] for op, p in deploy["programs"].items()}
         records[name]["profiled_launches_per_exported_program"] = {
             op: p["kernels"][label] for op, p in deploy["programs"].items()}
+    # the other methods' exported programs: each call's launches (the bundle's,
+    # equal to the live manager's), by the counters
+    for name in ("chol_bundle", "iaf_chain_fwd", "hmc_terms", "metric_bundle", "g_inv"):
+        records[name]["launches_per_exported_method_call"] = {
+            m: p["launches_per_call"].get(name, 0)
+            for m, p in deploy["methods"]["programs"].items()}
     records["hmc_terms"]["launches_per_dense_k20000_chain"] = dense["launches"]["hmc_terms"]
     records["hmc_terms"]["launches_per_calibration_phase"] = [
         p["hmc_terms"] for p in adaptive["calibration"]["phases"]]

@@ -29,17 +29,27 @@ The program design:
   keeps [in, out], so JAX's per-column scale is a per-row scale here, and
   the dequantized weights are JAX's, transposed.
 - **Noise is an input of the program.**  The manifest records each op's
-  draws (name, distribution, shape per row) in the order the model draws
-  them; :meth:`ExportedModel.run` draws them from a ``torch.Generator`` on
-  the bundle's device: ``reconstruct``'s from seed 0 for the batch's rows,
-  as ``ModelManager.reconstruct(x, seed=0)`` draws them, ``generate``'s per
-  row from that row's seed, as ``ModelManager.generate_rows`` does; padded
-  rows repeat the last row's draws.  So a bundle row is the live manager's
-  row, on padded buckets too.  Only the draws that such a recipe gives are
-  exportable: posterior ``standard``/``basic``/``enhanced``/``official``/
-  ``geodesic`` and the priors ``geodesic`` and ``centroid_aware`` (the
-  chains, ``basic``'s gradient loop, ``geodesic_exact`` and
-  ``weighted_mixture`` raise).
+  draws (name, distribution, shape per row, and the axis the rows stack
+  on: 0, or 1 for a chain's step-major draws [S, rows, ...]) in the order
+  the model draws them; :meth:`ExportedModel.run` draws them from a
+  ``torch.Generator`` on the bundle's device: ``reconstruct``'s from seed 0
+  for the batch's rows, as ``ModelManager.reconstruct(x, seed=0)`` draws
+  them, ``generate``'s per row from that row's seed, as
+  ``ModelManager.generate_rows`` does; padded rows repeat the last row's
+  draws along each draw's row axis.  So a bundle row is the live manager's
+  row, on padded buckets too.  The draws are ``randn``, ``rand``,
+  ``randint`` and ``categorical`` (``weighted_mixture``'s p ~ exp(-|c|/2),
+  computed from the bundle's own centroid leaf); a draw may be an index
+  whose centroid the program takes as a model draw (``"gather"``: the
+  official chain's start z0 = c[idx]).  Every prior method JAX's
+  ``export_model`` exports is exportable, as is every posterior method:
+  the chains (``official``, ``hmc``, the ``hmc`` posterior) are one
+  ``while_loop`` op each with B4's registered op in its body
+  (``utils/loops.py:loop_steps``), ``geodesic_exact``'s 80 Adam steps one
+  more, and ``basic``'s and ``geodesic_exact``'s gradients one registered
+  op per step (:mod:`~rlvae_tpu_torch.ops.export_ops`).
+  ``adaptive`` raises, as it does in JAX's ``export_model``: its sampler
+  decides its trajectory length on the host from the whole batch.
 - **Platforms.**  A program is traced on the manager's device, but the
   graph is an ATen graph whose only device-specific parts are the devices
   its factory calls name; :func:`load_exported` moves those to the device
@@ -142,67 +152,127 @@ def dequantize(packed: Sequence[torch.Tensor], plan, dtypes: Sequence[torch.dtyp
 # -- noise ------------------------------------------------------------------
 
 
-def _draw(kind: str, shape, generator: torch.Generator, device, high: int = 0) -> torch.Tensor:
+def _categorical_probs(spec: Mapping[str, Any], leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The probabilities of a ``categorical`` draw, from the bundle's own
+    weight leaf, as the model computes them (``weighted_mixture``'s
+    p ~ exp(-|c| / 2) over the centroids)."""
+    if spec.get("probs") != "softmax(-|c|/2)":
+        raise ValueError(f"unknown categorical probabilities {spec.get('probs')!r}")
+    c = leaves[spec["leaf"]]
+    return torch.softmax(-torch.linalg.vector_norm(c, dim=-1) / 2.0, dim=0)
+
+
+def _draw(spec: Mapping[str, Any], rows: int, generator: torch.Generator, device,
+          leaves: Optional[Sequence[torch.Tensor]]) -> torch.Tensor:
+    kind, shape, axis = spec["kind"], list(spec["shape"]), spec.get("row_axis", 0)
+    shape = tuple(shape[:axis] + [rows] + shape[axis:])
     if kind == "randn":
         return torch.randn(shape, generator=generator, device=device)
     if kind == "rand":
         return torch.rand(shape, generator=generator, device=device)
     if kind == "randint":
-        return torch.randint(0, high, shape, generator=generator, device=device)
+        return torch.randint(0, spec["high"], shape, generator=generator, device=device)
+    if kind == "categorical":
+        if len(shape) != 1:
+            raise ValueError("a categorical draw is one index per row")
+        return torch.multinomial(_categorical_probs(spec, leaves), rows, replacement=True,
+                                 generator=generator)
     raise ValueError(f"unknown draw {kind!r}")
 
 
 def draw_noise(spec: Sequence[Mapping[str, Any]], rows: int, generator: torch.Generator,
-               device) -> List[torch.Tensor]:
+               device, leaves: Optional[Sequence[torch.Tensor]] = None) -> List[torch.Tensor]:
     """The draws of a manifest noise ``spec`` for ``rows`` rows from one
-    generator, in the spec's order: each entry ``[rows, *shape]``."""
-    return [_draw(s["kind"], (rows, *s["shape"]), generator, device, s.get("high", 0))
-            for s in spec]
+    generator, in the spec's order: each entry its ``shape`` with the rows
+    inserted at its ``row_axis`` (0 by default; 1 for a chain's step-major
+    draws, [S, rows, ...]).  ``leaves`` are the bundle's packed weights,
+    which a ``categorical`` draw reads its probabilities from."""
+    return [_draw(s, rows, generator, device, leaves) for s in spec]
+
+
+def model_noise(model, spec: Sequence[Mapping[str, Any]],
+                draws: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A recipe's draws as the model's noise mapping: a draw with
+    ``"gather": name`` is an index whose centroid the model takes as its
+    draw ``name`` (the official chain's start z0 = c[idx]).  Runs inside the
+    programs."""
+    noise = {}
+    for s, t in zip(spec, draws):
+        if "gather" in s:
+            noise[s["gather"]] = model.metric.centroids[t]
+        else:
+            noise[s["name"]] = t
+    return noise
 
 
 def _posterior_spec(model) -> List[Dict[str, Any]]:
     """The draws of ``model.draw_posterior_noise``: eps [D], and t [1] for a
-    Gaussian posterior sampled by ``geodesic`` with a metric."""
+    Gaussian posterior sampled by ``geodesic`` with a metric, or the
+    momenta ``gammas`` [20, D] (step-major) for ``hmc``."""
+    from rlvae_tpu_torch.samplers.riemannian import POSTERIOR_HMC_STEPS, POSTERIOR_METHODS
+
     d = int(model.latent_dim)
     spec = [{"name": "eps", "kind": "randn", "shape": [d]}]
     if model.posterior_type == "riemannian_metric" or model.metric is None \
             or not model.use_riemannian:
         return spec
     method = model.sampling_method
+    if method not in POSTERIOR_METHODS:
+        raise ValueError(f"Unknown posterior sampling method: {method}")
     if method == "geodesic":
         return spec + [{"name": "t", "kind": "rand", "shape": [1]}]
-    if method in ("standard", "basic", "enhanced", "official"):
-        return spec
-    raise ValueError(f"the {method!r} posterior is not exportable (its chain draws per step)")
+    if method == "hmc":
+        return spec + [{"name": "gammas", "kind": "randn", "shape": [POSTERIOR_HMC_STEPS, d],
+                        "row_axis": 1}]
+    return spec
 
 
-def _generation_spec(model, method: str) -> List[Dict[str, Any]]:
-    """The draws of ``model.draw_generation_noise(1, method)``."""
+def _generation_spec(model, method: str, centroid_leaf: int) -> List[Dict[str, Any]]:
+    """The draws of ``model.draw_generation_noise(1, method)``;
+    ``centroid_leaf`` is the packed weight index of the metric's centroids."""
+    from rlvae_tpu_torch.samplers.hmc import HMCConfig
+
     d = int(model.latent_dim)
     eps = {"name": "eps", "kind": "randn", "shape": [d]}
     metric = model.metric
     if metric is None:
         return [eps]
     k = metric.n_centroids
-    if method == "geodesic":
-        return [{"name": "i1", "kind": "randint", "shape": [], "high": k},
-                {"name": "i2", "kind": "randint", "shape": [], "high": k},
-                {"name": "t", "kind": "rand", "shape": [1]}, eps]
-    if method == "centroid_aware":
-        return [{"name": "idx", "kind": "randint", "shape": [], "high": k}, eps]
-    raise ValueError(
-        f"generate_method {method!r} is not exportable: the exported generate runs the "
-        "'geodesic' and 'centroid_aware' priors (the chains, the gradient-ascent 'basic' "
-        "prior, 'geodesic_exact' and 'weighted_mixture' are served by the live manager)")
+    if method == "adaptive":
+        raise ValueError(
+            "generate_method 'adaptive' is not exportable: the self-tuning sampler decides its "
+            "trajectory length on the host from the whole batch's tuned step sizes (JAX's "
+            "export_model refuses it too: it passes no plan, and the decision meets a tracer); "
+            "serve it from the live manager")
+    randint = {"kind": "randint", "shape": [], "high": k}
+    steps = HMCConfig().mcmc_steps
+    chain = [{"name": "gammas", "kind": "randn", "shape": [steps, d], "row_axis": 1},
+             {"name": "unifs", "kind": "rand", "shape": [steps], "row_axis": 1}]
+    specs = {
+        "geodesic": [{"name": "i1", **randint}, {"name": "i2", **randint},
+                     {"name": "t", "kind": "rand", "shape": [1]}, eps],
+        "geodesic_exact": [{"name": "i1", **randint}, {"name": "i2", **randint},
+                           {"name": "s", "kind": "rand", "shape": []}, eps],
+        "centroid_aware": [{"name": "idx", **randint}, eps],
+        "weighted_mixture": [{"name": "idx", "kind": "categorical", "shape": [],
+                              "probs": "softmax(-|c|/2)", "leaf": centroid_leaf}, eps],
+        "basic": [eps],
+        "official": [{"name": "idx", **randint, "gather": "z0"}, *chain],
+        "hmc": [{"name": "z0", "kind": "randn", "shape": [d]}, *chain],
+    }
+    if method not in specs:
+        raise ValueError(f"Unknown prior sampling method: {method}")
+    return specs[method]
 
 
-def _check_spec(spec, drawn: Mapping[str, torch.Tensor], draw) -> None:
+def _check_spec(model, spec, model_draws: Mapping[str, torch.Tensor],
+                recipe_draws: Sequence[torch.Tensor]) -> None:
     """The recipe gives the model's own draws, bit for bit."""
-    mine = draw()
-    if [s["name"] for s in spec] != list(drawn) or not all(
-            torch.equal(a, b) for a, b in zip(mine, drawn.values())):
+    mine = model_noise(model, spec, recipe_draws)
+    if list(mine) != list(model_draws) or not all(
+            torch.equal(a, b) for a, b in zip(mine.values(), model_draws.values())):
         raise RuntimeError("export noise recipe disagrees with the model's draws "
-                           f"({[s['name'] for s in spec]} vs {list(drawn)})")
+                           f"({list(mine)} vs {list(model_draws)})")
 
 
 # -- programs ---------------------------------------------------------------
@@ -213,23 +283,23 @@ class _Ops(torch.nn.Module):
     module's forward, and every op's weights are this module's."""
 
     def __init__(self, model: torch.nn.Module, op: str, n_obs: int, method: str,
-                 noise_names: Sequence[str]):
+                 spec: Sequence[Mapping[str, Any]]):
         super().__init__()
         self.model = model
         self.op, self.n_obs, self.method = op, n_obs, method
-        self.noise_names = list(noise_names)
+        self.spec = list(spec)
 
     def forward(self, *inputs):
         m = self.model
         if self.op == "reconstruct":
             x, *noise = inputs
-            return m(x, dict(zip(self.noise_names, noise)))["recon_x"].float()
+            return m(x, model_noise(m, self.spec, noise))["recon_x"].float()
         if self.op == "encode":
             return m.encode(inputs[0])["embedding"].float()
         if self.op == "decode":
             return m.decode(inputs[0])["reconstruction"].float()
-        noise = dict(zip(self.noise_names, inputs))
-        return m.generate(inputs[0].shape[0], self.n_obs, self.method, noise=noise).float()
+        return m.generate(inputs[0].shape[0], self.n_obs, self.method,
+                          noise=model_noise(m, self.spec, inputs)).float()
 
 
 class _Program(torch.nn.Module):
@@ -248,10 +318,11 @@ class _Program(torch.nn.Module):
         return torch.func.functional_call(self._ops, params, inputs, strict=True)
 
 
-def _example_inputs(op: str, b: int, manifest: Mapping[str, Any], device) -> List[torch.Tensor]:
+def _example_inputs(op: str, b: int, manifest: Mapping[str, Any], device,
+                    leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     c, h, w = manifest["input_dim"]
     gen = torch.Generator(device=device).manual_seed(0)
-    noise = draw_noise(manifest["noise"].get(op, []), b, gen, device)
+    noise = draw_noise(manifest["noise"].get(op, []), b, gen, device, leaves)
     if op == "reconstruct":
         return [torch.zeros((b, manifest["n_obs"], c, h, w), device=device), *noise]
     if op == "encode":
@@ -293,28 +364,30 @@ def export_model(
     if bad:
         raise ValueError(f"unknown platforms {bad}; have {list(PLATFORMS)}")
     model, device = manager.model, manager.device
-    noise: Dict[str, Any] = {}
-    if "reconstruct" in ops:
-        spec = _posterior_spec(model)
-        gen = lambda: torch.Generator(device=device).manual_seed(0)  # noqa: E731
-        _check_spec(spec, model.draw_posterior_noise(3, gen()),
-                    lambda: draw_noise(spec, 3, gen(), device))
-        noise["reconstruct"] = spec
-    if "generate" in ops:
-        spec = _generation_spec(model, generate_method)
-        gen = lambda: torch.Generator(device=device).manual_seed(7)  # noqa: E731
-        _check_spec(spec, model.draw_generation_noise(1, generate_method, gen()),
-                    lambda: draw_noise(spec, 1, gen(), device))
-        noise["generate"] = spec
-
     names, tensors, n_state = _leaves(model)
     leaves = [t.cpu().numpy() for t in tensors]
     plan = _quant_plan(leaves, n_state, quantize)
     packed = _pack_leaves(leaves, plan)
+    args = tuple(torch.from_numpy(p).to(device) for p in packed)
+
+    noise: Dict[str, Any] = {}
+    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)  # noqa: E731
+    if "reconstruct" in ops:
+        spec = _posterior_spec(model)
+        _check_spec(model, spec, model.draw_posterior_noise(3, gen(0)),
+                    draw_noise(spec, 3, gen(0), device, args))
+        noise["reconstruct"] = spec
+    if "generate" in ops:
+        centroid_leaf = (names.index("metric_centroids") if "metric_centroids" in names else -1)
+        centroid_leaf += sum(1 for i in plan if i < centroid_leaf)  # int8 leaves pack as two
+        spec = _generation_spec(model, generate_method, centroid_leaf)
+        _check_spec(model, spec, model.draw_generation_noise(1, generate_method, gen(7)),
+                    draw_noise(spec, 1, gen(7), device, args))
+        noise["generate"] = spec
+
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     np.savez(out / "weights.npz", **{str(i): leaf for i, leaf in enumerate(packed)})
-    args = tuple(torch.from_numpy(p).to(device) for p in packed)
 
     manifest: Dict[str, Any] = {
         "format_version": FORMAT_VERSION,
@@ -338,15 +411,14 @@ def export_model(
     from rlvae_tpu_torch.ops.export_ops import count_in_graph
 
     for op in ops:
-        program = _Program(_Ops(model, op, int(n_obs), generate_method,
-                                [s["name"] for s in noise.get(op, [])]),
+        program = _Program(_Ops(model, op, int(n_obs), generate_method, noise.get(op, [])),
                            names, plan, [t.dtype for t in tensors])
         item_shape, in_dtype = _item_spec(op, manifest)
         entries = {}
         for b in buckets:
             with torch.no_grad():
                 ep = torch.export.export(
-                    program, (args, *_example_inputs(op, int(b), manifest, device)))
+                    program, (args, *_example_inputs(op, int(b), manifest, device, args)))
             fname = f"{op}_b{int(b)}.pt2"
             ep.example_inputs = None  # the weights ride in weights.npz, not in each program
             torch.export.save(ep, out / fname)
@@ -387,18 +459,22 @@ class ExportedModel:
 
     def _inputs(self, op: str, batch: np.ndarray, n: int, b: int) -> List[torch.Tensor]:
         spec = self.manifest["noise"].get(op, [])
-        dev = self.device
+        dev, w = self.device, self._weights
+        axes = [s.get("row_axis", 0) for s in spec]
         if op == "generate":
             seeds = [int(s) for s in batch.reshape(-1)]
-            rows = [draw_noise(spec, 1, torch.Generator(device=dev).manual_seed(s), dev)
+            rows = [draw_noise(spec, 1, torch.Generator(device=dev).manual_seed(s), dev, w)
                     for s in seeds]
-            inputs = [torch.cat(parts) for parts in zip(*rows)]
+            draws = [torch.cat(parts, dim=a) for parts, a in zip(zip(*rows), axes)]
+            inputs = []
         else:
             inputs = [torch.from_numpy(np.ascontiguousarray(batch)).to(dev)]
-            if spec:
-                inputs += draw_noise(spec, n, torch.Generator(device=dev).manual_seed(0), dev)
-        if b > n:
-            inputs = [torch.cat([t, t[-1:].expand(b - n, *t.shape[1:])]) for t in inputs]
+            draws = (draw_noise(spec, n, torch.Generator(device=dev).manual_seed(0), dev, w)
+                     if spec else [])
+        inputs, axes = inputs + draws, [0] * len(inputs) + axes
+        if b > n:  # the last row, and its draws along their row axes, repeated
+            inputs = [torch.cat([t, t.narrow(a, n - 1, 1).expand(
+                *t.shape[:a], b - n, *t.shape[a + 1:])], dim=a) for t, a in zip(inputs, axes)]
         return inputs
 
     def run_rows(self, op: str, batch) -> torch.Tensor:
@@ -510,7 +586,9 @@ def main(argv=None):
     ap.add_argument("--buckets", nargs="+", type=int, default=[1, 8, 64])
     ap.add_argument("--n-obs", type=int, default=8)
     ap.add_argument("--method", default="geodesic",
-                    help="prior sampling method of the generate op")
+                    help="prior sampling method of the generate op: geodesic, centroid_aware, "
+                         "weighted_mixture, geodesic_exact, basic, official or hmc (adaptive "
+                         "does not export, as in JAX's export_model)")
     ap.add_argument("--platforms", nargs="*", default=None,
                     help="device types the bundle may load on, e.g. cpu cuda "
                          "(default: the export device's)")

@@ -39,6 +39,7 @@ import torch
 
 from rlvae_tpu_torch.geometry import metric as gm
 from rlvae_tpu_torch.geometry.metric import CentroidMetric
+from rlvae_tpu_torch.utils.loops import loop_steps
 
 __all__ = [
     "dg_inv",
@@ -214,10 +215,22 @@ def adam_update(x: torch.Tensor, grad: torch.Tensor, mu: torch.Tensor, nu: torch
     """One ``optax.adam(lr)`` step (b1 0.9, b2 0.999, eps 1e-8, eps_root 0)
     at step ``count`` (1-based), in optax's order of operations:
     (x + (-lr) mu_hat / (sqrt(nu_hat) + eps), mu, nu)."""
+    return adam_step(x, grad, mu, nu, *adam_corrections(count), lr)
+
+
+def adam_corrections(count: int):
+    """Adam's bias corrections (1 - b1^count, 1 - b2^count) in fp32, as
+    optax computes them, as Python floats."""
+    return (float(_F32(1) - _F32(ADAM_B1) ** _F32(count)),
+            float(_F32(1) - _F32(ADAM_B2) ** _F32(count)))
+
+
+def adam_step(x, grad, mu, nu, bc1, bc2, lr: float):
+    """:func:`adam_update` at the bias corrections ``bc1``, ``bc2``: Python
+    floats, or fp32 0-dim CPU tensors holding them, which divide a tensor
+    on either device as the floats do (a CPU scalar operand)."""
     mu = (1 - ADAM_B1) * grad + ADAM_B1 * mu
     nu = (1 - ADAM_B2) * (grad * grad) + ADAM_B2 * nu
-    bc1 = float(_F32(1) - _F32(ADAM_B1) ** _F32(count))
-    bc2 = float(_F32(1) - _F32(ADAM_B2) ** _F32(count))
     update = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
     return x + (-lr) * update, mu, nu
 
@@ -225,7 +238,14 @@ def adam_update(x: torch.Tensor, grad: torch.Tensor, mu: torch.Tensor, nu: torch
 def energy_grad(metric: CentroidMetric, z0: torch.Tensor, z1: torch.Tensor,
                 interior: torch.Tensor) -> torch.Tensor:
     """The gradient of each path's energy in its interior points [B, P-2, D]
-    (rows are independent, so it is the gradient of the sum)."""
+    (rows are independent, so it is the gradient of the sum).  While a
+    program is exported, the registered op ``rlvae::energy_grad``, whose
+    implementation is this function (:mod:`rlvae_tpu_torch.ops.export_ops`)."""
+    if torch.compiler.is_exporting():
+        from rlvae_tpu_torch.ops import export_ops
+
+        return export_ops.energy_grad(z0, z1, interior, metric.centroids, metric.matrices,
+                                      metric.temperature, metric.regularization)
     with torch.enable_grad():
         x = interior.detach().requires_grad_(True)
         paths = torch.cat([z0[:, None], x, z1[:, None]], dim=1)
@@ -238,16 +258,26 @@ def energy_path(metric: CentroidMetric, z0: torch.Tensor, z1: torch.Tensor, n_po
     """Discrete geodesic between ``z0`` and ``z1`` [D] (rows: [B, D]): the
     discrete energy minimized over the interior points by Adam (``n_iters``
     fixed steps from the straight line; one metric-bundle launch and one
-    recompute VJP per step for all rows).  Returns the path [n_points, D]
-    ([B, n_points, D]), endpoints included."""
+    recompute VJP per step for all rows), through
+    :func:`~rlvae_tpu_torch.utils.loops.loop_steps` (one loop op in an
+    exported program), each step's bias corrections a row of a CPU tensor.
+    Returns the path [n_points, D] ([B, n_points, D]), endpoints included."""
     a, single = _rows(z0)
     b, _ = _rows(z1)
     ts = _linspace01(n_points, a.device)[1:-1, None]
     x = (1.0 - ts) * a[:, None] + ts * b[:, None]  # [B, n_points - 2, D]
     mu, nu = torch.zeros_like(x), torch.zeros_like(x)
-    with torch.no_grad():
-        for count in range(1, n_iters + 1):
-            x, mu, nu = adam_update(x, energy_grad(metric, a, b, x), mu, nu, count, lr)
+
+    def step(carry, row):
+        x, mu, nu = carry
+        bc1, bc2 = row[0]
+        return adam_step(x, energy_grad(metric, a, b, x), mu, nu, bc1, bc2, lr), ()
+
+    if n_iters:
+        corrections = torch.tensor([adam_corrections(c) for c in range(1, n_iters + 1)],
+                                   dtype=torch.float32)
+        with torch.no_grad():
+            (x, mu, nu), _ = loop_steps(step, (x, mu, nu), (corrections,))
     paths = torch.cat([a[:, None], x, b[:, None]], dim=1)
     return paths[0] if single else paths
 

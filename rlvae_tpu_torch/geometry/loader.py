@@ -1,10 +1,9 @@
-"""Pretrained-metric loading from ``.npz`` artifacts.
+"""Pretrained-metric loading from ``.npz`` and ``.pt`` artifacts.
 
-Port of the ``.npz`` path of ``rlvae_tpu/geometry/loader.py``: the same key
+Port of ``rlvae_tpu/geometry/loader.py``: the same key
 aliases, overrides, defaults, validation report, save and conversion (in
-the canonical keys, so each package reads the other's files).  ``.pt``
-artifacts are not read here; convert them to ``.npz`` with the JAX package
-first.
+the canonical keys, so each package reads the other's files), and the
+reference's ``.pt`` artifacts through torch (:func:`read_raw`).
 """
 
 from __future__ import annotations
@@ -28,12 +27,26 @@ DEFAULT_REGULARIZATION = 0.01
 
 
 def read_raw(path: str | Path) -> Dict[str, np.ndarray]:
-    """Read a metric ``.npz`` (a ``.pt`` name resolves to its ``.npz`` sibling)."""
+    """Read a metric ``.npz``, or a reference ``.pt`` (a dict of tensors and
+    numbers, read with ``torch.load(weights_only=True)``), into a dict of
+    arrays.  A name that does not exist resolves to its ``.npz`` sibling,
+    then its ``.pt`` one, as the JAX package's ``read_raw``."""
     path = Path(path)
-    if path.suffix != ".npz":
-        path = path.with_suffix(".npz")
-    if not path.exists():
-        raise FileNotFoundError(f"Metric file not found: {path}")
+    if not path.exists() or path.suffix not in (".npz", ".pt"):
+        for alt in (path.with_suffix(".npz"), path.with_suffix(".pt")):
+            if alt.exists():
+                path = alt
+                break
+        else:
+            raise FileNotFoundError(f"Metric file not found: {path.with_suffix('.npz')}")
+    if path.suffix == ".pt":
+        import torch
+
+        data = torch.load(path, map_location="cpu", weights_only=True)
+        if not isinstance(data, dict):
+            raise ValueError(f"Expected a dict in {path}, got {type(data)}")
+        return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+                for k, v in data.items()}
     with np.load(path, allow_pickle=False) as zf:
         return {k: zf[k] for k in zf.files}
 

@@ -9,8 +9,11 @@ its output shapes:
 - ``rlvae::chol_bundle`` (B1, :func:`~rlvae_tpu_torch.ops.metric_kernels.chol_bundle`),
 - ``rlvae::iaf_chain_fwd`` (B2, :func:`~rlvae_tpu_torch.ops.iaf_kernels.iaf_chain_fwd`
   without the residuals, as ``IAFChain`` calls it in inference),
+- ``rlvae::hmc_terms`` (B4, :func:`~rlvae_tpu_torch.ops.metric_kernels.hmc_terms`),
 - ``rlvae::metric_bundle`` (B6, :func:`~rlvae_tpu_torch.ops.metric_kernels.metric_bundle`),
-- ``rlvae::g_inv`` (B7, :func:`~rlvae_tpu_torch.ops.metric_kernels.g_inv`).
+- ``rlvae::g_inv`` (B7, :func:`~rlvae_tpu_torch.ops.metric_kernels.g_inv`),
+- ``rlvae::basic_grad`` (B1 once, and its plain VJP) and ``rlvae::energy_grad``
+  (B6 once, and its plain VJP), below.
 
 Each op's implementation is its wrapper: the kernel for CUDA tensors, the
 plain version for CPU tensors, and no other route.  The wrappers call the
@@ -21,6 +24,22 @@ stands where the autograd Function (``CholBundle``, ``IAFChain``, ``GInv``,
 forward.  Importing this module registers the ops; a saved program that
 holds them loads only after that (``rlvae_tpu_torch.export.load_exported``
 imports it).  :data:`OP_NAMES` maps each op to the kernel it launches.
+
+Two programs differentiate through the metric: the ``basic`` prior's
+gradient ascent on log det G^{-1} (B1) and ``geodesic_exact``'s energy path
+(B6, in the body of the energy path's loop op).  Each gradient is one
+registered op, ``rlvae::basic_grad`` and ``rlvae::energy_grad``, whose
+implementation is the eager gradient itself
+(:func:`~rlvae_tpu_torch.samplers.riemannian.basic_grad`,
+:func:`~rlvae_tpu_torch.geometry.geodesics.energy_grad`: the kernel's
+forward and the autograd Function's recompute VJP), so an exported row is
+the eager row bit for bit.  ``torch.export`` cannot hold these gradients as
+traced backward graphs: it turns the tensors that autograd saves as
+outputs (exp's, the norm's) or inside a composite op (einsum's) into
+constants it does not know, and refuses the program; an op's own
+``register_autograd`` does not help, since in an export trace a custom
+op's outputs carry no autograd history.  B4 has no backward, as in eager
+mode (JAX's ``hmc_terms_pallas`` has none either).
 """
 
 from __future__ import annotations
@@ -34,7 +53,8 @@ from rlvae_tpu_torch.ops import iaf_kernels as _iaf
 from rlvae_tpu_torch.ops import metric_kernels as _mk
 
 # registered op -> the wrapper (and kernel) it runs
-OP_NAMES = {"chol_bundle": "B1", "iaf_chain_fwd": "B2", "metric_bundle": "B6", "g_inv": "B7"}
+OP_NAMES = {"chol_bundle": "B1", "iaf_chain_fwd": "B2", "hmc_terms": "B4", "metric_bundle": "B6",
+            "g_inv": "B7", "basic_grad": "B1", "energy_grad": "B6"}
 
 _D = _mk.KERNEL_DIM
 
@@ -48,6 +68,17 @@ def chol_bundle(z: torch.Tensor, centroids: torch.Tensor, matrices: torch.Tensor
 @chol_bundle.register_fake
 def _(z, centroids, matrices, inv_t2, diag):
     return z.new_empty((z.shape[0], _D, _D)), z.new_empty((z.shape[0],))
+
+
+@custom_op("rlvae::hmc_terms", mutates_args=())
+def hmc_terms(z: torch.Tensor, centroids: torch.Tensor, matrices: torch.Tensor,
+              inv_t2: float, lbd: float, log_eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _mk.hmc_terms(z, centroids, matrices, inv_t2, lbd, log_eps)
+
+
+@hmc_terms.register_fake
+def _(z, centroids, matrices, inv_t2, lbd, log_eps):
+    return z.new_empty((z.shape[0],)), z.new_empty((z.shape[0], _D))
 
 
 @custom_op("rlvae::g_inv", mutates_args=())
@@ -88,11 +119,64 @@ def _(z0, w0, b0, wh, bh, wo, bo, fp_iters):
     return z0.new_empty((nt, b, d)), z0.new_empty((nt, b))
 
 
+def _outside_inference_mode(grad, *tensors: torch.Tensor) -> torch.Tensor:
+    """``grad`` on copies of ``tensors`` made outside inference mode, which
+    autograd can record (a loaded program runs under
+    ``torch.inference_mode``)."""
+    with torch.inference_mode(False):
+        return grad(*(t.clone() for t in tensors))
+
+
+def _metric(centroids, matrices, temperature: float, regularization: float):
+    from rlvae_tpu_torch.geometry.metric import CentroidMetric
+
+    return CentroidMetric(centroids, matrices, temperature, regularization)
+
+
+@custom_op("rlvae::basic_grad", mutates_args=())
+def basic_grad(z: torch.Tensor, centroids: torch.Tensor, matrices: torch.Tensor,
+               temperature: float, regularization: float) -> torch.Tensor:
+    from rlvae_tpu_torch.samplers.riemannian import basic_grad as grad
+
+    return _outside_inference_mode(
+        lambda z, c, m: grad(_metric(c, m, temperature, regularization), z),
+        z, centroids, matrices)
+
+
+@basic_grad.register_fake
+def _(z, centroids, matrices, temperature, regularization):
+    return torch.empty_like(z)
+
+
+@custom_op("rlvae::energy_grad", mutates_args=())
+def energy_grad(z0: torch.Tensor, z1: torch.Tensor, interior: torch.Tensor,
+                centroids: torch.Tensor, matrices: torch.Tensor, temperature: float,
+                regularization: float) -> torch.Tensor:
+    from rlvae_tpu_torch.geometry.geodesics import energy_grad as grad
+
+    return _outside_inference_mode(
+        lambda a, b, x, c, m: grad(_metric(c, m, temperature, regularization), a, b, x),
+        z0, z1, interior, centroids, matrices)
+
+
+@energy_grad.register_fake
+def _(z0, z1, interior, centroids, matrices, temperature, regularization):
+    return torch.empty_like(interior)
+
+
 def count_in_graph(graph: torch.fx.Graph) -> dict:
     """How many calls of each registered op a program's graph holds, by
-    op name (every name of :data:`OP_NAMES`, zeros included)."""
+    op name (every name of :data:`OP_NAMES`, zeros included), the bodies
+    of its loop ops (the chains' ``while_loop``) included: a call in a body
+    counts once, however many times the loop runs it."""
     counts = dict.fromkeys(OP_NAMES, 0)
+    owner = graph.owning_module
     for node in graph.nodes:
+        if node.op == "get_attr" and owner is not None:
+            sub = getattr(owner, node.target, None)
+            if isinstance(sub, torch.fx.GraphModule):
+                for name, n in count_in_graph(sub.graph).items():
+                    counts[name] += n
         target = getattr(node.target, "_schema", None)
         if node.op == "call_function" and target is not None:
             ns, _, name = target.name.partition("::")

@@ -50,7 +50,7 @@ Each wrapper (:func:`chol_bundle`, :func:`hmc_terms`, :func:`metric_bundle`,
 PyTorch version (``*_ref``) for CPU tensors; there is no other route.  Each
 wrapper's ``launches`` counts the calls that launched its kernel.  While a
 program is exported (``torch.compiler.is_exporting()``), the chol-bundle,
-metric bundle and G^{-1} wrappers call their registered ops instead
+HMC terms, metric bundle and G^{-1} wrappers call their registered ops instead
 (:mod:`rlvae_tpu_torch.ops.export_ops`), whose implementations are these
 same wrappers.
 
@@ -347,6 +347,8 @@ def hmc_terms(
     inv_t2: float, lbd: float, log_eps: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(log pi [B], grad [B, D]) of the HMC target; kernel on CUDA, plain on CPU."""
+    if torch.compiler.is_exporting():
+        return _exported().hmc_terms(z, centroids, matrices, inv_t2, lbd, log_eps)
     if z.device.type == "cpu":
         return hmc_terms_ref(z, centroids, matrices, inv_t2, lbd, log_eps)
     if z.device.type != "cuda":

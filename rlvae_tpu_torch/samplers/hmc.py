@@ -34,9 +34,11 @@ from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Tup
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from rlvae_tpu_torch.geometry.metric import CentroidMetric
 from rlvae_tpu_torch.ops.metric_kernels import hmc_terms
+from rlvae_tpu_torch.utils.loops import loop_steps
 
 Terms = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 _F32 = np.float32
@@ -83,66 +85,130 @@ def draw_chain_noise(generator: Optional[torch.Generator], steps: int, num_sampl
 ChainState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, np.float32]
 
 
+class StepConstants(NamedTuple):
+    """The Python floats of one MCMC step (numpy's fp32 arithmetic done on
+    the host, so a traced loop body holds constants, not numpy): 1/sqrt(b0)'s
+    divisor sqrt(b0), the leapfrog's eps and eps/2, and the momentum factor
+    beta_sqrt_old / beta_sqrt of each leapfrog step."""
+    beta_zero_sqrt: float
+    eps: float
+    half_eps: float
+    factors: Tuple[float, ...]
+
+
+def step_constants(config: HMCConfig, beta_sqrt_old: np.float32
+                   ) -> Tuple[StepConstants, np.float32]:
+    """The constants of an MCMC step that starts at tempering
+    ``beta_sqrt_old``, and the tempering it ends at (the same for every
+    start: the last leapfrog's)."""
+    beta_zero_sqrt = np.sqrt(_F32(config.beta_zero))
+    factors = []
+    for k in range(config.n_lf):
+        beta_sqrt = tempering(k + 1.0, config.n_lf, beta_zero_sqrt)
+        factors.append(float(beta_sqrt_old / beta_sqrt))
+        beta_sqrt_old = beta_sqrt
+    consts = StepConstants(float(beta_zero_sqrt), float(_F32(config.eps_lf)),
+                           float(_F32(config.eps_lf) / _F32(2.0)), tuple(factors))
+    return consts, beta_sqrt_old
+
+
+def _mcmc_body(terms: Terms, carry, gamma: torch.Tensor, accept_u: torch.Tensor,
+               consts: StepConstants, quotient: bool):
+    """One MCMC step's tensor work from ``carry`` = (z, log pi(z), -grad(z)):
+    the leapfrog steps and the accept test (``quotient``: the official
+    chain's unguarded exp(-h) / exp(-h0)).  Returns (the next carry, accept,
+    alpha)."""
+    z0, log_pi0, g0 = carry
+    eps, half_eps = consts.eps, consts.half_eps
+    rho = gamma / consts.beta_zero_sqrt
+    h0 = -log_pi0 + 0.5 * (rho ** 2).sum(1)
+    z, g = z0, g0
+    for factor in consts.factors:
+        rho_half = rho - half_eps * g
+        z = z + eps * rho_half
+        _, grad = terms(z)
+        g = -grad
+        rho_full = rho_half - half_eps * g
+        rho = factor * rho_full
+    log_pi, _ = terms(z)
+    h = -log_pi + 0.5 * (rho ** 2).sum(1)
+    if quotient:
+        alpha = torch.exp(-h) / torch.exp(-h0)  # unguarded, as the reference
+    else:
+        alpha = torch.clamp(torch.exp(-h) / (torch.exp(-h0) + 1e-10), 0.0, 1.0)
+    accept = accept_u < alpha
+    carry = (torch.where(accept[:, None], z, z0), torch.where(accept, log_pi, log_pi0),
+             torch.where(accept[:, None], g, g0))
+    return carry, accept, alpha
+
+
 def mcmc_step(terms: Terms, state: ChainState, gamma: torch.Tensor, accept_u: torch.Tensor,
               config: HMCConfig):
     """One MCMC step: ``n_lf`` leapfrog steps from ``state`` = (z, log pi(z),
     -grad(z), beta_sqrt_old) with momentum ``gamma / sqrt(b0)``, then the
     accept test against ``accept_u``.  Returns (the next state, accept [B],
     alpha [B])."""
-    z0, log_pi0, g0, beta_sqrt_old = state
-    beta_zero_sqrt = np.sqrt(_F32(config.beta_zero))
-    eps = float(_F32(config.eps_lf))
-    half_eps = float(_F32(config.eps_lf) / _F32(2.0))
-
-    rho = gamma / float(beta_zero_sqrt)
-    h0 = -log_pi0 + 0.5 * (rho ** 2).sum(1)
-    z, g = z0, g0
-    for k in range(config.n_lf):
-        rho_half = rho - half_eps * g
-        z = z + eps * rho_half
-        _, grad = terms(z)
-        g = -grad
-        rho_full = rho_half - half_eps * g
-        beta_sqrt = tempering(k + 1.0, config.n_lf, beta_zero_sqrt)
-        rho = float(beta_sqrt_old / beta_sqrt) * rho_full
-        beta_sqrt_old = beta_sqrt
-    log_pi, _ = terms(z)
-    h = -log_pi + 0.5 * (rho ** 2).sum(1)
-    if config.init == "centroids":
-        alpha = torch.exp(-h) / torch.exp(-h0)  # unguarded, as the reference
-    else:
-        alpha = torch.clamp(torch.exp(-h) / (torch.exp(-h0) + 1e-10), 0.0, 1.0)
-    accept = accept_u < alpha
-    state = (torch.where(accept[:, None], z, z0), torch.where(accept, log_pi, log_pi0),
-             torch.where(accept[:, None], g, g0), beta_sqrt_old)
-    return state, accept, alpha
+    consts, beta_sqrt = step_constants(config, state[3])
+    carry, accept, alpha = _mcmc_body(terms, state[:3], gamma, accept_u, consts,
+                                      config.init == "centroids")
+    return (*carry, beta_sqrt), accept, alpha
 
 
 def run_prior_chain(terms: Terms, z0: torch.Tensor, gammas: torch.Tensor,
                     unifs: torch.Tensor, config: HMCConfig, collect_states: bool = False,
                     mean_fn: Callable[[torch.Tensor], torch.Tensor] = torch.mean):
     """The prior-chain integrator on given noise: :func:`mcmc_step` for each
-    of the ``S`` steps, from z0 at tempering 1/sqrt(b0).
+    of the ``S`` steps, from z0 at tempering 1/sqrt(b0), through
+    :func:`loop_steps` (one loop op in an exported program).  Every step
+    after the first starts at the tempering the last ended at, so one body
+    serves them all; the first gets its own when b0 != 1.
 
     Returns ``(z, accept_rate, log_pi_final)``, and with ``collect_states``
     also ``zs [S, B, D]``, the state after every MCMC step (the chain is the
     same either way).  ``accept_rate`` is the mean over steps of
     ``mean_fn(accept)``, the step's accept mask (as fp32) reduced to a rate:
     the mean over rows by default; the centroid-sharded chain passes a mean
-    over every rank's rows (``rlvae_tpu/samplers/hmc.py:99``)."""
+    over every rank's rows (``rlvae_tpu/samplers/hmc.py:99``); None while a
+    program is exported (its loop keeps no per-step outputs)."""
+    if gammas.shape[0] < config.mcmc_steps or unifs.shape[0] < config.mcmc_steps:
+        raise ValueError(f"the chain takes {config.mcmc_steps} steps; the given draws have "
+                         f"{gammas.shape[0]} and {unifs.shape[0]}")
     log_pi, grad = terms(z0)
-    state = (z0, log_pi, -grad, np.sqrt(_F32(config.beta_zero)))
-    rates, zs = [], []
-    for s in range(config.mcmc_steps):
-        state, accept, _ = mcmc_step(terms, state, gammas[s], unifs[s], config)
-        rates.append(mean_fn(accept.float()))
+    carry = (z0, log_pi, -grad)
+    quotient = config.init == "centroids"
+
+    def body(consts):
+        def step(carry, x):
+            carry, accept, _ = _mcmc_body(terms, carry, x[0], x[1], consts, quotient)
+            rate = mean_fn(accept.float())
+            return carry, ((rate, carry[0].clone()) if collect_states else rate)
+        return step
+
+    beta = np.sqrt(_F32(config.beta_zero))
+    first, beta_after = step_constants(config, beta)
+    steady, _ = step_constants(config, beta_after)
+    xs = (gammas[:config.mcmc_steps], unifs[:config.mcmc_steps])
+    parts = []  # the ys of each loop
+    if config.mcmc_steps and first != steady:
+        carry, y = body(first)(carry, tuple(x[0] for x in xs))
+        parts.append(tree_map(lambda t: t[None], y))
+        xs = tuple(x[1:] for x in xs)
+    if xs[0].shape[0]:
+        carry, ys = loop_steps(body(steady), carry, xs)
+        parts.append(ys)
+    z, log_pi = carry[0], carry[1]
+    if not parts:
+        rate = z.new_zeros(())
+        return (z, rate, log_pi, z.new_zeros((0, *z.shape))) if collect_states else \
+            (z, rate, log_pi)
+    if any(ys is None for ys in parts):  # an exported loop keeps no per-step outputs
         if collect_states:
-            zs.append(state[0])
-    z, log_pi = state[0], state[1]
-    rate = torch.stack(rates).mean() if rates else z.new_zeros(())
+            raise NotImplementedError("an exported chain returns its last state only")
+        return z, None, log_pi
+    ys = tree_map(lambda *t: torch.cat(t), parts[0], *parts[1:])
     if collect_states:
-        return z, rate, log_pi, torch.stack(zs) if zs else z.new_zeros((0, *z.shape))
-    return z, rate, log_pi
+        return z, ys[0].mean(), log_pi, ys[1]
+    return z, ys.mean(), log_pi
 
 
 def draw_hmc_noise(metric: CentroidMetric, num_samples: int, config: HMCConfig,
@@ -659,6 +725,11 @@ def posterior_hmc_step(terms: Terms, z: torch.Tensor, gamma: torch.Tensor, mu: t
     (z - mu) ``inv_var``, evaluated twice per leapfrog step as JAX writes
     it.  The position update subtracts eps_lf rho, the reference's quirk,
     kept: with a large ``inv_var`` the chain diverges, in JAX as here."""
+    return _posterior_leapfrogs(terms, z, gamma, mu, inv_var, n_lf, eps_lf)[0]
+
+
+def _posterior_leapfrogs(terms: Terms, z, gamma, mu, inv_var, n_lf: int, eps_lf: float):
+    """:func:`posterior_hmc_step`'s leapfrog steps: (z, rho) at their end."""
 
     def grad_e(z):
         _, grad_log_pi = terms(z)
@@ -669,7 +740,7 @@ def posterior_hmc_step(terms: Terms, z: torch.Tensor, gamma: torch.Tensor, mu: t
         rho = rho - (eps_lf / 2.0) * grad_e(z)
         z = z - eps_lf * rho  # the reference's quirk: minus
         rho = rho - (eps_lf / 2.0) * grad_e(z)
-    return z
+    return z, rho
 
 
 def sample_posterior_hmc(metric: CentroidMetric, mu: torch.Tensor, log_var: torch.Tensor,
@@ -677,14 +748,23 @@ def sample_posterior_hmc(metric: CentroidMetric, mu: torch.Tensor, log_var: torc
                          eps_lf: float = 0.01) -> torch.Tensor:
     """Posterior-tempered HMC from z = mu + ε σ: one
     :func:`posterior_hmc_step` for each of the ``gammas`` (200 terms calls
-    at 20 x 5)."""
+    at 20 x 5), through :func:`loop_steps` (one loop op in an exported
+    program)."""
     refuse_grad_through_terms(mu, log_var)
     terms = _terms_fn(metric)
     inv_var = torch.exp(-log_var)
     z = mu + eps.to(mu) * torch.exp(0.5 * log_var)
-    for gamma in gammas.to(mu):
-        z = posterior_hmc_step(terms, z, gamma, mu, inv_var, n_lf, eps_lf)
-    return z
+    gammas = gammas.to(mu)
+    if not gammas.shape[0]:
+        return z
+
+    def step(carry, x):
+        # the last momentum rides in the carry: a program would otherwise drop
+        # the step's last gradient evaluation as dead code, and launch 180
+        # terms where the eager chain launches 200
+        return _posterior_leapfrogs(terms, carry[0], x[0], mu, inv_var, n_lf, eps_lf), ()
+
+    return loop_steps(step, (z, torch.zeros_like(z)), (gammas,))[0][0]
 
 
 def refine_for_training(metric: CentroidMetric, mu: torch.Tensor, log_var: torch.Tensor,

@@ -319,23 +319,33 @@ def _prior_weighted_mixture(metric: CentroidMetric, noise: Noise) -> torch.Tenso
     return sel + eps_metric * adaptive[:, None]
 
 
-def _prior_basic(metric: CentroidMetric, noise: Noise, steps: int = 10) -> torch.Tensor:
-    """``steps`` steps of gradient ascent on sum(1/2 max(logdet G^{-1}, log 1e-10)
-    - 1/2 |z|^2) with a decaying step; the gradient goes through the
-    chol-bundle's autograd Function (the kernel's forward on the card)."""
+def basic_grad(metric: CentroidMetric, z: torch.Tensor) -> torch.Tensor:
+    """The gradient in z of the ``basic`` prior's sum(1/2 max(logdet G^{-1},
+    log 1e-10) - 1/2 |z|^2), through the chol-bundle's autograd Function
+    (the kernel's forward on the card).  While a program is exported, the
+    registered op ``rlvae::basic_grad``, whose implementation is this
+    function (:mod:`rlvae_tpu_torch.ops.export_ops`)."""
+    if torch.compiler.is_exporting():
+        from rlvae_tpu_torch.ops import export_ops
+
+        return export_ops.basic_grad(z, metric.centroids, metric.matrices, metric.temperature,
+                                     metric.regularization)
     log_floor = float(np.log(np.float32(1e-10)))
-
-    def log_prob(z):
-        ld = gm.logdet_g_inv(metric, z)
+    with torch.enable_grad():
+        zz = z.detach().requires_grad_(True)
+        ld = gm.logdet_g_inv(metric, zz)
         ld = torch.maximum(ld, ld.new_tensor(log_floor))
-        return (0.5 * ld - 0.5 * torch.linalg.vector_norm(z, dim=1) ** 2).sum()
+        log_prob = (0.5 * ld - 0.5 * torch.linalg.vector_norm(zz, dim=1) ** 2).sum()
+        (grad,) = torch.autograd.grad(log_prob, zz)
+    return grad
 
+
+def _prior_basic(metric: CentroidMetric, noise: Noise, steps: int = 10) -> torch.Tensor:
+    """``steps`` steps of gradient ascent (:func:`basic_grad`) with a
+    decaying step."""
     f32 = np.float32
     z = noise["eps"].float() * 0.5
-    with torch.enable_grad():
-        for step in range(steps):
-            zz = z.requires_grad_(True)
-            (grad,) = torch.autograd.grad(log_prob(zz), zz)
-            step_size = float(f32(0.01) * (f32(1.0) - f32(step) / f32(steps)))  # fp32, as JAX
-            z = zz.detach() + step_size * grad
+    for step in range(steps):
+        step_size = float(f32(0.01) * (f32(1.0) - f32(step) / f32(steps)))  # fp32, as JAX
+        z = z + step_size * basic_grad(metric, z)
     return z

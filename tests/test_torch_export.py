@@ -49,7 +49,8 @@ TINY = {
     "decoder": {"architecture": "mlp", "hidden_dims": [16], "dtype": "float32"},
 }
 T = 4
-NO_OPS = {"chol_bundle": 0, "iaf_chain_fwd": 0, "metric_bundle": 0, "g_inv": 0}
+NO_OPS = {"chol_bundle": 0, "iaf_chain_fwd": 0, "hmc_terms": 0, "metric_bundle": 0, "g_inv": 0,
+          "basic_grad": 0, "energy_grad": 0}
 
 
 @pytest.fixture(scope="module")
@@ -164,7 +165,7 @@ def test_noise_recipe_is_the_models_draw(manager, bundle, tmp_path):
     mine = draw_noise(manifest["noise"]["generate"], 1, gen, "cpu")
     assert all(torch.equal(a, b) for a, b in zip(mine, drawn.values()))
     with pytest.raises(ValueError, match="not exportable"):
-        export_model(manager, tmp_path, ops=("generate",), generate_method="official")
+        export_model(manager, tmp_path, ops=("generate",), generate_method="adaptive")
     assert not any(tmp_path.iterdir())  # refused before anything is written
 
 
@@ -318,25 +319,40 @@ def test_bundle_server_serves_over_http(manager, serving_bundle):
 _NO_MODEL_CODE = """
 import json, sys, urllib.request
 from rlvae_tpu_torch.bundle_server import serve_bundle
-httpd, engine = serve_bundle(sys.argv[1], port=0, device="cpu")
-try:
-    req = urllib.request.Request(
-        f"http://127.0.0.1:{httpd.server_address[1]}/v1/generate",
-        data=json.dumps({"items": [7]}).encode(), method="POST")
-    with urllib.request.urlopen(req, timeout=60) as r:
-        out = json.loads(r.read())["outputs"]
-finally:
-    httpd.shutdown()
-    engine.stop()
+outs = []
+for bundle in sys.argv[1:]:
+    httpd, engine = serve_bundle(bundle, port=0, device="cpu")
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/v1/generate",
+            data=json.dumps({"items": [7]}).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            outs.append(json.loads(r.read())["outputs"])
+    finally:
+        httpd.shutdown()
+        engine.stop()
 loaded = sorted(m for m in sys.modules if m.startswith("rlvae_tpu_torch.models"))
-print(len(out), loaded)
-sys.exit(0 if len(out) == 1 and not loaded else 1)
+print([len(o) for o in outs], loaded)
+sys.exit(0 if [len(o) for o in outs] == [1] * len(outs) and not loaded else 1)
 """
 
 
-def test_bundle_server_imports_no_model_code(serving_bundle):
+@pytest.fixture(scope="module")
+def official_bundle(manager, tmp_path_factory):
+    """generate by the official chain at bucket 1: the chain's draws (the
+    start's centroid index, step-major momenta and uniforms) in the recipe."""
+    out = tmp_path_factory.mktemp("official")
+    export_model(manager, out, ops=("generate",), buckets=(1,), n_obs=T,
+                 generate_method="official")
+    return out
+
+
+def test_bundle_server_imports_no_model_code(serving_bundle, official_bundle):
     """A host with the bundle, torch and the port's ops serves a request
-    (a generate: G^{-1} and the IAF chain) without importing a model class."""
-    proc = subprocess.run([sys.executable, "-c", _NO_MODEL_CODE, str(serving_bundle)], cwd=REPO,
-                          capture_output=True, text=True, timeout=120)
+    (a generate: G^{-1} and the IAF chain; and the official chain's, whose
+    draws gather their start in the program) without importing a model
+    class."""
+    proc = subprocess.run([sys.executable, "-c", _NO_MODEL_CODE, str(serving_bundle),
+                           str(official_bundle)], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -1265,6 +1265,51 @@ def test_exported_programs_launch_the_eager_kernels(dev, tmp_path, platforms):
         np.testing.assert_array_equal(bundle.run(op, batch), eager().cpu().numpy())
 
 
+def test_hmc_terms_registered_op_matches_plain(dev):
+    """``rlvae::hmc_terms`` (B4 as a registered op, what an exported chain
+    calls) launches the kernel once, gives the wrapper's bits, and holds the
+    plain version at the kernel's tolerances."""
+    from rlvae_tpu_torch.ops import export_ops
+
+    c, m = _bank(50, 3)
+    rng = np.random.default_rng(5)
+    z = c[rng.integers(0, 50, size=64)] + 0.05 * rng.normal(size=(64, 16))
+    zt, ct, mt = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (z, c, m))
+    args = (4.0, 0.01, float(np.log(np.float32(1e-10))))
+    before = hmc_terms.launches
+    got = export_ops.hmc_terms(zt, ct, mt, *args)
+    torch.cuda.synchronize()
+    assert hmc_terms.launches == before + 1
+    wrapper = hmc_terms(zt, ct, mt, *args)
+    assert all(torch.equal(a, b) for a, b in zip(got, wrapper))
+    plain = hmc_terms_ref(zt, ct, mt, *args)
+    torch.testing.assert_close(got[0], plain[0], rtol=0, atol=1e-5)
+    _scaled_close(got[1], plain[1])
+
+
+@pytest.mark.parametrize("method", ["official", "hmc"])
+def test_exported_chain_replays_its_eager_chain(dev, tmp_path, method):
+    """The exported prior chain (one scan loop op, B4's registered op in its
+    body) on the card: the eager chain's 1601 B4 launches per call and its
+    rows bit for bit, at a full bucket and a padded one."""
+    from rlvae_tpu_torch import ModelManager, PRESETS
+    from rlvae_tpu_torch.export import export_model, load_exported
+
+    cfg = {**PRESETS["riemannian_flow_vae"], "input_dim": [3, 16, 16], "n_flows": 3}
+    manager = ModelManager.from_config(cfg, seed=0, device=dev)
+    m = export_model(manager, tmp_path, ops=("generate",), buckets=(4,), n_obs=4,
+                     generate_method=method)
+    assert m["programs"]["generate"]["4"]["registered_ops"]["hmc_terms"] == 1 + 16
+    bundle = load_exported(tmp_path, device=dev)
+    seeds = np.asarray([3, 1000, 3, 77], np.uint32)
+    want = manager.generate_rows(seeds, method, n_obs=4).cpu().numpy()
+    for batch, rows in ((seeds, want), (seeds[:3], want[:3])):
+        before = hmc_terms.launches
+        got = bundle.run("generate", batch)
+        assert hmc_terms.launches - before == 1601
+        np.testing.assert_array_equal(got, rows)
+
+
 # ---------------------------------------------------------------------------
 # the visualization fields, the flow zoo and the slope timers, card vs CPU
 # ---------------------------------------------------------------------------
