@@ -105,7 +105,7 @@ Phases, each printing one JSON line with its elapsed seconds:
    and read just after (1601 ``hmc_partials`` launches, no ``hmc_terms``);
    host-clock time, and the busy share of a profiled 2-step chain.
    ``chol_g_inv_sharded`` at B=64 launches the G^{-1} kernel once and is
-   held to the dense chol-bundle factor.  A chain of EP_REPLAY_STEPS (10)
+   held to the dense chol-bundle factor.  A chain of EP_REPLAY_STEPS (5)
    MCMC steps on the same draws is stepped one step at a time and held to
    the entry point's, each step replayed on the CPU from the card's state,
    and each also taken with the dense ``hmc_terms`` from the same state.
@@ -230,10 +230,10 @@ Phases, each printing one JSON line with its elapsed seconds:
    plain path, no launch) against the CPU.  Then ``train_metric`` of the
    RHVAE at the published widths (3x64x64, latent 16, batch 64, 3 leapfrog
    and 3 fixed-point steps), warm-started from the pretrained encoder and
-   decoder, 3 steps on synthetic sprites frames (16 G^{-1} launches per
+   decoder, RHVAE_STEPS (2) steps on synthetic sprites frames (16 G^{-1} launches per
    step), each step replayed on the CPU from the card's weights and draws
    (loss and gradient norm at the train phase's tolerances); one more
-   step's host ms and CUDA-event ms.  The consolidated K=192 metric is saved and loaded
+   step's host ms and CUDA-event ms.  The consolidated K=128 metric is saved and loaded
    through ``save_metric``/``load_metric``, held to the plain versions of
    the chol-bundle, metric bundle, G^{-1} and HMC terms, and swapped into
    the default model behind an engine: one 64-request ``reconstruct``
@@ -363,6 +363,42 @@ Phases, each printing one JSON line with its elapsed seconds:
    B=64): ``scan_slope_time`` over 64 distinct batches in one CUDA graph and
    ``fori_slope_time`` on one captured launch, reported beside the kernels
    phase's ``device_ms``, gated on structure only.
+22. ``latent_dims``: every latent width the JAX package runs.  B1, B4, B6,
+   B7 and B8 at D = 1, 2, 5, 8, 12, 16, 24, 31, 32 (D <= 16 on the kernels'
+   width-16 instances, 17..32 on the width-32 ones, a zero-padded bank
+   where D is neither), K = 1, 50, 200 and B = 1, 64, and at D = 32, K =
+   20 000, B = 64: each against its plain version and fp64 at the kernels
+   phase's tolerances, its structure, bit-identical on relaunch and in a
+   CUDA-graph replay; at D = 32, B = 64, K = 50 and 20 000 device ms beside
+   the plain version and the bound.  Then the slice's path at latent 32,
+   each part counted from zero and ``plain_route.calls`` held at 0: the
+   components CLI (``--latent-dim 32``, cut to 16 sequences and one epoch
+   of each stage; G^{-1} 16 times a RHVAE step, each step replayed on the
+   CPU) writes a 32-D bank; the default preset on it (full widths; the
+   shipped 16-D nets refused with a warning, the seeded init kept; the
+   flows near the identity but in the reference-init run) serves a B=64
+   reconstruct bucket (B1 2, B2 1; a B=64 forward vs the CPU), takes 3
+   Trainer steps at B=16 (each replayed on the CPU with the gradients
+   gated) and generates with ``official`` and
+   ``hmc`` at B=64 (1601 B4 a chain; the official chain's 100 steps
+   stepped on the card, the first 10 and each step that accepted a row
+   replayed on the CPU); the same preset at its reference flow init runs a
+   B=64 forward, card and CPU each held to an fp64 forward, and one Trainer
+   step replayed on the CPU with its gradients held to fp64's; the geodesic
+   hybrid at latent 32 serves a bucket (B6, B2) and takes a replayed step;
+   the EP chain at B=64, 80 MCMC steps
+   (1281 B8), stepped and replayed on the CPU as the official chain's, and
+   against dense B4; the
+   ``reconstruct`` program exported at bucket 4, bit for bit the live
+   manager.  Then a latent-48 model (past the kernels' envelope): a B=64
+   forward and a ``geodesic`` generate launch no kernel and take the plain
+   route, against the CPU; and an IAF chain at H = 512 on the plain route,
+   against the CPU.  Then B5 past 512 hidden units (``csrc/decode_mse_wide.cu``)
+   at K = 1024, M = 128 and 37, N = 12288 and 300, against its plain versions
+   (and fp64) bitwise on relaunch and in a graph replay, timed beside the
+   bound; and 2 Trainer steps of ``mlp_rlvae`` (decoder [256, 512, 1024])
+   with ``fused_decode_mse=true`` and dropout 0 in both nets, each step B1
+   2, B2 1, B3 1 and the three B5 entry points, replayed on the CPU.
 
 Each phase's record carries its own seconds (``phase_s``); a
 ``phase_seconds`` line lists them all.  Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and as the
@@ -479,8 +515,9 @@ EP_SHARDS, EP_DENSE_STEPS, EP_PROFILE_STEPS = 4, 10, 2
 # MCMC steps of the stepped and replayed EP chain, held to the entry point's
 # chain of as many steps on the same draws: 100 (the whole official chain)
 # until the deploy phase needed the time; the stepping and its CPU replay
-# were the phase's largest share; 25 until the viz phase needed the time
-EP_REPLAY_STEPS = 10
+# were the phase's largest share; 25 until the viz phase needed the time, 10
+# until the latent_dims phase did
+EP_REPLAY_STEPS = 5
 # the dense_chain phase: the official chain on the K=20 000 bank, its first
 # steps replayed on the CPU (3 until the viz phase needed the time)
 DENSE_REPLAY_STEPS = 1
@@ -2069,10 +2106,11 @@ def fp64_grads(torch, model_config, state, x, noise):
 
 
 def _train_and_replay(torch, run_dir, model_config, steps, per_step, dev, witness=False,
-                      fp64=False):
+                      fp64=False, timed=True):
     """The run of :func:`run_train`; ``witness``: gate the gradients card
     vs CPU and skip the timings; ``fp64``: also hold the card's and the
-    CPU's step-1 gradients to :func:`fp64_grads` (gated unless ``witness``)."""
+    CPU's step-1 gradients to :func:`fp64_grads` (gated unless ``witness``);
+    ``timed=False``: skip the timings."""
     from rlvae_tpu_torch.data import CYCLIC_SPRITES, CyclicDataModule
     from rlvae_tpu_torch.models import create_model
     from rlvae_tpu_torch.train import TRAINING_PRESETS, Trainer, make_optimizer, make_train_step
@@ -2169,8 +2207,9 @@ def _train_and_replay(torch, run_dir, model_config, steps, per_step, dev, witnes
         check(witness or errors[0]["card_vs_fp64"] <= bound,
               f"step-1 gradients vs fp64: card {errors[0]['card_vs_fp64']}, CPU "
               f"{errors[0]['cpu_vs_fp64']}")
-    if witness:
-        return {"model_config": {"flow_log_var_bias_init": 0.0}, "steps": result["steps"],
+    if witness or not timed:
+        return {"model_config": {"flow_log_var_bias_init": model_config.get(
+                    "flow_log_var_bias_init")}, "steps": result["steps"],
                 "launches": launches, "card_vs_cpu": {"errors": errors, "tolerances": TRAIN_TOL}}
 
     # one warm step, timed and profiled
@@ -2302,11 +2341,13 @@ def run_generate(torch, dev=None):
     }
 
 
-def replay_chain(torch, manager):
-    """The official chain's first GEN_REPLAY_STEPS MCMC steps at B=64 on the
+def replay_chain(torch, manager, steps: int = GEN_REPLAY_STEPS, replayed=None):
+    """The official chain's first ``steps`` MCMC steps at B=64 on the
     card, one step at a time (held to ``run_prior_chain`` of that many
     steps), each step replayed on the CPU (plain terms) from the card's
-    state before it with the same momenta and uniforms."""
+    state before it with the same momenta and uniforms; with ``replayed``,
+    only the first ``replayed`` steps and every later step in which the
+    card accepted a row (so every accepted row is still replayed)."""
     from rlvae_tpu_torch.geometry.metric import CentroidMetric
     from rlvae_tpu_torch.samplers import HMCConfig, mcmc_step, run_prior_chain
     from rlvae_tpu_torch.samplers.hmc import _terms_fn
@@ -2315,11 +2356,11 @@ def replay_chain(torch, manager):
     metric = manager.model.metric
     cpu_metric = CentroidMetric(metric.centroids.cpu(), metric.matrices.cpu(),
                                 metric.temperature, metric.regularization)
-    cfg = HMCConfig(mcmc_steps=GEN_REPLAY_STEPS)
+    cfg = HMCConfig(mcmc_steps=steps)
     gen = torch.Generator(device=manager.device).manual_seed(17)
     noise = manager.model.draw_generation_noise(b, "official", gen)
-    noise = {"z0": noise["z0"], "gammas": noise["gammas"][:GEN_REPLAY_STEPS],
-             "unifs": noise["unifs"][:GEN_REPLAY_STEPS]}
+    noise = {"z0": noise["z0"], "gammas": noise["gammas"][:steps],
+             "unifs": noise["unifs"][:steps]}
     terms, cpu_terms = _terms_fn(metric), _terms_fn(cpu_metric)
     with torch.no_grad():
         z_ref = run_prior_chain(terms, noise["z0"], noise["gammas"], noise["unifs"], cfg)[0]
@@ -2329,9 +2370,11 @@ def replay_chain(torch, manager):
         for step in range(cfg.mcmc_steps):
             gamma, u = noise["gammas"][step], noise["unifs"][step]
             nxt, acc, alpha = mcmc_step(terms, state, gamma, u, cfg)
-            cpu_state = tuple(t.cpu() for t in state[:3]) + (state[3],)
-            c_nxt, c_acc, _ = mcmc_step(cpu_terms, cpu_state, gamma.cpu(), u.cpu(), cfg)
-            _compare_step(stats, acc.cpu(), alpha.cpu(), u.cpu(), nxt[0].cpu(), c_acc, c_nxt[0])
+            if replayed is None or step < replayed or bool(acc.any()):
+                cpu_state = tuple(t.cpu() for t in state[:3]) + (state[3],)
+                c_nxt, c_acc, _ = mcmc_step(cpu_terms, cpu_state, gamma.cpu(), u.cpu(), cfg)
+                _compare_step(stats, acc.cpu(), alpha.cpu(), u.cpu(), nxt[0].cpu(), c_acc,
+                              c_nxt[0])
             accepted += int(acc.sum())
             state = nxt
         check(torch.equal(state[0], z_ref), "the stepped chain differs from run_prior_chain")
@@ -2340,8 +2383,9 @@ def replay_chain(torch, manager):
     check(stats["max_z_rel_err"] <= CHAIN_Z_RTOL,
           f"card chain vs CPU replay: z differs by {stats['max_z_rel_err']} of scale")
     check(accepted > 0, "the official chain accepted nothing")
-    return {"batch": b, "accepted": accepted, "accept_rate": accepted / (b * cfg.mcmc_steps),
-            **stats, "tolerance": {"z_rel": CHAIN_Z_RTOL, "accept_margin": ACCEPT_MARGIN}}
+    return {"batch": b, "card_steps": cfg.mcmc_steps, "accepted": accepted,
+            "accept_rate": accepted / (b * cfg.mcmc_steps), **stats,
+            "tolerance": {"z_rel": CHAIN_Z_RTOL, "accept_margin": ACCEPT_MARGIN}}
 
 
 def _step_stats():
@@ -2598,12 +2642,13 @@ def ep_terms_checks(torch, dev, metric):
     return out
 
 
-def replay_ep_chain(torch, metric, cpu_metric, noise, cfg, z_chain):
+def replay_ep_chain(torch, metric, cpu_metric, noise, cfg, z_chain, replayed=None):
     """The EP chain one MCMC step at a time on the card (the sharded terms
     on the 1 x 1 mesh), each step replayed on the CPU (the plain partials,
     the same epilogue) from the card's state before it with the same
-    momenta and uniforms; the first EP_DENSE_STEPS also taken on the card
-    with the dense ``hmc_terms`` (B4) from the same state."""
+    momenta and uniforms (with ``replayed``, as :func:`replay_chain`'s);
+    the first EP_DENSE_STEPS also taken on the card with the dense
+    ``hmc_terms`` (B4) from the same state."""
     from rlvae_tpu_torch.parallel import create_mesh, hmc_terms_sharded, shard_metric
     from rlvae_tpu_torch.samplers import mcmc_step
     from rlvae_tpu_torch.samplers.hmc import _terms_fn
@@ -2621,8 +2666,10 @@ def replay_ep_chain(torch, metric, cpu_metric, noise, cfg, z_chain):
         for step in range(cfg.mcmc_steps):
             gamma, u = noise["gammas"][step], noise["unifs"][step]
             nxt, acc, alpha = mcmc_step(terms["card"], state, gamma, u, cfg)
-            others = [("cpu", tuple(t.cpu() for t in state[:3]) + (state[3],), gamma.cpu(),
-                       u.cpu())]
+            others = []
+            if replayed is None or step < replayed or bool(acc.any()):
+                others.append(("cpu", tuple(t.cpu() for t in state[:3]) + (state[3],),
+                               gamma.cpu(), u.cpu()))
             if step < EP_DENSE_STEPS:
                 others.append(("dense", state, gamma, u))
             for name, st, g, uu in others:
@@ -4183,7 +4230,7 @@ GEO_CURV_GRID = 32        # the curvature's grid on the centroids' PCA plane
 GEO_INTERP_ITERS = 200    # interpolate(mode="geodesic"): energy_path's Adam steps
 GEO_ENERGY_BAND = 20      # the CPU path's last iterates whose energies bound the card's
 GEO_PROFILE_ITERS = 20    # Adam steps of the profiled energy path
-RHVAE_BATCH, RHVAE_STEPS = 64, 3
+RHVAE_BATCH, RHVAE_STEPS = 64, 2  # 3 steps until the latent_dims phase joined the run
 # Card vs CPU.  The geodesic solvers feed every rounding difference back
 # (Adam's m / sqrt(v) turns last-bit gradient differences into lr-sized
 # steps; shooting follows a curved ODE), so whole results are held at these
@@ -5291,10 +5338,11 @@ def run_deploy(torch, dev=None):
 
 
 # the deploy phase's exports of the other methods (run_deploy_methods): every
-# prior method JAX's export_model exports but the two above at buckets 1 and
-# 4 on the default model, and the hmc posterior's reconstruct on the hybrid
+# prior method JAX's export_model exports but the two above at bucket 4 on
+# the default model, and the hmc posterior's reconstruct on the hybrid
 DEPLOY_METHODS = ("weighted_mixture", "geodesic_exact", "basic", "official", "hmc")
-DEPLOY_METHOD_BUCKETS = (1, 4)
+# (1, 4) until the latent_dims phase joined the run: bucket 1 was exported, never run
+DEPLOY_METHOD_BUCKETS = (4,)
 DEPLOY_METHOD_TIMED = 3  # host-clock repeats of each B=4 latency
 # the registered ops each program holds (a loop body's once: a prior chain's
 # step evaluates B4 16 times, a posterior step 10 times, an energy-path Adam
@@ -5333,7 +5381,7 @@ def run_deploy_methods(torch, dev, manager, tmp: Path) -> dict:
     """The deploy phase's second part: ``export_model`` of ``generate`` by
     each of DEPLOY_METHODS on ``manager`` (the default model), and of
     ``reconstruct`` on the hybrid model with the ``hmc`` posterior, at
-    buckets (1, 4); each bundle loaded on the card.  The counters are
+    DEPLOY_METHOD_BUCKETS; each bundle loaded on the card.  The counters are
     zeroed; then per program the live manager and the bundle at a full
     bucket of 4 (bit for bit), and at a padded bucket of 3 rows against the
     manager on the padded batch and draws (bit for bit), every call's
@@ -6319,6 +6367,805 @@ def run_lldm(torch, dev=None):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# latent_dims phase: every latent width the JAX package runs
+# ---------------------------------------------------------------------------
+
+# The widths of the kernel checks (1..16 run the kernels' width-16 instances,
+# 17..32 the width-32 ones; all but 16 and 32 a zero-padded bank), the banks
+# and batches at each, and the wide case; the metric kernels' temperature
+# scales with D (inv_t2 = 4/D), so that many centroids weigh in at every width
+LATENT_DIMS = (1, 2, 5, 8, 12, 16, 24, 31, 32)
+LATENT_BANKS = (1, 50, 200)
+LATENT_BATCHES = (1, SERVE_BATCH)
+LATENT_WIDE_K = 20_000
+BANK_KERNEL_NAMES = ("chol_bundle", "hmc_terms", "metric_bundle", "g_inv", "hmc_partials")
+BANK_KERNEL_OUTPUTS = {"chol_bundle": ("l", "logdet"), "hmc_terms": ("log_pi", "grad"),
+                       "metric_bundle": ("g_inv", "l", "logdet", "g"), "g_inv": ("g_inv",),
+                       "hmc_partials": ("gi_part", "v")}
+BANK_KERNEL_SOURCES = {
+    "chol_bundle": ("rlvae_tpu_torch/csrc/chol_bundle.cu", "rlvae_tpu/ops/metric_kernels.py:470"),
+    "hmc_terms": ("rlvae_tpu_torch/csrc/hmc_terms.cu", "rlvae_tpu/ops/metric_kernels.py:809"),
+    "metric_bundle": ("rlvae_tpu_torch/csrc/metric_bundle.cu",
+                      "rlvae_tpu/ops/metric_kernels.py:657"),
+    "g_inv": ("rlvae_tpu_torch/csrc/metric_bundle.cu", "rlvae_tpu/ops/metric_kernels.py:618"),
+    "hmc_partials": ("rlvae_tpu_torch/csrc/hmc_partials.cu",
+                     "rlvae_tpu/ops/metric_kernels.py:886"),
+}
+
+
+def latent_bank(d: int, k: int, seed: int):
+    """A seeded D-wide bank: K centroids ~ N(0, I) and SPD matrices a a^T / D + 0.1 I."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=(k, d)).astype(np.float32)
+    a = (rng.normal(size=(k, d, d)) / np.sqrt(d)).astype(np.float32)
+    return c, (a @ np.swapaxes(a, -1, -2) + 0.1 * np.eye(d, dtype=np.float32)).astype(np.float32)
+
+
+def latent_rows(c: np.ndarray, b: int, seed: int) -> np.ndarray:
+    """B rows near the bank's centroids; with B > 1 the last two far from all."""
+    rng = np.random.default_rng(seed)
+    z = c[rng.integers(0, c.shape[0], size=b)] + 0.05 * rng.normal(size=(b, c.shape[1]))
+    if b > 1:
+        z[-2:] += 100.0
+    return z.astype(np.float32)
+
+
+def bank_kernel_calls(name: str, d: int):
+    """(kernel wrapper, plain version) of ``name`` on (z, c, m) at width ``d``'s
+    scalars: inv_t2 = 4/D, lbd = 0.01 (B1: + the 1e-6 jitter)."""
+    from rlvae_tpu_torch.ops import metric_kernels as mk
+
+    inv_t2, lbd, log_eps = 4.0 / d, 0.01, float(np.log(np.float32(1e-10)))
+    scalars = {"chol_bundle": (inv_t2, lbd + 1e-6), "hmc_terms": (inv_t2, lbd, log_eps),
+               "metric_bundle": (inv_t2, lbd), "g_inv": (inv_t2, lbd),
+               "hmc_partials": (inv_t2,)}[name]
+    kernel, plain = getattr(mk, name), getattr(mk, f"{name}_ref")
+
+    def tup(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    return (lambda z, c, m: tup(kernel(z, c, m, *scalars)),
+            lambda z, c, m: tup(plain(z, c, m, *scalars)))
+
+
+def bank_kernel_errors(name: str, got, plain, want):
+    """({output: errors}, ok) of the kernel's outputs against the plain fp32
+    version's and an fp64 evaluation's, at the kernels phase's tolerances:
+    B1 CHOL_RTOL/ATOL, B6/B7 BUNDLE_TOL (fp64: BUNDLE_FP64_FACTOR x the
+    plain's, or BUNDLE_FP64_RTOL of scale; B1 the same), B4 log pi
+    HMC_LP_ATOL and grad HMC_RTOL of its scale (fp64: IAF_FP64_FACTOR x, or
+    HMC_RTOL of scale), B8 PARTIALS_TOL of max(1, |plain|) (fp64:
+    IAF_FP64_FACTOR x, or PARTIALS_FP64_RTOL of scale)."""
+    err, ok = {}, True
+    for out, k_out, p_out, e_out in zip(BANK_KERNEL_OUTPUTS[name], got, plain, want):
+        d_kp = (k_out - p_out).abs()
+        ke = float((k_out.double() - e_out).abs().max())
+        pe = float((p_out.double() - e_out).abs().max())
+        scale = float(e_out.abs().max())
+        if name == "chol_bundle":
+            good = bool((d_kp <= CHOL_ATOL + CHOL_RTOL * p_out.abs()).all())
+            good = good and ke <= max(BUNDLE_FP64_FACTOR * pe, BUNDLE_FP64_RTOL * scale)
+        elif name in ("metric_bundle", "g_inv"):
+            rtol, atol = BUNDLE_TOL[out]
+            good = bool((d_kp <= atol + rtol * p_out.abs()).all())
+            good = good and ke <= max(BUNDLE_FP64_FACTOR * pe, BUNDLE_FP64_RTOL * scale)
+        elif name == "hmc_terms":
+            good = (float(d_kp.max()) <= HMC_LP_ATOL if out == "log_pi"
+                    else float(d_kp.max()) <= HMC_RTOL * max(float(p_out.abs().max()), 1e-30))
+            good = good and ke <= max(IAF_FP64_FACTOR * pe, HMC_RTOL * scale)
+        else:
+            good = bool((d_kp <= PARTIALS_TOL[out] * p_out.abs().clamp_min(1.0)).all())
+            good = good and ke <= max(IAF_FP64_FACTOR * pe, PARTIALS_FP64_RTOL * scale)
+        err[out] = {"kernel_vs_plain_abs": float(d_kp.max()), "kernel_vs_fp64_abs": ke,
+                    "plain_vs_fp64_abs": pe, "fp64_scale": scale, "ok": good}
+        ok = ok and good
+    return err, ok
+
+
+def bank_kernel_structure(torch, name: str, got, lbd: float = 0.01) -> bool:
+    """L zero above its diagonal, G bitwise symmetric, and the far rows (the
+    last two of a batch) exact: G^{-1} = lbd I, a zero gradient, zero sums."""
+    b, ok = got[0].shape[0], True
+    if name in ("chol_bundle", "metric_bundle"):
+        l = got[0] if name == "chol_bundle" else got[1]
+        ok = ok and bool(torch.all(torch.triu(l, 1) == 0))
+    if name == "metric_bundle":
+        ok = ok and bool(torch.equal(got[3], got[3].transpose(-1, -2)))
+    if b > 1:
+        if name in ("metric_bundle", "g_inv"):
+            d = got[0].shape[-1]
+            eye = lbd * torch.eye(d, device=got[0].device)
+            ok = ok and bool(torch.equal(got[0][-2:], eye.expand(2, d, d)))
+        elif name == "hmc_terms":
+            ok = ok and bool(torch.all(got[1][-2:] == 0))
+        elif name == "hmc_partials":
+            ok = ok and bool(torch.all(got[0][-2:] == 0) and torch.all(got[1][-2:] == 0))
+    return ok
+
+
+def bank_kernel_case(torch, dev, name: str, d: int, k: int, b: int, replay: bool = False):
+    """One check of ``name`` at (D, K, B): against plain and fp64, the
+    structure, bit-identical on relaunch and (``replay``) in a CUDA-graph
+    replay."""
+    c_np, m_np = latent_bank(d, k, 1000 * d + k)
+    z_np = latent_rows(c_np, b, 7 * d + k + b)
+    z, c, m = (torch.tensor(v, device=dev) for v in (z_np, c_np, m_np))
+    kernel, plain = bank_kernel_calls(name, d)
+    got, again = kernel(z, c, m), kernel(z, c, m)
+    ref = plain(z, c, m)
+    want = plain(z.double(), c.double(), m.double())
+    torch.cuda.synchronize()
+    err, ok = bank_kernel_errors(name, got, ref, want)
+    structure = bank_kernel_structure(torch, name, got)
+    relaunch = all(map(torch.equal, got, again))
+    shapes = all(tuple(g.shape) == tuple(r.shape) for g, r in zip(got, ref))
+    case = {"kernel": name, "d": d, "k": k, "b": b, "errors": err, "structure": structure,
+            "relaunch_bit_identical": relaunch, "shapes": shapes,
+            "max_abs_err": max(e["kernel_vs_plain_abs"] for e in err.values())}
+    if replay:
+        case["graph_replay_bit_identical"] = graph_replay_equal(torch, lambda: kernel(z, c, m),
+                                                                got)
+    case["ok"] = ok and structure and relaunch and shapes and case.get(
+        "graph_replay_bit_identical", True)
+    check(case["ok"], f"{name} at D={d}, K={k}, B={b}: {case}")
+    return case, (z, c, m, got)
+
+
+def bank_kernel_bound(name: str, b: int, k: int, d: int, tensors) -> tuple:
+    """(bound ms, bound by) of ``name`` at (B, K, D): the bytes of its inputs
+    and outputs, and its FLOP at fp32."""
+    flops = {"chol_bundle": bundle_flops(b, k, False, d) + b * (d ** 3 / 3 + d),
+             "hmc_terms": hmc_flops(b, k, d), "metric_bundle": bundle_flops(b, k, True, d),
+             "g_inv": bundle_flops(b, k, False, d), "hmc_partials": partials_flops(b, k, d)}[name]
+    return bound_ms(nbytes(*tensors), flops)
+
+
+def run_latent_dim_kernel_checks(torch, dev):
+    """B1, B4, B6, B7 and B8 at every D of LATENT_DIMS, K of LATENT_BANKS and
+    B of LATENT_BATCHES, and at D = 32, K = 20 000, B = 64: each against its
+    plain version and fp64, its structure, bit-identical on relaunch and in
+    a CUDA-graph replay (at B = 64, K = 200 for every D, and at the wide
+    case).  At D = 32, B = 64, K = 50 and 20 000: device ms per launch (a
+    CUDA graph of GRAPH_LAUNCHES), CUDA-event ms, the plain version's ms and
+    the bound."""
+    from rlvae_tpu_torch.ops.metric_kernels import bank_width, launch_hmc_geometry
+
+    cases, timed = [], {name: {} for name in BANK_KERNEL_NAMES}
+    for d in LATENT_DIMS:
+        for name in BANK_KERNEL_NAMES:
+            for k in LATENT_BANKS:
+                for b in LATENT_BATCHES:
+                    case, _ = bank_kernel_case(torch, dev, name, d, k, b,
+                                               replay=(k == 200 and b == SERVE_BATCH))
+                    cases.append(case)
+    for name in BANK_KERNEL_NAMES:
+        for k in (50, LATENT_WIDE_K):
+            case, (z, c, m, got) = bank_kernel_case(torch, dev, name, 32, k, SERVE_BATCH,
+                                                    replay=k == LATENT_WIDE_K)
+            if k == LATENT_WIDE_K:
+                cases.append(case)
+            kernel, plain = bank_kernel_calls(name, 32)
+            rec = {"d": 32, "b": SERVE_BATCH, "k": k, "compiled_width": bank_width(32),
+                   "geometry": list(launch_hmc_geometry(SERVE_BATCH, k, dev, name, 32)),
+                   "ms": time_ms(torch, lambda: kernel(z, c, m), 20),
+                   "device_ms": device_ms(torch, lambda: kernel(z, c, m))[0],
+                   "plain_ms": time_ms(torch, lambda: plain(z, c, m), 5),
+                   "max_abs_err": case["max_abs_err"]}
+            rec["bound_ms"], rec["bound_by"] = bank_kernel_bound(name, SERVE_BATCH, k, 32,
+                                                                 (z, c, m, *got))
+            timed[name][f"K={k}"] = rec
+    by_d = {n: {d: max(c["max_abs_err"] for c in cases if c["kernel"] == n and c["d"] == d)
+                for d in LATENT_DIMS} for n in BANK_KERNEL_NAMES}
+    worst_fp64 = {n: max(e["kernel_vs_fp64_abs"] / max(e["plain_vs_fp64_abs"], 1e-30)
+                         for c in cases if c["kernel"] == n for e in c["errors"].values())
+                  for n in BANK_KERNEL_NAMES}
+    return {"n_cases": len(cases), "d32_b64": timed, "max_abs_err_by_d": by_d,
+            "max_kernel_over_plain_fp64_err": worst_fp64,
+            "graph_replays": sum("graph_replay_bit_identical" in c for c in cases),
+            "max_abs_err": {n: max(c["max_abs_err"] for c in cases if c["kernel"] == n)
+                            for n in BANK_KERNEL_NAMES},
+            "tolerance": ("kernel vs plain and fp64 at the kernels phase's tolerances (B1 "
+                          "CHOL_RTOL/ATOL and the bundle's fp64 rule, B4 HMC_LP_ATOL/HMC_RTOL, "
+                          "B6/B7 BUNDLE_TOL, B8 PARTIALS_TOL); L upper triangle 0, G bitwise "
+                          "symmetric, far rows exact; bit-identical on relaunch and in a "
+                          "CUDA-graph replay")}
+
+
+# The slice's path at latent 32 (published widths, random nets: the shipped
+# 16-D encoder and decoder do not load there, and the model keeps its seeded
+# init with a warning, as JAX's RlVAE does), and a model past the kernels'
+# envelope at latent 48.
+LATENT_WIDE = 32
+LATENT_OVER = 48
+# the components CLI cut to 16 synthetic sequences (128 frames: 2 VAE and 2
+# RHVAE steps at its batch of 64) and one epoch of each stage
+LATENT_COMPONENTS_CUT = ["--synthetic", "16", "--epochs", "1", "--metric-epochs", "1"]
+LATENT_TRAIN_STEPS = 3
+# the official chain's MCMC steps stepped on the card for the CPU replay
+# (all 100), and the EP chain's (80 of the 100).  At latent 32 the target
+# is sharp (log det G^{-1} sums 32 logs) and few proposals are accepted:
+# 0.09-0.31% of rows a step on the components CLI's bank, which differs
+# from run to run; 20 steps at B=64 held 2-3 accepted rows in one call and
+# none in another.  At 0.09% the official chain expects 6 in 100 steps,
+# at 0.125% the EP chain 6 in 80 (none with odds ~0.3% and ~0.2%), so
+# each replay holds moved rows
+LATENT_CHAIN_REPLAY_STEPS = 100
+LATENT_EP_STEPS = 80
+# of those, the CPU replays the first 10 steps and each step in which the
+# card accepted a row: the plain terms at D = 32 are slow on the CPU
+LATENT_REPLAYED_STEPS = 10
+LATENT_EXPORT_BUCKET = 4
+LATENT_OVER_BANK = 50           # the D=48 model's seeded bank
+IAF_PLAIN_HIDDEN = 512          # an IAF chain past H = 256: the plain route
+
+
+def latent_config(metric_path, d: int, base=None):
+    """``base`` (the default preset) at latent ``d`` with ``metric_path``'s
+    bank and the preset's temperature override; the shipped 16-D nets are
+    named as the preset names them (they do not load at ``d``).  The flows
+    start near the identity (log-sigma bias 0): at the reference init (-2)
+    with random nets the chain scales z ~20x a transition, and the card's
+    and the CPU's fp32 rounding came 2.6e-3 of scale apart over 7
+    transitions at latent 32 (E2E_TOL's z_rel is 1e-3; ROADMAP C3), so the
+    reference init is held to fp64 instead (:func:`latent_reference_init`)."""
+    from rlvae_tpu_torch.models import PRESETS
+
+    cfg = copy.deepcopy(base or PRESETS["riemannian_flow_vae"])
+    cfg["latent_dim"] = d
+    cfg["flow_log_var_bias_init"] = 0.0
+    cfg["pretrained"] = {**cfg.get("pretrained", {}), "metric_path": str(metric_path)}
+    return cfg
+
+
+def latent_manager(torch, cfg, dev=None):
+    """A ModelManager of ``cfg``, and whether the shipped nets were refused
+    with a warning."""
+    import warnings
+
+    from rlvae_tpu_torch import ModelManager
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        manager = ModelManager.from_config(cfg, seed=0, device=dev)
+    refused = any("pretrained components not loaded" in str(w.message) for w in caught)
+    return manager, refused
+
+
+def latent_components(torch, dev, out_dir: Path):
+    """``python -m rlvae_tpu_torch.components --latent-dim 32`` (cut by
+    LATENT_COMPONENTS_CUT) in this process on the card: every RHVAE step
+    launches G^{-1} 16 times and nothing else, each RHVAE step is replayed on
+    the CPU from the card's state (loss and grad norm at TRAIN_TOL), and the
+    bank it writes is 32-D and finite."""
+    from rlvae_tpu_torch import components
+    from rlvae_tpu_torch.geometry import load_metric
+    from rlvae_tpu_torch.geometry.pretrain import RHVAE
+
+    steps, made = [], []
+
+    def pre(module, args):
+        if steps:
+            steps[-1]["grad_norm"] = _grad_norm(torch, module)
+        steps.append({"state": {k: v.detach().cpu().clone() for k, v in module.state_dict().items()},
+                      "x": args[0].detach().cpu(),
+                      "noise": {k: v.detach().cpu() for k, v in args[1].items()},
+                      "before": launch_counts()})
+
+    def post(module, args, result):
+        steps[-1]["loss"] = float(result["loss"].detach())
+        steps[-1]["launches"] = {k: v - steps[-1]["before"][k] for k, v in launch_counts().items()}
+
+    def counted_rhvae(*args, **kwargs):
+        m = RHVAE(*args, **kwargs)
+        m.register_forward_pre_hook(pre)
+        m.register_forward_hook(post)
+        made.append(m)
+        return m
+
+    argv = ["--latent-dim", str(LATENT_WIDE), "--out-dir", str(out_dir), *LATENT_COMPONENTS_CUT]
+    components.RHVAE, plain_rhvae = counted_rhvae, components.RHVAE
+    try:
+        t = time.perf_counter()
+        summary, counts = counted(torch, lambda: components.main(argv))
+        cli_s = time.perf_counter() - t
+    finally:
+        components.RHVAE = plain_rhvae
+    steps[-1]["grad_norm"] = _grad_norm(torch, made[0])
+    check(len(steps) >= 1, "the components CLI took no RHVAE step")
+    g_inv_per_step = 5 * 3 + 1
+    for i, rec in enumerate(steps):
+        check(rec["launches"] == expected_launches(g_inv=g_inv_per_step),
+              f"RHVAE step {i + 1} at latent {LATENT_WIDE} launched {rec['launches']}")
+    cpu_rhvae = RHVAE(input_dim=tuple(steps[0]["x"].shape[1:]), latent_dim=LATENT_WIDE)
+    errors = []
+    for i, rec in enumerate(steps):
+        cpu_rhvae.load_state_dict(rec["state"])
+        cpu_rhvae.zero_grad(set_to_none=True)
+        res = cpu_rhvae(rec["x"], rec["noise"])
+        res["loss"].backward()
+        loss_cpu, gn_cpu = float(res["loss"].detach()), _grad_norm(torch, cpu_rhvae)
+        err = {"loss_rel": abs(rec["loss"] - loss_cpu) / abs(loss_cpu),
+               "grad_norm_rel": abs(rec["grad_norm"] - gn_cpu) / gn_cpu}
+        errors.append(err)
+        check(np.isfinite(rec["loss"]) and err["loss_rel"] <= TRAIN_TOL["loss_rel"]
+              and err["grad_norm_rel"] <= TRAIN_TOL["grad_norm_rel"],
+              f"RHVAE step {i + 1} at latent {LATENT_WIDE}: card vs CPU {err}")
+    bank = load_metric(out_dir / "metric.npz")
+    check(bank.latent_dim == LATENT_WIDE and bool(torch.isfinite(bank.matrices).all())
+          and bank.n_centroids == summary["n_centroids"],
+          f"the components CLI wrote a {bank.latent_dim}-D bank of {bank.n_centroids}")
+    return {"argv": argv, "cut": "16 synthetic sequences (200), 1 VAE epoch (50), 1 RHVAE "
+                                 "epoch (10)", "host_s": cli_s, "launches": counts,
+            "rhvae_steps": len(steps), "g_inv_per_rhvae_step": g_inv_per_step,
+            "card_vs_cpu": errors, "n_centroids": bank.n_centroids,
+            "temperature": bank.temperature}
+
+
+def latent_serve(torch, manager):
+    """One B=64 ``reconstruct`` bucket behind the engine (B1 x2 and B2, and
+    nothing else), and a B=64 forward against the CPU."""
+    from rlvae_tpu_torch import BatchingEngine, ModelManager, ServeConfig
+
+    rng = np.random.default_rng(32)
+    seqs = rng.uniform(size=(SERVE_BATCH, 8, 3, 64, 64)).astype(np.float32)
+    engine = BatchingEngine.from_manager(manager, ServeConfig(buckets=(SERVE_BATCH,),
+                                                              max_wait_ms=2000))
+    try:
+        engine.warmup({"reconstruct": seqs[0]})
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        rows = [f.result(timeout=60) for f in [engine.submit("reconstruct", s) for s in seqs]]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        batches = engine.stats_snapshot()["batches"]
+    finally:
+        engine.stop()
+    check(batches == 1 and counts == expected_launches(chol_bundle=2, iaf_chain_fwd=1),
+          f"a latent-{LATENT_WIDE} reconstruct bucket launched {counts} in {batches} batches")
+    check(all(r.shape == (8, 3, 64, 64) and np.isfinite(r).all() for r in rows),
+          "bad reconstruct result")
+    eps = torch.tensor(rng.normal(size=(SERVE_BATCH, LATENT_WIDE)), dtype=torch.float32)
+    out_gpu = manager.forward(seqs, eps=eps.to(manager.device))
+    torch.cuda.synchronize()
+    cpu = ModelManager(copy.deepcopy(manager.model).to("cpu"), device="cpu")
+    return {"launches": counts, "cuda_vs_cpu": compare_forward(torch, out_gpu,
+                                                                cpu.forward(seqs, eps=eps))}
+
+
+def fp64_forward(torch, model, seqs, eps):
+    """``model``'s forward (eval mode) on ``seqs`` with posterior noise
+    ``eps``, in float64 on the CPU (the MLP nets' products too)."""
+    import torch.nn.functional as F
+
+    from rlvae_tpu_torch.nets import mlp
+
+    model = copy.deepcopy(model).to("cpu").double()
+    plain = mlp.dense
+    mlp.dense = lambda layer, h, dtype: F.linear(h.double(), layer.weight.double(),
+                                                 layer.bias.double())
+    try:
+        with torch.no_grad():
+            return model(torch.from_numpy(seqs).double(), eps=eps.double())
+    finally:
+        mlp.dense = plain
+
+
+def latent_reference_init(torch, bank_path, dev):
+    """The default preset at latent 32 at its reference flow init (log-sigma
+    bias -2; the rest of this phase starts near the identity), where the
+    chain scales z ~20x a transition and fp32 rounding grows with it: a B=64
+    forward (B1 2, B2 1) on the card and on the CPU, each held to an fp64
+    forward on the CPU (z per time step relative to its largest entry, and
+    the losses: the card's error at most FP64_GRAD_FACTOR x the CPU's, or
+    E2E_TOL's); and one Trainer step replayed on the CPU (losses at
+    TRAIN_TOL) with the card's and the CPU's gradients against fp64's
+    (:func:`_train_and_replay`'s fp64 gate)."""
+    from rlvae_tpu_torch import ModelManager
+    from rlvae_tpu_torch.models import PRESETS
+
+    cfg = {**latent_config(bank_path, LATENT_WIDE),
+           "flow_log_var_bias_init": PRESETS["riemannian_flow_vae"]["flow_log_var_bias_init"]}
+    manager, _ = latent_manager(torch, cfg, dev)
+    rng = np.random.default_rng(33)
+    seqs = rng.uniform(size=(SERVE_BATCH, 8, 3, 64, 64)).astype(np.float32)
+    eps = torch.tensor(rng.normal(size=(SERVE_BATCH, LATENT_WIDE)), dtype=torch.float32)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    out_card = manager.forward(seqs, eps=eps.to(manager.device))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts == expected_launches(chol_bundle=2, iaf_chain_fwd=1),
+          f"a latent-{LATENT_WIDE} reference-init forward launched {counts}")
+    out_cpu = ModelManager(copy.deepcopy(manager.model).to("cpu"), device="cpu").forward(
+        seqs, eps=eps)
+    exact = fp64_forward(torch, manager.model, seqs, eps)
+
+    def errors(out, want):
+        a = {k: v.double().cpu() for k, v in out.items()}
+        scale = want["z"].abs().amax(dim=(0, 2)).clamp_min(1e-12)
+        got = {"z_rel": float(((a["z"] - want["z"]).abs().amax(dim=(0, 2)) / scale).max())}
+        for k in ("kld_loss", "recon_loss", "flow_loss", "loss"):
+            got[k] = float((a[k] - want[k]).abs() / want[k].abs().clamp_min(1e-12))
+        return got
+
+    want = {k: v.double() for k, v in exact.items()}
+    card, cpu = errors(out_card, want), errors(out_cpu, want)
+    for k, err in card.items():
+        check(np.isfinite(err) and err <= max(FP64_GRAD_FACTOR * cpu[k], E2E_TOL[k]),
+              f"latent-{LATENT_WIDE} reference-init forward vs fp64: {k} card {err}, CPU {cpu[k]}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_latent_") as run_dir:
+        train = _train_and_replay(torch, run_dir, cfg, 1, None, dev, fp64=True, timed=False)
+    launches = dict(counts)
+    add_counts(launches, train["launches"])
+    return {"init": cfg["flow_log_var_bias_init"], "forward_launches": counts,
+            "forward_card_vs_fp64": card, "forward_cpu_vs_fp64": cpu,
+            "forward_card_vs_cpu": errors(out_card, {k: v.double() for k, v in out_cpu.items()}),
+            "train": train, "launches": launches}
+
+
+def latent_generate(torch, manager):
+    """``official`` and ``hmc`` at B=64: 1601 B4 a chain and one B2; the
+    official chain's first LATENT_CHAIN_REPLAY_STEPS steps replayed on the
+    CPU."""
+    calls = []
+    zero_launch_counts()
+    for i, method in enumerate(("official", "hmc")):
+        before = launch_counts()
+        t = time.perf_counter()
+        x = manager.sample_random_batched_seeds(list(range(64 * i, 64 * i + SERVE_BATCH)),
+                                                method=method)
+        host_s = time.perf_counter() - t
+        got = {k: v - before[k] for k, v in launch_counts().items()}
+        want = expected_launches(hmc_terms=CHAIN_LAUNCHES, iaf_chain_fwd=1)
+        check(got == want, f"latent-{LATENT_WIDE} {method} launched {got}, expected {want}")
+        check(x.shape == (SERVE_BATCH, 8, 3, 64, 64) and np.isfinite(x).all(),
+              f"bad latent-{LATENT_WIDE} {method} output")
+        calls.append({"method": method, "batch": SERVE_BATCH, "host_s": host_s, "launches": got})
+    return {"calls": calls, "launches": launch_counts(),
+            "chain_card_vs_cpu": replay_chain(torch, manager, LATENT_CHAIN_REPLAY_STEPS,
+                                              LATENT_REPLAYED_STEPS)}
+
+
+def latent_geodesic(torch, bank_path, dev):
+    """``hybrid_rlvae`` with ``sampling.method: geodesic`` at latent 32 on the
+    CLI's bank: one B=64 reconstruct bucket (B6 and B2) and one Trainer step
+    replayed on the CPU (B6, B2, B3; its validation B7)."""
+    from rlvae_tpu_torch import BatchingEngine, ServeConfig
+
+    cfg = latent_config(bank_path, LATENT_WIDE, geodesic_hybrid_config())
+    manager, _ = latent_manager(torch, cfg, dev)
+    seqs = np.random.default_rng(33).uniform(size=(SERVE_BATCH, 8, 3, 64, 64)).astype(np.float32)
+    engine = BatchingEngine.from_manager(manager, ServeConfig(buckets=(SERVE_BATCH,),
+                                                              max_wait_ms=2000))
+    try:
+        engine.warmup({"reconstruct": seqs[0]})
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        rows = [f.result(timeout=60) for f in [engine.submit("reconstruct", s) for s in seqs]]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        engine.stop()
+    check(counts == expected_launches(metric_bundle=1, iaf_chain_fwd=1),
+          f"a latent-{LATENT_WIDE} geodesic bucket launched {counts}")
+    check(all(np.isfinite(r).all() for r in rows), "bad geodesic reconstruct")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_latent_") as run_dir:
+        train = _train_and_replay(
+            torch, run_dir, cfg, 1,
+            expected_launches(metric_bundle=1, iaf_chain_fwd=1, iaf_chain_bwd=1), dev,
+            witness=True)
+    return {"bucket_launches": counts, "train": train,
+            "launches": {k: counts[k] + train["launches"][k] for k in counts}}
+
+
+def latent_ep(torch, bank):
+    """The official chain through ``sample_prior_hmc_sharded`` at latent 32
+    and B=64, LATENT_EP_STEPS MCMC steps (1 + 16 per step B8 launches and
+    no B4), stepped one step at a time and replayed on the CPU and against
+    the dense B4 terms."""
+    from rlvae_tpu_torch.geometry.metric import CentroidMetric
+    from rlvae_tpu_torch.parallel import create_mesh, sample_prior_hmc_sharded
+    from rlvae_tpu_torch.samplers import HMCConfig, draw_hmc_noise
+
+    mesh = create_mesh()
+    cfg = HMCConfig(mcmc_steps=LATENT_EP_STEPS)
+    noise = draw_hmc_noise(bank, SERVE_BATCH, cfg,
+                           torch.Generator(device=bank.centroids.device).manual_seed(19))
+    (z, diag), launches = counted(torch, lambda: sample_prior_hmc_sharded(
+        mesh, bank, SERVE_BATCH, cfg, **noise, return_diagnostics=True))
+    want = expected_launches(hmc_partials=1 + LATENT_EP_STEPS * (cfg.n_lf + 1))
+    check(launches == want, f"the latent-{LATENT_WIDE} EP chain launched {launches}")
+    check(z.shape == (SERVE_BATCH, LATENT_WIDE) and bool(torch.isfinite(z).all()),
+          "bad EP chain output")
+    cpu_bank = CentroidMetric(bank.centroids.cpu(), bank.matrices.cpu(), bank.temperature,
+                              bank.regularization)
+    return {"mcmc_steps": LATENT_EP_STEPS, "launches": launches,
+            "accept_rate": float(diag["accept_rate"]),
+            "replay": replay_ep_chain(torch, bank, cpu_bank, noise, cfg, z,
+                                      LATENT_REPLAYED_STEPS)}
+
+
+def latent_export(torch, manager, tmp: Path):
+    """``reconstruct`` exported at latent 32 and bucket LATENT_EXPORT_BUCKET,
+    loaded on the card: two B1 and one B2 in the graph and launched per run,
+    bit for bit the live manager."""
+    from rlvae_tpu_torch.export import export_model, load_exported
+
+    b = LATENT_EXPORT_BUCKET
+    t = time.perf_counter()
+    manifest = export_model(manager, tmp, ops=("reconstruct",), buckets=(b,))
+    export_s = time.perf_counter() - t
+    ops = manifest["programs"]["reconstruct"][str(b)]["registered_ops"]
+    check(ops == {**dict.fromkeys(ops, 0), "chol_bundle": 2, "iaf_chain_fwd": 1},
+          f"the latent-{LATENT_WIDE} reconstruct program holds {ops}")
+    bundle = load_exported(tmp, device=manager.device)
+    x = np.random.default_rng(34).uniform(size=(b, 8, 3, 64, 64)).astype(np.float32)
+    bundle.run("reconstruct", x)  # warm
+    got, launches = counted(torch, lambda: bundle.run("reconstruct", x))
+    check(launches == expected_launches(chol_bundle=2, iaf_chain_fwd=1),
+          f"the latent-{LATENT_WIDE} program launched {launches}")
+    want = manager.reconstruct(x, seed=0)
+    check(np.array_equal(got, want), "the latent-32 program differs from the live manager")
+    return {"bucket": b, "export_s": export_s, "registered_ops": ops, "launches": launches,
+            "bitwise_vs_manager": True}
+
+
+def latent_over(torch, dev, tmp: Path):
+    """A model past the kernels' envelope (latent 48, a seeded K=50 bank):
+    a B=64 forward (``reconstruct``'s) and one ``geodesic`` generate on the
+    card take the plain routes (no B1/B2/B4/B6/B7/B8 launch, a non-zero
+    ``plain_route.calls``), against the CPU; then one IAF chain at H = 512
+    (latent 16) on the plain route, against the CPU."""
+    from rlvae_tpu_torch import ModelManager
+    from rlvae_tpu_torch.flows import TemporalFlows, apply_temporal_flows
+    from rlvae_tpu_torch.geometry.loader import save_metric
+    from rlvae_tpu_torch.geometry.metric import CentroidMetric
+    from rlvae_tpu_torch.ops._launch import plain_route
+
+    c, m = latent_bank(LATENT_OVER, LATENT_OVER_BANK, 48)
+    save_metric(CentroidMetric.create(c, m, 1.0, 0.01), tmp / "metric48.npz")
+    manager, refused = latent_manager(torch, latent_config(tmp / "metric48.npz", LATENT_OVER), dev)
+    rng = np.random.default_rng(48)
+    seqs = rng.uniform(size=(SERVE_BATCH, 8, 3, 64, 64)).astype(np.float32)
+    eps = torch.tensor(rng.normal(size=(SERVE_BATCH, LATENT_OVER)), dtype=torch.float32)
+    before = plain_route.calls
+    out_gpu, launches = counted(torch, lambda: manager.forward(seqs, eps=eps.to(manager.device)))
+    gen = torch.Generator(device=manager.device).manual_seed(29)
+    noise = manager.model.draw_generation_noise(SERVE_BATCH, "geodesic", gen)
+    with torch.no_grad():
+        x_gpu, gen_launches = counted(torch, lambda: manager.model.generate(
+            SERVE_BATCH, 8, "geodesic", noise=noise))
+    plain_calls = plain_route.calls - before
+    check(launches == expected_launches() and gen_launches == expected_launches(),
+          f"the latent-{LATENT_OVER} model launched {launches} and {gen_launches}")
+    check(plain_calls > 0, "the latent-48 model took no plain route")
+    cpu = ModelManager(copy.deepcopy(manager.model).to("cpu"), device="cpu")
+    compare = compare_forward(torch, out_gpu, cpu.forward(seqs, eps=eps))
+    with torch.no_grad():
+        x_cpu = cpu.model.generate(SERVE_BATCH, 8, "geodesic",
+                                   noise={k: v.cpu() for k, v in noise.items()})
+    gen_err = float((x_gpu.float().cpu() - x_cpu.float()).abs().mean())
+    check(gen_err <= E2E_TOL["recon_mean_abs"],
+          f"latent-{LATENT_OVER} geodesic generate card vs CPU: {gen_err}")
+
+    torch.manual_seed(0)
+    flows = TemporalFlows(16, n_flows=2, hidden_size=IAF_PLAIN_HIDDEN, log_var_bias_init=0.0)
+    z0 = torch.randn(SERVE_BATCH, 16)
+    before = plain_route.calls
+    with torch.no_grad():
+        (z_gpu, ld_gpu), iaf_launches = counted(torch, lambda: apply_temporal_flows(
+            copy.deepcopy(flows).to(dev or "cuda"), z0.to(dev or "cuda"), 8))
+        z_cpu, ld_cpu = apply_temporal_flows(flows, z0, 8)
+    iaf_plain = plain_route.calls - before
+    check(iaf_launches == expected_launches() and iaf_plain == 1,
+          f"the H={IAF_PLAIN_HIDDEN} chain launched {iaf_launches}, {iaf_plain} plain calls")
+    iaf_err = _scaled(z_gpu, z_cpu)
+    check(iaf_err <= IAF_RTOL and _scaled(ld_gpu, ld_cpu) <= IAF_RTOL,
+          f"the H={IAF_PLAIN_HIDDEN} chain card vs CPU: {iaf_err}")
+    return {"latent_dim": LATENT_OVER, "shipped_nets_refused": refused,
+            "forward_launches": launches, "generate_launches": gen_launches,
+            "plain_route_calls": plain_calls, "cuda_vs_cpu": compare,
+            "geodesic_generate_mean_abs": gen_err,
+            "iaf_h512": {"launches": iaf_launches, "plain_route_calls": iaf_plain,
+                         "z_rel_err": iaf_err}}
+
+
+# B5 past 512 hidden units (csrc/decode_mse_wide.cu): mlp_rlvae's decoder
+# [256, 512, 1024] ends at K = 1024
+DECODE_WIDE_K = 1024
+DECODE_WIDE_SHAPES = ((TRAIN_BATCH * 8, 12288), (37, 300))
+MLP_FUSED_STEPS = 2
+
+
+def decode_wide_inputs(torch, dev, m: int, n: int, k: int, seed: int):
+    """Decoder-like inputs at hidden width k: h post-ReLU (bf16), W [N, K] and
+    b at a Linear init's scale, targets in [0, 1], rw = 1/B with rows 3 and
+    4 at 0."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    rw = np.full((m,), 1.0 / TRAIN_BATCH)
+    rw[3:5] = 0.0
+    return (t(np.maximum(rng.normal(size=(m, k)), 0.0)).to(torch.bfloat16),
+            t(rng.uniform(-1, 1, size=(n, k)) / np.sqrt(k)),
+            t(rng.uniform(-1, 1, size=(n,)) / np.sqrt(k)), t(rng.uniform(size=(m, n))), t(rw))
+
+
+def decode_wide_checks(torch, dev):
+    """decode+MSE's three entry points at K = 1024 against their plain
+    versions at the kernels phase's tolerances (the loss also fp64),
+    bit-identical on relaunch and in a CUDA-graph replay, the dW/db entry
+    on the dp that the dh entry left (as DecodeMSE's backward calls it)
+    bitwise its own; device ms at M = 128, N = 12288 beside the plain
+    version and the bound, the two backward entries as DecodeMSE calls
+    them (dh fills the dp workspace, dW/db reads it)."""
+    from rlvae_tpu_torch.ops.recon_kernels import (
+        decode_mse,
+        decode_mse_bwd_dh,
+        decode_mse_bwd_dw,
+        decode_mse_dh_ref,
+        decode_mse_dw_ref,
+        decode_mse_ref,
+        wide_dp,
+    )
+
+    g = torch.ones((), device=dev)
+    k, cases, timed = DECODE_WIDE_K, [], {}
+    for m, n in DECODE_WIDE_SHAPES:
+        args = decode_wide_inputs(torch, dev, m, n, k, m + n)
+        h, w, b, x, rw = args
+        dp = wide_dp(h, x)
+        kernels = (lambda: decode_mse(*args), lambda: decode_mse_bwd_dh(*args, g, dp),
+                   lambda: decode_mse_bwd_dw(*args, g, dp))
+        loss, dh, (dw, db) = (f() for f in kernels)
+        shared = all(map(torch.equal, (dw, db), decode_mse_bwd_dw(*args, g)))
+        again = (kernels[0](), kernels[1](), *kernels[2]())
+        same = all(map(torch.equal, (loss, dh, dw, db), again))
+        replayed = graph_replay_equal(torch, lambda: (kernels[0](), kernels[1](), *kernels[2]()),
+                                      (loss, dh, dw, db))
+        ref = decode_mse_ref(*args)
+        ref64 = decode_mse_ref(h, w.double(), b.double(), x.double(), rw.double())
+        dh_p = decode_mse_dh_ref(*args, g)
+        dh32, dh32_p = decode_mse_bwd_dh(h.float(), w, b, x, rw, g), decode_mse_dh_ref(
+            h.float(), w, b, x, rw, g)
+        dw_p, db_p = decode_mse_dw_ref(*args, g)
+        torch.cuda.synchronize()
+        err_k, err_p = abs(float(loss) - float(ref64)), abs(float(ref) - float(ref64))
+
+        def within(got, want):
+            return float((got.float() - want.float()).abs().max()) <= (
+                DECODE_GRAD_RTOL * float(want.float().abs().max()))
+
+        d, ref_abs = (dh.float() - dh_p.float()).abs(), dh_p.float().abs()
+        case = {"shape": f"M={m},K={k},N={n}",
+                "loss_rel": abs(float(loss) - float(ref)) / abs(float(ref)),
+                "loss_vs_fp64": err_k, "plain_loss_vs_fp64": err_p,
+                "dh_bf16_max_abs": float(d.max()), "dh_fp32_ok": within(dh32, dh32_p),
+                "dw_ok": within(dw, dw_p), "db_ok": within(db, db_p),
+                "max_abs_err": max(float(d.max()), float((dw - dw_p).abs().max()),
+                                   float((db - db_p).abs().max())),
+                "masked_rows_zero": bool(torch.all(dh[3:5] == 0)),
+                "shared_dp_bitwise_own": shared,
+                "bit_identical_on_relaunch": same, "bit_identical_in_graph_replay": replayed}
+        case["ok"] = (case["loss_rel"] <= DECODE_LOSS_RTOL
+                      and err_k <= max(DECODE_FP64_FACTOR * err_p,
+                                       DECODE_FP64_RTOL * abs(float(ref64)))
+                      and bool(torch.all(d <= 2.0 ** -7 * ref_abs
+                                         + DECODE_GRAD_RTOL * float(ref_abs.max())))
+                      and case["dh_fp32_ok"] and case["dw_ok"] and case["db_ok"]
+                      and case["masked_rows_zero"] and shared and same and replayed)
+        check(case["ok"], f"decode+MSE at K={k} disagrees: {case}")
+        cases.append(case)
+        if n == 12288:
+            mkn, ins = 2.0 * m * k * n, nbytes(h, w, b, x, rw)
+            plains = (lambda: decode_mse_ref(*args), lambda: decode_mse_dh_ref(*args, g),
+                      lambda: decode_mse_dw_ref(*args, g))
+            for name, kernel, plain, n_bytes, n_ops in zip(
+                    ("decode_mse_fwd", "decode_mse_bwd_dh", "decode_mse_bwd_dw"), kernels, plains,
+                    (ins + 4, ins + 4 + nbytes(h), ins + 4 + nbytes(w, b)), (mkn, 2 * mkn, 2 * mkn)):
+                bms, by = bound_ms(n_bytes, n_ops, PEAK_BF16_TENSOR_FLOPS)
+                timed[name] = {"shape": case["shape"], "device_ms": device_ms(torch, kernel)[0],
+                               "ms": time_ms(torch, kernel, 5), "plain_ms": time_ms(torch, plain, 3),
+                               "bound_ms": bms, "bound_by": by}
+    return {"cases": cases, "timed": timed,
+            "source": "rlvae_tpu_torch/csrc/decode_mse_wide.cu",
+            "max_abs_err": max(c["max_abs_err"] for c in cases)}
+
+
+def latent_mlp_fused(torch, dev):
+    """MLP_FUSED_STEPS Trainer steps of ``mlp_rlvae`` with the fused
+    decode+MSE loss (``model.fused_decode_mse=true``, dropout 0 in both nets
+    so the CPU replays the card's steps; the nets' published widths, the
+    shipped 16-D nets refused): each step launches B1 2, B2 1, B3 1 and the
+    wide B5's three entry points once (K = 1024), replayed on the CPU at the
+    near-identity flow init."""
+    cfg = conv_config("mlp_rlvae", "model.encoder.dropout=0", "model.decoder.dropout=0",
+                      "model.fused_decode_mse=true")["model"]
+    check(cfg["decoder"]["hidden_dims"][-1] == DECODE_WIDE_K, f"mlp_rlvae decoder {cfg['decoder']}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mlp_fused_") as run_dir:
+        return _train_and_replay(
+            torch, run_dir, {**cfg, "flow_log_var_bias_init": 0.0}, MLP_FUSED_STEPS,
+            expected_launches(chol_bundle=2, iaf_chain_fwd=1, iaf_chain_bwd=1, decode_mse_fwd=1,
+                              decode_mse_bwd_dh=1, decode_mse_bwd_dw=1), dev, witness=True)
+
+
+def run_latent_dims(torch, dev=None):
+    """The latent_dims phase: the bank kernels at every width
+    (:func:`run_latent_dim_kernel_checks`), then the slice's path at latent
+    32 with the launch counters zeroed before each part and read after it
+    and ``plain_route.calls`` held at 0 throughout: the components CLI
+    writes a 32-D bank; the default preset on it serves a reconstruct bucket,
+    trains LATENT_TRAIN_STEPS steps and generates with both chains, and at
+    its reference flow init runs a forward and a step held to fp64; the
+    geodesic hybrid serves a bucket and trains a step; the EP chain; the
+    exported reconstruct.  Then the latent-48 model and the H=512 chain on
+    the plain routes."""
+    from rlvae_tpu_torch.ops._launch import plain_route
+
+    dev = dev or torch.device("cuda")
+    out, laps, total = {}, {}, {}
+    t = time.perf_counter()
+    out["kernels"] = run_latent_dim_kernel_checks(torch, dev)
+    laps["kernels"] = time.perf_counter() - t
+    plain_before = plain_route.calls
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_latent_") as tmp:
+        tmp = Path(tmp)
+        t = time.perf_counter()
+        out["components"] = latent_components(torch, dev, tmp / "components")
+        add_counts(total, out["components"]["launches"])
+        bank_path = tmp / "components" / "metric.npz"
+        cfg = latent_config(bank_path, LATENT_WIDE)
+        manager, refused = latent_manager(torch, cfg, dev)
+        check(refused and manager.model.latent_dim == LATENT_WIDE
+              and manager.model.metric.latent_dim == LATENT_WIDE,
+              "the latent-32 model did not keep its init with a warning")
+        laps["components"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["serve"] = latent_serve(torch, manager)
+        add_counts(total, out["serve"]["launches"])
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_latent_") as run_dir:
+            out["train"] = _train_and_replay(
+                torch, run_dir, cfg, LATENT_TRAIN_STEPS, None, dev, witness=True)
+        add_counts(total, out["train"]["launches"])
+        out["generate"] = latent_generate(torch, manager)
+        add_counts(total, out["generate"]["launches"])
+        laps["default_model"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["reference_init"] = latent_reference_init(torch, bank_path, dev)
+        add_counts(total, out["reference_init"]["launches"])
+        laps["reference_init"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["geodesic"] = latent_geodesic(torch, bank_path, dev)
+        add_counts(total, out["geodesic"]["launches"])
+        out["ep"] = latent_ep(torch, manager.model.metric)  # the bank at the preset's T
+        add_counts(total, out["ep"]["launches"])
+        laps["geodesic_ep"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["export"] = latent_export(torch, manager, tmp / "bundle")
+        add_counts(total, out["export"]["launches"])
+        laps["export"] = time.perf_counter() - t
+        out["plain_route_calls"] = plain_route.calls - plain_before
+        check(out["plain_route_calls"] == 0,
+              f"the latent-{LATENT_WIDE} path took the plain route {out['plain_route_calls']} times")
+        t = time.perf_counter()
+        out["over"] = latent_over(torch, dev, tmp)
+        laps["over"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["decode_wide"] = decode_wide_checks(torch, dev)
+    out["mlp_fused"] = latent_mlp_fused(torch, dev)
+    add_counts(total, out["mlp_fused"]["launches"])
+    laps["decode_wide"] = time.perf_counter() - t
+    out["launches"] = total
+    out["laps_s"] = laps
+    out["cut"] = {"components": out["components"]["cut"],
+                  "ep_mcmc_steps": f"{LATENT_EP_STEPS} (100)",
+                  "official_chain_stepped_steps": f"{LATENT_CHAIN_REPLAY_STEPS} (100)",
+                  "cpu_replayed_steps": f"the first {LATENT_REPLAYED_STEPS} and each that "
+                                        "accepted a row",
+                  "geodesic_train_steps": 1}
+    return out
+
+
 def _grad_norm(torch, module) -> float:
     return float(torch.sqrt(sum((p.grad.detach().float() ** 2).sum()
                                 for p in module.parameters() if p.grad is not None)))
@@ -6399,6 +7246,7 @@ def main() -> None:
     deploy = phase("deploy", run_deploy, torch, nvidia_smi=smi)
     viz = phase("viz", lambda t: run_viz(t, chol_device_ms=records["chol_bundle"]["device_ms"]),
                 torch, nvidia_smi=smi)
+    latent = phase("latent_dims", run_latent_dims, torch, nvidia_smi=smi)
     emit("phase_seconds", **PHASE_S)
     # launches: the sum over the main paths' runs (each read between
     # zeroing the counters and the end of its run), with each path's count
@@ -6440,7 +7288,11 @@ def main() -> None:
              "deploy_methods": (deploy["methods"]["launches"], ("chol_bundle", "iaf_chain_fwd",
                                                                 "hmc_terms", "metric_bundle",
                                                                 "g_inv")),
-             "viz": (viz["launches"], ("chol_bundle", "iaf_chain_fwd", "metric_bundle", "g_inv"))}
+             "viz": (viz["launches"], ("chol_bundle", "iaf_chain_fwd", "metric_bundle", "g_inv")),
+             "latent_dims": (latent["launches"], ("chol_bundle", "iaf_chain_fwd", "iaf_chain_bwd",
+                                                  "hmc_terms", "metric_bundle", "g_inv",
+                                                  "hmc_partials", "decode_mse_fwd",
+                                                  "decode_mse_bwd_dh", "decode_mse_bwd_dw"))}
     for path, (counts, kernels) in paths.items():
         for name in kernels:
             check(counts[name] > 0, f"the {path} path did not launch {name}")
@@ -6525,6 +7377,20 @@ def main() -> None:
             **{f"multirun_{m}": r["launches"][name] for m, r in exp["multirun"].items()},
             "fast": exp["fast"]["launches"][name]}
 
+    # every latent width: the checks' worst error per width, and at D = 32
+    # the times beside the bound (latent_dims phase)
+    for name in BANK_KERNEL_NAMES:
+        records[name]["latent_dims"] = {
+            "max_abs_err_by_d": latent["kernels"]["max_abs_err_by_d"][name],
+            "d32_b64": latent["kernels"]["d32_b64"][name],
+            "launches_latent32_path": latent["launches"].get(name, 0)}
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                           latent["kernels"]["max_abs_err"][name])
+    for name, t in latent["decode_wide"]["timed"].items():
+        records[name]["k1024"] = {**t, "source": latent["decode_wide"]["source"],
+                                  "launches_mlp_fused": latent["mlp_fused"]["launches"][name]}
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                           latent["decode_wide"]["max_abs_err"])
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(smi, flush=True)

@@ -7,8 +7,9 @@
 // the K-proportional part of the manifold-HMC terms.  The centroid-sharded
 // path (rlvae_tpu_torch/parallel/metric_parallel.py) sums gi_part and v over
 // the shards in one all-reduce and then finishes locally: + lbd*I, Cholesky,
-// log-det, inverse and G v.  gi_part is written i-major ([B,16,16], entry
-// (i, j) at i*16 + j), v as [B,16].
+// log-det, inverse and G v.  gi_part is written i-major ([B,d,d], entry
+// (i, j) at i*d + j), v as [B,d], at any latent width 1 <= d <= 32
+// (hmc_bank.cuh: compiled at DP = 16 and 32).
 //
 // Replaces the Pallas kernels behind rlvae_tpu/ops/metric_kernels.py:886
 // hmc_partials_pallas (_hmc_partial_kernel :869, resident bank;
@@ -36,71 +37,85 @@ namespace {
 
 using namespace hmc;
 
-template <int R>
-__global__ void __launch_bounds__(max_warps(R, HMC) * 32)
+template <int DP, int R>
+__global__ void __launch_bounds__(max_warps(R, HMC, DP) * 32)
 hmc_partials_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   PhaseClock<HMC_PHASES> clk(p.prof);
-  const float* sum = bank_sums<R, true>(p, smem, clk);
+  const float* sum = bank_sums<DP, R, true>(p, smem, clk);
   if (sum != nullptr) {
+    constexpr int W = width(true, DP);
     const int row0 = (int)(blockIdx.x / cg::this_cluster().num_blocks()) * R;
     const float scale = -2.f * p.inv_t2;
-    for (int idx = threadIdx.x; idx < R * WIDTH; idx += blockDim.x) {
-      const int row = row0 + idx / WIDTH, e = idx % WIDTH;
+    const int dd = p.dim * p.dim, wd = dd + p.dim;
+    for (int idx = threadIdx.x; idx < R * wd; idx += blockDim.x) {
+      const int r = idx / wd, e = idx % wd;
+      const int row = row0 + r;
       if (row >= p.n_rows) continue;
-      if (e < DD)
-        p.out0[(size_t)row * DD + e] = sum[idx];
+      if (e < dd)
+        p.out0[(size_t)row * dd + e] = sum[r * W + (e / p.dim) * DP + e % p.dim];
       else
-        p.out1[(size_t)row * D + e - DD] = sum[idx] * scale;
+        p.out1[(size_t)row * p.dim + e - dd] = sum[r * W + DP * DP + e - dd] * scale;
     }
   }
   clk.lap(FINISH);
   clk.finish();
 }
 
+template <int DP>
+int launch_dp(const Params& p, const Geometry& g, cudaStream_t stream) {
+  HMC_BANK_DISPATCH(DP, g.rows,
+                    static_cast<int>(launch<DP>(hmc_partials_kernel<DP, R_>, p, g, HMC, stream)))
+}
+
 int launch_partials(const float* z, const float* c, const float* m, float inv_t2, float* gi_out,
-                    float* v_out, int n_rows, int n_centroids, Geometry g, long long* prof,
-                    cudaStream_t stream) {
+                    float* v_out, int n_rows, int n_centroids, int dim, const Geometry* given,
+                    long long* prof, cudaStream_t stream) {
+  if (!valid_dim(dim)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
-  const Params p{z, c, m, inv_t2, 0.f, 0.f, gi_out, v_out, n_rows, n_centroids, prof};
-  switch (g.rows) {
-    case 1: return static_cast<int>(launch(hmc_partials_kernel<1>, p, g, HMC, stream));
-    case 2: return static_cast<int>(launch(hmc_partials_kernel<2>, p, g, HMC, stream));
-    case 4: return static_cast<int>(launch(hmc_partials_kernel<4>, p, g, HMC, stream));
-    case 8: return static_cast<int>(launch(hmc_partials_kernel<8>, p, g, HMC, stream));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  Params p{z, c, m, inv_t2, 0.f, 0.f, gi_out, v_out, n_rows, n_centroids, prof};
+  p.dim = dim;
+  const bool wide = padded_dim(dim) == 32;
+  Geometry g;
+  if (given != nullptr) {
+    g = *given;
+  } else {  // B4's geometry
+    const cudaError_t err = wide ? rule_geometry<32>(n_rows, n_centroids, HMC, &g)
+                                 : rule_geometry<16>(n_rows, n_centroids, HMC, &g);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  return wide ? launch_dp<32>(p, g, stream) : launch_dp<16>(p, g, stream);
 }
 
 }  // namespace
 
-// The rule's geometry for (B, K) on the current card.
+// The rule's geometry for (B, K, d) on the current card; z [B, d], the bank
+// padded to d's compiled width (c [K, DP], M [K, DP, DP]).
 extern "C" int hmc_partials_f32(const float* z, const float* c, const float* m, float inv_t2,
                                 float* gi_out, float* v_out, int n_rows, int n_centroids,
-                                cudaStream_t stream) {
-  hmc::Geometry g;
-  const cudaError_t err = hmc::rule_geometry(n_rows, n_centroids, hmc::HMC, &g);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_partials(z, c, m, inv_t2, gi_out, v_out, n_rows, n_centroids,
-                         g, nullptr, stream);
+                                int dim, cudaStream_t stream) {
+  return launch_partials(z, c, m, inv_t2, gi_out, v_out, n_rows, n_centroids, dim, nullptr,
+                         nullptr, stream);
 }
 
 // A given geometry (rows per CTA, warps per CTA, CTAs per cluster), for the
 // sweep (rlvae_tpu_torch.ops.hmc_sweep) and the tests.
 extern "C" int hmc_partials_at_f32(const float* z, const float* c, const float* m, float inv_t2,
                                    float* gi_out, float* v_out, int n_rows, int n_centroids,
-                                   int rows, int warps, int ctas, cudaStream_t stream) {
+                                   int dim, int rows, int warps, int ctas, cudaStream_t stream) {
   const hmc::Geometry g{rows, warps, ctas, (n_rows + rows - 1) / rows};
-  return launch_partials(z, c, m, inv_t2, gi_out, v_out, n_rows, n_centroids, g, nullptr, stream);
+  return launch_partials(z, c, m, inv_t2, gi_out, v_out, n_rows, n_centroids, dim, &g, nullptr,
+                         stream);
 }
 
 #ifdef HMC_PROFILE
 // ... at a given geometry, with the clock64 sums per phase (HMC_PHASES) in prof.
 extern "C" int hmc_partials_profile_f32(const float* z, const float* c, const float* m,
                                         float inv_t2, float* gi_out, float* v_out, int n_rows,
-                                        int n_centroids, int rows, int warps, int ctas,
+                                        int n_centroids, int dim, int rows, int warps, int ctas,
                                         long long* prof, cudaStream_t stream) {
   const hmc::Geometry g{rows, warps, ctas, (n_rows + rows - 1) / rows};
-  return launch_partials(z, c, m, inv_t2, gi_out, v_out, n_rows, n_centroids, g, prof, stream);
+  return launch_partials(z, c, m, inv_t2, gi_out, v_out, n_rows, n_centroids, dim, &g, prof,
+                         stream);
 }
 #endif

@@ -13,6 +13,13 @@ the last flow, the last flow is reused.
   Jacobi passes and a final one (exact at K >= D - 1), and the backward
   at K + 1 adjoint sweeps: the JAX package's kernel pair with ``fp_iters =
   K`` (its CPU path differentiates through the iterations instead).
+- past the chain kernels' envelope (D > 32 or H > 256,
+  :func:`~rlvae_tpu_torch.ops.iaf_kernels.chain_supported`) the density
+  transitions run one :func:`~rlvae_tpu_torch.flows.iaf.iaf_forward` (or
+  ``iaf_forward_fixedpoint``) each in a plain loop, as JAX's ``_use_fused``
+  takes XLA there, counted in ``plain_route.calls`` on the card; a hidden
+  width that is not a multiple of 4 reaches the kernels padded with
+  zero-weight units (:func:`~rlvae_tpu_torch.ops.iaf_kernels.pad_hidden`).
 - ``sampling`` direction: one :func:`~rlvae_tpu_torch.flows.iaf.iaf_inverse`
   per transition in a plain loop (one parallel MADE pass per block), as
   the JAX package runs it; it launches no kernel, and autograd
@@ -27,10 +34,11 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from rlvae_tpu_torch.flows.iaf import IAF, iaf_inverse
+from rlvae_tpu_torch.flows.iaf import IAF, iaf_forward, iaf_forward_fixedpoint, iaf_inverse
 # the module, not its names: ops.iaf_kernels imports flows.made, so either
 # package may be the first one imported
 from rlvae_tpu_torch.ops import iaf_kernels as _iaf
+from rlvae_tpu_torch.ops._launch import plain_route
 
 
 class TemporalFlows(nn.Module):
@@ -58,6 +66,17 @@ class TemporalFlows(nn.Module):
         )
 
 
+def _per_transition(chain, step, z0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """z_seq [B, NT + 1, D] and log_dets [B, NT] of ``step(iaf, z)`` per
+    transition, in a plain loop."""
+    zs, lds = [z0], []
+    for iaf in chain:
+        z_t, ld = step(iaf, zs[-1])
+        zs.append(z_t)
+        lds.append(ld)
+    return torch.stack(zs, dim=1), torch.stack(lds, dim=1)
+
+
 def apply_temporal_flows(
     flows: TemporalFlows, z0: torch.Tensor, n_obs: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -71,13 +90,15 @@ def apply_temporal_flows(
         return z_seq, z0.new_zeros((z0.shape[0], 0))
     chain = [flows.flows[min(t, flows.n_flows - 1)] for t in range(nt)]
     if flows.direction == "sampling":
-        zs, lds = [z0], []
-        for iaf in chain:
-            z_t, ld = iaf_inverse(iaf, zs[-1])
-            zs.append(z_t)
-            lds.append(ld)
-        return torch.stack(zs, dim=1), torch.stack(lds, dim=1)
-    z_rest, lds = _iaf.IAFChain.apply(z0.float().contiguous(), *_iaf.stack_chain(chain),
-                                      flows.fixedpoint_iters)
+        return _per_transition(chain, iaf_inverse, z0)
+    if not _iaf.chain_supported(flows.latent_dim, flows.hidden_size):
+        # past the chain kernels' envelope: JAX's XLA transitions
+        k = flows.fixedpoint_iters
+        step = iaf_forward if k == 0 else (lambda iaf, z: iaf_forward_fixedpoint(iaf, z, k))
+        return plain_route(lambda z: _per_transition(chain, step, z), z0)
+    stack = _iaf.stack_chain(chain)
+    if z0.device.type == "cuda":
+        stack = _iaf.pad_hidden(stack)  # H % 4 != 0: zero-weight units, exact
+    z_rest, lds = _iaf.IAFChain.apply(z0.float().contiguous(), *stack, flows.fixedpoint_iters)
     z_seq = torch.cat([z0[:, None, :].float(), z_rest.transpose(0, 1)], dim=1)
     return z_seq, lds.transpose(0, 1)

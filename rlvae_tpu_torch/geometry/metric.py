@@ -25,6 +25,11 @@ PyTorch version for tensors on the CPU, through an autograd Function of
   (``MetricBundleGInvG``), for the Christoffel symbols.
 
 ``chol_g``, ``logdet_g``, ``dist2`` and ``diagnostics`` read G through those.
+The kernels read the bank at their compiled width: the metric pads it once
+(:meth:`CentroidMetric.kernel_bank`) and hands the padded pair down.  Past
+the kernels' envelope (D > 32, ``metric_kernels.fused_supported``) every
+function takes its plain version (``ops._launch.plain_route``),
+differentiable by autograd, as the JAX package takes its XLA path.
 ``log_sqrt_det_g_inv`` (from ``logdet_g_inv``) and ``grad_log_sqrt_det_g_inv``
 (the gradient output of ``hmc_terms``, not differentiable) are the HMC
 chain's terms one at a time; the chain itself calls the fused ``hmc_terms``
@@ -33,14 +38,15 @@ kernel for both.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from rlvae_tpu_torch.ops import linalg as _lin
 from rlvae_tpu_torch.ops import metric_kernels as _mk
+from rlvae_tpu_torch.ops._launch import plain_route
 
 
 @dataclass
@@ -51,6 +57,8 @@ class CentroidMetric:
     matrices: torch.Tensor  # [K, D, D] fp32, SPD
     temperature: float
     regularization: float
+    # kernel_bank's padded pair: (centroids, matrices, their versions, (c, M))
+    _padded: Optional[tuple] = field(default=None, init=False, repr=False, compare=False)
 
     @classmethod
     def create(cls, centroids, matrices, temperature: float = 0.1,
@@ -93,6 +101,24 @@ class CentroidMetric:
         """The same metric with its bank on ``device``."""
         return CentroidMetric(self.centroids.to(device), self.matrices.to(device),
                               self.temperature, self.regularization)
+
+    def kernel_bank(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(c, M) as the kernels read them: the bank zero-padded to its
+        compiled width (``metric_kernels.bank_width``), padded once and kept
+        while ``centroids`` and ``matrices`` are the same tensors at the same
+        versions (an in-place update, an optimizer step, re-pads; inference
+        tensors keep no version and are matched by identity).  The bank
+        itself on the CPU, at a compiled width, past the kernels' envelope,
+        and while a program is exported (its registered ops pad per launch)."""
+        c, m, d = self.centroids, self.matrices, self.latent_dim
+        if (c.device.type == "cpu" or not _mk.fused_supported(d) or d == _mk.bank_width(d)
+                or torch.compiler.is_exporting()):
+            return c, m
+        versions = tuple(None if t.is_inference() else t._version for t in (c, m))
+        hit = self._padded
+        if hit is None or hit[0] is not c or hit[1] is not m or hit[2] != versions:
+            hit = self._padded = (c, m, versions, _mk.pad_bank(c, m, _mk.bank_width(d)))
+        return hit[3]
 
     # Method views over the functional API, as the JAX package's ----------
     def weights(self, z: torch.Tensor) -> torch.Tensor:
@@ -145,40 +171,48 @@ def _rows(z: torch.Tensor) -> torch.Tensor:
 def g_inv(metric: CentroidMetric, z: torch.Tensor) -> torch.Tensor:
     """Inverse metric G^{-1}(z), shape [B, D, D], from the G^{-1} kernel (its
     plain version, one [B, K] @ [K, D*D] product, for CPU tensors)."""
-    return _mk.GInv.apply(_rows(z), *_bank(metric))
+    if not _mk.fused_supported(metric.latent_dim):
+        return plain_route(_mk.g_inv_ref, _rows(z), *_bank(metric))
+    return _mk.GInv.apply(_rows(z), *_bank(metric), metric.kernel_bank())
 
 
 def chol_g_inv(metric: CentroidMetric, z: torch.Tensor, jitter: float = 1e-6) -> torch.Tensor:
     """L with L L^T = G^{-1}(z) + jitter*I, from the chol-bundle kernel
     (its plain version for CPU tensors); differentiable."""
-    return _mk.CholBundle.apply(
-        _rows(z), metric.centroids, metric.matrices,
-        1.0 / metric.temperature ** 2, metric.regularization + jitter,
-    )
+    args = (_rows(z), metric.centroids, metric.matrices,
+            1.0 / metric.temperature ** 2, metric.regularization + jitter)
+    if not _mk.fused_supported(metric.latent_dim):
+        return plain_route(_mk.chol_bundle_ref, *args)[0]
+    return _mk.CholBundle.apply(*args, metric.kernel_bank())
 
 
 def logdet_g_inv(metric: CentroidMetric, z: torch.Tensor) -> torch.Tensor:
     """log det G^{-1}(z), shape [B]: the bundle's logdet output (jitter 0),
     from one chol-bundle launch; differentiable."""
-    return _mk.CholBundleLogdet.apply(
-        _rows(z), metric.centroids, metric.matrices,
-        1.0 / metric.temperature ** 2, metric.regularization,
-    )
+    args = (_rows(z), metric.centroids, metric.matrices,
+            1.0 / metric.temperature ** 2, metric.regularization)
+    if not _mk.fused_supported(metric.latent_dim):
+        return plain_route(_mk.chol_bundle_ref, *args)[1]
+    return _mk.CholBundleLogdet.apply(*args, metric.kernel_bank())
 
 
 def g(metric: CentroidMetric, z: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
     """Metric tensor G(z) = [G^{-1}(z)]^{-1}, shape [B, D, D]: the metric
-    bundle's G when ``jitter == 0`` and ``z`` is [B, D]; otherwise unrolled
-    Cholesky solves of G^{-1} + jitter I (``_g_xla`` of the JAX package)."""
-    if jitter == 0.0 and z.dim() == 2:
-        return _mk.MetricBundleG.apply(_rows(z), *_bank(metric))
+    bundle's G when ``jitter == 0``, ``z`` is [B, D] and the kernels take D;
+    otherwise unrolled Cholesky solves of G^{-1} + jitter I (``_g_xla`` of
+    the JAX package)."""
+    if jitter == 0.0 and z.dim() == 2 and _mk.fused_supported(metric.latent_dim):
+        return _mk.MetricBundleG.apply(_rows(z), *_bank(metric), metric.kernel_bank())
     return _lin.inv_psd_small(g_inv(metric, z), jitter=jitter)
 
 
 def g_inv_and_g(metric: CentroidMetric, z: torch.Tensor):
     """(G^{-1}(z), G(z)), each [B, D, D], from one metric-bundle launch
     (``MetricBundleGInvG``; the plain version for CPU tensors); differentiable."""
-    return _mk.MetricBundleGInvG.apply(_rows(z), *_bank(metric))
+    if not _mk.fused_supported(metric.latent_dim):
+        gi, _, _, gz = plain_route(_mk.metric_bundle_ref, _rows(z), *_bank(metric))
+        return gi, gz
+    return _mk.MetricBundleGInvG.apply(_rows(z), *_bank(metric), metric.kernel_bank())
 
 
 def chol_g(metric: CentroidMetric, z: torch.Tensor, jitter: float = 1e-6) -> torch.Tensor:
@@ -253,7 +287,10 @@ def grad_log_sqrt_det_g_inv(metric: CentroidMetric, z: torch.Tensor) -> torch.Te
     tr(G M_k)(c_k - z) in place of G M_k^T (c_k - z)); it is reproduced, not
     fixed.  It is the gradient output of :func:`~rlvae_tpu_torch.ops.metric_kernels.hmc_terms`:
     the HMC-terms kernel on the card, its plain version on the CPU."""
-    return _mk.hmc_terms(_rows(z).detach(), metric.centroids, metric.matrices,
-                         1.0 / metric.temperature ** 2, metric.regularization,
-                         float(np.log(np.float32(1e-10))))[1]
+    if _mk.fused_supported(metric.latent_dim):
+        terms, bank = _mk.hmc_terms, metric.kernel_bank()
+    else:
+        terms, bank = lambda *a: plain_route(_mk.hmc_terms_ref, *a), _bank(metric)[:2]
+    return terms(_rows(z).detach(), *bank, 1.0 / metric.temperature ** 2,
+                 metric.regularization, float(np.log(np.float32(1e-10))))[1]
 

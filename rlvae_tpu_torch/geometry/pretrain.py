@@ -69,7 +69,8 @@ class MetricMLP(nn.Module):
 def _batch_g_inv(z, centroids, m_mats, temperature: float, lbd: float) -> torch.Tensor:
     """The batch-local training metric's G^{-1}(z) from the batch's (mu, M)
     pairs, through the centroid metric's ``g_inv`` (the G^{-1} kernel on the
-    card), differentiable in z, the centroids and the matrices."""
+    card at D <= 32, its plain version past it, as JAX's ``g_inv`` routes),
+    differentiable in z, the centroids and the matrices."""
     return gm.g_inv(CentroidMetric(centroids, m_mats, temperature, lbd), z)
 
 

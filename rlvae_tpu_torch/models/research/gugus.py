@@ -278,9 +278,10 @@ class LVAE_GUGUS(LVAE_IAF):
         posterior means (``hmc_visit0_steps`` steps of 15 leapfrogs);
         otherwise the parent's reparameterized draw."""
         if self.use_hmc_visit0 and vi_index == 0 and self.g_list:
-            refuse_grad_through_terms(mu)
+            metric = self.hmc_metric(0)
+            refuse_grad_through_terms(metric, mu)
             config = HMCConfig(mcmc_steps=self.hmc_visit0_steps, n_lf=15)
-            return self._chain(self.hmc_metric(0), mu.shape[0], config, mu, noise, generator)
+            return self._chain(metric, mu.shape[0], config, mu, noise, generator)
         return super().sample_visit_latent(mu, log_var, vi_index, noise, generator)
 
     def forward(self, x, noise: Noise = None, vi_index=None, epoch: int = 100,

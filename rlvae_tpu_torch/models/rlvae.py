@@ -199,7 +199,7 @@ class RlVAE(nn.Module):
     # -- metric ---------------------------------------------------------------
 
     def set_metric(self, metric: Optional[CentroidMetric]) -> None:
-        self._metric_scalars = None
+        self._metric_scalars = self._metric_view = None
         self.register_buffer("metric_centroids", None, persistent=False)
         self.register_buffer("metric_matrices", None, persistent=False)
         if metric is not None:
@@ -209,10 +209,16 @@ class RlVAE(nn.Module):
 
     @property
     def metric(self) -> Optional[CentroidMetric]:
+        """The metric over the bank's buffers; one view while the buffers are
+        the same tensors, so its padded kernel bank is made once."""
         if self._metric_scalars is None:
             return None
-        return CentroidMetric(self.metric_centroids, self.metric_matrices,
-                              *self._metric_scalars)
+        view = self._metric_view
+        if (view is None or view.centroids is not self.metric_centroids
+                or view.matrices is not self.metric_matrices):
+            view = self._metric_view = CentroidMetric(
+                self.metric_centroids, self.metric_matrices, *self._metric_scalars)
+        return view
 
     # -- forward --------------------------------------------------------------
 

@@ -1,8 +1,25 @@
-"""Checks shared by the kernel wrappers before a pointer reaches CUDA."""
+"""Checks shared by the kernel wrappers before a pointer reaches CUDA, and
+the plain route that call sites take past a kernel's envelope."""
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+
+
+def plain_route(plain: Callable, z: torch.Tensor, *args):
+    """``plain(z, *args)``: the plain version a call site takes past its
+    kernel's envelope (a metric kernel past D = 32, the IAF chain past D = 32
+    or H = 256), as the JAX package takes XLA there.  Counts the calls on
+    CUDA tensors in ``plain_route.calls``, which stays 0 inside the
+    envelopes."""
+    if z.device.type == "cuda":
+        plain_route.calls += 1
+    return plain(z, *args)
+
+
+plain_route.calls = 0
 
 
 def check_inputs(name: str, device: torch.device, **tensors: torch.Tensor) -> None:

@@ -43,43 +43,49 @@ _C_INT, _C_FLOAT, _C_PTR = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 # extern "C" signatures of csrc/*.cu: (name, argtypes); every function
 # returns the cudaError_t of its launch.
 SIGNATURES = {
-    # z, centroids, matrices, inv_t2, diag, L, logdet, B, K, stream
-    "chol_bundle_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR, _C_PTR,
-                        _C_INT, _C_INT, _C_PTR),
-    # ... B, K, rows per CTA, warps per CTA, CTAs per cluster, stream: a given geometry
+    # The centroid-bank kernels take z [B, d] and the bank padded to d's
+    # compiled width (metric_kernels.pad_bank); d = the real latent width.
+    # z, centroids, matrices, inv_t2, diag, L, logdet, B, K, d, stream
+    "chol_bundle_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR, _C_PTR)
+                       + (_C_INT,) * 3 + (_C_PTR,),
+    # ... B, K, d, rows per CTA, warps per CTA, CTAs per cluster, stream: a given geometry
     "chol_bundle_at_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR, _C_PTR)
-                          + (_C_INT,) * 5 + (_C_PTR,),
-    # z, centroids, matrices, inv_t2, lbd, log_eps, log_pi, grad, B, K, stream
-    "hmc_terms_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_FLOAT, _C_PTR, _C_PTR,
-                      _C_INT, _C_INT, _C_PTR),
-    # z, centroids, matrices, inv_t2, lbd, G^-1, L, logdet, G, B, K, stream
+                          + (_C_INT,) * 6 + (_C_PTR,),
+    # z, centroids, matrices, inv_t2, lbd, log_eps, log_pi, grad, B, K, d, stream
+    "hmc_terms_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_FLOAT, _C_PTR, _C_PTR)
+                     + (_C_INT,) * 3 + (_C_PTR,),
+    # z, centroids, matrices, inv_t2, lbd, G^-1, L, logdet, G, B, K, d, stream
     "metric_bundle_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT) + (_C_PTR,) * 4
-                         + (_C_INT, _C_INT, _C_PTR),
-    # ... B, K, rows per CTA, warps per CTA, CTAs per cluster, stream: a given geometry
+                         + (_C_INT,) * 3 + (_C_PTR,),
+    # ... B, K, d, rows per CTA, warps per CTA, CTAs per cluster, stream: a given geometry
     "metric_bundle_at_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT) + (_C_PTR,) * 4
-                            + (_C_INT,) * 5 + (_C_PTR,),
-    # z, centroids, matrices, inv_t2, lbd, G^-1, B, K, stream
-    "g_inv_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR, _C_INT, _C_INT, _C_PTR),
-    # ... B, K, rows, warps, ctas, stream: a given geometry
-    "g_inv_at_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR) + (_C_INT,) * 5
+                            + (_C_INT,) * 6 + (_C_PTR,),
+    # z, centroids, matrices, inv_t2, lbd, G^-1, B, K, d, stream
+    "g_inv_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR) + (_C_INT,) * 3
+                 + (_C_PTR,),
+    # ... B, K, d, rows, warps, ctas, stream: a given geometry
+    "g_inv_at_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR) + (_C_INT,) * 6
                     + (_C_PTR,),
-    # z, centroids, matrices, inv_t2, gi_part, v, B, K, stream
-    "hmc_partials_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_PTR, _C_PTR, _C_INT, _C_INT,
-                         _C_PTR),
-    # ... B, K, rows per CTA, warps per CTA, CTAs per cluster, stream: a given geometry
-    "hmc_partials_at_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_PTR, _C_PTR) + (_C_INT,) * 5
-                           + (_C_PTR,),
-    # z, centroids, matrices, inv_t2, lbd, log_eps, log_pi, grad, B, K, rows, warps, ctas, stream
-    "hmc_terms_at_f32": (_C_PTR,) * 3 + (_C_FLOAT,) * 3 + (_C_PTR,) * 2 + (_C_INT,) * 5
+    # z, centroids, matrices, inv_t2, gi_part, v, B, K, d, stream
+    "hmc_partials_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_PTR, _C_PTR) + (_C_INT,) * 3
                         + (_C_PTR,),
-    # B, K, SM count, kernel (metric_kernels.BANK_KERNELS), out int[4]: rows per
-    # CTA, warps per CTA, CTAs per cluster, clusters
-    "hmc_geometry": (_C_INT,) * 4 + (_C_PTR,),
-    # rows, warps, ctas, kernel, out int[1]: how many such clusters the card holds at once
-    "hmc_cluster_slots": (_C_INT,) * 4 + (_C_PTR,),
-    # rows, warps, ctas, out int[1]: the same for B1's and B6's own kernels
-    "chol_bundle_cluster_slots": (_C_INT,) * 3 + (_C_PTR,),
-    "metric_bundle_cluster_slots": (_C_INT,) * 3 + (_C_PTR,),
+    # ... B, K, d, rows per CTA, warps per CTA, CTAs per cluster, stream: a given geometry
+    "hmc_partials_at_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_PTR, _C_PTR) + (_C_INT,) * 6
+                           + (_C_PTR,),
+    # z, centroids, matrices, inv_t2, lbd, log_eps, log_pi, grad, B, K, d, rows, warps,
+    # ctas, stream
+    "hmc_terms_at_f32": (_C_PTR,) * 3 + (_C_FLOAT,) * 3 + (_C_PTR,) * 2 + (_C_INT,) * 6
+                        + (_C_PTR,),
+    # B, K, SM count, kernel (metric_kernels.BANK_KERNELS), compiled width (16, 32),
+    # out int[4]: rows per CTA, warps per CTA, CTAs per cluster, clusters
+    "hmc_geometry": (_C_INT,) * 5 + (_C_PTR,),
+    # rows, warps, ctas, kernel, compiled width, out int[1]: how many such
+    # clusters the card holds at once
+    "hmc_cluster_slots": (_C_INT,) * 5 + (_C_PTR,),
+    # rows, warps, ctas, compiled width (16, 32), out int[1]: the same for B1's
+    # and B6's own kernels
+    "chol_bundle_cluster_slots": (_C_INT,) * 4 + (_C_PTR,),
+    "metric_bundle_cluster_slots": (_C_INT,) * 4 + (_C_PTR,),
     # z0, w0, b0, wh, bh, wo, bo, z, ld, ys (null: not written), B, D, H, NB, NH, NT,
     # K (Jacobi iterations per block; 0: the sequential update), stream
     "iaf_chain_fwd_f32": (_C_PTR,) * 10 + (_C_INT,) * 7 + (_C_PTR,),
@@ -104,6 +110,15 @@ SIGNATURES = {
     "decode_mse_bwd_dw_f32": (_C_PTR,) * 8 + (_C_INT,) * 4 + (_C_PTR,),
     # K, cluster, out int[1]: how many such dh clusters the card holds at once
     "decode_mse_dh_cluster_slots": (_C_INT, _C_INT, _C_PTR),
+    # decode+MSE past K = 512 (csrc/decode_mse_wide.cu): h (bf16), w, b, x, rw,
+    # partials, loss, M, K, N, stream
+    "decode_mse_wide_fwd_f32": (_C_PTR,) * 7 + (_C_INT,) * 3 + (_C_PTR,),
+    # h (bf16), w, b, x, rw, g, dp workspace (left holding dp), dh partials
+    # (slices x M x K; null with one slice), dh, M, K, N, slices, round_dh, stream
+    "decode_mse_wide_bwd_dh_f32": (_C_PTR,) * 9 + (_C_INT,) * 5 + (_C_PTR,),
+    # h (bf16), w, b, x, rw, g, dp workspace, dw, db, M, K, N, dp_ready (the
+    # workspace already holds dp), stream
+    "decode_mse_wide_bwd_dw_f32": (_C_PTR,) * 9 + (_C_INT,) * 4 + (_C_PTR,),
 }
 
 
@@ -119,19 +134,19 @@ PROFILE_SIGNATURES = {
     # ... as iaf_chain_bwd_f32 up to n_sweeps, then prof, stream
     "iaf_chain_bwd_profile_f32": (_C_PTR,) * 17 + (_C_INT,) * 7 + (_C_PTR,) * 2,
     # ... as hmc_terms_at_f32 up to ctas, then prof, stream
-    "hmc_terms_profile_f32": (_C_PTR,) * 3 + (_C_FLOAT,) * 3 + (_C_PTR,) * 2 + (_C_INT,) * 5
+    "hmc_terms_profile_f32": (_C_PTR,) * 3 + (_C_FLOAT,) * 3 + (_C_PTR,) * 2 + (_C_INT,) * 6
                              + (_C_PTR,) * 2,
     # ... as hmc_partials_at_f32 up to ctas, then prof, stream
     "hmc_partials_profile_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_PTR, _C_PTR)
-                                + (_C_INT,) * 5 + (_C_PTR,) * 2,
+                                + (_C_INT,) * 6 + (_C_PTR,) * 2,
     # ... as chol_bundle_at_f32 up to ctas, then prof, stream
     "chol_bundle_profile_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR, _C_PTR)
-                               + (_C_INT,) * 5 + (_C_PTR,) * 2,
+                               + (_C_INT,) * 6 + (_C_PTR,) * 2,
     # ... as metric_bundle_at_f32 up to ctas, then prof, stream
     "metric_bundle_profile_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT) + (_C_PTR,) * 4
-                                 + (_C_INT,) * 5 + (_C_PTR,) * 2,
+                                 + (_C_INT,) * 6 + (_C_PTR,) * 2,
     # ... as g_inv_at_f32 up to ctas, then prof, stream
-    "g_inv_profile_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR) + (_C_INT,) * 5
+    "g_inv_profile_f32": (_C_PTR, _C_PTR, _C_PTR, _C_FLOAT, _C_FLOAT, _C_PTR) + (_C_INT,) * 6
                          + (_C_PTR,) * 2,
     # ... as decode_mse_fwd_f32 up to row groups, then prof, stream
     "decode_mse_fwd_profile_f32": (_C_PTR,) * 7 + (_C_INT,) * 5 + (_C_PTR,) * 2,

@@ -4,7 +4,7 @@ The kernel wrappers launch through :mod:`ctypes` on raw pointers
 (``ops/_launch.py``), which ``torch.export`` cannot trace.  This module
 registers the inference kernels of the exported programs as
 ``torch.library`` custom ops, each with a fake implementation that gives
-its output shapes:
+its output shapes from its inputs (any latent width):
 
 - ``rlvae::chol_bundle`` (B1, :func:`~rlvae_tpu_torch.ops.metric_kernels.chol_bundle`),
 - ``rlvae::iaf_chain_fwd`` (B2, :func:`~rlvae_tpu_torch.ops.iaf_kernels.iaf_chain_fwd`
@@ -56,9 +56,6 @@ from rlvae_tpu_torch.ops import metric_kernels as _mk
 OP_NAMES = {"chol_bundle": "B1", "iaf_chain_fwd": "B2", "hmc_terms": "B4", "metric_bundle": "B6",
             "g_inv": "B7", "basic_grad": "B1", "energy_grad": "B6"}
 
-_D = _mk.KERNEL_DIM
-
-
 @custom_op("rlvae::chol_bundle", mutates_args=())
 def chol_bundle(z: torch.Tensor, centroids: torch.Tensor, matrices: torch.Tensor,
                 inv_t2: float, diag: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -67,7 +64,8 @@ def chol_bundle(z: torch.Tensor, centroids: torch.Tensor, matrices: torch.Tensor
 
 @chol_bundle.register_fake
 def _(z, centroids, matrices, inv_t2, diag):
-    return z.new_empty((z.shape[0], _D, _D)), z.new_empty((z.shape[0],))
+    b, d = z.shape
+    return z.new_empty((b, d, d)), z.new_empty((b,))
 
 
 @custom_op("rlvae::hmc_terms", mutates_args=())
@@ -78,7 +76,7 @@ def hmc_terms(z: torch.Tensor, centroids: torch.Tensor, matrices: torch.Tensor,
 
 @hmc_terms.register_fake
 def _(z, centroids, matrices, inv_t2, lbd, log_eps):
-    return z.new_empty((z.shape[0],)), z.new_empty((z.shape[0], _D))
+    return z.new_empty((z.shape[0],)), torch.empty_like(z)
 
 
 @custom_op("rlvae::g_inv", mutates_args=())
@@ -89,7 +87,8 @@ def g_inv(z: torch.Tensor, centroids: torch.Tensor, matrices: torch.Tensor,
 
 @g_inv.register_fake
 def _(z, centroids, matrices, inv_t2, lbd):
-    return z.new_empty((z.shape[0], _D, _D))
+    b, d = z.shape
+    return z.new_empty((b, d, d))
 
 
 @custom_op("rlvae::metric_bundle", mutates_args=())
@@ -101,9 +100,9 @@ def metric_bundle(z: torch.Tensor, centroids: torch.Tensor, matrices: torch.Tens
 
 @metric_bundle.register_fake
 def _(z, centroids, matrices, inv_t2, lbd):
-    b = z.shape[0]
-    return (z.new_empty((b, _D, _D)), z.new_empty((b, _D, _D)), z.new_empty((b,)),
-            z.new_empty((b, _D, _D)))
+    b, d = z.shape
+    return (z.new_empty((b, d, d)), z.new_empty((b, d, d)), z.new_empty((b,)),
+            z.new_empty((b, d, d)))
 
 
 @custom_op("rlvae::iaf_chain_fwd", mutates_args=())

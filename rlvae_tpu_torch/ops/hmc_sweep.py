@@ -6,7 +6,9 @@ warm and cold times, a phase profile and a sweep of their geometry.
 
 ``--kernel`` picks ``hmc`` (the default: the manifold-HMC kernels B4
 ``hmc_terms`` and B8 ``hmc_partials``), ``chol_bundle`` (B1),
-``metric_bundle`` (B6) or ``g_inv`` (B7), one or several.
+``metric_bundle`` (B6) or ``g_inv`` (B7), one or several.  ``--dim D``
+(default 16, any 1..32) sets the latent width of every bank and row: D > 16
+runs the kernels' width-32 instances, D not 16 or 32 a zero-padded bank.
 
 For ``hmc``: builds the kernels and prints the ``-Xptxas -v`` lines of the
 HMC kernels, then the rule's geometry (``metric_kernels.hmc_geometry``, held to the
@@ -40,9 +42,9 @@ write's own time subtracted) at the rule's geometry; the profile build's
 phases, with the epilogue split into the Cholesky, the inverse X = L^{-1}
 and G = X^T X; and with ``--sweep`` every geometry's time.
 
-``--dump PATH`` only writes B4's and B8's outputs on the seeded inputs at
-B = 64 and K = 50 and 20 000 to PATH (``torch.save``), to compare two builds
-bit for bit; ``--time-wrappers`` only times the public wrappers of B1, B6
+``--dump PATH`` only writes every kernel's outputs (B4, B8, B1, B6, B7) on
+the seeded inputs at B = 1 and 64 and K = 50 and 20 000 to PATH
+(``torch.save``), to compare two builds bit for bit; ``--time-wrappers`` only times the public wrappers of B1, B6
 and B7 (warm and cold device ms per call, as above, and the CUDA-event ms
 of back-to-back calls, host issue included) at B = 16 and 64 and K = 50,
 200 and 20 000.  Both use nothing but the wrappers, so they also run
@@ -71,7 +73,7 @@ from rlvae_tpu_torch.ops import metric_kernels as mk
 from rlvae_tpu_torch.ops._launch import stream_handle
 from rlvae_tpu_torch.ops.build import kernel_library
 
-D = 16
+D = 16  # the latent width (--dim)
 LOG_EPS = float(np.log(np.float32(1e-10)))
 INV_T2, LBD = 4.0, 0.01
 GEOMETRY_BATCHES = (1, 37, 64, 1000)
@@ -124,8 +126,9 @@ def terms_at(lib, z, c, m, geometry, prof=None):
     lp = torch.empty((b,), device=z.device)
     grad = torch.empty((b, D), device=z.device)
     rows, warps, ctas = geometry[:3]
+    c, m = mk.pad_bank(c, m, mk.bank_width(D))
     args = (z.data_ptr(), c.data_ptr(), m.data_ptr(), INV_T2, LBD, LOG_EPS, lp.data_ptr(),
-            grad.data_ptr(), b, k, rows, warps, ctas)
+            grad.data_ptr(), b, k, D, rows, warps, ctas)
     if prof is None:
         code = lib.hmc_terms_at_f32(*args, stream_handle(z.device))
     else:
@@ -141,8 +144,9 @@ def partials_at(lib, z, c, m, geometry, prof=None):
     gi = torch.empty((b, D, D), device=z.device)
     v = torch.empty((b, D), device=z.device)
     rows, warps, ctas = geometry[:3]
+    c, m = mk.pad_bank(c, m, mk.bank_width(D))
     args = (z.data_ptr(), c.data_ptr(), m.data_ptr(), INV_T2, gi.data_ptr(), v.data_ptr(), b, k,
-            rows, warps, ctas)
+            D, rows, warps, ctas)
     if prof is None:
         code = lib.hmc_partials_at_f32(*args, stream_handle(z.device))
     else:
@@ -163,8 +167,9 @@ def metric_at(lib, name: str, z, c, m, geometry, prof=None):
         outs, scalars = (mat(), mat(), torch.empty((b,), device=z.device), mat()), (INV_T2, LBD)
     else:
         outs, scalars = (mat(),), (INV_T2, LBD)
+    c, m = mk.pad_bank(c, m, mk.bank_width(D))
     args = (z.data_ptr(), c.data_ptr(), m.data_ptr(), *scalars, *(o.data_ptr() for o in outs),
-            b, k, *geometry[:3])
+            b, k, D, *geometry[:3])
     if prof is None:
         code = getattr(lib, f"{name}_at_f32")(*args, stream_handle(z.device))
     else:
@@ -232,7 +237,7 @@ def ptxas_lines(log: str, tag: str) -> list:
 
 def library_geometry(lib, b: int, k: int, sms: int, kernel: str = "hmc_terms") -> tuple:
     out = (ctypes.c_int * 4)()
-    code = lib.hmc_geometry(b, k, sms, mk.BANK_KERNELS[kernel], out)
+    code = lib.hmc_geometry(b, k, sms, mk.BANK_KERNELS[kernel], mk.bank_width(D), out)
     if code != 0:
         raise RuntimeError(f"hmc_geometry({b}, {k}, {kernel}): cudaError_t {code}")
     return tuple(out)
@@ -288,38 +293,46 @@ def check_partials(got, plain) -> dict:
     return {"gi_part_rel": gi_err, "v_rel": v_err, "ok": gi_err <= GI_RTOL and v_err <= V_RTOL}
 
 
+def _fits(geometry, kernel: str) -> bool:
+    """True when the kernels of width D launch at (rows, warps, ctas)."""
+    r, w, _ = geometry
+    return r <= mk.HMC_LAYOUTS[mk.bank_width(D)][1] and w <= mk.hmc_max_warps(r, kernel, D)
+
+
 def forced_geometries(kernel: str = "hmc_terms"):
     """Every rows per CTA with one CTA and with a cluster of 8, at 8 warps;
     rows 1, 2, 4 also at 16 warps, and at 3 warps with a cluster of 2; for
     the metric kernels also 8 rows at 16 warps, one warp alone, a warp for
-    several rows in clusters of 2, 7 and 8."""
+    several rows in clusters of 2, 7 and 8; those the width D launches."""
     out = [(r, 8, c) for r in (1, 2, 4, 8) for c in (1, 8)]
     out += [(r, 16, 8) for r in (1, 2, 4)] + [(r, 3, 2) for r in (1, 2, 4)]
-    if mk.hmc_max_warps(8, kernel) == 16:
+    if kernel in METRIC_KERNELS:
         out += [(8, 16, 8), (1, 1, 1), (4, 1, 2), (2, 1, 7), (8, 5, 8)]
-    return out
+    return [g for g in out if _fits(g, kernel)]
 
 
 def sweep_geometries(b: int, k: int, kernel: str = "hmc_terms"):
     rows = (4, 8) if b >= 1000 else (1, 2, 4, 8)
-    out = [(r, w, c) for r, w, c in itertools.product(rows, (4, 8, 16), (1, 2, 4, 8))
-           if w <= mk.hmc_max_warps(r, kernel)]
+    out = [(r, w, c) for r, w, c in itertools.product(rows, (4, 8, 16), (1, 2, 4, 8))]
     if k >= 20_000:  # clusters of 5, 6, 7: fewer CTAs a row group, more groups at once
-        out += [(r, w, c) for r, w, c in itertools.product(rows, (8, 16), (5, 6, 7))
-                if w <= mk.hmc_max_warps(r, kernel)]
-    return out
+        out += [(r, w, c) for r, w, c in itertools.product(rows, (8, 16), (5, 6, 7))]
+    return [g for g in out if _fits(g, kernel)]
 
 
 def dump_hmc(path: Path) -> int:
-    """B4's and B8's outputs on the seeded inputs at B = 64, K = 50 and
-    20 000, to ``path``."""
+    """B4's, B8's, B1's, B6's and B7's outputs on the seeded inputs at B = 1
+    and 64, K = 50 and 20 000, to ``path``."""
     dev = torch.device("cuda")
     out = {}
     for k in (50, 20_000):
         c, m = (torch.tensor(x, device=dev) for x in bank(k))
-        z = torch.tensor(rows_near(c.cpu().numpy(), 64, 64 + k), device=dev)
-        out[f"hmc_terms_k{k}"] = [t.cpu() for t in mk.hmc_terms(z, c, m, INV_T2, LBD, LOG_EPS)]
-        out[f"hmc_partials_k{k}"] = [t.cpu() for t in mk.hmc_partials(z, c, m, INV_T2)]
+        for b in (1, 64):
+            z = torch.tensor(rows_near(c.cpu().numpy(), b, b + k), device=dev)
+            out[f"hmc_terms_k{k}_b{b}"] = [
+                t.cpu() for t in mk.hmc_terms(z, c, m, INV_T2, LBD, LOG_EPS)]
+            out[f"hmc_partials_k{k}_b{b}"] = [t.cpu() for t in mk.hmc_partials(z, c, m, INV_T2)]
+            for name in METRIC_KERNELS:
+                out[f"{name}_k{k}_b{b}"] = [t.cpu() for t in metric_call(name)(z, c, m)]
     torch.cuda.synchronize()
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(out, path)
@@ -369,10 +382,10 @@ def time_wrappers() -> int:
 def run_hmc(args, lib, dev, sms: int, emit) -> bool:
     """B4 and B8: geometry, checks, profile and (``--sweep``) times."""
     ok = True
-    slots = mk.hmc_cluster_slots(dev)
+    slots = mk.hmc_cluster_slots(dev, d=D)
     for b in GEOMETRY_BATCHES:
         for k in GEOMETRY_BANKS:
-            rule = tuple(mk.hmc_geometry(b, k, sms, slots))
+            rule = tuple(mk.hmc_geometry(b, k, sms, slots, d=D))
             same = rule == library_geometry(lib, b, k, sms)
             ok &= same
             emit(kind="geometry", batch=b, k=k, rows=rule[0], warps=rule[1], ctas=rule[2],
@@ -386,7 +399,7 @@ def run_hmc(args, lib, dev, sms: int, emit) -> bool:
             z = torch.tensor(rows_near(c.cpu().numpy(), b, b + k), device=dev)
             plain_t = mk.hmc_terms_ref(z, c, m, INV_T2, LBD, LOG_EPS)
             plain_p = mk.hmc_partials_ref(z, c, m, INV_T2)
-            rule = tuple(mk.launch_hmc_geometry(b, k, dev))
+            rule = tuple(mk.launch_hmc_geometry(b, k, dev, d=D))
             for geometry in [rule[:3]] + forced_geometries():
                 t1, t2 = terms_at(lib, z, c, m, geometry), terms_at(lib, z, c, m, geometry)
                 p1, p2 = partials_at(lib, z, c, m, geometry), partials_at(lib, z, c, m, geometry)
@@ -410,7 +423,7 @@ def run_hmc(args, lib, dev, sms: int, emit) -> bool:
         for k in BANKS:
             c, m = banks[k]
             z = torch.tensor(rows_near(c.cpu().numpy(), b, b + k), device=dev)
-            rule = tuple(mk.launch_hmc_geometry(b, k, dev))
+            rule = tuple(mk.launch_hmc_geometry(b, k, dev, d=D))
             for name, launch in (("hmc_terms", terms_at), ("hmc_partials", partials_at)):
                 prof = torch.zeros(len(PHASES), dtype=torch.int64, device=dev)
                 ms, _ = graph_ms(lambda: launch(plib, z, c, m, rule, prof))
@@ -422,7 +435,7 @@ def run_hmc(args, lib, dev, sms: int, emit) -> bool:
             for k in BANKS:
                 c, m = banks[k]
                 z = torch.tensor(rows_near(c.cpu().numpy(), b, b + k), device=dev)
-                rule = tuple(mk.launch_hmc_geometry(b, k, dev))
+                rule = tuple(mk.launch_hmc_geometry(b, k, dev, d=D))
                 for geometry in sweep_geometries(b, k):
                     t_ms, _ = graph_ms(lambda: terms_at(lib, z, c, m, geometry))
                     p_ms, _ = graph_ms(lambda: partials_at(lib, z, c, m, geometry))
@@ -437,13 +450,14 @@ def run_metric(name: str, args, lib, dev, sms: int, emit) -> bool:
     """B1, B6 or B7: slots, geometry, checks, warm and cold times, profile and
     (``--sweep``) every geometry's time."""
     ok = True
-    slots = mk.hmc_cluster_slots(dev, name)
+    slots = mk.hmc_cluster_slots(dev, name, D)
     emit(kind="slots", kernel=name, slots={f"rows={r},warps={w},ctas={c}": slots(r, w, c)
                                            for r in (1, 8) for w in (8, 16)
-                                           for c in range(1, mk.HMC_MAX_CTAS + 1)})
+                                           for c in range(1, mk.HMC_MAX_CTAS + 1)
+                                           if _fits((r, w, c), name)})
     for b in METRIC_GEOMETRY_BATCHES:
         for k in GEOMETRY_BANKS:
-            rule = tuple(mk.hmc_geometry(b, k, sms, slots, name))
+            rule = tuple(mk.hmc_geometry(b, k, sms, slots, name, D))
             same = rule == library_geometry(lib, b, k, sms, name)
             ok &= same
             emit(kind="geometry", kernel=name, batch=b, k=k, rows=rule[0], warps=rule[1],
@@ -459,7 +473,7 @@ def run_metric(name: str, args, lib, dev, sms: int, emit) -> bool:
             z = torch.tensor(rows_near(c.cpu().numpy(), b, b + k), device=dev)
             plain = metric_plain(name, z, c, m)
             want = metric_plain(name, z.double(), c.double(), m.double())
-            rule = tuple(mk.launch_hmc_geometry(b, k, dev, name))
+            rule = tuple(mk.launch_hmc_geometry(b, k, dev, name, D))
             for geometry in [rule[:3]] + forced_geometries(name):
                 got, again = (metric_at(lib, name, z, c, m, geometry) for _ in range(2))
                 same = all(map(torch.equal, got, again))
@@ -486,7 +500,7 @@ def run_metric(name: str, args, lib, dev, sms: int, emit) -> bool:
         for k in BANKS:
             c, m = banks[k]
             z = torch.tensor(rows_near(c.cpu().numpy(), b, b + k), device=dev)
-            rule = tuple(mk.launch_hmc_geometry(b, k, dev, name))
+            rule = tuple(mk.launch_hmc_geometry(b, k, dev, name, D))
             prof = torch.zeros(len(PHASES), dtype=torch.int64, device=dev)
             ms, _ = graph_ms(lambda: metric_at(plib, name, z, c, m, rule, prof))
             emit(kind="profile", kernel=name, batch=b, k=k, geometry=list(rule),
@@ -497,7 +511,7 @@ def run_metric(name: str, args, lib, dev, sms: int, emit) -> bool:
             for k in BANKS:
                 c, m = banks[k]
                 z = torch.tensor(rows_near(c.cpu().numpy(), b, b + k), device=dev)
-                rule = tuple(mk.launch_hmc_geometry(b, k, dev, name))
+                rule = tuple(mk.launch_hmc_geometry(b, k, dev, name, D))
                 for geometry in sweep_geometries(b, k, name):
                     t_ms, _ = graph_ms(lambda: metric_at(lib, name, z, c, m, geometry))
                     emit(kind="time", kernel=name, batch=b, k=k, geometry=list(geometry),
@@ -522,12 +536,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", nargs="+", default=["hmc"], choices=("hmc", *METRIC_KERNELS))
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--dim", type=int, default=16, help="latent width, 1..32")
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--dump", type=Path, default=None)
     ap.add_argument("--time-wrappers", action="store_true")
     ap.add_argument("--deadline-s", type=float, default=600.0,
                     help="dump every thread's stack and exit after this long")
     args = ap.parse_args(argv)
+    global D
+    D = args.dim
     faulthandler.dump_traceback_later(args.deadline_s, exit=True)
     if not torch.cuda.is_available():
         print("hmc_sweep: needs a CUDA card", file=sys.stderr)
@@ -550,7 +567,7 @@ def main(argv=None) -> int:
     lib = kernel_library()
     tags = {"hmc": "hmc_", "chol_bundle": "chol_bundle", "metric_bundle": "metric_bundle",
             "g_inv": "metric_bundle"}
-    emit(kind="device", name=torch.cuda.get_device_name(0), nvidia_smi=smi, sms=sms,
+    emit(kind="device", name=torch.cuda.get_device_name(0), nvidia_smi=smi, sms=sms, dim=D,
          build_seconds=lib.seconds,
          ptxas={kernel: ptxas_lines(lib.log, tags[kernel]) for kernel in args.kernel})
 

@@ -122,6 +122,29 @@ def launch_geometry(b: int, d: int, h: int, nh: int, backward: bool = False,
     return dict(zip(keys, list(out)))
 
 
+def chain_supported(d: int, h: int) -> bool:
+    """True when the chain kernels take latent width ``d`` and hidden width
+    ``h`` (D <= 32, H <= 256): the shape part of the JAX package's
+    ``TemporalFlowConfig._use_fused`` (``rlvae_tpu/flows/temporal.py:80-97``).
+    Past it the flows take the plain per-transition path, as JAX takes XLA."""
+    return d <= MAX_DIM and h <= MAX_HIDDEN
+
+
+def pad_hidden(stack: Stack) -> Stack:
+    """``stack`` with its hidden width padded to a multiple of 4 (the kernels'
+    H % 4 == 0) by zero-weight units, or ``stack`` itself.  Exact: a pad
+    unit's pre-activation is 0 and it meets zero weights downstream, so every
+    real sum only gains exact zeros; autograd slices the pads' gradients
+    away."""
+    w0, b0, wh, bh, wo, bo = stack
+    p = -w0.shape[-1] % 4
+    if p == 0:
+        return stack
+    pad = torch.nn.functional.pad
+    return (pad(w0, (0, p)), pad(b0, (0, p)), pad(wh, (0, p, 0, p)), pad(bh, (0, p)),
+            pad(wo, (0, 0, 0, p)), bo)
+
+
 def stack_chain(chain: Sequence) -> Stack:
     """(w0, b0, wh, bh, wo, bo) from one IAF module per transition."""
     per_t = []

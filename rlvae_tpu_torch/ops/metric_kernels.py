@@ -45,6 +45,21 @@ thread-block cluster and the warps of a CTA, summed in rank and warp order,
 at the geometry of :func:`hmc_geometry` for the kernel (G^{-1} at the
 metric bundle's, so the two give the same bits).
 
+**Latent widths.**  The kernels take every width the TPU kernels take, 1 <=
+D <= :data:`FUSED_MAX_DIM` = 32 (JAX's ``_FUSED_MAX_DIM``), compiled at two
+widths DP (:func:`bank_width`: 16 for D <= 16, 32 above).  A bank narrower
+than its DP is zero-padded in its trailing indices (:func:`pad_bank`) once
+per bank by the bank's owner (``CentroidMetric.kernel_bank``), which hands
+the wrappers the padded pair in place of the bank (a wrapper given a bank of
+width D pads it for that launch); z is read at its own width and every
+output is D wide.  The padding is exact for
+the real block (``csrc/hmc_bank.cuh``).  Past 32 the call sites take the
+plain versions, as the JAX package takes XLA past ``fused_supported``:
+:func:`fused_supported` is the predicate, decided from the shape before any
+launch, and ``ops._launch.plain_route`` the plain call, which counts the
+calls on CUDA tensors in ``plain_route.calls``.  The wrappers raise on a width their
+kernels do not take, so a site that skips the predicate fails loudly.
+
 Each wrapper (:func:`chol_bundle`, :func:`hmc_terms`, :func:`metric_bundle`,
 :func:`g_inv`, :func:`hmc_partials`) launches its kernel for CUDA tensors and runs its plain
 PyTorch version (``*_ref``) for CPU tensors; there is no other route.  Each
@@ -83,7 +98,10 @@ import torch
 from rlvae_tpu_torch.ops import linalg as _lin
 from rlvae_tpu_torch.ops._launch import check_inputs, raise_on_error, stream_handle
 
-KERNEL_DIM = 16  # the kernels' latent dim (csrc/chol_bundle.cu, csrc/hmc_terms.cu: D)
+# The widest latent the kernels take (rlvae_tpu/ops/metric_kernels.py
+# _FUSED_MAX_DIM), and the widths they are compiled at (csrc/hmc_bank.cuh DP).
+FUSED_MAX_DIM = 32
+BANK_WIDTHS = (16, 32)
 
 
 def chol_bundle_ref(
@@ -108,18 +126,64 @@ def _exported():
     return export_ops
 
 
-def _check_bank_shapes(name: str, z, centroids, matrices) -> Tuple[int, int]:
-    """(B, K) of z [B, 16], c [K, 16], M [K, 16, 16]; raise on anything else."""
-    d = KERNEL_DIM
+def fused_supported(d: int) -> bool:
+    """True when the kernels take latent width ``d`` (D <= 32): the JAX
+    package's ``fused_supported`` (``rlvae_tpu/ops/metric_kernels.py:77``),
+    the routing predicate of every call site."""
+    return d <= FUSED_MAX_DIM
+
+
+def bank_width(d: int) -> int:
+    """The compiled width DP (16 or 32) that serves latent width ``d``."""
+    return BANK_WIDTHS[0] if d <= BANK_WIDTHS[0] else BANK_WIDTHS[1]
+
+
+def pad_bank(centroids: torch.Tensor, matrices: torch.Tensor,
+             width: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bank zero-padded to ``width`` in its trailing indices: c [K,
+    width], M [K, width, width] (the inputs themselves when already that
+    wide); a copy outside autograd."""
+    k, d = centroids.shape
+    if d == width:
+        return centroids, matrices
+    with torch.no_grad():
+        c = centroids.new_zeros((k, width))
+        c[:, :d] = centroids
+        m = matrices.new_zeros((k, width, width))
+        m[:, :d, :d] = matrices
+    return c, m
+
+
+def _check_bank_shapes(name: str, z, centroids, matrices) -> Tuple[int, int, int]:
+    """(B, K, D) of z [B, D] with 1 <= D <= 32 and a bank of width D or
+    already padded to D's compiled width (c [K, W], M [K, W, W], W = D or
+    ``bank_width(D)``); raise on anything else."""
     b, k = z.shape[0], centroids.shape[0]
-    if z.shape != (b, d) or centroids.shape != (k, d) or matrices.shape != (k, d, d):
+    d = z.shape[1] if z.dim() == 2 else -1
+    w = centroids.shape[1] if centroids.dim() == 2 else -1
+    if (z.dim() != 2 or w not in (d, bank_width(d)) or centroids.shape != (k, w)
+            or matrices.shape != (k, w, w)):
         raise ValueError(
-            f"{name}: kernel takes z [B,{d}], c [K,{d}], M [K,{d},{d}]; got "
-            f"{tuple(z.shape)}, {tuple(centroids.shape)}, {tuple(matrices.shape)}"
+            f"{name}: kernel takes z [B,D], c [K,D], M [K,D,D] (or the bank padded to "
+            f"D's compiled width); got {tuple(z.shape)}, {tuple(centroids.shape)}, "
+            f"{tuple(matrices.shape)}"
         )
+    if not 1 <= d <= FUSED_MAX_DIM:
+        raise ValueError(f"{name}: kernel takes 1 <= D <= {FUSED_MAX_DIM}, got D={d} "
+                         "(past it the call sites take the plain version: fused_supported)")
     if k < 1:
         raise ValueError(f"{name}: empty centroid bank")
-    return b, k
+    return b, k, d
+
+
+def _kernel_bank(name: str, z, centroids, matrices):
+    """(B, K, D, c, M): the checked shapes and the bank the kernels read at
+    D's compiled width (padded here, for this launch, when the caller gave
+    it at width D)."""
+    b, k, d = _check_bank_shapes(name, z, centroids, matrices)
+    c, m = pad_bank(centroids, matrices, bank_width(d))
+    _check_bank_alignment(name, c, m)
+    return b, k, d, c, m
 
 
 def _check_bank_alignment(name: str, centroids: torch.Tensor, matrices: torch.Tensor) -> None:
@@ -142,9 +206,7 @@ def chol_bundle(
     if z.device.type != "cuda":
         raise ValueError(f"chol_bundle: unsupported device {z.device}")
     check_inputs("chol_bundle", z.device, z=z, centroids=centroids, matrices=matrices)
-    b, k = _check_bank_shapes("chol_bundle", z, centroids, matrices)
-    _check_bank_alignment("chol_bundle", centroids, matrices)
-    d = KERNEL_DIM
+    b, k, d, c, m = _kernel_bank("chol_bundle", z, centroids, matrices)
     l = torch.empty((b, d, d), dtype=torch.float32, device=z.device)
     logdet = torch.empty((b,), dtype=torch.float32, device=z.device)
     if b == 0:
@@ -152,9 +214,9 @@ def chol_bundle(
     from rlvae_tpu_torch.ops.build import kernel_library
 
     code = kernel_library().chol_bundle_f32(
-        z.data_ptr(), centroids.data_ptr(), matrices.data_ptr(),
+        z.data_ptr(), c.data_ptr(), m.data_ptr(),
         float(inv_t2), float(diag), l.data_ptr(), logdet.data_ptr(),
-        b, k, stream_handle(z.device),
+        b, k, d, stream_handle(z.device),
     )
     raise_on_error("chol_bundle", code)
     chol_bundle.launches += 1
@@ -169,10 +231,13 @@ def _save(ctx, z, centroids, matrices, inv_t2: float, diag: float, *outputs) -> 
     ctx.scalars = (inv_t2, diag)
 
 
-def _detached(z, centroids, matrices):
+def _detached(z, centroids, matrices, bank=None):
     """The kernel wrappers' inputs: the raw wrappers take no tensor that
-    requires grad."""
-    return z.detach(), centroids.detach(), matrices.detach()
+    requires grad.  ``bank``, where given, is the pair (c, M) at the
+    kernels' width (``CentroidMetric.kernel_bank``), which the launch reads
+    in place of the bank; the backward recomputes from the bank itself."""
+    c, m = (centroids, matrices) if bank is None else bank
+    return z.detach(), c.detach(), m.detach()
 
 
 def _recompute_vjp(ctx, plain, *cotangents):
@@ -181,11 +246,12 @@ def _recompute_vjp(ctx, plain, *cotangents):
     from the saved inputs (the JAX package recomputes through its XLA path):
     the cotangent of each of z, centroids and matrices that requires grad,
     else None.  Under ``create_graph=True`` (grad mode on in the backward)
-    the result carries its own graph."""
+    the result carries its own graph.  The Functions' scalars and kernel
+    bank take no cotangent."""
     saved = ctx.saved_tensors[:3]
     need = ctx.needs_input_grad[:3]
     if not any(need):
-        return None, None, None, None, None
+        return None, None, None, None, None, None
     with torch.enable_grad():
         # each input that needs grad enters as an alias of its own (a view),
         # so the grads are partials even where z was computed from the bank
@@ -195,16 +261,16 @@ def _recompute_vjp(ctx, plain, *cotangents):
         outs = out if isinstance(out, tuple) else (out,)
         grads = iter(torch.autograd.grad(outs, [a for a, n in zip(args, need) if n], cotangents,
                                          create_graph=torch.is_grad_enabled()))
-    return (*(next(grads) if n else None for n in need), None, None)
+    return (*(next(grads) if n else None for n in need), None, None, None)
 
 
 class CholBundle(torch.autograd.Function):
     """L = chol_bundle(z, ...)[0], differentiable in z, centroids and matrices."""
 
     @staticmethod
-    def forward(ctx, z, centroids, matrices, inv_t2: float, diag: float):
+    def forward(ctx, z, centroids, matrices, inv_t2: float, diag: float, bank=None):
         _save(ctx, z, centroids, matrices, inv_t2, diag)
-        return chol_bundle(*_detached(z, centroids, matrices), inv_t2, diag)[0]
+        return chol_bundle(*_detached(z, centroids, matrices, bank), inv_t2, diag)[0]
 
     @staticmethod
     def backward(ctx, dl):
@@ -215,9 +281,9 @@ class CholBundleLogdet(torch.autograd.Function):
     """logdet = chol_bundle(z, ...)[1], differentiable in z, centroids and matrices."""
 
     @staticmethod
-    def forward(ctx, z, centroids, matrices, inv_t2: float, diag: float):
+    def forward(ctx, z, centroids, matrices, inv_t2: float, diag: float, bank=None):
         _save(ctx, z, centroids, matrices, inv_t2, diag)
-        return chol_bundle(*_detached(z, centroids, matrices), inv_t2, diag)[1]
+        return chol_bundle(*_detached(z, centroids, matrices, bank), inv_t2, diag)[1]
 
     @staticmethod
     def backward(ctx, dld):
@@ -257,20 +323,26 @@ def hmc_terms_ref(
     return log_pi, grad
 
 
-# The geometry of the kernels of csrc/hmc_bank.cuh's front half: centroids
-# per staged chunk, the limits of rows per CTA and CTAs per cluster (the
-# portable cluster size), and the fewest chunks a CTA sums before the bank is
-# split over a cluster.
+# The geometry of the kernels of csrc/hmc_bank.cuh's front half at width 16:
+# centroids per staged chunk, the limits of rows per CTA and CTAs per cluster
+# (the portable cluster size), and the fewest chunks a CTA sums before the
+# bank is split over a cluster.  Width 32 stages 2 centroids a chunk and
+# takes at most 4 rows per CTA (HMC_LAYOUTS: chunk, rows).
 HMC_CHUNK, HMC_MAX_ROWS, HMC_MAX_CTAS, HMC_MIN_CTA_CHUNKS = 4, 8, 8, 32
+HMC_LAYOUTS = {16: (HMC_CHUNK, HMC_MAX_ROWS), 32: (2, 4)}
 # Each kernel's instance of the rule (csrc/hmc_bank.cuh BankKernel): B4 and B8
-# one, B1 one, B6 and B7 one (G^{-1} launches at the metric bundle's geometry).
+# one, B1 one, B6 and B7 one (G^{-1} launches at the metric bundle's geometry);
+# the rule takes the compiled width (bank_width) as an argument of its own.
 BANK_KERNELS = {"hmc_terms": 0, "hmc_partials": 0, "chol_bundle": 1, "metric_bundle": 2,
                 "g_inv": 2}
 
 
-def hmc_max_warps(rows: int, kernel: str = "hmc_terms") -> int:
+def hmc_max_warps(rows: int, kernel: str = "hmc_terms", d: int = 16) -> int:
     """Warps a CTA of ``rows`` rows of ``kernel`` may have: 16, or 8 for the
-    HMC terms and partials at 8 rows (registers)."""
+    HMC terms and partials at 8 rows (registers); 8 at width 32 (shared
+    memory and registers)."""
+    if bank_width(d) == 32:
+        return 8
     return 8 if BANK_KERNELS[kernel] == 0 and rows > 4 else 16
 
 
@@ -282,25 +354,28 @@ class HMCGeometry(NamedTuple):
 
 
 def hmc_geometry(b: int, k: int, sms: int, cluster_slots: Callable[[int, int, int], int],
-                 kernel: str = "hmc_terms") -> HMCGeometry:
+                 kernel: str = "hmc_terms", d: int = 16) -> HMCGeometry:
     """The launch geometry of ``kernel`` (a key of ``BANK_KERNELS``) for B
-    rows and K centroids on a card with ``sms`` SMs that holds
-    ``cluster_slots(rows, warps, ctas)`` clusters of that kernel's shape at
-    once; the launchers' own rule (``hmc_geometry`` in ``csrc/hmc_bank.cuh``,
-    where the slots come from ``cudaOccupancyMaxActiveClusters``;
-    :func:`launch_hmc_geometry` asks it).  C_max = min(8, chunks //
-    HMC_MIN_CTA_CHUNKS), at least 1; the rows per CTA the smallest of 1, 2,
-    4, 8 whose ceil(B / rows) clusters of C_max CTAs fit within the SMs (8 if
-    none does); the warps enough for one chunk each, at least one per row for
-    the epilogue, at most :func:`hmc_max_warps`; the cluster size the largest
-    C <= C_max whose clusters the card holds at once, else 1."""
-    chunks = -(-k // HMC_CHUNK)
+    rows, K centroids and latent width ``d`` on a card with ``sms`` SMs that
+    holds ``cluster_slots(rows, warps, ctas)`` clusters of that kernel's
+    shape at once; the launchers' own rule (``hmc_geometry`` in
+    ``csrc/hmc_bank.cuh``, where the slots come from
+    ``cudaOccupancyMaxActiveClusters``; :func:`launch_hmc_geometry` asks it).
+    chunks = ceil(K / chunk) (chunk of ``HMC_LAYOUTS`` at d's width); C_max =
+    min(8, chunks // HMC_MIN_CTA_CHUNKS), at least 1; the rows per CTA the
+    smallest of 1, 2, 4, 8 (at most the width's rows) whose ceil(B / rows)
+    clusters of C_max CTAs fit within the SMs (the most if none does); the
+    warps enough for one chunk each, at least one per row for the epilogue,
+    at most :func:`hmc_max_warps`; the cluster size the largest C <= C_max
+    whose clusters the card holds at once, else 1."""
+    chunk, max_rows = HMC_LAYOUTS[bank_width(d)]
+    chunks = -(-k // chunk)
     c_max = max(1, min(HMC_MAX_CTAS, chunks // HMC_MIN_CTA_CHUNKS))
     rows = 1
-    while rows < HMC_MAX_ROWS and -(-b // rows) * c_max > sms:
+    while rows < max_rows and -(-b // rows) * c_max > sms:
         rows *= 2
     clusters = -(-b // rows)
-    warps = min(hmc_max_warps(rows, kernel), max(rows, -(-chunks // c_max)))
+    warps = min(hmc_max_warps(rows, kernel, d), max(rows, -(-chunks // c_max)))
     ctas = c_max
     while ctas > 1 and clusters > cluster_slots(rows, warps, ctas):
         ctas -= 1
@@ -308,9 +383,9 @@ def hmc_geometry(b: int, k: int, sms: int, cluster_slots: Callable[[int, int, in
 
 
 def launch_hmc_geometry(b: int, k: int, device: torch.device,
-                        kernel: str = "hmc_terms") -> HMCGeometry:
-    """The geometry the launcher of ``kernel`` takes for (B, K) on
-    ``device``, from the library's own rule."""
+                        kernel: str = "hmc_terms", d: int = 16) -> HMCGeometry:
+    """The geometry the launcher of ``kernel`` takes for (B, K) at latent
+    width ``d`` on ``device``, from the library's own rule."""
     import ctypes
 
     from rlvae_tpu_torch.ops.build import kernel_library
@@ -319,15 +394,15 @@ def launch_hmc_geometry(b: int, k: int, device: torch.device,
     with torch.cuda.device(device):
         raise_on_error("hmc_geometry", kernel_library().hmc_geometry(
             b, k, torch.cuda.get_device_properties(device).multi_processor_count,
-            BANK_KERNELS[kernel], out))
+            BANK_KERNELS[kernel], bank_width(d), out))
     return HMCGeometry(*out)
 
 
-def hmc_cluster_slots(device: torch.device,
-                      kernel: str = "hmc_terms") -> Callable[[int, int, int], int]:
-    """The card's ``cluster_slots`` of ``kernel`` for :func:`hmc_geometry`:
-    how many clusters of (rows, warps, ctas) it holds at once, from the
-    library."""
+def hmc_cluster_slots(device: torch.device, kernel: str = "hmc_terms",
+                      d: int = 16) -> Callable[[int, int, int], int]:
+    """The card's ``cluster_slots`` of ``kernel`` at latent width ``d`` for
+    :func:`hmc_geometry`: how many clusters of (rows, warps, ctas) it holds
+    at once, from the library."""
     import ctypes
 
     from rlvae_tpu_torch.ops.build import kernel_library
@@ -336,7 +411,7 @@ def hmc_cluster_slots(device: torch.device,
         out = (ctypes.c_int * 1)()
         with torch.cuda.device(device):
             raise_on_error("hmc_cluster_slots", kernel_library().hmc_cluster_slots(
-                rows, warps, ctas, BANK_KERNELS[kernel], out))
+                rows, warps, ctas, BANK_KERNELS[kernel], bank_width(d), out))
         return out[0]
 
     return slots
@@ -354,18 +429,17 @@ def hmc_terms(
     if z.device.type != "cuda":
         raise ValueError(f"hmc_terms: unsupported device {z.device}")
     check_inputs("hmc_terms", z.device, z=z, centroids=centroids, matrices=matrices)
-    b, k = _check_bank_shapes("hmc_terms", z, centroids, matrices)
-    _check_bank_alignment("hmc_terms", centroids, matrices)
+    b, k, d, c, m = _kernel_bank("hmc_terms", z, centroids, matrices)
     log_pi = torch.empty((b,), dtype=torch.float32, device=z.device)
-    grad = torch.empty((b, KERNEL_DIM), dtype=torch.float32, device=z.device)
+    grad = torch.empty((b, d), dtype=torch.float32, device=z.device)
     if b == 0:
         return log_pi, grad
     from rlvae_tpu_torch.ops.build import kernel_library
 
     code = kernel_library().hmc_terms_f32(
-        z.data_ptr(), centroids.data_ptr(), matrices.data_ptr(),
+        z.data_ptr(), c.data_ptr(), m.data_ptr(),
         float(inv_t2), float(lbd), float(log_eps), log_pi.data_ptr(), grad.data_ptr(),
-        b, k, stream_handle(z.device),
+        b, k, d, stream_handle(z.device),
     )
     raise_on_error("hmc_terms", code)
     hmc_terms.launches += 1
@@ -421,9 +495,7 @@ def metric_bundle(
     if z.device.type != "cuda":
         raise ValueError(f"metric_bundle: unsupported device {z.device}")
     check_inputs("metric_bundle", z.device, z=z, centroids=centroids, matrices=matrices)
-    b, k = _check_bank_shapes("metric_bundle", z, centroids, matrices)
-    _check_bank_alignment("metric_bundle", centroids, matrices)
-    d = KERNEL_DIM
+    b, k, d, c, m = _kernel_bank("metric_bundle", z, centroids, matrices)
     gi, l, g = (torch.empty((b, d, d), dtype=torch.float32, device=z.device) for _ in range(3))
     logdet = torch.empty((b,), dtype=torch.float32, device=z.device)
     if b == 0:
@@ -431,8 +503,8 @@ def metric_bundle(
     from rlvae_tpu_torch.ops.build import kernel_library
 
     code = kernel_library().metric_bundle_f32(
-        z.data_ptr(), centroids.data_ptr(), matrices.data_ptr(), float(inv_t2), float(lbd),
-        gi.data_ptr(), l.data_ptr(), logdet.data_ptr(), g.data_ptr(), b, k,
+        z.data_ptr(), c.data_ptr(), m.data_ptr(), float(inv_t2), float(lbd),
+        gi.data_ptr(), l.data_ptr(), logdet.data_ptr(), g.data_ptr(), b, k, d,
         stream_handle(z.device),
     )
     raise_on_error("metric_bundle", code)
@@ -455,16 +527,15 @@ def g_inv(
     if z.device.type != "cuda":
         raise ValueError(f"g_inv: unsupported device {z.device}")
     check_inputs("g_inv", z.device, z=z, centroids=centroids, matrices=matrices)
-    b, k = _check_bank_shapes("g_inv", z, centroids, matrices)
-    _check_bank_alignment("g_inv", centroids, matrices)
-    gi = torch.empty((b, KERNEL_DIM, KERNEL_DIM), dtype=torch.float32, device=z.device)
+    b, k, d, c, m = _kernel_bank("g_inv", z, centroids, matrices)
+    gi = torch.empty((b, d, d), dtype=torch.float32, device=z.device)
     if b == 0:
         return gi
     from rlvae_tpu_torch.ops.build import kernel_library
 
     code = kernel_library().g_inv_f32(
-        z.data_ptr(), centroids.data_ptr(), matrices.data_ptr(), float(inv_t2), float(lbd),
-        gi.data_ptr(), b, k, stream_handle(z.device),
+        z.data_ptr(), c.data_ptr(), m.data_ptr(), float(inv_t2), float(lbd),
+        gi.data_ptr(), b, k, d, stream_handle(z.device),
     )
     raise_on_error("g_inv", code)
     g_inv.launches += 1
@@ -494,8 +565,8 @@ class MetricBundleG(torch.autograd.Function):
     the graph of a second derivative back through it."""
 
     @staticmethod
-    def forward(ctx, z, centroids, matrices, inv_t2: float, lbd: float):
-        g = metric_bundle(*_detached(z, centroids, matrices), inv_t2, lbd)[3]
+    def forward(ctx, z, centroids, matrices, inv_t2: float, lbd: float, bank=None):
+        g = metric_bundle(*_detached(z, centroids, matrices, bank), inv_t2, lbd)[3]
         _save(ctx, z, centroids, matrices, inv_t2, lbd, g)
         return g
 
@@ -511,8 +582,8 @@ class MetricBundleGInvG(torch.autograd.Function):
     cotangent added."""
 
     @staticmethod
-    def forward(ctx, z, centroids, matrices, inv_t2: float, lbd: float):
-        gi, _, _, g = metric_bundle(*_detached(z, centroids, matrices), inv_t2, lbd)
+    def forward(ctx, z, centroids, matrices, inv_t2: float, lbd: float, bank=None):
+        gi, _, _, g = metric_bundle(*_detached(z, centroids, matrices, bank), inv_t2, lbd)
         _save(ctx, z, centroids, matrices, inv_t2, lbd, g)
         return gi, g
 
@@ -525,9 +596,9 @@ class GInv(torch.autograd.Function):
     """G^{-1} = g_inv(z, ...), differentiable in z, centroids and matrices."""
 
     @staticmethod
-    def forward(ctx, z, centroids, matrices, inv_t2: float, lbd: float):
+    def forward(ctx, z, centroids, matrices, inv_t2: float, lbd: float, bank=None):
         _save(ctx, z, centroids, matrices, inv_t2, lbd)
-        return g_inv(*_detached(z, centroids, matrices), inv_t2, lbd)
+        return g_inv(*_detached(z, centroids, matrices, bank), inv_t2, lbd)
 
     @staticmethod
     def backward(ctx, dgi):
@@ -567,9 +638,7 @@ def hmc_partials(
     if z.device.type != "cuda":
         raise ValueError(f"hmc_partials: unsupported device {z.device}")
     check_inputs("hmc_partials", z.device, z=z, centroids=centroids, matrices=matrices)
-    b, k = _check_bank_shapes("hmc_partials", z, centroids, matrices)
-    _check_bank_alignment("hmc_partials", centroids, matrices)
-    d = KERNEL_DIM
+    b, k, d, c, m = _kernel_bank("hmc_partials", z, centroids, matrices)
     gi = torch.empty((b, d, d), dtype=torch.float32, device=z.device)
     v = torch.empty((b, d), dtype=torch.float32, device=z.device)
     if b == 0:
@@ -577,8 +646,8 @@ def hmc_partials(
     from rlvae_tpu_torch.ops.build import kernel_library
 
     code = kernel_library().hmc_partials_f32(
-        z.data_ptr(), centroids.data_ptr(), matrices.data_ptr(), float(inv_t2),
-        gi.data_ptr(), v.data_ptr(), b, k, stream_handle(z.device),
+        z.data_ptr(), c.data_ptr(), m.data_ptr(), float(inv_t2),
+        gi.data_ptr(), v.data_ptr(), b, k, d, stream_handle(z.device),
     )
     raise_on_error("hmc_partials", code)
     hmc_partials.launches += 1

@@ -27,6 +27,14 @@ device memory, and sums across CTAs only in fixed orders (no atomics), so
 results are bit-identical from run to run and in a CUDA-graph replay.
 :func:`decode_geometry` is the launch geometry (CTAs along N, row groups,
 the dh cluster size), a pure function of (M, N, K, SMs, cluster slots).
+Those kernels hold a CTA's columns of W for all of K in shared memory, so
+they take K <= 512 (``MAX_HIDDEN``); a wider last hidden layer (JAX's
+kernel takes any; ``mlp_rlvae``'s decoder has 1024) goes to
+``csrc/decode_mse_wide.cu``, the same function as tiled fp32 products over
+K in 16-deep steps, dp kept in an [M, N] workspace by the backward (each
+entry point still one wrapper call and one count): the dh entry fills it
+and, in :class:`DecodeMSE`'s backward, the dW/db entry reads it (``dp``),
+so the backward forms the pre-activation once.
 
 - :func:`decode_mse` (forward), :func:`decode_mse_bwd_dh` and
   :func:`decode_mse_bwd_dw` launch their kernels for CUDA tensors and run
@@ -39,7 +47,8 @@ the dh cluster size), a pure function of (M, N, K, SMs, cluster slots).
   the ``jax.custom_vjp`` at ``recon_kernels.py:228-253``): its forward is one
   :func:`decode_mse`, its backward one :func:`decode_mse_bwd_dh` and one
   :func:`decode_mse_bwd_dw`, which recompute the pre-activation from the
-  saved (h, W, b, x, rw).  x and rw get no gradient.
+  saved (h, W, b, x, rw) (past 512 hidden units once, shared through the
+  ``dp`` workspace).  x and rw get no gradient.
 
 The plain versions round h, W and dp to bf16 where the TPU kernel does and
 form the products in fp32 (fp64 for fp64 targets) on the upcast values: a
@@ -56,7 +65,8 @@ import torch
 
 from rlvae_tpu_torch.ops._launch import check_inputs, raise_on_error, stream_handle
 
-MAX_HIDDEN = 512  # csrc/decode_mse.cu: MAX_K
+MAX_HIDDEN = 512  # csrc/decode_mse.cu: MAX_K; wider layers take csrc/decode_mse_wide.cu
+WIDE_TILE = 64  # csrc/decode_mse_wide.cu: TILE
 # csrc/decode_mse.cu: rows per tile of the forward and dh (F_BM, H_BM), and
 # the most 8-column blocks of N a CTA owns in the forward, dh and dW/db
 # (F_N8, H_N8, W_N8)
@@ -132,9 +142,8 @@ def _kernel_args(name: str, h, w, b, x, rw, g=None):
     if h.requires_grad:
         raise RuntimeError(f"{name}: h requires grad, but the raw kernel wrapper is not "
                            "differentiable (use DecodeMSE)")
-    if not (1 <= k <= MAX_HIDDEN and m >= 1 and n >= 1):
-        raise ValueError(f"{name}: kernel takes 1 <= K <= {MAX_HIDDEN}, M, N >= 1; got "
-                         f"M={m}, K={k}, N={n}")
+    if not (k >= 1 and m >= 1 and n >= 1):
+        raise ValueError(f"{name}: kernel takes K, M, N >= 1; got M={m}, K={k}, N={n}")
     if g is not None and g.numel() != 1:
         raise ValueError(f"{name}: the cotangent must be a scalar, got {tuple(g.shape)}")
     return m, k, n, h.to(torch.bfloat16).contiguous()
@@ -212,21 +221,56 @@ def launch_decode_geometry(m: int, n: int, k: int, device: torch.device) -> Deco
     return decode_geometry(m, n, k, sms, dh_cluster_slots(device))
 
 
+def _tiles(n: int) -> int:
+    """64-wide tiles of ``n`` (csrc/decode_mse_wide.cu TILE)."""
+    return -(-n // WIDE_TILE)
+
+
+def wide_dh_slices(m: int, n: int, k: int, sms: int) -> int:
+    """Ranges of N that the wide dh sums apart (csrc/decode_mse_wide.cu):
+    enough for two CTAs an SM over its ceil(K/64) x ceil(M/64) tiles, none
+    narrower than 256 columns."""
+    return max(1, min(-(-n // 256), -(-2 * sms // (_tiles(k) * _tiles(m)))))
+
+
+def wide_dp(h: torch.Tensor, x: torch.Tensor):
+    """The [M, N] dp workspace that :class:`DecodeMSE`'s backward shares
+    between its two wide entry points (K > 512 on CUDA), else None."""
+    if x.device.type != "cuda" or h.shape[-1] <= MAX_HIDDEN:
+        return None
+    return torch.empty((x.shape[0], x.shape[1]), dtype=torch.float32, device=x.device)
+
+
+def _dp_workspace(name: str, dp, m: int, n: int, device) -> torch.Tensor:
+    if dp is None:
+        return torch.empty((m, n), dtype=torch.float32, device=device)
+    if dp.shape != (m, n) or dp.dtype != torch.float32 or dp.device != device or (
+            not dp.is_contiguous()):
+        raise ValueError(f"{name}: dp must be a contiguous fp32 [{m}, {n}] tensor on {device}")
+    return dp
+
+
 def decode_mse(h, w, b, x, rw) -> torch.Tensor:
     """The loss, 0-d fp32; kernel on CUDA, plain version on CPU."""
     if x.device.type == "cpu":
         return decode_mse_ref(h, w, b, x, rw)
     m, k, n, hb = _kernel_args("decode_mse", h, w, b, x, rw)
-    geo = launch_decode_geometry(m, n, k, x.device)
-    partials = torch.empty((geo.fwd_ctas * geo.fwd_row_groups,), dtype=torch.float32,
-                           device=x.device)
     loss = torch.empty((), dtype=torch.float32, device=x.device)
     from rlvae_tpu_torch.ops.build import kernel_library
 
-    code = kernel_library().decode_mse_fwd_f32(
-        hb.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(), rw.data_ptr(),
-        partials.data_ptr(), loss.data_ptr(), m, k, n, geo.fwd_ctas, geo.fwd_row_groups,
-        stream_handle(x.device))
+    if k > MAX_HIDDEN:
+        partials = torch.empty((_tiles(n) * _tiles(m),), dtype=torch.float32, device=x.device)
+        code = kernel_library().decode_mse_wide_fwd_f32(
+            hb.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(), rw.data_ptr(),
+            partials.data_ptr(), loss.data_ptr(), m, k, n, stream_handle(x.device))
+    else:
+        geo = launch_decode_geometry(m, n, k, x.device)
+        partials = torch.empty((geo.fwd_ctas * geo.fwd_row_groups,), dtype=torch.float32,
+                               device=x.device)
+        code = kernel_library().decode_mse_fwd_f32(
+            hb.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(), rw.data_ptr(),
+            partials.data_ptr(), loss.data_ptr(), m, k, n, geo.fwd_ctas, geo.fwd_row_groups,
+            stream_handle(x.device))
     raise_on_error("decode_mse", code)
     decode_mse.launches += 1
     return loss
@@ -235,23 +279,37 @@ def decode_mse(h, w, b, x, rw) -> torch.Tensor:
 decode_mse.launches = 0
 
 
-def decode_mse_bwd_dh(h, w, b, x, rw, g) -> torch.Tensor:
-    """dh [M, K] in h's dtype; kernel on CUDA, plain version on CPU."""
+def decode_mse_bwd_dh(h, w, b, x, rw, g, dp=None) -> torch.Tensor:
+    """dh [M, K] in h's dtype; kernel on CUDA, plain version on CPU.  Past
+    512 hidden units ``dp`` (:func:`wide_dp`), where given, is the [M, N]
+    workspace the kernel leaves holding dp, for :func:`decode_mse_bwd_dw`;
+    ignored below."""
     if x.device.type == "cpu":
         return decode_mse_dh_ref(h, w, b, x, rw, g)
     g = g.detach().to(torch.float32).reshape(()).contiguous()
     m, k, n, hb = _kernel_args("decode_mse_bwd_dh", h, w, b, x, rw, g)
-    geo = launch_decode_geometry(m, n, k, x.device)
-    workspace = (torch.empty((geo.dh_clusters, m, k), dtype=torch.float32, device=x.device)
-                 if geo.dh_clusters > 1 else None)
     dh = torch.empty((m, k), dtype=torch.float32, device=x.device)
     from rlvae_tpu_torch.ops.build import kernel_library
 
-    code = kernel_library().decode_mse_bwd_dh_f32(
-        hb.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(), rw.data_ptr(), g.data_ptr(),
-        None if workspace is None else workspace.data_ptr(), dh.data_ptr(), m, k, n,
-        geo.dh_cluster, geo.dh_clusters, geo.dh_row_groups, int(h.dtype == torch.bfloat16),
-        stream_handle(x.device))
+    if k > MAX_HIDDEN:
+        dp = _dp_workspace("decode_mse_bwd_dh", dp, m, n, x.device)
+        slices = wide_dh_slices(
+            m, n, k, torch.cuda.get_device_properties(x.device).multi_processor_count)
+        partials = (torch.empty((slices, m, k), dtype=torch.float32, device=x.device)
+                    if slices > 1 else None)
+        code = kernel_library().decode_mse_wide_bwd_dh_f32(
+            hb.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(), rw.data_ptr(), g.data_ptr(),
+            dp.data_ptr(), None if partials is None else partials.data_ptr(), dh.data_ptr(),
+            m, k, n, slices, int(h.dtype == torch.bfloat16), stream_handle(x.device))
+    else:
+        geo = launch_decode_geometry(m, n, k, x.device)
+        workspace = (torch.empty((geo.dh_clusters, m, k), dtype=torch.float32, device=x.device)
+                     if geo.dh_clusters > 1 else None)
+        code = kernel_library().decode_mse_bwd_dh_f32(
+            hb.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(), rw.data_ptr(), g.data_ptr(),
+            None if workspace is None else workspace.data_ptr(), dh.data_ptr(), m, k, n,
+            geo.dh_cluster, geo.dh_clusters, geo.dh_row_groups, int(h.dtype == torch.bfloat16),
+            stream_handle(x.device))
     raise_on_error("decode_mse_bwd_dh", code)
     decode_mse_bwd_dh.launches += 1
     return dh.to(h.dtype)
@@ -260,20 +318,31 @@ def decode_mse_bwd_dh(h, w, b, x, rw, g) -> torch.Tensor:
 decode_mse_bwd_dh.launches = 0
 
 
-def decode_mse_bwd_dw(h, w, b, x, rw, g) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dW [N, K], db [N]) fp32; kernel on CUDA, plain version on CPU."""
+def decode_mse_bwd_dw(h, w, b, x, rw, g, dp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dW [N, K], db [N]) fp32; kernel on CUDA, plain version on CPU.  Past
+    512 hidden units ``dp``, where given, is the workspace that
+    :func:`decode_mse_bwd_dh` left holding dp on the same inputs, read in
+    place of forming the pre-activation again; ignored below."""
     if x.device.type == "cpu":
         return decode_mse_dw_ref(h, w, b, x, rw, g)
     g = g.detach().to(torch.float32).reshape(()).contiguous()
     m, k, n, hb = _kernel_args("decode_mse_bwd_dw", h, w, b, x, rw, g)
-    geo = launch_decode_geometry(m, n, k, x.device)
     dw = torch.empty((n, k), dtype=torch.float32, device=x.device)
     db = torch.empty((n,), dtype=torch.float32, device=x.device)
     from rlvae_tpu_torch.ops.build import kernel_library
 
-    code = kernel_library().decode_mse_bwd_dw_f32(
-        hb.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(), rw.data_ptr(), g.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), m, k, n, geo.dw_ctas, stream_handle(x.device))
+    if k > MAX_HIDDEN:
+        ready = dp is not None
+        dp = _dp_workspace("decode_mse_bwd_dw", dp, m, n, x.device)
+        code = kernel_library().decode_mse_wide_bwd_dw_f32(
+            hb.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(), rw.data_ptr(), g.data_ptr(),
+            dp.data_ptr(), dw.data_ptr(), db.data_ptr(), m, k, n, int(ready),
+            stream_handle(x.device))
+    else:
+        geo = launch_decode_geometry(m, n, k, x.device)
+        code = kernel_library().decode_mse_bwd_dw_f32(
+            hb.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(), rw.data_ptr(), g.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), m, k, n, geo.dw_ctas, stream_handle(x.device))
     raise_on_error("decode_mse_bwd_dw", code)
     decode_mse_bwd_dw.launches += 1
     return dw, db
@@ -294,6 +363,7 @@ class DecodeMSE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         h, w, b, x, rw = ctx.saved_tensors
-        dh = decode_mse_bwd_dh(h, w, b, x, rw, g)
-        dw, db = decode_mse_bwd_dw(h, w, b, x, rw, g)
+        dp = wide_dp(h, x)
+        dh = decode_mse_bwd_dh(h, w, b, x, rw, g, dp)
+        dw, db = decode_mse_bwd_dw(h, w, b, x, rw, g, dp)
         return dh, dw, db, None, None

@@ -44,7 +44,9 @@ import torch
 
 from rlvae_tpu_torch.geometry.metric import CentroidMetric
 from rlvae_tpu_torch.ops import linalg as _lin
-from rlvae_tpu_torch.ops.metric_kernels import GInv, hmc_partials
+from rlvae_tpu_torch.ops._launch import plain_route
+from rlvae_tpu_torch.ops.metric_kernels import (GInv, fused_supported, g_inv_ref, hmc_partials,
+                                                 hmc_partials_ref)
 from rlvae_tpu_torch.parallel.collectives import all_reduce
 from rlvae_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from rlvae_tpu_torch.samplers.hmc import LOG_EPS, HMCConfig, draw_hmc_noise, run_prior_chain
@@ -99,13 +101,19 @@ def local_rows(mesh: Mesh, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return x.narrow(dim, mesh.data_index * per, per).contiguous()
 
 
-def _partial_terms(c: torch.Tensor, m: torch.Tensor, t: float,
+def _partial_terms(metric: CentroidMetric,
                    z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """One shard's (G^{-1} partial without + lbd I [B, D, D], scaled gradient
     contraction v = (-2/T^2) sum_k w_k M_k^T (c_k - z) [B, D]): the
-    K-proportional part of the HMC terms, one ``hmc_partials`` call (the
-    kernel on CUDA, its plain version on the CPU)."""
-    return hmc_partials(z.float().contiguous(), c, m, 1.0 / (t * t))
+    K-proportional part of the HMC terms, one ``hmc_partials`` call on the
+    shard's kernel bank (the kernel on CUDA, its plain version on the CPU;
+    past the kernel's envelope, D > 32, the plain version, as JAX's
+    ``fused_supported`` routes)."""
+    t = metric.temperature
+    if fused_supported(metric.latent_dim):
+        return hmc_partials(z.float().contiguous(), *metric.kernel_bank(), 1.0 / (t * t))
+    return plain_route(hmc_partials_ref, z.float().contiguous(), metric.centroids,
+                       metric.matrices, 1.0 / (t * t))
 
 
 def _eye(d: int, like: torch.Tensor) -> torch.Tensor:
@@ -118,7 +126,9 @@ def g_inv_sharded(mesh: Mesh, metric: CentroidMetric, z: torch.Tensor) -> torch.
     ``g_inv`` call with lbd = 0 (the G^{-1} kernel on the card, its plain
     version on the CPU), differentiable in ``z`` as the dense ``g_inv`` is."""
     c, m, t = metric.centroids, metric.matrices, metric.temperature
-    gi = GInv.apply(z.float().contiguous(), c, m, 1.0 / (t * t), 0.0)
+    args = (z.float().contiguous(), c, m, 1.0 / (t * t), 0.0)
+    gi = (GInv.apply(*args, metric.kernel_bank()) if fused_supported(metric.latent_dim)
+          else plain_route(g_inv_ref, *args))
     gi = all_reduce_sum(gi.contiguous(), mesh, MODEL_AXIS)
     return gi + metric.regularization * _eye(gi.shape[-1], gi)
 
@@ -150,7 +160,7 @@ def hmc_terms_sharded(mesh: Mesh, metric: CentroidMetric,
     ``rlvae_tpu/parallel/metric_parallel.py:238``.  The two partial sums
     ride one all-reduce over the model group."""
     b, d = z.shape
-    gi_part, v = _partial_terms(metric.centroids, metric.matrices, metric.temperature, z)
+    gi_part, v = _partial_terms(metric, z)
     buf = all_reduce_sum(torch.cat([gi_part.reshape(b, d * d), v], dim=1), mesh, MODEL_AXIS)
     return _finish_hmc_terms(buf[:, : d * d].reshape(b, d, d), buf[:, d * d:],
                              metric.regularization)

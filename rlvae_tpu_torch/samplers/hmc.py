@@ -37,7 +37,8 @@ import torch
 from torch.utils._pytree import tree_map
 
 from rlvae_tpu_torch.geometry.metric import CentroidMetric
-from rlvae_tpu_torch.ops.metric_kernels import hmc_terms
+from rlvae_tpu_torch.ops._launch import plain_route
+from rlvae_tpu_torch.ops.metric_kernels import fused_supported, hmc_terms, hmc_terms_ref
 from rlvae_tpu_torch.utils.loops import loop_steps
 
 Terms = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -59,10 +60,15 @@ class HMCConfig:
 
 
 def _terms_fn(metric: CentroidMetric) -> Terms:
-    """(log pi, grad log pi) evaluator of the chain: one ``hmc_terms`` call."""
+    """(log pi, grad log pi) evaluator of the chain: one ``hmc_terms`` call,
+    or past the kernel's envelope (D > 32, JAX's ``fused_supported``) its
+    plain version, as JAX's ``_terms_fn`` takes XLA there."""
     inv_t2 = 1.0 / metric.temperature ** 2
-    return lambda z: hmc_terms(z, metric.centroids, metric.matrices, inv_t2,
-                               metric.regularization, LOG_EPS)
+    if not fused_supported(metric.latent_dim):
+        return lambda z: plain_route(hmc_terms_ref, z, metric.centroids, metric.matrices,
+                                     inv_t2, metric.regularization, LOG_EPS)
+    c, m = metric.kernel_bank()
+    return lambda z: hmc_terms(z, c, m, inv_t2, metric.regularization, LOG_EPS)
 
 
 def tempering(k: float, big_k: int, beta_zero_sqrt: np.float32) -> np.float32:
@@ -695,11 +701,15 @@ def sample_prior_hmc_planned(metric: CentroidMetric, num_samples: int, plan: Map
 # ---------------------------------------------------------------------------
 
 
-def refuse_grad_through_terms(*tensors: torch.Tensor) -> None:
+def refuse_grad_through_terms(metric: CentroidMetric, *tensors: torch.Tensor) -> None:
     """The HMC terms kernel (B4) has no backward, as JAX's Pallas kernel has
     none: a chain on non-CPU tensors that autograd would differentiate
     raises instead of giving a silent zero gradient through the target.  On
-    the CPU the plain terms are differentiable, as JAX's XLA terms are."""
+    the CPU, and past the kernel's envelope (D > 32: the plain terms, as
+    JAX's XLA route there), the terms are differentiable, as JAX's XLA terms
+    are."""
+    if not fused_supported(metric.latent_dim):
+        return
     if torch.is_grad_enabled() and any(t.requires_grad and t.device.type != "cpu"
                                        for t in tensors):
         raise NotImplementedError(
@@ -750,7 +760,7 @@ def sample_posterior_hmc(metric: CentroidMetric, mu: torch.Tensor, log_var: torc
     :func:`posterior_hmc_step` for each of the ``gammas`` (200 terms calls
     at 20 x 5), through :func:`loop_steps` (one loop op in an exported
     program)."""
-    refuse_grad_through_terms(mu, log_var)
+    refuse_grad_through_terms(metric, mu, log_var)
     terms = _terms_fn(metric)
     inv_var = torch.exp(-log_var)
     z = mu + eps.to(mu) * torch.exp(0.5 * log_var)
@@ -773,7 +783,7 @@ def refine_for_training(metric: CentroidMetric, mu: torch.Tensor, log_var: torch
     """The training refinement (``rlvae_tpu/samplers/hmc.py:749-768``): z =
     mu + ε σ, then ``n_steps`` of z += step_size (-grad log pi), one terms
     call each."""
-    refuse_grad_through_terms(mu, log_var)
+    refuse_grad_through_terms(metric, mu, log_var)
     terms = _terms_fn(metric)
     z = mu + eps.to(mu) * torch.exp(0.5 * log_var)
     for _ in range(n_steps):

@@ -350,8 +350,8 @@ def test_gradient_through_the_terms_kernel_is_refused():
         with pytest.raises(NotImplementedError, match="backward"):
             fn()
     with torch.no_grad():
-        thmc.refuse_grad_through_terms(meta)
-    thmc.refuse_grad_through_terms(meta.detach())
+        thmc.refuse_grad_through_terms(tm, meta)
+    thmc.refuse_grad_through_terms(tm, meta.detach())
     mu = torch.zeros((2, 16), requires_grad=True)
     z = thmc.refine_for_training(tm, mu, torch.zeros((2, 16)), torch.ones((2, 16)), n_steps=1)
     (grad,) = torch.autograd.grad(z.sum(), mu)

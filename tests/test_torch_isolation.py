@@ -140,7 +140,8 @@ def test_build_command():
     link = build.link_argv("nvcc", objs, out)
     assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
     assert link[-len(objs):] == [str(o) for o in objs]
-    assert sorted(p.name for p in srcs) == ["chol_bundle.cu", "decode_mse.cu", "hmc_partials.cu",
+    assert sorted(p.name for p in srcs) == ["chol_bundle.cu", "decode_mse.cu",
+                                            "decode_mse_wide.cu", "hmc_partials.cu",
                                             "hmc_terms.cu", "iaf_chain.cu", "iaf_chain_bwd.cu",
                                             "metric_bundle.cu"]
     assert [p.name for p in build.headers()] == ["hmc_bank.cuh", "iaf_cluster.cuh", "sm90.cuh"]

@@ -118,8 +118,12 @@ def test_chol_bundle_rejects_bad_inputs(dev):
     m = torch.eye(16, device=dev).expand(3, 16, 16).contiguous()
     with pytest.raises(TypeError):
         chol_bundle(z.double(), c, m, 1.0, 0.1)
-    with pytest.raises(ValueError):
-        chol_bundle(z[:, :8].contiguous(), c[:, :8].contiguous(), m[:, :8, :8].contiguous(), 1.0, 0.1)
+    with pytest.raises(ValueError):  # a bank neither D nor D's compiled width wide
+        chol_bundle(z[:, :8].contiguous(), c[:, :12].contiguous(), m[:, :12, :12].contiguous(),
+                    1.0, 0.1)
+    z48, c48 = torch.zeros((4, 48), device=dev), torch.zeros((3, 48), device=dev)
+    with pytest.raises(ValueError):  # past the kernels' D <= 32: the sites route, not the wrapper
+        chol_bundle(z48, c48, torch.eye(48, device=dev).expand(3, 48, 48).contiguous(), 1.0, 0.1)
     with pytest.raises(RuntimeError):
         chol_bundle(z.requires_grad_(), c, m, 1.0, 0.1)
 
@@ -763,26 +767,36 @@ def test_sharded_g_inv_and_terms_gradient_launch_their_kernels(dev):
 
 
 def test_sharded_g_inv_of_another_dim_raises_on_the_card(dev):
-    """The kernels take D=16; a D=8 bank raises on CUDA tensors (and runs on
-    the CPU, ``tests/test_torch_metric_parallel.py``), never falling back."""
+    """The kernels take 1 <= D <= 32: a D=8 bank launches them (G^{-1} of the
+    shard, the HMC terms), equal to the CPU's plain versions; past 32 the
+    raw wrappers raise on CUDA tensors, and the call sites take the plain
+    versions instead (``plain_route``, counted), never launching."""
     from rlvae_tpu_torch.geometry import metric as gm
     from rlvae_tpu_torch.geometry.metric import CentroidMetric
+    from rlvae_tpu_torch.ops._launch import plain_route
     from rlvae_tpu_torch.parallel import create_mesh, g_inv_sharded, shard_metric
 
-    rng = np.random.default_rng(5)
-    a = rng.normal(size=(6, 8, 8)).astype(np.float32) * 0.3
-    m = a @ np.swapaxes(a, -1, -2) + 0.5 * np.eye(8, dtype=np.float32)
-    metric = CentroidMetric.create(rng.normal(size=(6, 8)).astype(np.float32), m, 0.9, 0.01)
-    mt = CentroidMetric(metric.centroids.to(dev), metric.matrices.to(dev),
-                        metric.temperature, metric.regularization)
-    z = torch.zeros((3, 8), device=dev)
     mesh = create_mesh()
-    before = (g_inv.launches, hmc_terms.launches)
-    with pytest.raises(ValueError):
-        g_inv_sharded(mesh, shard_metric(mesh, mt), z)
-    with pytest.raises(ValueError):
-        gm.grad_log_sqrt_det_g_inv(mt, z)
-    assert (g_inv.launches, hmc_terms.launches) == before
+    for d, launched in ((8, True), (40, False)):
+        rng = np.random.default_rng(5)
+        a = rng.normal(size=(6, d, d)).astype(np.float32) * 0.3
+        m = a @ np.swapaxes(a, -1, -2) + 0.5 * np.eye(d, dtype=np.float32)
+        metric = CentroidMetric.create(rng.normal(size=(6, d)).astype(np.float32), m, 0.9, 0.01)
+        mt = CentroidMetric(metric.centroids.to(dev), metric.matrices.to(dev),
+                            metric.temperature, metric.regularization)
+        z = torch.tensor(rng.normal(size=(3, d)) * 0.3, dtype=torch.float32)
+        before = (g_inv.launches, hmc_terms.launches, plain_route.calls)
+        gi = g_inv_sharded(mesh, shard_metric(mesh, mt), z.to(dev))
+        grad = gm.grad_log_sqrt_det_g_inv(mt, z.to(dev))
+        after = (g_inv.launches, hmc_terms.launches, plain_route.calls)
+        assert after == ((before[0] + 1, before[1] + 1, before[2]) if launched
+                         else (before[0], before[1], before[2] + 2)), (d, before, after)
+        torch.testing.assert_close(gi.cpu(), gm.g_inv(metric, z), rtol=1e-5, atol=1e-6)
+        want = gm.grad_log_sqrt_det_g_inv(metric, z)
+        assert float((grad.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+        if not launched:
+            with pytest.raises(ValueError):
+                g_inv(z.to(dev), mt.centroids, mt.matrices, 1.0, 0.01)
 
 
 BUNDLE_TOL = ((1e-5, 1e-6), (1e-4, 1e-4), (1e-4, 1e-4), (1e-3, 1e-3))  # G^-1, L, logdet, G
@@ -1111,6 +1125,26 @@ def test_decode_mse_tiling_edges(dev, m, k):
     _hold_decode_to_plain(dev, m, 777, k)
 
 
+@pytest.mark.parametrize("m,n,k", [(128, 12288, 1024), (37, 300, 1024), (1, 777, 513),
+                                   (129, 777, 2049)])
+def test_decode_mse_past_512_hidden_units(dev, m, n, k):
+    """K > 512 (``mlp_rlvae``'s decoder: 1024) on the wide kernels
+    (``csrc/decode_mse_wide.cu``): the same tolerances, rw = 0 rows exactly
+    zero, bit-identical on relaunch; the dW/db entry reading the dp that
+    the dh entry left (DecodeMSE's backward) gives the bits of its own."""
+    from rlvae_tpu_torch.ops.recon_kernels import wide_dp
+
+    _hold_decode_to_plain(dev, m, n, k)
+    h, w, b, x, rw = _decode_problem(dev, m, n, k)
+    g = torch.tensor(1.0, device=dev)
+    dp = wide_dp(h, x)
+    assert dp.shape == (m, n)
+    dh = decode_mse_bwd_dh(h, w, b, x, rw, g, dp)
+    assert torch.equal(dh, decode_mse_bwd_dh(h, w, b, x, rw, g))
+    shared, own = decode_mse_bwd_dw(h, w, b, x, rw, g, dp), decode_mse_bwd_dw(h, w, b, x, rw, g)
+    assert all(torch.equal(a, c) for a, c in zip(shared, own))
+
+
 @pytest.mark.parametrize("m", [129, 1000])
 def test_decode_mse_tiling_edges_at_full_width(dev, m):
     """N = 12290: one column past the fast preset's, so the last CTA's range
@@ -1185,9 +1219,9 @@ def test_decode_mse_rejects_bad_inputs(dev):
         decode_mse(h, w.double(), b, x, rw)
     with pytest.raises(ValueError):
         decode_mse(h, w[:, :16].contiguous(), b, x, rw)
-    with pytest.raises(ValueError):  # wider than the kernel's 512 hidden units
-        hw = torch.zeros((8, 600), dtype=torch.bfloat16, device=dev)
-        decode_mse(hw, torch.zeros((16, 600), device=dev), b, x, rw)
+    with pytest.raises(ValueError):  # no hidden unit (any K >= 1 runs: K > 512 the wide kernels)
+        hw = torch.zeros((8, 0), dtype=torch.bfloat16, device=dev)
+        decode_mse(hw, torch.zeros((16, 0), device=dev), b, x, rw)
     with pytest.raises(RuntimeError):
         decode_mse(h, w.requires_grad_(True), b, x, rw)
 
@@ -1308,6 +1342,79 @@ def test_exported_chain_replays_its_eager_chain(dev, tmp_path, method):
         got = bundle.run("generate", batch)
         assert hmc_terms.launches - before == 1601
         np.testing.assert_array_equal(got, rows)
+
+
+# ---------------------------------------------------------------------------
+# every latent width: B1, B4, B6, B7, B8 at D = 1..32, the plain route past it
+# ---------------------------------------------------------------------------
+
+BANK_KERNELS = ("chol_bundle", "hmc_terms", "metric_bundle", "g_inv", "hmc_partials")
+LATENT_DIMS = (1, 2, 5, 8, 12, 16, 24, 31, 32)
+
+
+@pytest.mark.parametrize("d", LATENT_DIMS)
+@pytest.mark.parametrize("kernel", BANK_KERNELS)
+def test_bank_kernels_at_every_width(dev, kernel, d):
+    """The kernel at width D against its plain version and fp64 at K = 1, 50,
+    200 and B = 1, 64 (chip_smoke.py's ``bank_kernel_case``: the kernels
+    phase's tolerances, L's zero upper triangle, G bitwise symmetric, far
+    rows exact, bit-identical on relaunch), replayed bitwise in a CUDA graph
+    at K = 200, B = 64."""
+    cs = _chip_smoke()
+    for k in (1, 50, 200):
+        for b in (1, 64):
+            case, _ = cs.bank_kernel_case(torch, dev, kernel, d, k, b, replay=(k == 200 and b == 64))
+            assert case["ok"], case
+
+
+@pytest.mark.parametrize("kernel", BANK_KERNELS)
+def test_bank_kernels_at_d32_on_a_dataset_sized_bank(dev, kernel):
+    """D = 32, K = 20 000, B = 64 (clusters of the width-32 instances),
+    replayed bitwise in a CUDA graph; its geometry the Python rule's."""
+    cs = _chip_smoke()
+    case, _ = cs.bank_kernel_case(torch, dev, kernel, 32, 20_000, 64, replay=True)
+    assert case["ok"], case
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slots = metric_kernels.hmc_cluster_slots(dev, kernel, 32)
+    for b in (1, 37, 64, 1000):
+        for k in (1, 50, 200, 2000, 20_000):
+            g = metric_kernels.hmc_geometry(b, k, sms, slots, kernel, 32)
+            assert metric_kernels.launch_hmc_geometry(b, k, dev, kernel, 32) == g, (b, k)
+            assert g.rows <= 4 and g.warps <= 8, g
+
+
+def test_plain_route_past_the_envelope_launches_nothing(dev):
+    """A latent-48 metric and an H = 512 chain on the card: the call sites
+    take the plain versions (``plain_route.calls`` counts them), no kernel
+    launches, and the results equal the CPU's."""
+    from rlvae_tpu_torch.geometry import metric as gm
+    from rlvae_tpu_torch.geometry.metric import CentroidMetric
+    from rlvae_tpu_torch.ops._launch import plain_route
+    from rlvae_tpu_torch.samplers.hmc import _terms_fn
+
+    cs = _chip_smoke()
+    c, m = cs.latent_bank(48, 50, 3)
+    metric = CentroidMetric.create(c, m, 7.0, 0.01)
+    on_dev = CentroidMetric(metric.centroids.to(dev), metric.matrices.to(dev), 7.0, 0.01)
+    z = torch.tensor(cs.latent_rows(c, 9, 4))
+    counters = (chol_bundle, metric_bundle, g_inv, hmc_terms, hmc_partials, iaf_chain_fwd)
+    before = [f.launches for f in counters] + [plain_route.calls]
+    got = (gm.chol_g_inv(on_dev, z.to(dev)), gm.g(on_dev, z.to(dev)), gm.g_inv(on_dev, z.to(dev)),
+           *_terms_fn(on_dev)(z.to(dev)))
+    want = (gm.chol_g_inv(metric, z), gm.g(metric, z), gm.g_inv(metric, z),
+            *_terms_fn(metric)(z))
+    flows = TemporalFlows(16, n_flows=2, hidden_size=512, log_var_bias_init=0.0)
+    z0 = torch.randn(5, 16)
+    from rlvae_tpu_torch.flows import apply_temporal_flows
+
+    with torch.no_grad():
+        chain = apply_temporal_flows(flows.to(dev), z0.to(dev), 4)
+        chain_cpu = apply_temporal_flows(flows.cpu(), z0, 4)
+    after = [f.launches for f in counters] + [plain_route.calls]
+    assert after[:-1] == before[:-1] and after[-1] - before[-1] == 5, (before, after)
+    for a, b in zip((*got, *chain), (*want, *chain_cpu)):
+        scale = max(float(b.abs().max()), 1.0)
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
 
 
 # ---------------------------------------------------------------------------
